@@ -1,0 +1,386 @@
+"""The fused LTE per-TTI step: plain PyTorch core + hand-written CUDA kernel.
+
+Counterpart of ``tpudes/parallel/kernels_pallas.py``.  One TTI of the
+full-buffer SM engine for every replica at once:
+
+    retx admission -> scheduler metric + per-cell winner -> allocation
+    -> MI/BLER decode -> HARQ bookkeeping
+
+:func:`sm_step_math` is the plain PyTorch definition (any device);
+``csrc/lte_sm_step.cu`` is the kernel that replaces the TPU's
+``pl.pallas_call`` (``kernels_pallas.py:473``).  :func:`sm_step` takes
+the plain core for CPU tensors and launches the kernel for CUDA
+tensors; it never falls back from one to the other.  The two give
+bit-identical state on the card: the kernel rounds every product and
+sum on its own (``__fmul_rn``/``__fadd_rn``, no contraction), uses the
+same IEEE division, ``sqrtf`` and ``erfcf``, and the same evaluation
+order as the code below.
+
+Layout: state is a dict of :data:`SM_STATE` tensors with a leading
+replica axis, ``(R, U)`` per UE and ``(R, E)`` per cell (the reference
+carries ``(1, U)``/``(E, 1)`` per vmapped lane).  Constants are per
+program and shared by every replica.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tpudes_torch.models.lte.scheduler import (
+    HARQ_MAX_TX,
+    HARQ_RTT_TTIS,
+    rbg_size_for,
+)
+from tpudes_torch.ops.lte import (
+    INV_SQRT2_F32,
+    RB_BANDWIDTH_HZ,
+    RE_PER_RB_DATA,
+    _MCS_ECR,
+    _MCS_EFF,
+    _MCS_QM,
+    cqi_from_sinr,
+    mcs_from_cqi,
+    mi_per_rb,
+    tb_bler_ecr,
+)
+
+#: scheduler short name -> dispatch id (``kernels_pallas.py:80-85``)
+SM_SCHED_IDS = {
+    "pf": 0, "cqa": 1, "pss": 2,
+    "rr": 3, "tta": 4,
+    "tdmt": 5, "fdmt": 6,
+    "tdbet": 7, "fdbet": 8,
+}
+
+#: family boundaries: ids <= _PF_MAX take the PF metric, <= _RR_MAX
+#: round-robin, <= _MT_MAX max-throughput, else BET
+_PF_MAX = SM_SCHED_IDS["pss"]
+_RR_MAX = SM_SCHED_IDS["tta"]
+_MT_MAX = SM_SCHED_IDS["fdmt"]
+
+NEG = -1e30  # the "no candidate" metric fill
+
+#: state layout: (key, axis, dtype) with axis "u" = (R, U), "e" = (R, E)
+SM_STATE = (
+    ("avg", "u", "f32"), ("pend", "u", "i32"),
+    ("p_mi", "u", "f32"), ("p_tbb", "u", "f32"),
+    ("p_nrbg", "u", "i32"), ("p_txc", "u", "i32"), ("p_due", "u", "i32"),
+    ("rr_ptr", "e", "i32"),
+    ("rx_lo", "u", "i32"), ("rx_hi", "u", "i32"),
+    ("new_tbs", "u", "i32"), ("retx", "u", "i32"),
+    ("drops", "u", "i32"), ("ok_cnt", "u", "i32"),
+)
+_DTYPES = {"f32": torch.float32, "i32": torch.int32}
+
+#: the kernel's shared-memory scratch bounds (SM_MAX_U / SM_MAX_E in
+#: csrc/lte_sm_step.cu)
+KERNEL_MAX_U = 2048
+KERNEL_MAX_E = 256
+
+#: kernel launches since the last reset — counted where the kernel is
+#: launched and nowhere else
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+# --------------------------------------------------------------------------
+# build-time constants
+# --------------------------------------------------------------------------
+
+
+def build_sm_consts(prog, device="cpu") -> dict:
+    """Per-program constants of the step (``kernels_pallas.py:121``).
+
+    The static full-buffer grid makes SINR -> CQI -> MCS -> MI per-UE
+    constants.  They are computed on the CPU (float64 SINR as the
+    reference does, then the f32 chain) and moved to ``device``, so a run
+    on the card uses the same bits as one on the CPU.  ``serving``
+    replaces the reference's ``(U, U)`` prefix operator: the kernel sums
+    same-cell requests in UE order itself."""
+    E, U = prog.n_enb, prog.n_ue
+    rbg_size = rbg_size_for(prog.n_rb)
+    n_rbg = (prog.n_rb + rbg_size - 1) // rbg_size
+    serving = np.asarray(prog.serving, dtype=np.int64)
+
+    psd = 10.0 ** ((np.asarray(prog.tx_power_dbm) - 30.0) / 10.0) / (
+        prog.n_rb * RB_BANDWIDTH_HZ
+    )                                                      # (E,) W/Hz
+    seen = psd[:, None] * np.asarray(prog.gain)            # (E, U)
+    total = seen.sum(axis=0)
+    sig = seen[serving, np.arange(U)]
+    sinr = torch.from_numpy(
+        np.asarray(sig / (total - sig + prog.noise_psd), np.float32)
+    )
+    cqi = cqi_from_sinr(sinr)
+    mcs0 = mcs_from_cqi(cqi).numpy()
+    mi0 = mi_per_rb(sinr, torch.from_numpy(_MCS_QM[mcs0]))
+    eff0 = _MCS_EFF[mcs0]
+    rate0 = np.floor(eff0 * rbg_size * RE_PER_RB_DATA) * 1000.0
+
+    pos = np.zeros((U,), dtype=np.int32)
+    count_c = np.zeros((E,), dtype=np.int32)
+    for u in range(U):
+        c = int(serving[u])
+        pos[u] = count_c[c]
+        count_c[c] += 1
+    count_u = np.maximum(count_c, 1)[serving]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return dict(
+        E=E, U=U, n_rbg=n_rbg, rbg_size=rbg_size, n_rb=int(prog.n_rb),
+        pf_alpha=float(prog.pf_alpha),
+        sinr=f32(sinr), cqi=i32(cqi), mcs=i32(mcs0),
+        mi0=f32(mi0), rate0=f32(rate0), eff0=f32(eff0),
+        ecr0=f32(_MCS_ECR[mcs0]), eligible=i32(cqi.numpy() >= 1),
+        serving=i32(serving), pos=i32(pos), count_u=i32(count_u),
+        count_c=i32(count_c),
+        cell_onehot=torch.as_tensor(
+            serving[None, :] == np.arange(E)[:, None], device=device
+        ),                                                 # (E, U) bool
+    )
+
+
+def sm_init_state(E: int, U: int, R: int, device="cpu") -> dict:
+    """Zero state, PF averages at 1 (``kernels_pallas.py:211``)."""
+    shapes = {"u": (R, U), "e": (R, E)}
+    out = {
+        k: torch.zeros(shapes[ax], dtype=_DTYPES[dt], device=device)
+        for k, ax, dt in SM_STATE
+    }
+    out["avg"].fill_(1.0)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the plain PyTorch core (``kernels_pallas.py:226-379``)
+# --------------------------------------------------------------------------
+
+
+def sm_admit_retx(c: dict, s: dict, t: int):
+    """HARQ retransmission admission: due TBs fit the per-cell RBG budget
+    in UE-index order; returns ``(pend, retx_fit, rem_c)``."""
+    onehot = c["cell_onehot"]                              # (E, U)
+    pend = s["pend"] != 0
+    due = pend & (s["p_due"] <= t) & (c["eligible"] != 0)
+    req = torch.where(due, s["p_nrbg"], 0)                 # (R, U)
+    # exact integer same-cell prefix sum in UE order (the reference's
+    # (U, U) f32 prefix matmul is exact below 2^24)
+    cum = torch.cumsum(onehot * req[:, None, :], dim=-1)   # (R, E, U)
+    serving = c["serving"].long()[None, None, :].expand(req.shape[0], 1, -1)
+    cum_u = torch.gather(cum, 1, serving)[:, 0, :]
+    retx_fit = due & (cum_u <= c["n_rbg"])
+    used_c = (onehot * torch.where(retx_fit, req, 0)[:, None, :]).sum(-1)
+    rem_c = (c["n_rbg"] - used_c).to(torch.int32)          # (R, E)
+    return pend, retx_fit, rem_c
+
+
+def sm_dispatch(c: dict, s: dict, pend, rem_c, sid: int) -> dict:
+    """Scheduler dispatch: one metric per FF-MAC family, per-cell winner
+    at the lowest UE index among equal maxima, winner takes the rest."""
+    U = c["U"]
+    onehot = c["cell_onehot"]
+    cand = (c["eligible"] != 0) & ~pend                     # (R, U)
+    avg = s["avg"]
+    if sid <= _PF_MAX:
+        metric = c["rate0"] / torch.clamp_min(avg, 1.0)
+    elif sid <= _RR_MAX:
+        rr_ptr_u = torch.gather(
+            s["rr_ptr"], 1, c["serving"].long().expand(avg.shape[0], -1)
+        )
+        ahead = torch.remainder(c["pos"] - rr_ptr_u, c["count_u"])
+        metric = -ahead.to(torch.float32)
+    elif sid <= _MT_MAX:
+        metric = c["rate0"].expand_as(avg)
+    else:
+        metric = -avg
+    neg = torch.tensor(NEG, dtype=torch.float32, device=avg.device)
+    m_eu = torch.where(
+        onehot & cand[:, None, :], metric[:, None, :], neg
+    )                                                      # (R, E, U)
+    mx_e = m_eu.amax(dim=-1)                               # (R, E)
+    iota_u = torch.arange(U, device=avg.device)
+    win_idx = torch.where(m_eu == mx_e[..., None], iota_u, U).amin(dim=-1)
+    has_win = (mx_e > neg) & (rem_c > 0)
+    winner_oh = (iota_u == win_idx[..., None]) & has_win[..., None]
+    is_winner = winner_oh.any(dim=1)                       # (R, U)
+    new_nrbg = (winner_oh * rem_c[..., None]).sum(1).to(torch.int32)
+    ptr_winner = (winner_oh * c["pos"]).sum(-1)            # (R, E)
+    new_ptr = torch.where(
+        has_win,
+        torch.remainder(ptr_winner + 1, torch.clamp_min(c["count_c"], 1)),
+        s["rr_ptr"],
+    ).to(torch.int32)
+    return dict(is_winner=is_winner, new_nrbg=new_nrbg, new_ptr=new_ptr)
+
+
+def sm_decode(c: dict, s: dict, retx_fit, new_nrbg, is_winner, coin):
+    """Transport blocks + HARQ-IR decode: TB bits from the static MCS,
+    accumulated MI capped at 1, BLER, ``coin >= bler``."""
+    new_nrb = torch.clamp_max(new_nrbg * c["rbg_size"], c["n_rb"])
+    tb_new = torch.floor(
+        c["eff0"] * new_nrb.to(torch.float32) * RE_PER_RB_DATA
+    )
+    tx = retx_fit | is_winner
+    tbb_tx = torch.where(retx_fit, s["p_tbb"], tb_new)
+    mi_tx = torch.where(
+        retx_fit, torch.clamp_max(s["p_mi"] + c["mi0"], 1.0), c["mi0"]
+    )
+    bler = tb_bler_ecr(mi_tx, c["ecr0"], tbb_tx)
+    ok = tx & (coin >= bler)
+    return tx, tbb_tx, mi_tx, ok
+
+
+def sm_update(c: dict, s: dict, retx_fit, disp, tx, tbb_tx, mi_tx, ok,
+              t: int) -> dict:
+    """HARQ bookkeeping and accumulators: the pend/retx/drop ladder, the
+    PF EMA, the 52-bit split rx counter."""
+    fail = tx & ~ok
+    txc_after = torch.where(retx_fit, s["p_txc"] + 1, 1)
+    dropped = fail & (txc_after >= HARQ_MAX_TX)
+    repend = fail & ~dropped
+    # a due TB that did not fit the RBG budget stays pending
+    keep = (s["pend"] != 0) & ~retx_fit
+    served_bits = torch.where(ok, tbb_tx, 0.0)
+    lo = s["rx_lo"] + served_bits.to(torch.int32)
+    alpha = c["pf_alpha"]
+    i32 = torch.int32
+    return dict(
+        avg=(1.0 - alpha) * s["avg"] + alpha * served_bits * 1000.0,
+        pend=(keep | repend).to(i32),
+        p_mi=torch.where(repend, mi_tx, s["p_mi"]),
+        p_tbb=torch.where(repend, tbb_tx, s["p_tbb"]),
+        p_nrbg=torch.where(
+            repend,
+            torch.where(retx_fit, s["p_nrbg"], disp["new_nrbg"]),
+            s["p_nrbg"],
+        ),
+        p_txc=torch.where(repend, txc_after, s["p_txc"]).to(i32),
+        p_due=torch.where(repend, t + HARQ_RTT_TTIS, s["p_due"]).to(i32),
+        rr_ptr=disp["new_ptr"],
+        # rx_lo rolls into rx_hi at 2^20 (<= 1e5 bits/TTI)
+        rx_lo=lo & 0xFFFFF,
+        rx_hi=s["rx_hi"] + (lo >> 20),
+        new_tbs=s["new_tbs"] + disp["is_winner"].to(i32),
+        retx=s["retx"] + retx_fit.to(i32),
+        drops=s["drops"] + dropped.to(i32),
+        ok_cnt=s["ok_cnt"] + ok.to(i32),
+    )
+
+
+def sm_step_math(c: dict, s: dict, coin, t: int, sid: int) -> dict:
+    """One TTI of the whole chain in plain PyTorch (any device)."""
+    pend, retx_fit, rem_c = sm_admit_retx(c, s, t)
+    disp = sm_dispatch(c, s, pend, rem_c, sid)
+    tx, tbb_tx, mi_tx, ok = sm_decode(
+        c, s, retx_fit, disp["new_nrbg"], disp["is_winner"], coin
+    )
+    return sm_update(c, s, retx_fit, disp, tx, tbb_tx, mi_tx, ok, t)
+
+
+# --------------------------------------------------------------------------
+# the wrapper and the kernel launch
+# --------------------------------------------------------------------------
+
+_CONST_ROWS = (
+    ("mi0", torch.float32), ("rate0", torch.float32),
+    ("eff0", torch.float32), ("ecr0", torch.float32),
+    ("eligible", torch.int32), ("pos", torch.int32),
+    ("count_u", torch.int32), ("serving", torch.int32),
+)
+
+
+def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
+    """One TTI: the plain core for CPU tensors, the CUDA kernel for CUDA
+    tensors (or an error).  ``coin`` is ``(R, U)`` f32."""
+    if coin.device.type == "cpu":
+        return sm_step_math(c, s, coin, t, sid)
+    if coin.device.type == "cuda":
+        return sm_step_cuda(c, s, coin, t, sid)
+    raise ValueError(f"no LTE SM step for device {coin.device}")
+
+
+def _check(name, x, shape, dtype, device):
+    if (
+        x.device != device or x.dtype != dtype
+        or tuple(x.shape) != shape or not x.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {shape} on {device}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            f"{'' if x.is_contiguous() else ' (non-contiguous)'}"
+        )
+
+
+def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
+                 sid: int) -> dict:
+    """Launch ``lte_sm_step`` once: one CTA per replica, outputs in fresh
+    tensors (no in-place hazard).  Raises on a bad argument or a launch
+    error; never takes the plain core."""
+    global launches
+    E, U = c["E"], c["U"]
+    if U > KERNEL_MAX_U or E > KERNEL_MAX_E:
+        raise ValueError(
+            f"lte_sm_step scratch holds U <= {KERNEL_MAX_U}, "
+            f"E <= {KERNEL_MAX_E}; got U={U}, E={E}"
+        )
+    dev = coin.device
+    R = coin.shape[0]
+    _check("coin", coin, (R, U), torch.float32, dev)
+    for k, dt in _CONST_ROWS:
+        _check(k, c[k], (U,), dt, dev)
+    _check("count_c", c["count_c"], (E,), torch.int32, dev)
+    shapes = {"u": (R, U), "e": (R, E)}
+    out = {}
+    for k, ax, dt in SM_STATE:
+        _check(k, s[k], shapes[ax], _DTYPES[dt], dev)
+        out[k] = torch.empty(shapes[ax], dtype=_DTYPES[dt], device=dev)
+    alpha = c["pf_alpha"]
+    err = _launcher()(
+        *[c[k].data_ptr() for k, _ in _CONST_ROWS],
+        c["count_c"].data_ptr(), coin.data_ptr(),
+        *[s[k].data_ptr() for k, _, _ in SM_STATE],
+        *[out[k].data_ptr() for k, _, _ in SM_STATE],
+        R, E, U, c["n_rbg"], c["rbg_size"], c["n_rb"],
+        ctypes.c_float(alpha), ctypes.c_float(1.0 - alpha),
+        ctypes.c_float(INV_SQRT2_F32), int(t), int(sid),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"lte_sm_step launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+#: ctypes signature of ``lte_sm_step_launch`` (csrc/lte_sm_step.cu):
+#: const rows, count_c, coin, state in, state out, six ints (R, E, U,
+#: n_rbg, rbg_size, n_rb), three floats (alpha, 1 - alpha, 1/sqrt 2),
+#: t, sid, stream
+LAUNCH_ARGTYPES = (
+    [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
+    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p]
+)
+
+
+def _launcher():
+    """``lte_sm_step_launch`` from the built library (built on first
+    use), with its ctypes signature."""
+    from tpudes_torch._build import load_library
+
+    fn = load_library("lte_sm_step").lte_sm_step_launch
+    if fn.argtypes is None:
+        fn.argtypes = LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn

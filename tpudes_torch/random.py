@@ -1,0 +1,99 @@
+"""Threefry-2x32 counter-based draws, bit-equal to ``jax.random``.
+
+Reproduces the chain the LTE SM engine draws its HARQ decode coins
+from, under jax 0.9.0 defaults (``threefry2x32`` keys,
+``jax_threefry_partitionable=True``, x64 off):
+
+    replica_keys(PRNGKey(s), R)[r] -> fold_in(., t) -> uniform(., (U,), f32)
+
+(``tpudes/parallel/runtime.py:130``, ``tpudes/parallel/lte_sm.py:678``,
+``:423``).  A key is an int64 tensor ``(..., 2)`` holding the two uint32
+words; torch's unsigned arithmetic is thin, so every 32-bit word rides
+in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
+All functions broadcast over leading key axes, so a chunk of TTIs for
+every replica is drawn in one vectorised call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The 20-round Threefry-2x32 hash of counter words ``(x0, x1)``
+    under key words ``(k0, k1)`` (all int64 holding uint32, broadcast
+    together); returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 — jax's name
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: words
+    ``(0, seed & 0xFFFFFFFF)``."""
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: hash of the counter pair
+    ``(0, data)`` under ``key``.  ``data`` (int or int tensor)
+    broadcasts against the key's leading axes."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(
+        key[..., 0], key[..., 1], torch.zeros_like(data), data & MASK32
+    )
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def replica_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n, 2)`` per-replica keys; row ``i`` is ``fold_in(key, i)``
+    (``tpudes/parallel/runtime.py:130``)."""
+    return fold_in(key[None, :], torch.arange(n, device=key.device))
+
+
+def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``(..., n)`` 32-bit draws of ``jax.random.bits`` in partitionable
+    mode: word pair ``(hi, lo)`` of the flat index hashed, then the two
+    output words xor-ed."""
+    if n >= 2**32:
+        raise ValueError("draws past 2**32 elements need the hi word")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(
+        key[..., 0:1], key[..., 1:2], torch.zeros_like(lo), lo
+    )
+    return y0 ^ y1
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32)`` over ``[0, 1)``: the
+    top 23 bits become the mantissa of a float in ``[1, 2)``, minus 1."""
+    bits = random_bits32(key, n)
+    mant = (bits >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def tti_coins(keys: torch.Tensor, t0: int, t1: int, n_ue: int) -> torch.Tensor:
+    """``(t1 - t0, R, U)`` decode coins of TTIs ``[t0, t1)`` for the
+    ``(R, 2)`` replica keys: ``uniform(fold_in(keys[r], t), (U,))``
+    for the whole chunk in one vectorised call."""
+    t = torch.arange(t0, t1, dtype=torch.int64, device=keys.device)
+    kt = fold_in(keys[None, :, :], t[:, None])              # (T, R, 2)
+    return uniform(kt, n_ue)

@@ -1,0 +1,112 @@
+"""The lena macro-cell grid (BASELINE config #4) as a port program.
+
+Counterpart of ``tpudes/scenarios.py``'s ``hex_grid`` and ``build_lena``
+followed by ``lower_lte_sm`` for a static full-buffer drop, without the
+host simulator: sites and UEs are plain arrays and the lowering is the
+array math the reference controller runs
+(``tpudes/models/lte/controller.py:266-287``).
+
+Defaults are copies of the reference's: eNB TxPower 30 dBm
+(``models/lte/phy.py:75``), UE NoiseFigure 9 dB (``phy.py:101``), 25 RBs
+and Friis at 2.12 GHz (``models/lte/helper.py:33-36``), PF alpha 0.05.
+The upstream drop draws from MRG32k3a; this one draws from a seeded
+``torch.Generator``, so the two drops differ (the tests feed the
+reference's own positions to :func:`lena_grid_program`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from tpudes_torch.ops.lte import noise_psd_w
+from tpudes_torch.ops.propagation import friis
+from tpudes_torch.parallel.lte_sm import LteSmProgram
+
+ENB_HEIGHT_M = 30.0
+UE_HEIGHT_M = 1.5
+
+
+def hex_grid(n: int, spacing: float) -> list[tuple[float, float]]:
+    """First n positions of a hexagonal ring layout (cell 0 centred)."""
+    pos = [(0.0, 0.0)]
+    ring = 1
+    while len(pos) < n:
+        for k in range(6 * ring):
+            a = 2 * math.pi * k / (6 * ring)
+            pos.append(
+                (ring * spacing * math.cos(a), ring * spacing * math.sin(a))
+            )
+            if len(pos) >= n:
+                break
+        ring += 1
+    return pos[:n]
+
+
+def lena_ue_drop(
+    n_enbs: int,
+    ues_per_cell: int,
+    inter_site: float = 500.0,
+    radius_factor: float = 0.45,
+    generator: torch.Generator | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(enb_pos (E, 3), ue_pos (E * ues_per_cell, 3))`` float64: hex
+    sites at 30 m, UEs uniform in a disc of ``inter_site *
+    radius_factor`` around their site at 1.5 m, cell by cell."""
+    sites = np.asarray(hex_grid(n_enbs, inter_site), dtype=np.float64)
+    enb_pos = np.column_stack([sites, np.full(n_enbs, ENB_HEIGHT_M)])
+    u = torch.rand(
+        (n_enbs, ues_per_cell, 2), generator=generator, dtype=torch.float64
+    ).numpy()
+    r = inter_site * radius_factor * np.sqrt(u[..., 0])
+    a = 2 * math.pi * u[..., 1]
+    ue_xy = sites[:, None, :] + np.stack(
+        [r * np.cos(a), r * np.sin(a)], axis=-1
+    )
+    ue_pos = np.column_stack(
+        [ue_xy.reshape(-1, 2), np.full(n_enbs * ues_per_cell, UE_HEIGHT_M)]
+    )
+    return enb_pos, ue_pos
+
+
+def lena_grid_program(
+    enb_pos,
+    ue_pos,
+    n_ttis: int,
+    scheduler: str = "pf",
+    *,
+    n_rb: int = 25,
+    tx_power_dbm: float = 30.0,
+    noise_figure_db: float = 9.0,
+    frequency_hz: float = 2.12e9,
+    pf_alpha: float = 0.05,
+) -> LteSmProgram:
+    """Lower a static full-buffer drop to an :class:`LteSmProgram`.
+
+    Attach is to the closest eNB, lowest index on ties
+    (``helper.py:124-135``).  The gain follows the controller: float64
+    distances, the Friis loss in f32, then ``10 ** (-loss / 10)`` in
+    float64."""
+    enb_pos = np.asarray(enb_pos, dtype=np.float64)
+    ue_pos = np.asarray(ue_pos, dtype=np.float64)
+    d2 = ((ue_pos[:, None, :] - enb_pos[None, :, :]) ** 2).sum(-1)  # (U, E)
+    serving = np.argmin(d2, axis=1).astype(np.int32)
+    d = np.sqrt(((enb_pos[:, None, :] - ue_pos[None, :, :]) ** 2).sum(-1))
+    rx_dbm = friis(
+        torch.zeros((), dtype=torch.float32),
+        torch.from_numpy(d).to(torch.float32),
+        frequency_hz,
+    )
+    loss_db = -rx_dbm.numpy().astype(np.float64)
+    return LteSmProgram(
+        gain=10.0 ** (-loss_db / 10.0),
+        serving=serving,
+        tx_power_dbm=np.full(len(enb_pos), float(tx_power_dbm)),
+        noise_psd=noise_psd_w(noise_figure_db),
+        n_rb=int(n_rb),
+        n_ttis=int(n_ttis),
+        scheduler=scheduler,
+        pf_alpha=float(pf_alpha),
+    )
