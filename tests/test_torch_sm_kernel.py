@@ -50,7 +50,7 @@ def _port_program(prog):
 def test_consts_agree_with_reference():
     prog = _program()
     want = ref.build_sm_consts(prog)
-    got = kc.build_sm_consts(_port_program(prog))
+    got = kc.build_sm_consts(_port_program(prog), device="cpu")
     for k in ("E", "U", "n_rbg", "rbg_size", "n_rb", "pf_alpha"):
         assert got[k] == want[k], k
     for k in ("cqi", "mcs", "eligible", "pos", "count_u", "rate0", "eff0",
@@ -76,7 +76,7 @@ def test_plain_core_matches_pallas_kernel_every_scheduler(sched):
     prog = _program(seed=1)
     sid = kc.SM_SCHED_IDS[sched]
     consts_j = ref.build_sm_consts(prog)
-    consts_t = kc.build_sm_consts(_port_program(prog))
+    consts_t = kc.build_sm_consts(_port_program(prog), device="cpu")
     E, U = prog.n_enb, prog.n_ue
     # a CQI-matched TB almost always decodes; pull the first-tx MI below
     # the code rate (same values into both steps) so that the retx,
@@ -92,14 +92,15 @@ def test_plain_core_matches_pallas_kernel_every_scheduler(sched):
                  in_axes=(0, 0, None, None))
     )
     s_j = jax.vmap(lambda _: ref.sm_init_state(E, U))(jnp.arange(R))
-    s_t = kc.sm_init_state(E, U, R)
+    s_t = kc.sm_init_state(E, U, R, device="cpu")
     rng = np.random.default_rng(sid)
     for t in range(80):
         coin = rng.uniform(0.0, 1.0, (R, U)).astype(np.float32)
         s_j = step_j(s_j, jnp.asarray(coin)[:, None, :], jnp.int32(t),
                      jnp.int32(sid))
         s_t = kc.sm_step(consts_t, s_t, torch.from_numpy(coin), t, sid)
-        want = state_from_numpy({k: np.asarray(v) for k, v in s_j.items()})
+        want = state_from_numpy({k: np.asarray(v) for k, v in s_j.items()},
+                                device="cpu")
         for k, _, _ in kc.SM_STATE:
             a, b = s_t[k].numpy(), want[k].numpy()
             assert a.dtype == b.dtype, k
@@ -116,10 +117,10 @@ def test_plain_core_matches_pallas_kernel_every_scheduler(sched):
 def test_state_from_numpy_layouts():
     E, U = 2, 5
     lane = {k: np.asarray(v) for k, v in ref.sm_init_state(E, U).items()}
-    one = state_from_numpy(lane)
+    one = state_from_numpy(lane, device="cpu")
     assert one["avg"].shape == (1, U) and one["rr_ptr"].shape == (1, E)
     batched = {k: np.stack([v] * 4) for k, v in lane.items()}
-    four = state_from_numpy(batched)
+    four = state_from_numpy(batched, device="cpu")
     assert four["pend"].shape == (4, U) and four["rr_ptr"].shape == (4, E)
     assert four["pend"].dtype == torch.int32
     assert four["avg"].dtype == torch.float32
@@ -135,10 +136,17 @@ def test_cuda_request_without_cuda_raises():
         run_lte_sm(prog, np.zeros(2, np.int64), device="cuda")
 
 
+def _meta_state(prog, replicas=1):
+    """A state on the meta device (sm_init_state takes only the card or
+    the CPU)."""
+    s = kc.sm_init_state(prog.n_enb, prog.n_ue, replicas, device="cpu")
+    return {k: v.to("meta") for k, v in s.items()}
+
+
 def test_wrapper_refuses_other_devices():
     prog = _port_program(_program())
-    consts = kc.build_sm_consts(prog)
-    s = kc.sm_init_state(prog.n_enb, prog.n_ue, 1, device="meta")
+    consts = kc.build_sm_consts(prog, device="cpu")
+    s = _meta_state(prog)
     coin = torch.empty((1, prog.n_ue), device="meta")
     with pytest.raises(ValueError, match="no LTE SM step"):
         kc.sm_step(consts, s, coin, 0, 0)
@@ -150,6 +158,6 @@ def test_launcher_signature_matches_cuda_source():
     src = (Path(kc.__file__).parents[1] / "csrc" / "lte_sm_step.cu").read_text()
     sig = re.search(r'extern "C" int lte_sm_step_launch\((.*?)\)\s*\{',
                     src, re.S).group(1)
-    assert len(sig.split(",")) == len(kc.LAUNCH_ARGTYPES)
+    assert len(sig.split(",")) == len(kc.LAUNCH_ARGTYPES["lte_sm_step"])
     assert f"#define SM_MAX_U {kc.KERNEL_MAX_U}" in src
     assert f"#define SM_MAX_E {kc.KERNEL_MAX_E}" in src

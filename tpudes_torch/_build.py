@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and compiles on its
 own into ``build/lib<name>-<digest>.so`` for ``sm_90a``, at first use.
-The digest covers the source and the flags, so an edited source never
-loads a stale library.  There is no fallback: a failed build raises.
+The digest covers the source, every header in ``csrc/`` and the flags,
+so an edited source or header never loads a stale library.  There is
+no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -41,9 +42,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

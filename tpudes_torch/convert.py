@@ -13,6 +13,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from tpudes_torch.device import resolve_device
 from tpudes_torch.parallel.kernels_cuda import SM_STATE
 from tpudes_torch.parallel.lte_sm import LteSmProgram
 
@@ -38,10 +39,12 @@ def program_from_numpy(fields: Mapping) -> LteSmProgram:
     )
 
 
-def state_from_numpy(state: Mapping, device="cpu") -> dict:
+def state_from_numpy(state: Mapping, device=None) -> dict:
     """Port kernel state from a reference state dict: per-lane rows
     ``(..., 1, U)`` and columns ``(..., E, 1)`` become ``(R, U)`` and
-    ``(R, E)`` (an unbatched reference state becomes ``R = 1``)."""
+    ``(R, E)`` (an unbatched reference state becomes ``R = 1``), on
+    ``device`` (the card by default)."""
+    device = resolve_device(device)
     out = {}
     for k, ax, _ in SM_STATE:
         a = np.asarray(state[k])

@@ -17,75 +17,32 @@
 // no cross-UE read can see a write of the same launch.
 //
 // Arithmetic: bit-identical to the plain PyTorch core
-// (tpudes_torch/parallel/kernels_cuda.py::sm_step_math) on the card.
-// Every product and sum is rounded on its own (__fmul_rn/__fadd_rn/
-// __fsub_rn, so nvcc cannot contract them into an FMA), divisions are
-// IEEE (__fdiv_rn), sqrt is __fsqrt_rn, the tail is erfcf, and the order
-// of evaluation is the plain core's.  Build without --use_fast_math.
+// (tpudes_torch/parallel/kernels_cuda.py::sm_step_math) on the card; the
+// metric, BLER and per-UE update are lte_sm_common.cuh's, shared with
+// lte_sm_advance.cu.
 //
 // Bound: at E=7, U=210, R=64 one launch reads 14 state arrays + the coin
 // (about 0.8 MB) and writes 14 (about 0.75 MB): about 1.5 MB, 0.45 us at
 // 3.35 TB/s.  The work is a few hundred flops per UE, so the kernel is
-// bound by launch latency at one launch per TTI.  The later fix is a TTI
-// loop inside the kernel with the state kept in shared memory and an
-// in-kernel threefry for the coins.
+// bound by launch latency at one launch per TTI.  run_lte_sm's main path
+// is lte_sm_advance.cu (many TTIs per launch, coins drawn inside); this
+// kernel is the single-step route (build_sm_step), where each TTI's coin
+// comes from the caller.
 
 #include <cuda_runtime.h>
+
+#include "lte_sm_common.cuh"
 
 #define SM_MAX_U 2048
 #define SM_MAX_E 256
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kHarqMaxTx = 4;   // tpudes/models/lte/scheduler.py:27
-constexpr int kHarqRtt = 8;     // tpudes/models/lte/scheduler.py:26
-constexpr float kRePerRb = 120.0f;
-constexpr float kDispersion = 1.4f;
-constexpr float kTargetQ = 1.281551f;
-// scheduler family bounds (kernels_pallas.py:89-91)
-constexpr int kPfMax = 2;
-constexpr int kRrMax = 4;
-constexpr int kMtMax = 6;
-
-struct Consts {
-  const float *mi0, *rate0, *eff0, *ecr0;
-  const int *eligible, *pos, *count_u, *serving, *count_c;
-};
-
-struct StateIn {
-  const float *avg;
-  const int *pend;
-  const float *p_mi, *p_tbb;
-  const int *p_nrbg, *p_txc, *p_due, *rr_ptr, *rx_lo, *rx_hi;
-  const int *new_tbs, *retx, *drops, *ok_cnt;
-};
-
-struct StateOut {
-  float *avg;
-  int *pend;
-  float *p_mi, *p_tbb;
-  int *p_nrbg, *p_txc, *p_due, *rr_ptr, *rx_lo, *rx_hi;
-  int *new_tbs, *retx, *drops, *ok_cnt;
-};
-
-struct Scalars {
-  int E, U, n_rbg, rbg_size, n_rb, t, sid;
-  float alpha, one_minus_alpha, inv_sqrt2;
-};
-
-__device__ __forceinline__ float tb_bler(float mi, float ecr, float tbb,
-                                         float inv_sqrt2) {
-  const float sigma = __fdiv_rn(kDispersion, __fsqrt_rn(fmaxf(tbb, 24.0f)));
-  const float margin = __fmul_rn(kTargetQ, sigma);
-  const float z = __fdiv_rn(__fsub_rn(mi, __fsub_rn(ecr, margin)), sigma);
-  const float b = __fmul_rn(0.5f, erfcf(__fmul_rn(z, inv_sqrt2)));
-  return fminf(fmaxf(b, 0.0f), 1.0f);
-}
+using namespace lte_sm;
 
 __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
                                    const float* __restrict__ coin,
-                                   Scalars p) {
+                                   Params p, int t) {
   __shared__ int s_serving[SM_MAX_U];
   __shared__ int s_req[SM_MAX_U];       // RBGs a due retx asks for, else 0
   __shared__ unsigned char s_fit[SM_MAX_U];  // due, then admitted
@@ -100,7 +57,7 @@ __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
   // 1. due retransmissions and their RBG requests
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     s_serving[u] = c.serving[u];
-    const bool due = si.pend[ou + u] != 0 && si.p_due[ou + u] <= p.t &&
+    const bool due = si.pend[ou + u] != 0 && si.p_due[ou + u] <= t &&
                      c.eligible[u] != 0;
     s_req[u] = due ? si.p_nrbg[ou + u] : 0;
     s_fit[u] = due;
@@ -128,20 +85,9 @@ __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
   }
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     const bool cand = c.eligible[u] != 0 && si.pend[ou + u] == 0;
-    const float avg = si.avg[ou + u];
-    float metric;
-    if (p.sid <= kPfMax) {
-      metric = __fdiv_rn(c.rate0[u], fmaxf(avg, 1.0f));
-    } else if (p.sid <= kRrMax) {
-      const int n = c.count_u[u];
-      const int d = c.pos[u] - si.rr_ptr[oe + s_serving[u]];
-      metric = -static_cast<float>(((d % n) + n) % n);
-    } else if (p.sid <= kMtMax) {
-      metric = c.rate0[u];
-    } else {
-      metric = -avg;
-    }
-    s_metric[u] = cand ? metric : kNeg;
+    const float m = metric(p.sid, c.rate0[u], si.avg[ou + u], c.pos[u],
+                           si.rr_ptr[oe + s_serving[u]], c.count_u[u]);
+    s_metric[u] = cand ? m : kNeg;
   }
   __syncthreads();
 
@@ -167,42 +113,11 @@ __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     const int i = ou + u;
     const int e = s_serving[u];
-    const bool fit = s_fit[u];
     const bool winner = s_win[e] == u;
-    const int new_nrbg = winner ? s_rem[e] : 0;
-    const int new_nrb = min(new_nrbg * p.rbg_size, p.n_rb);
-    const float tb_new = floorf(__fmul_rn(
-        __fmul_rn(c.eff0[u], static_cast<float>(new_nrb)), kRePerRb));
-    const bool tx = fit || winner;
-    const float p_tbb = si.p_tbb[i], p_mi = si.p_mi[i];
-    const float tbb_tx = fit ? p_tbb : tb_new;
-    const float mi_tx =
-        fit ? fminf(__fadd_rn(p_mi, c.mi0[u]), 1.0f) : c.mi0[u];
-    const float bler = tb_bler(mi_tx, c.ecr0[u], tbb_tx, p.inv_sqrt2);
-    const bool ok = tx && coin[i] >= bler;
-
-    const bool fail = tx && !ok;
-    const int txc_after = fit ? si.p_txc[i] + 1 : 1;
-    const bool dropped = fail && txc_after >= kHarqMaxTx;
-    const bool repend = fail && !dropped;
-    const bool keep = si.pend[i] != 0 && !fit;
-    const float served = ok ? tbb_tx : 0.0f;
-    const int lo = si.rx_lo[i] + static_cast<int>(served);
-
-    so.avg[i] = __fadd_rn(__fmul_rn(p.one_minus_alpha, si.avg[i]),
-                          __fmul_rn(__fmul_rn(p.alpha, served), 1000.0f));
-    so.pend[i] = (keep || repend) ? 1 : 0;
-    so.p_mi[i] = repend ? mi_tx : p_mi;
-    so.p_tbb[i] = repend ? tbb_tx : p_tbb;
-    so.p_nrbg[i] = (repend && !fit) ? new_nrbg : si.p_nrbg[i];
-    so.p_txc[i] = repend ? txc_after : si.p_txc[i];
-    so.p_due[i] = repend ? p.t + kHarqRtt : si.p_due[i];
-    so.rx_lo[i] = lo & 0xFFFFF;
-    so.rx_hi[i] = si.rx_hi[i] + (lo >> 20);
-    so.new_tbs[i] = si.new_tbs[i] + (winner ? 1 : 0);
-    so.retx[i] = si.retx[i] + (fit ? 1 : 0);
-    so.drops[i] = si.drops[i] + (dropped ? 1 : 0);
-    so.ok_cnt[i] = si.ok_cnt[i] + (ok ? 1 : 0);
+    Ue s = load_ue(si, i);
+    decode_update(s, s_fit[u], winner, winner ? s_rem[e] : 0, coin[i],
+                  c.eff0[u], c.mi0[u], c.ecr0[u], t, p);
+    store_ue(so, i, s);
   }
 }
 
@@ -224,17 +139,17 @@ extern "C" int lte_sm_step_launch(
     float alpha, float one_minus_alpha, float inv_sqrt2, int t, int sid,
     void* stream) {
   if (U > SM_MAX_U || E > SM_MAX_E || R <= 0) return cudaErrorInvalidValue;
-  const Consts c{mi0, rate0, eff0, ecr0, eligible, pos, count_u, serving,
-                 count_c};
+  const Consts c{mi0,     rate0,   eff0,    ecr0,    eligible, pos,
+                 count_u, serving, count_c, nullptr, nullptr};
   const StateIn si{avg, pend, p_mi, p_tbb, p_nrbg, p_txc, p_due, rr_ptr,
                    rx_lo, rx_hi, new_tbs, retx, drops, ok_cnt};
   const StateOut so{o_avg, o_pend, o_p_mi, o_p_tbb, o_p_nrbg, o_p_txc,
                     o_p_due, o_rr_ptr, o_rx_lo, o_rx_hi, o_new_tbs, o_retx,
                     o_drops, o_ok_cnt};
-  const Scalars p{E, U, n_rbg, rbg_size, n_rb, t, sid,
-                  alpha, one_minus_alpha, inv_sqrt2};
+  const Params p{E, U, n_rbg, rbg_size, n_rb, sid,
+                 alpha, one_minus_alpha, inv_sqrt2};
   const int threads = U >= 256 ? 256 : ((U + 31) / 32) * 32;
   lte_sm_step_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, si, so, coin, p);
+      c, si, so, coin, p, t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The fused LTE per-TTI step: plain PyTorch core + hand-written CUDA kernel.
+"""The fused LTE TTI: plain PyTorch core + hand-written CUDA kernels.
 
 Counterpart of ``tpudes/parallel/kernels_pallas.py``.  One TTI of the
 full-buffer SM engine for every replica at once:
@@ -6,15 +6,22 @@ full-buffer SM engine for every replica at once:
     retx admission -> scheduler metric + per-cell winner -> allocation
     -> MI/BLER decode -> HARQ bookkeeping
 
-:func:`sm_step_math` is the plain PyTorch definition (any device);
-``csrc/lte_sm_step.cu`` is the kernel that replaces the TPU's
-``pl.pallas_call`` (``kernels_pallas.py:473``).  :func:`sm_step` takes
-the plain core for CPU tensors and launches the kernel for CUDA
-tensors; it never falls back from one to the other.  The two give
-bit-identical state on the card: the kernel rounds every product and
-sum on its own (``__fmul_rn``/``__fadd_rn``, no contraction), uses the
-same IEEE division, ``sqrtf`` and ``erfcf``, and the same evaluation
-order as the code below.
+:func:`sm_step_math` is the plain PyTorch definition (any device), and
+:func:`sm_advance_math` loops it over TTIs ``[t0, t1)`` with the
+reference's decode coins.  Two kernels replace the TPU's
+``pl.pallas_call`` (``kernels_pallas.py:473``):
+
+- ``csrc/lte_sm_advance.cu`` runs a whole range of TTIs in one launch,
+  drawing the coins inside (:func:`sm_advance`; ``run_lte_sm``'s path);
+- ``csrc/lte_sm_step.cu`` runs one TTI on coins the caller gives
+  (:func:`sm_step`; the single-step route).
+
+Each wrapper takes the plain version for CPU tensors and launches its
+kernel for CUDA tensors; it never falls back from one to the other.
+Kernel and plain version give bit-identical state on the card: the
+kernels round every product and sum on their own (``__fmul_rn``/
+``__fadd_rn``, no contraction), use the same IEEE division, ``sqrtf``
+and ``erfcf``, and the same evaluation order as the code below.
 
 Layout: state is a dict of :data:`SM_STATE` tensors with a leading
 replica axis, ``(R, U)`` per UE and ``(R, E)`` per cell (the reference
@@ -29,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from tpudes_torch.device import resolve_device
 from tpudes_torch.models.lte.scheduler import (
     HARQ_MAX_TX,
     HARQ_RTT_TTIS,
@@ -46,6 +54,7 @@ from tpudes_torch.ops.lte import (
     mi_per_rb,
     tb_bler_ecr,
 )
+from tpudes_torch.random import tti_coins
 
 #: scheduler short name -> dispatch id (``kernels_pallas.py:80-85``)
 SM_SCHED_IDS = {
@@ -75,19 +84,25 @@ SM_STATE = (
 )
 _DTYPES = {"f32": torch.float32, "i32": torch.int32}
 
-#: the kernel's shared-memory scratch bounds (SM_MAX_U / SM_MAX_E in
-#: csrc/lte_sm_step.cu)
+#: the kernels' shared-memory scratch bounds (SM_MAX_U / SM_MAX_E in
+#: csrc/lte_sm_step.cu, ADV_MAX_U / ADV_MAX_E in csrc/lte_sm_advance.cu)
 KERNEL_MAX_U = 2048
 KERNEL_MAX_E = 256
+#: the last TTI an advance launch may reach (ADV_MAX_T)
+ADVANCE_MAX_T = 2147483000
 
-#: kernel launches since the last reset — counted where the kernel is
-#: launched and nowhere else
-launches = 0
+#: coin elements (T * R * U) the plain loop draws at once: bounds the
+#: threefry temporaries to a few hundred MB
+COIN_CHUNK_ELEMS = 1 << 22
+
+#: launches of each kernel since the last reset — counted where the
+#: kernel is launched and nowhere else
+launches = {"lte_sm_step": 0, "lte_sm_advance": 0}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -95,15 +110,19 @@ def reset_launches() -> None:
 # --------------------------------------------------------------------------
 
 
-def build_sm_consts(prog, device="cpu") -> dict:
+def build_sm_consts(prog, device=None) -> dict:
     """Per-program constants of the step (``kernels_pallas.py:121``).
 
     The static full-buffer grid makes SINR -> CQI -> MCS -> MI per-UE
     constants.  They are computed on the CPU (float64 SINR as the
-    reference does, then the f32 chain) and moved to ``device``, so a run
-    on the card uses the same bits as one on the CPU.  ``serving``
-    replaces the reference's ``(U, U)`` prefix operator: the kernel sums
-    same-cell requests in UE order itself."""
+    reference does, then the f32 chain) and moved to ``device`` (the
+    card by default), so a run on the card uses the same bits as one on
+    the CPU.  ``serving`` replaces the reference's ``(U, U)`` prefix
+    operator: the kernels sum same-cell requests in UE order themselves,
+    the multi-TTI one over ``cell_order`` (the UEs sorted stably by
+    cell, so each cell is a contiguous run in UE order) and
+    ``cell_start`` (each cell's first position in it, then ``U``)."""
+    device = resolve_device(device)
     E, U = prog.n_enb, prog.n_ue
     rbg_size = rbg_size_for(prog.n_rb)
     n_rbg = (prog.n_rb + rbg_size - 1) // rbg_size
@@ -131,6 +150,8 @@ def build_sm_consts(prog, device="cpu") -> dict:
         pos[u] = count_c[c]
         count_c[c] += 1
     count_u = np.maximum(count_c, 1)[serving]
+    cell_order = np.argsort(serving, kind="stable")
+    cell_start = np.concatenate([[0], np.cumsum(count_c)])
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -145,15 +166,18 @@ def build_sm_consts(prog, device="cpu") -> dict:
         mi0=f32(mi0), rate0=f32(rate0), eff0=f32(eff0),
         ecr0=f32(_MCS_ECR[mcs0]), eligible=i32(cqi.numpy() >= 1),
         serving=i32(serving), pos=i32(pos), count_u=i32(count_u),
-        count_c=i32(count_c),
+        count_c=i32(count_c), cell_order=i32(cell_order),
+        cell_start=i32(cell_start),
         cell_onehot=torch.as_tensor(
             serving[None, :] == np.arange(E)[:, None], device=device
         ),                                                 # (E, U) bool
     )
 
 
-def sm_init_state(E: int, U: int, R: int, device="cpu") -> dict:
-    """Zero state, PF averages at 1 (``kernels_pallas.py:211``)."""
+def sm_init_state(E: int, U: int, R: int, device=None) -> dict:
+    """Zero state, PF averages at 1 (``kernels_pallas.py:211``), on
+    ``device`` (the card by default)."""
+    device = resolve_device(device)
     shapes = {"u": (R, U), "e": (R, E)}
     out = {
         k: torch.zeros(shapes[ax], dtype=_DTYPES[dt], device=device)
@@ -289,6 +313,36 @@ def sm_step_math(c: dict, s: dict, coin, t: int, sid: int) -> dict:
     return sm_update(c, s, retx_fit, disp, tx, tbb_tx, mi_tx, ok, t)
 
 
+def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
+                    sid: int) -> dict:
+    """TTIs ``[t0, t1)`` in plain PyTorch (any device): the decode coins
+    of replica ``r`` at TTI ``t`` are ``uniform(fold_in(keys[r], t),
+    (U,))`` (:func:`tpudes_torch.random.tti_coins`), drawn for as many
+    TTIs at once as :data:`COIN_CHUNK_ELEMS` allows, then one
+    :func:`sm_step_math` per TTI."""
+    U = c["U"]
+    chunk = max(1, COIN_CHUNK_ELEMS // (len(keys) * U))
+    for c0 in range(t0, t1, chunk):
+        c1 = min(c0 + chunk, t1)
+        coins = tti_coins(keys, c0, c1, U)                  # (T, R, U)
+        for i in range(c1 - c0):
+            s = sm_step_math(c, s, coins[i], c0 + i, sid)
+    return s
+
+
+def sm_winner_key(metric: np.ndarray, ue: np.ndarray) -> np.ndarray:
+    """The key whose per-cell maximum ``csrc/lte_sm_advance.cu`` takes
+    as its cell's winner, mirrored in numpy: ``orderable(metric) << 32 |
+    (0xFFFFFFFF - ue)`` as uint64, where ``orderable`` maps the f32 bits
+    (``-0.0`` first made ``+0.0``) to an order unsigned comparison keeps.
+    The largest key holds the highest metric and, among equal metrics,
+    the lowest UE index — the winner :func:`sm_dispatch` picks."""
+    bits = (np.asarray(metric, np.float32) + np.float32(0.0)).view(np.uint32)
+    hi = np.where(bits >> 31 != 0, ~bits, bits | np.uint32(0x80000000))
+    lo = np.uint32(0xFFFFFFFF) - np.asarray(ue, np.uint32)
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
 # --------------------------------------------------------------------------
 # the wrapper and the kernel launch
 # --------------------------------------------------------------------------
@@ -311,6 +365,18 @@ def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
     raise ValueError(f"no LTE SM step for device {coin.device}")
 
 
+def sm_advance(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
+               sid: int) -> dict:
+    """TTIs ``[t0, t1)``: the plain loop for CPU tensors, one launch of
+    the multi-TTI CUDA kernel for CUDA tensors (or an error).  ``keys``
+    is the ``(R, 2)`` int64 replica keys."""
+    if keys.device.type == "cpu":
+        return sm_advance_math(c, s, keys, t0, t1, sid)
+    if keys.device.type == "cuda":
+        return sm_advance_cuda(c, s, keys, t0, t1, sid)
+    raise ValueError(f"no LTE SM advance for device {keys.device}")
+
+
 def _check(name, x, shape, dtype, device):
     if (
         x.device != device or x.dtype != dtype
@@ -323,21 +389,16 @@ def _check(name, x, shape, dtype, device):
         )
 
 
-def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
-                 sid: int) -> dict:
-    """Launch ``lte_sm_step`` once: one CTA per replica, outputs in fresh
-    tensors (no in-place hazard).  Raises on a bad argument or a launch
-    error; never takes the plain core."""
-    global launches
+def _kernel_io(name: str, c: dict, s: dict, R: int, dev) -> dict:
+    """Check what every launch reads (the constant rows and the state)
+    and allocate the state it writes, in fresh tensors (no in-place
+    hazard)."""
     E, U = c["E"], c["U"]
     if U > KERNEL_MAX_U or E > KERNEL_MAX_E:
         raise ValueError(
-            f"lte_sm_step scratch holds U <= {KERNEL_MAX_U}, "
+            f"{name} scratch holds U <= {KERNEL_MAX_U}, "
             f"E <= {KERNEL_MAX_E}; got U={U}, E={E}"
         )
-    dev = coin.device
-    R = coin.shape[0]
-    _check("coin", coin, (R, U), torch.float32, dev)
     for k, dt in _CONST_ROWS:
         _check(k, c[k], (U,), dt, dev)
     _check("count_c", c["count_c"], (E,), torch.int32, dev)
@@ -346,41 +407,106 @@ def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
     for k, ax, dt in SM_STATE:
         _check(k, s[k], shapes[ax], _DTYPES[dt], dev)
         out[k] = torch.empty(shapes[ax], dtype=_DTYPES[dt], device=dev)
+    return out
+
+
+def _scalars(c: dict, R: int) -> list:
+    """The launchers' shared scalars: R, E, U, n_rbg, rbg_size, n_rb,
+    alpha, 1 - alpha, 1/sqrt 2."""
     alpha = c["pf_alpha"]
-    err = _launcher()(
+    return [
+        R, c["E"], c["U"], c["n_rbg"], c["rbg_size"], c["n_rb"],
+        ctypes.c_float(alpha), ctypes.c_float(1.0 - alpha),
+        ctypes.c_float(INV_SQRT2_F32),
+    ]
+
+
+def _launch(name: str, *args) -> None:
+    """Call ``<name>_launch`` and count the launch; raise on an error."""
+    err = _launcher(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
+                 sid: int) -> dict:
+    """Launch ``lte_sm_step`` once: one CTA per replica.  Raises on a bad
+    argument or a launch error; never takes the plain core."""
+    dev = coin.device
+    R = coin.shape[0]
+    _check("coin", coin, (R, c["U"]), torch.float32, dev)
+    out = _kernel_io("lte_sm_step", c, s, R, dev)
+    _launch(
+        "lte_sm_step",
         *[c[k].data_ptr() for k, _ in _CONST_ROWS],
         c["count_c"].data_ptr(), coin.data_ptr(),
         *[s[k].data_ptr() for k, _, _ in SM_STATE],
         *[out[k].data_ptr() for k, _, _ in SM_STATE],
-        R, E, U, c["n_rbg"], c["rbg_size"], c["n_rb"],
-        ctypes.c_float(alpha), ctypes.c_float(1.0 - alpha),
-        ctypes.c_float(INV_SQRT2_F32), int(t), int(sid),
+        *_scalars(c, R), int(t), int(sid),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"lte_sm_step launch failed: CUDA error {err}")
-    launches += 1
     return out
 
 
-#: ctypes signature of ``lte_sm_step_launch`` (csrc/lte_sm_step.cu):
-#: const rows, count_c, coin, state in, state out, six ints (R, E, U,
-#: n_rbg, rbg_size, n_rb), three floats (alpha, 1 - alpha, 1/sqrt 2),
-#: t, sid, stream
-LAUNCH_ARGTYPES = (
-    [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
-    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p]
-)
+def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
+                    sid: int) -> dict:
+    """Launch ``lte_sm_advance`` once for TTIs ``[t0, t1)``: one CTA per
+    replica, the state in registers for the whole range, the coins drawn
+    in the kernel.  Raises on a bad argument or a launch error; never
+    takes the plain loop."""
+    if not 0 <= t0 <= t1 <= ADVANCE_MAX_T:
+        raise ValueError(
+            f"lte_sm_advance runs 0 <= t0 <= t1 <= {ADVANCE_MAX_T}; got "
+            f"t0={t0}, t1={t1}"
+        )
+    dev = keys.device
+    R, E, U = keys.shape[0], c["E"], c["U"]
+    _check("keys", keys, (R, 2), torch.int64, dev)
+    _check("cell_order", c["cell_order"], (U,), torch.int32, dev)
+    _check("cell_start", c["cell_start"], (E + 1,), torch.int32, dev)
+    out = _kernel_io("lte_sm_advance", c, s, R, dev)
+    _launch(
+        "lte_sm_advance",
+        *[c[k].data_ptr() for k, _ in _CONST_ROWS],
+        c["count_c"].data_ptr(), c["cell_order"].data_ptr(),
+        c["cell_start"].data_ptr(), keys.data_ptr(),
+        *[s[k].data_ptr() for k, _, _ in SM_STATE],
+        *[out[k].data_ptr() for k, _, _ in SM_STATE],
+        *_scalars(c, R), int(t0), int(t1), int(sid),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return out
 
 
-def _launcher():
-    """``lte_sm_step_launch`` from the built library (built on first
-    use), with its ctypes signature."""
+#: ctypes signature of each ``<name>_launch``:
+#: ``lte_sm_step`` (csrc/lte_sm_step.cu): const rows, count_c, coin,
+#: state in, state out, six ints (R, E, U, n_rbg, rbg_size, n_rb), three
+#: floats (alpha, 1 - alpha, 1/sqrt 2), t, sid, stream;
+#: ``lte_sm_advance`` (csrc/lte_sm_advance.cu): const rows, count_c,
+#: cell_order, cell_start, keys, state in, state out, the same six ints
+#: and three floats, t0, t1, sid, stream
+LAUNCH_ARGTYPES = {
+    "lte_sm_step": (
+        [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
+        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]
+    ),
+    "lte_sm_advance": (
+        [ctypes.c_void_p] * (len(_CONST_ROWS) + 4 + 2 * len(SM_STATE))
+        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
+    ),
+}
+
+
+def _launcher(name: str):
+    """``<name>_launch`` from the built library (built on first use),
+    with its ctypes signature."""
     from tpudes_torch._build import load_library
 
-    fn = load_library("lte_sm_step").lte_sm_step_launch
+    fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = LAUNCH_ARGTYPES
+        fn.argtypes = LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn

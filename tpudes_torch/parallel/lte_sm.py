@@ -3,17 +3,17 @@
 Counterpart of ``tpudes/parallel/lte_sm.py`` for static programs: under
 RLC saturation every buffer is always full, so the only evolving state
 is scheduler/HARQ bookkeeping, and a static grid makes SINR, CQI, MCS
-and MI per-UE constants.  The per-TTI math is
-:mod:`tpudes_torch.parallel.kernels_cuda` (the CUDA kernel on the card,
-the plain core on the CPU); this module owns the TTI loop, the coin
-draws and the result assembly.
+and MI per-UE constants.  The TTI math is
+:mod:`tpudes_torch.parallel.kernels_cuda`: on the card one launch of
+the multi-TTI kernel runs a whole range of TTIs, on the CPU the plain
+loop runs them; this module owns the program, the replica keys and the
+result assembly.
 
 Each replica ``r`` draws its TTI-``t`` coins as
 ``uniform(fold_in(fold_in(key, r), t), (U,))`` — the reference's
 streams bit for bit (:mod:`tpudes_torch.random`) — so a run is
-comparable with the JAX engine per replica, on integers.  Coins are
-drawn for a chunk of TTIs at once; the horizon is a fixed count, so the
-Python loop over TTIs is exact.
+comparable with the JAX engine per replica, on integers.  The horizon
+is a fixed count, so a host loop over chunks of TTIs is exact.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``precision="bf16"``, mobility, traffic, ``schedulers=`` sweeps,
@@ -31,15 +31,13 @@ from tpudes_torch.device import resolve_device
 from tpudes_torch.parallel.kernels_cuda import (
     SM_SCHED_IDS,
     build_sm_consts,
+    sm_advance,
+    sm_advance_math,
     sm_init_state,
     sm_step,
     sm_step_math,
 )
-from tpudes_torch.random import replica_keys, tti_coins
-
-#: coin elements (T * R * U) drawn per chunk when the caller gives no
-#: chunk size: bounds the threefry temporaries to a few hundred MB
-COIN_CHUNK_ELEMS = 1 << 22
+from tpudes_torch.random import replica_keys
 
 
 def _not_ported(what: str, item: str):
@@ -84,13 +82,15 @@ class LteSmProgram:
         return int(self.gain.shape[1])
 
 
-def build_sm_step(prog: LteSmProgram, device="cpu", use_kernel: bool = True):
+def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
     """``(consts, init_state, step_fn)`` with
-    ``step_fn(state, coin (R, U), t) -> state`` (``lte_sm.py:397``).
+    ``step_fn(state, coin (R, U), t) -> state`` (``lte_sm.py:397``), on
+    ``device`` (the card by default).
 
     ``use_kernel=False`` runs the plain core on any device (the card's
     comparison path); otherwise the step is :func:`sm_step`, which
-    launches the kernel for CUDA tensors."""
+    launches the single-TTI kernel for CUDA tensors."""
+    device = resolve_device(device)
     consts = build_sm_consts(prog, device=device)
     sid = SM_SCHED_IDS[prog.scheduler]
     step = sm_step if use_kernel else sm_step_math
@@ -104,22 +104,25 @@ def build_sm_step(prog: LteSmProgram, device="cpu", use_kernel: bool = True):
     return consts, init_state, step_fn
 
 
-def build_sm_advance(prog: LteSmProgram, device="cpu",
+def build_sm_advance(prog: LteSmProgram, device=None,
                      use_kernel: bool = True, chunk_ttis: int | None = None):
     """``(consts, init_state, advance)`` with
     ``advance(state, keys (R, 2), t0, t_end) -> state`` running TTIs
-    ``[t0, t_end)`` (``lte_sm.py:646``): coins for a chunk of TTIs in
-    one draw, then one step per TTI."""
-    consts, init_state, step_fn = build_sm_step(prog, device, use_kernel)
-    U = prog.n_ue
+    ``[t0, t_end)`` (``lte_sm.py:646``), ``chunk_ttis`` at a time (the
+    whole range by default), on ``device`` (the card by default).
+
+    Each chunk is :func:`sm_advance`: one launch of the multi-TTI kernel
+    for CUDA tensors, the plain loop (coins drawn in memory-bounded
+    chunks) for CPU tensors.  ``use_kernel=False`` runs the plain loop
+    on any device."""
+    consts, init_state, _ = build_sm_step(prog, device, use_kernel)
+    sid = SM_SCHED_IDS[prog.scheduler]
+    run = sm_advance if use_kernel else sm_advance_math
 
     def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int):
-        chunk = chunk_ttis or max(1, COIN_CHUNK_ELEMS // (len(keys) * U))
+        chunk = chunk_ttis or max(1, t_end - t0)
         for c0 in range(t0, t_end, chunk):
-            c1 = min(c0 + chunk, t_end)
-            coins = tti_coins(keys, c0, c1, U)              # (T, R, U)
-            for i in range(c1 - c0):
-                state = step_fn(state, coins[i], c0 + i)
+            state = run(consts, state, keys, c0, min(c0 + chunk, t_end), sid)
         return state
 
     return consts, init_state, advance
@@ -162,8 +165,9 @@ def run_lte_sm(
     per-UE arrays ``{rx_bits, new_tbs, retx, drops, ok, cqi, mcs,
     sinr}``.  With ``replicas=R``: replica ``r`` runs on
     ``fold_in(key, r)`` and the outcome arrays gain a leading ``R``
-    axis.  ``device`` defaults to the card; on the card each TTI is one
-    kernel launch unless ``use_kernel=False`` asks for the plain core."""
+    axis.  ``device`` defaults to the card; on the card the horizon is
+    one kernel launch (``chunk_ttis`` TTIs per launch if given) unless
+    ``use_kernel=False`` asks for the plain loop."""
     if schedulers is not None:
         raise _not_ported("schedulers= sweeps", "B1 scheduler-sweep arm")
     if mesh is not None:
