@@ -2,33 +2,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the full-buffer LTE SM engine
+Drives the port's paths — the full-buffer LTE SM engine
 (``tpudes_torch.parallel.lte_sm.run_lte_sm``) on the lena hex grid at
-bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas, f32) — and holds
-its CUDA kernels against their plain PyTorch versions: ``lte_sm_advance``
-(many TTIs per launch, coins drawn inside; ``run_lte_sm``'s path) and
-``lte_sm_step`` (one TTI per launch; the single-step route,
-``build_sm_step``).  Phases, in order; any failure exits non-zero and no
-phase carries on past one:
+bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas, f32), static and
+with the UEs moving (const_velocity at 10 m/s, geometry refreshed every
+8 TTIs, ``bench.py::bench_lte_mobility``'s configuration), and the
+nine-scheduler sweep — and holds its CUDA kernels against their plain
+PyTorch versions: ``lte_sm_advance`` (many TTIs per launch, coins drawn
+inside; ``run_lte_sm``'s path) in its three arms — static rows, the
+dynamic rows of a geometry table (mobility) and the config sweep (one
+scheduler id per grid row) — and ``lte_sm_step`` (one TTI per launch; the
+single-step route, ``build_sm_step``).  Phases, in order; any failure
+exits non-zero and no phase carries on past one:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``tpudes_torch/csrc`` (``nvcc``, one process
    per source, all started together);
-3. each kernel vs its plain version on the card at E=7, U=210, R=64 from
-   random states made with numpy from a seed, for every scheduler id:
-   all 14 state arrays bit-equal (``lte_sm_advance`` over two launches,
-   the second from where the first ended); each one's time per launch on
-   the card (CUDA events) and the host's, and its bound;
+3. each kernel and arm vs its plain version on the card at E=7, U=210,
+   R=64 from random states made with numpy from a seed, for every
+   scheduler id: all 14 state arrays bit-equal (``lte_sm_advance`` over
+   two launches, the second from where the first ended; the dynamic arm
+   on a stride-8 table of the moving drop, its second launch starting
+   mid-stride; the sweep arm as one launch of all nine ids, on the static
+   rows and on the stride-8 table; retransmissions and drops occur in
+   every check); each one's time per launch on the card (CUDA events)
+   and the host's, and its bound (the sweep's on the stride-8 table, as
+   the mobile sweep launches it);
 4. the slice through the plain loop and through the kernel, both on the
-   card, 64 replicas x 500 TTIs: integer outputs equal; and a small
-   program through the plain loop on the CPU against the kernel;
-5. each route at bench depth, 64 replicas x 10,000 TTIs, its launch
+   card, 64 replicas x 500 TTIs, static and moving: integer outputs
+   equal; a small program through the plain loop on the CPU against the
+   kernel (the moving one fed the CPU's geometry table); and the count of
+   CQI/MCS/eligibility entries in which the card's geometry table for
+   the whole horizon differs from the CPU's;
+5. each path at bench depth, 64 replicas x 10,000 TTIs, its launch
    counts reset just before and read just after: the single-step route
-   (``lte_sm_step`` once per TTI), then the main path (``run_lte_sm``,
-   ``lte_sm_advance`` once per chunk, the whole horizon by default); both
-   end in the same integers; then the card's busy share over a profiled
-   main-path run (``torch.profiler``);
-6. one JSON line with every kernel's numbers, then the result line.
+   (``lte_sm_step`` once per TTI), the static main path (``run_lte_sm``,
+   ``lte_sm_advance`` once per chunk, the whole horizon by default), the
+   mobile main path (the dynamic arm once per chunk) and the sweep of
+   all nine scheduler ids on the moving drop (one launch per chunk of
+   9 x 64 CTAs); the card's busy share over profiled runs
+   (``torch.profiler``);
+6. one JSON line with every kernel arm's numbers, then the result line.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
@@ -49,31 +63,47 @@ SEED = 20261016
 E, UES_PER_CELL, R = 7, 30, 64
 CHECK_TTIS = 500
 BENCH_TTIS = 10_000
-#: TTIs per launch on the main path (None: the whole horizon)
+#: TTIs per launch on the main paths (None: the whole horizon)
 BENCH_CHUNK = None
 #: lte_sm_advance's check: two launches from TTI ADVANCE_T0 on
 ADVANCE_T0, ADVANCE_LAUNCHES = 1000, (60, 80)
+#: the dynamic arm's check: two launches, the second from mid-stride
+DYNAMIC_LAUNCHES = (61, 80)
+#: the moving drop (bench.py::bench_lte_mobility)
+MOBILE_STRIDE, MOBILE_SPEED = 8, 10.0
 #: TTIs per timed lte_sm_advance launch (the plain loop times the same)
 TIMED_TTIS = 1000
+#: TTIs per timed sweep launch: the plain loop runs the nine points one
+#: after another
+SWEEP_TIMED_TTIS = 200
 #: calls per timed run: the plain core queues ~60 launches a call, so
 #: fewer calls keep its run inside the CUDA launch queue
 TIMED_KERNEL_CALLS, TIMED_PLAIN_CALLS = 200, 10
 TIMED_ADVANCE_CALLS = 20
+#: timed runs per wall figure of a path at bench depth (the median)
+WALL_RUNS = 3
+#: share of the CQI, MCS and eligibility entries of the horizon's
+#: geometry table that may differ between the card and the CPU; both
+#: run the same IEEE operations, so none is expected
+TABLE_DIFF_MAX_SHARE = 1e-4
 #: H100 SXM rates: HBM bytes/s and f32 operations/s outside the tensor
 #: cores (NVIDIA's data sheet); int32 operations/s = 132 SMs x 64 INT32
 #: lanes (Hopper architecture white paper) x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-#: lte_sm_advance's work per UE-TTI: the coin (threefry2x32's 72 integer
-#: operations, 3 more to make the float) and the admission scan (5);
-#: f32: the metric, TB bits, BLER (erfcf counted as 20), decode and EMA
-INT_OPS_PER_UE_TTI, F32_OPS_PER_UE_TTI = 80, 45
-#: and per replica-TTI: fold_in(key, t), one threefry2x32
-INT_OPS_PER_REPLICA_TTI = 72
+#: lte_sm_advance's integer work per UE-TTI: the coin (threefry2x32's 72
+#: operations, 3 more to make the float), which a replica's config
+#: points share, and the admission scan (5) of every lane; f32: the
+#: metric, TB bits, BLER (erfcf counted as 20), decode and EMA
+COIN_OPS_PER_UE_TTI, SCAN_OPS_PER_UE_TTI = 75, 5
+F32_OPS_PER_UE_TTI = 45
+#: and the coin's per replica-TTI: fold_in(key, t), one threefry2x32
+COIN_OPS_PER_REPLICA_TTI = 72
 #: an upper bound on the SM clock (H100 boost 1.98 GHz), so a sleep of
 #: ``s * SLEEP_CYCLES_PER_S`` cycles lasts at least ``s`` seconds
 SLEEP_CYCLES_PER_S = 2.0e9
+INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
 
 
 def fail(msg: str):
@@ -89,22 +119,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_state(kc, consts, t, rng, device):
-    """A warmed-looking state: every HARQ field populated."""
+def random_state(kc, consts, t, rng, device, lanes=None):
+    """A warmed-looking state of ``lanes`` lanes (``R`` by default):
+    every HARQ field populated."""
     import torch
 
+    lanes = lanes or R
     U, n_rbg = consts["U"], consts["n_rbg"]
     count_c = consts["count_c"].cpu().numpy()
-    u_i = lambda lo, hi: rng.integers(lo, hi, (R, U)).astype(np.int32)  # noqa: E731
+    u_i = lambda lo, hi: rng.integers(lo, hi, (lanes, U)).astype(np.int32)  # noqa: E731
     host = dict(
-        avg=rng.uniform(1.0, 1e7, (R, U)).astype(np.float32),
+        avg=rng.uniform(1.0, 1e7, (lanes, U)).astype(np.float32),
         pend=u_i(0, 2),
-        p_mi=rng.uniform(0.0, 1.0, (R, U)).astype(np.float32),
-        p_tbb=np.floor(rng.uniform(0.0, 2e4, (R, U))).astype(np.float32),
+        p_mi=rng.uniform(0.0, 1.0, (lanes, U)).astype(np.float32),
+        p_tbb=np.floor(rng.uniform(0.0, 2e4, (lanes, U))).astype(np.float32),
         p_nrbg=u_i(1, n_rbg + 1),
         p_txc=u_i(1, 4),
         p_due=u_i(t - 8, t + 9),
-        rr_ptr=(rng.integers(0, 1 << 20, (R, E)) % np.maximum(count_c, 1))
+        rr_ptr=(rng.integers(0, 1 << 20, (lanes, E)) % np.maximum(count_c, 1))
         .astype(np.int32),
         rx_lo=u_i(0, 1 << 20),
         rx_hi=u_i(0, 4096),
@@ -120,6 +152,19 @@ def bits_of(x):
     import torch
 
     return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def compare_states(kc, got, want, what) -> float:
+    """Fail unless the 14 state arrays are bit-equal; the largest
+    absolute difference (0.0)."""
+    import torch
+
+    err = 0.0
+    for k, _, _ in kc.SM_STATE:
+        if not torch.equal(bits_of(got[k]), bits_of(want[k])):
+            fail(f"{what}: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs().max().item())
+    return err
 
 
 def timed_ms(fn, n, reps=5):
@@ -199,12 +244,16 @@ def step_bound(consts, s, coin, out, t):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def advance_bound(consts, s, keys, out, ttis):
+def advance_bound(consts, s, keys, out, ttis, table=None, sids=None):
     """Least time for one ``lte_sm_advance`` launch over ``ttis`` TTIs:
-    the keys, constant rows and state read once and the state written
-    once over HBM, against the integer and f32 work over each type's
-    rate (the two pipes run side by side); the largest wins."""
+    the keys, constant rows, geometry table (if any), scheduler ids and
+    state read once and the state written once over HBM, against the
+    integer and f32 work over each type's rate (the two pipes run side
+    by side); the largest wins.  The coins are counted once per replica
+    (every config point of a replica runs on its coins), the rest once
+    per lane (replica x config point)."""
     U = consts["U"]
+    replicas, lanes = keys.shape[0], s["avg"].shape[0]
     nbytes = keys.nbytes + sum(v.nbytes for v in s.values())
     nbytes += sum(v.nbytes for v in out.values())
     nbytes += sum(
@@ -212,12 +261,17 @@ def advance_bound(consts, s, keys, out, ttis):
                                    "eligible", "pos", "count_u", "serving",
                                    "count_c", "cell_order", "cell_start")
     )
-    int_ops = R * ttis * (U * INT_OPS_PER_UE_TTI + INT_OPS_PER_REPLICA_TTI)
+    nbytes += sum(v.nbytes for v in (table or {}).values())
+    nbytes += 0 if sids is None else sids.nbytes
+    int_ops = ttis * (
+        replicas * (U * COIN_OPS_PER_UE_TTI + COIN_OPS_PER_REPLICA_TTI)
+        + lanes * U * SCAN_OPS_PER_UE_TTI
+    )
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         "operations": max(int_ops / INT32_OPS_PER_S,
-                          R * ttis * U * F32_OPS_PER_UE_TTI / F32_OPS_PER_S)
-        * 1e3,
+                          lanes * ttis * U * F32_OPS_PER_UE_TTI
+                          / F32_OPS_PER_S) * 1e3,
     }
     by = max(times, key=times.get)
     return times[by], by
@@ -243,6 +297,40 @@ def step_route(prog, key, device):
     return state
 
 
+def counted(kc, fn, want: dict, what: str):
+    """``(result, wall_s, launches)`` of ``fn()`` with the launch counts
+    reset just before and read just after; fails unless every count is
+    ``want``'s (absent names: 0)."""
+    import torch
+
+    kc.reset_launches()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kc.launches)
+    expect = {k: want.get(k, 0) for k in launches}
+    if launches != expect:
+        fail(f"{what} launched {launches}, want {expect}")
+    return out, wall, launches
+
+
+def median_wall(fn) -> float:
+    import torch
+
+    walls = []
+    for _ in range(WALL_RUNS):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    return statistics.median(walls)
+
+
+def same_outputs(a: dict, b: dict, keys=INT_KEYS) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in keys)
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -250,9 +338,13 @@ def main(device: str = "cuda") -> int:
         fail("torch.cuda.is_available() is false")
     from tpudes_torch import _build
     from tpudes_torch.parallel import kernels_cuda as kc
-    from tpudes_torch.parallel.lte_sm import run_lte_sm
+    from tpudes_torch.parallel.lte_sm import geom_rows, run_lte_sm
     from tpudes_torch.random import PRNGKey, replica_keys
-    from tpudes_torch.scenarios import lena_grid_program, lena_ue_drop
+    from tpudes_torch.scenarios import (
+        lena_grid_program,
+        lena_mobile_program,
+        lena_ue_drop,
+    )
 
     dev = torch.device(device)
 
@@ -274,6 +366,13 @@ def main(device: str = "cuda") -> int:
     prog = lena_grid_program(enb_pos, ue_pos, CHECK_TTIS)
     U = prog.n_ue
     consts = kc.build_sm_consts(prog, device=dev)
+    # the same drop, moving: lena_mobile_program draws the drop first
+    mobile = lena_mobile_program(
+        E, UES_PER_CELL, BENCH_TTIS, "const_velocity", MOBILE_SPEED,
+        MOBILE_STRIDE, generator=torch.Generator().manual_seed(SEED),
+    )
+    if not np.array_equal(mobile.gain, prog.gain):
+        fail("the moving drop does not start on the static drop")
 
     # 3. each kernel vs its plain version, every scheduler id, random
     #    warmed states
@@ -287,11 +386,9 @@ def main(device: str = "cuda") -> int:
         got = kc.sm_step_cuda(consts, s, coin, t, sid)
         want = kc.sm_step_math(consts, s, coin, t, sid)
         torch.cuda.synchronize()
-        for k, _, _ in kc.SM_STATE:
-            if not torch.equal(bits_of(got[k]), bits_of(want[k])):
-                fail(f"kernel != plain core: sid={sid} ({sched}) {k}")
-            err = (got[k].double() - want[k].double()).abs().max().item()
-            max_err = max(max_err, err)
+        max_err = max(max_err, compare_states(
+            kc, got, want, f"lte_sm_step vs plain core, sid={sid} ({sched})"
+        ))
     print(f"lte_sm_step vs plain core: 14 state arrays bit-equal for sids "
           f"0-8 at E={E} U={U} R={R}", flush=True)
     s = random_state(kc, consts, t, rng, dev)
@@ -313,8 +410,8 @@ def main(device: str = "cuda") -> int:
 
     # first-tx MI pulled below the code rate for some UEs, so that new
     # failures, retx and drops keep occurring through the check
-    harq = dict(consts, mi0=(consts["mi0"] * torch.linspace(
-        0.1, 1.0, U, device=dev)).contiguous())
+    mi_scale = torch.linspace(0.1, 1.0, U, device=dev)
+    harq = dict(consts, mi0=(consts["mi0"] * mi_scale).contiguous())
     adv_err, ladder = 0.0, {"retx": 0, "drops": 0}
     ta = ADVANCE_T0
     tb, tc = ta + ADVANCE_LAUNCHES[0], ta + sum(ADVANCE_LAUNCHES)
@@ -327,11 +424,9 @@ def main(device: str = "cuda") -> int:
         )
         want = kc.sm_advance_math(harq, s, keys, ta, tc, sid)
         torch.cuda.synchronize()
-        for k, _, _ in kc.SM_STATE:
-            if not torch.equal(bits_of(got[k]), bits_of(want[k])):
-                fail(f"lte_sm_advance != plain loop: sid={sid} ({sched}) {k}")
-            err = (got[k].double() - want[k].double()).abs().max().item()
-            adv_err = max(adv_err, err)
+        adv_err = max(adv_err, compare_states(
+            kc, got, want, f"lte_sm_advance vs plain loop, sid={sid} ({sched})"
+        ))
         for k in ladder:
             ladder[k] += int((got[k] - s[k]).sum())
     if min(ladder.values()) <= 0:
@@ -362,15 +457,138 @@ def main(device: str = "cuda") -> int:
           f"{host_adv_plain * 1e3:.2f} us/call), bound "
           f"{adv_bound_ms * 1e3:.3f} us ({adv_bound_by})", flush=True)
 
+    # 3b. the dynamic arm: a stride-8 geometry table of the moving drop,
+    #     built on the card, its first-tx MI pulled down as above
+    mconsts = kc.build_sm_consts(mobile, device=dev)
+
+    def table(t0_, t1_):
+        j0 = t0_ // MOBILE_STRIDE
+        rows = geom_rows(mobile, mconsts, MOBILE_STRIDE * torch.arange(
+            j0, j0 + kc.table_rows(t0_, t1_, MOBILE_STRIDE), device=dev,
+        ))
+        out = {k: rows[k].contiguous() for k in kc.SM_DYNAMIC_ROWS}
+        out["mi0"] = (out["mi0"] * mi_scale).contiguous()
+        return out
+
+    dyn_err, ladder = 0.0, {"retx": 0, "drops": 0}
+    tb, tc = ta + DYNAMIC_LAUNCHES[0], ta + sum(DYNAMIC_LAUNCHES)
+    for sched, sid in kc.SM_SCHED_IDS.items():
+        s = random_state(kc, mconsts, ta, rng, dev)
+        keys = replica_keys(PRNGKey(SEED + sid, device=dev), R)
+        got = kc.sm_advance_cuda(
+            mconsts, kc.sm_advance_cuda(mconsts, s, keys, ta, tb, sid,
+                                        table(ta, tb), MOBILE_STRIDE),
+            keys, tb, tc, sid, table(tb, tc), MOBILE_STRIDE,
+        )
+        want = kc.sm_advance_math(mconsts, s, keys, ta, tc, sid,
+                                  table(ta, tc), MOBILE_STRIDE)
+        torch.cuda.synchronize()
+        dyn_err = max(dyn_err, compare_states(
+            kc, got, want, f"dynamic arm vs plain loop, sid={sid} ({sched})"
+        ))
+        for k in ladder:
+            ladder[k] += int((got[k] - s[k]).sum())
+    if min(ladder.values()) <= 0:
+        fail(f"dynamic arm check ran no retx or no drop: {ladder}")
+    print(f"lte_sm_advance dynamic arm vs plain loop: 14 state arrays "
+          f"bit-equal for sids 0-8 at E={E} U={U} R={R}, stride "
+          f"{MOBILE_STRIDE}, over 2 launches (TTIs [{ta}, {tb}) and "
+          f"[{tb}, {tc})); retx {ladder['retx']}, drops {ladder['drops']}",
+          flush=True)
+    s = random_state(kc, mconsts, ta, rng, dev)
+    keys = replica_keys(PRNGKey(SEED, device=dev), R)
+    tab = table(ta, ta + TIMED_TTIS)
+    ms_dyn, host_dyn = timed_ms(
+        lambda: kc.sm_advance_cuda(mconsts, s, keys, ta, ta + TIMED_TTIS, 0,
+                                   tab, MOBILE_STRIDE),
+        TIMED_ADVANCE_CALLS,
+    )
+    ms_dyn_plain, _ = timed_ms(
+        lambda: kc.sm_advance_math(mconsts, s, keys, ta, ta + TIMED_TTIS, 0,
+                                   tab, MOBILE_STRIDE),
+        1, reps=3,
+    )
+    dyn_bound_ms, dyn_bound_by = advance_bound(
+        mconsts, s, keys,
+        kc.sm_advance_cuda(mconsts, s, keys, ta, ta + TIMED_TTIS, 0, tab,
+                           MOBILE_STRIDE),
+        TIMED_TTIS, table=tab,
+    )
+    print(f"lte_sm_advance dynamic arm: {TIMED_TTIS} TTIs/launch: device "
+          f"{ms_dyn * 1e3:.2f} us/launch = {ms_dyn * 1e3 / TIMED_TTIS:.4f} "
+          f"us/TTI (static arm {ms_adv * 1e3 / TIMED_TTIS:.4f} us/TTI; host "
+          f"{host_dyn * 1e3:.2f} us/call), plain loop device "
+          f"{ms_dyn_plain * 1e3:.2f} us/call, bound "
+          f"{dyn_bound_ms * 1e3:.3f} us ({dyn_bound_by})", flush=True)
+
+    # 3c. the sweep arm: one launch of all nine ids against the plain
+    #     loop, on the static rows and on the stride-8 table (the launch
+    #     the mobile sweep makes), first-tx MI pulled down as above
+    C = len(kc.SM_SCHED_IDS)
+    sids = torch.tensor(list(kc.SM_SCHED_IDS.values()), dtype=torch.int32,
+                        device=dev)
+    keys = replica_keys(PRNGKey(SEED + 99, device=dev), R)
+    sweep_err = 0.0
+    for rows_of, cs, rows in (("static rows", harq, None),
+                              (f"a stride-{MOBILE_STRIDE} table", mconsts,
+                               table(ta, tc))):
+        s = random_state(kc, cs, ta, rng, dev, lanes=C * R)
+        got = kc.sm_advance_cuda(cs, s, keys, ta, tc, sids, rows,
+                                 MOBILE_STRIDE)
+        want = kc.sm_advance_math(cs, s, keys, ta, tc, sids, rows,
+                                  MOBILE_STRIDE)
+        torch.cuda.synchronize()
+        for i, sched in enumerate(kc.SM_SCHED_IDS):
+            lanes = slice(i * R, (i + 1) * R)
+            sweep_err = max(sweep_err, compare_states(
+                kc, {k: v[lanes] for k, v in got.items()},
+                {k: v[lanes] for k, v in want.items()},
+                f"sweep arm on {rows_of} vs plain loop, point {i} ({sched})",
+            ))
+        ladder = {k: int((got[k] - s[k]).sum()) for k in ("retx", "drops")}
+        if min(ladder.values()) <= 0:
+            fail(f"sweep arm check on {rows_of} ran no retx or no drop: "
+                 f"{ladder}")
+        print(f"lte_sm_advance sweep arm on {rows_of} vs plain loop: one "
+              f"launch of {C} x {R} CTAs (TTIs [{ta}, {tc})), 14 state "
+              f"arrays bit-equal per point; retx {ladder['retx']}, drops "
+              f"{ladder['drops']}", flush=True)
+    # timed on the stride-8 table, as the mobile sweep launches it
+    tt = ta + SWEEP_TIMED_TTIS
+    stab = {k: v[:kc.table_rows(ta, tt, MOBILE_STRIDE)].contiguous()
+            for k, v in tab.items()}
+    s = random_state(kc, mconsts, ta, rng, dev, lanes=C * R)
+    ms_sweep, host_sweep = timed_ms(
+        lambda: kc.sm_advance_cuda(mconsts, s, keys, ta, tt, sids, stab,
+                                   MOBILE_STRIDE),
+        TIMED_ADVANCE_CALLS,
+    )
+    ms_sweep_plain, _ = timed_ms(
+        lambda: kc.sm_advance_math(mconsts, s, keys, ta, tt, sids, stab,
+                                   MOBILE_STRIDE),
+        1, reps=2,
+    )
+    sweep_bound_ms, sweep_bound_by = advance_bound(
+        mconsts, s, keys,
+        kc.sm_advance_cuda(mconsts, s, keys, ta, tt, sids, stab,
+                           MOBILE_STRIDE),
+        SWEEP_TIMED_TTIS, table=stab, sids=sids,
+    )
+    print(f"lte_sm_advance sweep arm on a stride-{MOBILE_STRIDE} table: "
+          f"{C} x {R} CTAs, {SWEEP_TIMED_TTIS} "
+          f"TTIs/launch: device {ms_sweep * 1e3:.2f} us/launch = "
+          f"{ms_sweep * 1e3 / SWEEP_TIMED_TTIS:.4f} us/TTI for all points "
+          f"(host {host_sweep * 1e3:.2f} us/call), plain loop device "
+          f"{ms_sweep_plain * 1e3:.2f} us/call, bound "
+          f"{sweep_bound_ms * 1e3:.3f} us ({sweep_bound_by})", flush=True)
+
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
     key = PRNGKey(SEED & 0x7FFFFFFF)
     plain = run_lte_sm(prog, key, replicas=R, device=dev, use_kernel=False)
     kern = run_lte_sm(prog, key, replicas=R, device=dev)
-    int_keys = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
-    for k in int_keys:
-        if not np.array_equal(plain[k], kern[k]):
-            fail(f"slice plain vs kernel differs in {k}")
+    if not same_outputs(plain, kern):
+        fail("slice plain vs kernel differs in its integer outputs")
     if not np.array_equal(plain["sinr"].view(np.int32),
                           kern["sinr"].view(np.int32)):
         fail("slice plain vs kernel differs in sinr")
@@ -382,26 +600,81 @@ def main(device: str = "cuda") -> int:
     small = lena_grid_program(*small_pos, 300)
     on_cpu = run_lte_sm(small, key, replicas=4, device="cpu")
     on_gpu = run_lte_sm(small, key, replicas=4, device=dev)
-    for k in int_keys:
-        if not np.array_equal(on_cpu[k], on_gpu[k]):
-            fail(f"small program: CPU plain loop vs kernel differs in {k}")
+    if not same_outputs(on_cpu, on_gpu):
+        fail("small program: CPU plain loop vs kernel differs")
     print("small program (2 x 4 UE, 4 x 300 TTIs): CPU plain loop == "
           "kernel on the card", flush=True)
 
-    # 5. each route at bench depth, counted: the single-step route, then
-    #    the main path
+    # 4b. the same for the moving drop
+    mobile_check = dataclasses.replace(mobile, n_ttis=CHECK_TTIS)
+    plain = run_lte_sm(mobile_check, key, replicas=R, device=dev,
+                       use_kernel=False)
+    kern = run_lte_sm(mobile_check, key, replicas=R, device=dev)
+    if not same_outputs(plain, kern, INT_KEYS + ("geom_refreshes",)):
+        fail("mobile slice plain vs kernel differs in its integer outputs")
+    if not np.array_equal(plain["sinr"].view(np.int32),
+                          kern["sinr"].view(np.int32)):
+        fail("mobile slice plain vs kernel differs in sinr")
+    print(f"mobile slice plain vs kernel: integer outputs equal at {R} x "
+          f"{CHECK_TTIS} TTIs, stride {MOBILE_STRIDE}, "
+          f"{kern['geom_refreshes']} refreshes (rx "
+          f"{int(kern['rx_bits'].sum())} bits, retx "
+          f"{int(kern['retx'].sum())}, drops {int(kern['drops'].sum())})",
+          flush=True)
+    small_mob = lena_mobile_program(
+        2, 4, 300, "const_velocity", MOBILE_SPEED, MOBILE_STRIDE,
+        generator=torch.Generator().manual_seed(1),
+    )
+    cpu_consts = kc.build_sm_consts(small_mob, device="cpu")
+    cpu_rows = geom_rows(small_mob, cpu_consts, MOBILE_STRIDE * torch.arange(
+        kc.table_rows(0, 300, MOBILE_STRIDE)))
+    cpu_rows = {k: cpu_rows[k].contiguous() for k in kc.SM_DYNAMIC_ROWS}
+    cpu_keys = replica_keys(key, 4)
+    want = kc.sm_advance_math(
+        cpu_consts, kc.sm_init_state(2, 8, 4, device="cpu"), cpu_keys, 0,
+        300, 0, cpu_rows, MOBILE_STRIDE,
+    )
+    got = kc.sm_advance_cuda(
+        kc.build_sm_consts(small_mob, device=dev),
+        kc.sm_init_state(2, 8, 4, device=dev), cpu_keys.to(dev), 0, 300, 0,
+        {k: v.to(dev) for k, v in cpu_rows.items()}, MOBILE_STRIDE,
+    )
+    compare_states(kc, {k: v.cpu() for k, v in got.items()}, want,
+                   "small moving program: CPU plain loop vs kernel fed the "
+                   "CPU's table")
+    if not same_outputs(run_lte_sm(small_mob, key, replicas=4, device="cpu"),
+                        run_lte_sm(small_mob, key, replicas=4, device=dev)):
+        fail("small moving program: CPU run vs card run differs")
+    horizon = MOBILE_STRIDE * torch.arange(
+        kc.table_rows(0, BENCH_TTIS, MOBILE_STRIDE))
+    on_card = geom_rows(mobile, mconsts, horizon.to(dev))
+    on_host = geom_rows(mobile, kc.build_sm_consts(mobile, device="cpu"),
+                        horizon)
+    table_diff = sum(int((on_card[k].cpu() != on_host[k]).sum())
+                     for k in ("cqi", "mcs", "eligible"))
+    sinr_diff = int((bits_of(on_card["sinr"]).cpu()
+                     != bits_of(on_host["sinr"])).sum())
+    entries = 3 * on_host["cqi"].numel()
+    print(f"small moving program (2 x 4 UE, 4 x 300 TTIs): CPU plain loop "
+          f"== kernel fed the CPU's table (14 state arrays bit-equal), and "
+          f"CPU run == card run; the horizon's geometry table "
+          f"({len(horizon)} refreshes x {U} UEs) card vs CPU: "
+          f"{table_diff} of {entries} CQI/MCS/eligible entries differ "
+          f"(bound {TABLE_DIFF_MAX_SHARE * entries:.0f}), {sinr_diff} SINR "
+          f"values", flush=True)
+    if table_diff > TABLE_DIFF_MAX_SHARE * entries:
+        fail(f"card and CPU geometry tables differ in {table_diff} entries")
+
+    # 5. each path at bench depth, counted: the single-step route, the
+    #    static main path, the mobile main path, the sweep
     bench = dataclasses.replace(prog, n_ttis=BENCH_TTIS)
     sim_s = BENCH_TTIS * 1e-3
+    n_launch = -(-BENCH_TTIS // (BENCH_CHUNK or BENCH_TTIS))
     step_route(dataclasses.replace(prog, n_ttis=50), key, dev)  # warm-up
-    kc.reset_launches()
-    t0 = time.monotonic()
-    routed = step_route(bench, key, dev)
-    torch.cuda.synchronize()
-    step_wall = time.monotonic() - t0
-    step_launches = dict(kc.launches)
-    if step_launches != {"lte_sm_step": BENCH_TTIS, "lte_sm_advance": 0}:
-        fail(f"single-step route launched {step_launches}, want "
-             f"lte_sm_step {BENCH_TTIS} times and lte_sm_advance 0")
+    routed, step_wall, step_launches = counted(
+        kc, lambda: step_route(bench, key, dev),
+        {"lte_sm_step": BENCH_TTIS}, "single-step route",
+    )
     print(json.dumps(dict(
         phase="bench_step_route", replicas=R, n_enb=E, n_ue=U,
         n_ttis=BENCH_TTIS, wall_s=step_wall,
@@ -410,19 +683,15 @@ def main(device: str = "cuda") -> int:
         kernel_launches=step_launches,
     )), flush=True)
 
+    def static_run():
+        return run_lte_sm(bench, key, replicas=R, device=dev,
+                          chunk_ttis=BENCH_CHUNK)
+
     run_lte_sm(dataclasses.replace(prog, n_ttis=50), key, replicas=R,
                device=dev, chunk_ttis=BENCH_CHUNK)          # warm-up
-    kc.reset_launches()
-    t0 = time.monotonic()
-    out = run_lte_sm(bench, key, replicas=R, device=dev,
-                     chunk_ttis=BENCH_CHUNK)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(kc.launches)
-    want_launches = -(-BENCH_TTIS // (BENCH_CHUNK or BENCH_TTIS))
-    if launches != {"lte_sm_step": 0, "lte_sm_advance": want_launches}:
-        fail(f"main path launched {launches}, want lte_sm_advance "
-             f"{want_launches} times and lte_sm_step 0")
+    out, wall, launches = counted(
+        kc, static_run, {"lte_sm_advance": n_launch}, "static main path",
+    )
     for k, v in out.items():
         if not np.all(np.isfinite(v)):
             fail(f"non-finite {k}")
@@ -435,9 +704,7 @@ def main(device: str = "cuda") -> int:
                     for k in ("new_tbs", "retx", "drops"))
             and np.array_equal(routed["ok_cnt"], out["ok"])):
         fail("single-step route and main path differ at bench depth")
-    busy, adv_profiled_ms = device_busy_share(lambda: run_lte_sm(
-        bench, key, replicas=R, device=dev, chunk_ttis=BENCH_CHUNK,
-    ), "lte_sm_advance")
+    busy, adv_profiled_ms = device_busy_share(static_run, "lte_sm_advance")
     print(json.dumps(dict(
         phase="bench", replicas=R, n_enb=E, n_ue=U, n_ttis=BENCH_TTIS,
         ttis_per_launch=BENCH_CHUNK or BENCH_TTIS,
@@ -453,22 +720,108 @@ def main(device: str = "cuda") -> int:
         equals_step_route=True,
     )), flush=True)
 
+    # 5b. the mobile main path on the same drop
+    def mobile_run(**kw):
+        return run_lte_sm(mobile, key, replicas=R, device=dev,
+                          chunk_ttis=BENCH_CHUNK, **kw)
+
+    run_lte_sm(dataclasses.replace(mobile, n_ttis=50), key, replicas=R,
+               device=dev, chunk_ttis=BENCH_CHUNK)          # warm-up
+    mout, mwall, mlaunches = counted(
+        kc, mobile_run,
+        {"lte_sm_advance": n_launch, "lte_sm_advance:dynamic": n_launch},
+        "mobile main path",
+    )
+    for k, v in mout.items():
+        if not np.all(np.isfinite(v)):
+            fail(f"mobile: non-finite {k}")
+    refreshes = -(-BENCH_TTIS // MOBILE_STRIDE)
+    if mout["geom_refreshes"] != refreshes or mout["rx_bits"].sum() <= 0:
+        fail(f"mobile run: {mout['geom_refreshes']} refreshes (want "
+             f"{refreshes}), {int(mout['rx_bits'].sum())} bits")
+    if np.array_equal(mout["sinr"], out["sinr"]):
+        fail("mobile run: the last refresh's SINR is the t = 0 drop's")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    geom_rows(mobile, mconsts, horizon.to(dev))
+    torch.cuda.synchronize()
+    table_s = time.monotonic() - t0
+    table_busy, _ = device_busy_share(
+        lambda: geom_rows(mobile, mconsts, horizon.to(dev)), "elementwise")
+    mbusy, dyn_profiled_ms = device_busy_share(mobile_run, "lte_sm_advance")
+    static_med, mobile_med = median_wall(static_run), median_wall(mobile_run)
+    print(json.dumps(dict(
+        phase="bench_mobile", replicas=R, n_enb=E, n_ue=U,
+        n_ttis=BENCH_TTIS, mobility="const_velocity", speed_mps=MOBILE_SPEED,
+        geom_stride=MOBILE_STRIDE, geom_refreshes=mout["geom_refreshes"],
+        ttis_per_launch=BENCH_CHUNK or BENCH_TTIS, wall_s=mwall,
+        sim_s_per_wall_s=R * sim_s / mwall,
+        ttis_per_wall_s=R * BENCH_TTIS / mwall,
+        agg_dl_mbps=float(mout["rx_bits"].sum()) / R / sim_s / 1e6,
+        table_build_s=table_s,
+        table_device_busy_share=(table_busy if table_busy is not None
+                                 else "not measured"),
+        kernel_launches=mlaunches,
+        device_busy_share=mbusy if mbusy is not None else "not measured",
+        profiled_advance_device_ms=(dyn_profiled_ms
+                                    if dyn_profiled_ms is not None
+                                    else "not measured"),
+        wall_median_s=mobile_med, static_wall_median_s=static_med,
+        wall_vs_static=mobile_med / static_med,
+    )), flush=True)
+
+    # 5c. the nine-scheduler sweep on the moving drop, one launch
+    names = list(kc.SM_SCHED_IDS)
+    swept, swall, slaunches = counted(
+        kc, lambda: mobile_run(schedulers=names),
+        {"lte_sm_advance": n_launch, "lte_sm_advance:dynamic": n_launch,
+         "lte_sm_advance:sweep": n_launch},
+        "nine-scheduler sweep",
+    )
+    for name, point in zip(names, swept):
+        single = mout if name == mobile.scheduler else run_lte_sm(
+            dataclasses.replace(mobile, scheduler=name), key, replicas=R,
+            device=dev, chunk_ttis=BENCH_CHUNK,
+        )
+        if not same_outputs(point, single, INT_KEYS + ("geom_refreshes",)):
+            fail(f"sweep point {name} differs from its single-point run")
+    sbusy, _ = device_busy_share(lambda: mobile_run(schedulers=names),
+                                 "lte_sm_advance")
+    print(json.dumps(dict(
+        phase="bench_sweep", points=names, replicas=R, n_enb=E, n_ue=U,
+        n_ttis=BENCH_TTIS, geom_stride=MOBILE_STRIDE, wall_s=swall,
+        sim_s_per_wall_s=len(names) * R * sim_s / swall,
+        ttis_per_wall_s=len(names) * R * BENCH_TTIS / swall,
+        kernel_launches=slaunches,
+        device_busy_share=sbusy if sbusy is not None else "not measured",
+        wall_vs_single_point=swall / mwall,
+        equals_single_point=names,
+    )), flush=True)
+
     # 6. the kernels line, then the result line
-    print(json.dumps({"kernels": [dict(
-        name="lte_sm_advance", route="cuda",
-        source="tpudes_torch/csrc/lte_sm_advance.cu",
-        replaces="tpudes/parallel/kernels_pallas.py:473",
-        launches=launches["lte_sm_advance"], max_abs_err=adv_err,
-        ms=ms_adv, plain_ms=ms_adv_plain, bound_ms=adv_bound_ms,
-        bound_by=adv_bound_by, library_ms=None,
-    ), dict(
-        name="lte_sm_step", route="cuda",
-        source="tpudes_torch/csrc/lte_sm_step.cu",
-        replaces="tpudes/parallel/kernels_pallas.py:473",
-        launches=step_launches["lte_sm_step"], max_abs_err=max_err,
-        ms=ms_kernel, plain_ms=ms_plain, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
-    )]}), flush=True)
+    def entry(name, launches_, err, ms, plain_ms, bound):
+        return dict(
+            name=name, route="cuda",
+            source=("tpudes_torch/csrc/lte_sm_step.cu"
+                    if name == "lte_sm_step"
+                    else "tpudes_torch/csrc/lte_sm_advance.cu"),
+            replaces="tpudes/parallel/kernels_pallas.py:473",
+            launches=launches_, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+        )
+
+    print(json.dumps({"kernels": [
+        entry("lte_sm_advance", launches["lte_sm_advance"], adv_err, ms_adv,
+              ms_adv_plain, (adv_bound_ms, adv_bound_by)),
+        entry("lte_sm_advance:dynamic",
+              mlaunches["lte_sm_advance:dynamic"], dyn_err, ms_dyn,
+              ms_dyn_plain, (dyn_bound_ms, dyn_bound_by)),
+        entry("lte_sm_advance:sweep", slaunches["lte_sm_advance:sweep"],
+              sweep_err, ms_sweep, ms_sweep_plain,
+              (sweep_bound_ms, sweep_bound_by)),
+        entry("lte_sm_step", step_launches["lte_sm_step"], max_err,
+              ms_kernel, ms_plain, (bound_ms, bound_by)),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -29,6 +29,7 @@ from tpudes.parallel.lte_sm import run_lte_sm as jax_run_lte_sm
 from tpudes.scenarios import build_lena
 from tpudes.scenarios import hex_grid as jax_hex_grid
 from tpudes_torch.convert import PROGRAM_FIELDS, program_from_numpy
+from tpudes_torch.ops.mobility import MobilityProgram
 from tpudes_torch.parallel.lte_sm import LteSmProgram, run_lte_sm
 from tpudes_torch.random import PRNGKey
 from tpudes_torch.scenarios import hex_grid, lena_grid_program, lena_ue_drop
@@ -131,9 +132,7 @@ def test_lena_ue_drop_geometry():
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [dict(precision="bf16"), dict(mobility=object()),
-     dict(traffic=object())],
+    "kwargs", [dict(precision="bf16"), dict(traffic=object())],
 )
 def test_unported_program_arms_raise(lena, kwargs):
     fields = {k: getattr(lena[0], k) for k in PROGRAM_FIELDS}
@@ -141,10 +140,45 @@ def test_unported_program_arms_raise(lena, kwargs):
         LteSmProgram(**fields, **kwargs)
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(schedulers=["pf", "rr"]), dict(mesh=object()), dict(obs=True)],
-)
+def _static_mobility(lena):
+    """The lena program with its UEs standing still on the mobile path."""
+    prog, (enb_pos, ue_pos) = lena
+    fields = {k: getattr(prog, k) for k in PROGRAM_FIELDS}
+    fields.update(enb_pos=np.asarray(enb_pos, np.float32),
+                  pathloss=("friis", 2.12e9, 1.0, 0.0), geom_stride=4)
+    return fields, MobilityProgram.static(ue_pos)
+
+
+def test_program_takes_mobility(lena):
+    """The mobility arm runs; traffic on a mobile program is refused, as
+    the reference refuses it."""
+    fields, mob = _static_mobility(lena)
+    prog = LteSmProgram(**dict(fields, n_ttis=40), mobility=mob)
+    out = run_lte_sm(prog, PRNGKey(KEY_SEED), replicas=2, device="cpu")
+    assert (out["geom_refreshes"], out["geom_stride"]) == (10, 4)
+    assert out["rx_bits"].shape == (2, prog.n_ue) and out["rx_bits"].sum() > 0
+    static = run_lte_sm(dataclasses.replace(prog, mobility=None),
+                        PRNGKey(KEY_SEED), replicas=2, device="cpu")
+    assert np.array_equal(out["cqi"], static["cqi"])
+    with pytest.raises(ValueError, match="traffic"):
+        LteSmProgram(**fields, mobility=mob, traffic=object())
+
+
+def test_run_takes_schedulers(lena):
+    """A sweep returns one dict per point, each the single-point run on
+    the same key."""
+    port = _port(dataclasses.replace(lena[0], n_ttis=60))
+    swept = run_lte_sm(port, PRNGKey(KEY_SEED), replicas=2, device="cpu",
+                       schedulers=["pf", "rr"])
+    assert isinstance(swept, list) and len(swept) == 2
+    for sched, got in zip(["pf", "rr"], swept):
+        one = run_lte_sm(dataclasses.replace(port, scheduler=sched),
+                         PRNGKey(KEY_SEED), replicas=2, device="cpu")
+        for k in INT_KEYS:
+            assert np.array_equal(got[k], one[k]), (sched, k)
+
+
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(obs=True)])
 def test_unported_run_options_raise(lena, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_lte_sm(_port(lena[0]), PRNGKey(0), device="cpu", **kwargs)

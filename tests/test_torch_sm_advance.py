@@ -10,7 +10,11 @@ already hold against the reference:
 - the cell grouping (``cell_order``/``cell_start``) and a numpy mirror
   of the kernel's admission scan and winner key agree with
   ``sm_admit_retx`` and ``sm_dispatch``;
-- the wrapper's device dispatch and the C launcher's signature.
+- a numpy mirror of the dynamic arm's refresh-row rule picks the
+  reference's refresh and the row the plain loop reads; the sweep's
+  lanes are its points on shared keys;
+- the wrapper's device dispatch, its checks of the table and the sweep,
+  and the C launcher's signature.
 
 Tolerance: none — state bit for bit, winners and admissions exactly.
 The kernel against ``sm_advance_math`` on the card is
@@ -97,6 +101,127 @@ def test_advance_math_equals_stepping_every_scheduler(sched, monkeypatch):
         assert torch.equal(_bits(got[k]), _bits(want[k])), (sched, k)
     for k in ("new_tbs", "retx", "drops", "ok_cnt"):
         assert int((got[k] - s[k]).sum()) > 0, (sched, k)
+
+
+def _random_table(c, J, rng):
+    """``J`` refreshes of the dynamic rows, drawn with numpy: MCS per
+    UE and refresh, the rows it implies, a few UEs out of coverage."""
+    from tpudes_torch.ops.lte import _MCS_ECR, _MCS_EFF
+
+    U = c["U"]
+    mcs = rng.integers(0, 29, (J, U))
+    eff0 = _MCS_EFF[mcs]
+    return dict(
+        mi0=torch.from_numpy(
+            (rng.uniform(0.2, 1.0, (J, U)) ** 3).astype(np.float32)
+        ),
+        rate0=torch.from_numpy(
+            (np.floor(eff0 * c["rbg_size"] * 120.0) * 1000.0).astype(np.float32)
+        ),
+        eff0=torch.from_numpy(eff0),
+        ecr0=torch.from_numpy(_MCS_ECR[mcs]),
+        eligible=torch.from_numpy(
+            (rng.random((J, U)) > 0.15).astype(np.int32)
+        ),
+    )
+
+
+def kernel_row_index(t0: int, t1: int, stride: int) -> np.ndarray:
+    """The table row ``csrc/lte_sm_advance.cu``'s dynamic arm holds in
+    registers at each TTI of ``[t0, t1)``, mirrored in numpy: row 0 from
+    ``t0``; a counter of the next refresh TTI, first ``(t0 // stride +
+    1) * stride``, moves on by ``stride`` each time it is reached, and
+    the row held moves on by one."""
+    row, next_refresh, out = 0, (t0 // stride + 1) * stride, []
+    for t in range(t0, t1):
+        if t == next_refresh:
+            row += 1
+            next_refresh += stride
+        out.append(row)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("t0,t1,stride", [
+    (0, 40, 1), (0, 40, 8), (5, 45, 8), (8, 9, 8), (13, 14, 8), (61, 141, 8),
+    (1000, 1061, 8), (7, 50, 3), (3, 11, 16),
+])
+def test_refresh_row_rule_matches_the_reference_refresh(t0, t1, stride):
+    """The kernel's row at TTI ``t`` is the refresh at ``stride *
+    (t // stride)``, the one the reference's carried rows hold (a range
+    that starts mid-stride runs on the refresh before it), and it lies
+    inside the table ``table_rows`` sizes."""
+    rows = kernel_row_index(t0, t1, stride)
+    t = np.arange(t0, t1)
+    assert np.array_equal(stride * (t0 // stride + rows),
+                          stride * (t // stride))
+    assert rows.min() == 0
+    assert rows.max() == kc.table_rows(t0, t1, stride) - 1
+
+
+@pytest.mark.parametrize("t0,t1,stride", [(37, 81, 8), (40, 60, 1),
+                                          (5, 30, 3)])
+def test_plain_loop_reads_the_rows_the_kernel_holds(t0, t1, stride):
+    """``sm_advance_math`` with a table equals stepping ``sm_step_math``
+    with the constants' dynamic rows replaced, TTI by TTI, by the row
+    :func:`kernel_row_index` says the kernel holds."""
+    prog = _program()
+    c = _consts(prog)
+    rng = np.random.default_rng(stride)
+    s = _warm_state(c, t0, rng)
+    table = _random_table(c, kc.table_rows(t0, t1, stride), rng)
+    keys = replica_keys(PRNGKey(9), R)
+    got = kc.sm_advance(c, s, keys, t0, t1, 0, table, stride)
+    coins = tti_coins(keys, t0, t1, prog.n_ue)
+    want = s
+    for i, j in enumerate(kernel_row_index(t0, t1, stride)):
+        cj = dict(c, **{k: table[k][j] for k in kc.SM_DYNAMIC_ROWS})
+        want = kc.sm_step_math(cj, want, coins[i], t0 + i, 0)
+    for k, _, _ in kc.SM_STATE:
+        assert torch.equal(_bits(got[k]), _bits(want[k])), k
+    static = kc.sm_advance(c, s, keys, t0, t1, 0)
+    assert not torch.equal(static["rx_lo"], got["rx_lo"])
+
+
+def test_sweep_lanes_are_points_on_shared_keys():
+    """``sids`` of C points runs lane ``c * R + r`` as replica ``r`` of
+    point ``c``, every point on the same replica keys."""
+    prog = _program()
+    c = _consts(prog)
+    s = _warm_state(c, 20, np.random.default_rng(1))
+    keys = replica_keys(PRNGKey(4), R)
+    sids = torch.tensor([3, 0, 8], dtype=torch.int32)
+    swept = kc.sm_advance(
+        c, {k: torch.cat([v] * 3) for k, v in s.items()}, keys, 20, 50, sids
+    )
+    for i, sid in enumerate(sids.tolist()):
+        one = kc.sm_advance(c, s, keys, 20, 50, sid)
+        for k, _, _ in kc.SM_STATE:
+            assert torch.equal(_bits(swept[k][i * R:(i + 1) * R]),
+                               _bits(one[k])), (sid, k)
+
+
+def test_advance_kernel_checks_the_table_and_the_sweep():
+    """The CUDA wrapper refuses a table or ``sids`` of the wrong shape or
+    type before it launches (these tensors are on the CPU, so a check
+    that passed would go on to build the kernel)."""
+    prog = _program()
+    c = kc.build_sm_consts(prog, device="cpu")
+    s = kc.sm_init_state(prog.n_enb, prog.n_ue, 2, device="cpu")
+    keys = torch.zeros((2, 2), dtype=torch.int64)
+    table = _random_table(c, kc.table_rows(5, 21, 8), np.random.default_rng(0))
+    with pytest.raises(ValueError, match=r"rows\[mi0\]"):
+        kc.sm_advance_cuda(c, s, keys, 5, 30, 0, table, 8)
+    bad = dict(table, eligible=table["eligible"].float())
+    with pytest.raises(ValueError, match=r"rows\[eligible\]"):
+        kc.sm_advance_cuda(c, s, keys, 5, 21, 0, bad, 8)
+    with pytest.raises(ValueError, match="stride"):
+        kc.sm_advance_cuda(c, s, keys, 5, 21, 0, table, 0)
+    with pytest.raises(ValueError, match="sids"):
+        kc.sm_advance_cuda(c, s, keys, 5, 21,
+                           torch.tensor([0, 1], dtype=torch.int64))
+    with pytest.raises(ValueError, match="avg"):          # C * R lanes
+        kc.sm_advance_cuda(c, s, keys, 5, 21,
+                           torch.tensor([0, 1], dtype=torch.int32))
 
 
 def _random_program(seed, E=5, U=40):

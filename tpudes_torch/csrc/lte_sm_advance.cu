@@ -3,9 +3,12 @@
 //
 // Replaces the same TPU kernel as lte_sm_step.cu — build_sm_step_fn
 // (tpudes/parallel/kernels_pallas.py:396, pl.pallas_call at :473, body
-// sm_step_math at :371) — together with the reference's device TTI loop
-// around it (tpudes/parallel/lte_sm.py:741, a lax.while_loop) and its
-// per-TTI coin draw (lte_sm.py:678, :423).
+// sm_step_math at :371) — in its static arm, its dynamic-row arm
+// (dynamic=SM_DYNAMIC_ROWS, kernels_pallas.py:406-411, :477-484) and its
+// config sweep (the sid axis vmapped, tpudes/parallel/lte_sm.py:766,
+// :817), together with the reference's device TTI loops around it
+// (lte_sm.py:741 and :820, lax.while_loops, the latter with the geometry
+// refresh cond at :799) and its per-TTI coin draw (lte_sm.py:678, :806).
 //
 // Design, for the H100:
 // - One CTA per replica.  Thread j holds the UEs at cell-sorted positions
@@ -33,6 +36,23 @@
 // - Two barriers per TTI.  The per-cell counters are double-buffered by TTI
 //   parity, and the idle buffer is cleared between the two barriers.
 //
+// - Dynamic rows (the mobile path, template flag DYN): the five
+//   SINR-derived rows mi0, rate0, eff0, ecr0, eligible come from a table of
+//   geometry refreshes, row j holding the refresh at TTI
+//   stride * (t0 / stride + j).  At t == t0 and at every t % stride == 0
+//   (counted, not divided) each thread takes its UEs' five values of row
+//   t / stride - t0 / stride,
+//   before stage A, so a launch that starts mid-stride runs on the refresh
+//   it starts inside.  Row 0 is loaded at t0; every later row was loaded
+//   into five more registers at the refresh before it, so its loads have a
+//   stride of TTIs to arrive.  The table is shared by every replica and
+//   config point.  The static arm (DYN false) loads the program's rows
+//   once, as before.
+// - Config sweep: the grid is (R, C); CTA (r, c) runs replica r of config
+//   point c with scheduler id sids[c] on state row c * R + r, and draws
+//   replica r's coins (the keys are shared across points, as the
+//   reference's sweep shares them).
+//
 // Arithmetic: lte_sm_common.cuh's, bit-identical on the card to the plain
 // PyTorch loop sm_advance_math (tpudes_torch/parallel/kernels_cuda.py).
 //
@@ -58,6 +78,12 @@
 namespace {
 
 using namespace lte_sm;
+
+// the geometry refreshes of one launch: (J, U) rows, row-major
+struct Table {
+  const float *mi0, *rate0, *eff0, *ecr0;
+  const int* eligible;
+};
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -101,11 +127,32 @@ __device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
   return x;
 }
 
+// row j of the table into the five registers of each position held
 template <int K>
+__device__ __forceinline__ void load_row(const Table& tab, int j, int U,
+                                         const int (&ue)[K],
+                                         const bool (&valid)[K],
+                                         float (&mi0)[K], float (&rate0)[K],
+                                         float (&eff0)[K], float (&ecr0)[K],
+                                         int (&elig)[K]) {
+  const long long base = static_cast<long long>(j) * U;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long q = base + (valid[k] ? ue[k] : 0);
+    mi0[k] = tab.mi0[q];
+    rate0[k] = tab.rate0[q];
+    eff0[k] = tab.eff0[q];
+    ecr0[k] = tab.ecr0[q];
+    elig[k] = tab.eligible[q];
+  }
+}
+
+template <int K, bool DYN>
 __global__ void __launch_bounds__(ADV_MAX_THREADS)
-    lte_sm_advance_kernel(Consts c, StateIn si, StateOut so,
-                          const long long* __restrict__ keys, Params p,
-                          int t0, int t1) {
+    lte_sm_advance_kernel(Consts c, Table tab, StateIn si, StateOut so,
+                          const long long* __restrict__ keys,
+                          const int* __restrict__ sids, Params p, int t0,
+                          int t1, int stride) {
   __shared__ int s_scan[ADV_MAX_U];         // in-chunk inclusive request scan
   __shared__ int s_chunk[ADV_MAX_U / 32];   // each 32-position chunk's total
   __shared__ int s_rr[ADV_MAX_E];           // the cells' RR pointers
@@ -114,7 +161,9 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
 
   const int U = p.U, E = p.E, B = blockDim.x;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int r = blockIdx.x;
+  const int r = blockIdx.x;                      // replica: its coins
+  const int row = blockIdx.y * gridDim.x + r;    // its state row
+  const int sid = sids != nullptr ? sids[blockIdx.y] : p.sid;
   const int nchunk = (U + 31) >> 5;
 
   // the positions this thread holds: their UE, cell, constants and state
@@ -132,19 +181,20 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
     ue[k] = u;
     cell[k] = e;
     before_cell[k] = valid[k] ? c.cell_start[e] - 1 : -1;
-    elig[k] = valid[k] && c.eligible[u] != 0;
     pos[k] = c.pos[u];
     count_u[k] = c.count_u[u];
     count_c[k] = valid[k] ? c.count_c[e] : 1;
-    mi0[k] = c.mi0[u];
-    rate0[k] = c.rate0[u];
-    eff0[k] = c.eff0[u];
-    ecr0[k] = c.ecr0[u];
-    st[k] = valid[k] ? load_ue(si, r * U + u) : Ue{};
+    // the static arm's rows, once; the dynamic arm loads them at t0
+    elig[k] = !DYN && valid[k] && c.eligible[u] != 0;
+    mi0[k] = DYN ? 0.0f : c.mi0[u];
+    rate0[k] = DYN ? 0.0f : c.rate0[u];
+    eff0[k] = DYN ? 0.0f : c.eff0[u];
+    ecr0[k] = DYN ? 0.0f : c.ecr0[u];
+    st[k] = valid[k] ? load_ue(si, row * U + u) : Ue{};
     group[k] = __match_any_sync(kFull, e);
   }
   for (int e = tid; e < E; e += B) {
-    s_rr[e] = si.rr_ptr[r * E + e];
+    s_rr[e] = si.rr_ptr[row * E + e];
     s_used[0][e] = s_used[1][e] = 0;
     s_key[0][e] = s_key[1][e] = 0ull;
   }
@@ -154,10 +204,44 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
   const unsigned long long no_win =
       (static_cast<unsigned long long>(orderable(kNeg)) << 32) | 0xFFFFFFFFull;
   uint32_t kt0 = 0u, kt1 = 0u;  // fold_in(key, t + lane) for this 32-TTI run
+  // the dynamic arm's last table row, its eligibility as loaded and the
+  // next refresh's five values in flight
+  const int j_last = DYN ? (t1 - 1) / stride - t0 / stride : 0;
+  // the refresh TTI after t0 (a multiple of stride) and the row held
+  long long next_refresh =
+      DYN ? (static_cast<long long>(t0 / stride) + 1) * stride : 0;
+  int j = 0;
+  int elig_n[K], nx_elig[K];
+  float nx_mi0[K], nx_rate0[K], nx_eff0[K], nx_ecr0[K];
   __syncthreads();
 
   for (int t = t0; t < t1; ++t) {
     const int i = t - t0, b = i & 1;
+    if (DYN && (t == t0 || t == next_refresh)) {
+      // the refresh this TTI runs on, row j = t / stride - t0 / stride:
+      // loaded now at t0, else prefetched at the refresh before; then
+      // the next row's prefetch, which has a stride of TTIs to land
+      if (t == next_refresh) {
+        ++j;
+        next_refresh += stride;
+      }
+      if (t == t0) load_row(tab, 0, U, ue, valid, mi0, rate0, eff0, ecr0,
+                            elig_n);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (t != t0) {
+          mi0[k] = nx_mi0[k];
+          rate0[k] = nx_rate0[k];
+          eff0[k] = nx_eff0[k];
+          ecr0[k] = nx_ecr0[k];
+          elig_n[k] = nx_elig[k];
+        }
+        elig[k] = valid[k] && elig_n[k] != 0;
+      }
+      if (j < j_last)
+        load_row(tab, j + 1, U, ue, valid, nx_mi0, nx_rate0, nx_eff0,
+                 nx_ecr0, nx_elig);
+    }
     if ((i & 31) == 0) {
       kt0 = 0u;
       kt1 = static_cast<uint32_t>(t + lane);
@@ -215,7 +299,7 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
 
       const bool cand = elig[k] && st[k].pend == 0;
       const uint32_t hi =
-          cand ? orderable(metric(p.sid, rate0[k], st[k].avg, pos[k],
+          cand ? orderable(metric(sid, rate0[k], st[k].avg, pos[k],
                                   s_rr[max(cell[k], 0)], count_u[k]))
                : 0u;
       const uint32_t best = __reduce_max_sync(group[k], hi);
@@ -252,15 +336,22 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (valid[k]) store_ue(so, r * U + ue[k], st[k]);
-  for (int e = tid; e < E; e += B) so.rr_ptr[r * E + e] = s_rr[e];
+    if (valid[k]) store_ue(so, row * U + ue[k], st[k]);
+  for (int e = tid; e < E; e += B) so.rr_ptr[row * E + e] = s_rr[e];
 }
 
 template <int K>
-int launch(const Consts& c, const StateIn& si, const StateOut& so,
-           const long long* keys, const Params& p, int R, int B, int t0,
-           int t1, cudaStream_t stream) {
-  lte_sm_advance_kernel<K><<<R, B, 0, stream>>>(c, si, so, keys, p, t0, t1);
+int launch(const Consts& c, const Table& tab, const StateIn& si,
+           const StateOut& so, const long long* keys, const int* sids,
+           const Params& p, int R, int C, int B, int t0, int t1, int stride,
+           cudaStream_t stream) {
+  const dim3 grid(R, C);
+  if (tab.mi0 != nullptr)
+    lte_sm_advance_kernel<K, true><<<grid, B, 0, stream>>>(
+        c, tab, si, so, keys, sids, p, t0, t1, stride);
+  else
+    lte_sm_advance_kernel<K, false><<<grid, B, 0, stream>>>(
+        c, tab, si, so, keys, sids, p, t0, t1, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,7 +361,9 @@ extern "C" int lte_sm_advance_launch(
     const float* mi0, const float* rate0, const float* eff0,
     const float* ecr0, const int* eligible, const int* pos,
     const int* count_u, const int* serving, const int* count_c,
-    const int* cell_order, const int* cell_start, const long long* keys,
+    const int* cell_order, const int* cell_start, const float* tab_mi0,
+    const float* tab_rate0, const float* tab_eff0, const float* tab_ecr0,
+    const int* tab_eligible, const long long* keys, const int* sids,
     const float* avg, const int* pend, const float* p_mi, const float* p_tbb,
     const int* p_nrbg, const int* p_txc, const int* p_due, const int* rr_ptr,
     const int* rx_lo, const int* rx_hi, const int* new_tbs, const int* retx,
@@ -278,14 +371,19 @@ extern "C" int lte_sm_advance_launch(
     float* o_avg, int* o_pend, float* o_p_mi, float* o_p_tbb, int* o_p_nrbg,
     int* o_p_txc, int* o_p_due, int* o_rr_ptr, int* o_rx_lo, int* o_rx_hi,
     int* o_new_tbs, int* o_retx, int* o_drops, int* o_ok_cnt,
-    int R, int E, int U, int n_rbg, int rbg_size, int n_rb,
+    int R, int C, int E, int U, int n_rbg, int rbg_size, int n_rb,
     float alpha, float one_minus_alpha, float inv_sqrt2, int t0, int t1,
-    int sid, void* stream) {
+    int sid, int stride, void* stream) {
+  const bool dyn = tab_mi0 != nullptr;
   if (U <= 0 || U > ADV_MAX_U || E <= 0 || E > ADV_MAX_E || R <= 0 ||
-      t0 < 0 || t1 < t0 || t1 > ADV_MAX_T)
+      C <= 0 || C > 65535 || (C > 1 && sids == nullptr) || t0 < 0 ||
+      t1 < t0 || t1 > ADV_MAX_T || stride <= 0 ||
+      (dyn && (tab_rate0 == nullptr || tab_eff0 == nullptr ||
+               tab_ecr0 == nullptr || tab_eligible == nullptr)))
     return cudaErrorInvalidValue;
   const Consts c{mi0,     rate0,   eff0,    ecr0,       eligible,  pos,
                  count_u, serving, count_c, cell_order, cell_start};
+  const Table tab{tab_mi0, tab_rate0, tab_eff0, tab_ecr0, tab_eligible};
   const StateIn si{avg, pend, p_mi, p_tbb, p_nrbg, p_txc, p_due, rr_ptr,
                    rx_lo, rx_hi, new_tbs, retx, drops, ok_cnt};
   const StateOut so{o_avg, o_pend, o_p_mi, o_p_tbb, o_p_nrbg, o_p_txc,
@@ -297,9 +395,17 @@ extern "C" int lte_sm_advance_launch(
   const int B = padded < ADV_MAX_THREADS ? padded : ADV_MAX_THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((U + B - 1) / B) {
-    case 1: return launch<1>(c, si, so, keys, p, R, B, t0, t1, st);
-    case 2: return launch<2>(c, si, so, keys, p, R, B, t0, t1, st);
-    case 3: return launch<3>(c, si, so, keys, p, R, B, t0, t1, st);
-    default: return launch<4>(c, si, so, keys, p, R, B, t0, t1, st);
+    case 1:
+      return launch<1>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
+                       stride, st);
+    case 2:
+      return launch<2>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
+                       stride, st);
+    case 3:
+      return launch<3>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
+                       stride, st);
+    default:
+      return launch<4>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
+                       stride, st);
   }
 }

@@ -1,0 +1,152 @@
+"""f32 arithmetic as the reference compiles it inside a jitted function.
+
+The reference's device geometry stage (``tpudes/parallel/lte_sm.py``,
+``_build_geom_fn``) runs under ``jit``, and its compiler does not
+evaluate the source's operations one by one (the optimised HLO of the
+stage on the CPU shows it):
+
+- a product feeding a sum becomes one fused multiply-add (a reduction
+  accumulates ``acc + x * y`` the same way), rounded once;
+- ``log`` is the compiler's own polynomial (Cephes ``logf`` as in
+  Eigen's ``plog_float``), not the C library's, and ``log10`` / ``log2``
+  multiply it by one folded f32 constant;
+- a division by a constant is a multiplication by its f32 reciprocal;
+- ``power`` is the C library's ``powf`` (glibc's table-driven one).
+
+:func:`fma`, :func:`log` and :func:`exp10` reproduce the first, second
+and last from IEEE f32 and f64 operations and integer bit operations,
+which round the same way on the CPU and on the card.  An f64 product of
+two f32 values is exact, so ``fma`` rounds the f64 sum once more to
+f32: it can differ from a true fused multiply-add only where the f64
+sum lands exactly on an f32 tie.
+"""
+
+from __future__ import annotations
+
+from decimal import Decimal, localcontext
+
+import numpy as np
+import torch
+
+#: Cephes ``logf``: the polynomial coefficients, then the split of ln 2
+_LOG_P = (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+    -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+    2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1,
+)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.70710677
+_FLT_MIN = 1.17549435e-38
+_MANT_MASK = -2139095041   # 0x807FFFFF: sign and mantissa bits
+_HALF_BITS = 0x3F000000    # the exponent of 0.5
+
+#: glibc ``powf(10, y)``: ``log2(10)`` as its table-driven log2 returns
+#: it (table entry 13 and its degree-5 polynomial), then its exp2 of
+#: ``y * log2(10)`` in f64: the nearest multiple of 1/32, a 32-entry
+#: table of ``2 ** (i / 32)`` and a cubic for the rest
+_POWF_LOG2_10 = float.fromhex("0x1.a934f0979b22dp+1")
+_EXP2F_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1",
+))
+_EXP2F_SHIFT = float.fromhex("0x1.8p+52") / 32
+
+
+def _exp2f_table() -> np.ndarray:
+    """The bits of ``2 ** (i / 32)``, i < 32, rounded to f64 (glibc's
+    ``__exp2f_data.tab`` with its index term added back)."""
+    with localcontext() as ctx:
+        ctx.prec = 60
+        vals = [float(Decimal(2) ** (Decimal(i) / 32)) for i in range(32)]
+    return np.asarray(vals, np.float64).view(np.int64)
+
+
+_EXP2F_TAB_BITS = _exp2f_table()
+
+
+_ON_DEVICE: dict = {}
+
+
+def f32(like: torch.Tensor, value) -> torch.Tensor:
+    """A 0-dim f32 tensor holding ``float32(value)`` on ``like``'s device,
+    made there once (a fill, not a copy from the host) and kept."""
+    v = float(np.float32(value))
+    key = (v, str(like.device))
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = torch.full((), v, dtype=torch.float32,
+                                           device=like.device)
+    return out
+
+
+def device_table(table: np.ndarray, device) -> torch.Tensor:
+    """A module's constant numpy ``table`` on ``device``, copied there
+    once per device and kept."""
+    key = (id(table), str(torch.device(device)))
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = torch.as_tensor(table, device=device)
+    return out
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32 (tensors or 0-dim tensors)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of f32 ``x >= 0`` (the
+    reference's and the card's ``sqrtf``).  PyTorch's vectorised roots on
+    the CPU are not correctly rounded (the f32 one misses about one value
+    in 150, the f64 one by an f64 ulp), so the f64 root rounded to f32 is
+    checked against the two midpoints around it: each has 25 bits, so
+    its square is exact in f64, and the root moves to a neighbour when a
+    midpoint's square shows the true root on the other side."""
+    x64 = x.double()
+    y = torch.sqrt(x64).float()
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    down = torch.nextafter(y, torch.zeros_like(y))
+    hi = (y.double() + up.double()) * 0.5
+    lo = (y.double() + down.double()) * 0.5
+    return torch.where(hi * hi < x64, up,
+                       torch.where(lo * lo > x64, down, y))
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive f32 ``x`` as the reference's compiled
+    ``log`` computes it: range reduction to ``[sqrt(1/2), sqrt 2)``,
+    the Cephes polynomial with its multiply-adds fused, and the
+    exponent times ln 2 in two parts."""
+    x = torch.clamp_min(x, f32(x, _FLT_MIN))
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & _MANT_MASK) | _HALF_BITS).view(torch.float32)  # [0.5, 1)
+    low = m < f32(x, _SQRT_HALF)
+    e = e - low.to(torch.float32)
+    z = (m - 1.0) + torch.where(low, m, f32(x, 0.0))
+    z2 = z * z
+    z3 = z2 * z
+    p = [f32(x, v) for v in _LOG_P]
+    y0 = fma(fma(z, p[0], p[1]), z, p[2])
+    y1 = fma(fma(z, p[3], p[4]), z, p[5])
+    y2 = fma(fma(z, p[6], p[7]), z, p[8])
+    y = fma(fma(y0, z3, y1), z3, y2)
+    y = fma(y, z3, e * f32(x, _LOG_Q1))
+    return (fma(f32(x, -0.5), z2, z) + y) + e * f32(x, _LOG_Q2)
+
+
+def exp10(y: torch.Tensor) -> torch.Tensor:
+    """``10 ** y`` for f32 ``y`` as the reference's compiled ``power``
+    computes it (glibc ``powf``): ``x = y log2(10)`` in f64, ``x = k/32
+    + r``, ``2 ** (k/32)`` from the table with ``k >> 5`` added to its
+    exponent, times the cubic in ``r``, rounded once to f32.  A result
+    below the smallest normal f32 is 0, as the reference's CPU runs with
+    subnormals flushed."""
+    c0, c1, c2 = _EXP2F_POLY
+    x = y.double() * _POWF_LOG2_10
+    kd = (x + _EXP2F_SHIFT) - _EXP2F_SHIFT                  # k / 32
+    r = x - kd
+    k = (kd * 32.0).to(torch.int64)
+    tab = device_table(_EXP2F_TAB_BITS, y.device)
+    s = (tab[k & 31] + ((k >> 5) << 52)).view(torch.float64)
+    out = ((c0 * r + c1) * (r * r) + (c2 * r + 1.0)) * s
+    return torch.where(out < _FLT_MIN, 0.0, out).float()

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from tpudes_torch.ops import fused as compiled
+
 RB_BANDWIDTH_HZ = 180e3          # 12 subcarriers x 15 kHz
 RE_PER_RB_DATA = 120.0           # ~168 REs/RB/TTI minus PDCCH + RS overhead
 BOLTZMANN_T = 1.380649e-23 * 290.0
@@ -66,6 +68,7 @@ _CQI_TO_MCS = np.array(
 #: f32 reciprocals of the constant divisors XLA rewrites (see docstring)
 INV_LN2_F32 = float(np.float32(1.0) / np.log(np.float32(2.0)))
 INV_SQRT2_F32 = float(np.float32(1.0) / np.float32(math.sqrt(2.0)))
+INV_SNR_GAP_F32 = float(np.float32(1.0) / np.float32(SNR_GAP))
 
 
 def noise_psd_w(noise_figure_db: float) -> float:
@@ -75,32 +78,44 @@ def noise_psd_w(noise_figure_db: float) -> float:
 
 def f32_const(like: torch.Tensor, value: float) -> torch.Tensor:
     """A 0-dim f32 tensor on ``like``'s device (a true divisor on CUDA)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
-def _gapped_log2(sinr: torch.Tensor) -> torch.Tensor:
-    """log2(1 + sinr / SNR_GAP) in f32, in the reference's arithmetic."""
+def gapped_log2(sinr: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """log2(1 + sinr / SNR_GAP) in f32, the gapped Shannon efficiency,
+    in the reference's arithmetic: op by op, or compiled (``fused``)."""
+    if fused:
+        one = compiled.f32(sinr, 1.0)
+        return compiled.log(compiled.fma(
+            sinr, compiled.f32(sinr, INV_SNR_GAP_F32), one
+        )) * INV_LN2_F32
     return torch.log(1.0 + sinr / f32_const(sinr, SNR_GAP)) * INV_LN2_F32
 
 
-def cqi_from_sinr(sinr: torch.Tensor) -> torch.Tensor:
+def cqi_from_efficiency(se: torch.Tensor) -> torch.Tensor:
     """Wideband CQI (int32): the highest CQI whose efficiency the gapped
-    Shannon efficiency supports (lte-amc PiroEW2010 mapping)."""
-    se = _gapped_log2(sinr)
-    eff = torch.as_tensor(_CQI_EFF, device=sinr.device)
+    Shannon efficiency ``se`` supports (lte-amc PiroEW2010 mapping)."""
+    eff = compiled.device_table(_CQI_EFF, se.device)
     hit = (eff <= se[..., None]) & (eff > 0.0)
     return hit.sum(dim=-1, dtype=torch.int32)
 
 
+def cqi_from_sinr(sinr: torch.Tensor) -> torch.Tensor:
+    return cqi_from_efficiency(gapped_log2(sinr))
+
+
 def mcs_from_cqi(cqi: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_CQI_TO_MCS, device=cqi.device)[cqi.long()]
+    return compiled.device_table(_CQI_TO_MCS, cqi.device)[cqi.long()]
+
+
+def mi_from_efficiency(se: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
+    """Normalised per-RB mutual information in [0, 1]: the gapped Shannon
+    capacity ``se`` capped at the modulation order."""
+    return torch.minimum(se, qm) / qm
 
 
 def mi_per_rb(sinr: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
-    """Normalised per-RB mutual information in [0, 1]: gapped Shannon
-    capacity capped at the modulation order."""
-    cap = _gapped_log2(sinr)
-    return torch.minimum(cap, qm) / qm
+    return mi_from_efficiency(gapped_log2(sinr), qm)
 
 
 def tb_bler_ecr(
@@ -109,7 +124,7 @@ def tb_bler_ecr(
     """TB block-error rate from effective MI on a pre-gathered code
     rate: Gaussian waterfall with finite-blocklength dispersion and the
     margin that gives 10 % BLER at MI = code rate."""
-    sigma = f32_const(tb_bits, BLER_DISPERSION) / torch.sqrt(
+    sigma = f32_const(tb_bits, BLER_DISPERSION) / compiled.sqrt(
         torch.clamp_min(tb_bits, 24.0)
     )
     margin = BLER_TARGET_Q * sigma

@@ -12,7 +12,10 @@ reference's decode coins.  Two kernels replace the TPU's
 ``pl.pallas_call`` (``kernels_pallas.py:473``):
 
 - ``csrc/lte_sm_advance.cu`` runs a whole range of TTIs in one launch,
-  drawing the coins inside (:func:`sm_advance`; ``run_lte_sm``'s path);
+  drawing the coins inside (:func:`sm_advance`; ``run_lte_sm``'s path),
+  for C config points (one scheduler id each) at once, with the
+  SINR-derived rows either the program's constants (static) or a table
+  of geometry refreshes (mobile: :data:`SM_DYNAMIC_ROWS`);
 - ``csrc/lte_sm_step.cu`` runs one TTI on coins the caller gives
   (:func:`sm_step`; the single-step route).
 
@@ -24,9 +27,11 @@ kernels round every product and sum on their own (``__fmul_rn``/
 and ``erfcf``, and the same evaluation order as the code below.
 
 Layout: state is a dict of :data:`SM_STATE` tensors with a leading
-replica axis, ``(R, U)`` per UE and ``(R, E)`` per cell (the reference
+lane axis, ``(C * R, U)`` per UE and ``(C * R, E)`` per cell, lane
+``c * R + r`` holding replica ``r`` of config point ``c`` (the reference
 carries ``(1, U)``/``(E, 1)`` per vmapped lane).  Constants are per
-program and shared by every replica.
+program and shared by every lane; so is a geometry table, whose row
+``j`` holds the refresh at TTI ``stride * (t0 // stride + j)``.
 """
 
 from __future__ import annotations
@@ -72,6 +77,9 @@ _MT_MAX = SM_SCHED_IDS["fdmt"]
 
 NEG = -1e30  # the "no candidate" metric fill
 
+#: the const rows a geometry refresh recomputes (``lte_sm.py:437``)
+SM_DYNAMIC_ROWS = ("mi0", "rate0", "eff0", "ecr0", "eligible")
+
 #: state layout: (key, axis, dtype) with axis "u" = (R, U), "e" = (R, E)
 SM_STATE = (
     ("avg", "u", "f32"), ("pend", "u", "i32"),
@@ -96,8 +104,13 @@ ADVANCE_MAX_T = 2147483000
 COIN_CHUNK_ELEMS = 1 << 22
 
 #: launches of each kernel since the last reset — counted where the
-#: kernel is launched and nowhere else
-launches = {"lte_sm_step": 0, "lte_sm_advance": 0}
+#: kernel is launched and nowhere else; ``lte_sm_advance``'s launches
+#: with a geometry table and with more than one config point are also
+#: counted under its ``:dynamic`` and ``:sweep`` arms
+launches = {
+    "lte_sm_step": 0, "lte_sm_advance": 0,
+    "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
+}
 
 
 def reset_launches() -> None:
@@ -313,20 +326,57 @@ def sm_step_math(c: dict, s: dict, coin, t: int, sid: int) -> dict:
     return sm_update(c, s, retx_fit, disp, tx, tbb_tx, mi_tx, ok, t)
 
 
+def _sid_list(sids) -> list:
+    """Scheduler ids as host ints: one int, or a ``(C,)`` tensor."""
+    if isinstance(sids, int):
+        return [sids]
+    return [int(x) for x in sids.tolist()]
+
+
+def table_rows(t0: int, t1: int, stride: int) -> int:
+    """Rows a geometry table needs for TTIs ``[t0, t1)``: the refreshes
+    ``stride * j`` for ``j`` from ``t0 // stride`` to
+    ``(t1 - 1) // stride``."""
+    return (t1 - 1) // stride - t0 // stride + 1 if t1 > t0 else 0
+
+
 def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-                    sid: int) -> dict:
+                    sids, rows: dict | None = None,
+                    stride: int = 1) -> dict:
     """TTIs ``[t0, t1)`` in plain PyTorch (any device): the decode coins
     of replica ``r`` at TTI ``t`` are ``uniform(fold_in(keys[r], t),
     (U,))`` (:func:`tpudes_torch.random.tti_coins`), drawn for as many
     TTIs at once as :data:`COIN_CHUNK_ELEMS` allows, then one
-    :func:`sm_step_math` per TTI."""
-    U = c["U"]
-    chunk = max(1, COIN_CHUNK_ELEMS // (len(keys) * U))
+    :func:`sm_step_math` per TTI.
+
+    ``sids`` is one scheduler id or a ``(C,)`` tensor of them; each
+    point's ``R`` lanes run on the same ``R`` keys.  ``rows`` (the
+    :data:`SM_DYNAMIC_ROWS`, each ``(J, U)``, ``J =``
+    :func:`table_rows`) replaces the program's rows: TTI ``t`` runs on
+    row ``t // stride - t0 // stride``, reloaded at ``t0`` and at every
+    multiple of ``stride``."""
+    points = _sid_list(sids)
+    R = len(keys)
+    if len(points) > 1:
+        parts = [
+            sm_advance_math(
+                c, {k: v[i * R:(i + 1) * R] for k, v in s.items()}, keys,
+                t0, t1, sid, rows, stride,
+            )
+            for i, sid in enumerate(points)
+        ]
+        return {k: torch.cat([p[k] for p in parts]) for k in s}
+    sid, U, ct = points[0], c["U"], c
+    chunk = max(1, COIN_CHUNK_ELEMS // (R * U))
     for c0 in range(t0, t1, chunk):
         c1 = min(c0 + chunk, t1)
         coins = tti_coins(keys, c0, c1, U)                  # (T, R, U)
         for i in range(c1 - c0):
-            s = sm_step_math(c, s, coins[i], c0 + i, sid)
+            t = c0 + i
+            if rows is not None and (t == t0 or t % stride == 0):
+                j = t // stride - t0 // stride
+                ct = {**c, **{k: rows[k][j] for k in SM_DYNAMIC_ROWS}}
+            s = sm_step_math(ct, s, coins[i], t, sid)
     return s
 
 
@@ -353,6 +403,7 @@ _CONST_ROWS = (
     ("eligible", torch.int32), ("pos", torch.int32),
     ("count_u", torch.int32), ("serving", torch.int32),
 )
+_ROW_DTYPES = dict(_CONST_ROWS)
 
 
 def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
@@ -366,14 +417,15 @@ def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
 
 
 def sm_advance(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-               sid: int) -> dict:
+               sids, rows: dict | None = None, stride: int = 1) -> dict:
     """TTIs ``[t0, t1)``: the plain loop for CPU tensors, one launch of
     the multi-TTI CUDA kernel for CUDA tensors (or an error).  ``keys``
-    is the ``(R, 2)`` int64 replica keys."""
+    is the ``(R, 2)`` int64 replica keys; ``sids``, ``rows`` and
+    ``stride`` as in :func:`sm_advance_math`."""
     if keys.device.type == "cpu":
-        return sm_advance_math(c, s, keys, t0, t1, sid)
+        return sm_advance_math(c, s, keys, t0, t1, sids, rows, stride)
     if keys.device.type == "cuda":
-        return sm_advance_cuda(c, s, keys, t0, t1, sid)
+        return sm_advance_cuda(c, s, keys, t0, t1, sids, rows, stride)
     raise ValueError(f"no LTE SM advance for device {keys.device}")
 
 
@@ -390,15 +442,17 @@ def _check(name, x, shape, dtype, device):
 
 
 def _kernel_io(name: str, c: dict, s: dict, R: int, dev) -> dict:
-    """Check what every launch reads (the constant rows and the state)
-    and allocate the state it writes, in fresh tensors (no in-place
-    hazard)."""
+    """Check what every launch reads (the constant rows and the ``R``
+    lanes of state) and allocate the state it writes, in fresh tensors
+    (no in-place hazard)."""
     E, U = c["E"], c["U"]
     if U > KERNEL_MAX_U or E > KERNEL_MAX_E:
         raise ValueError(
             f"{name} scratch holds U <= {KERNEL_MAX_U}, "
             f"E <= {KERNEL_MAX_E}; got U={U}, E={E}"
         )
+    if R * U >= 2**31:
+        raise ValueError(f"{name} indexes state in int32; R*U={R * U}")
     for k, dt in _CONST_ROWS:
         _check(k, c[k], (U,), dt, dev)
     _check("count_c", c["count_c"], (E,), torch.int32, dev)
@@ -421,12 +475,15 @@ def _scalars(c: dict, R: int) -> list:
     ]
 
 
-def _launch(name: str, *args) -> None:
-    """Call ``<name>_launch`` and count the launch; raise on an error."""
+def _launch(name: str, *args, arms: tuple = ()) -> None:
+    """Call ``<name>_launch`` and count the launch (and its ``arms``);
+    raise on an error."""
     err = _launcher(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
+    for arm in arms:
+        launches[f"{name}:{arm}"] += 1
 
 
 def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
@@ -450,11 +507,14 @@ def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
 
 
 def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-                    sid: int) -> dict:
-    """Launch ``lte_sm_advance`` once for TTIs ``[t0, t1)``: one CTA per
-    replica, the state in registers for the whole range, the coins drawn
-    in the kernel.  Raises on a bad argument or a launch error; never
-    takes the plain loop."""
+                    sids, rows: dict | None = None,
+                    stride: int = 1) -> dict:
+    """Launch ``lte_sm_advance`` once for TTIs ``[t0, t1)``: a grid of
+    ``(R, C)`` CTAs, one per replica and config point, the state in
+    registers for the whole range, the coins drawn in the kernel, the
+    rows reloaded from ``rows`` at each refresh when it is given.
+    Raises on a bad argument or a launch error; never takes the plain
+    loop."""
     if not 0 <= t0 <= t1 <= ADVANCE_MAX_T:
         raise ValueError(
             f"lte_sm_advance runs 0 <= t0 <= t1 <= {ADVANCE_MAX_T}; got "
@@ -465,16 +525,33 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
     _check("keys", keys, (R, 2), torch.int64, dev)
     _check("cell_order", c["cell_order"], (U,), torch.int32, dev)
     _check("cell_start", c["cell_start"], (E + 1,), torch.int32, dev)
-    out = _kernel_io("lte_sm_advance", c, s, R, dev)
+    if isinstance(sids, int):
+        C, sid, sids_ptr = 1, sids, None
+    else:
+        C, sid = sids.shape[0], 0
+        if not 1 <= C <= 65535:
+            raise ValueError(f"lte_sm_advance runs 1..65535 points; got {C}")
+        _check("sids", sids, (C,), torch.int32, dev)
+        sids_ptr = sids.data_ptr()
+    table = [None] * len(SM_DYNAMIC_ROWS)
+    if rows is not None:
+        if stride < 1:
+            raise ValueError(f"geometry stride must be >= 1; got {stride}")
+        J = table_rows(t0, t1, stride)
+        for i, k in enumerate(SM_DYNAMIC_ROWS):
+            _check(f"rows[{k}]", rows[k], (J, U), _ROW_DTYPES[k], dev)
+            table[i] = rows[k].data_ptr()
+    out = _kernel_io("lte_sm_advance", c, s, C * R, dev)
     _launch(
         "lte_sm_advance",
         *[c[k].data_ptr() for k, _ in _CONST_ROWS],
         c["count_c"].data_ptr(), c["cell_order"].data_ptr(),
-        c["cell_start"].data_ptr(), keys.data_ptr(),
+        c["cell_start"].data_ptr(), *table, keys.data_ptr(), sids_ptr,
         *[s[k].data_ptr() for k, _, _ in SM_STATE],
         *[out[k].data_ptr() for k, _, _ in SM_STATE],
-        *_scalars(c, R), int(t0), int(t1), int(sid),
-        torch.cuda.current_stream(dev).cuda_stream,
+        R, C, *_scalars(c, R)[1:], int(t0), int(t1), int(sid),
+        int(stride), torch.cuda.current_stream(dev).cuda_stream,
+        arms=("dynamic",) * (rows is not None) + ("sweep",) * (C > 1),
     )
     return out
 
@@ -484,8 +561,10 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
 #: state in, state out, six ints (R, E, U, n_rbg, rbg_size, n_rb), three
 #: floats (alpha, 1 - alpha, 1/sqrt 2), t, sid, stream;
 #: ``lte_sm_advance`` (csrc/lte_sm_advance.cu): const rows, count_c,
-#: cell_order, cell_start, keys, state in, state out, the same six ints
-#: and three floats, t0, t1, sid, stream
+#: cell_order, cell_start, the five table rows (null: the static arm),
+#: keys, sids (null: one point, ``sid``), state in, state out, seven
+#: ints (R, C, E, U, n_rbg, rbg_size, n_rb), the three floats, t0, t1,
+#: sid, stride, stream
 LAUNCH_ARGTYPES = {
     "lte_sm_step": (
         [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
@@ -493,8 +572,11 @@ LAUNCH_ARGTYPES = {
         + [ctypes.c_void_p]
     ),
     "lte_sm_advance": (
-        [ctypes.c_void_p] * (len(_CONST_ROWS) + 4 + 2 * len(SM_STATE))
-        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * (
+            len(_CONST_ROWS) + 3 + len(SM_DYNAMIC_ROWS) + 2
+            + 2 * len(SM_STATE)
+        )
+        + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     ),
 }

@@ -1,13 +1,23 @@
 """Full-buffer (RLC-SM) LTE downlink engine on the card.
 
-Counterpart of ``tpudes/parallel/lte_sm.py`` for static programs: under
-RLC saturation every buffer is always full, so the only evolving state
-is scheduler/HARQ bookkeeping, and a static grid makes SINR, CQI, MCS
-and MI per-UE constants.  The TTI math is
-:mod:`tpudes_torch.parallel.kernels_cuda`: on the card one launch of
-the multi-TTI kernel runs a whole range of TTIs, on the CPU the plain
-loop runs them; this module owns the program, the replica keys and the
-result assembly.
+Counterpart of ``tpudes/parallel/lte_sm.py``: under RLC saturation
+every buffer is always full, so the only evolving state is
+scheduler/HARQ bookkeeping.  The TTI math is
+:mod:`tpudes_torch.parallel.kernels_cuda`: on the card one launch of the
+multi-TTI kernel runs a whole range of TTIs, on the CPU the plain loop
+runs them; this module owns the program, the replica keys, the geometry
+stage and the result assembly.
+
+- Static programs: a static grid makes SINR, CQI, MCS and MI per-UE
+  constants (``build_sm_consts``).
+- Mobile programs (``prog.mobility``): the UEs move, so the SINR-derived
+  rows (:data:`SM_DYNAMIC_ROWS`) are recomputed from the positions every
+  ``geom_stride`` TTIs by :func:`geom_rows` — a few tensor operations
+  over every refresh time of a launch at once, in the reference's
+  compiled f32 arithmetic — and the kernel reads them from that table.
+  The serving map stays the t = 0 attach, as in the reference.
+- ``schedulers=[...]``: one launch runs C config points, one scheduler
+  id each, on shared replica keys; the result is one dict per point.
 
 Each replica ``r`` draws its TTI-``t`` coins as
 ``uniform(fold_in(fold_in(key, r), t), (U,))`` — the reference's
@@ -16,19 +26,35 @@ comparable with the JAX engine per replica, on integers.  The horizon
 is a fixed count, so a host loop over chunks of TTIs is exact.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``precision="bf16"``, mobility, traffic, ``schedulers=`` sweeps,
-``mesh`` and the ``TpudesObs`` FlowMonitor columns.
+item): ``precision="bf16"``, traffic, ``mesh`` and the ``TpudesObs``
+FlowMonitor columns.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device
+from tpudes_torch.ops.fused import device_table, f32, fma, sqrt
+from tpudes_torch.ops.lte import (
+    RB_BANDWIDTH_HZ,
+    RE_PER_RB_DATA,
+    _MCS_ECR,
+    _MCS_EFF,
+    _MCS_QM,
+    cqi_from_efficiency,
+    gapped_log2,
+    mcs_from_cqi,
+    mi_from_efficiency,
+)
+from tpudes_torch.ops.mobility import build_position_fn
+from tpudes_torch.ops.propagation import db_to_ratio, friis, log_distance
 from tpudes_torch.parallel.kernels_cuda import (
+    SM_DYNAMIC_ROWS,
     SM_SCHED_IDS,
     build_sm_consts,
     sm_advance,
@@ -36,8 +62,21 @@ from tpudes_torch.parallel.kernels_cuda import (
     sm_init_state,
     sm_step,
     sm_step_math,
+    table_rows,
 )
 from tpudes_torch.random import replica_keys
+
+__all__ = [
+    "SM_DYNAMIC_ROWS", "LteSmProgram", "build_geom_fn", "build_sm_advance",
+    "build_sm_mobile_advance", "build_sm_step", "geom_rows", "run_lte_sm",
+]
+
+#: refresh rows one mobile launch's table holds at most (a longer
+#: launch is split): 4096 rows x 210 UEs x 5 rows x 4 B is 17 MB
+GEOM_MAX_ROWS = 4096
+
+#: the pathloss descriptors the geometry stage takes
+PATHLOSS_KINDS = ("friis", "log_distance")
 
 
 def _not_ported(what: str, item: str):
@@ -49,7 +88,7 @@ def _not_ported(what: str, item: str):
 @dataclass(frozen=True)
 class LteSmProgram:
     """Static description of a full-buffer LTE downlink scenario
-    (the static fields of ``tpudes/parallel/lte_sm.py:131``)."""
+    (``tpudes/parallel/lte_sm.py:131``)."""
 
     gain: np.ndarray          # (E, U) linear DL path gain
     serving: np.ndarray       # (U,) int32
@@ -60,18 +99,49 @@ class LteSmProgram:
     scheduler: str            # any key of SM_SCHED_IDS
     pf_alpha: float = 0.05
     precision: str = "f32"
+    #: UE motion (tpudes_torch.ops.mobility.MobilityProgram); None is
+    #: the static grid
     mobility: object = None
+    #: TTIs between geometry refreshes (mobile programs)
+    geom_stride: int = 1
+    #: (E, 3) eNB sites (mobile programs)
+    enb_pos: np.ndarray = None
+    #: ("friis", frequency_hz, system_loss, min_loss_db) or
+    #: ("log_distance", exponent, reference_distance, reference_loss_db)
+    pathloss: tuple = None
     traffic: object = None
 
     def __post_init__(self):
         if self.scheduler not in SM_SCHED_IDS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
         if self.precision != "f32":
-            raise _not_ported(f"precision={self.precision!r}", "B1 bf16 arm")
-        if self.mobility is not None:
-            raise _not_ported("mobility", "B1 mobility arm")
+            raise _not_ported(f"precision={self.precision!r}",
+                              "A5b.2 bf16 arm, slice 4")
+        if self.traffic is not None and self.mobility is not None:
+            raise ValueError(
+                "traffic + mobility cannot ride one LTE program; run one "
+                "axis on the device and the other on the host controller"
+            )
         if self.traffic is not None:
-            raise _not_ported("traffic", "B1 traffic arm")
+            raise _not_ported("traffic", "A5b.4 traffic arm, slice 4")
+        if self.mobility is not None:
+            self._check_mobile()
+
+    def _check_mobile(self):
+        if self.mobility.n != self.n_ue:
+            raise ValueError(
+                f"mobility moves {self.mobility.n} nodes, the program has "
+                f"{self.n_ue} UEs"
+            )
+        if self.enb_pos is None or np.shape(self.enb_pos) != (self.n_enb, 3):
+            raise ValueError("a mobile program needs enb_pos of shape (E, 3)")
+        if self.pathloss is None or self.pathloss[0] not in PATHLOSS_KINDS:
+            raise ValueError(
+                f"a mobile program needs a pathloss descriptor of "
+                f"{PATHLOSS_KINDS}; got {self.pathloss!r}"
+            )
+        if int(self.geom_stride) < 1:
+            raise ValueError(f"geom_stride must be >= 1: {self.geom_stride}")
 
     @property
     def n_enb(self) -> int:
@@ -85,11 +155,14 @@ class LteSmProgram:
 def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
     """``(consts, init_state, step_fn)`` with
     ``step_fn(state, coin (R, U), t) -> state`` (``lte_sm.py:397``), on
-    ``device`` (the card by default).
+    ``device`` (the card by default); static programs only.
 
     ``use_kernel=False`` runs the plain core on any device (the card's
     comparison path); otherwise the step is :func:`sm_step`, which
     launches the single-TTI kernel for CUDA tensors."""
+    if prog.mobility is not None:
+        raise ValueError("build_sm_step runs static programs; a mobile "
+                         "program runs through build_sm_mobile_advance")
     device = resolve_device(device)
     consts = build_sm_consts(prog, device=device)
     sid = SM_SCHED_IDS[prog.scheduler]
@@ -107,31 +180,162 @@ def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
 def build_sm_advance(prog: LteSmProgram, device=None,
                      use_kernel: bool = True, chunk_ttis: int | None = None):
     """``(consts, init_state, advance)`` with
-    ``advance(state, keys (R, 2), t0, t_end) -> state`` running TTIs
-    ``[t0, t_end)`` (``lte_sm.py:646``), ``chunk_ttis`` at a time (the
-    whole range by default), on ``device`` (the card by default).
+    ``advance(state, keys (R, 2), t0, t_end, sids=None) -> state``
+    running TTIs ``[t0, t_end)`` (``lte_sm.py:646``), ``chunk_ttis`` at a
+    time (the whole range by default), on ``device`` (the card by
+    default).  ``sids`` (a ``(C,)`` int32 tensor) sweeps C scheduler ids
+    over ``(C * R, ...)`` state; by default the program's scheduler.
 
     Each chunk is :func:`sm_advance`: one launch of the multi-TTI kernel
     for CUDA tensors, the plain loop (coins drawn in memory-bounded
     chunks) for CPU tensors.  ``use_kernel=False`` runs the plain loop
     on any device."""
     consts, init_state, _ = build_sm_step(prog, device, use_kernel)
-    sid = SM_SCHED_IDS[prog.scheduler]
     run = sm_advance if use_kernel else sm_advance_math
 
-    def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int):
+    def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int,
+                sids=None):
+        sids = SM_SCHED_IDS[prog.scheduler] if sids is None else sids
         chunk = chunk_ttis or max(1, t_end - t0)
         for c0 in range(t0, t_end, chunk):
-            state = run(consts, state, keys, c0, min(c0 + chunk, t_end), sid)
+            state = run(consts, state, keys, c0, min(c0 + chunk, t_end),
+                        sids)
         return state
 
     return consts, init_state, advance
 
 
-def _sm_unpack(state: dict, consts: dict, replicas) -> dict:
-    """Host result dict (``lte_sm.py:564``): the 52-bit rx counter
-    rebuilt, per-UE rows, and the static CQI/MCS/SINR."""
-    host = {k: v.cpu().numpy() for k, v in state.items()}
+# --------------------------------------------------------------------------
+# the mobile path: the device geometry stage and its advance
+# --------------------------------------------------------------------------
+
+
+def geom_rows(prog: LteSmProgram, consts: dict, t_ttis) -> dict:
+    """The SINR-derived rows at refresh TTIs ``t_ttis`` (K of them), all
+    at once: ``{mi0, rate0, eff0, ecr0, eligible, sinr, cqi, mcs}``, each
+    ``(K, U)`` on ``consts``' device (:func:`build_geom_fn` once)."""
+    return build_geom_fn(prog, consts)(t_ttis)
+
+
+def build_geom_fn(prog: LteSmProgram, consts: dict):
+    """``rows_at(t_ttis) -> dict`` of :func:`geom_rows`, with the motion's
+    operands and the program's constants put on ``consts``' device once.
+
+    ``rows_at`` is the reference's ``rows_from_pos(pos_at(mob_ops, t))``
+    (``lte_sm.py:440-529``) batched over the K times, in the arithmetic
+    its compiled stage runs: positions from :mod:`~tpudes_torch.ops.
+    mobility`, distances with the squares summed as fused multiply-adds
+    and a correctly rounded root, the loss and ``10 ** (dB / 10)`` of
+    :mod:`~tpudes_torch.ops.propagation`, the total received power as a
+    chain of multiply-adds over the eNBs in order, the serving cell's
+    power, SINR, and the CQI/MCS/MI chain with its compiled log2."""
+    dev = consts["mi0"].device
+    ops = prog.mobility.operands(dev)
+    pos_at = build_position_fn(prog.mobility)
+    enb = torch.as_tensor(np.asarray(prog.enb_pos, np.float32), device=dev)
+    psd = torch.as_tensor(np.asarray(
+        10.0 ** ((np.asarray(prog.tx_power_dbm) - 30.0) / 10.0)
+        / (prog.n_rb * RB_BANDWIDTH_HZ), np.float32,
+    ), device=dev)                                          # (E,)
+    serving = consts["serving"].long()
+    psd_serving = psd[serving]
+    kind, *params = prog.pathloss
+    eff_tab, qm_tab, ecr_tab = (device_table(a, dev)
+                                for a in (_MCS_EFF, _MCS_QM, _MCS_ECR))
+    tb_re = f32(psd, consts["rbg_size"] * RE_PER_RB_DATA)
+
+    def rows_at(t_ttis) -> dict:
+        t = torch.as_tensor(t_ttis, dtype=torch.int32, device=dev).reshape(-1)
+        pos = pos_at(ops, t * 1000)                         # (K, U, 3)
+        diff = enb[None, :, None, :] - pos[:, None, :, :]   # (K, E, U, 3)
+        d2 = diff[..., 0] * diff[..., 0]
+        d2 = fma(diff[..., 1], diff[..., 1], d2)
+        d = sqrt(fma(diff[..., 2], diff[..., 2], d2))       # (K, E, U)
+        zero = f32(d, 0.0)
+        rx_dbm = (friis(zero, d, *params, fused=True) if kind == "friis"
+                  else log_distance(zero, d, *params))
+        gain = db_to_ratio(rx_dbm)                          # (K, E, U)
+        total = gain[:, 0] * psd[0]
+        for e in range(1, gain.shape[1]):
+            total = fma(gain[:, e], psd[e], total)          # (K, U)
+        sig = torch.gather(
+            gain, 1, serving[None, None, :].expand(len(t), 1, -1)
+        )[:, 0] * psd_serving
+        sinr = sig / ((total - sig) + f32(sig, prog.noise_psd))
+        se = gapped_log2(sinr, fused=True)
+        cqi = cqi_from_efficiency(se)
+        mcs = mcs_from_cqi(cqi).long()
+        eff0 = eff_tab[mcs]
+        return dict(
+            mi0=mi_from_efficiency(se, qm_tab[mcs]),
+            rate0=torch.floor(eff0 * tb_re) * 1000.0,
+            eff0=eff0, ecr0=ecr_tab[mcs],
+            eligible=(cqi >= 1).to(torch.int32),
+            sinr=sinr, cqi=cqi.to(torch.int32), mcs=mcs.to(torch.int32),
+        )
+
+    return rows_at
+
+
+def build_sm_mobile_advance(prog: LteSmProgram, device=None,
+                            use_kernel: bool = True,
+                            chunk_ttis: int | None = None):
+    """``(consts, init_state, advance)`` for a mobile program, with
+    ``advance(state, keys (R, 2), t0, t_end, sids=None) -> (state, last,
+    refreshes)``: TTIs ``[t0, t_end)`` with the rows refreshed at every
+    multiple of ``geom_stride`` (``lte_sm.py:770-836``); ``last`` is the
+    newest refresh's rows (``(U,)`` each), ``refreshes`` the count of
+    refresh TTIs in the range.
+
+    Each launch covers ``chunk_ttis`` TTIs (the whole range by default),
+    cut further so that its table holds at most :data:`GEOM_MAX_ROWS`
+    rows.  A launch's table is :func:`geom_rows` at the refreshes from
+    the one it starts inside (a launch that starts mid-stride runs on
+    the refresh before it, as the reference's carried rows do) to the
+    one its last TTI runs on."""
+    consts, init_state, _ = build_sm_step(
+        _static_twin(prog), device, use_kernel
+    )
+    stride = int(prog.geom_stride)
+    run = sm_advance if use_kernel else sm_advance_math
+    rows_at = build_geom_fn(prog, consts)
+    dev = consts["mi0"].device
+
+    def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int,
+                sids=None):
+        sids = SM_SCHED_IDS[prog.scheduler] if sids is None else sids
+        span = min(chunk_ttis or max(1, t_end - t0), stride * GEOM_MAX_ROWS)
+        last, refreshes = None, 0
+        for c0 in range(t0, t_end, span):
+            c1 = min(c0 + span, t_end)
+            j0 = c0 // stride
+            rows = rows_at(stride * torch.arange(
+                j0, j0 + table_rows(c0, c1, stride), device=dev,
+            ))
+            state = run(consts, state, keys, c0, c1, sids,
+                        {k: rows[k] for k in SM_DYNAMIC_ROWS}, stride)
+            last = {k: v[-1] for k, v in rows.items()}
+            refreshes += (c1 - 1) // stride - (c0 - 1) // stride
+        return state, last, refreshes
+
+    return consts, init_state, advance
+
+
+def _static_twin(prog: LteSmProgram) -> LteSmProgram:
+    """The program without its motion: the consts, the cell structure
+    and the kernels' static rows come from its t = 0 lowering."""
+    return dataclasses.replace(prog, mobility=None)
+
+
+# --------------------------------------------------------------------------
+# the entry point
+# --------------------------------------------------------------------------
+
+
+def _sm_unpack(host: dict, shared: dict, replicas) -> dict:
+    """Result dict (``lte_sm.py:564``) of one config point from its host
+    state: the 52-bit rx counter rebuilt, per-UE rows, and the
+    CQI/MCS/SINR."""
     if replicas is None:
         host = {k: v[0] for k, v in host.items()}
     out = {
@@ -142,7 +346,7 @@ def _sm_unpack(state: dict, consts: dict, replicas) -> dict:
     ].astype(np.int64)
     out["ok"] = host["ok_cnt"]
     for k in ("cqi", "mcs", "sinr"):
-        out[k] = consts[k].cpu().numpy()
+        out[k] = shared[k]
     return out
 
 
@@ -157,7 +361,7 @@ def run_lte_sm(
     schedulers=None,
     mesh=None,
     obs: bool = False,
-) -> dict:
+):
     """Run the full-buffer downlink simulation (``lte_sm.py:1285``).
 
     ``key`` is a ``(2,)`` threefry key (:func:`tpudes_torch.random.PRNGKey`
@@ -165,20 +369,55 @@ def run_lte_sm(
     per-UE arrays ``{rx_bits, new_tbs, retx, drops, ok, cqi, mcs,
     sinr}``.  With ``replicas=R``: replica ``r`` runs on
     ``fold_in(key, r)`` and the outcome arrays gain a leading ``R``
-    axis.  ``device`` defaults to the card; on the card the horizon is
-    one kernel launch (``chunk_ttis`` TTIs per launch if given) unless
+    axis.  A mobile program (``prog.mobility``) adds ``geom_refreshes``
+    and ``geom_stride``, and its ``cqi, mcs, sinr`` are the last
+    refresh's.  ``schedulers=[...]`` (names of ``SM_SCHED_IDS``) runs
+    every point in one launch per chunk and returns a list of result
+    dicts, each what the single-point run on the same key returns.
+
+    ``device`` defaults to the card; on the card the horizon is one
+    kernel launch (``chunk_ttis`` TTIs per launch if given) unless
     ``use_kernel=False`` asks for the plain loop."""
-    if schedulers is not None:
-        raise _not_ported("schedulers= sweeps", "B1 scheduler-sweep arm")
     if mesh is not None:
         raise _not_ported("mesh", "A12")
     if obs:
         raise _not_ported("TpudesObs", "A10")
+    names = [prog.scheduler] if schedulers is None else list(schedulers)
+    unknown = [n for n in names if n not in SM_SCHED_IDS]
+    if unknown or not names:
+        raise ValueError(f"schedulers must be names of SM_SCHED_IDS: {names}")
     dev = resolve_device(device)
     key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
     keys = key[None, :] if replicas is None else replica_keys(key, replicas)
-    consts, init_state, advance = build_sm_advance(
-        prog, dev, use_kernel, chunk_ttis
+    R = len(keys)
+    sids = None if schedulers is None else torch.tensor(
+        [SM_SCHED_IDS[n] for n in names], dtype=torch.int32, device=dev
     )
-    state = advance(init_state(len(keys)), keys, 0, prog.n_ttis)
-    return _sm_unpack(state, consts, replicas)
+    extra = {}
+    if prog.mobility is None:
+        consts, init_state, advance = build_sm_advance(
+            prog, dev, use_kernel, chunk_ttis
+        )
+        state = advance(init_state(len(names) * R), keys, 0, prog.n_ttis,
+                        sids)
+        shared = consts
+    else:
+        consts, init_state, advance = build_sm_mobile_advance(
+            prog, dev, use_kernel, chunk_ttis
+        )
+        state, shared, refreshes = advance(
+            init_state(len(names) * R), keys, 0, prog.n_ttis, sids
+        )
+        if shared is None:  # no TTI ran: the rows are still zeros
+            shared = {k: torch.zeros_like(consts[k])
+                      for k in ("cqi", "mcs", "sinr")}
+        extra = dict(geom_refreshes=refreshes,
+                     geom_stride=int(prog.geom_stride))
+    host = {k: v.cpu().numpy() for k, v in state.items()}
+    shared = {k: shared[k].cpu().numpy() for k in ("cqi", "mcs", "sinr")}
+    points = [
+        dict(_sm_unpack({k: v[i * R:(i + 1) * R] for k, v in host.items()},
+                        shared, replicas), **extra)
+        for i in range(len(names))
+    ]
+    return points if schedulers is not None else points[0]

@@ -1,9 +1,9 @@
 """The lena macro-cell grid (BASELINE config #4) as a port program.
 
 Counterpart of ``tpudes/scenarios.py``'s ``hex_grid`` and ``build_lena``
-followed by ``lower_lte_sm`` for a static full-buffer drop, without the
-host simulator: sites and UEs are plain arrays and the lowering is the
-array math the reference controller runs
+followed by ``lower_lte_sm``, for a static or a mobile full-buffer drop,
+without the host simulator: sites and UEs are plain arrays and the
+lowering is the array math the reference controller runs
 (``tpudes/models/lte/controller.py:266-287``).
 
 Defaults are copies of the reference's: eNB TxPower 30 dBm
@@ -16,12 +16,14 @@ reference's own positions to :func:`lena_grid_program`).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from tpudes_torch.ops.lte import noise_psd_w
+from tpudes_torch.ops.mobility import MobilityProgram, warn_geom_stride
 from tpudes_torch.ops.propagation import friis
 from tpudes_torch.parallel.lte_sm import LteSmProgram
 
@@ -109,4 +111,62 @@ def lena_grid_program(
         n_ttis=int(n_ttis),
         scheduler=scheduler,
         pf_alpha=float(pf_alpha),
+    )
+
+
+def lena_mobile_program(
+    n_enbs: int,
+    ues_per_cell: int,
+    n_ttis: int,
+    mobility: str = "const_velocity",
+    speed: float = 10.0,
+    geom_stride: int = 8,
+    scheduler: str = "pf",
+    *,
+    inter_site: float = 500.0,
+    radius_factor: float = 0.45,
+    frequency_hz: float = 2.12e9,
+    generator: torch.Generator | None = None,
+) -> LteSmProgram:
+    """A moving lena drop (``build_lena(..., mobility=, speed=)`` +
+    ``lower_lte_sm(..., geom_stride=)``): :func:`lena_ue_drop`, the t = 0
+    lowering of :func:`lena_grid_program` (attach and cell structure),
+    Friis at ``frequency_hz`` for the geometry stage, and the UEs moving
+    as ``mobility`` says:
+
+    - ``"const_velocity"``: ``speed`` m/s along a heading ``h`` drawn
+      per UE from the same generator after the drop,
+      ``v = speed (cos h, sin h, 0)``;
+    - ``"random_walk"``: speed band ``[speed / 2, speed]``, 1 s segments,
+      inside the sites' bounding box padded by the drop radius + 50 m
+      (``tpudes/scenarios.py:390-402``)."""
+    enb_pos, ue_pos = lena_ue_drop(
+        n_enbs, ues_per_cell, inter_site, radius_factor, generator
+    )
+    prog = lena_grid_program(enb_pos, ue_pos, n_ttis, scheduler,
+                             frequency_hz=frequency_hz)
+    base = ue_pos.astype(np.float32)
+    if mobility == "const_velocity":
+        h = 2.0 * math.pi * torch.rand(
+            len(ue_pos), generator=generator, dtype=torch.float64
+        ).numpy()
+        vel = np.stack([speed * np.cos(h), speed * np.sin(h),
+                        np.zeros_like(h)], axis=-1)
+        mob = MobilityProgram.constant_velocity(base, vel)
+    elif mobility == "random_walk":
+        pad = inter_site * radius_factor + 50.0
+        xs, ys = enb_pos[:, 0], enb_pos[:, 1]
+        mob = MobilityProgram.random_walk(
+            base, (xs.min() - pad, xs.max() + pad, ys.min() - pad,
+                   ys.max() + pad),
+            np.tile([speed / 2.0, speed], (len(base), 1)),
+            horizon_us=n_ttis * 1000,
+        )
+    else:
+        raise ValueError(f"unknown mobility {mobility!r}")
+    warn_geom_stride("lena_mobile_program", mob, geom_stride, 1e-3)
+    return dataclasses.replace(
+        prog, mobility=mob, geom_stride=int(geom_stride),
+        enb_pos=enb_pos.astype(np.float32),
+        pathloss=("friis", float(frequency_hz), 1.0, 0.0),
     )
