@@ -2,46 +2,59 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths — the full-buffer LTE SM engine
+Drives the port's paths — the LTE SM engine
 (``tpudes_torch.parallel.lte_sm.run_lte_sm``) on the lena hex grid at
-bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas, f32), static and
-with the UEs moving (const_velocity at 10 m/s, geometry refreshed every
-8 TTIs, ``bench.py::bench_lte_mobility``'s configuration), and the
-nine-scheduler sweep — and holds its CUDA kernels against their plain
-PyTorch versions: ``lte_sm_advance`` (many TTIs per launch, coins drawn
-inside; ``run_lte_sm``'s path) in its three arms — static rows, the
-dynamic rows of a geometry table (mobility) and the config sweep (one
-scheduler id per grid row) — and ``lte_sm_step`` (one TTI per launch; the
-single-step route, ``build_sm_step``).  Phases, in order; any failure
-exits non-zero and no phase carries on past one:
+bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas): full buffers,
+static and with the UEs moving (const_velocity at 10 m/s, geometry
+refreshed every 8 TTIs, ``bench.py::bench_lte_mobility``'s
+configuration), finite backlogs under the ON-OFF workload of the
+reference's LTE traffic test, the nine-scheduler sweeps, f32 and bf16 —
+and holds its CUDA kernels against their plain PyTorch versions:
+``lte_sm_advance`` (many TTIs per launch, coins drawn inside;
+``run_lte_sm``'s path) in its arms — static rows, the dynamic rows of a
+geometry table (mobility), the config sweep (one scheduler id per grid
+row), finite backlogs filled from an offered-bits table (traffic) and
+bf16 — and ``lte_sm_step`` (one TTI per launch; the single-step route,
+``build_sm_step``), f32 and bf16.  Phases, in order; any failure exits
+non-zero and no phase carries on past one:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``tpudes_torch/csrc`` (``nvcc``, one process
    per source, all started together);
 3. each kernel and arm vs its plain version on the card at E=7, U=210,
    R=64 from random states made with numpy from a seed, for every
-   scheduler id: all 14 state arrays bit-equal (``lte_sm_advance`` over
+   scheduler id: all state arrays bit-equal (``lte_sm_advance`` over
    two launches, the second from where the first ended; the dynamic arm
    on a stride-8 table of the moving drop, its second launch starting
    mid-stride; the sweep arm as one launch of all nine ids, on the static
-   rows and on the stride-8 table; retransmissions and drops occur in
+   rows and on the stride-8 table; the traffic arm over two launches on
+   the full-width offered table from warm backlogs, and for sid 0 one
+   launch per TTI, counting the UE-TTIs the backlog gate held back; bf16
+   on the static rows over two launches, and as one sweep launch on the
+   stride-8 table and with traffic; the f32 sweep with traffic;
+   ``lte_sm_step`` f32 and bf16; retransmissions and drops occur in
    every check); each one's time per launch on the card (CUDA events)
-   and the host's, and its bound (the sweep's on the stride-8 table, as
-   the mobile sweep launches it);
+   and the host's, and its bound;
 4. the slice through the plain loop and through the kernel, both on the
-   card, 64 replicas x 500 TTIs, static and moving: integer outputs
-   equal; a small program through the plain loop on the CPU against the
-   kernel (the moving one fed the CPU's geometry table); and the count of
-   CQI/MCS/eligibility entries in which the card's geometry table for
-   the whole horizon differs from the CPU's;
+   card, 64 replicas x 500 TTIs, static, moving and with traffic:
+   integer outputs (and backlogs) equal; a small program of each through
+   the plain loop on the CPU against the kernel (the moving one fed the
+   CPU's geometry table, the traffic one the CPU's offered table); and
+   the count of entries in which the card's geometry table and offered
+   table for the whole horizon differ from the CPU's;
 5. each path at bench depth, 64 replicas x 10,000 TTIs, its launch
    counts reset just before and read just after: the single-step route
    (``lte_sm_step`` once per TTI), the static main path (``run_lte_sm``,
    ``lte_sm_advance`` once per chunk, the whole horizon by default), the
-   mobile main path (the dynamic arm once per chunk) and the sweep of
-   all nine scheduler ids on the moving drop (one launch per chunk of
-   9 x 64 CTAs); the card's busy share over profiled runs
-   (``torch.profiler``);
+   mobile main path (the dynamic arm once per chunk), the sweep of all
+   nine scheduler ids on the moving drop (one launch per chunk of 9 x 64
+   CTAs), the traffic main path (the offered table and the traffic arm
+   once per chunk) at the reference's peak, which overloads the cells,
+   and again at a peak near what they carry, each run again one launch
+   per TTI to the same state to count the UE-TTIs the backlog gate held
+   back, the traffic path's nine-point sweep, and in bf16 the static
+   path, the moving drop, its sweep and the single-step route; the
+   card's busy share over profiled runs (``torch.profiler``);
 6. one JSON line with every kernel arm's numbers, then the result line.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
@@ -84,7 +97,8 @@ TIMED_ADVANCE_CALLS = 20
 WALL_RUNS = 3
 #: share of the CQI, MCS and eligibility entries of the horizon's
 #: geometry table that may differ between the card and the CPU; both
-#: run the same IEEE operations, so none is expected
+#: run the same IEEE operations, so none is expected (the offered-bits
+#: table may differ in no entry)
 TABLE_DIFF_MAX_SHARE = 1e-4
 #: H100 SXM rates: HBM bytes/s and f32 operations/s outside the tensor
 #: cores (NVIDIA's data sheet); int32 operations/s = 132 SMs x 64 INT32
@@ -104,6 +118,12 @@ COIN_OPS_PER_REPLICA_TTI = 72
 #: ``s * SLEEP_CYCLES_PER_S`` cycles lasts at least ``s`` seconds
 SLEEP_CYCLES_PER_S = 2.0e9
 INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
+TRAFFIC_KEYS = INT_KEYS + ("goodput_bits",)
+#: the ON-OFF peak of the near-capacity traffic run: its mean offered
+#: load, about 12.1 Mbit/s per replica, is a little below the 13.0
+#: Mbit/s the full-buffer drop delivers (PERF.md), where the reference's
+#: peak of 50 pps offers 5.8 times that
+NEAR_CAPACITY_PPS = 8.0
 
 
 def fail(msg: str):
@@ -148,19 +168,37 @@ def random_state(kc, consts, t, rng, device, lanes=None):
     return {k: torch.from_numpy(host[k]).to(device) for k, _, _ in kc.SM_STATE}
 
 
+def traffic_state(kc, consts, t, rng, device, lanes=None):
+    """:func:`random_state` with warm backlogs: a quarter of them empty,
+    the rest up to 10^5 bits, and the drained counters populated."""
+    import torch
+
+    s = random_state(kc, consts, t, rng, device, lanes)
+    shape = s["avg"].shape
+    backlog = rng.uniform(0.0, 1e5, shape) * (rng.random(shape) > 0.25)
+    host = dict(
+        tr_backlog=backlog.astype(np.float32),
+        tr_drained_lo=rng.integers(0, 1 << 20, shape).astype(np.int32),
+        tr_drained_hi=rng.integers(0, 4096, shape).astype(np.int32),
+    )
+    s.update({k: torch.from_numpy(v).to(device) for k, v in host.items()})
+    return s
+
+
 def bits_of(x):
     import torch
 
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def compare_states(kc, got, want, what) -> float:
-    """Fail unless the 14 state arrays are bit-equal; the largest
-    absolute difference (0.0)."""
+def compare_states(kc, got, want, what, traffic=False) -> float:
+    """Fail unless the 14 state arrays (and with ``traffic`` the three
+    backlog arrays) are bit-equal; the largest absolute difference
+    (0.0)."""
     import torch
 
     err = 0.0
-    for k, _, _ in kc.SM_STATE:
+    for k, _, _ in kc.SM_STATE + kc.TR_STATE * traffic:
         if not torch.equal(bits_of(got[k]), bits_of(want[k])):
             fail(f"{what}: {k} differs")
         err = max(err, (got[k].double() - want[k].double()).abs().max().item())
@@ -331,6 +369,43 @@ def same_outputs(a: dict, b: dict, keys=INT_KEYS) -> bool:
     return all(np.array_equal(a[k], b[k]) for k in keys)
 
 
+def gate_census(kc, prog, key, device):
+    """A traffic program's main-path run again, one ``lte_sm_advance``
+    launch per TTI on the horizon's offered table, counting the UE-TTIs
+    the backlog gate held back: an eligible UE whose backlog, the TTI's
+    offered bits added, is empty.  ``(result, held, eligible UE-TTIs)``,
+    the result in ``run_lte_sm``'s keys for the comparison with the main
+    path."""
+    import torch
+    from tpudes_torch.random import fold_in, replica_keys
+    from tpudes_torch.traffic.device import TRAFFIC_KEY_TAG, offered_table
+
+    key = key.to(device)
+    consts = kc.build_sm_consts(prog, device=device)
+    keys = replica_keys(key, R)
+    table = offered_table(prog.traffic.operands(device),
+                          prog.traffic.epoch_us,
+                          fold_in(key, TRAFFIC_KEY_TAG), 0, prog.n_ttis)
+    elig = consts["eligible"] != 0
+    sid = kc.SM_SCHED_IDS[prog.scheduler]
+    s = kc.sm_init_state(prog.n_enb, prog.n_ue, R, device, traffic=True)
+    held = torch.zeros((), dtype=torch.int64, device=device)
+    for t in range(prog.n_ttis):
+        held += ((s["tr_backlog"] + table[t] == 0) & elig).sum()
+        s = kc.sm_advance_cuda(consts, s, keys, t, t + 1, sid,
+                               offered=table[t:t + 1])
+    h = {k: v.cpu().numpy().astype(np.int64) for k, v in s.items()
+         if k != "tr_backlog"}
+    out = dict(
+        rx_bits=(h["rx_hi"] << 20) + h["rx_lo"],
+        goodput_bits=(h["tr_drained_hi"] << 20) + h["tr_drained_lo"],
+        backlog_bits=s["tr_backlog"].cpu().numpy(),
+        new_tbs=h["new_tbs"], retx=h["retx"], drops=h["drops"],
+        ok=h["ok_cnt"],
+    )
+    return out, int(held), R * prog.n_ttis * int(elig.sum())
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -338,13 +413,24 @@ def main(device: str = "cuda") -> int:
         fail("torch.cuda.is_available() is false")
     from tpudes_torch import _build
     from tpudes_torch.parallel import kernels_cuda as kc
-    from tpudes_torch.parallel.lte_sm import geom_rows, run_lte_sm
-    from tpudes_torch.random import PRNGKey, replica_keys
+    from tpudes_torch.parallel.lte_sm import (
+        TRAFFIC_MAX_ROWS,
+        geom_rows,
+        run_lte_sm,
+    )
+    from tpudes_torch.random import PRNGKey, fold_in, replica_keys
     from tpudes_torch.scenarios import (
+        ONOFF_OFF_MEAN_S,
+        ONOFF_ON,
+        ONOFF_PEAK_PPS,
+        ONOFF_TR_SEED,
         lena_grid_program,
         lena_mobile_program,
+        lena_traffic_program,
         lena_ue_drop,
     )
+    from tpudes_torch.traffic.device import TRAFFIC_KEY_TAG, offered_table
+    from tpudes_torch.traffic.program import TrafficProgram
 
     dev = torch.device(device)
 
@@ -582,6 +668,223 @@ def main(device: str = "cuda") -> int:
           f"{ms_sweep_plain * 1e3:.2f} us/call, bound "
           f"{sweep_bound_ms * 1e3:.3f} us ({sweep_bound_by})", flush=True)
 
+    # 3d. the traffic arm: two launches per scheduler id on the full-width
+    #     offered table of the ON-OFF workload, from warm backlogs, first-tx
+    #     MI pulled down as above; for sid 0 also one launch per TTI, which
+    #     must give the same state, counting the UE-TTIs the backlog gate
+    #     held back (an eligible UE with an empty backlog)
+    tr_prog = lena_traffic_program(
+        E, UES_PER_CELL, BENCH_TTIS,
+        generator=torch.Generator().manual_seed(SEED),
+    )
+    if not np.array_equal(tr_prog.gain, prog.gain):
+        fail("the traffic drop does not start on the static drop")
+    tconsts = kc.build_sm_consts(tr_prog, device=dev)
+    tharq = dict(tconsts, mi0=(tconsts["mi0"] * mi_scale).contiguous())
+    tr_ops = tr_prog.traffic.operands(dev)
+    tr_key = fold_in(PRNGKey(SEED, device=dev), TRAFFIC_KEY_TAG)
+
+    def offered(t0_, t1_, prog_=tr_prog, ops_=None, key_=None):
+        return offered_table(ops_ or tr_ops, prog_.traffic.epoch_us,
+                             tr_key if key_ is None else key_, t0_, t1_)
+
+    tb, tc = ta + ADVANCE_LAUNCHES[0], ta + sum(ADVANCE_LAUNCHES)
+    off, off_b, off_c = offered(ta, tc), offered(ta, tb), offered(tb, tc)
+    trf_err, gated, left = 0.0, 0, 0
+    ladder = {"retx": 0, "drops": 0}
+    elig = tharq["eligible"] != 0
+    for sched, sid in kc.SM_SCHED_IDS.items():
+        s = traffic_state(kc, tconsts, ta, rng, dev)
+        keys = replica_keys(PRNGKey(SEED + sid, device=dev), R)
+        got = kc.sm_advance_cuda(
+            tharq, kc.sm_advance_cuda(tharq, s, keys, ta, tb, sid,
+                                      offered=off_b),
+            keys, tb, tc, sid, offered=off_c,
+        )
+        want = kc.sm_advance_math(tharq, s, keys, ta, tc, sid, offered=off)
+        torch.cuda.synchronize()
+        trf_err = max(trf_err, compare_states(
+            kc, got, want, f"traffic arm vs plain loop, sid={sid} ({sched})",
+            traffic=True,
+        ))
+        if sid == 0:
+            one = s
+            for i in range(tc - ta):
+                gated += int(((one["tr_backlog"] + off[i] == 0)
+                              & elig).sum())
+                one = kc.sm_advance_cuda(tharq, one, keys, ta + i,
+                                         ta + i + 1, sid,
+                                         offered=off[i:i + 1])
+            compare_states(kc, one, got, "traffic arm one launch per TTI "
+                           "vs two launches", traffic=True)
+        left += int((got["tr_backlog"] > 0).sum())
+        for k in ladder:
+            ladder[k] += int((got[k] - s[k]).sum())
+    if gated <= 0 or left <= 0 or min(ladder.values()) <= 0:
+        fail(f"traffic arm check: gate held back {gated} UE-TTIs, {left} "
+             f"backlogs left, {ladder}")
+    print(f"lte_sm_advance traffic arm vs plain loop: 14 state arrays and "
+          f"the 3 backlog arrays bit-equal for sids 0-8 at E={E} U={U} "
+          f"R={R} over 2 launches (TTIs [{ta}, {tb}) and [{tb}, {tc})) on "
+          f"the full-width offered table (and, sid 0, one launch per TTI: "
+          f"the same state; the gate held back {gated} eligible UE-TTIs "
+          f"with an empty backlog); {left} backlogs left; retx "
+          f"{ladder['retx']}, drops {ladder['drops']}", flush=True)
+    s = traffic_state(kc, tconsts, ta, rng, dev)
+    keys = replica_keys(PRNGKey(SEED, device=dev), R)
+    off_t = offered(ta, ta + TIMED_TTIS)
+    ms_trf, host_trf = timed_ms(
+        lambda: kc.sm_advance_cuda(tconsts, s, keys, ta, ta + TIMED_TTIS, 0,
+                                   offered=off_t),
+        TIMED_ADVANCE_CALLS,
+    )
+    ms_trf_plain, _ = timed_ms(
+        lambda: kc.sm_advance_math(tconsts, s, keys, ta, ta + TIMED_TTIS, 0,
+                                   offered=off_t),
+        1, reps=3,
+    )
+    trf_bound_ms, trf_bound_by = advance_bound(
+        tconsts, s, keys,
+        kc.sm_advance_cuda(tconsts, s, keys, ta, ta + TIMED_TTIS, 0,
+                           offered=off_t),
+        TIMED_TTIS, table={"offered": off_t},
+    )
+    print(f"lte_sm_advance traffic arm: {TIMED_TTIS} TTIs/launch: device "
+          f"{ms_trf * 1e3:.2f} us/launch = {ms_trf * 1e3 / TIMED_TTIS:.4f} "
+          f"us/TTI (static arm {ms_adv * 1e3 / TIMED_TTIS:.4f} us/TTI; host "
+          f"{host_trf * 1e3:.2f} us/call), plain loop device "
+          f"{ms_trf_plain * 1e3:.2f} us/call, bound "
+          f"{trf_bound_ms * 1e3:.3f} us ({trf_bound_by})", flush=True)
+
+    # 3e. bf16: the static rows over two launches per scheduler id; then
+    #     one launch of all nine ids on each other arm: the stride-8
+    #     table of the moving drop, the offered table, and (f32) the
+    #     sweep with traffic
+    b_prog = dataclasses.replace(prog, precision="bf16")
+    bconsts = kc.build_sm_consts(b_prog, device=dev)
+    bharq = dict(bconsts, mi0=(bconsts["mi0"] * mi_scale).contiguous())
+    bf_err, ladder = 0.0, {"retx": 0, "drops": 0}
+    tb, tc = ta + ADVANCE_LAUNCHES[0], ta + sum(ADVANCE_LAUNCHES)
+    for sched, sid in kc.SM_SCHED_IDS.items():
+        s = random_state(kc, bconsts, ta, rng, dev)
+        keys = replica_keys(PRNGKey(SEED + sid, device=dev), R)
+        got = kc.sm_advance_cuda(
+            bharq, kc.sm_advance_cuda(bharq, s, keys, ta, tb, sid),
+            keys, tb, tc, sid,
+        )
+        want = kc.sm_advance_math(bharq, s, keys, ta, tc, sid)
+        torch.cuda.synchronize()
+        bf_err = max(bf_err, compare_states(
+            kc, got, want, f"bf16 static arm vs plain loop, sid={sid} "
+            f"({sched})"))
+        for k in ladder:
+            ladder[k] += int((got[k] - s[k]).sum())
+    if min(ladder.values()) <= 0:
+        fail(f"bf16 static arm check ran no retx or no drop: {ladder}")
+    print(f"lte_sm_advance bf16 static arm vs plain loop: 14 state arrays "
+          f"bit-equal for sids 0-8 at E={E} U={U} R={R} over 2 launches; "
+          f"retx {ladder['retx']}, drops {ladder['drops']}", flush=True)
+    b_mobile = dataclasses.replace(mobile, precision="bf16")
+    bmconsts = kc.build_sm_consts(b_mobile, device=dev)
+    j0 = ta // MOBILE_STRIDE
+    brows = geom_rows(b_mobile, bmconsts, MOBILE_STRIDE * torch.arange(
+        j0, j0 + kc.table_rows(ta, tc, MOBILE_STRIDE), device=dev))
+    brows = {k: brows[k].contiguous() for k in kc.SM_DYNAMIC_ROWS}
+    brows["mi0"] = (brows["mi0"] * mi_scale).contiguous()
+    tb16 = kc.build_sm_consts(dataclasses.replace(tr_prog, precision="bf16"),
+                              device=dev)
+    tb16 = dict(tb16, mi0=(tb16["mi0"] * mi_scale).contiguous())
+    keys = replica_keys(PRNGKey(SEED + 98, device=dev), R)
+    for what, cs, rows, off_, traffic in (
+        (f"bf16 on a stride-{MOBILE_STRIDE} table", bmconsts, brows, None,
+         False),
+        ("bf16 with traffic", tb16, None, off, True),
+        ("f32 with traffic", tharq, None, off, True),
+    ):
+        s = (traffic_state if traffic else random_state)(
+            kc, cs, ta, rng, dev, lanes=C * R)
+        got = kc.sm_advance_cuda(cs, s, keys, ta, tc, sids, rows,
+                                 MOBILE_STRIDE, off_)
+        want = kc.sm_advance_math(cs, s, keys, ta, tc, sids, rows,
+                                  MOBILE_STRIDE, off_)
+        torch.cuda.synchronize()
+        for i, sched in enumerate(kc.SM_SCHED_IDS):
+            lanes = slice(i * R, (i + 1) * R)
+            err = compare_states(
+                kc, {k: v[lanes] for k, v in got.items()},
+                {k: v[lanes] for k, v in want.items()},
+                f"sweep arm {what} vs plain loop, point {i} ({sched})",
+                traffic=traffic,
+            )
+            if what.startswith("bf16"):
+                bf_err = max(bf_err, err)
+            else:
+                trf_err = max(trf_err, err)
+        ladder = {k: int((got[k] - s[k]).sum()) for k in ("retx", "drops")}
+        if min(ladder.values()) <= 0:
+            fail(f"sweep arm {what} ran no retx or no drop: {ladder}")
+        print(f"lte_sm_advance sweep arm {what} vs plain loop: one launch "
+              f"of {C} x {R} CTAs (TTIs [{ta}, {tc})), state bit-equal per "
+              f"point; retx {ladder['retx']}, drops {ladder['drops']}",
+              flush=True)
+    s = random_state(kc, bconsts, ta, rng, dev)
+    keys = replica_keys(PRNGKey(SEED, device=dev), R)
+    ms_bf, host_bf = timed_ms(
+        lambda: kc.sm_advance_cuda(bconsts, s, keys, ta, ta + TIMED_TTIS, 0),
+        TIMED_ADVANCE_CALLS,
+    )
+    ms_f32_again, _ = timed_ms(
+        lambda: kc.sm_advance_cuda(consts, s, keys, ta, ta + TIMED_TTIS, 0),
+        TIMED_ADVANCE_CALLS,
+    )
+    ms_bf_plain, _ = timed_ms(
+        lambda: kc.sm_advance_math(bconsts, s, keys, ta, ta + TIMED_TTIS, 0),
+        1, reps=3,
+    )
+    bf_bound_ms, bf_bound_by = advance_bound(
+        bconsts, s, keys,
+        kc.sm_advance_cuda(bconsts, s, keys, ta, ta + TIMED_TTIS, 0),
+        TIMED_TTIS,
+    )
+    print(f"lte_sm_advance bf16 static arm: {TIMED_TTIS} TTIs/launch: "
+          f"device {ms_bf * 1e3:.2f} us/launch = "
+          f"{ms_bf * 1e3 / TIMED_TTIS:.4f} us/TTI (f32 static arm, same "
+          f"state, timed after it: {ms_f32_again * 1e3 / TIMED_TTIS:.4f} "
+          f"us/TTI; host {host_bf * 1e3:.2f} us/call), plain loop device "
+          f"{ms_bf_plain * 1e3:.2f} us/call, bound {bf_bound_ms * 1e3:.3f} "
+          f"us ({bf_bound_by})", flush=True)
+
+    # 3f. lte_sm_step in bf16, every scheduler id
+    step_bf_err = 0.0
+    for sched, sid in kc.SM_SCHED_IDS.items():
+        s = random_state(kc, bconsts, t, rng, dev)
+        coin = torch.from_numpy(
+            rng.uniform(0.0, 1.0, (R, U)).astype(np.float32)
+        ).to(dev)
+        got = kc.sm_step_cuda(bconsts, s, coin, t, sid)
+        want = kc.sm_step_math(bconsts, s, coin, t, sid)
+        torch.cuda.synchronize()
+        step_bf_err = max(step_bf_err, compare_states(
+            kc, got, want, f"lte_sm_step bf16 vs plain core, sid={sid} "
+            f"({sched})"))
+    s = random_state(kc, bconsts, t, rng, dev)
+    coin = torch.rand((R, U), device=dev)
+    ms_step_bf, host_step_bf = timed_ms(
+        lambda: kc.sm_step_cuda(bconsts, s, coin, t, 0), TIMED_KERNEL_CALLS
+    )
+    ms_step_bf_plain, _ = timed_ms(
+        lambda: kc.sm_step_math(bconsts, s, coin, t, 0), TIMED_PLAIN_CALLS
+    )
+    step_bf_bound = step_bound(
+        bconsts, s, coin, kc.sm_step_cuda(bconsts, s, coin, t, 0), t
+    )
+    print(f"lte_sm_step bf16 vs plain core: 14 state arrays bit-equal for "
+          f"sids 0-8; device {ms_step_bf * 1e3:.2f} us/launch (host "
+          f"{host_step_bf * 1e3:.2f} us/call), plain core device "
+          f"{ms_step_bf_plain * 1e3:.2f} us/call, bound "
+          f"{step_bf_bound[0] * 1e3:.3f} us ({step_bf_bound[1]})",
+          flush=True)
+
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
     key = PRNGKey(SEED & 0x7FFFFFFF)
@@ -664,6 +967,58 @@ def main(device: str = "cuda") -> int:
           f"values", flush=True)
     if table_diff > TABLE_DIFF_MAX_SHARE * entries:
         fail(f"card and CPU geometry tables differ in {table_diff} entries")
+
+    # 4c. the traffic slice: plain loop vs kernel on the card; a small
+    #     traffic program through the CPU's plain loop vs the kernel fed
+    #     the CPU's offered table; the horizon's offered table card vs CPU
+    tr_check = dataclasses.replace(tr_prog, n_ttis=CHECK_TTIS)
+    plain = run_lte_sm(tr_check, key, replicas=R, device=dev,
+                       use_kernel=False)
+    kern = run_lte_sm(tr_check, key, replicas=R, device=dev)
+    if not same_outputs(plain, kern, TRAFFIC_KEYS) or not np.array_equal(
+            plain["backlog_bits"].view(np.int32),
+            kern["backlog_bits"].view(np.int32)):
+        fail("traffic slice plain vs kernel differs")
+    print(f"traffic slice plain vs kernel: integer outputs and backlogs "
+          f"equal at {R} x {CHECK_TTIS} TTIs (rx {int(kern['rx_bits'].sum())} "
+          f"bits, goodput {int(kern['goodput_bits'].sum())} bits, "
+          f"{int((kern['backlog_bits'] > 0).sum())} backlogs left, retx "
+          f"{int(kern['retx'].sum())}, drops {int(kern['drops'].sum())})",
+          flush=True)
+    small_tr = lena_traffic_program(
+        2, 4, 300, generator=torch.Generator().manual_seed(1))
+    cpu_consts = kc.build_sm_consts(small_tr, device="cpu")
+    cpu_ops = small_tr.traffic.operands("cpu")
+    cpu_tr_key = fold_in(key, TRAFFIC_KEY_TAG)
+    cpu_tab = offered(0, 300, small_tr, cpu_ops, cpu_tr_key)
+    cpu_keys = replica_keys(key, 4)
+    want = kc.sm_advance_math(
+        cpu_consts, kc.sm_init_state(2, 8, 4, "cpu", traffic=True), cpu_keys,
+        0, 300, 0, offered=cpu_tab,
+    )
+    got = kc.sm_advance_cuda(
+        kc.build_sm_consts(small_tr, device=dev),
+        kc.sm_init_state(2, 8, 4, dev, traffic=True), cpu_keys.to(dev), 0,
+        300, 0, offered=cpu_tab.to(dev),
+    )
+    compare_states(kc, {k: v.cpu() for k, v in got.items()}, want,
+                   "small traffic program: CPU plain loop vs kernel fed the "
+                   "CPU's offered table", traffic=True)
+    if not same_outputs(run_lte_sm(small_tr, key, replicas=4, device="cpu"),
+                        run_lte_sm(small_tr, key, replicas=4, device=dev),
+                        TRAFFIC_KEYS):
+        fail("small traffic program: CPU run vs card run differs")
+    tab_card = offered(0, BENCH_TTIS)
+    tab_host = offered(0, BENCH_TTIS, tr_prog, tr_prog.traffic.operands("cpu"),
+                       tr_key.cpu())
+    offered_diff = int((bits_of(tab_card).cpu() != bits_of(tab_host)).sum())
+    print(f"small traffic program (2 x 4 UE, 4 x 300 TTIs): CPU plain loop "
+          f"== kernel fed the CPU's offered table (17 state arrays "
+          f"bit-equal), and CPU run == card run; the horizon's offered table "
+          f"({BENCH_TTIS} TTIs x {U} UEs) card vs CPU: {offered_diff} of "
+          f"{tab_host.numel()} entries differ (bound 0)", flush=True)
+    if offered_diff > 0:
+        fail(f"card and CPU offered tables differ in {offered_diff} entries")
 
     # 5. each path at bench depth, counted: the single-step route, the
     #    static main path, the mobile main path, the sweep
@@ -798,12 +1153,224 @@ def main(device: str = "cuda") -> int:
         equals_single_point=names,
     )), flush=True)
 
+    # 5d. the traffic main path: the ON-OFF drop at bench depth, one
+    #     offered table and one traffic-arm launch per chunk; then the
+    #     same run one launch per TTI, which must end in the same state,
+    #     counting the UE-TTIs the gate held back over the whole run
+    n_tr = -(-BENCH_TTIS // min(BENCH_CHUNK or BENCH_TTIS, TRAFFIC_MAX_ROWS))
+
+    def traffic_bench(p, what):
+        """``(run, out, wall, launches, held, eligible UE-TTIs)`` of the
+        counted main-path run of the traffic program ``p``."""
+        def run(**kw):
+            return run_lte_sm(p, key, replicas=R, device=dev,
+                              chunk_ttis=BENCH_CHUNK, **kw)
+
+        run_lte_sm(dataclasses.replace(p, n_ttis=50), key, replicas=R,
+                   device=dev, chunk_ttis=BENCH_CHUNK)      # warm-up
+        o, w, l_ = counted(
+            kc, run, {"lte_sm_advance": n_tr, "lte_sm_advance:traffic": n_tr},
+            what,
+        )
+        for k, v in o.items():
+            if not np.all(np.isfinite(v)):
+                fail(f"{what}: non-finite {k}")
+        if (o["goodput_bits"].sum() <= 0
+                or (o["goodput_bits"] > o["rx_bits"]).any()
+                or (o["backlog_bits"] < 0).any()):
+            fail(f"{what}: no goodput, goodput above delivery, or a "
+                 f"negative backlog")
+        census, held, elig_ttis = gate_census(kc, p, key, dev)
+        if not (same_outputs(census, o, TRAFFIC_KEYS[:5] + ("goodput_bits",))
+                and np.array_equal(census["backlog_bits"].view(np.int32),
+                                   o["backlog_bits"].view(np.int32))):
+            fail(f"{what}: one launch per TTI differs from the main path")
+        if held <= 0:
+            fail(f"{what}: the gate held back no UE-TTI")
+        return run, o, w, l_, held, elig_ttis
+
+    traffic_run, tout, twall, tlaunches, theld, telig = traffic_bench(
+        tr_prog, "traffic main path")
+    run_tr_key = fold_in(key.to(dev), TRAFFIC_KEY_TAG)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    offered(0, BENCH_TTIS, tr_prog, tr_ops, run_tr_key)
+    torch.cuda.synchronize()
+    tr_table_s = time.monotonic() - t0
+    tr_table_busy, _ = device_busy_share(
+        lambda: offered(0, BENCH_TTIS, tr_prog, tr_ops, run_tr_key),
+        "elementwise")
+    tbusy, trf_profiled_ms = device_busy_share(traffic_run, "lte_sm_advance")
+    traffic_med, static_med = median_wall(traffic_run), median_wall(static_run)
+    print(json.dumps(dict(
+        phase="bench_traffic", replicas=R, n_enb=E, n_ue=U,
+        n_ttis=BENCH_TTIS, traffic="onoff", peak_pps=ONOFF_PEAK_PPS,
+        n_cycle=int(tr_prog.traffic.n_cycle),
+        ttis_per_launch=min(BENCH_CHUNK or BENCH_TTIS, TRAFFIC_MAX_ROWS),
+        wall_s=twall, sim_s_per_wall_s=R * sim_s / twall,
+        ttis_per_wall_s=R * BENCH_TTIS / twall,
+        agg_dl_mbps=float(tout["rx_bits"].sum()) / R / sim_s / 1e6,
+        goodput_mbps=float(tout["goodput_bits"].sum()) / R / sim_s / 1e6,
+        offered_mbps=float(tout["offered_bits"].sum()) / sim_s / 1e6,
+        backlogs_left=int((tout["backlog_bits"] > 0).sum()),
+        gate_held_ue_ttis=theld, eligible_ue_ttis=telig,
+        gate_held_share=theld / telig, equals_one_launch_per_tti=True,
+        table_build_s=tr_table_s,
+        table_device_busy_share=(tr_table_busy if tr_table_busy is not None
+                                 else "not measured"),
+        kernel_launches=tlaunches,
+        device_busy_share=tbusy if tbusy is not None else "not measured",
+        profiled_advance_device_ms=(trf_profiled_ms
+                                    if trf_profiled_ms is not None
+                                    else "not measured"),
+        wall_median_s=traffic_med, full_buffer_wall_median_s=static_med,
+        wall_vs_full_buffer=traffic_med / static_med,
+    )), flush=True)
+
+    # 5d'. the same drop and ON-OFF shape at a peak near what the cells
+    #      carry, so backlogs empty all run long and the gate keeps biting
+    near = TrafficProgram.onoff(
+        U, NEAR_CAPACITY_PPS, horizon_us=BENCH_TTIS * 1000, on=ONOFF_ON,
+        off_mean_s=ONOFF_OFF_MEAN_S, tr_seed=ONOFF_TR_SEED,
+    )
+    near_prog = dataclasses.replace(tr_prog, traffic=dataclasses.replace(
+        near, size_pareto=tr_prog.traffic.size_pareto))
+    near_run, nout, nwall, nlaunches, nheld, nelig = traffic_bench(
+        near_prog, "near-capacity traffic main path")
+    near_med = median_wall(near_run)
+    print(json.dumps(dict(
+        phase="bench_traffic_near_capacity", replicas=R, n_enb=E, n_ue=U,
+        n_ttis=BENCH_TTIS, traffic="onoff", peak_pps=NEAR_CAPACITY_PPS,
+        wall_s=nwall, sim_s_per_wall_s=R * sim_s / nwall,
+        ttis_per_wall_s=R * BENCH_TTIS / nwall,
+        agg_dl_mbps=float(nout["rx_bits"].sum()) / R / sim_s / 1e6,
+        goodput_mbps=float(nout["goodput_bits"].sum()) / R / sim_s / 1e6,
+        offered_mbps=float(nout["offered_bits"].sum()) / sim_s / 1e6,
+        backlogs_left=int((nout["backlog_bits"] > 0).sum()),
+        gate_held_ue_ttis=nheld, eligible_ue_ttis=nelig,
+        gate_held_share=nheld / nelig, equals_one_launch_per_tti=True,
+        kernel_launches=nlaunches,
+        wall_median_s=near_med, full_buffer_wall_median_s=static_med,
+        wall_vs_full_buffer=near_med / static_med,
+        wall_vs_saturated=near_med / traffic_med,
+    )), flush=True)
+
+    # 5e. the bf16 static path at bench depth
+    b_bench = dataclasses.replace(b_prog, n_ttis=BENCH_TTIS)
+
+    def bf16_run():
+        return run_lte_sm(b_bench, key, replicas=R, device=dev,
+                          chunk_ttis=BENCH_CHUNK)
+
+    run_lte_sm(dataclasses.replace(b_prog, n_ttis=50), key, replicas=R,
+               device=dev, chunk_ttis=BENCH_CHUNK)          # warm-up
+    bout, bwall, blaunches = counted(
+        kc, bf16_run, {"lte_sm_advance": n_launch,
+                       "lte_sm_advance:bf16": n_launch},
+        "bf16 static main path",
+    )
+    if bout["rx_bits"].sum() <= 0 or not np.all(np.isfinite(bout["sinr"])):
+        fail("bf16 run delivered nothing")
+    bbusy, _ = device_busy_share(bf16_run, "lte_sm_advance")
+    print(json.dumps(dict(
+        phase="bench_bf16", replicas=R, n_enb=E, n_ue=U, n_ttis=BENCH_TTIS,
+        wall_s=bwall, sim_s_per_wall_s=R * sim_s / bwall,
+        ttis_per_wall_s=R * BENCH_TTIS / bwall,
+        agg_dl_mbps=float(bout["rx_bits"].sum()) / R / sim_s / 1e6,
+        f32_agg_dl_mbps=float(out["rx_bits"].sum()) / R / sim_s / 1e6,
+        cqi_differs_from_f32=int((bout["cqi"] != out["cqi"]).sum()),
+        kernel_launches=blaunches,
+        device_busy_share=bbusy if bbusy is not None else "not measured",
+        wall_median_s=median_wall(bf16_run), f32_wall_median_s=static_med,
+    )), flush=True)
+
+    # 5f. the traffic sweep of all nine ids at bench depth, each point its
+    #     single-point run
+    tswept, tswall, tslaunches = counted(
+        kc, lambda: traffic_run(schedulers=names),
+        {"lte_sm_advance": n_tr, "lte_sm_advance:traffic": n_tr,
+         "lte_sm_advance:sweep": n_tr},
+        "nine-scheduler traffic sweep",
+    )
+    for name, point in zip(names, tswept):
+        single = tout if name == tr_prog.scheduler else run_lte_sm(
+            dataclasses.replace(tr_prog, scheduler=name), key, replicas=R,
+            device=dev, chunk_ttis=BENCH_CHUNK,
+        )
+        if not same_outputs(point, single, TRAFFIC_KEYS):
+            fail(f"traffic sweep point {name} differs from its single run")
+    print(json.dumps(dict(
+        phase="bench_traffic_sweep", points=names, replicas=R, n_enb=E,
+        n_ue=U, n_ttis=BENCH_TTIS, wall_s=tswall,
+        sim_s_per_wall_s=len(names) * R * sim_s / tswall,
+        kernel_launches=tslaunches, wall_vs_single_point=tswall / twall,
+        equals_single_point=names,
+    )), flush=True)
+
+    # 5g. bf16 on the moving drop, its nine-point sweep and the
+    #     single-step route, at bench depth, each after a warm-up and
+    #     beside its f32 twin's figure
+    def bf16_mobile_run(**kw):
+        return run_lte_sm(b_mobile, key, replicas=R, device=dev,
+                          chunk_ttis=BENCH_CHUNK, **kw)
+
+    run_lte_sm(dataclasses.replace(b_mobile, n_ttis=50), key, replicas=R,
+               device=dev, chunk_ttis=BENCH_CHUNK)          # warm-up
+    bmout, bmwall, bmlaunches = counted(
+        kc, bf16_mobile_run,
+        {"lte_sm_advance": n_launch, "lte_sm_advance:dynamic": n_launch,
+         "lte_sm_advance:bf16": n_launch},
+        "bf16 mobile path",
+    )
+    if bmout["rx_bits"].sum() <= 0 or bmout["geom_refreshes"] != refreshes:
+        fail("bf16 mobile run delivered nothing or missed refreshes")
+    bmswept, bmswall, bmslaunches = counted(
+        kc, lambda: bf16_mobile_run(schedulers=names),
+        {"lte_sm_advance": n_launch, "lte_sm_advance:dynamic": n_launch,
+         "lte_sm_advance:sweep": n_launch, "lte_sm_advance:bf16": n_launch},
+        "bf16 nine-scheduler mobile sweep",
+    )
+    if not same_outputs(bmswept[names.index(b_mobile.scheduler)], bmout,
+                        INT_KEYS + ("geom_refreshes",)):
+        fail("bf16 mobile sweep point differs from its single run")
+    bmobile_med = median_wall(bf16_mobile_run)
+    step_route(dataclasses.replace(b_prog, n_ttis=50), key, dev)  # warm-up
+    brouted, bswall, bslaunches = counted(
+        kc, lambda: step_route(b_bench, key, dev),
+        {"lte_sm_step": BENCH_TTIS, "lte_sm_step:bf16": BENCH_TTIS},
+        "bf16 single-step route",
+    )
+    brouted = {k: v.cpu().numpy() for k, v in brouted.items()}
+    if not (np.array_equal((brouted["rx_hi"].astype(np.int64) << 20)
+                           + brouted["rx_lo"], bout["rx_bits"])
+            and all(np.array_equal(brouted[k], bout[k])
+                    for k in ("new_tbs", "retx", "drops"))
+            and np.array_equal(brouted["ok_cnt"], bout["ok"])):
+        fail("bf16 single-step route and bf16 main path differ at bench "
+             "depth")
+    print(json.dumps(dict(
+        phase="bench_bf16_more", replicas=R, n_enb=E, n_ue=U,
+        n_ttis=BENCH_TTIS,
+        mobile=dict(wall_s=bmwall, sim_s_per_wall_s=R * sim_s / bmwall,
+                    kernel_launches=bmlaunches, wall_median_s=bmobile_med,
+                    f32_wall_median_s=mobile_med,
+                    wall_vs_f32=bmobile_med / mobile_med),
+        mobile_sweep=dict(wall_s=bmswall,
+                          sim_s_per_wall_s=len(names) * R * sim_s / bmswall,
+                          kernel_launches=bmslaunches, f32_wall_s=swall,
+                          wall_vs_f32=bmswall / swall),
+        step_route=dict(wall_s=bswall, sim_s_per_wall_s=R * sim_s / bswall,
+                        kernel_launches=bslaunches, f32_wall_s=step_wall,
+                        wall_vs_f32=bswall / step_wall,
+                        equals_main_path=True),
+    )), flush=True)
+
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound):
         return dict(
             name=name, route="cuda",
             source=("tpudes_torch/csrc/lte_sm_step.cu"
-                    if name == "lte_sm_step"
+                    if name.startswith("lte_sm_step")
                     else "tpudes_torch/csrc/lte_sm_advance.cu"),
             replaces="tpudes/parallel/kernels_pallas.py:473",
             launches=launches_, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -819,8 +1386,14 @@ def main(device: str = "cuda") -> int:
         entry("lte_sm_advance:sweep", slaunches["lte_sm_advance:sweep"],
               sweep_err, ms_sweep, ms_sweep_plain,
               (sweep_bound_ms, sweep_bound_by)),
+        entry("lte_sm_advance:traffic", tlaunches["lte_sm_advance:traffic"],
+              trf_err, ms_trf, ms_trf_plain, (trf_bound_ms, trf_bound_by)),
+        entry("lte_sm_advance:bf16", blaunches["lte_sm_advance:bf16"],
+              bf_err, ms_bf, ms_bf_plain, (bf_bound_ms, bf_bound_by)),
         entry("lte_sm_step", step_launches["lte_sm_step"], max_err,
               ms_kernel, ms_plain, (bound_ms, bound_by)),
+        entry("lte_sm_step:bf16", bslaunches["lte_sm_step:bf16"],
+              step_bf_err, ms_step_bf, ms_step_bf_plain, step_bf_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ Tolerance: none — each kernel and its plain version must give
 bit-identical state, and the slice's integer outputs must be equal.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -20,7 +21,16 @@ import torch
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.random import PRNGKey, replica_keys
-from tpudes_torch.scenarios import lena_grid_program, lena_ue_drop
+from tpudes_torch.scenarios import (
+    ONOFF_OFF_MEAN_S,
+    ONOFF_ON,
+    ONOFF_TR_SEED,
+    lena_grid_program,
+    lena_traffic_program,
+    lena_ue_drop,
+)
+from tpudes_torch.traffic.device import offered_table
+from tpudes_torch.traffic.program import TrafficProgram
 
 R = 4
 
@@ -33,9 +43,29 @@ def card():
     return torch.device("cuda")
 
 
-def _program(n_ttis=200):
+def _program(n_ttis=200, precision="f32"):
     gen = torch.Generator().manual_seed(11)
-    return lena_grid_program(*lena_ue_drop(3, 5, generator=gen), n_ttis)
+    prog = lena_grid_program(*lena_ue_drop(3, 5, generator=gen), n_ttis)
+    return dataclasses.replace(prog, precision=precision)
+
+
+def _traffic_program(n_ttis=200, precision="f32"):
+    """The 3 x 5 drop under the ON-OFF workload at a peak of 120 pps,
+    near what the cells deliver, so backlogs empty and the gate bites."""
+    prog = lena_traffic_program(3, 5, n_ttis, precision=precision,
+                                generator=torch.Generator().manual_seed(11))
+    near = TrafficProgram.onoff(
+        prog.n_ue, 120.0, horizon_us=n_ttis * 1000, on=ONOFF_ON,
+        off_mean_s=ONOFF_OFF_MEAN_S, tr_seed=ONOFF_TR_SEED,
+    )
+    return dataclasses.replace(prog, traffic=dataclasses.replace(
+        near, size_pareto=prog.traffic.size_pareto))
+
+
+def _offered(prog, card, t0, t1, seed=5):
+    ops = prog.traffic.operands(card)
+    return offered_table(ops, prog.traffic.epoch_us,
+                         PRNGKey(seed).to(card), t0, t1)
 
 
 def _harq_consts(prog, card):
@@ -46,9 +76,12 @@ def _harq_consts(prog, card):
     return dict(consts, mi0=(consts["mi0"] * scale).contiguous())
 
 
-def _counts(step=0, advance=0, dynamic=0, sweep=0):
-    return {"lte_sm_step": step, "lte_sm_advance": advance,
-            "lte_sm_advance:dynamic": dynamic, "lte_sm_advance:sweep": sweep}
+def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
+            step_bf16=0):
+    return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
+            "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
+            "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
+            "lte_sm_advance:bf16": bf16}
 
 
 def _bit_equal(a, b):
@@ -249,3 +282,123 @@ def test_geometry_table_card_equals_cpu(card, model):
                                    on_cpu[k].numpy(), rtol=1e-6, atol=0)
     if model == "const_velocity":
         assert _bit_equal(on_card["sinr"].cpu(), on_cpu["sinr"])
+
+
+def _assert_states_equal(got, want, layout, msg):
+    for k, _, _ in layout:
+        assert _bit_equal(got[k], want[k]), (msg, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("sched", list(kc.SM_SCHED_IDS))
+def test_traffic_arm_bit_equal_to_plain_loop(card, sched, precision):
+    """Two launches of the traffic arm, the second from where the first
+    ended, against one plain loop: the 14 arrays and the backlog state
+    bit-equal; the gate fired and some backlog is left."""
+    prog = _traffic_program(precision=precision)
+    sid = kc.SM_SCHED_IDS[sched]
+    consts = _harq_consts(prog, card)
+    keys = replica_keys(PRNGKey(sid), R).to(card)
+    s0 = kc.sm_init_state(prog.n_enb, prog.n_ue, R, card, traffic=True)
+    table = _offered(prog, card, 20, 150)
+    kc.reset_launches()
+    s1 = kc.sm_advance(consts, s0, keys, 20, 90, sid,
+                       offered=table[:70].contiguous())
+    s2 = kc.sm_advance(consts, s1, keys, 90, 150, sid,
+                       offered=table[70:].contiguous())
+    bf = 2 * (precision == "bf16")
+    assert kc.launches == _counts(advance=2, traffic=2, bf16=bf)
+    want = kc.sm_advance_math(consts, s0, keys, 20, 150, sid, offered=table)
+    _assert_states_equal(s2, want, kc.SM_STATE + kc.TR_STATE, sched)
+    full = kc.sm_advance_math(consts, s0, keys, 20, 150, sid)
+    assert int(s2["new_tbs"].sum()) < int(full["new_tbs"].sum())
+    assert bool((s2["tr_backlog"] > 0).any())
+    assert int(s2["retx"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "dynamic", "sweep", "traffic"])
+def test_bf16_arms_bit_equal_to_plain_loop(card, arm):
+    """The bf16 flag on each arm of ``lte_sm_advance``, one launch of
+    every scheduler id (the sweep grid) against the plain loop."""
+    prog = (_traffic_program if arm == "traffic" else _program)(
+        precision="bf16")
+    consts = _harq_consts(prog, card)
+    keys = replica_keys(PRNGKey(3), R).to(card)
+    sids = torch.arange(9, dtype=torch.int32, device=card)
+    lanes, sid = (9 * R, sids) if arm in ("sweep", "traffic") else (R, 0)
+    rows = (_random_table(consts, kc.table_rows(10, 90, 4),
+                          np.random.default_rng(2), card)
+            if arm == "dynamic" else None)
+    offered = _offered(prog, card, 10, 90) if arm == "traffic" else None
+    s0 = kc.sm_init_state(prog.n_enb, prog.n_ue, lanes, card,
+                          traffic=offered is not None)
+    kc.reset_launches()
+    got = kc.sm_advance(consts, s0, keys, 10, 90, sid, rows, 4, offered)
+    assert kc.launches == _counts(
+        advance=1, bf16=1, dynamic=int(arm == "dynamic"),
+        sweep=int(lanes > R), traffic=int(arm == "traffic"))
+    want = kc.sm_advance_math(consts, s0, keys, 10, 90, sid, rows, 4,
+                              offered)
+    _assert_states_equal(got, want, kc.SM_STATE + kc.TR_STATE * (
+        offered is not None), arm)
+    assert int(got["retx"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", list(kc.SM_SCHED_IDS))
+def test_step_kernel_bf16_bit_equal_to_plain_core(card, sched):
+    prog = _program(precision="bf16")
+    sid = kc.SM_SCHED_IDS[sched]
+    consts = _harq_consts(prog, card)
+    s_k = kc.sm_init_state(prog.n_enb, prog.n_ue, R, device=card)
+    s_p = {k: v.clone() for k, v in s_k.items()}
+    gen = torch.Generator(device=card).manual_seed(sid)
+    kc.reset_launches()
+    for t in range(60):
+        coin = torch.rand((R, prog.n_ue), generator=gen, device=card)
+        s_k = kc.sm_step(consts, s_k, coin, t, sid)
+        s_p = kc.sm_step_math(consts, s_p, coin, t, sid)
+    assert kc.launches == _counts(step=60, step_bf16=60)
+    _assert_states_equal(s_k, s_p, kc.SM_STATE, sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_traffic_slice_kernel_equals_plain_and_cpu(card, precision):
+    """A traffic program through the kernel (whole and in chunks of 37),
+    the plain loop on the card and the plain loop on the CPU: equal
+    integers and bit-equal backlogs; the sweep's points equal their
+    single runs."""
+    prog = _traffic_program(300, precision)
+    kc.reset_launches()
+    kern = run_lte_sm(prog, PRNGKey(3), replicas=R, device=card)
+    chunked = run_lte_sm(prog, PRNGKey(3), replicas=R, device=card,
+                         chunk_ttis=37)
+    n = 1 + math.ceil(prog.n_ttis / 37)
+    assert kc.launches == _counts(advance=n, traffic=n,
+                                  bf16=n * (precision == "bf16"))
+    plain = run_lte_sm(prog, PRNGKey(3), replicas=R, device=card,
+                       use_kernel=False)
+    cpu = run_lte_sm(prog, PRNGKey(3), replicas=R, device="cpu")
+    for k in ("rx_bits", "new_tbs", "retx", "drops", "ok", "goodput_bits",
+              "backlog_bits"):
+        for other in (plain, chunked, cpu):
+            assert np.array_equal(kern[k], other[k]), k
+    swept = run_lte_sm(prog, PRNGKey(3), replicas=R, device=card,
+                       schedulers=["rr", prog.scheduler])
+    for k in ("rx_bits", "goodput_bits", "backlog_bits"):
+        assert np.array_equal(swept[1][k], kern[k]), k
+
+
+@pytest.mark.cuda
+def test_offered_table_card_equals_cpu(card):
+    """The offered-bits table runs the same IEEE operations on the card
+    as on the CPU: bit-equal at full width over 2,000 TTIs."""
+    prog = lena_traffic_program(7, 30, 2000,
+                                generator=torch.Generator().manual_seed(1))
+    on_card = _offered(prog, card, 0, 2000)
+    on_cpu = _offered(prog, "cpu", 0, 2000)
+    assert _bit_equal(on_card.cpu(), on_cpu)
+    assert float(on_cpu.sum()) > 0

@@ -33,6 +33,7 @@ from tpudes_torch.ops.mobility import MobilityProgram
 from tpudes_torch.parallel.lte_sm import LteSmProgram, run_lte_sm
 from tpudes_torch.random import PRNGKey
 from tpudes_torch.scenarios import hex_grid, lena_grid_program, lena_ue_drop
+from tpudes_torch.traffic.program import TrafficProgram
 
 REPO = Path(__file__).resolve().parents[1]
 INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
@@ -132,12 +133,18 @@ def test_lena_ue_drop_geometry():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(precision="bf16"), dict(traffic=object())],
+    "kwargs, match",
+    [(dict(precision="f16"), "precision"),
+     (dict(traffic=TrafficProgram.cbr(np.zeros(3), 1000)), "entities")],
 )
-def test_unported_program_arms_raise(lena, kwargs):
+def test_unported_program_arms_raise(lena, kwargs, match):
+    """Every arm of K1 is ported; what the reference refuses, the port
+    refuses: a precision other than f32 and bf16, and a workload whose
+    entity count is not the UE count."""
     fields = {k: getattr(lena[0], k) for k in PROGRAM_FIELDS}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LteSmProgram(**fields, **kwargs)
+    fields.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        LteSmProgram(**fields)
 
 
 def _static_mobility(lena):
@@ -161,7 +168,8 @@ def test_program_takes_mobility(lena):
                         PRNGKey(KEY_SEED), replicas=2, device="cpu")
     assert np.array_equal(out["cqi"], static["cqi"])
     with pytest.raises(ValueError, match="traffic"):
-        LteSmProgram(**fields, mobility=mob, traffic=object())
+        LteSmProgram(**fields, mobility=mob,
+                     traffic=TrafficProgram.cbr(np.zeros(prog.n_ue), 1000))
 
 
 def test_run_takes_schedulers(lena):
@@ -203,6 +211,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     sources = _port_sources()
     assert (REPO / "chip_smoke.py").is_file()
     assert len(sources) > 10
+    assert {"program.py", "device.py", "host.py"} <= {
+        p.name for p in sources if p.parent.name == "traffic"
+    }
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -1,8 +1,9 @@
 """Carry the reference's programs and kernel states into the port.
 
-The JAX package's ``LteSmProgram``, its ``MobilityProgram`` and its
-kernel state are numpy-able; the port takes their numpy values (it
-never imports the JAX package).  This is how the tests and a user move
+The JAX package's ``LteSmProgram``, its ``MobilityProgram``, its
+``TrafficProgram`` and its kernel state are numpy-able; the port takes
+their numpy values (it never imports the JAX package).  This is how the
+tests and a user move
 a scenario lowered by the reference (``tpudes.scenarios.build_lena`` +
 ``lower_lte_sm``) onto the card.
 """
@@ -18,17 +19,26 @@ from tpudes_torch.device import resolve_device
 from tpudes_torch.ops.mobility import MobilityProgram
 from tpudes_torch.parallel.kernels_cuda import SM_STATE
 from tpudes_torch.parallel.lte_sm import LteSmProgram
+from tpudes_torch.traffic.program import TrafficProgram
 
 #: the reference program's fields the port reads
 PROGRAM_FIELDS = (
     "gain", "serving", "tx_power_dbm", "noise_psd", "n_rb", "n_ttis",
-    "scheduler", "pf_alpha", "geom_stride", "enb_pos", "pathloss",
+    "scheduler", "pf_alpha", "precision", "geom_stride", "enb_pos",
+    "pathloss",
 )
 
 #: the reference ``MobilityProgram``'s fields
 MOBILITY_FIELDS = (
     "model", "base_pos", "velocity", "speed", "bounds", "wp_t", "wp_p",
     "seg_us", "n_seg", "mob_seed",
+)
+
+#: the reference ``TrafficProgram``'s fields
+TRAFFIC_FIELDS = (
+    "model", "start_us", "interval_us", "rate_pps", "mmpp_mult", "mmpp_p",
+    "peak_pps", "on_pareto", "off_mean_s", "arr_t", "arr_b", "size_pareto",
+    "env", "epoch_us", "n_epoch", "n_cycle", "tr_seed", "model_id",
 )
 
 
@@ -49,13 +59,43 @@ def mobility_from_numpy(fields: Mapping) -> MobilityProgram:
     )
 
 
+def traffic_from_numpy(fields: Mapping) -> TrafficProgram:
+    """Port workload from the reference ``TrafficProgram``'s numpy
+    fields (:data:`TRAFFIC_FIELDS`; ``model_id`` may be missing or
+    None)."""
+    model_id = fields.get("model_id")
+    return TrafficProgram(
+        model=str(fields["model"]),
+        start_us=np.asarray(fields["start_us"], np.int32),
+        interval_us=np.asarray(fields["interval_us"], np.int32),
+        rate_pps=np.asarray(fields["rate_pps"], np.float32),
+        mmpp_mult=np.asarray(fields["mmpp_mult"], np.float32),
+        mmpp_p=np.asarray(fields["mmpp_p"], np.float32),
+        peak_pps=np.asarray(fields["peak_pps"], np.float32),
+        on_pareto=np.asarray(fields["on_pareto"], np.float32),
+        off_mean_s=float(fields["off_mean_s"]),
+        arr_t=np.asarray(fields["arr_t"], np.int32),
+        arr_b=np.asarray(fields["arr_b"], np.int32),
+        size_pareto=np.asarray(fields["size_pareto"], np.float32),
+        env=np.asarray(fields["env"], np.float32),
+        epoch_us=int(fields["epoch_us"]),
+        n_epoch=int(fields["n_epoch"]),
+        n_cycle=int(fields["n_cycle"]),
+        tr_seed=int(fields["tr_seed"]),
+        model_id=None if model_id is None else np.asarray(model_id,
+                                                          np.int32),
+    )
+
+
 def program_from_numpy(fields: Mapping,
-                       mobility: MobilityProgram | None = None
+                       mobility: MobilityProgram | None = None,
+                       traffic: TrafficProgram | None = None
                        ) -> LteSmProgram:
     """Port program from the reference ``LteSmProgram``'s numpy fields
     (:data:`PROGRAM_FIELDS`; the mobile ones may be missing or None for
-    a static program), moving as ``mobility`` says
-    (:func:`mobility_from_numpy`)."""
+    a static program), moving as
+    ``mobility`` says (:func:`mobility_from_numpy`) and with the finite
+    backlogs ``traffic`` fills (:func:`traffic_from_numpy`)."""
     enb_pos = fields.get("enb_pos")
     pathloss = fields.get("pathloss")
     return LteSmProgram(
@@ -67,7 +107,9 @@ def program_from_numpy(fields: Mapping,
         n_ttis=int(fields["n_ttis"]),
         scheduler=str(fields["scheduler"]),
         pf_alpha=float(fields["pf_alpha"]),
+        precision=str(fields["precision"]),
         mobility=mobility,
+        traffic=traffic,
         geom_stride=int(fields.get("geom_stride") or 1),
         enb_pos=None if enb_pos is None else np.asarray(enb_pos, np.float32),
         pathloss=None if pathloss is None else (

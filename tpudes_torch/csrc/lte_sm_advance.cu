@@ -52,16 +52,30 @@
 //   point c with scheduler id sids[c] on state row c * R + r, and draws
 //   replica r's coins (the keys are shared across points, as the
 //   reference's sweep shares them).
+// - Finite backlogs (the traffic path, template flag TRF; the reference's
+//   build_sm_traffic_advance, lte_sm.py:839-946, which runs K1 with
+//   dynamic=("eligible",)): each UE's backlog and its 20-bit split drained
+//   counter live in three more registers for the launch.  Before TTI t the
+//   backlog takes row t - t0 of the offered-bits table (T, U), shared by
+//   every replica and config point and read one TTI ahead, capped at 2^30
+//   bits; the UE is eligible only with a non-empty backlog; after the
+//   decode the backlog drains by min(served, backlog), where served is the
+//   TTI's own delivered bits (the reference's rx-counter difference: the
+//   same integer below 2^24).  TRF and DYN exclude each other, as the
+//   reference refuses traffic with mobility; the sweep grid takes either.
+// - bf16 (template flag BF16, precision="bf16"): lte_sm_common.cuh's metric
+//   and BLER with the reference's bf16 roundings; orthogonal to the arms.
 //
 // Arithmetic: lte_sm_common.cuh's, bit-identical on the card to the plain
 // PyTorch loop sm_advance_math (tpudes_torch/parallel/kernels_cuda.py).
 //
 // Bound: at E=7, U=210, R=64 the state moves once each way (about 1.4 MB,
-// 0.4 us at 3.35 TB/s), so over a horizon the bound is the work: about 80
-// int32 operations per UE-TTI (the coin's threefry and the scan) over the
-// card's int32 rate, 0.64 ms at 10,000 TTIs.  With 64 CTAs on 132 SMs the
-// time is set by each TTI's chain of dependent steps (hash, scan, barrier,
-// reductions and atomics, barrier, BLER), not by throughput.
+// 0.4 us at 3.35 TB/s; the traffic arm adds its table, 840 B per TTI read
+// once, 8.4 MB at 10,000 TTIs), so over a horizon the bound is the work:
+// about 80 int32 operations per UE-TTI (the coin's threefry and the scan)
+// over the card's int32 rate, 0.64 ms at 10,000 TTIs.  With 64 CTAs on 132
+// SMs the time is set by each TTI's chain of dependent steps (hash, scan,
+// barrier, reductions and atomics, barrier, BLER), not by throughput.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +99,17 @@ struct Table {
   const int* eligible;
 };
 
+// the traffic arm: the offered bits (T, U) and the backlog state in / out
+struct Traffic {
+  const float* offered;
+  const float* backlog;
+  const int *drained_lo, *drained_hi;
+  float* o_backlog;
+  int *o_drained_lo, *o_drained_hi;
+};
+
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr float kBacklogCap = 1073741824.0f;  // 2^30 bits
 
 // threefry2x32's rotation for round j of group i
 __device__ __forceinline__ constexpr int rot(int i, int j) {
@@ -147,10 +171,10 @@ __device__ __forceinline__ void load_row(const Table& tab, int j, int U,
   }
 }
 
-template <int K, bool DYN>
+template <int K, bool DYN, bool TRF, bool BF16>
 __global__ void __launch_bounds__(ADV_MAX_THREADS)
-    lte_sm_advance_kernel(Consts c, Table tab, StateIn si, StateOut so,
-                          const long long* __restrict__ keys,
+    lte_sm_advance_kernel(Consts c, Table tab, Traffic tr, StateIn si,
+                          StateOut so, const long long* __restrict__ keys,
                           const int* __restrict__ sids, Params p, int t0,
                           int t1, int stride) {
   __shared__ int s_scan[ADV_MAX_U];         // in-chunk inclusive request scan
@@ -167,11 +191,15 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
   const int nchunk = (U + 31) >> 5;
 
   // the positions this thread holds: their UE, cell, constants and state
-  bool valid[K], elig[K];
+  bool valid[K], elig[K], elig0[K];
   int ue[K], cell[K], before_cell[K], pos[K], count_u[K], count_c[K];
   unsigned group[K];
   float mi0[K], rate0[K], eff0[K], ecr0[K];
   Ue st[K];
+  // the traffic arm: backlog, drained counter, this TTI's capped backlog
+  // and the next TTI's offered bits in flight
+  float backlog[K], bl[K], off_nx[K];
+  int drained_lo[K], drained_hi[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int q = k * B + tid;
@@ -184,14 +212,23 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
     pos[k] = c.pos[u];
     count_u[k] = c.count_u[u];
     count_c[k] = valid[k] ? c.count_c[e] : 1;
-    // the static arm's rows, once; the dynamic arm loads them at t0
-    elig[k] = !DYN && valid[k] && c.eligible[u] != 0;
+    // the static arm's rows, once; the dynamic arm loads them at t0; the
+    // traffic arm gates the static eligibility by the backlog every TTI
+    elig0[k] = !DYN && valid[k] && c.eligible[u] != 0;
+    elig[k] = elig0[k];
     mi0[k] = DYN ? 0.0f : c.mi0[u];
     rate0[k] = DYN ? 0.0f : c.rate0[u];
     eff0[k] = DYN ? 0.0f : c.eff0[u];
     ecr0[k] = DYN ? 0.0f : c.ecr0[u];
     st[k] = valid[k] ? load_ue(si, row * U + u) : Ue{};
     group[k] = __match_any_sync(kFull, e);
+    if (TRF) {
+      const int i = row * U + u;
+      backlog[k] = valid[k] ? tr.backlog[i] : 0.0f;
+      drained_lo[k] = valid[k] ? tr.drained_lo[i] : 0;
+      drained_hi[k] = valid[k] ? tr.drained_hi[i] : 0;
+      off_nx[k] = t1 > t0 ? tr.offered[u] : 0.0f;
+    }
   }
   for (int e = tid; e < E; e += B) {
     s_rr[e] = si.rr_ptr[row * E + e];
@@ -241,6 +278,18 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
       if (j < j_last)
         load_row(tab, j + 1, U, ue, valid, nx_mi0, nx_rate0, nx_eff0,
                  nx_ecr0, nx_elig);
+    }
+    if (TRF) {
+      // this TTI's offered bits into the backlog, the next TTI's load
+      // issued now; the gate
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float off = off_nx[k];
+        if (t + 1 < t1)
+          off_nx[k] = tr.offered[static_cast<long long>(i + 1) * U + ue[k]];
+        bl[k] = fminf(__fadd_rn(backlog[k], off), kBacklogCap);
+        elig[k] = elig0[k] && bl[k] > 0.0f;
+      }
     }
     if ((i & 31) == 0) {
       kt0 = 0u;
@@ -299,8 +348,8 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
 
       const bool cand = elig[k] && st[k].pend == 0;
       const uint32_t hi =
-          cand ? orderable(metric(sid, rate0[k], st[k].avg, pos[k],
-                                  s_rr[max(cell[k], 0)], count_u[k]))
+          cand ? orderable(metric<BF16>(sid, rate0[k], st[k].avg, pos[k],
+                                        s_rr[max(cell[k], 0)], count_u[k]))
                : 0u;
       const uint32_t best = __reduce_max_sync(group[k], hi);
       const uint32_t lo =
@@ -328,31 +377,67 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
                           static_cast<uint32_t>(key) ==
                               ~static_cast<uint32_t>(ue[k]);
       if (winner) s_rr[e] = (pos[k] + 1) % count_c[k];
-      decode_update(st[k], fit[k], winner, winner ? rem : 0, coin[k],
-                    eff0[k], mi0[k], ecr0[k], t, p);
+      const float served =
+          decode_update<BF16>(st[k], fit[k], winner, winner ? rem : 0,
+                              coin[k], eff0[k], mi0[k], ecr0[k], t, p);
+      if (TRF) {
+        // only the backlog's bits drain (a larger TB is padding)
+        const float drain = fminf(served, bl[k]);
+        const int lo = drained_lo[k] + __float2int_rn(drain);
+        backlog[k] = __fsub_rn(bl[k], drain);
+        drained_lo[k] = lo & 0xFFFFF;
+        drained_hi[k] += lo >> 20;
+      }
     }
   }
 
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (valid[k]) store_ue(so, row * U + ue[k], st[k]);
+  for (int k = 0; k < K; ++k) {
+    if (!valid[k]) continue;
+    const int i = row * U + ue[k];
+    store_ue(so, i, st[k]);
+    if (TRF) {
+      tr.o_backlog[i] = backlog[k];
+      tr.o_drained_lo[i] = drained_lo[k];
+      tr.o_drained_hi[i] = drained_hi[k];
+    }
+  }
   for (int e = tid; e < E; e += B) so.rr_ptr[row * E + e] = s_rr[e];
 }
 
-template <int K>
-int launch(const Consts& c, const Table& tab, const StateIn& si,
-           const StateOut& so, const long long* keys, const int* sids,
-           const Params& p, int R, int C, int B, int t0, int t1, int stride,
-           cudaStream_t stream) {
-  const dim3 grid(R, C);
-  if (tab.mi0 != nullptr)
-    lte_sm_advance_kernel<K, true><<<grid, B, 0, stream>>>(
-        c, tab, si, so, keys, sids, p, t0, t1, stride);
-  else
-    lte_sm_advance_kernel<K, false><<<grid, B, 0, stream>>>(
-        c, tab, si, so, keys, sids, p, t0, t1, stride);
+struct Launch {
+  Consts c;
+  Table tab;
+  Traffic tr;
+  StateIn si;
+  StateOut so;
+  const long long* keys;
+  const int* sids;
+  Params p;
+  int R, C, B, t0, t1, stride;
+  cudaStream_t stream;
+};
+
+template <int K, bool DYN, bool TRF, bool BF16>
+int launch_arm(const Launch& a) {
+  lte_sm_advance_kernel<K, DYN, TRF, BF16>
+      <<<dim3(a.R, a.C), a.B, 0, a.stream>>>(a.c, a.tab, a.tr, a.si, a.so,
+                                             a.keys, a.sids, a.p, a.t0, a.t1,
+                                             a.stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, bool BF16>
+int launch_arms(const Launch& a) {
+  if (a.tab.mi0 != nullptr) return launch_arm<K, true, false, BF16>(a);
+  if (a.tr.offered != nullptr) return launch_arm<K, false, true, BF16>(a);
+  return launch_arm<K, false, false, BF16>(a);
+}
+
+template <int K>
+int launch(const Launch& a, bool bf16) {
+  return bf16 ? launch_arms<K, true>(a) : launch_arms<K, false>(a);
 }
 
 }  // namespace
@@ -363,27 +448,37 @@ extern "C" int lte_sm_advance_launch(
     const int* count_u, const int* serving, const int* count_c,
     const int* cell_order, const int* cell_start, const float* tab_mi0,
     const float* tab_rate0, const float* tab_eff0, const float* tab_ecr0,
-    const int* tab_eligible, const long long* keys, const int* sids,
+    const int* tab_eligible, const float* offered, const long long* keys,
+    const int* sids,
     const float* avg, const int* pend, const float* p_mi, const float* p_tbb,
     const int* p_nrbg, const int* p_txc, const int* p_due, const int* rr_ptr,
     const int* rx_lo, const int* rx_hi, const int* new_tbs, const int* retx,
-    const int* drops, const int* ok_cnt,
+    const int* drops, const int* ok_cnt, const float* tr_backlog,
+    const int* tr_drained_lo, const int* tr_drained_hi,
     float* o_avg, int* o_pend, float* o_p_mi, float* o_p_tbb, int* o_p_nrbg,
     int* o_p_txc, int* o_p_due, int* o_rr_ptr, int* o_rx_lo, int* o_rx_hi,
     int* o_new_tbs, int* o_retx, int* o_drops, int* o_ok_cnt,
+    float* o_tr_backlog, int* o_tr_drained_lo, int* o_tr_drained_hi,
     int R, int C, int E, int U, int n_rbg, int rbg_size, int n_rb,
     float alpha, float one_minus_alpha, float inv_sqrt2, int t0, int t1,
-    int sid, int stride, void* stream) {
+    int sid, int stride, int bf16, void* stream) {
   const bool dyn = tab_mi0 != nullptr;
+  const bool trf = offered != nullptr;
   if (U <= 0 || U > ADV_MAX_U || E <= 0 || E > ADV_MAX_E || R <= 0 ||
       C <= 0 || C > 65535 || (C > 1 && sids == nullptr) || t0 < 0 ||
-      t1 < t0 || t1 > ADV_MAX_T || stride <= 0 ||
+      t1 < t0 || t1 > ADV_MAX_T || stride <= 0 || (dyn && trf) ||
       (dyn && (tab_rate0 == nullptr || tab_eff0 == nullptr ||
-               tab_ecr0 == nullptr || tab_eligible == nullptr)))
+               tab_ecr0 == nullptr || tab_eligible == nullptr)) ||
+      (trf && (tr_backlog == nullptr || tr_drained_lo == nullptr ||
+               tr_drained_hi == nullptr || o_tr_backlog == nullptr ||
+               o_tr_drained_lo == nullptr || o_tr_drained_hi == nullptr)))
     return cudaErrorInvalidValue;
   const Consts c{mi0,     rate0,   eff0,    ecr0,       eligible,  pos,
                  count_u, serving, count_c, cell_order, cell_start};
   const Table tab{tab_mi0, tab_rate0, tab_eff0, tab_ecr0, tab_eligible};
+  const Traffic tr{offered,      tr_backlog,      tr_drained_lo,
+                   tr_drained_hi, o_tr_backlog,   o_tr_drained_lo,
+                   o_tr_drained_hi};
   const StateIn si{avg, pend, p_mi, p_tbb, p_nrbg, p_txc, p_due, rr_ptr,
                    rx_lo, rx_hi, new_tbs, retx, drops, ok_cnt};
   const StateOut so{o_avg, o_pend, o_p_mi, o_p_tbb, o_p_nrbg, o_p_txc,
@@ -393,19 +488,16 @@ extern "C" int lte_sm_advance_launch(
                  alpha, one_minus_alpha, inv_sqrt2};
   const int padded = ((U + 31) / 32) * 32;
   const int B = padded < ADV_MAX_THREADS ? padded : ADV_MAX_THREADS;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Launch a{c,    tab, tr, si, so, keys, sids, p, R, C, B, t0, t1,
+                 stride, static_cast<cudaStream_t>(stream)};
   switch ((U + B - 1) / B) {
     case 1:
-      return launch<1>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
-                       stride, st);
+      return launch<1>(a, bf16 != 0);
     case 2:
-      return launch<2>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
-                       stride, st);
+      return launch<2>(a, bf16 != 0);
     case 3:
-      return launch<3>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
-                       stride, st);
+      return launch<3>(a, bf16 != 0);
     default:
-      return launch<4>(c, tab, si, so, keys, sids, p, R, C, B, t0, t1,
-                       stride, st);
+      return launch<4>(a, bf16 != 0);
   }
 }

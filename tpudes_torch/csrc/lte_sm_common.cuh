@@ -11,9 +11,16 @@
 // __fsqrt_rn, the tail is erfcf, and the order of evaluation is the plain
 // core's.  Build without --use_fast_math.  The build digest
 // (tpudes_torch/_build.py) covers this header.
+//
+// bf16 (the BF16 template flag, precision="bf16"): a value is rounded to
+// bf16 with __float2bfloat16_rn and widened back exactly where the plain
+// core calls round_bf16 (tpudes_torch/ops/lte.py), which is where the
+// reference's jitted step rounds: the metric's rate and average, the BLER
+// argument's operands and numerator, but not the quotients.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lte_sm {
@@ -89,24 +96,35 @@ __device__ __forceinline__ void store_ue(const StateOut& so, int i,
   so.ok_cnt[i] = s.ok_cnt;
 }
 
+// x rounded to the nearest bf16 (ties to even) and widened back when BF16
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
 // the FF-MAC family metric of a candidate (sm_dispatch): PF rate / avg, RR
 // minus the UE's distance ahead of the cell's pointer, MT rate, BET -avg
+template <bool BF16>
 __device__ __forceinline__ float metric(int sid, float rate0, float avg,
                                         int pos, int rr_ptr, int count_u) {
-  if (sid <= kPfMax) return __fdiv_rn(rate0, fmaxf(avg, 1.0f));
+  if (sid <= kPfMax) return __fdiv_rn(rnd<BF16>(rate0),
+                                      fmaxf(rnd<BF16>(avg), 1.0f));
   if (sid <= kRrMax) {
     const int d = pos - rr_ptr;
     return -static_cast<float>(((d % count_u) + count_u) % count_u);
   }
-  if (sid <= kMtMax) return rate0;
-  return -avg;
+  if (sid <= kMtMax) return rnd<BF16>(rate0);
+  return -rnd<BF16>(avg);
 }
 
+template <bool BF16>
 __device__ __forceinline__ float tb_bler(float mi, float ecr, float tbb,
                                          float inv_sqrt2) {
   const float sigma = __fdiv_rn(kDispersion, __fsqrt_rn(fmaxf(tbb, 24.0f)));
   const float margin = __fmul_rn(kTargetQ, sigma);
-  const float z = __fdiv_rn(__fsub_rn(mi, __fsub_rn(ecr, margin)), sigma);
+  const float num = rnd<BF16>(
+      __fsub_rn(rnd<BF16>(mi), rnd<BF16>(__fsub_rn(ecr, margin))));
+  const float z = __fdiv_rn(num, rnd<BF16>(sigma));
   const float b = __fmul_rn(0.5f, erfcf(__fmul_rn(z, inv_sqrt2)));
   return fminf(fmaxf(b, 0.0f), 1.0f);
 }
@@ -114,19 +132,21 @@ __device__ __forceinline__ float tb_bler(float mi, float ecr, float tbb,
 // TB bits, HARQ-IR decode and the state update of one UE at TTI t
 // (sm_decode + sm_update): `fit` = its due retx was admitted, `winner` = it
 // won its cell's remaining `new_nrbg` RBGs.  Every new value is computed
-// from the old state before any field is written.
-__device__ __forceinline__ void decode_update(Ue& s, bool fit, bool winner,
-                                              int new_nrbg, float coin,
-                                              float eff0, float mi0,
-                                              float ecr0, int t,
-                                              const Params& p) {
+// from the old state before any field is written.  Returns the bits the TTI
+// delivered (0 unless the TB decoded), an integer below 2^24.
+template <bool BF16>
+__device__ __forceinline__ float decode_update(Ue& s, bool fit, bool winner,
+                                               int new_nrbg, float coin,
+                                               float eff0, float mi0,
+                                               float ecr0, int t,
+                                               const Params& p) {
   const int new_nrb = min(new_nrbg * p.rbg_size, p.n_rb);
   const float tb_new = floorf(
       __fmul_rn(__fmul_rn(eff0, static_cast<float>(new_nrb)), kRePerRb));
   const bool tx = fit || winner;
   const float tbb_tx = fit ? s.p_tbb : tb_new;
   const float mi_tx = fit ? fminf(__fadd_rn(s.p_mi, mi0), 1.0f) : mi0;
-  const float bler = tb_bler(mi_tx, ecr0, tbb_tx, p.inv_sqrt2);
+  const float bler = tb_bler<BF16>(mi_tx, ecr0, tbb_tx, p.inv_sqrt2);
   const bool ok = tx && coin >= bler;
 
   const bool fail = tx && !ok;
@@ -155,6 +175,7 @@ __device__ __forceinline__ void decode_update(Ue& s, bool fit, bool winner,
   s.retx += fit ? 1 : 0;
   s.drops += dropped ? 1 : 0;
   s.ok_cnt += ok ? 1 : 0;
+  return served;
 }
 
 }  // namespace lte_sm

@@ -19,7 +19,9 @@
 // Arithmetic: bit-identical to the plain PyTorch core
 // (tpudes_torch/parallel/kernels_cuda.py::sm_step_math) on the card; the
 // metric, BLER and per-UE update are lte_sm_common.cuh's, shared with
-// lte_sm_advance.cu.
+// lte_sm_advance.cu, in f32 or (template flag BF16, precision="bf16") with
+// the reference's bf16 roundings.  The static rows only: a geometry table
+// or a traffic backlog runs through lte_sm_advance.cu.
 //
 // Bound: at E=7, U=210, R=64 one launch reads 14 state arrays + the coin
 // (about 0.8 MB) and writes 14 (about 0.75 MB): about 1.5 MB, 0.45 us at
@@ -40,6 +42,7 @@ namespace {
 
 using namespace lte_sm;
 
+template <bool BF16>
 __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
                                    const float* __restrict__ coin,
                                    Params p, int t) {
@@ -85,8 +88,9 @@ __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
   }
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     const bool cand = c.eligible[u] != 0 && si.pend[ou + u] == 0;
-    const float m = metric(p.sid, c.rate0[u], si.avg[ou + u], c.pos[u],
-                           si.rr_ptr[oe + s_serving[u]], c.count_u[u]);
+    const float m = metric<BF16>(p.sid, c.rate0[u], si.avg[ou + u],
+                                 c.pos[u], si.rr_ptr[oe + s_serving[u]],
+                                 c.count_u[u]);
     s_metric[u] = cand ? m : kNeg;
   }
   __syncthreads();
@@ -115,8 +119,8 @@ __global__ void lte_sm_step_kernel(Consts c, StateIn si, StateOut so,
     const int e = s_serving[u];
     const bool winner = s_win[e] == u;
     Ue s = load_ue(si, i);
-    decode_update(s, s_fit[u], winner, winner ? s_rem[e] : 0, coin[i],
-                  c.eff0[u], c.mi0[u], c.ecr0[u], t, p);
+    decode_update<BF16>(s, s_fit[u], winner, winner ? s_rem[e] : 0,
+                        coin[i], c.eff0[u], c.mi0[u], c.ecr0[u], t, p);
     store_ue(so, i, s);
   }
 }
@@ -137,7 +141,7 @@ extern "C" int lte_sm_step_launch(
     int* o_new_tbs, int* o_retx, int* o_drops, int* o_ok_cnt,
     int R, int E, int U, int n_rbg, int rbg_size, int n_rb,
     float alpha, float one_minus_alpha, float inv_sqrt2, int t, int sid,
-    void* stream) {
+    int bf16, void* stream) {
   if (U > SM_MAX_U || E > SM_MAX_E || R <= 0) return cudaErrorInvalidValue;
   const Consts c{mi0,     rate0,   eff0,    ecr0,    eligible, pos,
                  count_u, serving, count_c, nullptr, nullptr};
@@ -149,7 +153,10 @@ extern "C" int lte_sm_step_launch(
   const Params p{E, U, n_rbg, rbg_size, n_rb, sid,
                  alpha, one_minus_alpha, inv_sqrt2};
   const int threads = U >= 256 ? 256 : ((U + 31) / 32) * 32;
-  lte_sm_step_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, si, so, coin, p, t);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    lte_sm_step_kernel<true><<<R, threads, 0, st>>>(c, si, so, coin, p, t);
+  else
+    lte_sm_step_kernel<false><<<R, threads, 0, st>>>(c, si, so, coin, p, t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,14 @@ stage on the CPU shows it):
   Eigen's ``plog_float``), not the C library's, and ``log10`` / ``log2``
   multiply it by one folded f32 constant;
 - a division by a constant is a multiplication by its f32 reciprocal;
-- ``power`` is the C library's ``powf`` (glibc's table-driven one).
+- ``power`` is the C library's ``powf`` (glibc's table-driven one), for
+  ``10 ** x`` and for a general ``x ** y`` alike (the optimised HLO
+  keeps ``power``, and it equals glibc's ``powf`` on every operand
+  tried).
 
-:func:`fma`, :func:`log` and :func:`exp10` reproduce the first, second
-and last from IEEE f32 and f64 operations and integer bit operations,
+:func:`fma`, :func:`log`, :func:`exp10` and :func:`powf` reproduce the
+first, second and last from IEEE f32 and f64 operations and integer bit
+operations,
 which round the same way on the CPU and on the card.  An f64 product of
 two f32 values is exact, so ``fma`` rounds the f64 sum once more to
 f32: it can differ from a true fused multiply-add only where the f64
@@ -50,6 +54,38 @@ _EXP2F_POLY = tuple(float.fromhex(h) for h in (
 ))
 _EXP2F_SHIFT = float.fromhex("0x1.8p+52") / 32
 
+#: glibc ``powf``'s log2 (``e_powf_log2_data.c``): 16 subintervals of
+#: ``[OFF, 2 OFF)``, each ``(1/c, log2 c)``, and the degree-5 polynomial
+#: of ``log1p(r) / ln 2``
+_POWF_OFF = 0x3F330000
+_POWF_LOG2_TAB = tuple(
+    (float.fromhex(a), float.fromhex(b)) for a, b in (
+        ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+        ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+        ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+        ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+        ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+        ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+        ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+        ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+        ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+        ("0x1.0000000000000p+0", "0x0.0p+0"),
+        ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+        ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+        ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+        ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+        ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+        ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"),
+    )
+)
+_POWF_LOG2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0",
+))
+#: ``y log2 x`` past which glibc's powf overflows / underflows
+_POWF_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+_POWF_UFLOW = -150.0
+
 
 def _exp2f_table() -> np.ndarray:
     """The bits of ``2 ** (i / 32)``, i < 32, rounded to f64 (glibc's
@@ -61,6 +97,8 @@ def _exp2f_table() -> np.ndarray:
 
 
 _EXP2F_TAB_BITS = _exp2f_table()
+_POWF_INVC = np.asarray([a for a, _ in _POWF_LOG2_TAB], np.float64)
+_POWF_LOGC = np.asarray([b for _, b in _POWF_LOG2_TAB], np.float64)
 
 
 _ON_DEVICE: dict = {}
@@ -134,19 +172,65 @@ def log(x: torch.Tensor) -> torch.Tensor:
     return (fma(f32(x, -0.5), z2, z) + y) + e * f32(x, _LOG_Q2)
 
 
-def exp10(y: torch.Tensor) -> torch.Tensor:
-    """``10 ** y`` for f32 ``y`` as the reference's compiled ``power``
-    computes it (glibc ``powf``): ``x = y log2(10)`` in f64, ``x = k/32
-    + r``, ``2 ** (k/32)`` from the table with ``k >> 5`` added to its
-    exponent, times the cubic in ``r``, rounded once to f32.  A result
-    below the smallest normal f32 is 0, as the reference's CPU runs with
-    subnormals flushed."""
+def _exp2(x: torch.Tensor) -> torch.Tensor:
+    """glibc ``powf``'s exp2 of the f64 ``x`` before its last rounding:
+    ``x = k/32 + r``, ``2 ** (k/32)`` from the table with ``k >> 5``
+    added to its exponent, times the cubic in ``r`` (f64)."""
     c0, c1, c2 = _EXP2F_POLY
-    x = y.double() * _POWF_LOG2_10
     kd = (x + _EXP2F_SHIFT) - _EXP2F_SHIFT                  # k / 32
     r = x - kd
     k = (kd * 32.0).to(torch.int64)
-    tab = device_table(_EXP2F_TAB_BITS, y.device)
+    tab = device_table(_EXP2F_TAB_BITS, x.device)
     s = (tab[k & 31] + ((k >> 5) << 52)).view(torch.float64)
-    out = ((c0 * r + c1) * (r * r) + (c2 * r + 1.0)) * s
+    return ((c0 * r + c1) * (r * r) + (c2 * r + 1.0)) * s
+
+
+def _flush(out: torch.Tensor) -> torch.Tensor:
+    """f64 to f32, a result below the smallest normal f32 made 0 (the
+    reference's CPU runs with subnormals flushed)."""
     return torch.where(out < _FLT_MIN, 0.0, out).float()
+
+
+def exp10(y: torch.Tensor) -> torch.Tensor:
+    """``10 ** y`` for f32 ``y`` as the reference's compiled ``power``
+    computes it (glibc ``powf``): ``x = y log2(10)`` in f64 and
+    :func:`_exp2` of it, rounded once to f32."""
+    return _flush(_exp2(y.double() * _POWF_LOG2_10))
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """glibc ``powf``'s f64 ``log2`` of positive normal f32 ``x``:
+    ``x = 2**k z`` with ``z`` in ``[OFF, 2 OFF)``, one of 16 table
+    subintervals around ``c``, ``log2 x = k + log2 c + log1p(z/c - 1) /
+    ln 2`` with the degree-5 polynomial."""
+    a0, a1, a2, a3, a4 = _POWF_LOG2_POLY
+    ix = x.view(torch.int32).to(torch.int64)
+    tmp = (ix - _POWF_OFF) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = (ix - top) & 0xFFFFFFFF
+    k = (top.to(torch.int32) >> 23).to(torch.float64)      # arithmetic
+    z = iz.to(torch.int32).view(torch.float32).double()
+    r = z * device_table(_POWF_INVC, x.device)[i] - 1.0
+    y0 = device_table(_POWF_LOGC, x.device)[i] + k
+    r2 = r * r
+    q = a4 * r + y0
+    q = (a2 * r + a3) * r2 + q
+    return (a0 * r + a1) * (r2 * r2) + q
+
+
+def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x ** y`` for f32 ``x`` (0 or normal) and ``y`` as the
+    reference's compiled ``power`` computes it (glibc ``powf``):
+    ``y log2 x`` in f64, then :func:`_exp2` of it, rounded once to f32;
+    ``x = 0`` gives 0 (``y > 0``) or ``inf`` (``y < 0``), ``y = 0`` or
+    ``x = 1`` gives 1, a negative ``x`` NaN."""
+    x, y = torch.broadcast_tensors(x, y)
+    ylogx = y.double() * _log2(torch.where(x > 0, x, f32(x, 1.0)))
+    out = _flush(_exp2(ylogx.clamp(-200.0, 200.0)))
+    out = torch.where(ylogx > _POWF_OFLOW, float("inf"), out)
+    out = torch.where(ylogx <= _POWF_UFLOW, 0.0, out)
+    zero = torch.where(y > 0, 0.0, torch.where(y < 0, float("inf"), 1.0))
+    out = torch.where(x == 0, zero, out)
+    out = torch.where(x < 0, float("nan"), out)
+    return torch.where((y == 0) | (x == 1), 1.0, out).float()

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpudes/ops/lte.py``; the tables and constants are
 copies of its lines 39-92 (3GPP TS 36.211/36.213 public values, the
-LENA PiroEW2010 SNR gap, the Gaussian-waterfall error model).  Only the
-f32 path (``dtype=None``, no surrogate) is ported here.
+LENA PiroEW2010 SNR gap, the Gaussian-waterfall error model).  The f32
+path and the bf16 one (``dtype=jnp.bfloat16``) are ported; the
+surrogates are not.
 
 The arithmetic follows what the reference computes, which is not always
 its source text: ``jnp.log2`` is ``log(x) / log(2)`` compiled, and XLA
@@ -71,6 +72,17 @@ INV_SQRT2_F32 = float(np.float32(1.0) / np.float32(math.sqrt(2.0)))
 INV_SNR_GAP_F32 = float(np.float32(1.0) / np.float32(SNR_GAP))
 
 
+#: the SNR gap as a bf16 divisor, and the f32 reciprocal of that which
+#: the jitted geometry stage multiplies by
+SNR_GAP_BF16 = float(torch.tensor(SNR_GAP).to(torch.bfloat16).float())
+INV_SNR_GAP_BF16_F32 = float(np.float32(1.0) / np.float32(SNR_GAP_BF16))
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to the nearest bf16 (ties to even) and widened back."""
+    return x.to(torch.bfloat16).float()
+
+
 def noise_psd_w(noise_figure_db: float) -> float:
     """Thermal noise PSD (W/Hz) at the given receiver noise figure."""
     return float(10.0 ** (noise_figure_db / 10.0) * BOLTZMANN_T)
@@ -81,15 +93,32 @@ def f32_const(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
-def gapped_log2(sinr: torch.Tensor, fused: bool = False) -> torch.Tensor:
+def gapped_log2(sinr: torch.Tensor, fused: bool = False,
+                bf16: bool = False) -> torch.Tensor:
     """log2(1 + sinr / SNR_GAP) in f32, the gapped Shannon efficiency,
-    in the reference's arithmetic: op by op, or compiled (``fused``)."""
-    if fused:
+    in the reference's arithmetic: op by op (``build_sm_consts``), or
+    compiled (``fused``, the geometry stage); ``bf16`` for
+    ``precision="bf16"``:
+
+    - op by op, every operation rounded (``b`` is :func:`round_bf16`):
+      ``y = b(1 + b(b(sinr) / b(SNR_GAP)))``;
+    - compiled (its optimised HLO: the division is a multiplication by
+      the f32 reciprocal of ``b(SNR_GAP)``, rounded, and the ``+ 1`` is
+      not rounded): ``y = b(b(sinr) * (1 / b(SNR_GAP))) + 1``.
+    """
+    if bf16:
+        x = round_bf16(sinr)
+        if fused:
+            y = round_bf16(x * compiled.f32(x, INV_SNR_GAP_BF16_F32)) + 1.0
+        else:
+            y = round_bf16(1.0 + round_bf16(x / f32_const(x,
+                                                          SNR_GAP_BF16)))
+    elif fused:
         one = compiled.f32(sinr, 1.0)
-        return compiled.log(compiled.fma(
-            sinr, compiled.f32(sinr, INV_SNR_GAP_F32), one
-        )) * INV_LN2_F32
-    return torch.log(1.0 + sinr / f32_const(sinr, SNR_GAP)) * INV_LN2_F32
+        y = compiled.fma(sinr, compiled.f32(sinr, INV_SNR_GAP_F32), one)
+    else:
+        y = 1.0 + sinr / f32_const(sinr, SNR_GAP)
+    return compiled.log(y) * INV_LN2_F32
 
 
 def cqi_from_efficiency(se: torch.Tensor) -> torch.Tensor:
@@ -100,8 +129,9 @@ def cqi_from_efficiency(se: torch.Tensor) -> torch.Tensor:
     return hit.sum(dim=-1, dtype=torch.int32)
 
 
-def cqi_from_sinr(sinr: torch.Tensor) -> torch.Tensor:
-    return cqi_from_efficiency(gapped_log2(sinr))
+def cqi_from_sinr(sinr: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Op-by-op CQI (``build_sm_consts``), f32 or bf16."""
+    return cqi_from_efficiency(gapped_log2(sinr, bf16=bf16))
 
 
 def mcs_from_cqi(cqi: torch.Tensor) -> torch.Tensor:
@@ -114,19 +144,29 @@ def mi_from_efficiency(se: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
     return torch.minimum(se, qm) / qm
 
 
-def mi_per_rb(sinr: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
-    return mi_from_efficiency(gapped_log2(sinr), qm)
+def mi_per_rb(sinr: torch.Tensor, qm: torch.Tensor,
+              bf16: bool = False) -> torch.Tensor:
+    """Op-by-op per-RB MI (``build_sm_consts``), f32 or bf16."""
+    return mi_from_efficiency(gapped_log2(sinr, bf16=bf16), qm)
 
 
 def tb_bler_ecr(
-    mi_eff: torch.Tensor, ecr: torch.Tensor, tb_bits: torch.Tensor
+    mi_eff: torch.Tensor, ecr: torch.Tensor, tb_bits: torch.Tensor,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """TB block-error rate from effective MI on a pre-gathered code
     rate: Gaussian waterfall with finite-blocklength dispersion and the
-    margin that gives 10 % BLER at MI = code rate."""
+    margin that gives 10 % BLER at MI = code rate.  ``bf16``: the
+    waterfall argument as the jitted step's optimised HLO computes it,
+    ``z = b(b(mi) - b(ecr - margin)) / b(sigma)`` (``b`` is
+    :func:`round_bf16`) with the quotient in f32 and not rounded."""
     sigma = f32_const(tb_bits, BLER_DISPERSION) / compiled.sqrt(
         torch.clamp_min(tb_bits, 24.0)
     )
     margin = BLER_TARGET_Q * sigma
-    z = (mi_eff - (ecr - margin)) / sigma
+    if bf16:
+        b = round_bf16
+        z = b(b(mi_eff) - b(ecr - margin)) / b(sigma)
+    else:
+        z = (mi_eff - (ecr - margin)) / sigma
     return torch.clamp(0.5 * torch.special.erfc(z * INV_SQRT2_F32), 0.0, 1.0)

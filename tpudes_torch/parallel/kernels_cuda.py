@@ -15,9 +15,15 @@ reference's decode coins.  Two kernels replace the TPU's
   drawing the coins inside (:func:`sm_advance`; ``run_lte_sm``'s path),
   for C config points (one scheduler id each) at once, with the
   SINR-derived rows either the program's constants (static) or a table
-  of geometry refreshes (mobile: :data:`SM_DYNAMIC_ROWS`);
+  of geometry refreshes (mobile: :data:`SM_DYNAMIC_ROWS`), or with
+  finite backlogs filled from an offered-bits table (traffic:
+  :data:`TR_STATE`);
 - ``csrc/lte_sm_step.cu`` runs one TTI on coins the caller gives
-  (:func:`sm_step`; the single-step route).
+  (:func:`sm_step`; the single-step route, static rows).
+
+Both take ``precision="bf16"`` (``consts["bf16"]``): the metric and the
+BLER argument round to bf16 where the reference's jitted step does
+(:mod:`tpudes_torch.ops.lte`), on every arm.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -57,6 +63,7 @@ from tpudes_torch.ops.lte import (
     cqi_from_sinr,
     mcs_from_cqi,
     mi_per_rb,
+    round_bf16,
     tb_bler_ecr,
 )
 from tpudes_torch.random import tti_coins
@@ -90,7 +97,16 @@ SM_STATE = (
     ("new_tbs", "u", "i32"), ("retx", "u", "i32"),
     ("drops", "u", "i32"), ("ok_cnt", "u", "i32"),
 )
+#: the finite-backlog state a traffic program adds (``lte_sm.py:939-943``):
+#: the backlog in bits and the drained bits as a 20-bit split counter
+TR_STATE = (
+    ("tr_backlog", "u", "f32"),
+    ("tr_drained_lo", "u", "i32"), ("tr_drained_hi", "u", "i32"),
+)
 _DTYPES = {"f32": torch.float32, "i32": torch.int32}
+
+#: a backlog never grows past this many bits (``lte_sm.py:878``)
+TR_BACKLOG_CAP = float(2**30)
 
 #: the kernels' shared-memory scratch bounds (SM_MAX_U / SM_MAX_E in
 #: csrc/lte_sm_step.cu, ADV_MAX_U / ADV_MAX_E in csrc/lte_sm_advance.cu)
@@ -105,11 +121,14 @@ COIN_CHUNK_ELEMS = 1 << 22
 
 #: launches of each kernel since the last reset — counted where the
 #: kernel is launched and nowhere else; ``lte_sm_advance``'s launches
-#: with a geometry table and with more than one config point are also
-#: counted under its ``:dynamic`` and ``:sweep`` arms
+#: with a geometry table, with more than one config point, with an
+#: offered-bits table and in bf16 are also counted under its
+#: ``:dynamic``, ``:sweep``, ``:traffic`` and ``:bf16`` arms, and
+#: ``lte_sm_step``'s in bf16 under ``:bf16``
 launches = {
-    "lte_sm_step": 0, "lte_sm_advance": 0,
+    "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
+    "lte_sm_advance:traffic": 0, "lte_sm_advance:bf16": 0,
 }
 
 
@@ -134,8 +153,14 @@ def build_sm_consts(prog, device=None) -> dict:
     operator: the kernels sum same-cell requests in UE order themselves,
     the multi-TTI one over ``cell_order`` (the UEs sorted stably by
     cell, so each cell is a contiguous run in UE order) and
-    ``cell_start`` (each cell's first position in it, then ``U``)."""
+    ``cell_start`` (each cell's first position in it, then ``U``).
+
+    ``precision="bf16"`` rounds the SINR to bf16 storage and runs the
+    CQI/MI chain op by op at bf16 (``kernels_pallas.py:147-157``), and
+    sets ``bf16``: the step's metric and BLER argument then round as the
+    reference's jitted step does."""
     device = resolve_device(device)
+    bf16 = prog.precision == "bf16"
     E, U = prog.n_enb, prog.n_ue
     rbg_size = rbg_size_for(prog.n_rb)
     n_rbg = (prog.n_rb + rbg_size - 1) // rbg_size
@@ -150,9 +175,11 @@ def build_sm_consts(prog, device=None) -> dict:
     sinr = torch.from_numpy(
         np.asarray(sig / (total - sig + prog.noise_psd), np.float32)
     )
-    cqi = cqi_from_sinr(sinr)
+    if bf16:
+        sinr = round_bf16(sinr)
+    cqi = cqi_from_sinr(sinr, bf16)
     mcs0 = mcs_from_cqi(cqi).numpy()
-    mi0 = mi_per_rb(sinr, torch.from_numpy(_MCS_QM[mcs0]))
+    mi0 = mi_per_rb(sinr, torch.from_numpy(_MCS_QM[mcs0]), bf16)
     eff0 = _MCS_EFF[mcs0]
     rate0 = np.floor(eff0 * rbg_size * RE_PER_RB_DATA) * 1000.0
 
@@ -174,7 +201,7 @@ def build_sm_consts(prog, device=None) -> dict:
 
     return dict(
         E=E, U=U, n_rbg=n_rbg, rbg_size=rbg_size, n_rb=int(prog.n_rb),
-        pf_alpha=float(prog.pf_alpha),
+        pf_alpha=float(prog.pf_alpha), bf16=bf16,
         sinr=f32(sinr), cqi=i32(cqi), mcs=i32(mcs0),
         mi0=f32(mi0), rate0=f32(rate0), eff0=f32(eff0),
         ecr0=f32(_MCS_ECR[mcs0]), eligible=i32(cqi.numpy() >= 1),
@@ -187,14 +214,16 @@ def build_sm_consts(prog, device=None) -> dict:
     )
 
 
-def sm_init_state(E: int, U: int, R: int, device=None) -> dict:
+def sm_init_state(E: int, U: int, R: int, device=None,
+                  traffic: bool = False) -> dict:
     """Zero state, PF averages at 1 (``kernels_pallas.py:211``), on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default); with ``traffic`` the
+    :data:`TR_STATE` too, empty backlogs."""
     device = resolve_device(device)
     shapes = {"u": (R, U), "e": (R, E)}
     out = {
         k: torch.zeros(shapes[ax], dtype=_DTYPES[dt], device=device)
-        for k, ax, dt in SM_STATE
+        for k, ax, dt in SM_STATE + TR_STATE * traffic
     }
     out["avg"].fill_(1.0)
     return out
@@ -230,8 +259,12 @@ def sm_dispatch(c: dict, s: dict, pend, rem_c, sid: int) -> dict:
     onehot = c["cell_onehot"]
     cand = (c["eligible"] != 0) & ~pend                     # (R, U)
     avg = s["avg"]
+    # bf16 (``kernels_pallas.py:262-280``): rate and average rounded, the
+    # PF quotient in f32 and not rounded, as the jitted step computes it
+    rate0 = round_bf16(c["rate0"]) if c["bf16"] else c["rate0"]
+    avg_m = round_bf16(avg) if c["bf16"] else avg
     if sid <= _PF_MAX:
-        metric = c["rate0"] / torch.clamp_min(avg, 1.0)
+        metric = rate0 / torch.clamp_min(avg_m, 1.0)
     elif sid <= _RR_MAX:
         rr_ptr_u = torch.gather(
             s["rr_ptr"], 1, c["serving"].long().expand(avg.shape[0], -1)
@@ -239,9 +272,9 @@ def sm_dispatch(c: dict, s: dict, pend, rem_c, sid: int) -> dict:
         ahead = torch.remainder(c["pos"] - rr_ptr_u, c["count_u"])
         metric = -ahead.to(torch.float32)
     elif sid <= _MT_MAX:
-        metric = c["rate0"].expand_as(avg)
+        metric = rate0.expand_as(avg)
     else:
-        metric = -avg
+        metric = -avg_m
     neg = torch.tensor(NEG, dtype=torch.float32, device=avg.device)
     m_eu = torch.where(
         onehot & cand[:, None, :], metric[:, None, :], neg
@@ -274,7 +307,7 @@ def sm_decode(c: dict, s: dict, retx_fit, new_nrbg, is_winner, coin):
     mi_tx = torch.where(
         retx_fit, torch.clamp_max(s["p_mi"] + c["mi0"], 1.0), c["mi0"]
     )
-    bler = tb_bler_ecr(mi_tx, c["ecr0"], tbb_tx)
+    bler = tb_bler_ecr(mi_tx, c["ecr0"], tbb_tx, c["bf16"])
     ok = tx & (coin >= bler)
     return tx, tbb_tx, mi_tx, ok
 
@@ -340,9 +373,21 @@ def table_rows(t0: int, t1: int, stride: int) -> int:
     return (t1 - 1) // stride - t0 // stride + 1 if t1 > t0 else 0
 
 
+def sm_traffic_update(s: dict, new: dict, bl, served) -> dict:
+    """The finite-backlog bookkeeping after one TTI
+    (``lte_sm.py:893-914``): the backlog ``bl`` (offered bits added,
+    capped) drains by the bits the TTI delivered, ``min(served, bl)``,
+    and the drained bits count into a 20-bit split counter, rounded to
+    integers."""
+    drain = torch.minimum(served, bl)
+    lo = s["tr_drained_lo"] + torch.round(drain).to(torch.int32)
+    return dict(new, tr_backlog=bl - drain, tr_drained_lo=lo & 0xFFFFF,
+                tr_drained_hi=s["tr_drained_hi"] + (lo >> 20))
+
+
 def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-                    sids, rows: dict | None = None,
-                    stride: int = 1) -> dict:
+                    sids, rows: dict | None = None, stride: int = 1,
+                    offered: torch.Tensor | None = None) -> dict:
     """TTIs ``[t0, t1)`` in plain PyTorch (any device): the decode coins
     of replica ``r`` at TTI ``t`` are ``uniform(fold_in(keys[r], t),
     (U,))`` (:func:`tpudes_torch.random.tti_coins`), drawn for as many
@@ -354,14 +399,19 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
     :data:`SM_DYNAMIC_ROWS`, each ``(J, U)``, ``J =``
     :func:`table_rows`) replaces the program's rows: TTI ``t`` runs on
     row ``t // stride - t0 // stride``, reloaded at ``t0`` and at every
-    multiple of ``stride``."""
+    multiple of ``stride``.  ``offered`` (``(t1 - t0, U)`` f32 bits)
+    fills each lane's backlog (:data:`TR_STATE` in ``s``) before TTI
+    ``t`` with row ``t - t0``, gates ``eligible`` by a non-empty backlog
+    (``lte_sm.py:876-892``) and drains it after the TTI
+    (:func:`sm_traffic_update`); ``rows`` and ``offered`` exclude each
+    other."""
     points = _sid_list(sids)
     R = len(keys)
     if len(points) > 1:
         parts = [
             sm_advance_math(
                 c, {k: v[i * R:(i + 1) * R] for k, v in s.items()}, keys,
-                t0, t1, sid, rows, stride,
+                t0, t1, sid, rows, stride, offered,
             )
             for i, sid in enumerate(points)
         ]
@@ -376,7 +426,16 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
             if rows is not None and (t == t0 or t % stride == 0):
                 j = t // stride - t0 // stride
                 ct = {**c, **{k: rows[k][j] for k in SM_DYNAMIC_ROWS}}
-            s = sm_step_math(ct, s, coins[i], t, sid)
+            if offered is None:
+                s = sm_step_math(ct, s, coins[i], t, sid)
+                continue
+            bl = torch.clamp_max(s["tr_backlog"] + offered[t - t0],
+                                 TR_BACKLOG_CAP)
+            ct = dict(c, eligible=c["eligible"] * (bl > 0.0))
+            new = sm_step_math(ct, s, coins[i], t, sid)
+            served = ((new["rx_hi"] - s["rx_hi"]).float() * float(2**20)
+                      + (new["rx_lo"] - s["rx_lo"]).float())
+            s = sm_traffic_update(s, new, bl, served)
     return s
 
 
@@ -417,15 +476,18 @@ def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
 
 
 def sm_advance(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-               sids, rows: dict | None = None, stride: int = 1) -> dict:
+               sids, rows: dict | None = None, stride: int = 1,
+               offered: torch.Tensor | None = None) -> dict:
     """TTIs ``[t0, t1)``: the plain loop for CPU tensors, one launch of
     the multi-TTI CUDA kernel for CUDA tensors (or an error).  ``keys``
-    is the ``(R, 2)`` int64 replica keys; ``sids``, ``rows`` and
-    ``stride`` as in :func:`sm_advance_math`."""
+    is the ``(R, 2)`` int64 replica keys; ``sids``, ``rows``, ``stride``
+    and ``offered`` as in :func:`sm_advance_math`."""
     if keys.device.type == "cpu":
-        return sm_advance_math(c, s, keys, t0, t1, sids, rows, stride)
+        return sm_advance_math(c, s, keys, t0, t1, sids, rows, stride,
+                               offered)
     if keys.device.type == "cuda":
-        return sm_advance_cuda(c, s, keys, t0, t1, sids, rows, stride)
+        return sm_advance_cuda(c, s, keys, t0, t1, sids, rows, stride,
+                               offered)
     raise ValueError(f"no LTE SM advance for device {keys.device}")
 
 
@@ -441,10 +503,11 @@ def _check(name, x, shape, dtype, device):
         )
 
 
-def _kernel_io(name: str, c: dict, s: dict, R: int, dev) -> dict:
+def _kernel_io(name: str, c: dict, s: dict, R: int, dev,
+               layout=SM_STATE) -> dict:
     """Check what every launch reads (the constant rows and the ``R``
-    lanes of state) and allocate the state it writes, in fresh tensors
-    (no in-place hazard)."""
+    lanes of the ``layout`` state) and allocate the state it writes, in
+    fresh tensors (no in-place hazard)."""
     E, U = c["E"], c["U"]
     if U > KERNEL_MAX_U or E > KERNEL_MAX_E:
         raise ValueError(
@@ -458,7 +521,7 @@ def _kernel_io(name: str, c: dict, s: dict, R: int, dev) -> dict:
     _check("count_c", c["count_c"], (E,), torch.int32, dev)
     shapes = {"u": (R, U), "e": (R, E)}
     out = {}
-    for k, ax, dt in SM_STATE:
+    for k, ax, dt in layout:
         _check(k, s[k], shapes[ax], _DTYPES[dt], dev)
         out[k] = torch.empty(shapes[ax], dtype=_DTYPES[dt], device=dev)
     return out
@@ -500,19 +563,21 @@ def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
         c["count_c"].data_ptr(), coin.data_ptr(),
         *[s[k].data_ptr() for k, _, _ in SM_STATE],
         *[out[k].data_ptr() for k, _, _ in SM_STATE],
-        *_scalars(c, R), int(t), int(sid),
+        *_scalars(c, R), int(t), int(sid), int(c["bf16"]),
         torch.cuda.current_stream(dev).cuda_stream,
+        arms=("bf16",) * c["bf16"],
     )
     return out
 
 
 def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
-                    sids, rows: dict | None = None,
-                    stride: int = 1) -> dict:
+                    sids, rows: dict | None = None, stride: int = 1,
+                    offered: torch.Tensor | None = None) -> dict:
     """Launch ``lte_sm_advance`` once for TTIs ``[t0, t1)``: a grid of
     ``(R, C)`` CTAs, one per replica and config point, the state in
     registers for the whole range, the coins drawn in the kernel, the
-    rows reloaded from ``rows`` at each refresh when it is given.
+    rows reloaded from ``rows`` at each refresh when it is given, the
+    backlogs filled from ``offered`` row by row when it is given.
     Raises on a bad argument or a launch error; never takes the plain
     loop."""
     if not 0 <= t0 <= t1 <= ADVANCE_MAX_T:
@@ -541,17 +606,29 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
         for i, k in enumerate(SM_DYNAMIC_ROWS):
             _check(f"rows[{k}]", rows[k], (J, U), _ROW_DTYPES[k], dev)
             table[i] = rows[k].data_ptr()
-    out = _kernel_io("lte_sm_advance", c, s, C * R, dev)
+    traffic = offered is not None
+    if traffic:
+        if rows is not None:
+            raise ValueError("lte_sm_advance takes a geometry table or an "
+                             "offered-bits table, not both")
+        _check("offered", offered, (t1 - t0, U), torch.float32, dev)
+    layout = SM_STATE + TR_STATE * traffic
+    out = _kernel_io("lte_sm_advance", c, s, C * R, dev, layout)
+    tr_in = [s[k].data_ptr() if traffic else None for k, _, _ in TR_STATE]
+    tr_out = [out[k].data_ptr() if traffic else None for k, _, _ in TR_STATE]
     _launch(
         "lte_sm_advance",
         *[c[k].data_ptr() for k, _ in _CONST_ROWS],
         c["count_c"].data_ptr(), c["cell_order"].data_ptr(),
-        c["cell_start"].data_ptr(), *table, keys.data_ptr(), sids_ptr,
-        *[s[k].data_ptr() for k, _, _ in SM_STATE],
-        *[out[k].data_ptr() for k, _, _ in SM_STATE],
+        c["cell_start"].data_ptr(), *table,
+        offered.data_ptr() if traffic else None, keys.data_ptr(), sids_ptr,
+        *[s[k].data_ptr() for k, _, _ in SM_STATE], *tr_in,
+        *[out[k].data_ptr() for k, _, _ in SM_STATE], *tr_out,
         R, C, *_scalars(c, R)[1:], int(t0), int(t1), int(sid),
-        int(stride), torch.cuda.current_stream(dev).cuda_stream,
-        arms=("dynamic",) * (rows is not None) + ("sweep",) * (C > 1),
+        int(stride), int(c["bf16"]),
+        torch.cuda.current_stream(dev).cuda_stream,
+        arms=("dynamic",) * (rows is not None) + ("sweep",) * (C > 1)
+        + ("traffic",) * traffic + ("bf16",) * c["bf16"],
     )
     return out
 
@@ -559,24 +636,26 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
 #: ctypes signature of each ``<name>_launch``:
 #: ``lte_sm_step`` (csrc/lte_sm_step.cu): const rows, count_c, coin,
 #: state in, state out, six ints (R, E, U, n_rbg, rbg_size, n_rb), three
-#: floats (alpha, 1 - alpha, 1/sqrt 2), t, sid, stream;
+#: floats (alpha, 1 - alpha, 1/sqrt 2), t, sid, bf16, stream;
 #: ``lte_sm_advance`` (csrc/lte_sm_advance.cu): const rows, count_c,
 #: cell_order, cell_start, the five table rows (null: the static arm),
-#: keys, sids (null: one point, ``sid``), state in, state out, seven
-#: ints (R, C, E, U, n_rbg, rbg_size, n_rb), the three floats, t0, t1,
-#: sid, stride, stream
+#: the offered-bits table (null: full buffers), keys, sids (null: one
+#: point, ``sid``), state in and the three traffic fields (null without
+#: traffic), state out and the three traffic fields, seven ints (R, C,
+#: E, U, n_rbg, rbg_size, n_rb), the three floats, t0, t1, sid, stride,
+#: bf16, stream
 LAUNCH_ARGTYPES = {
     "lte_sm_step": (
         [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
-        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
     ),
     "lte_sm_advance": (
         [ctypes.c_void_p] * (
-            len(_CONST_ROWS) + 3 + len(SM_DYNAMIC_ROWS) + 2
-            + 2 * len(SM_STATE)
+            len(_CONST_ROWS) + 3 + len(SM_DYNAMIC_ROWS) + 3
+            + 2 * (len(SM_STATE) + len(TR_STATE))
         )
-        + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     ),
 }

@@ -1,8 +1,9 @@
-"""Full-buffer (RLC-SM) LTE downlink engine on the card.
+"""The RLC-SM LTE downlink engine on the card.
 
 Counterpart of ``tpudes/parallel/lte_sm.py``: under RLC saturation
 every buffer is always full, so the only evolving state is
-scheduler/HARQ bookkeeping.  The TTI math is
+scheduler/HARQ bookkeeping (and, for a traffic program, each UE's
+finite backlog).  The TTI math is
 :mod:`tpudes_torch.parallel.kernels_cuda`: on the card one launch of the
 multi-TTI kernel runs a whole range of TTIs, on the CPU the plain loop
 runs them; this module owns the program, the replica keys, the geometry
@@ -16,6 +17,17 @@ stage and the result assembly.
   over every refresh time of a launch at once, in the reference's
   compiled f32 arithmetic — and the kernel reads them from that table.
   The serving map stays the t = 0 attach, as in the reference.
+- Traffic programs (``prog.traffic``, a
+  :class:`~tpudes_torch.traffic.program.TrafficProgram` of ``n_ue``
+  entities): each lane's UEs hold finite backlogs, filled every TTI from
+  an offered-bits table (:func:`~tpudes_torch.traffic.device.
+  offered_table`, built once per launch and shared by every lane),
+  drained by the bits each TTI delivers, and a UE with an empty backlog
+  is not eligible (``lte_sm.py:839-946``).
+- ``precision="bf16"``: the constants, the geometry rows and the step's
+  metric and BLER round to bf16 where the reference's executables do
+  (:mod:`tpudes_torch.ops.lte`); counters and accumulators stay f32 and
+  int32.
 - ``schedulers=[...]``: one launch runs C config points, one scheduler
   id each, on shared replica keys; the result is one dict per point.
 
@@ -26,8 +38,7 @@ comparable with the JAX engine per replica, on integers.  The horizon
 is a fixed count, so a host loop over chunks of TTIs is exact.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``precision="bf16"``, traffic, ``mesh`` and the ``TpudesObs``
-FlowMonitor columns.
+item): ``mesh`` and the ``TpudesObs`` FlowMonitor columns.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from tpudes_torch.ops.lte import (
     gapped_log2,
     mcs_from_cqi,
     mi_from_efficiency,
+    round_bf16,
 )
 from tpudes_torch.ops.mobility import build_position_fn
 from tpudes_torch.ops.propagation import db_to_ratio, friis, log_distance
@@ -64,16 +76,27 @@ from tpudes_torch.parallel.kernels_cuda import (
     sm_step_math,
     table_rows,
 )
-from tpudes_torch.random import replica_keys
+from tpudes_torch.random import fold_in, replica_keys
+from tpudes_torch.traffic.device import TRAFFIC_KEY_TAG, offered_table
+from tpudes_torch.traffic.host import offered_bits_mean
 
 __all__ = [
     "SM_DYNAMIC_ROWS", "LteSmProgram", "build_geom_fn", "build_sm_advance",
-    "build_sm_mobile_advance", "build_sm_step", "geom_rows", "run_lte_sm",
+    "build_sm_mobile_advance", "build_sm_step", "build_sm_traffic_advance",
+    "geom_rows", "run_lte_sm",
 ]
 
 #: refresh rows one mobile launch's table holds at most (a longer
 #: launch is split): 4096 rows x 210 UEs x 5 rows x 4 B is 17 MB
 GEOM_MAX_ROWS = 4096
+
+#: TTIs one traffic launch's offered-bits table holds at most (a longer
+#: launch is split): 16384 x 210 UEs x 4 B is 14 MB, and its build's
+#: temporaries about ten times that
+TRAFFIC_MAX_ROWS = 16384
+
+#: the precisions the step runs at (``kernels_pallas.py`` SM_PRECISIONS)
+PRECISIONS = ("f32", "bf16")
 
 #: the pathloss descriptors the geometry stage takes
 PATHLOSS_KINDS = ("friis", "log_distance")
@@ -109,21 +132,27 @@ class LteSmProgram:
     #: ("friis", frequency_hz, system_loss, min_loss_db) or
     #: ("log_distance", exponent, reference_distance, reference_loss_db)
     pathloss: tuple = None
+    #: the UEs' workload (tpudes_torch.traffic.program.TrafficProgram,
+    #: one entity per UE); None is full buffers
     traffic: object = None
 
     def __post_init__(self):
         if self.scheduler not in SM_SCHED_IDS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.precision != "f32":
-            raise _not_ported(f"precision={self.precision!r}",
-                              "A5b.2 bf16 arm, slice 4")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"precision {self.precision!r} not in {PRECISIONS}"
+            )
         if self.traffic is not None and self.mobility is not None:
             raise ValueError(
                 "traffic + mobility cannot ride one LTE program; run one "
                 "axis on the device and the other on the host controller"
             )
-        if self.traffic is not None:
-            raise _not_ported("traffic", "A5b.4 traffic arm, slice 4")
+        if self.traffic is not None and self.traffic.n != self.n_ue:
+            raise ValueError(
+                f"traffic drives {self.traffic.n} entities, the program "
+                f"has {self.n_ue} UEs"
+            )
         if self.mobility is not None:
             self._check_mobile()
 
@@ -228,8 +257,11 @@ def build_geom_fn(prog: LteSmProgram, consts: dict):
     and a correctly rounded root, the loss and ``10 ** (dB / 10)`` of
     :mod:`~tpudes_torch.ops.propagation`, the total received power as a
     chain of multiply-adds over the eNBs in order, the serving cell's
-    power, SINR, and the CQI/MCS/MI chain with its compiled log2."""
+    power, SINR, and the CQI/MCS/MI chain with its compiled log2.  In
+    bf16 the SINR is rounded to bf16 and the gapped log2 is the stage's
+    bf16 HLO (:func:`~tpudes_torch.ops.lte.gapped_log2`)."""
     dev = consts["mi0"].device
+    bf16 = prog.precision == "bf16"
     ops = prog.mobility.operands(dev)
     pos_at = build_position_fn(prog.mobility)
     enb = torch.as_tensor(np.asarray(prog.enb_pos, np.float32), device=dev)
@@ -262,7 +294,9 @@ def build_geom_fn(prog: LteSmProgram, consts: dict):
             gain, 1, serving[None, None, :].expand(len(t), 1, -1)
         )[:, 0] * psd_serving
         sinr = sig / ((total - sig) + f32(sig, prog.noise_psd))
-        se = gapped_log2(sinr, fused=True)
+        if bf16:
+            sinr = round_bf16(sinr)
+        se = gapped_log2(sinr, fused=True, bf16=bf16)
         cqi = cqi_from_efficiency(se)
         mcs = mcs_from_cqi(cqi).long()
         eff0 = eff_tab[mcs]
@@ -321,6 +355,42 @@ def build_sm_mobile_advance(prog: LteSmProgram, device=None,
     return consts, init_state, advance
 
 
+def build_sm_traffic_advance(prog: LteSmProgram, device=None,
+                             use_kernel: bool = True,
+                             chunk_ttis: int | None = None):
+    """``(consts, init_state, advance)`` for a traffic program, with
+    ``advance(state, keys (R, 2), tr_key (2,), t0, t_end, sids=None) ->
+    state`` running TTIs ``[t0, t_end)`` on finite backlogs
+    (``lte_sm.py:839-946``); ``init_state(lanes)`` holds the
+    :data:`~tpudes_torch.parallel.kernels_cuda.TR_STATE` besides.
+
+    Each launch covers ``chunk_ttis`` TTIs (the whole range by default),
+    cut further to :data:`TRAFFIC_MAX_ROWS`; its offered-bits table is
+    :func:`~tpudes_torch.traffic.device.offered_table` of its TTIs under
+    the run's traffic key ``tr_key`` (``fold_in(key,
+    TRAFFIC_KEY_TAG)``), built once and read by every lane."""
+    consts, _, _ = build_sm_step(prog, device, use_kernel)
+    run = sm_advance if use_kernel else sm_advance_math
+    dev = consts["mi0"].device
+    ops = prog.traffic.operands(dev)
+
+    def init_state(lanes: int) -> dict:
+        return sm_init_state(prog.n_enb, prog.n_ue, lanes, dev, traffic=True)
+
+    def advance(state: dict, keys: torch.Tensor, tr_key: torch.Tensor,
+                t0: int, t_end: int, sids=None):
+        sids = SM_SCHED_IDS[prog.scheduler] if sids is None else sids
+        span = min(chunk_ttis or max(1, t_end - t0), TRAFFIC_MAX_ROWS)
+        for c0 in range(t0, t_end, span):
+            c1 = min(c0 + span, t_end)
+            offered = offered_table(ops, prog.traffic.epoch_us, tr_key, c0,
+                                    c1)
+            state = run(consts, state, keys, c0, c1, sids, offered=offered)
+        return state
+
+    return consts, init_state, advance
+
+
 def _static_twin(prog: LteSmProgram) -> LteSmProgram:
     """The program without its motion: the consts, the cell structure
     and the kernels' static rows come from its t = 0 lowering."""
@@ -345,6 +415,11 @@ def _sm_unpack(host: dict, shared: dict, replicas) -> dict:
         "rx_lo"
     ].astype(np.int64)
     out["ok"] = host["ok_cnt"]
+    if "tr_backlog" in host:  # a traffic run (``lte_sm.py:1061-1078``)
+        out["backlog_bits"] = host["tr_backlog"]
+        out["goodput_bits"] = (
+            host["tr_drained_hi"].astype(np.int64) << 20
+        ) + host["tr_drained_lo"].astype(np.int64)
     for k in ("cqi", "mcs", "sinr"):
         out[k] = shared[k]
     return out
@@ -371,9 +446,13 @@ def run_lte_sm(
     ``fold_in(key, r)`` and the outcome arrays gain a leading ``R``
     axis.  A mobile program (``prog.mobility``) adds ``geom_refreshes``
     and ``geom_stride``, and its ``cqi, mcs, sinr`` are the last
-    refresh's.  ``schedulers=[...]`` (names of ``SM_SCHED_IDS``) runs
-    every point in one launch per chunk and returns a list of result
-    dicts, each what the single-point run on the same key returns.
+    refresh's.  A traffic program (``prog.traffic``) adds per UE
+    ``backlog_bits`` (f32, what is left), ``goodput_bits`` (int64, what
+    drained) and ``offered_bits`` (the expected offered load over the
+    horizon, ``offered_bits_mean``).  ``schedulers=[...]`` (names of
+    ``SM_SCHED_IDS``) runs every point in one launch per chunk and
+    returns a list of result dicts, each what the single-point run on
+    the same key returns.
 
     ``device`` defaults to the card; on the card the horizon is one
     kernel launch (``chunk_ttis`` TTIs per launch if given) unless
@@ -394,7 +473,16 @@ def run_lte_sm(
         [SM_SCHED_IDS[n] for n in names], dtype=torch.int32, device=dev
     )
     extra = {}
-    if prog.mobility is None:
+    if prog.traffic is not None:
+        consts, init_state, advance = build_sm_traffic_advance(
+            prog, dev, use_kernel, chunk_ttis
+        )
+        state = advance(init_state(len(names) * R), keys,
+                        fold_in(key, TRAFFIC_KEY_TAG), 0, prog.n_ttis, sids)
+        shared = consts
+        extra = dict(offered_bits=offered_bits_mean(prog.traffic,
+                                                    prog.n_ttis * 1000))
+    elif prog.mobility is None:
         consts, init_state, advance = build_sm_advance(
             prog, dev, use_kernel, chunk_ttis
         )

@@ -12,6 +12,8 @@ and Friis at 2.12 GHz (``models/lte/helper.py:33-36``), PF alpha 0.05.
 The upstream drop draws from MRG32k3a; this one draws from a seeded
 ``torch.Generator``, so the two drops differ (the tests feed the
 reference's own positions to :func:`lena_grid_program`).
+:func:`lena_traffic_program` gives the static drop finite backlogs under
+the ON-OFF workload of the reference's LTE traffic test.
 """
 
 from __future__ import annotations
@@ -26,9 +28,21 @@ from tpudes_torch.ops.lte import noise_psd_w
 from tpudes_torch.ops.mobility import MobilityProgram, warn_geom_stride
 from tpudes_torch.ops.propagation import friis
 from tpudes_torch.parallel.lte_sm import LteSmProgram
+from tpudes_torch.traffic.program import TrafficProgram
 
 ENB_HEIGHT_M = 30.0
 UE_HEIGHT_M = 1.5
+
+#: the ON-OFF workload of the reference's LTE traffic test
+#: (``tests/test_traffic_engines.py:148-155``): arrivals per second while
+#: ON, bounded-Pareto ON periods (shape, shortest s, longest s), the mean
+#: of the exponential OFF periods, bounded-Pareto packet sizes (shape,
+#: smallest B, largest B) and the seed of the cycle tables
+ONOFF_PEAK_PPS = 50.0
+ONOFF_ON = (1.5, 0.01, 0.05)
+ONOFF_OFF_MEAN_S = 0.02
+ONOFF_SIZE_PARETO = (1.4, 800.0, 12000.0)
+ONOFF_TR_SEED = 2
 
 
 def hex_grid(n: int, spacing: float) -> list[tuple[float, float]]:
@@ -170,3 +184,36 @@ def lena_mobile_program(
         enb_pos=enb_pos.astype(np.float32),
         pathloss=("friis", float(frequency_hz), 1.0, 0.0),
     )
+
+
+def lena_traffic_program(
+    n_enbs: int,
+    ues_per_cell: int,
+    n_ttis: int,
+    scheduler: str = "pf",
+    *,
+    precision: str = "f32",
+    generator: torch.Generator | None = None,
+) -> LteSmProgram:
+    """The static drop of :func:`lena_ue_drop` + :func:`lena_grid_program`
+    with one ON-OFF source per UE, the workload of the reference's LTE
+    traffic test over the whole horizon: :data:`ONOFF_PEAK_PPS` arrivals
+    per second while ON, bounded-Pareto ON periods ``(1.5, 10 ms, 50
+    ms)``, exponential OFF periods of mean 20 ms, packet sizes
+    bounded-Pareto ``(1.4, 800 B, 12000 B)``.  A UE offers about 24
+    packets of about 1.9 kB a second, 10.8 Mbit/s per cell of 30 UEs: on
+    the seven-cell reuse-1 drop several times what the cells deliver, so
+    the eligibility gate bites while backlogs are young and most hold
+    bits by the end of a 10-second run."""
+    prog = lena_grid_program(
+        *lena_ue_drop(n_enbs, ues_per_cell, generator=generator), n_ttis,
+        scheduler,
+    )
+    tp = TrafficProgram.onoff(
+        prog.n_ue, ONOFF_PEAK_PPS, horizon_us=n_ttis * 1000, on=ONOFF_ON,
+        off_mean_s=ONOFF_OFF_MEAN_S, tr_seed=ONOFF_TR_SEED,
+    )
+    tp = dataclasses.replace(
+        tp, size_pareto=np.asarray(ONOFF_SIZE_PARETO, np.float32)
+    )
+    return dataclasses.replace(prog, traffic=tp, precision=precision)
