@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths — the LTE SM engine
+Drives the port's paths — the WiFi BSS replica engine
+(``tpudes_torch.parallel.replicated.run_replicated_bss``) on
+``bench.py::bench_wifi``'s program (an AP and 64 STAs, 802.11a at 54
+Mbit/s, UDP echo every 100 ms, 512 replicas x 2 s), and the LTE SM engine
 (``tpudes_torch.parallel.lte_sm.run_lte_sm``) on the lena hex grid at
 bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas): full buffers,
 static and with the UEs moving (const_velocity at 10 m/s, geometry
@@ -15,7 +18,9 @@ and holds its CUDA kernels against their plain PyTorch versions:
 geometry table (mobility), the config sweep (one scheduler id per grid
 row), finite backlogs filled from an offered-bits table (traffic) and
 bf16 — and ``lte_sm_step`` (one TTI per launch; the single-step route,
-``build_sm_step``), f32 and bf16.  Phases, in order; any failure exits
+``build_sm_step``), f32 and bf16; and ``bss_advance`` (the BSS event
+loop, every step of a chunk in one persistent launch;
+``run_replicated_bss``'s path).  Phases, in order; any failure exits
 non-zero and no phase carries on past one:
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -34,7 +39,13 @@ non-zero and no phase carries on past one:
    stride-8 table and with traffic; the f32 sweep with traffic;
    ``lte_sm_step`` f32 and bf16; retransmissions and drops occur in
    every check); each one's time per launch on the card (CUDA events)
-   and the host's, and its bound;
+   and the host's, and its bound; then ``bss_advance`` vs the plain loop
+   on the card at bench width (64 STAs, 512 replicas, 2 s): the whole
+   per-replica state, the step count and the pending flags bit-equal,
+   for one launch and for two launches split at a step boundary (the
+   plain loop's wall there is the measurement the choice of a
+   persistent kernel rests on); a small BSS program through the plain
+   loop on the CPU against the kernel on the card;
 4. the slice through the plain loop and through the kernel, both on the
    card, 64 replicas x 500 TTIs, static, moving and with traffic:
    integer outputs (and backlogs) equal; a small program of each through
@@ -54,7 +65,9 @@ non-zero and no phase carries on past one:
    per TTI to the same state to count the UE-TTIs the backlog gate held
    back, the traffic path's nine-point sweep, and in bf16 the static
    path, the moving drop, its sweep and the single-step route; the
-   card's busy share over profiled runs (``torch.profiler``);
+   card's busy share over profiled runs (``torch.profiler``); and
+   ``bench_wifi``: the BSS main path, one warm run and five timed runs
+   on keys 1..5, each one launch, every replica done;
 6. one JSON line with every kernel arm's numbers, then the result line.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
@@ -124,6 +137,22 @@ TRAFFIC_KEYS = INT_KEYS + ("goodput_bits",)
 #: Mbit/s the full-buffer drop delivers (PERF.md), where the reference's
 #: peak of 50 pps offers 5.8 times that
 NEAR_CAPACITY_PPS = 8.0
+#: bench.py::bench_wifi (``:91-93``, ``:114-161``): STAs, replicas,
+#: simulated seconds, timed runs (keys 1..5 after a warm run on key 0)
+BSS_N_STAS, BSS_R, BSS_SIM_S, BSS_TIMED_RUNS = 64, 512, 2.0, 5
+#: the key of the kernel-vs-plain check
+BSS_CHECK_SEED = 7
+#: launches per timed bss_advance run (each a whole horizon)
+BSS_TIMED_CALLS = 5
+#: bss_advance's least work: per replica-step three threefry hashes (the
+#: replica's fold-in and the split; the step's fold-in is shared) and
+#: about 25 int32 operations per node (the transmit instant, the
+#: reductions, arrivals and updates); per data frame two more hashes
+#: (its coin, its redraw) and the PSR chain in f32 (erfc, log, ten
+#: exp terms, log1p, exp: about 350 operations)
+THREEFRY_OPS = 72
+BSS_NODE_OPS = 25
+BSS_PSR_OPS = 350
 
 
 def fail(msg: str):
@@ -406,6 +435,154 @@ def gate_census(kc, prog, key, device):
     return out, int(held), R * prog.n_ttis * int(elig.sum())
 
 
+def bss_bound(consts, state, out, done, step0):
+    """Least time for one ``bss_advance`` launch on these inputs: the
+    state read once and written once and the constants read once over
+    HBM, against the work the run's own steps and data frames need (the
+    replica-steps it ran, ``done - step0`` summed, and its data frames,
+    ``tx_data``'s growth) over each type's rate; the larger wins."""
+    n = consts["N"]
+    nbytes = sum(v.nbytes for v in state.values())
+    nbytes += sum(v.nbytes for v in out.values())
+    nbytes += sum(consts[k].nbytes for k in ("rx_w", "det", "interval",
+                                             "stop"))
+    replica_steps = int((done.long() - step0).sum())
+    frames = int((out["tx_data"] - state["tx_data"]).sum())
+    int_ops = (replica_steps * (3 * THREEFRY_OPS + n * BSS_NODE_OPS)
+               + frames * 2 * THREEFRY_OPS)
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": max(int_ops / INT32_OPS_PER_S,
+                          frames * BSS_PSR_OPS / F32_OPS_PER_S) * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def bss_check(kc, dev) -> dict:
+    """Phase 3g: ``bss_advance`` against the plain loop on the card at
+    bench width, one launch and two launches split at a step boundary;
+    a small program's CPU run against its card run; the kernel's device
+    time per launch and its bound."""
+    import torch
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import (
+        BSS_STATE,
+        bss_advance_cuda,
+        bss_launch,
+    )
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import bss_program
+
+    prog = bss_program(BSS_N_STAS, BSS_SIM_S)
+    consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
+    key = PRNGKey(BSS_CHECK_SEED, device=dev)
+    bound = bss._estimate_max_steps(prog)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, 0,
+                                                 bound)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    got, steps, pend = bss_advance_cuda(consts, init(), key, 0, bound)
+    split = w_steps // 2
+    half, h_steps, _ = bss_advance_cuda(consts, init(), key, 0, split)
+    two, t_steps, t_pend = bss_advance_cuda(consts, half, key, h_steps,
+                                            bound)
+    torch.cuda.synchronize()
+    if (steps, h_steps, t_steps) != (w_steps, split, w_steps):
+        fail(f"bss_advance steps {steps}, {h_steps} + {t_steps}; plain loop "
+             f"{w_steps} (split at {split})")
+    if not (torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)):
+        fail("bss_advance pending flags differ from the plain loop's")
+    err = 0.0
+    for k, _, _ in BSS_STATE:
+        for what, x in (("one launch", got), ("two launches", two)):
+            if not torch.equal(x[k], want[k]):
+                fail(f"bss_advance ({what}) vs plain loop: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs().max().item())
+    if bool(w_pend.any()) or int(want["drops"].sum()) <= 0:
+        fail("bss check: a replica still pending, or no drop")
+    print(f"bss_advance vs plain loop: {len(BSS_STATE)} state arrays, the "
+          f"step count ({w_steps}) and the pending flags bit-equal at "
+          f"N={consts['N']} R={BSS_R} over one launch and over two split at "
+          f"step {split}; srv_rx {int(want['srv_rx'].sum())}, tx_data "
+          f"{int(want['tx_data'].sum())}, drops {int(want['drops'].sum())}; "
+          f"plain loop wall {plain_s:.3f} s", flush=True)
+
+    small = bss_program(8, 1.5, radii=(12.0, 20.0, 28.0))
+    on_cpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device="cpu")
+    on_gpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device=dev)
+    for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done"):
+        if not np.array_equal(on_cpu[k], on_gpu[k]):
+            fail(f"small BSS program: CPU plain loop vs kernel differs in {k}")
+    print(f"small BSS program (8 STAs, 8 x 1.5 s): CPU plain loop == kernel "
+          f"on the card ({on_gpu['steps']} steps, srv_rx "
+          f"{int(on_gpu['srv_rx'].sum())})", flush=True)
+
+    s0 = init()
+    ms, host_ms = timed_ms(lambda: bss_launch(consts, s0, key, 0, bound),
+                           BSS_TIMED_CALLS, reps=3)
+    out, done, _, _ = bss_launch(consts, s0, key, 0, bound)
+    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0)
+    us_step = ms * 1e3 / w_steps
+    print(f"bss_advance: one launch of {w_steps} steps x {BSS_R} CTAs: "
+          f"device {ms:.4f} ms/launch = {us_step:.4f} us/step (host "
+          f"{host_ms:.4f} ms/call), plain loop wall {plain_s * 1e3:.1f} ms, "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, steps=w_steps,
+                us_per_step=us_step, bound=(bound_ms, bound_by),
+                plain_sim_s_per_wall_s=BSS_R * BSS_SIM_S / plain_s)
+
+
+def bss_bench(kc, dev, check: dict) -> dict:
+    """Phase 5h: ``bench.py::bench_wifi`` on the port: one warm run, then
+    ``BSS_TIMED_RUNS`` counted runs on keys 1.. (one launch each, every
+    replica done); prints its JSON line and returns its launches."""
+    import torch
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import bss_program
+
+    prog = bss_program(BSS_N_STAS, BSS_SIM_S)
+
+    def run(seed):
+        return run_replicated_bss(prog, BSS_R, PRNGKey(seed), device=dev)
+
+    run(0)                                                  # warm-up
+    walls, delivered, steps, launches = [], 0, set(), None
+    for i in range(BSS_TIMED_RUNS):
+        out, wall, launches = counted(kc, lambda: run(1 + i),
+                                      {"bss_advance": 1}, "BSS main path")
+        if not out["all_done"]:
+            fail(f"bench_wifi run {i}: a replica did not finish")
+        if out["srv_rx"].shape != (BSS_R,) or out["cli_rx"].shape != (
+                BSS_R, BSS_N_STAS + 1):
+            fail("bench_wifi: outputs of the wrong shape")
+        walls.append(wall)
+        delivered += int(out["srv_rx"].sum())
+        steps.add(out["steps"])
+    busy, kernel_ms = device_busy_share(lambda: run(1), "bss_advance")
+    med = statistics.median(walls)
+    print(json.dumps(dict(
+        phase="bench_wifi", replicas=BSS_R, n_stas=BSS_N_STAS,
+        sim_s=BSS_SIM_S, steps=sorted(steps),
+        sim_s_per_wall_s=BSS_R * BSS_SIM_S / med, wall_median_s=med,
+        wall_min_s=min(walls), wall_max_s=max(walls),
+        srv_rx_mean=delivered / (BSS_TIMED_RUNS * BSS_R),
+        kernel_us_per_step=check["us_per_step"],
+        kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        plain_loop_wall_s=check["plain_ms"] / 1e3,
+        plain_loop_sim_s_per_wall_s=check["plain_sim_s_per_wall_s"],
+        plain_loop_steps=check["steps"],
+    )), flush=True)
+    torch.cuda.synchronize()
+    return launches
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -440,7 +617,7 @@ def main(device: str = "cuda") -> int:
 
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
-    logs = _build.build(["lte_sm_step", "lte_sm_advance"])
+    logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
@@ -884,6 +1061,9 @@ def main(device: str = "cuda") -> int:
           f"{ms_step_bf_plain * 1e3:.2f} us/call, bound "
           f"{step_bf_bound[0] * 1e3:.3f} us ({step_bf_bound[1]})",
           flush=True)
+
+    # 3g. bss_advance vs the plain loop at bench width
+    bss_numbers = bss_check(kc, dev)
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -1365,14 +1545,18 @@ def main(device: str = "cuda") -> int:
                         equals_main_path=True),
     )), flush=True)
 
+    # 5h. bench_wifi: the BSS main path at bench width
+    wlaunches = bss_bench(kc, dev, bss_numbers)
+
     # 6. the kernels line, then the result line
-    def entry(name, launches_, err, ms, plain_ms, bound):
+    def entry(name, launches_, err, ms, plain_ms, bound,
+              source=None, replaces="tpudes/parallel/kernels_pallas.py:473"):
         return dict(
             name=name, route="cuda",
-            source=("tpudes_torch/csrc/lte_sm_step.cu"
-                    if name.startswith("lte_sm_step")
-                    else "tpudes_torch/csrc/lte_sm_advance.cu"),
-            replaces="tpudes/parallel/kernels_pallas.py:473",
+            source=source or ("tpudes_torch/csrc/lte_sm_step.cu"
+                              if name.startswith("lte_sm_step")
+                              else "tpudes_torch/csrc/lte_sm_advance.cu"),
+            replaces=replaces,
             launches=launches_, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=None,
         )
@@ -1394,6 +1578,12 @@ def main(device: str = "cuda") -> int:
               ms_kernel, ms_plain, (bound_ms, bound_by)),
         entry("lte_sm_step:bf16", bslaunches["lte_sm_step:bf16"],
               step_bf_err, ms_step_bf, ms_step_bf_plain, step_bf_bound),
+        entry("bss_advance", wlaunches["bss_advance"], bss_numbers["err"],
+              bss_numbers["ms"], bss_numbers["plain_ms"],
+              bss_numbers["bound"],
+              source="tpudes_torch/csrc/bss_advance.cu",
+              replaces="tpudes/parallel/replicated.py:1155 (lax.while_loop "
+                       "over build_bss_step.step_fn; XLA, no pallas_call)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

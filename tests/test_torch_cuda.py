@@ -8,7 +8,8 @@ conftest:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerance: none — each kernel and its plain version must give
-bit-identical state, and the slice's integer outputs must be equal.
+bit-identical state, and the slice's integer outputs must be equal;
+the BSS engine's outputs on the card equal the CPU's.
 """
 
 import dataclasses
@@ -19,12 +20,15 @@ import pytest
 import torch
 
 from tpudes_torch.parallel import kernels_cuda as kc
+from tpudes_torch.parallel import replicated as bss
+from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.random import PRNGKey, replica_keys
 from tpudes_torch.scenarios import (
     ONOFF_OFF_MEAN_S,
     ONOFF_ON,
     ONOFF_TR_SEED,
+    bss_program,
     lena_grid_program,
     lena_traffic_program,
     lena_ue_drop,
@@ -77,11 +81,11 @@ def _harq_consts(prog, card):
 
 
 def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
-            step_bf16=0):
+            step_bf16=0, bss=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
-            "lte_sm_advance:bf16": bf16}
+            "lte_sm_advance:bf16": bf16, "bss_advance": bss}
 
 
 def _bit_equal(a, b):
@@ -402,3 +406,57 @@ def test_offered_table_card_equals_cpu(card):
     on_cpu = _offered(prog, "cpu", 0, 2000)
     assert _bit_equal(on_card.cpu(), on_cpu)
     assert float(on_cpu.sum()) > 0
+
+
+#: the BSS programs of the card's checks: the bench's (64 STAs on the
+#: 10/22/34 m rings) and a collision-heavy one (32 STAs sending every
+#: 5 ms, the medium near saturation, with same-µs ties of three and more)
+BSS_PROGRAMS = {
+    "bench": lambda: bss_program(64, 2.0),
+    "collisions": lambda: bss_program(32, 1.3, radii=(8.0, 14.0, 20.0),
+                                      interval_s=0.005),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", list(BSS_PROGRAMS))
+def test_bss_kernel_bit_equal_to_plain_loop(card, which):
+    """64 replicas: one launch of ``bss_advance`` and two launches split
+    at a step boundary, each against the plain loop on the card, the
+    whole state bit-equal, with the step count and pending flags."""
+    prog = BSS_PROGRAMS[which]()
+    consts, init, _ = bss.build_bss_advance(prog, 64, card)
+    key = PRNGKey(4).to(card)
+    bound = bss._estimate_max_steps(prog)
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, 0,
+                                                 bound)
+    kc.reset_launches()
+    got, steps, pend = bss.bss_advance(consts, init(), key, 0, bound)
+    mid = w_steps // 2
+    half, h_steps, _ = bss.bss_advance(consts, init(), key, 0, mid)
+    two, t_steps, t_pend = bss.bss_advance(consts, half, key, h_steps, bound)
+    assert kc.launches == _counts(bss=3)
+    assert (steps, h_steps, t_steps) == (w_steps, mid, w_steps)
+    assert torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[k], want[k]), (which, k)
+        assert torch.equal(two[k], want[k]), (which, "two launches", k)
+    assert int(want["tx_data"].sum()) > 0 and int(want["drops"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_bss_card_equals_cpu(card):
+    """The engine's outputs on the card (the kernel) equal the CPU's (the
+    plain loop), per replica, unchunked and chunked."""
+    prog = bss_program(8, 1.5, radii=(12.0, 20.0, 28.0))
+    cpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device="cpu")
+    kc.reset_launches()
+    gpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card)
+    chunked = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card,
+                                     chunk_steps=40)
+    assert kc.launches["bss_advance"] == 1 + math.ceil(
+        bss._estimate_max_steps(prog) / 40)
+    for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done"):
+        assert np.array_equal(gpu[k], cpu[k]), k
+        assert np.array_equal(chunked[k], cpu[k]), k
+    assert gpu["all_done"]

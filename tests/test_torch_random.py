@@ -3,7 +3,9 @@
 Held against jax 0.9.0's defaults (threefry2x32, partitionable, x64
 off) over the key chains the LTE SM engine draws from:
 ``replica_keys`` (tpudes/parallel/runtime.py:139), then
-``fold_in(k, t)`` and ``uniform(., (U,), f32)`` (lte_sm.py:678, :423).
+``fold_in(k, t)`` and ``uniform(., (U,), f32)`` (lte_sm.py:678, :423);
+and the BSS engine's ``split(fold_in(fold_in(key, step), r))`` then
+``uniform(., (N,), f32)`` of each half (replicated.py:744-770).
 Tolerance: none — every word and every float is compared exactly.
 """
 
@@ -88,3 +90,39 @@ def test_engine_coin_chain_bit_equal(seed):
 def test_seed_out_of_range_is_refused():
     with pytest.raises(ValueError):
         tr.PRNGKey(2**32)
+
+
+def test_split_bit_equal_on_1000_keys():
+    rng = np.random.default_rng(1)
+    words = rng.integers(0, 2**32, (1000, 2), dtype=np.uint64).astype(
+        np.uint32)
+    want = np.asarray(jax.vmap(jax.random.split)(jnp.asarray(words)))
+    got = tr.split(torch.as_tensor(words.astype(np.int64))).numpy()
+    assert got.shape == (1000, 2, 2)
+    assert np.array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed, s0", [(0, 0), (5, 987)])
+def test_bss_draw_chain_bit_equal(seed, s0):
+    """``bss_draws`` for 1,000 steps x 4 replicas x 65 nodes equals the
+    reference's per-(step, replica) chain, step folded in first."""
+    R, N, S = 4, 65, 1000
+    key = jax.random.PRNGKey(seed)
+
+    def chain(step):
+        k = jax.random.fold_in(key, step)
+
+        def draw(r):
+            k_back, k_coin = jax.random.split(jax.random.fold_in(k, r))
+            return (jax.random.uniform(k_back, (N,), jnp.float32),
+                    jax.random.uniform(k_coin, (N,), jnp.float32))
+
+        return jax.vmap(draw)(jnp.arange(R))
+
+    wb, wc = jax.jit(jax.vmap(chain))(jnp.arange(s0, s0 + S))
+    gb, gc = tr.bss_draws(tr.PRNGKey(seed), s0, s0 + S, R, N)
+    assert gb.shape == (S, R, N) and gc.shape == (S, R, N)
+    assert np.array_equal(gb.numpy().view(np.int32),
+                          np.asarray(wb).view(np.int32))
+    assert np.array_equal(gc.numpy().view(np.int32),
+                          np.asarray(wc).view(np.int32))

@@ -1,11 +1,11 @@
 """Carry the reference's programs and kernel states into the port.
 
 The JAX package's ``LteSmProgram``, its ``MobilityProgram``, its
-``TrafficProgram`` and its kernel state are numpy-able; the port takes
-their numpy values (it never imports the JAX package).  This is how the
-tests and a user move
-a scenario lowered by the reference (``tpudes.scenarios.build_lena`` +
-``lower_lte_sm``) onto the card.
+``TrafficProgram``, its ``BssProgram`` and their states are numpy-able;
+the port takes their numpy values (it never imports the JAX package).
+This is how the tests and a user move a scenario lowered by the
+reference (``tpudes.scenarios.build_lena`` + ``lower_lte_sm``, or
+``build_bss`` + ``lower_bss``) onto the card.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ import torch
 
 from tpudes_torch.device import resolve_device
 from tpudes_torch.ops.mobility import MobilityProgram
+from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.parallel.kernels_cuda import SM_STATE
 from tpudes_torch.parallel.lte_sm import LteSmProgram
+from tpudes_torch.parallel.replicated import BssProgram
 from tpudes_torch.traffic.program import TrafficProgram
 
 #: the reference program's fields the port reads
@@ -40,6 +42,47 @@ TRAFFIC_FIELDS = (
     "peak_pps", "on_pareto", "off_mean_s", "arr_t", "arr_b", "size_pareto",
     "env", "epoch_us", "n_epoch", "n_cycle", "tr_seed", "model_id",
 )
+
+
+#: the reference ``BssProgram``'s fields the port reads (a static
+#: legacy program: ``mobility`` and ``traffic`` are None)
+BSS_FIELDS = (
+    "positions", "data_mode_idx", "ack_mode_idx", "data_bytes",
+    "beacon_bytes", "start_us", "interval_us", "stop_us", "sim_end_us",
+    "tx_power_dbm", "path_loss_exponent", "reference_loss_db",
+    "noise_figure_db", "bandwidth_hz", "rx_sensitivity_dbm", "aifs_us",
+    "max_mpdus", "subframe_bytes", "geom_stride",
+)
+
+
+def bss_from_numpy(fields: Mapping) -> BssProgram:
+    """Port BSS program from the reference ``BssProgram``'s numpy fields
+    (:data:`BSS_FIELDS`)."""
+    ints = ("data_mode_idx", "ack_mode_idx", "data_bytes", "beacon_bytes",
+            "sim_end_us", "aifs_us", "max_mpdus", "subframe_bytes",
+            "geom_stride")
+    floats = ("tx_power_dbm", "path_loss_exponent", "reference_loss_db",
+              "noise_figure_db", "bandwidth_hz", "rx_sensitivity_dbm")
+    return BssProgram(
+        positions=np.asarray(fields["positions"], np.float32),
+        start_us=np.asarray(fields["start_us"], np.int32),
+        interval_us=np.asarray(fields["interval_us"], np.int32),
+        stop_us=np.asarray(fields["stop_us"], np.int32),
+        **{k: int(fields[k]) for k in ints},
+        **{k: float(fields[k]) for k in floats},
+    )
+
+
+def bss_state_from_numpy(state: Mapping, device=None) -> dict:
+    """Port BSS state (:data:`~tpudes_torch.parallel.bss_cuda.BSS_STATE`)
+    from a reference ``build_bss_step`` state dict, on ``device`` (the
+    card by default); the reference's shared ``step`` stays behind."""
+    device = resolve_device(device)
+    return {
+        k: torch.tensor(np.asarray(state[k]), dtype=torch.bool if dt ==
+                        "bool" else torch.int32, device=device)
+        for k, _, dt in BSS_STATE
+    }
 
 
 def mobility_from_numpy(fields: Mapping) -> MobilityProgram:

@@ -1,0 +1,432 @@
+// bss_advance.cu — the WiFi BSS replica engine's event loop, every step of
+// a chunk for every replica, in one persistent launch.
+//
+// Replaces the reference's device event loop: build_bss_advance's
+// lax.while_loop (tpudes/parallel/replicated.py:1155) over
+// build_bss_step.step_fn (:738-1093), non-aggregated and static; XLA code,
+// no pallas_call.  Its plain version is tpudes_torch/parallel/
+// replicated.py::bss_advance_math (step_fn in a loop under the reference's
+// loop condition), which it equals bit for bit on the card.
+//
+// Design, for the H100:
+// - One CTA per replica, one thread per node (blockDim = N rounded up to 32,
+//   N <= 1024).  A node's state (next_arr, queue, ap_pend, backoff, hold,
+//   immediate, cw, retries, cli_rx) lives in registers for the launch; the
+//   replica's scalars (t, bcn_pend, busy_until, srv_rx, tx_data, drops) are
+//   held by every thread, which all update them alike.  State is read from
+//   HBM once and written once.
+// - The loop runs in the kernel.  Each CTA stops when its own replica is no
+//   longer pending (no event before the horizon) or at the step bound: a
+//   finished replica is a fixed point of step_fn but for t, so no CTA waits
+//   for another.  On the way out it writes its stop step (`done`) and the t
+//   one more step would give it (`t_next`); the wrapper
+//   (parallel/bss_cuda.py) takes the largest stop as the run's step count and
+//   gives t_next to the replicas that stopped before it, as the reference's
+//   shared loop would.
+// - Draws: step s, replica r: k = split(fold_in(fold_in(key, s), r)),
+//   uniform(k[0], (N,)) for backoffs and uniform(k[1], (N,)) for coins
+//   (random.py::bss_draws), in uint32 threefry2x32.  Every 32 steps lane l of
+//   each warp derives step s + l's two keys (four hashes); each step shuffles
+//   them across the warp, and a thread hashes its own node's draw only when
+//   the step needs it (a new head of line, an interrupted grant, a winner's
+//   redraw; a gated frame's coin).
+// - Three barriers a step, each one block reduction (warp shuffles, one
+//   shared slot per warp, every thread folding the slots itself):
+//   1. the earliest STA transmit instant, the earliest arrival, the lowest
+//      node with an echo pending (the AP's destination); thread 0 publishes
+//      its own transmit instant, which counts once the reduction says
+//      whether the AP has a frame;
+//   2. the winners (one ballot word per warp) and the power each winner puts
+//      at the AP and at the echo destination, summed as a pairwise tree
+//      (within the warp, then over the warps' slots): replicated.py::
+//      tree_sum's order, so the plain version rounds alike;
+//   3. the outcome counts (decodes at the AP, drops, data frames), the
+//      longest occupancy, and node 0's outcome (its echo decoded or
+//      dropped, the new beacon count).
+// - The PHY of a gated frame: SINR = sig / ((at_dst - sig) + noise) and
+//   the NIST success rate in xla_math.cuh's arithmetic, then the coin.  A
+//   frame with no interference (a lone sender: at_dst - sig == 0) has the
+//   SINR sig / noise of its own link, so its rate is one of 2N per program:
+//   each thread computes its node's uplink and downlink rates once, before
+//   the loop (the downlinks in shared memory), and the chain runs in the
+//   loop only for frames that overlap others.
+//
+// Bound (bench: N = 65, R = 512, ~3,200 steps): the state is 0.2 MB each
+// way, so the work bounds: per replica-step about 20 threefry hashes (the
+// keys amortised, the draws a step needs), three block reductions and, for
+// the frames on air, one PSR chain (~400 operations); the chip_smoke
+// script counts them from the run.  With 512 CTAs of 3 warps the time is
+// each step's chain of dependent stages, not throughput.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+#include "xla_math.cuh"
+
+#define BSS_MAX_N 1024
+// the last step a launch may reach: step + 31 (a lane's lookahead) stays
+// below 2^31
+#define BSS_MAX_STEP 2147483000
+
+namespace {
+
+using xla_math::Psr;
+
+constexpr int kSlot = 9;
+constexpr int kSifs = 16;
+constexpr int kCwMin = 15;
+constexpr int kCwMax = 1023;
+constexpr int kRetryLimit = 7;
+constexpr int kInf = 1 << 30;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+struct Consts {
+  const float* rx_w;     // (N, N) tx -> rx power, W
+  const uint8_t* det;    // (N, N) detectable
+  const int* interval;   // (N,)
+  const int* stop;       // (N,)
+  int N, aifs, data_dur, resp_dur, exch_beacon, sim_end;
+  float nbits, noise_w;
+  Psr psr;
+};
+
+// the BSS_STATE layout (parallel/bss_cuda.py): per node (R, N), per replica
+// (R,)
+struct StateIn {
+  const int *t, *next_arr, *queue, *ap_pend, *bcn_pend, *backoff, *hold;
+  const uint8_t* immediate;
+  const int *cw, *retries, *busy_until, *srv_rx, *cli_rx, *tx_data, *drops;
+};
+
+struct StateOut {
+  int *t, *next_arr, *queue, *ap_pend, *bcn_pend, *backoff, *hold;
+  uint8_t* immediate;
+  int *cw, *retries, *busy_until, *srv_rx, *cli_rx, *tx_data, *drops;
+};
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = min(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = max(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// the pairwise tree sum of the warp's 32 values (pairs of neighbours, then
+// pairs of pairs, ...), valid in lane 0, broadcast to the warp
+__device__ __forceinline__ float warp_tree_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    x = __fadd_rn(x, __shfl_down_sync(kFull, x, off));
+  return __shfl_sync(kFull, x, 0);
+}
+
+// a drawn backoff: uniform * (cw + 1) in f32, truncated
+__device__ __forceinline__ int draw_backoff(float u, int cw) {
+  return __float2int_rz(__fmul_rn(u, static_cast<float>(cw + 1)));
+}
+
+__global__ void __launch_bounds__(BSS_MAX_N)
+    bss_advance_kernel(Consts c, StateIn si, StateOut so,
+                       const long long* __restrict__ key, int* done,
+                       int* t_next, uint8_t* pending, int step0, int step1) {
+  __shared__ int s_tx[32], s_arr[32], s_ed[32], s_tx0;      // barrier 1
+  __shared__ unsigned s_win[32];                            // barrier 2
+  __shared__ float s_at_ap[32], s_at_ed[32];
+  __shared__ int s_ok[32], s_drop[32], s_data[32], s_occ[32];  // barrier 3
+  __shared__ int s_node0[3];
+  __shared__ float s_psr_down[BSS_MAX_N];  // AP -> node i, alone on the air
+
+  const int N = c.N, r = blockIdx.x, i = threadIdx.x;
+  const int lane = i & 31, warp = i >> 5, nw = blockDim.x >> 5;
+  const bool valid = i < N, is_ap = i == 0;
+  const long long q = static_cast<long long>(r) * N + (valid ? i : 0);
+
+  // this node's state and constants
+  int next_arr = valid ? si.next_arr[q] : kInf;
+  int queue = valid ? si.queue[q] : 0;
+  int ap_pend = valid ? si.ap_pend[q] : 0;
+  int backoff = valid ? si.backoff[q] : 0;
+  int hold = valid ? si.hold[q] : 0;
+  bool imm = valid && si.immediate[q] != 0;
+  int cw = valid ? si.cw[q] : kCwMin;
+  int retries = valid ? si.retries[q] : 0;
+  int cli = valid ? si.cli_rx[q] : 0;
+  const int interval = valid ? c.interval[i] : kInf;
+  const int stop = valid ? c.stop[i] : kInf;
+  const float rx_to_ap = valid ? c.rx_w[i * N] : 0.0f;
+  const bool det_to_ap = valid && c.det[i * N] != 0;
+  // the success rates of this node's links with no interference
+  const float lone = __fadd_rn(0.0f, c.noise_w);
+  const float psr_up =
+      valid ? xla_math::nist_psr(__fdiv_rn(rx_to_ap, lone), c.psr, c.nbits)
+            : 0.0f;
+  if (valid)
+    s_psr_down[i] =
+        xla_math::nist_psr(__fdiv_rn(c.rx_w[i], lone), c.psr, c.nbits);
+  // the replica's scalars, a copy in every thread
+  int t = si.t[r], bcn = si.bcn_pend[r], busy = si.busy_until[r];
+  int srv = si.srv_rx[r], txd = si.tx_data[r], drops = si.drops[r];
+
+  const uint32_t key0 = static_cast<uint32_t>(key[0]);
+  const uint32_t key1 = static_cast<uint32_t>(key[1]);
+  uint32_t kb0 = 0u, kb1 = 0u, kc0 = 0u, kc1 = 0u;  // step (step & ~31) + lane
+  int step = step0, ta = kInf, tc = kInf;
+  bool pend = false;
+
+  for (;;) {
+    // 1. transmit instants, the next arrival, the AP's echo destination
+    const int base = max(busy, hold);
+    const int tx_if =
+        max(imm ? max(t, base) : base + c.aifs + backoff * kSlot, t);
+    const bool sta_frame = valid && !is_ap && queue > 0;
+    const int m_tx = warp_min(sta_frame ? tx_if : kInf);
+    const int m_arr = warp_min(next_arr);
+    const int m_ed = warp_min(valid && ap_pend > 0 ? i : N);
+    if (lane == 0) {
+      s_tx[warp] = m_tx;
+      s_arr[warp] = m_arr;
+      s_ed[warp] = m_ed;
+    }
+    if (is_ap) s_tx0 = tx_if;
+    __syncthreads();
+    int tc_sta = kInf, ed = N;
+    ta = kInf;
+    for (int w = 0; w < nw; ++w) {
+      tc_sta = min(tc_sta, s_tx[w]);
+      ta = min(ta, s_arr[w]);
+      ed = min(ed, s_ed[w]);
+    }
+    const bool any_ap = ed < N;
+    if (!any_ap) ed = 0;
+    const bool frame0 = bcn > 0 || any_ap;
+    tc = min(tc_sta, frame0 ? s_tx0 : kInf);
+    pend = t < c.sim_end && min(ta, tc) < c.sim_end;
+    if (!pend || step >= step1) break;
+
+    const int j = (step - step0) & 31;
+    if (j == 0) {
+      uint32_t a0 = key0, a1 = key1;
+      threefry::fold_in(a0, a1, static_cast<uint32_t>(step + lane));
+      threefry::fold_in(a0, a1, static_cast<uint32_t>(r));
+      kb0 = kc0 = a0;
+      kb1 = kc1 = a1;
+      threefry::fold_in(kb0, kb1, 0u);
+      threefry::fold_in(kc0, kc1, 1u);
+    }
+    const uint32_t b0 = __shfl_sync(kFull, kb0, j);
+    const uint32_t b1 = __shfl_sync(kFull, kb1, j);
+    const uint32_t c0 = __shfl_sync(kFull, kc0, j);
+    const uint32_t c1 = __shfl_sync(kFull, kc1, j);
+    float u_back = -1.0f;  // drawn on first use
+    auto back = [&]() {
+      if (u_back < 0.0f)
+        u_back = threefry::uniform(b0, b1, static_cast<uint32_t>(i));
+      return u_back;
+    };
+
+    const bool frame = is_ap ? frame0 : sta_frame;
+    const int tx_t = frame ? tx_if : kInf;
+    const bool live = t < c.sim_end;
+    const int next_t = live ? min(ta, tc) : c.sim_end;
+    const bool past_end = next_t >= c.sim_end;
+    const bool arrived = live && ta <= tc && ta < kInf && !past_end;
+    const bool transmit = live && tc < ta && tc < kInf && !past_end;
+
+    // arrivals
+    const bool is_arr = valid && arrived && next_arr == next_t;
+    const int queue1 = queue + (is_arr && !is_ap ? 1 : 0);
+    const int bcn1 = bcn + (is_arr && is_ap ? 1 : 0);  // thread 0's
+    int adv = next_arr >= kInf ? kInf : next_arr + interval;
+    if (adv >= stop) adv = kInf;
+    const int next_arr1 = is_arr ? adv : next_arr;
+    const bool frame_after =
+        is_arr ? (is_ap ? (bcn1 > 0 || any_ap) : queue1 > 0) : frame;
+    const bool hol = is_arr && !frame && frame_after;
+    const bool imm_grant = hol && next_t >= busy + c.aifs;
+    int backoff1 = (hol && !imm_grant) ? draw_backoff(back(), cw) : backoff;
+    bool imm1 = hol ? imm_grant : imm;
+    const bool winner = transmit && frame && tx_t == next_t;
+    const bool contending = frame && !winner && transmit;
+
+    // 2. the winners and the power at the two destinations
+    const unsigned bal = __ballot_sync(kFull, winner);
+    float at_ap = 0.0f, at_ed = 0.0f;
+    if (bal != 0u) {
+      at_ap = warp_tree_sum(winner ? rx_to_ap : 0.0f);
+      at_ed = warp_tree_sum(winner ? c.rx_w[i * N + ed] : 0.0f);
+    }
+    if (lane == 0) {
+      s_win[warp] = bal;
+      s_at_ap[warp] = at_ap;
+      s_at_ed[warp] = at_ed;
+    }
+    __syncthreads();
+    bool any_win = false;
+    for (int w = 0; w < nw; ++w) any_win = any_win || s_win[w] != 0u;
+    at_ap = warp_tree_sum(lane < nw ? s_at_ap[lane] : 0.0f);
+    at_ed = warp_tree_sum(lane < nw ? s_at_ed[lane] : 0.0f);
+    const bool win0 = (s_win[0] & 1u) != 0u;
+    const bool win_ed = ((s_win[ed >> 5] >> (ed & 31)) & 1u) != 0u;
+
+    // countdown credit and interrupted grants of the other contenders
+    const int idle = next_t - busy - c.aifs;
+    const int elapsed = idle < 0 ? 0 : idle / kSlot;
+    if (contending && !imm) backoff1 = max(backoff1 - elapsed, 0);
+    if (contending && imm) {
+      backoff1 = draw_backoff(back(), cw);
+      imm1 = false;
+    }
+
+    // the PHY: beacons outrank echoes; a gated data frame's coin vs its PSR
+    const bool ap_beacon = win0 && bcn > 0;
+    const bool beacon_tx = winner && is_ap && ap_beacon;
+    const bool data_tx = winner && !beacon_tx;
+    const bool det = is_ap ? c.det[ed] != 0 : det_to_ap;
+    const bool dst_idle = is_ap ? !win_ed : !win0;
+    bool ok = false;
+    if (data_tx && det && dst_idle) {
+      const float sig = is_ap ? c.rx_w[ed] : rx_to_ap;
+      const float interf = __fsub_rn(is_ap ? at_ed : at_ap, sig);
+      const float psr =
+          interf == 0.0f
+              ? (is_ap ? s_psr_down[ed] : psr_up)
+              : xla_math::nist_psr(
+                    __fdiv_rn(sig, __fadd_rn(interf, c.noise_w)), c.psr,
+                    c.nbits);
+      ok = threefry::uniform(c0, c1, static_cast<uint32_t>(i)) < psr;
+    }
+    const bool success = data_tx && ok, fail = data_tx && !ok;
+    const bool dropped = fail && retries + 1 > kRetryLimit;
+    const bool reset = success || dropped || beacon_tx;
+    const int retries1 = reset ? 0 : retries + (fail ? 1 : 0);
+    const int cw1 = reset ? kCwMin : (fail ? min(2 * (cw + 1) - 1, kCwMax) : cw);
+    if (winner) {
+      backoff1 = draw_backoff(back(), cw1);
+      imm1 = false;
+    }
+    const int exch = c.data_dur + kSifs + c.resp_dur;
+    const int occ = success ? exch : (beacon_tx ? c.exch_beacon : c.data_dur);
+    const int hold1 = fail ? next_t + exch + kSlot + 4
+                           : (winner ? next_t + occ : hold);
+
+    // 3. the outcome counts, the medium's occupancy, node 0's outcome
+    const int sta_ok = (ok && !is_ap) ? 1 : 0;
+    const int w_ok = warp_sum(sta_ok), w_drop = warp_sum(dropped ? 1 : 0);
+    const int w_data = warp_sum(data_tx ? 1 : 0);
+    const int w_occ = warp_max(winner ? occ : 0);
+    if (lane == 0) {
+      s_ok[warp] = w_ok;
+      s_drop[warp] = w_drop;
+      s_data[warp] = w_data;
+      s_occ[warp] = w_occ;
+    }
+    if (is_ap) {
+      s_node0[0] = ok ? 1 : 0;
+      s_node0[1] = dropped ? 1 : 0;
+      s_node0[2] = max(bcn1 - (ap_beacon ? 1 : 0), 0);
+    }
+    __syncthreads();
+    int n_ok = 0, n_drop = 0, n_data = 0, max_occ = 0;
+    for (int w = 0; w < nw; ++w) {
+      n_ok += s_ok[w];
+      n_drop += s_drop[w];
+      n_data += s_data[w];
+      max_occ = max(max_occ, s_occ[w]);
+    }
+    const int at_me = i == ed ? 1 : 0;
+    const int got_echo = s_node0[0], drop_echo = s_node0[1];
+    bcn = s_node0[2];
+    srv += n_ok;
+    drops += n_drop;
+    txd += n_data;
+    if (any_win) busy = next_t + max_occ;
+    t = max(next_t, t);
+    queue = max(queue1 - sta_ok - (dropped && !is_ap ? 1 : 0), 0);
+    ap_pend = max(ap_pend + sta_ok - at_me * got_echo - at_me * drop_echo, 0);
+    cli += at_me * got_echo;
+    next_arr = next_arr1;
+    backoff = backoff1;
+    imm = imm1;
+    cw = cw1;
+    retries = retries1;
+    hold = hold1;
+    ++step;
+  }
+
+  if (valid) {
+    so.next_arr[q] = next_arr;
+    so.queue[q] = queue;
+    so.ap_pend[q] = ap_pend;
+    so.backoff[q] = backoff;
+    so.hold[q] = hold;
+    so.immediate[q] = imm ? 1 : 0;
+    so.cw[q] = cw;
+    so.retries[q] = retries;
+    so.cli_rx[q] = cli;
+  }
+  if (is_ap) {
+    so.t[r] = t;
+    so.bcn_pend[r] = bcn;
+    so.busy_until[r] = busy;
+    so.srv_rx[r] = srv;
+    so.tx_data[r] = txd;
+    so.drops[r] = drops;
+    done[r] = step;
+    pending[r] = pend ? 1 : 0;
+    t_next[r] = t < c.sim_end ? max(t, min(ta, tc)) : t;
+  }
+}
+
+}  // namespace
+
+extern "C" int bss_advance_launch(
+    const float* rx_w, const uint8_t* det, const int* interval,
+    const int* stop, const long long* key, const int* t,
+    const int* next_arr, const int* queue, const int* ap_pend,
+    const int* bcn_pend, const int* backoff, const int* hold,
+    const uint8_t* immediate, const int* cw, const int* retries,
+    const int* busy_until, const int* srv_rx, const int* cli_rx,
+    const int* tx_data, const int* drops, int* o_t, int* o_next_arr,
+    int* o_queue, int* o_ap_pend, int* o_bcn_pend, int* o_backoff,
+    int* o_hold, uint8_t* o_immediate, int* o_cw, int* o_retries,
+    int* o_busy_until, int* o_srv_rx, int* o_cli_rx, int* o_tx_data,
+    int* o_drops, int* done, int* t_next, uint8_t* pending, int R, int N,
+    int aifs, int data_dur, int resp_dur, int exch_beacon, int sim_end,
+    int step0, int step1, float nbits, float noise_w, float scale,
+    float factor, float lc0, float lc1, float lc2, float lc3, float lc4,
+    float lc5, float lc6, float lc7, float lc8, float lc9, float e0,
+    float e1, float e2, float e3, float e4, float e5, float e6, float e7,
+    float e8, float e9, float b, int mask, void* stream) {
+  if (R <= 0 || N <= 0 || N > BSS_MAX_N || step0 < 0 || step1 < step0 ||
+      step1 > BSS_MAX_STEP || static_cast<long long>(R) * N >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const Psr psr{scale, factor,
+                {lc0, lc1, lc2, lc3, lc4, lc5, lc6, lc7, lc8, lc9},
+                {e0, e1, e2, e3, e4, e5, e6, e7, e8, e9}, b, mask};
+  const Consts c{rx_w, det, interval, stop, N, aifs, data_dur, resp_dur,
+                 exch_beacon, sim_end, nbits, noise_w, psr};
+  const StateIn si{t, next_arr, queue, ap_pend, bcn_pend, backoff, hold,
+                   immediate, cw, retries, busy_until, srv_rx, cli_rx,
+                   tx_data, drops};
+  const StateOut so{o_t, o_next_arr, o_queue, o_ap_pend, o_bcn_pend,
+                    o_backoff, o_hold, o_immediate, o_cw, o_retries,
+                    o_busy_until, o_srv_rx, o_cli_rx, o_tx_data, o_drops};
+  const int threads = ((N + 31) / 32) * 32;
+  bss_advance_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      c, si, so, key, done, t_next, pending, step0, step1);
+  return static_cast<int>(cudaGetLastError());
+}

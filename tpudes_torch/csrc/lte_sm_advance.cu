@@ -81,6 +81,7 @@
 #include <stdint.h>
 
 #include "lte_sm_common.cuh"
+#include "threefry.cuh"
 
 #define ADV_MAX_U 2048
 #define ADV_MAX_E 256
@@ -111,30 +112,7 @@ struct Traffic {
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kBacklogCap = 1073741824.0f;  // 2^30 bits
 
-// threefry2x32's rotation for round j of group i
-__device__ __forceinline__ constexpr int rot(int i, int j) {
-  return (i % 2 == 0) ? (j == 0 ? 13 : j == 1 ? 15 : j == 2 ? 26 : 6)
-                      : (j == 0 ? 17 : j == 1 ? 29 : j == 2 ? 16 : 24);
-}
-
-// the 20-round Threefry-2x32 hash of counter (x0, x1) under key (k0, k1),
-// in place (tpudes_torch/random.py::threefry2x32)
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  x0 += k0;
-  x1 += k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = __funnelshift_l(x1, x1, rot(i, j)) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
+using threefry::threefry2x32;
 
 // float bits in an order that unsigned comparison keeps; -0.0 maps as +0.0
 __device__ __forceinline__ uint32_t orderable(float m) {

@@ -1,0 +1,169 @@
+// xla_math.cuh — the f32 arithmetic the reference's compiled WiFi error
+// model runs, written out as tpudes_torch/ops/fused.py and ops/wifi_error.py
+// write it: the same IEEE operations in the same order, so that the CUDA
+// kernel and the plain PyTorch version agree bit for bit on the card.
+//
+// - fma32(a, b, c): a * b + c in f64 (the product of two floats is exact
+//   there), rounded once to f64 and once to f32 — fused.fma's arithmetic,
+//   not the card's f32 FMA (which rounds once);
+// - xla_log: XLA's Cephes logf (fused.log);
+// - xla_exp: XLA's CPU exp (fused.exp), flushed below FLT_MIN;
+// - xla_log1p: XLA's Cephes log1p (fused.log1p);
+// - xla_erfc: XLA's f32 erfc as its HLO expands it (fused.erfc);
+// - nist_psr: mode_chunk_success_rate with the mode folded into Psr.
+//
+// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
+// __fsub_rn, which nvcc cannot contract), divisions are __fdiv_rn and roots
+// __fsqrt_rn.  Constants are written as the double literals the Python code
+// holds and rounded to f32 from there, as np.float32 rounds them.  Build
+// without --use_fast_math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace xla_math {
+
+constexpr float kFltMin = 1.17549435e-38f;
+
+__device__ __forceinline__ float ftz(float x) {
+  return fabsf(x) < kFltMin ? 0.0f : x;
+}
+
+__device__ __forceinline__ float fma32(float a, float b, float c) {
+  return __double2float_rn(__fma_rn(static_cast<double>(a),
+                                    static_cast<double>(b),
+                                    static_cast<double>(c)));
+}
+
+// ((c0 x + c1) x + c2) x + ..., every step one fma32
+template <int K>
+__device__ __forceinline__ float horner(float x, const double (&c)[K]) {
+  float acc = static_cast<float>(c[0]);
+#pragma unroll
+  for (int k = 1; k < K; ++k) acc = fma32(acc, x, static_cast<float>(c[k]));
+  return acc;
+}
+
+// Cephes logf as XLA compiles it (fused.log)
+__device__ __forceinline__ float xla_log(float x) {
+  constexpr double kP[9] = {
+      7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+      -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+      2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1};
+  const float q1 = static_cast<float>(-2.12194440e-4);
+  const float q2 = static_cast<float>(0.693359375);
+  const float sqrt_half = static_cast<float>(0.70710677);
+  x = fmaxf(x, kFltMin);
+  const int bits = __float_as_int(x);
+  float e = __fadd_rn(static_cast<float>((bits >> 23) - 127), 1.0f);
+  const float m = __int_as_float((bits & static_cast<int>(0x807FFFFF)) |
+                                 0x3F000000);
+  const bool low = m < sqrt_half;
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  const float z = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  const float z2 = __fmul_rn(z, z);
+  const float z3 = __fmul_rn(z2, z);
+  const float p[9] = {
+      static_cast<float>(kP[0]), static_cast<float>(kP[1]),
+      static_cast<float>(kP[2]), static_cast<float>(kP[3]),
+      static_cast<float>(kP[4]), static_cast<float>(kP[5]),
+      static_cast<float>(kP[6]), static_cast<float>(kP[7]),
+      static_cast<float>(kP[8])};
+  const float y0 = fma32(fma32(z, p[0], p[1]), z, p[2]);
+  const float y1 = fma32(fma32(z, p[3], p[4]), z, p[5]);
+  const float y2 = fma32(fma32(z, p[6], p[7]), z, p[8]);
+  float y = fma32(fma32(y0, z3, y1), z3, y2);
+  y = fma32(y, z3, __fmul_rn(e, q1));
+  return __fadd_rn(__fadd_rn(fma32(-0.5f, z2, z), y), __fmul_rn(e, q2));
+}
+
+// XLA's CPU exp (Cephes expf), flushed below FLT_MIN (fused.exp)
+__device__ __forceinline__ float xla_exp(float x) {
+  constexpr double kP[6] = {1.9875691500e-4, 1.3981999507e-3,
+                            8.3334519073e-3, 4.1665795894e-2,
+                            1.6666665459e-1, 0.5};
+  x = fminf(fmaxf(x, static_cast<float>(-87.8)), static_cast<float>(88.8));
+  float n = floorf(fma32(x, static_cast<float>(1.44269502), 0.5f));
+  n = fminf(fmaxf(n, -127.0f), 127.0f);
+  float r = fma32(n, -static_cast<float>(0.693359375), x);
+  r = fma32(n, -static_cast<float>(-2.12194440e-4), r);
+  const float y =
+      __fadd_rn(fma32(horner(r, kP), __fmul_rn(r, r), r), 1.0f);
+  const float pow2 =
+      __int_as_float((static_cast<int>(n) << 23) + 0x3F800000);
+  return ftz(__fmul_rn(y, pow2));
+}
+
+// XLA's Cephes log1p (fused.log1p)
+__device__ __forceinline__ float xla_log1p(float x) {
+  constexpr double kQ[7] = {
+      1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+      2.2176239823732856465394e2, 3.0909872225312059774938e2,
+      2.1642788614495947685003e2, 6.0118660497603843919306e1};
+  constexpr double kP[7] = {
+      4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+      6.5787325942061044846969e0, 2.9911919328553073277375e1,
+      6.0949667980987787057556e1, 5.7112963590585538103336e1,
+      2.0039553499201281259648e1};
+  if (fabsf(x) < static_cast<float>(0.41421356237309504880)) {
+    const float q = __fdiv_rn(horner(x, kP), horner(x, kQ));
+    const float x2 = __fmul_rn(x, x);
+    return __fadd_rn(
+        x, fma32(x2, -0.5f, __fmul_rn(__fmul_rn(x, x2), q)));
+  }
+  return xla_log(__fadd_rn(x, 1.0f));
+}
+
+// XLA's f32 erfc as its HLO expands it (fused.erfc)
+__device__ __forceinline__ float xla_erfc(float x) {
+  constexpr double kNear[7] = {7.85386146e-05, -0.000801019371,
+                               0.00518832775,  -0.0268538129,
+                               0.112835854,    -0.37612626,
+                               1.12837911};
+  constexpr double kMid[9] = {0.0232682,   -0.138703942, 0.368742466,
+                              -0.582473278, 0.621000469,  -0.494451523,
+                              0.340488,     -0.274112701, 0.563825965};
+  constexpr double kFar[8] = {-10.477664,  12.9772,     -7.49551868,
+                              2.92101908,  -1.01526523, 0.42184633,
+                              -0.282076746, 0.564189494};
+  const float ax = fabsf(x);
+  const float x2 = __fmul_rn(x, x);
+  if (ax < 1.0f) return fma32(-x, horner(x2, kNear), 1.0f);
+  if (-x2 < static_cast<float>(-88.7228394)) return x < 0.0f ? 2.0f : 0.0f;
+  const float w = __fdiv_rn(1.0f, x2);
+  const float poly = ax < 2.0f ? horner(w, kMid) : horner(w, kFar);
+  float far = ftz(__fmul_rn(ftz(__fmul_rn(xla_exp(-x2), __fdiv_rn(1.0f, ax))),
+                            poly));
+  return x < 0.0f ? __fsub_rn(2.0f, far) : far;
+}
+
+// the error model's per-mode constants (bss_cuda.py::psr_params)
+struct Psr {
+  float scale, factor;  // ber = factor * erfc(sqrt(snr * scale))
+  float log_c[10], exps[10];
+  float b;              // the rate's factor
+  int mask;             // bit k: term k has a nonzero weight
+};
+
+// mode_chunk_success_rate(snr, nbits, mode) (ops/wifi_error.py)
+__device__ __forceinline__ float nist_psr(float snr, const Psr& p,
+                                          float nbits) {
+  const float ber = ftz(__fmul_rn(
+      p.factor, xla_erfc(__fsqrt_rn(__fmul_rn(snr, p.scale)))));
+  const float pc = fminf(fmaxf(ber, 0.0f), 0.5f);
+  const float d =
+      __fsqrt_rn(__fmul_rn(__fmul_rn(pc, 4.0f), __fsub_rn(1.0f, pc)));
+  const float log_d = xla_log(fmaxf(d, static_cast<float>(1e-35)));
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 10; ++k)
+    if ((p.mask >> k) & 1)
+      acc = __fadd_rn(acc, xla_exp(fma32(log_d, p.exps[k], p.log_c[k])));
+  float pe = fminf(fmaxf(ftz(__fmul_rn(acc, p.b)), 0.0f), 1.0f);
+  pe = fminf(pe, static_cast<float>(1.0 - 1e-12));
+  return xla_exp(__fmul_rn(nbits, xla_log1p(-pe)));
+}
+
+}  // namespace xla_math

@@ -16,9 +16,27 @@ stage on the CPU shows it):
   keeps ``power``, and it equals glibc's ``powf`` on every operand
   tried).
 
-:func:`fma`, :func:`log`, :func:`exp10` and :func:`powf` reproduce the
-first, second and last from IEEE f32 and f64 operations and integer bit
-operations,
+The WiFi error model's chain (``tpudes/ops/wifi_error.py``, compiled
+inside the BSS step) adds three more, read from the CPU executable of
+``mode_chunk_success_rate`` (its optimised HLO, LLVM IR and machine
+code):
+
+- ``exp`` is the compiler's own (Cephes ``expf``: ``x`` clamped to
+  ``[-87.8, 88.8]``, ``n = floor(x log2 e + 1/2)`` clamped to
+  ``[-127, 127]``, ``r = x - n ln 2`` in two parts, a degree-5
+  polynomial, times ``2**n`` built from bits);
+- ``log1p`` is the compiler's Cephes rational ``x - x^2/2 + x^3 P/Q``
+  below ``|x| = sqrt 2 - 1`` and ``log(1 + x)`` above;
+- ``erfc`` is expanded in the HLO itself (XLA's f32 ``erfc``: a
+  polynomial in ``x^2`` below 1, ``exp(-x^2) / x`` times one of two
+  polynomials in ``1 / x^2`` above);
+
+all with their multiply-adds fused, and every result below the smallest
+normal f32 flushed to 0 (the CPU runs with subnormals flushed).
+
+:func:`fma`, :func:`log`, :func:`exp10`, :func:`powf`, :func:`exp`,
+:func:`log1p` and :func:`erfc` reproduce these from IEEE f32 and f64
+operations and integer bit operations,
 which round the same way on the CPU and on the card.  An f64 product of
 two f32 values is exact, so ``fma`` rounds the f64 sum once more to
 f32: it can differ from a true fused multiply-add only where the f64
@@ -108,10 +126,22 @@ def f32(like: torch.Tensor, value) -> torch.Tensor:
     """A 0-dim f32 tensor holding ``float32(value)`` on ``like``'s device,
     made there once (a fill, not a copy from the host) and kept."""
     v = float(np.float32(value))
-    key = (v, str(like.device))
+    key = (v, like.device)
     out = _ON_DEVICE.get(key)
     if out is None:
         out = _ON_DEVICE[key] = torch.full((), v, dtype=torch.float32,
+                                           device=like.device)
+    return out
+
+
+def f32_in_f64(like: torch.Tensor, value) -> torch.Tensor:
+    """:func:`f32`'s value held in a 0-dim f64 tensor (exact): a
+    constant operand of :func:`fma`'s f64 arithmetic, kept."""
+    v = float(np.float32(value))
+    key = ("f64", v, like.device)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = torch.full((), v, dtype=torch.float64,
                                            device=like.device)
     return out
 
@@ -234,3 +264,93 @@ def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.where(x == 0, zero, out)
     out = torch.where(x < 0, float("nan"), out)
     return torch.where((y == 0) | (x == 1), 1.0, out).float()
+
+
+#: XLA's CPU ``exp`` (Cephes ``expf``): the input clamp, ``log2 e``,
+#: ``ln 2`` in two parts and the polynomial, last coefficient 1/2
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.44269502
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 0.5)
+
+#: XLA's ``log1p`` (Cephes ``log1p``): below ``sqrt 2 - 1`` the rational
+#: ``x - x^2/2 + x^3 P(x)/Q(x)``, coefficients highest degree first
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+
+#: XLA's f32 ``erfc`` as its HLO expands it: the polynomial in ``x^2``
+#: below ``|x| = 1``, and those in ``1 / x^2`` for ``|x| < 2`` and above;
+#: ``exp(-x^2)`` is 0 below this
+_ERFC_NEAR = (7.85386146e-05, -0.000801019371, 0.00518832775,
+              -0.0268538129, 0.112835854, -0.37612626, 1.12837911)
+_ERFC_MID = (0.0232682, -0.138703942, 0.368742466, -0.582473278,
+             0.621000469, -0.494451523, 0.340488, -0.274112701,
+             0.563825965)
+_ERFC_FAR = (-10.477664, 12.9772, -7.49551868, 2.92101908, -1.01526523,
+             0.42184633, -0.282076746, 0.564189494)
+_ERFC_EXP_MIN = -88.7228394
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` with a value below the smallest normal f32 made 0."""
+    return torch.where(torch.abs(x) < _FLT_MIN, 0.0, x)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """``((c0 x + c1) x + c2) x + ...`` with every step one fused
+    multiply-add (:func:`fma`'s arithmetic), coefficients rounded to
+    f32."""
+    x64 = x.double()
+    acc = f32_in_f64(x, coeffs[0])
+    for c in coeffs[1:]:
+        acc = torch.addcmul(f32_in_f64(x, c), acc, x64).float().double()
+    return acc.float()
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of f32 ``x`` as the reference's compiled ``exponential``
+    computes it on the CPU (XLA's Cephes ``expf``), flushed to 0 below
+    the smallest normal f32."""
+    x = torch.clamp(x, f32(x, _EXP_LO), f32(x, _EXP_HI))
+    n = torch.floor(torch.addcmul(f32_in_f64(x, 0.5), x.double(),
+                                  f32_in_f64(x, _LOG2E)).float())
+    n = torch.clamp(n, -127.0, 127.0)
+    n64 = n.double()
+    r = torch.addcmul(x.double(), n64, f32_in_f64(x, -_EXP_C1)).float()
+    r = torch.addcmul(r.double(), n64, f32_in_f64(x, -_EXP_C2)).float()
+    y = fma(_horner(r, _EXP_P), r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
+    return ftz(y * pow2)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + x)`` of f32 ``x > -1`` as the reference's compiled
+    ``log-plus-one`` computes it on the CPU: the Cephes rational (its
+    ``-x^2/2`` term fused into the sum) below ``|x| = sqrt 2 - 1``,
+    :func:`log` of ``1 + x`` above."""
+    q = _horner(x, _LOG1P_P) / _horner(x, _LOG1P_Q)
+    x2 = x * x
+    small = x + fma(x2, f32(x, -0.5), (x * x2) * q)
+    return torch.where(torch.abs(x) < f32(x, _LOG1P_SMALL), small,
+                       log(x + 1.0))
+
+
+def erfc(x: torch.Tensor) -> torch.Tensor:
+    """``erfc`` of f32 ``x`` as the reference's compiled HLO expands it
+    (``jax.scipy.special.erfc`` in f32), with :func:`exp`."""
+    ax = torch.abs(x)
+    x2 = x * x
+    near = fma(-x, _horner(x2, _ERFC_NEAR), f32(x, 1.0))
+    w = 1.0 / x2
+    poly = torch.where(ax < 2.0, _horner(w, _ERFC_MID), _horner(w, _ERFC_FAR))
+    far = ftz(ftz(exp(-x2) * (1.0 / ax)) * poly)
+    far = torch.where(-x2 < f32(x, _ERFC_EXP_MIN), 0.0, far)
+    far = torch.where(x < 0.0, 2.0 - far, far)
+    return torch.where(ax < 1.0, near, far)

@@ -1,0 +1,238 @@
+"""The NIST error-rate model (counterpart of ``tpudes/ops/wifi_error.py``).
+
+A frame's success rate is ``(1 - pe)^nbits``: the AWGN bit error rate
+of its constellation (erfc closed forms), then the union bound over the
+first ten terms of the K = 7 convolutional code's distance spectrum at
+its coding rate.  The tables and the mode registry are copies of the
+reference's (``wifi_error.py:32-75``, ``:147-220``).
+
+The arithmetic is the reference's as its CPU executable computes it
+inside the BSS step (:mod:`tpudes_torch.ops.fused`): the mode is a
+constant there, so the compiler folds every per-mode number (the
+divisor's reciprocal, the QAM factor, ``log`` of the spectrum weights)
+into one f32 constant; ``erfc``, ``exp``, ``log`` and ``log1p`` are its
+own; products fuse into the sums that follow them; ``1 - 1e-12`` is 1.0
+in f32.  So here a mode, a constellation and a rate class are Python
+ints, as they are in the step, and the result is bit-equal to the
+reference's jitted ``mode_chunk_success_rate`` with the mode and
+``nbits`` constant (``tests/test_torch_wifi_error.py``).
+
+The table model (``per_table``, ``table_chunk_success_rate``) is not on
+the BSS path and is not ported yet (ROADMAP A1).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpudes_torch.ops import fused
+
+# --- coding-rate classes (``wifi_error.py:27-32``): 0 rate 1/2, 1 rate 2/3,
+# 2 rate 3/4, 3 rate 5/6
+B_FACTOR_TABLE = [1.0 / 2.0, 1.0 / 4.0, 1.0 / 6.0, 1.0 / 10.0]
+
+#: union-bound weights a_d of the K=7 code per puncturing, first ten
+#: terms (rate 1/2 has nine, padded with zero; ``wifi_error.py:37-51``)
+PE_COEFFS_TABLE = [
+    [36.0, 211.0, 1404.0, 11633.0, 77433.0, 502690.0, 3322763.0,
+     21292910.0, 134365911.0, 0.0],
+    [3.0, 70.0, 285.0, 1276.0, 6160.0, 27128.0, 117019.0,
+     498860.0, 2103891.0, 8784123.0],
+    [42.0, 201.0, 1492.0, 10469.0, 62935.0, 379644.0, 2253373.0,
+     13073811.0, 75152755.0, 428005675.0],
+    [92.0, 528.0, 8694.0, 79453.0, 792114.0, 7375573.0, 67884974.0,
+     610875423.0, 5427275376.0, 47664215639.0],
+]
+#: the distances d of those terms (``wifi_error.py:52-57``)
+PE_EXPONENTS_TABLE = [
+    [10.0, 12.0, 14.0, 16.0, 18.0, 20.0, 22.0, 24.0, 26.0, 28.0],
+    [6.0, 7.0, 8.0, 9.0, 10.0, 11.0, 12.0, 13.0, 14.0, 15.0],
+    [5.0, 6.0, 7.0, 8.0, 9.0, 10.0, 11.0, 12.0, 13.0, 14.0],
+    [4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0, 11.0, 12.0, 13.0],
+]
+
+RATE_1_2, RATE_2_3, RATE_3_4, RATE_5_6 = 0, 1, 2, 3
+
+#: erfc-argument divisors of upstream's M-QAM closed forms, z =
+#: sqrt(snr / div) (``wifi_error.py:75``)
+QAM_DIVISORS = {16.0: 10.0, 64.0: 21.0, 256.0: 60.0, 1024.0: 155.0}
+
+#: the clamp of the weights before their log, and the largest pe the
+#: success rate takes (``1 - 1e-12``, which is 1.0 in f32)
+_COEFF_FLOOR = 1e-35
+_PE_MAX = 1.0 - 1e-12
+
+
+@dataclass(frozen=True)
+class WifiMode:
+    """One entry of the WifiMode registry (``wifi_error.py:147-167``)."""
+
+    name: str
+    index: int
+    constellation: int      # 2 BPSK, 4 QPSK, 16/64/256/1024 QAM
+    rate_class: int         # RATE_* above
+    data_rate_bps: int      # PHY data rate at 20 MHz, 800 ns GI, 1 SS
+    bits_per_symbol: float  # data bits per OFDM symbol
+    standard: str = "ofdm"
+
+
+def _ofdm_modes():
+    # 802.11a/g 20 MHz OFDM (``wifi_error.py:170-185``)
+    table = [
+        ("OfdmRate6Mbps", 2, RATE_1_2, 6e6),
+        ("OfdmRate9Mbps", 2, RATE_3_4, 9e6),
+        ("OfdmRate12Mbps", 4, RATE_1_2, 12e6),
+        ("OfdmRate18Mbps", 4, RATE_3_4, 18e6),
+        ("OfdmRate24Mbps", 16, RATE_1_2, 24e6),
+        ("OfdmRate36Mbps", 16, RATE_3_4, 36e6),
+        ("OfdmRate48Mbps", 64, RATE_2_3, 48e6),
+        ("OfdmRate54Mbps", 64, RATE_3_4, 54e6),
+    ]
+    return [
+        WifiMode(name, i, m, b, int(rate), rate * 4e-6)
+        for i, (name, m, b, rate) in enumerate(table)
+    ]
+
+
+def _ht_he_modes(start_index: int):
+    # HT/VHT/HE MCS ladder, 1 SS, 20 MHz, long GI (``wifi_error.py:188-209``)
+    ladder = [
+        ("HtMcs0", 2, RATE_1_2, 6.5e6),
+        ("HtMcs1", 4, RATE_1_2, 13e6),
+        ("HtMcs2", 4, RATE_3_4, 19.5e6),
+        ("HtMcs3", 16, RATE_1_2, 26e6),
+        ("HtMcs4", 16, RATE_3_4, 39e6),
+        ("HtMcs5", 64, RATE_2_3, 52e6),
+        ("HtMcs6", 64, RATE_3_4, 58.5e6),
+        ("HtMcs7", 64, RATE_5_6, 65e6),
+        ("VhtMcs8", 256, RATE_3_4, 78e6),
+        ("VhtMcs9", 256, RATE_5_6, 86.7e6),
+        ("HeMcs10", 1024, RATE_3_4, 97.5e6),
+        ("HeMcs11", 1024, RATE_5_6, 108.3e6),
+    ]
+    return [
+        WifiMode(name, start_index + i, m, b, int(rate), rate * 4e-6,
+                 standard="ht")
+        for i, (name, m, b, rate) in enumerate(ladder)
+    ]
+
+
+OFDM_MODES = _ofdm_modes()
+HT_MODES = _ht_he_modes(len(OFDM_MODES))
+ALL_MODES = OFDM_MODES + HT_MODES
+MODES_BY_NAME = {m.name: m for m in ALL_MODES}
+
+#: per-mode lookup arrays (``wifi_error.py:215-217``)
+MODE_CONSTELLATION = np.array([m.constellation for m in ALL_MODES],
+                              dtype=np.float32)
+MODE_RATE_CLASS = np.array([m.rate_class for m in ALL_MODES], dtype=np.int32)
+MODE_DATA_RATE = np.array([m.data_rate_bps for m in ALL_MODES],
+                          dtype=np.float32)
+
+
+def ber_constants(constellation: int) -> tuple[float, float]:
+    """``(scale, factor)`` with ``ber = factor * erfc(sqrt(snr * scale))``
+    for a constellation, as the reference's compiled step folds them:
+    BPSK ``(1, 1/2)``, QPSK ``(1/2, 1/2)``, M-QAM (M >= 16) the f32
+    reciprocal of its divisor and ``2 (1 - 1/sqrt M) / log2 M`` rounded
+    to f32.  (``snr * 1`` is ``snr``: one form serves all three.)"""
+    if constellation <= 2:
+        return 1.0, 0.5
+    if constellation <= 4:
+        return 0.5, 0.5
+    m = float(max(constellation, 16))
+    scale = np.float32(1.0) / np.float32(QAM_DIVISORS[m])
+    factor = np.float32(2.0 * (1.0 - 1.0 / math.sqrt(m)) / math.log2(m))
+    return float(scale), float(factor)
+
+
+def pe_constants(rate_class: int) -> tuple[tuple, tuple, tuple, float]:
+    """``(weights, log_weights, distances, b)`` of a coding rate as f32
+    values: the union-bound weights (a zero weight's term is dropped),
+    their logs (the weight clamped to 1e-35 first, its log rounded
+    once to f32, as the compiler folds it), the distances and the
+    rate's factor."""
+    coeffs = np.asarray(PE_COEFFS_TABLE[rate_class], np.float32)
+    log_c = np.log(
+        np.maximum(coeffs, np.float32(_COEFF_FLOOR)).astype(np.float64)
+    ).astype(np.float32)
+    exps = np.asarray(PE_EXPONENTS_TABLE[rate_class], np.float32)
+    return (tuple(float(v) for v in coeffs), tuple(float(v) for v in log_c),
+            tuple(float(v) for v in exps),
+            float(np.float32(B_FACTOR_TABLE[rate_class])))
+
+
+def _pe_terms(rate_class: int) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero-weight terms of a rate's union bound: ``log a_k`` and
+    ``e_k`` as f32 values held in f64 (:func:`~tpudes_torch.ops.fused.
+    fma`'s operands)."""
+    coeffs, log_c, exps, _ = pe_constants(rate_class)
+    keep = [k for k, a in enumerate(coeffs) if a > 0.0]
+    return (np.asarray([log_c[k] for k in keep], np.float64),
+            np.asarray([exps[k] for k in keep], np.float64))
+
+
+_PE_TERMS = [_pe_terms(rc) for rc in range(len(B_FACTOR_TABLE))]
+
+
+def _qam_ber(snr: torch.Tensor, m: int) -> torch.Tensor:
+    """Gray-coded square M-QAM AWGN BER (``wifi_error.py:78-96``):
+    ``2 (1 - 1/sqrt M) / log2 M * erfc(sqrt(snr / div(M)))``."""
+    scale, factor = ber_constants(max(int(m), 16))
+    return uncoded_ber_from(snr, scale, factor)
+
+
+def uncoded_ber_from(snr: torch.Tensor, scale: float,
+                     factor: float) -> torch.Tensor:
+    """``factor * erfc(sqrt(snr * scale))`` in the compiled f32."""
+    z = fused.sqrt(snr * fused.f32(snr, scale))
+    return fused.ftz(fused.f32(snr, factor) * fused.erfc(z))
+
+
+def uncoded_ber(snr: torch.Tensor, constellation: int) -> torch.Tensor:
+    """Per-bit AWGN error probability by constellation size
+    (``wifi_error.py:99-113``): BPSK ``erfc(sqrt snr) / 2``, QPSK
+    ``erfc(sqrt(snr / 2)) / 2``, M-QAM the closed form."""
+    return uncoded_ber_from(snr, *ber_constants(int(constellation)))
+
+
+def coded_pe(ber: torch.Tensor, rate_class: int) -> torch.Tensor:
+    """First-event error probability union bound (``wifi_error.py:116-
+    135``): with ``D = sqrt(4 p (1 - p))``, ``pe = b * sum a_k D^e_k``,
+    each term ``exp(log a_k + e_k log D)``, summed in order, clamped to
+    ``[0, 1]``."""
+    log_c, exps = _PE_TERMS[int(rate_class)]
+    b = float(np.float32(B_FACTOR_TABLE[int(rate_class)]))
+    p = torch.clamp(ber, 0.0, 0.5)
+    d = fused.sqrt((p * 4.0) * (1.0 - p))
+    log_d = fused.log(torch.clamp_min(d, fused.f32(d, _COEFF_FLOOR)))
+    terms = fused.exp(torch.addcmul(
+        fused.device_table(log_c, d.device), log_d.double()[..., None],
+        fused.device_table(exps, d.device),
+    ).float())                                            # (..., terms)
+    acc = terms[..., 0]
+    for k in range(1, terms.shape[-1]):
+        acc = acc + terms[..., k]
+    return torch.clamp(fused.ftz(acc * fused.f32(d, b)), 0.0, 1.0)
+
+
+def chunk_success_rate(snr: torch.Tensor, nbits: float, constellation: int,
+                       rate_class: int) -> torch.Tensor:
+    """``(1 - pe)^nbits`` as ``exp(nbits * log1p(-pe))``
+    (``wifi_error.py:138-144``), ``nbits`` a constant."""
+    pe = coded_pe(uncoded_ber(snr, constellation), rate_class)
+    pe = torch.clamp_max(pe, fused.f32(pe, _PE_MAX))
+    return fused.exp(fused.f32(pe, nbits) * fused.log1p(-pe))
+
+
+def mode_chunk_success_rate(snr: torch.Tensor, nbits: float,
+                            mode_index: int) -> torch.Tensor:
+    """Success rate with the mode resolved from the registry by index
+    (``wifi_error.py:223-230``)."""
+    mode = ALL_MODES[int(mode_index)]
+    return chunk_success_rate(snr, nbits, mode.constellation,
+                              mode.rate_class)

@@ -119,16 +119,18 @@ ADVANCE_MAX_T = 2147483000
 #: threefry temporaries to a few hundred MB
 COIN_CHUNK_ELEMS = 1 << 22
 
-#: launches of each kernel since the last reset — counted where the
-#: kernel is launched and nowhere else; ``lte_sm_advance``'s launches
-#: with a geometry table, with more than one config point, with an
-#: offered-bits table and in bf16 are also counted under its
+#: launches of each of the port's kernels since the last reset — counted
+#: where the kernel is launched and nowhere else; ``lte_sm_advance``'s
+#: launches with a geometry table, with more than one config point, with
+#: an offered-bits table and in bf16 are also counted under its
 #: ``:dynamic``, ``:sweep``, ``:traffic`` and ``:bf16`` arms, and
-#: ``lte_sm_step``'s in bf16 under ``:bf16``
+#: ``lte_sm_step``'s in bf16 under ``:bf16``; ``bss_advance`` is the BSS
+#: event loop's (:mod:`tpudes_torch.parallel.bss_cuda`)
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
     "lte_sm_advance:traffic": 0, "lte_sm_advance:bf16": 0,
+    "bss_advance": 0,
 }
 
 
@@ -538,10 +540,11 @@ def _scalars(c: dict, R: int) -> list:
     ]
 
 
-def _launch(name: str, *args, arms: tuple = ()) -> None:
-    """Call ``<name>_launch`` and count the launch (and its ``arms``);
-    raise on an error."""
-    err = _launcher(name)(*args)
+def _launch(name: str, *args, arms: tuple = (), argtypes=None) -> None:
+    """Call ``<name>_launch`` (its ctypes signature ``argtypes``, by
+    default :data:`LAUNCH_ARGTYPES`'s) and count the launch (and its
+    ``arms``); raise on an error."""
+    err = _launcher(name, argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
@@ -661,13 +664,13 @@ LAUNCH_ARGTYPES = {
 }
 
 
-def _launcher(name: str):
+def _launcher(name: str, argtypes=None):
     """``<name>_launch`` from the built library (built on first use),
     with its ctypes signature."""
     from tpudes_torch._build import load_library
 
     fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = LAUNCH_ARGTYPES[name]
+        fn.argtypes = argtypes or LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,573 @@
+"""The WiFi BSS replica engine on the card.
+
+Counterpart of ``tpudes/parallel/replicated.py``: R Monte-Carlo replicas
+of one infrastructure BSS (an AP and N - 1 STAs, DCF MAC, log-distance
+loss, the NIST error model, UDP echo upstream, beacons) advance together,
+each to its own next event — an arrival, or the earliest transmit instant
+from backoff, AIFS and the medium's ``busy_until`` — one step at a time,
+until no replica has an event before the horizon.  Per-replica state is
+``(R, N)`` and ``(R,)`` tensors; time is a per-replica integer µs clock.
+
+The event loop is :func:`bss_advance`: on the card one launch of the
+persistent kernel ``csrc/bss_advance.cu`` (:mod:`tpudes_torch.parallel.
+bss_cuda`) runs every step of a chunk for every replica, one CTA per
+replica; on the CPU :func:`bss_advance_math` runs the step below in a
+loop under the reference's loop condition.  Replica ``r`` draws its
+step-``s`` backoffs and decode coins from ``split(fold_in(fold_in(key,
+s), r))`` (:func:`tpudes_torch.random.bss_draws`), the reference's
+streams bit for bit, so a run is comparable with the JAX engine per
+replica.
+
+Ported: the static, legacy (single-MPDU) program.  The reference's
+timing model and its documented deviations (``replicated.py:38-60``)
+are reproduced, not corrected: the 1 µs clock with the propagation
+delay folded into the exchange, acks assumed decodable, one
+``busy_until`` per replica, and the same-µs double decode (two senders
+tying on one µs are each decoded at their own destination).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): A-MPDU (``max_mpdus > 1``) and the ``sim_end_us=[...]`` horizon
+sweep (A3b), mobility, ``geom_stride``, a traffic program and the
+``traffic_sweep=`` axis (A3c), checkpoints and ``block=False`` (A11),
+``mesh`` (A12) and the ``TpudesObs`` columns (A10).  The replica axis is
+not padded to a power of two (A11), so ``steps`` is the maximum over the
+``R`` replicas asked for.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpudes_torch.device import resolve_device
+from tpudes_torch.ops.interference import thermal_noise_w
+from tpudes_torch.ops.wifi_error import (
+    ALL_MODES,
+    MODES_BY_NAME,
+    mode_chunk_success_rate,
+)
+from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_advance_cuda
+from tpudes_torch.random import bss_draws
+
+__all__ = [
+    "BssProgram", "bss_advance", "bss_advance_math", "build_bss_advance",
+    "build_bss_consts", "build_bss_step", "run_replicated_bss",
+]
+
+# µs timing constants, 802.11a OFDM 20 MHz (``replicated.py:87-93``)
+SLOT = 9
+SIFS = 16
+DIFS = 34
+CW_MIN = 15
+CW_MAX = 1023
+RETRY_LIMIT = 7
+INF = 2**30
+
+#: the association + ARP warm-up the lowering skips (``replicated.py:100``)
+MODELED_WARMUP_S = 0.25
+
+#: draws (steps x R x N, each of u_back and u_coin) the plain loop makes
+#: at once: bounds the threefry temporaries to a few hundred MB
+DRAW_CHUNK_ELEMS = 1 << 21
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to tpudes_torch yet (ROADMAP {item})"
+    )
+
+
+@dataclass(frozen=True)
+class BssProgram:
+    """Static description of one BSS scenario (``replicated.py:140-199``),
+    the same fields.  Node 0 is the AP.  The port runs the static legacy
+    program: ``mobility``, ``traffic``, ``max_mpdus > 1`` and a
+    ``geom_stride`` other than 1 raise when the program is built into a
+    step (:func:`build_bss_consts`)."""
+
+    positions: np.ndarray        # (N, 3) f32
+    data_mode_idx: int           # WifiMode index for data frames
+    ack_mode_idx: int            # WifiMode index for the ack
+    data_bytes: int              # on-air PSDU bytes of a data frame
+    beacon_bytes: int            # on-air PSDU bytes of a beacon
+    start_us: np.ndarray         # (N,) first app event (AP: beacon)
+    interval_us: np.ndarray      # (N,) app period
+    stop_us: np.ndarray          # (N,) no arrivals at/after this time
+    sim_end_us: int
+    tx_power_dbm: float = 16.0206
+    path_loss_exponent: float = 3.0
+    reference_loss_db: float = 46.6777
+    noise_figure_db: float = 7.0
+    bandwidth_hz: float = 20e6
+    rx_sensitivity_dbm: float = -101.0
+    #: contention AIFS for data (DIFS legacy; SIFS + 3 SLOT for QoS AC_BE)
+    aifs_us: int = DIFS
+    #: A-MPDU cap (1 = legacy single-MPDU DATA/ACK)
+    max_mpdus: int = 1
+    #: on-air bytes of one A-MPDU subframe (used when max_mpdus > 1)
+    subframe_bytes: int = 0
+    mobility: object = None
+    geom_stride: int = 1
+    traffic: object = None
+
+    @property
+    def n(self) -> int:
+        return int(self.positions.shape[0])
+
+
+def _preamble_us(mode) -> int:
+    """20 µs legacy preamble + L-SIG; the HT family adds the 16 µs
+    HT-mixed fields (``replicated.py:202-205``)."""
+    return 36 if mode.standard == "ht" else 20
+
+
+def _ppdu_us(size_bytes: int, mode) -> int:
+    """PPDU airtime in whole µs, ceil'd (``replicated.py:208-212``)."""
+    ndbps = mode.data_rate_bps * 4e-6
+    nsym = math.ceil((16 + 8 * size_bytes + 6) / ndbps)
+    return _preamble_us(mode) + nsym * 4
+
+
+def _pairwise_rx_dbm(prog: BssProgram) -> np.ndarray:
+    """(N, N) tx -> rx power in dBm under the program's log-distance
+    physics, f64; the diagonal is the unused self-pair at 1 m
+    (``replicated.py:508-519``)."""
+    pos = prog.positions.astype(np.float64)
+    d = np.sqrt(((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1))
+    np.fill_diagonal(d, 1.0)
+    loss = prog.reference_loss_db + 10.0 * prog.path_loss_exponent * np.log10(
+        np.maximum(d, 1.0)
+    )
+    return prog.tx_power_dbm - loss
+
+
+def _total_offered_arrivals(prog: BssProgram) -> int:
+    """App arrivals offered over the horizon (``replicated.py:522-533``)."""
+    total = 0
+    for s1, iv, s2 in zip(prog.start_us, prog.interval_us, prog.stop_us):
+        if s1 >= INF or iv >= INF:
+            continue
+        horizon = min(int(s2), prog.sim_end_us)
+        if horizon > int(s1):
+            total += (horizon - int(s1) + int(iv) - 1) // int(iv)
+    return total
+
+
+def _estimate_max_steps(prog: BssProgram) -> int:
+    """One arrival and up to 1 + RETRY_LIMIT transmissions per frame,
+    plus slack (``replicated.py:536-553``, the CBR count)."""
+    return int(_total_offered_arrivals(prog) * (3 + RETRY_LIMIT) * 1.5) + 64
+
+
+def _check_ported(prog: BssProgram) -> None:
+    if prog.mobility is not None:
+        raise _not_ported("a mobile BSS program", "A3c")
+    if int(prog.geom_stride) != 1:
+        raise _not_ported("geom_stride", "A3c")
+    if prog.traffic is not None:
+        raise _not_ported("a BSS traffic program", "A3c")
+    if int(prog.max_mpdus) > 1:
+        raise _not_ported("A-MPDU aggregation (max_mpdus > 1)", "A3b")
+
+
+def build_bss_consts(prog: BssProgram, device=None) -> dict:
+    """The step's per-program constants (``replicated.py:603-637``), on
+    ``device`` (the card by default): the f32 rx power table (N, N)
+    from the f64 host table (diagonal 0), the detectability table, the
+    arrival timing rows, the exchange durations in µs, ``nbits`` of a
+    data frame (the PPDU airtime at the payload rate), the noise floor
+    and the data mode."""
+    _check_ported(prog)
+    device = resolve_device(device)
+    data_mode = ALL_MODES[prog.data_mode_idx]
+    ack_mode = ALL_MODES[prog.ack_mode_idx]
+    ndbps = data_mode.data_rate_bps * 4e-6
+    data_airtime_s = (
+        _preamble_us(data_mode) * 1e-6
+        + math.ceil((16 + 8 * prog.data_bytes + 6) / ndbps) * 4e-6
+    )
+    rx_dbm = _pairwise_rx_dbm(prog)
+    rx_w = 10.0 ** ((rx_dbm - 30.0) / 10.0)
+    np.fill_diagonal(rx_w, 0.0)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return dict(
+        N=prog.n,
+        rx_w=torch.as_tensor(rx_w.astype(np.float32), device=device),
+        det=torch.as_tensor(rx_dbm >= prog.rx_sensitivity_dbm,
+                            device=device),
+        start=i32(prog.start_us), interval=i32(prog.interval_us),
+        stop=i32(prog.stop_us),
+        aifs=int(prog.aifs_us),
+        data_dur=_ppdu_us(prog.data_bytes, data_mode),
+        resp_dur=_ppdu_us(14, ack_mode),
+        exch_beacon=_ppdu_us(prog.beacon_bytes,
+                             MODES_BY_NAME["OfdmRate6Mbps"]),
+        nbits=float(np.float32(data_mode.data_rate_bps * data_airtime_s)),
+        noise_w=float(np.float32(
+            thermal_noise_w(prog.bandwidth_hz, prog.noise_figure_db)
+        )),
+        mode=int(prog.data_mode_idx),
+        sim_end=int(prog.sim_end_us),
+    )
+
+
+# --------------------------------------------------------------------------
+# the plain PyTorch step (``replicated.py:674-1103``, non-aggregated)
+# --------------------------------------------------------------------------
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a pairwise tree: zero-padded to a power
+    of two, then adjacent pairs added level by level.  The kernel's
+    block reduction adds in the same order (warp shuffles, then the warp
+    totals), so the two agree bit for bit.  With one or two non-zero
+    terms every order gives the same sum; with three or more the
+    reference's dot may round differently (a counted tie class)."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def init_state(consts: dict, replicas: int) -> dict:
+    """The zero state (``replicated.py:674-707``): arrivals at their
+    start times, CW at its minimum; laid out as :data:`BSS_STATE`."""
+    R, n = replicas, consts["N"]
+    dev = consts["rx_w"].device
+    out = {}
+    for k, ax, dt in BSS_STATE:
+        shape = (R, n) if ax == "n" else (R,)
+        out[k] = torch.zeros(shape, dtype=torch.bool if dt == "bool"
+                             else torch.int32, device=dev)
+    out["next_arr"] = consts["start"].expand(R, n).clone()
+    out["cw"].fill_(CW_MIN)
+    return out
+
+
+def has_frame(s: dict) -> torch.Tensor:
+    """(R, N): a STA with a queued request, the AP with a beacon or an
+    echo pending (``replicated.py:709-715``)."""
+    frame = s["queue"] > 0
+    ap = (s["bcn_pend"] > 0) | (s["ap_pend"] > 0).any(1)
+    frame[:, 0] = ap
+    return frame
+
+
+def tx_times(c: dict, s: dict) -> torch.Tensor:
+    """(R, N) earliest allowed tx instant per contender, INF else
+    (``replicated.py:717-725``)."""
+    t = s["t"][:, None]
+    base = torch.maximum(s["busy_until"][:, None], s["hold"])
+    countdown = base + c["aifs"] + s["backoff"] * SLOT
+    tx = torch.where(s["immediate"], torch.maximum(t, base), countdown)
+    return torch.where(has_frame(s), torch.maximum(tx, t), INF)
+
+
+def pending(c: dict, s: dict, sim_end: int) -> torch.Tensor:
+    """(R,): the replica has an event before the horizon
+    (``replicated.py:1095-1098``)."""
+    nxt = torch.minimum(tx_times(c, s).amin(1), s["next_arr"].amin(1))
+    return (s["t"] < sim_end) & (nxt < sim_end)
+
+
+def decode(c: dict, sinr: torch.Tensor, coin: torch.Tensor) -> torch.Tensor:
+    """A gated data frame decodes when its coin falls below its NIST
+    success rate at its SINR (``replicated.py:954-958``)."""
+    return coin < mode_chunk_success_rate(sinr, c["nbits"], c["mode"])
+
+
+def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin: torch.Tensor,
+            sim_end: int) -> dict:
+    """One event step of every replica (``replicated.py:738-1093``, the
+    non-aggregated branch) on its ``(R, N)`` draws."""
+    R, n = u_back.shape
+    dev = u_back.device
+    i32 = torch.int32
+    node = torch.arange(n, device=dev)
+    is_ap = node == 0
+    aifs = c["aifs"]
+
+    frame = has_frame(s)
+    tx_t = tx_times(c, s)
+    tc = tx_t.amin(1)
+    ta = s["next_arr"].amin(1)
+    live = s["t"] < sim_end
+    next_t = torch.where(live, torch.minimum(ta, tc), sim_end)
+    past_end = next_t >= sim_end
+    arrived = live & (ta <= tc) & (ta < INF) & ~past_end
+    transmit = live & (tc < ta) & (tc < INF) & ~past_end
+
+    # ---------- arrival processing
+    is_arr = arrived[:, None] & (s["next_arr"] == next_t[:, None])
+    new_queue = s["queue"] + (is_arr & ~is_ap).to(i32)
+    new_bcn = s["bcn_pend"] + is_arr[:, 0].to(i32)
+    adv = torch.where(s["next_arr"] >= INF, INF,
+                      s["next_arr"] + c["interval"])
+    adv = torch.where(adv >= c["stop"], INF, adv)
+    new_next_arr = torch.where(is_arr, adv, s["next_arr"])
+    any_ap = (s["ap_pend"] > 0).any(1)
+    frame_after = torch.where(is_arr, new_queue > 0, frame)
+    frame_after[:, 0] = torch.where(is_arr[:, 0], (new_bcn > 0) | any_ap,
+                                    frame[:, 0])
+    became_hol = is_arr & ~frame & frame_after
+    medium_idle = next_t >= s["busy_until"] + aifs
+    imm_grant = became_hol & medium_idle[:, None]
+    drawn = (u_back * (s["cw"] + 1).to(torch.float32)).to(i32)
+    new_backoff = torch.where(became_hol & ~imm_grant, drawn, s["backoff"])
+    new_immediate = torch.where(became_hol, imm_grant, s["immediate"])
+
+    # ---------- transmission processing
+    winners = transmit[:, None] & (tx_t == next_t[:, None]) & frame
+    any_win = winners.any(1)
+    elapsed = torch.clamp_min(
+        torch.div(next_t - s["busy_until"] - aifs, SLOT,
+                  rounding_mode="floor"), 0)
+    contending = frame & ~winners & transmit[:, None]
+    counting = contending & ~s["immediate"]
+    new_backoff = torch.where(
+        counting, torch.clamp_min(new_backoff - elapsed[:, None], 0),
+        new_backoff)
+    interrupted = contending & s["immediate"]
+    new_backoff = torch.where(interrupted, drawn, new_backoff)
+    new_immediate = new_immediate & ~interrupted
+
+    # the AP's frame: a beacon outranks an echo; the echo goes to the
+    # lowest STA with one pending (argmax of ap_pend > 0, 0 if none)
+    ap_sends_beacon = winners[:, 0] & (s["bcn_pend"] > 0)
+    echo_dst = torch.where(s["ap_pend"] > 0, node, n).amin(1)
+    echo_dst = torch.where(echo_dst == n, 0, echo_dst)
+    ed_1h = node[None, :] == echo_dst[:, None]
+
+    # PHY at each transmitter's destination: STAs send to the AP, the
+    # AP to echo_dst; the power there from every winner, a tree sum
+    rx_w, det_t = c["rx_w"], c["det"]
+    w = winners.to(torch.float32)
+    at_ap = tree_sum(w * rx_w[:, 0])                          # (R,)
+    at_ed = tree_sum(w * rx_w[:, echo_dst].T)                 # (R,)
+    sig = torch.where(is_ap, rx_w[0, echo_dst][:, None], rx_w[:, 0])
+    det = torch.where(is_ap, det_t[0, echo_dst][:, None], det_t[:, 0])
+    interf = torch.where(is_ap, at_ed[:, None], at_ap[:, None]) - sig
+    sinr = sig / (interf + c["noise_w"])
+    dst_idle = ~torch.where(
+        is_ap, winners.gather(1, echo_dst[:, None]), winners[:, :1])
+    beacon_tx = winners & is_ap & ap_sends_beacon[:, None]
+    data_tx = winners & ~beacon_tx
+    gate = data_tx & det & dst_idle
+    # the coin against the PSR, taken only where a frame is gated (the
+    # reference computes the PSR everywhere and masks it)
+    where = gate.nonzero(as_tuple=True)
+    n_ok = torch.zeros_like(gate)
+    n_ok[where] = decode(c, sinr[where], u_coin[where])
+    success = data_tx & n_ok
+    fail = data_tx & ~n_ok
+
+    # ---------- outcome updates
+    sta_ok = (n_ok & ~is_ap).to(i32)
+    got_echo = n_ok[:, 0].to(i32)
+    ed_i = ed_1h.to(i32)
+    new_srv = s["srv_rx"] + sta_ok.sum(1, dtype=i32)
+    new_cli = s["cli_rx"] + ed_i * got_echo[:, None]
+    new_queue = new_queue - sta_ok
+    new_ap_pend = s["ap_pend"] + sta_ok - ed_i * got_echo[:, None]
+    new_bcn = new_bcn - ap_sends_beacon.to(i32)
+
+    retry_exceeded = fail & (s["retries"] + 1 > RETRY_LIMIT)
+    drop_n = retry_exceeded.to(i32)
+    new_drops = s["drops"] + drop_n.sum(1, dtype=i32)
+    new_queue = new_queue - drop_n * (~is_ap).to(i32)
+    new_ap_pend = new_ap_pend - ed_i * drop_n[:, :1]
+    reset = success | retry_exceeded | beacon_tx
+    new_retries = torch.where(reset, 0, s["retries"] + fail.to(i32))
+    new_cw = torch.where(
+        reset, CW_MIN,
+        torch.where(fail, torch.clamp_max(2 * (s["cw"] + 1) - 1, CW_MAX),
+                    s["cw"]))
+    drawn_post = (u_back * (new_cw + 1).to(torch.float32)).to(i32)
+    new_backoff = torch.where(winners, drawn_post, new_backoff)
+    new_immediate = new_immediate & ~winners
+
+    # medium occupancy: the acked exchange, the bare data airtime on a
+    # failure, the beacon's airtime; a failed sender waits its ack timeout
+    exch = c["data_dur"] + SIFS + c["resp_dur"]
+    occ = torch.full_like(s["hold"], c["data_dur"])
+    occ = torch.where(beacon_tx, c["exch_beacon"], occ)
+    occ = torch.where(success, exch, occ)
+    new_busy = torch.where(
+        any_win, next_t + torch.where(winners, occ, 0).amax(1),
+        s["busy_until"])
+    new_hold = torch.where(
+        fail, next_t[:, None] + (exch + SLOT + 4),
+        torch.where(winners, next_t[:, None] + occ, s["hold"]))
+    return dict(
+        t=torch.maximum(next_t, s["t"]),
+        next_arr=new_next_arr,
+        queue=torch.clamp_min(new_queue, 0),
+        ap_pend=torch.clamp_min(new_ap_pend, 0),
+        bcn_pend=torch.clamp_min(new_bcn, 0),
+        backoff=new_backoff,
+        hold=new_hold,
+        immediate=new_immediate,
+        cw=new_cw.to(i32),
+        retries=new_retries.to(i32),
+        busy_until=new_busy,
+        srv_rx=new_srv,
+        cli_rx=new_cli,
+        tx_data=s["tx_data"] + data_tx.sum(1, dtype=i32),
+        drops=new_drops,
+    )
+
+
+def build_bss_step(prog: BssProgram, replicas: int, device=None):
+    """``(consts, init_state, has_frame, tx_times, step_fn, pending)``
+    (``replicated.py:556-1103``), bound to the program: ``init_state()``,
+    ``has_frame(s)``, ``tx_times(s)``, ``step_fn(s, u_back, u_coin)``
+    on one step's ``(R, N)`` draws, and ``pending(s)``, on ``device``
+    (the card by default)."""
+    consts = build_bss_consts(prog, device)
+    end = consts["sim_end"]
+    return (
+        consts,
+        lambda: init_state(consts, replicas),
+        has_frame,
+        lambda s: tx_times(consts, s),
+        lambda s, u_back, u_coin: step_fn(consts, s, u_back, u_coin, end),
+        lambda s: pending(consts, s, end),
+    )
+
+
+# --------------------------------------------------------------------------
+# the event loop: the kernel's plain version and the wrapper
+# --------------------------------------------------------------------------
+
+
+def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
+                     step0: int, step1: int):
+    """The event loop in plain PyTorch (any device): steps ``step0,
+    step0 + 1, ...`` while ``step < step1`` and any replica is pending
+    (``replicated.py:1150-1159``), on draws made for a block of steps
+    at a time.  Returns ``(state, steps, pending)``: the step counter
+    after the loop and the ``(R,)`` pending flags of the last state."""
+    R, n = state["queue"].shape
+    end = consts["sim_end"]
+    block = max(1, DRAW_CHUNK_ELEMS // (R * n))
+    step, u_back, u_coin, b0 = step0, None, None, step0
+    still = pending(consts, state, end)
+    while step < step1 and bool(still.any()):
+        if u_back is None or step >= b0 + len(u_back):
+            b0 = step
+            u_back, u_coin = bss_draws(key, step, min(step + block, step1),
+                                       R, n)
+        state = step_fn(consts, state, u_back[step - b0], u_coin[step - b0],
+                        end)
+        step += 1
+        still = pending(consts, state, end)
+    return state, step, still
+
+
+def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0: int,
+                step1: int):
+    """Steps ``[step0, step1)`` of the event loop, ending early when no
+    replica is pending: the plain loop for CPU tensors, one launch of
+    the persistent CUDA kernel for CUDA tensors (or an error).  ``key``
+    is the run's ``(2,)`` int64 key; returns ``(state, steps,
+    pending)`` as :func:`bss_advance_math` does."""
+    if key.device.type == "cpu":
+        return bss_advance_math(consts, state, key, step0, step1)
+    if key.device.type == "cuda":
+        return bss_advance_cuda(consts, state, key, step0, step1)
+    raise ValueError(f"no BSS advance for device {key.device}")
+
+
+def build_bss_advance(prog: BssProgram, replicas: int, device=None):
+    """``(consts, init_state, advance)`` with ``advance(state, key,
+    step0, step1) -> (state, steps, pending)`` (``replicated.py:1127-
+    1191``, :func:`bss_advance`), on ``device`` (the card by
+    default)."""
+    consts = build_bss_consts(prog, device)
+
+    def advance(state, key, step0, step1):
+        return bss_advance(consts, state, key, step0, step1)
+
+    return consts, (lambda: init_state(consts, replicas)), advance
+
+
+def chunk_bounds(total: int, chunk: int) -> list[int]:
+    """Segment end-bounds covering ``[0, total)`` in ``chunk``-sized
+    pieces (``tpudes/parallel/runtime.py:155-163``)."""
+    total, chunk = int(total), int(chunk)
+    if chunk <= 0 or chunk >= total:
+        return [total]
+    return list(range(chunk, total, chunk)) + [total]
+
+
+def _bss_unpack(state: dict, steps: int, still: torch.Tensor) -> dict:
+    """The result dict (``replicated.py:1237-1267``), as numpy."""
+    host = {k: state[k].cpu().numpy()
+            for k in ("srv_rx", "cli_rx", "tx_data", "drops")}
+    return dict(host, steps=int(steps), all_done=not bool(still.any()))
+
+
+def run_replicated_bss(
+    prog: BssProgram,
+    replicas: int,
+    key,
+    max_steps: int | None = None,
+    mesh=None,
+    *,
+    sim_end_us=None,
+    traffic_sweep=None,
+    chunk_steps: int | None = None,
+    checkpoint=None,
+    block: bool = True,
+    geom_per_step: bool = False,
+    obs: bool = False,
+    device=None,
+) -> dict:
+    """Run ``replicas`` Monte-Carlo replicas of the scenario
+    (``replicated.py:1326-1535``).
+
+    ``key`` is a ``(2,)`` threefry key (:func:`tpudes_torch.random.
+    PRNGKey` or a JAX key's words).  Returns per-replica numpy arrays:
+    ``srv_rx`` (R,) echo requests decoded at the AP, ``cli_rx`` (R, N)
+    echo replies decoded per STA, ``tx_data`` (R,) data-frame
+    attempts, ``drops`` (R,) frames dropped at the retry limit; and
+    ``steps`` (event-loop iterations) and ``all_done`` (no replica has
+    an event left before the horizon).
+
+    ``max_steps`` defaults to the reference's estimate;
+    ``chunk_steps=K`` runs the loop K steps per launch, the same result.
+    ``device`` defaults to the card, where each chunk is one launch of
+    the persistent kernel."""
+    if mesh is not None:
+        raise _not_ported("mesh", "A12")
+    if sim_end_us is not None:
+        raise _not_ported("the sim_end_us=[...] horizon sweep", "A3b")
+    if traffic_sweep is not None:
+        raise _not_ported("traffic_sweep", "A3c")
+    if geom_per_step:
+        raise _not_ported("geom_per_step", "A3c")
+    if checkpoint is not None:
+        raise _not_ported("checkpoint", "A11")
+    if not block:
+        raise _not_ported("block=False", "A11")
+    if obs:
+        raise _not_ported("TpudesObs", "A10")
+    dev = resolve_device(device)
+    _, init, advance = build_bss_advance(prog, replicas, dev)
+    key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
+    if max_steps is None:
+        max_steps = _estimate_max_steps(prog)
+    state, steps, still = init(), 0, None
+    for bound in chunk_bounds(max_steps, chunk_steps or max_steps):
+        state, steps, still = advance(state, key, steps, bound)
+    return _bss_unpack(state, steps, still)
+

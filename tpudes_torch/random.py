@@ -7,8 +7,13 @@ from, under jax 0.9.0 defaults (``threefry2x32`` keys,
     replica_keys(PRNGKey(s), R)[r] -> fold_in(., t) -> uniform(., (U,), f32)
 
 (``tpudes/parallel/runtime.py:130``, ``tpudes/parallel/lte_sm.py:678``,
-``:423``).  A key is an int64 tensor ``(..., 2)`` holding the two uint32
-words; torch's unsigned arithmetic is thin, so every 32-bit word rides
+``:423``), and the chain the WiFi BSS engine draws its backoffs and
+decode coins from, step first, then replica (``tpudes/parallel/
+replicated.py:744-770``):
+
+    fold_in(fold_in(key, step), r) -> split -> uniform(., (N,), f32) x 2
+
+A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; torch's unsigned arithmetic is thin, so every 32-bit word rides
 in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
 All functions broadcast over leading key axes, so a chunk of TTIs for
 every replica is drawn in one vectorised call.
@@ -63,6 +68,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+def split(key: torch.Tensor) -> torch.Tensor:
+    """``jax.random.split(key)``: ``(..., 2, 2)``, the two new keys.  In
+    partitionable mode key ``i`` hashes the counter pair ``(0, i)``, so
+    it is ``fold_in(key, i)``."""
+    return fold_in(key[..., None, :], torch.arange(2, device=key.device))
+
+
 def replica_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     """``(n, 2)`` per-replica keys; row ``i`` is ``fold_in(key, i)``
     (``tpudes/parallel/runtime.py:130``)."""
@@ -97,3 +109,17 @@ def tti_coins(keys: torch.Tensor, t0: int, t1: int, n_ue: int) -> torch.Tensor:
     t = torch.arange(t0, t1, dtype=torch.int64, device=keys.device)
     kt = fold_in(keys[None, :, :], t[:, None])              # (T, R, 2)
     return uniform(kt, n_ue)
+
+
+def bss_draws(key: torch.Tensor, s0: int, s1: int, replicas: int,
+              n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(u_back, u_coin)``, each ``(s1 - s0, R, N)``: the BSS step's
+    draws for steps ``[s0, s1)`` and every replica in one vectorised
+    call.  Step ``s``, replica ``r`` draws ``k_back, k_coin =
+    split(fold_in(fold_in(key, s), r))`` and ``uniform(k, (N,))`` of
+    each (``replicated.py:744-770``): the step is folded in first."""
+    steps = torch.arange(s0, s1, dtype=torch.int64, device=key.device)
+    ks = fold_in(key[None, :], steps)                        # (S, 2)
+    kr = fold_in(ks[:, None, :], torch.arange(replicas, device=key.device))
+    kk = split(kr)                                           # (S, R, 2, 2)
+    return uniform(kk[..., 0, :], n), uniform(kk[..., 1, :], n)

@@ -1,4 +1,5 @@
-"""The lena macro-cell grid (BASELINE config #4) as a port program.
+"""The lena macro-cell grid (BASELINE config #4) and the WiFi BSS
+(BASELINE config #3) as port programs.
 
 Counterpart of ``tpudes/scenarios.py``'s ``hex_grid`` and ``build_lena``
 followed by ``lower_lte_sm``, for a static or a mobile full-buffer drop,
@@ -14,12 +15,18 @@ The upstream drop draws from MRG32k3a; this one draws from a seeded
 reference's own positions to :func:`lena_grid_program`).
 :func:`lena_traffic_program` gives the static drop finite backlogs under
 the ON-OFF workload of the reference's LTE traffic test.
+
+:func:`bss_program` lowers the static legacy BSS of
+``tpudes/scenarios.py::build_bss`` as ``replicated.py::lower_bss`` does,
+from the reference's own arguments and defaults, without building the
+object graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -27,7 +34,15 @@ import torch
 from tpudes_torch.ops.lte import noise_psd_w
 from tpudes_torch.ops.mobility import MobilityProgram, warn_geom_stride
 from tpudes_torch.ops.propagation import friis
+from tpudes_torch.ops.wifi_error import MODES_BY_NAME
 from tpudes_torch.parallel.lte_sm import LteSmProgram
+from tpudes_torch.parallel.replicated import (
+    DIFS,
+    INF,
+    MODELED_WARMUP_S,
+    BssProgram,
+    _pairwise_rx_dbm,
+)
 from tpudes_torch.traffic.program import TrafficProgram
 
 ENB_HEIGHT_M = 30.0
@@ -43,6 +58,17 @@ ONOFF_ON = (1.5, 0.01, 0.05)
 ONOFF_OFF_MEAN_S = 0.02
 ONOFF_SIZE_PARETO = (1.4, 800.0, 12000.0)
 ONOFF_TR_SEED = 2
+
+#: on-air bytes the BSS data frame adds to the UDP payload: UDP 8, IPv4
+#: 20, LLC/SNAP 8, the MAC header 24 and the FCS 4
+#: (``tpudes/parallel/replicated.py:357-358``, ``models/wifi/mac.py:46-47``)
+BSS_FRAME_OVERHEAD = 8 + 20 + 8 + 24 + 4
+#: a beacon's on-air bytes, 50 + header + FCS (``replicated.py:378``)
+BSS_BEACON_BYTES = 50 + 24 + 4
+#: the AP's beacon period (``models/wifi/mac.py:48``)
+BSS_BEACON_INTERVAL_US = 102400
+#: the control answer rates, ascending (``models/wifi/mac.py:51-60``)
+BSS_MANDATORY_RATES = ("OfdmRate6Mbps", "OfdmRate12Mbps", "OfdmRate24Mbps")
 
 
 def hex_grid(n: int, spacing: float) -> list[tuple[float, float]]:
@@ -217,3 +243,88 @@ def lena_traffic_program(
         tp, size_pareto=np.asarray(ONOFF_SIZE_PARETO, np.float32)
     )
     return dataclasses.replace(prog, traffic=tp, precision=precision)
+
+
+def _us(seconds: float) -> int:
+    """A time the reference's scenario sets in seconds, in whole µs as
+    its lowering reads it: ns ticks ``round(s * 1e9)``
+    (``core/nstime.py:94-95``), then ``// 1000``."""
+    return int(round(seconds * 1e9)) // 1000
+
+
+def bss_program(
+    n_stas: int,
+    sim_s: float,
+    radii: tuple = (10.0, 22.0, 34.0),
+    interval_s: float = 0.1,
+    packet_bytes: int = 512,
+    data_mode: str = "OfdmRate54Mbps",
+) -> BssProgram:
+    """The static legacy BSS of ``build_bss(n_stas, sim_s, radii,
+    interval_s, packet_bytes, data_mode)`` (``tpudes/scenarios.py:35-
+    174``) lowered as ``lower_bss`` lowers it (``replicated.py:222-464``):
+
+    - the AP at the origin, STA ``i`` on the circle ``radii[i % len]``
+      at angle ``2 pi i / n_stas``, positions in f32 of the f64 formula;
+    - 802.11a: data at ``data_mode``, the ack at the control answer
+      rate (the fastest mandatory rate not above it), beacons at 6
+      Mbit/s, DIFS contention;
+    - UDP echo of ``packet_bytes`` from each STA every ``interval_s``,
+      starting at ``1 s + 1 ms * i`` and stopping at ``sim_s``; AP
+      beacons every 102,400 µs from 0, never stopping;
+    - the PHY defaults (16.0206 dBm, log-distance exponent 3 from 46.6777
+      dB at 1 m, 7 dB noise figure, 20 MHz, -101 dBm sensitivity).
+
+    Raises ``ValueError`` where a pair of nodes cannot hear each other
+    (the engine's one ``busy_until`` per replica cannot represent hidden
+    nodes), and warns, as the reference does, on a horizon within 5x of
+    the skipped warm-up."""
+    mode = MODES_BY_NAME.get(data_mode)
+    if mode is None or mode.standard != "ofdm":
+        raise ValueError(
+            f"bss_program lowers the 802.11a graph; {data_mode!r} is not an "
+            "OFDM mode"
+        )
+    if sim_s < 5.0 * MODELED_WARMUP_S:        # ``replicated.py:251-261``
+        warnings.warn(
+            f"sim_end_s={sim_s} s is within ~5x of the association/ARP "
+            f"warm-up (~{MODELED_WARMUP_S} s) this lowering skips; "
+            "replica-axis outcomes over so short a horizon are dominated "
+            "by the unmodeled transient", stacklevel=2)
+    pos = [(0.0, 0.0, 0.0)]
+    for i in range(n_stas):
+        a = 2 * math.pi * i / n_stas
+        r = radii[i % len(radii)]
+        pos.append((r * math.cos(a), r * math.sin(a), 0.0))
+    ack = MODES_BY_NAME["OfdmRate6Mbps"]
+    for name in BSS_MANDATORY_RATES:
+        if MODES_BY_NAME[name].data_rate_bps <= mode.data_rate_bps:
+            ack = MODES_BY_NAME[name]
+    n = n_stas + 1
+    start = np.full((n,), INF, np.int64)
+    interval = np.full((n,), INF, np.int64)
+    stop = np.full((n,), INF, np.int64)
+    start[0], interval[0] = 0, BSS_BEACON_INTERVAL_US
+    for i in range(n_stas):
+        start[1 + i] = _us(1.0 + 0.001 * i)
+        interval[1 + i] = max(1, _us(interval_s))
+        stop[1 + i] = _us(sim_s) if _us(sim_s) > 0 else INF
+    prog = BssProgram(
+        positions=np.asarray(pos, dtype=np.float32),
+        data_mode_idx=mode.index,
+        ack_mode_idx=ack.index,
+        data_bytes=int(packet_bytes) + BSS_FRAME_OVERHEAD,
+        beacon_bytes=BSS_BEACON_BYTES,
+        start_us=np.minimum(start, INF).astype(np.int32),
+        interval_us=np.minimum(interval, INF).astype(np.int32),
+        stop_us=np.minimum(stop, INF).astype(np.int32),
+        sim_end_us=int(sim_s * 1e6),
+        aifs_us=DIFS,
+    )
+    if not bool((_pairwise_rx_dbm(prog) >= prog.rx_sensitivity_dbm).all()):
+        raise ValueError(
+            "topology has node pairs below rx sensitivity (hidden-node "
+            "regime); the single-medium carrier-sense model cannot "
+            "represent it"
+        )
+    return prog
