@@ -5,7 +5,10 @@
 Drives the port's paths — the WiFi BSS replica engine
 (``tpudes_torch.parallel.replicated.run_replicated_bss``) on
 ``bench.py::bench_wifi``'s program (an AP and 64 STAs, 802.11a at 54
-Mbit/s, UDP echo every 100 ms, 512 replicas x 2 s), and the LTE SM engine
+Mbit/s, UDP echo every 100 ms, 512 replicas x 2 s), on
+``bench_wifi_ht``'s (the same BSS under 802.11n at HtMcs7, every 10 ms,
+A-MPDUs of up to 64 answered by a BlockAck) and on a four-point horizon
+sweep of each (``sim_end_us=[...]``), and the LTE SM engine
 (``tpudes_torch.parallel.lte_sm.run_lte_sm``) on the lena hex grid at
 bench width (7 eNB x 30 UE/cell = 210 UE, 64 replicas): full buffers,
 static and with the UEs moving (const_velocity at 10 m/s, geometry
@@ -20,8 +23,9 @@ row), finite backlogs filled from an offered-bits table (traffic) and
 bf16 — and ``lte_sm_step`` (one TTI per launch; the single-step route,
 ``build_sm_step``), f32 and bf16; and ``bss_advance`` (the BSS event
 loop, every step of a chunk in one persistent launch;
-``run_replicated_bss``'s path).  Phases, in order; any failure exits
-non-zero and no phase carries on past one:
+``run_replicated_bss``'s path) in its arms — legacy, ``AGG`` (A-MPDUs)
+and the ``(C, R)`` grid of a horizon sweep.  Phases, in order; any
+failure exits non-zero and no phase carries on past one:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``tpudes_torch/csrc`` (``nvcc``, one process
@@ -40,12 +44,17 @@ non-zero and no phase carries on past one:
    ``lte_sm_step`` f32 and bf16; retransmissions and drops occur in
    every check); each one's time per launch on the card (CUDA events)
    and the host's, and its bound; then ``bss_advance`` vs the plain loop
-   on the card at bench width (64 STAs, 512 replicas, 2 s): the whole
-   per-replica state, the step count and the pending flags bit-equal,
-   for one launch and for two launches split at a step boundary (the
-   plain loop's wall there is the measurement the choice of a
-   persistent kernel rests on); a small BSS program through the plain
-   loop on the CPU against the kernel on the card;
+   on the card at bench width (64 STAs, 512 replicas, 2 s), legacy and
+   (3g-ht) 802.11n: the whole per-replica state, the step count and the
+   pending flags bit-equal, for one launch and for two launches split
+   at a step boundary (the plain loop's wall there is the measurement
+   the choice of a persistent kernel rests on), the plain loop's census
+   (a partially decoded A-MPDU and a retry-limit drop required; the
+   replica-steps with three or more same-µs winners printed); a small
+   BSS program of each through the plain loop on the CPU against the
+   kernel on the card; and the horizon sweep of each, 1.25/1.5/1.75/2 s
+   x 512 replicas, one grid launch against the plain grid loop and
+   against each point's own launch;
 4. the slice through the plain loop and through the kernel, both on the
    card, 64 replicas x 500 TTIs, static, moving and with traffic:
    integer outputs (and backlogs) equal; a small program of each through
@@ -66,8 +75,10 @@ non-zero and no phase carries on past one:
    back, the traffic path's nine-point sweep, and in bf16 the static
    path, the moving drop, its sweep and the single-step route; the
    card's busy share over profiled runs (``torch.profiler``); and
-   ``bench_wifi``: the BSS main path, one warm run and five timed runs
-   on keys 1..5, each one launch, every replica done;
+   ``bench_wifi`` and ``bench_wifi_ht``: the BSS main path, one warm run
+   and five timed runs on keys 1..5, each one launch, every replica
+   done; and the four-point horizon sweep of each at 512 replicas, one
+   grid launch a run (``sim_s_per_wall_s`` summed over the points);
 6. one JSON line with every kernel arm's numbers, then the result line.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
@@ -140,19 +151,35 @@ NEAR_CAPACITY_PPS = 8.0
 #: bench.py::bench_wifi (``:91-93``, ``:114-161``): STAs, replicas,
 #: simulated seconds, timed runs (keys 1..5 after a warm run on key 0)
 BSS_N_STAS, BSS_R, BSS_SIM_S, BSS_TIMED_RUNS = 64, 512, 2.0, 5
-#: the key of the kernel-vs-plain check
+#: bench.py::bench_wifi_ht (``:94-95``, ``:169-180``): the same BSS under
+#: 802.11n, 512 B every 10 ms per STA at HtMcs7, A-MPDUs of up to 64
+BSS_HT = dict(interval_s=0.01, data_mode="HtMcs7", standard="80211n")
+#: the key of the kernel-vs-plain checks
 BSS_CHECK_SEED = 7
 #: launches per timed bss_advance run (each a whole horizon)
 BSS_TIMED_CALLS = 5
+#: the horizon sweep's points (s), each at BSS_R replicas
+BSS_SWEEP_S = (1.25, 1.5, 1.75, 2.0)
 #: bss_advance's least work: per replica-step three threefry hashes (the
 #: replica's fold-in and the split; the step's fold-in is shared) and
 #: about 25 int32 operations per node (the transmit instant, the
 #: reductions, arrivals and updates); per data frame two more hashes
 #: (its coin, its redraw) and the PSR chain in f32 (erfc, log, ten
-#: exp terms, log1p, exp: about 350 operations)
+#: exp terms, log1p, exp: about 350 operations).  Under AGG a data
+#: frame draws no coin of its own: one hash per frame (its redraw) and
+#: one per subframe of a gated frame; the PSR chain is needed once per
+#: gated frame with another on the air and once per link for the
+#: lone-sender table (2 N a CTA); every gated frame takes the
+#: k-dependent tail (its airtime, nbits, two products, a division and
+#: exp: about 30 operations)
 THREEFRY_OPS = 72
 BSS_NODE_OPS = 25
 BSS_PSR_OPS = 350
+BSS_TAIL_OPS = 30
+#: the kernels line's source and replaced code of bss_advance's arms
+BSS_SOURCE = "tpudes_torch/csrc/bss_advance.cu"
+BSS_REPLACES = ("tpudes/parallel/replicated.py:1155 (lax.while_loop over "
+                "build_bss_step.step_fn; XLA, no pallas_call)")
 
 
 def fail(msg: str):
@@ -435,12 +462,14 @@ def gate_census(kc, prog, key, device):
     return out, int(held), R * prog.n_ttis * int(elig.sum())
 
 
-def bss_bound(consts, state, out, done, step0):
+def bss_bound(consts, state, out, done, step0, census=None):
     """Least time for one ``bss_advance`` launch on these inputs: the
     state read once and written once and the constants read once over
     HBM, against the work the run's own steps and data frames need (the
     replica-steps it ran, ``done - step0`` summed, and its data frames,
-    ``tx_data``'s growth) over each type's rate; the larger wins."""
+    ``tx_data``'s growth; under AGG the plain loop's census of the same
+    run: gated frames, their subframes and the overlapping ones) over
+    each type's rate; the larger wins."""
     n = consts["N"]
     nbytes = sum(v.nbytes for v in state.values())
     nbytes += sum(v.nbytes for v in out.values())
@@ -448,22 +477,57 @@ def bss_bound(consts, state, out, done, step0):
                                              "stop"))
     replica_steps = int((done.long() - step0).sum())
     frames = int((out["tx_data"] - state["tx_data"]).sum())
-    int_ops = (replica_steps * (3 * THREEFRY_OPS + n * BSS_NODE_OPS)
-               + frames * 2 * THREEFRY_OPS)
+    int_ops = replica_steps * (3 * THREEFRY_OPS + n * BSS_NODE_OPS)
+    if consts["K"] > 1:
+        ctas = done.numel()
+        int_ops += (frames + census["mpdus"]) * THREEFRY_OPS
+        f32_ops = ((census["overlap"] + ctas * 2 * n) * BSS_PSR_OPS
+                   + census["gated"] * BSS_TAIL_OPS)
+    else:
+        int_ops += frames * 2 * THREEFRY_OPS
+        f32_ops = frames * BSS_PSR_OPS
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         "operations": max(int_ops / INT32_OPS_PER_S,
-                          frames * BSS_PSR_OPS / F32_OPS_PER_S) * 1e3,
+                          f32_ops / F32_OPS_PER_S) * 1e3,
     }
     by = max(times, key=times.get)
     return times[by], by
 
 
-def bss_check(kc, dev) -> dict:
-    """Phase 3g: ``bss_advance`` against the plain loop on the card at
-    bench width, one launch and two launches split at a step boundary;
-    a small program's CPU run against its card run; the kernel's device
-    time per launch and its bound."""
+def bss_programs() -> dict:
+    """The BSS programs of the checks and benches: ``bench_wifi``'s and
+    ``bench_wifi_ht``'s, and a small one of each for the CPU-vs-card
+    check (8 STAs on 12/20/28 m rings; under 802.11n its 28 m ring
+    decodes a subframe about half the time)."""
+    import warnings
+
+    from tpudes_torch.scenarios import bss_program
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the short-horizon advisory
+        return dict(
+            legacy=bss_program(BSS_N_STAS, BSS_SIM_S),
+            ht=bss_program(BSS_N_STAS, BSS_SIM_S, **BSS_HT),
+            small_legacy=bss_program(8, 1.5, radii=(12.0, 20.0, 28.0)),
+            small_ht=bss_program(8, 1.5, radii=(12.0, 20.0, 28.0),
+                                 **BSS_HT),
+        )
+
+
+def census_line(census: dict) -> str:
+    return ", ".join(f"{k} {int(v)}" for k, v in sorted(census.items()))
+
+
+def bss_check(kc, dev, which: str) -> dict:
+    """Phase 3g (``which`` "legacy") and 3g-ht ("ht"): ``bss_advance``
+    against the plain loop on the card at bench width, one launch and
+    two launches split at a step boundary; the plain loop's census of
+    what the run did (under 802.11n it must hold a partially decoded
+    A-MPDU; every run a retry-limit drop; the replica-steps with three or
+    more same-µs winners are ROADMAP C2's count); a small program's CPU
+    run against its card run; the kernel's device time per launch and
+    its bound."""
     import torch
     from tpudes_torch.parallel import replicated as bss
     from tpudes_torch.parallel.bss_cuda import (
@@ -472,104 +536,195 @@ def bss_check(kc, dev) -> dict:
         bss_launch,
     )
     from tpudes_torch.random import PRNGKey
-    from tpudes_torch.scenarios import bss_program
 
-    prog = bss_program(BSS_N_STAS, BSS_SIM_S)
+    progs = bss_programs()
+    prog = progs[which]
     consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
     key = PRNGKey(BSS_CHECK_SEED, device=dev)
     bound = bss._estimate_max_steps(prog)
+    census = {}
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, 0,
-                                                 bound)
+    want, (w_steps,), w_pend = bss.bss_advance_math(
+        consts, init(), key, [0], bound, census=census)
     torch.cuda.synchronize()
     plain_s = time.monotonic() - t0
-    got, steps, pend = bss_advance_cuda(consts, init(), key, 0, bound)
+    census = {k: int(v) for k, v in census.items()}
+    got, (steps,), pend = bss_advance_cuda(consts, init(), key, [0], bound)
     split = w_steps // 2
-    half, h_steps, _ = bss_advance_cuda(consts, init(), key, 0, split)
-    two, t_steps, t_pend = bss_advance_cuda(consts, half, key, h_steps,
-                                            bound)
+    half, (h_steps,), _ = bss_advance_cuda(consts, init(), key, [0], split)
+    two, (t_steps,), t_pend = bss_advance_cuda(consts, half, key, [h_steps],
+                                               bound)
     torch.cuda.synchronize()
+    what = f"bss_advance ({which})"
     if (steps, h_steps, t_steps) != (w_steps, split, w_steps):
-        fail(f"bss_advance steps {steps}, {h_steps} + {t_steps}; plain loop "
+        fail(f"{what} steps {steps}, {h_steps} + {t_steps}; plain loop "
              f"{w_steps} (split at {split})")
     if not (torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)):
-        fail("bss_advance pending flags differ from the plain loop's")
+        fail(f"{what} pending flags differ from the plain loop's")
     err = 0.0
     for k, _, _ in BSS_STATE:
-        for what, x in (("one launch", got), ("two launches", two)):
+        for how, x in (("one launch", got), ("two launches", two)):
             if not torch.equal(x[k], want[k]):
-                fail(f"bss_advance ({what}) vs plain loop: {k} differs")
+                fail(f"{what} ({how}) vs plain loop: {k} differs")
         err = max(err, (got[k].double() - want[k].double()).abs().max().item())
     if bool(w_pend.any()) or int(want["drops"].sum()) <= 0:
-        fail("bss check: a replica still pending, or no drop")
-    print(f"bss_advance vs plain loop: {len(BSS_STATE)} state arrays, the "
-          f"step count ({w_steps}) and the pending flags bit-equal at "
-          f"N={consts['N']} R={BSS_R} over one launch and over two split at "
-          f"step {split}; srv_rx {int(want['srv_rx'].sum())}, tx_data "
+        fail(f"{what} check: a replica still pending, or no drop")
+    if prog.max_mpdus > 1 and not (census["mpdus"] > census["gated"]
+                                   and census["partial"] > 0):
+        fail(f"{what} check: no A-MPDU of several subframes decoded in "
+             f"part ({census_line(census)})")
+    print(f"{what} vs plain loop: {len(BSS_STATE)} state arrays, the step "
+          f"count ({w_steps}) and the pending flags bit-equal at "
+          f"N={consts['N']} R={BSS_R} K={consts['K']} over one launch and "
+          f"over two split at step {split}; srv_rx "
+          f"{int(want['srv_rx'].sum())}, tx_data "
           f"{int(want['tx_data'].sum())}, drops {int(want['drops'].sum())}; "
           f"plain loop wall {plain_s:.3f} s", flush=True)
+    print(f"{what} census of the plain loop (C2: three_winners): "
+          f"{census_line(census)}", flush=True)
 
-    small = bss_program(8, 1.5, radii=(12.0, 20.0, 28.0))
+    small = progs[f"small_{which}"]
     on_cpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device="cpu")
     on_gpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device=dev)
     for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done"):
         if not np.array_equal(on_cpu[k], on_gpu[k]):
-            fail(f"small BSS program: CPU plain loop vs kernel differs in {k}")
-    print(f"small BSS program (8 STAs, 8 x 1.5 s): CPU plain loop == kernel "
-          f"on the card ({on_gpu['steps']} steps, srv_rx "
-          f"{int(on_gpu['srv_rx'].sum())})", flush=True)
+            fail(f"small BSS program ({which}): CPU plain loop vs kernel "
+                 f"differs in {k}")
+    print(f"small BSS program ({which}, 8 STAs, 8 x 1.5 s): CPU plain loop "
+          f"== kernel on the card ({on_gpu['steps']} steps, srv_rx "
+          f"{int(on_gpu['srv_rx'].sum())}, drops "
+          f"{int(on_gpu['drops'].sum())})", flush=True)
 
     s0 = init()
-    ms, host_ms = timed_ms(lambda: bss_launch(consts, s0, key, 0, bound),
+    ms, host_ms = timed_ms(lambda: bss_launch(consts, s0, key, [0], bound),
                            BSS_TIMED_CALLS, reps=3)
-    out, done, _, _ = bss_launch(consts, s0, key, 0, bound)
-    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0)
+    out, done, _, _ = bss_launch(consts, s0, key, [0], bound)
+    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0, census)
     us_step = ms * 1e3 / w_steps
-    print(f"bss_advance: one launch of {w_steps} steps x {BSS_R} CTAs: "
+    print(f"{what}: one launch of {w_steps} steps x {BSS_R} CTAs: "
           f"device {ms:.4f} ms/launch = {us_step:.4f} us/step (host "
           f"{host_ms:.4f} ms/call), plain loop wall {plain_s * 1e3:.1f} ms, "
           f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, steps=w_steps,
                 us_per_step=us_step, bound=(bound_ms, bound_by),
-                plain_sim_s_per_wall_s=BSS_R * BSS_SIM_S / plain_s)
+                plain_sim_s_per_wall_s=BSS_R * BSS_SIM_S / plain_s,
+                census=census)
 
 
-def bss_bench(kc, dev, check: dict) -> dict:
-    """Phase 5h: ``bench.py::bench_wifi`` on the port: one warm run, then
+def bss_sweep_check(kc, dev, which: str) -> dict:
+    """The horizon sweep: the ``BSS_SWEEP_S`` points x ``BSS_R``
+    replicas of ``which`` as one ``(C, R)`` grid launch against the
+    plain grid loop on the card (the whole state, each point's step
+    count and pending flags bit-equal) and against each point's own
+    single launch (every state array equal); the grid's device time per
+    launch and its bound."""
+    import torch
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import (
+        BSS_STATE,
+        bss_advance_cuda,
+        bss_launch,
+    )
+    from tpudes_torch.random import PRNGKey
+
+    prog = bss_programs()[which]
+    ends = [int(round(v * 1e6)) for v in BSS_SWEEP_S]
+    C = len(ends)
+    consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
+    key = PRNGKey(BSS_CHECK_SEED, device=dev)
+    bound = max(bss._estimate_max_steps(dataclasses.replace(
+        prog, sim_end_us=v)) for v in ends)
+    s0 = init(C)
+    census = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want, w_steps, w_pend = bss.bss_advance_math(
+        consts, s0, key, [0] * C, bound, ends, census=census)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    census = {k: int(v) for k, v in census.items()}
+    got, steps, pend = bss_advance_cuda(consts, s0, key, [0] * C, bound, ends)
+    what = f"bss_advance sweep ({which})"
+    if steps != w_steps or not torch.equal(pend, w_pend):
+        fail(f"{what}: steps {steps} / pending vs plain grid {w_steps}")
+    err = 0.0
+    for k, _, _ in BSS_STATE:
+        if not torch.equal(got[k], want[k]):
+            fail(f"{what} vs plain grid loop: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs().max().item())
+    for c, end in enumerate(ends):
+        one, o_steps, o_pend = bss_advance_cuda(
+            consts, {k: v[c:c + 1].contiguous() for k, v in s0.items()}, key,
+            [0], bound, [end])
+        if o_steps != [steps[c]] or not torch.equal(o_pend[0], pend[c]):
+            fail(f"{what}: point {c} steps {steps[c]}, single launch "
+                 f"{o_steps}")
+        for k, _, _ in BSS_STATE:
+            if not torch.equal(got[k][c], one[k][0]):
+                fail(f"{what}: point {c} differs from its single launch "
+                     f"in {k}")
+    if bool(w_pend.any()):
+        fail(f"{what}: a replica still pending")
+    print(f"{what}: {C} horizons {BSS_SWEEP_S} s x {BSS_R} replicas in "
+          f"one grid launch == the plain grid loop (every state array, the "
+          f"step counts {steps} and the pending flags) == each point's own "
+          f"launch; plain grid wall {plain_s:.3f} s", flush=True)
+    ms, host_ms = timed_ms(
+        lambda: bss_launch(consts, s0, key, [0] * C, bound, ends),
+        BSS_TIMED_CALLS, reps=3)
+    out, done, _, _ = bss_launch(consts, s0, key, [0] * C, bound, ends)
+    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0, census)
+    print(f"{what}: one grid launch of {C} x {BSS_R} CTAs: device "
+          f"{ms:.4f} ms/launch (host {host_ms:.4f} ms/call), bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, steps=steps,
+                bound=(bound_ms, bound_by), census=census)
+
+
+def bss_bench(kc, dev, check: dict, which: str) -> dict:
+    """Phase 5h (``which`` "legacy", ``bench.py::bench_wifi``) and 5-ht
+    ("ht", ``bench_wifi_ht``) on the port: one warm run, then
     ``BSS_TIMED_RUNS`` counted runs on keys 1.. (one launch each, every
     replica done); prints its JSON line and returns its launches."""
     import torch
     from tpudes_torch.parallel.replicated import run_replicated_bss
     from tpudes_torch.random import PRNGKey
-    from tpudes_torch.scenarios import bss_program
 
-    prog = bss_program(BSS_N_STAS, BSS_SIM_S)
+    prog = bss_programs()[which]
+    want = {"bss_advance": 1}
+    if prog.max_mpdus > 1:
+        want["bss_advance:agg"] = 1
 
     def run(seed):
         return run_replicated_bss(prog, BSS_R, PRNGKey(seed), device=dev)
 
     run(0)                                                  # warm-up
     walls, delivered, steps, launches = [], 0, set(), None
+    phase = "bench_wifi" if which == "legacy" else "bench_wifi_ht"
     for i in range(BSS_TIMED_RUNS):
-        out, wall, launches = counted(kc, lambda: run(1 + i),
-                                      {"bss_advance": 1}, "BSS main path")
+        out, wall, launches = counted(kc, lambda: run(1 + i), want,
+                                      f"BSS main path ({which})")
         if not out["all_done"]:
-            fail(f"bench_wifi run {i}: a replica did not finish")
+            fail(f"{phase} run {i}: a replica did not finish")
         if out["srv_rx"].shape != (BSS_R,) or out["cli_rx"].shape != (
                 BSS_R, BSS_N_STAS + 1):
-            fail("bench_wifi: outputs of the wrong shape")
+            fail(f"{phase}: outputs of the wrong shape")
         walls.append(wall)
         delivered += int(out["srv_rx"].sum())
         steps.add(out["steps"])
     busy, kernel_ms = device_busy_share(lambda: run(1), "bss_advance")
     med = statistics.median(walls)
-    print(json.dumps(dict(
-        phase="bench_wifi", replicas=BSS_R, n_stas=BSS_N_STAS,
+    line = dict(
+        phase=phase, replicas=BSS_R, n_stas=BSS_N_STAS,
         sim_s=BSS_SIM_S, steps=sorted(steps),
         sim_s_per_wall_s=BSS_R * BSS_SIM_S / med, wall_median_s=med,
         wall_min_s=min(walls), wall_max_s=max(walls),
         srv_rx_mean=delivered / (BSS_TIMED_RUNS * BSS_R),
+    )
+    if prog.max_mpdus > 1:
+        line["max_mpdus"] = prog.max_mpdus
+    line.update(
         kernel_us_per_step=check["us_per_step"],
         kernel_launches=launches,
         device_busy_share=busy if busy is not None else "not measured",
@@ -578,8 +733,48 @@ def bss_bench(kc, dev, check: dict) -> dict:
         plain_loop_wall_s=check["plain_ms"] / 1e3,
         plain_loop_sim_s_per_wall_s=check["plain_sim_s_per_wall_s"],
         plain_loop_steps=check["steps"],
-    )), flush=True)
+    )
+    print(json.dumps(line), flush=True)
     torch.cuda.synchronize()
+    return launches
+
+
+def bss_sweep_bench(kc, dev, which: str) -> dict:
+    """The horizon sweep at bench width: the ``BSS_SWEEP_S`` points x
+    ``BSS_R`` replicas of ``which`` through ``run_replicated_bss(...,
+    sim_end_us=[...])``, one warm run and ``BSS_TIMED_RUNS`` counted runs
+    (one grid launch each); prints its JSON line (``sim_s_per_wall_s``
+    summed over the points) and returns its launches."""
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.random import PRNGKey
+
+    prog = bss_programs()[which]
+    ends = [int(round(v * 1e6)) for v in BSS_SWEEP_S]
+    want = {"bss_advance": 1, "bss_advance:sweep": 1}
+    if prog.max_mpdus > 1:
+        want["bss_advance:agg"] = 1
+
+    def run(seed):
+        return run_replicated_bss(prog, BSS_R, PRNGKey(seed), device=dev,
+                                  sim_end_us=ends)
+
+    run(0)                                                  # warm-up
+    walls, steps, launches = [], [], None
+    for i in range(BSS_TIMED_RUNS):
+        out, wall, launches = counted(kc, lambda: run(1 + i), want,
+                                      f"BSS sweep ({which})")
+        if not all(p["all_done"] for p in out):
+            fail(f"BSS sweep ({which}) run {i}: a replica did not finish")
+        walls.append(wall)
+        steps.append([p["steps"] for p in out])
+    med = statistics.median(walls)
+    print(json.dumps(dict(
+        phase="bench_bss_sweep", program=which, replicas=BSS_R,
+        points_sim_s=list(BSS_SWEEP_S), steps=steps,
+        sim_s_per_wall_s=BSS_R * sum(BSS_SWEEP_S) / med,
+        wall_median_s=med, wall_min_s=min(walls), wall_max_s=max(walls),
+        kernel_launches=launches,
+    )), flush=True)
     return launches
 
 
@@ -1062,8 +1257,11 @@ def main(device: str = "cuda") -> int:
           f"{step_bf_bound[0] * 1e3:.3f} us ({step_bf_bound[1]})",
           flush=True)
 
-    # 3g. bss_advance vs the plain loop at bench width
-    bss_numbers = bss_check(kc, dev)
+    # 3g. bss_advance vs the plain loop at bench width, legacy and (3g-ht)
+    #     802.11n A-MPDUs; then the horizon sweep's grid of each
+    bss_numbers = bss_check(kc, dev, "legacy")
+    ht_numbers = bss_check(kc, dev, "ht")
+    sweep_numbers = {w: bss_sweep_check(kc, dev, w) for w in ("legacy", "ht")}
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -1545,8 +1743,11 @@ def main(device: str = "cuda") -> int:
                         equals_main_path=True),
     )), flush=True)
 
-    # 5h. bench_wifi: the BSS main path at bench width
-    wlaunches = bss_bench(kc, dev, bss_numbers)
+    # 5h. bench_wifi: the BSS main path at bench width; 5-ht. bench_wifi_ht;
+    #     then the four-point horizon sweep of each
+    wlaunches = bss_bench(kc, dev, bss_numbers, "legacy")
+    htlaunches = bss_bench(kc, dev, ht_numbers, "ht")
+    swlaunches = {w: bss_sweep_bench(kc, dev, w) for w in ("legacy", "ht")}
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -1580,10 +1781,16 @@ def main(device: str = "cuda") -> int:
               step_bf_err, ms_step_bf, ms_step_bf_plain, step_bf_bound),
         entry("bss_advance", wlaunches["bss_advance"], bss_numbers["err"],
               bss_numbers["ms"], bss_numbers["plain_ms"],
-              bss_numbers["bound"],
-              source="tpudes_torch/csrc/bss_advance.cu",
-              replaces="tpudes/parallel/replicated.py:1155 (lax.while_loop "
-                       "over build_bss_step.step_fn; XLA, no pallas_call)"),
+              bss_numbers["bound"], source=BSS_SOURCE, replaces=BSS_REPLACES),
+        entry("bss_advance:agg", htlaunches["bss_advance:agg"],
+              ht_numbers["err"], ht_numbers["ms"], ht_numbers["plain_ms"],
+              ht_numbers["bound"], source=BSS_SOURCE,
+              replaces=BSS_REPLACES + ", its A-MPDU branch :919-1021"),
+        entry("bss_advance:sweep", swlaunches["ht"]["bss_advance:sweep"],
+              sweep_numbers["ht"]["err"], sweep_numbers["ht"]["ms"],
+              sweep_numbers["ht"]["plain_ms"], sweep_numbers["ht"]["bound"],
+              source=BSS_SOURCE,
+              replaces=BSS_REPLACES + ", vmapped over horizons :1403-1422"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,10 +100,14 @@ def test_bss_program_equals_reference_lowering(lowered, name):
 
 
 def test_bss_program_refuses_hidden_nodes_and_ht_modes():
+    """Hidden nodes and modes outside the OFDM/HT registry (the DSSS
+    rates) are refused; HT modes lower (``tests/test_torch_bss_ht.py``)."""
     with pytest.raises(ValueError, match="hidden-node"):
         bss_program(4, 2.0, radii=(300.0,))
-    with pytest.raises(ValueError, match="OFDM"):
-        bss_program(4, 2.0, data_mode="HtMcs7")
+    with pytest.raises(ValueError, match="OFDM and HT"):
+        bss_program(4, 2.0, data_mode="DsssRate1Mbps")
+    with pytest.raises(ValueError, match="standards"):
+        bss_program(4, 2.0, standard="80211b")
     with pytest.warns(UserWarning, match="warm-up"):
         bss_program(2, 1.0)
 
@@ -134,37 +138,18 @@ def test_step_state_equals_reference_for_200_steps(lowered, name, replicas):
     assert int(ps["tx_data"].sum()) > 0 and int(ps["srv_rx"].sum()) > 0
 
 
-def _count_ties(monkeypatch, prog, replicas, seed):
-    """Run the port's plain loop and count the two tie classes: gated
-    coins within 4 ulp of their PSR (every decode's coin and PSR seen
-    through ``replicated.decode``), and replica-steps with three or more
-    winners (data frames sent plus the beacon, from the state's
-    counters)."""
-    from tpudes_torch.ops.wifi_error import mode_chunk_success_rate
-
-    gaps = []
-
-    def decode(c, sinr, coin):
-        psr = mode_chunk_success_rate(sinr, c["nbits"], c["mode"])
-        gaps.append((coin.view(torch.int32) - psr.view(torch.int32)).abs())
-        return coin < psr
-
-    monkeypatch.setattr(bss, "decode", decode)
-    consts, init, _, _, step, pending = bss.build_bss_step(prog, replicas,
-                                                           "cpu")
-    bound = bss._estimate_max_steps(prog)
-    u_back, u_coin = bss_draws(PRNGKey(seed), 0, bound, replicas, prog.n)
-    s, three, decodes = init(), 0, 0
-    for i in range(bound):
-        if not bool(pending(s).any()):
-            break
-        new = step(s, u_back[i], u_coin[i])
-        winners = (new["tx_data"] - s["tx_data"]) + (
-            s["bcn_pend"] - new["bcn_pend"]).clamp_min(0)
-        three += int((winners >= 3).sum())
-        s = new
-    gaps = torch.cat(gaps) if gaps else torch.zeros(0, dtype=torch.int32)
-    return int((gaps <= 4).sum()), three, len(gaps), s
+def _count_ties(prog, replicas, seed):
+    """Run the port's plain loop with its census and count the two tie
+    classes: gated coins within 4 ulp of their PSR, and replica-steps
+    with three or more winners (data frames and the beacon); with the
+    number of gated decodes and the final state."""
+    consts, init, _ = bss.build_bss_advance(prog, replicas, "cpu")
+    census = {}
+    s, _, _ = bss.bss_advance_math(consts, init(), PRNGKey(seed), [0],
+                                   bss._estimate_max_steps(prog),
+                                   census=census)
+    return (int(census["coin_ties"]), int(census["three_winners"]),
+            int(census["gated"]), {k: v[0] for k, v in s.items()})
 
 
 @pytest.mark.parametrize("name, replicas", [("small", 16), ("rings", 8),
@@ -185,12 +170,11 @@ def test_run_equals_jax_engine_per_replica(lowered, name, replicas):
 
 
 @pytest.mark.parametrize("name, replicas", [("rings", 8), ("small", 16)])
-def test_tie_classes_are_counted(lowered, monkeypatch, name, replicas):
+def test_tie_classes_are_counted(lowered, name, replicas):
     """The tie classes of the programs the per-replica test runs,
     counted; the run they come from equals the JAX engine's."""
     prog = lowered[name]
-    coin_ties, three, decodes, s = _count_ties(monkeypatch, _port(prog),
-                                               replicas, 5)
+    coin_ties, three, decodes, s = _count_ties(_port(prog), replicas, 5)
     want = jax_run_bss(prog, replicas, jax.random.PRNGKey(5))
     for k in ("srv_rx", "cli_rx", "tx_data", "drops"):
         assert np.array_equal(s[k].numpy(), np.asarray(want[k])), k
@@ -229,9 +213,10 @@ def test_per_replica_stops_join_to_the_shared_loop(lowered):
     R = 8
     consts, init, _, _, step, pending = bss.build_bss_step(port, R, "cpu")
     bound = bss._estimate_max_steps(port)
-    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), PRNGKey(2),
-                                                 0, bound)
-    u_back, u_coin = bss_draws(PRNGKey(2), 0, w_steps, R, port.n)
+    want, w_steps, w_pend = bss.bss_advance_math(
+        consts, {k: v[None] for k, v in init().items()}, PRNGKey(2), [0],
+        bound)
+    u_back, u_coin = bss_draws(PRNGKey(2), 0, w_steps[0], R, port.n)
     s = init()
     rows = []
     for r in range(R):
@@ -247,12 +232,12 @@ def test_per_replica_stops_join_to_the_shared_loop(lowered):
         t_next = torch.where(one["t"] < consts["sim_end"],
                              torch.maximum(one["t"], nxt), one["t"])
         rows.append((one, n, t_next))
-    got = {k: torch.cat([row[0][k] for row in rows]) for k in want}
-    done = torch.tensor([row[1] for row in rows], dtype=torch.int32)
-    t_next = torch.cat([row[2] for row in rows])
+    got = {k: torch.cat([row[0][k] for row in rows])[None] for k in want}
+    done = torch.tensor([[row[1] for row in rows]], dtype=torch.int32)
+    t_next = torch.cat([row[2] for row in rows])[None]
     joined, steps = join_stops(got, done, t_next)
     assert steps == w_steps and not bool(w_pend.any())
-    assert int((done < steps).sum()) > 0       # the join had work to do
+    assert int((done < steps[0]).sum()) > 0    # the join had work to do
     assert int((joined["t"] != got["t"]).sum()) > 0
     for k in want:
         assert torch.equal(joined[k], want[k]), k
@@ -274,14 +259,15 @@ def test_wrapper_takes_the_plain_loop_on_the_cpu(lowered):
     port = _port(lowered["two_rings"])
     consts, init, _ = bss.build_bss_advance(port, 2, "cpu")
     kc.reset_launches()
-    state, steps, still = bss.bss_advance(consts, init(), PRNGKey(0), 0, 30)
-    assert kc.launches["bss_advance"] == 0 and steps == 30
+    state, steps, still = bss.bss_advance(consts, init(), PRNGKey(0), [0],
+                                          30)
+    assert kc.launches["bss_advance"] == 0 and steps == [30]
     with pytest.raises(ValueError, match="step0"):
-        bss_advance_cuda(consts, init(), PRNGKey(0), 5, 4)
+        bss_advance_cuda(consts, init(), PRNGKey(0), [5], 4)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(sim_end_us=[1_000_000]),
+    dict(mesh=object()),
     dict(traffic_sweep=[object()]), dict(checkpoint="x"),
     dict(block=False), dict(geom_per_step=True), dict(obs=True),
 ])
@@ -292,7 +278,7 @@ def test_unported_run_options_raise(lowered, kwargs):
 
 
 @pytest.mark.parametrize("fields", [
-    dict(max_mpdus=4, subframe_bytes=600), dict(mobility=object()),
+    dict(mobility=object()),
     dict(traffic=object()), dict(geom_stride=8),
 ])
 def test_unported_program_arms_raise(lowered, fields):

@@ -81,11 +81,12 @@ def _harq_consts(prog, card):
 
 
 def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
-            step_bf16=0, bss=0):
+            step_bf16=0, bss=0, bss_agg=0, bss_sweep=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
-            "lte_sm_advance:bf16": bf16, "bss_advance": bss}
+            "lte_sm_advance:bf16": bf16, "bss_advance": bss,
+            "bss_advance:agg": bss_agg, "bss_advance:sweep": bss_sweep}
 
 
 def _bit_equal(a, b):
@@ -415,6 +416,9 @@ BSS_PROGRAMS = {
     "bench": lambda: bss_program(64, 2.0),
     "collisions": lambda: bss_program(32, 1.3, radii=(8.0, 14.0, 20.0),
                                       interval_s=0.005),
+    # bench.py::bench_wifi_ht: 802.11n A-MPDUs of up to 64 at 65 Mbit/s
+    "bench_ht": lambda: bss_program(64, 2.0, interval_s=0.01,
+                                    data_mode="HtMcs7", standard="80211n"),
 }
 
 
@@ -428,15 +432,15 @@ def test_bss_kernel_bit_equal_to_plain_loop(card, which):
     consts, init, _ = bss.build_bss_advance(prog, 64, card)
     key = PRNGKey(4).to(card)
     bound = bss._estimate_max_steps(prog)
-    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, 0,
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, [0],
                                                  bound)
     kc.reset_launches()
-    got, steps, pend = bss.bss_advance(consts, init(), key, 0, bound)
-    mid = w_steps // 2
-    half, h_steps, _ = bss.bss_advance(consts, init(), key, 0, mid)
+    got, steps, pend = bss.bss_advance(consts, init(), key, [0], bound)
+    mid = w_steps[0] // 2
+    half, h_steps, _ = bss.bss_advance(consts, init(), key, [0], mid)
     two, t_steps, t_pend = bss.bss_advance(consts, half, key, h_steps, bound)
-    assert kc.launches == _counts(bss=3)
-    assert (steps, h_steps, t_steps) == (w_steps, mid, w_steps)
+    assert kc.launches == _counts(bss=3, bss_agg=3 * (consts["K"] > 1))
+    assert (steps, h_steps, t_steps) == (w_steps, [mid], w_steps)
     assert torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)
     for k, _, _ in BSS_STATE:
         assert torch.equal(got[k], want[k]), (which, k)
@@ -460,3 +464,60 @@ def test_bss_card_equals_cpu(card):
         assert np.array_equal(gpu[k], cpu[k]), k
         assert np.array_equal(chunked[k], cpu[k]), k
     assert gpu["all_done"]
+
+
+def _ht(n_stas, sim_s, **kw):
+    return bss_program(n_stas, sim_s, data_mode="HtMcs7", standard="80211n",
+                       **kw)
+
+
+@pytest.mark.cuda
+def test_bss_ht_card_equals_cpu(card):
+    """An A-MPDU program's outputs on the card (the ``AGG`` arm) equal the
+    CPU's plain loop, per replica, unchunked and chunked."""
+    prog = _ht(8, 1.5, radii=(12.0, 20.0, 28.0), interval_s=0.01)
+    cpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device="cpu")
+    kc.reset_launches()
+    gpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card)
+    chunked = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card,
+                                     chunk_steps=300)
+    n = 1 + math.ceil(bss._estimate_max_steps(prog) / 300)
+    assert kc.launches == _counts(bss=n, bss_agg=n)
+    for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done"):
+        assert np.array_equal(gpu[k], cpu[k]), k
+        assert np.array_equal(chunked[k], cpu[k]), k
+    assert gpu["all_done"] and gpu["drops"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ht", [False, True])
+def test_bss_sweep_grid_equals_plain_and_single_launches(card, ht):
+    """Three horizons as one ``(C, R)`` launch: the whole state bit-equal
+    to the plain grid loop on the card, each point's step count and
+    pending flags too, and each point's outputs equal to its own
+    single-point launch."""
+    prog = (_ht(16, 1.2, interval_s=0.01) if ht else bss_program(16, 1.2))
+    ends = [1_050_000, 1_200_000, 1_120_000]
+    consts, init, _ = bss.build_bss_advance(prog, 32, card)
+    key = PRNGKey(3).to(card)
+    s0 = init(3)
+    bound = max(bss._estimate_max_steps(dataclasses.replace(
+        prog, sim_end_us=v)) for v in ends)
+    want, w_steps, w_pend = bss.bss_advance_math(consts, s0, key, [0] * 3,
+                                                 bound, ends)
+    kc.reset_launches()
+    got, steps, pend = bss.bss_advance(consts, s0, key, [0] * 3, bound, ends)
+    assert kc.launches == _counts(bss=1, bss_agg=int(ht), bss_sweep=1)
+    assert steps == w_steps and len(set(steps)) == 3
+    assert torch.equal(pend, w_pend)
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[k], want[k]), k
+    sweep = bss.run_replicated_bss(prog, 32, PRNGKey(3), device=card,
+                                   sim_end_us=ends, max_steps=bound)
+    for c, end in enumerate(ends):
+        one = bss.run_replicated_bss(
+            dataclasses.replace(prog, sim_end_us=end), 32, PRNGKey(3),
+            device=card, max_steps=bound)
+        for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps",
+                  "all_done"):
+            assert np.array_equal(sweep[c][k], one[k]), (c, k)

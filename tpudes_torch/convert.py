@@ -45,7 +45,8 @@ TRAFFIC_FIELDS = (
 
 
 #: the reference ``BssProgram``'s fields the port reads (a static
-#: legacy program: ``mobility`` and ``traffic`` are None)
+#: program, legacy or A-MPDU: ``max_mpdus`` and ``subframe_bytes`` carry
+#: the 802.11n arm; ``mobility`` and ``traffic`` are None)
 BSS_FIELDS = (
     "positions", "data_mode_idx", "ack_mode_idx", "data_bytes",
     "beacon_bytes", "start_us", "interval_us", "stop_us", "sim_end_us",
@@ -76,7 +77,9 @@ def bss_from_numpy(fields: Mapping) -> BssProgram:
 def bss_state_from_numpy(state: Mapping, device=None) -> dict:
     """Port BSS state (:data:`~tpudes_torch.parallel.bss_cuda.BSS_STATE`)
     from a reference ``build_bss_step`` state dict, on ``device`` (the
-    card by default); the reference's shared ``step`` stays behind."""
+    card by default); the reference's ``step`` counter stays behind.  A
+    horizon sweep's ``(C, R, ...)`` state carries across as it is (the
+    port's sweep layout)."""
     device = resolve_device(device)
     return {
         k: torch.tensor(np.asarray(state[k]), dtype=torch.bool if dt ==

@@ -3,60 +3,74 @@
 //
 // Replaces the reference's device event loop: build_bss_advance's
 // lax.while_loop (tpudes/parallel/replicated.py:1155) over
-// build_bss_step.step_fn (:738-1093), non-aggregated and static; XLA code,
-// no pallas_call.  Its plain version is tpudes_torch/parallel/
-// replicated.py::bss_advance_math (step_fn in a loop under the reference's
-// loop condition), which it equals bit for bit on the card.
+// build_bss_step.step_fn (:738-1093), static, legacy or aggregated, and its
+// vmap over horizons (:1403-1422); XLA code, no pallas_call.  Its plain
+// version is tpudes_torch/parallel/replicated.py::bss_advance_math (step_fn
+// in a loop under the reference's loop condition), which it equals bit for
+// bit on the card.
 //
 // Design, for the H100:
-// - One CTA per replica, one thread per node (blockDim = N rounded up to 32,
-//   N <= 1024).  A node's state (next_arr, queue, ap_pend, backoff, hold,
-//   immediate, cw, retries, cli_rx) lives in registers for the launch; the
-//   replica's scalars (t, bcn_pend, busy_until, srv_rx, tx_data, drops) are
-//   held by every thread, which all update them alike.  State is read from
-//   HBM once and written once.
+// - One CTA per (replica, point), one thread per node (blockDim = N rounded
+//   up to 32, N <= 1024); blockIdx.y is the point of a horizon sweep, with
+//   its own horizon and first step (passed by value), and every point's
+//   replica r draws replica r's streams.  A node's state (next_arr, queue,
+//   ap_pend, backoff, hold, immediate, cw, retries, cli_rx) lives in
+//   registers for the launch; the replica's scalars (t, bcn_pend,
+//   busy_until, srv_rx, tx_data, drops) are held by every thread, which all
+//   update them alike.  State is read from HBM once and written once.
 // - The loop runs in the kernel.  Each CTA stops when its own replica is no
-//   longer pending (no event before the horizon) or at the step bound: a
+//   longer pending (no event before its horizon) or at the step bound: a
 //   finished replica is a fixed point of step_fn but for t, so no CTA waits
 //   for another.  On the way out it writes its stop step (`done`) and the t
 //   one more step would give it (`t_next`); the wrapper
-//   (parallel/bss_cuda.py) takes the largest stop as the run's step count and
-//   gives t_next to the replicas that stopped before it, as the reference's
-//   shared loop would.
+//   (parallel/bss_cuda.py) takes the largest stop of each point as that
+//   point's step count and gives t_next to the replicas that stopped before
+//   it, as the reference's loop would.
 // - Draws: step s, replica r: k = split(fold_in(fold_in(key, s), r)),
-//   uniform(k[0], (N,)) for backoffs and uniform(k[1], (N,)) for coins
-//   (random.py::bss_draws), in uint32 threefry2x32.  Every 32 steps lane l of
-//   each warp derives step s + l's two keys (four hashes); each step shuffles
-//   them across the warp, and a thread hashes its own node's draw only when
-//   the step needs it (a new head of line, an interrupted grant, a winner's
-//   redraw; a gated frame's coin).
+//   uniform(k[0], (N,)) for backoffs and uniform(k[1], (N,)) for coins, or
+//   under AGG uniform(k[1], (N, K)), flat index i K + j (random.py::
+//   bss_draws), in uint32 threefry2x32.  Every 32 steps lane l of each warp
+//   derives step s + l's two keys (four hashes); each step shuffles them
+//   across the warp, and a thread hashes its own node's draw only when the
+//   step needs it (a new head of line, an interrupted grant, a winner's
+//   redraw; a gated frame's coin).  Under AGG a gated frame's k coins are
+//   spread over its warp: lane j hashes subframes j and j + 32, and two
+//   ballots count the decoded ones, so the frame waits for two hashes, not
+//   k.
 // - Three barriers a step, each one block reduction (warp shuffles, one
 //   shared slot per warp, every thread folding the slots itself):
 //   1. the earliest STA transmit instant, the earliest arrival, the lowest
-//      node with an echo pending (the AP's destination); thread 0 publishes
+//      node with an echo pending (the AP's destination; under AGG packed
+//      with its pending count, the AP's A-MPDU size); thread 0 publishes
 //      its own transmit instant, which counts once the reduction says
 //      whether the AP has a frame;
 //   2. the winners (one ballot word per warp) and the power each winner puts
 //      at the AP and at the echo destination, summed as a pairwise tree
 //      (within the warp, then over the warps' slots): replicated.py::
 //      tree_sum's order, so the plain version rounds alike;
-//   3. the outcome counts (decodes at the AP, drops, data frames), the
-//      longest occupancy, and node 0's outcome (its echo decoded or
-//      dropped, the new beacon count).
+//   3. the outcome counts (MPDUs decoded at the AP, MPDUs dropped, data
+//      frames), the longest occupancy, and node 0's outcome (its echoes
+//      decoded or dropped, the new beacon count).
 // - The PHY of a gated frame: SINR = sig / ((at_dst - sig) + noise) and
-//   the NIST success rate in xla_math.cuh's arithmetic, then the coin.  A
-//   frame with no interference (a lone sender: at_dst - sig == 0) has the
-//   SINR sig / noise of its own link, so its rate is one of 2N per program:
-//   each thread computes its node's uplink and downlink rates once, before
-//   the loop (the downlinks in shared memory), and the chain runs in the
-//   loop only for frames that overlap others.
+//   the NIST chain in xla_math.cuh's arithmetic, then the coins.  A frame
+//   with no interference (a lone sender: at_dst - sig == 0) has the SINR
+//   sig / noise of its own link, so the chain's SNR part (the success rate
+//   itself in the legacy arm, log1p(-pe) under AGG) is one of 2N per
+//   program: each thread computes its node's uplink and downlink values
+//   once, before the loop (the downlinks in shared memory), and the chain
+//   runs in the loop only for frames that overlap others.  Under AGG the
+//   k-dependent tail (the A-MPDU's airtime, nbits, two products, a
+//   division and exp) runs for every gated frame: about 30 operations, so
+//   a (node, k) table of 2 N K rates would save little and cost 2 N K
+//   exps before the loop.
 //
 // Bound (bench: N = 65, R = 512, ~3,200 steps): the state is 0.2 MB each
 // way, so the work bounds: per replica-step about 20 threefry hashes (the
 // keys amortised, the draws a step needs), three block reductions and, for
-// the frames on air, one PSR chain (~400 operations); the chip_smoke
-// script counts them from the run.  With 512 CTAs of 3 warps the time is
-// each step's chain of dependent stages, not throughput.
+// the frames on air, one PSR chain (~400 operations), under AGG k hashes a
+// gated frame; the chip_smoke script counts them from the run.  With 512
+// CTAs of 3 warps the time is each step's chain of dependent stages, not
+// throughput.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +82,10 @@
 // the last step a launch may reach: step + 31 (a lane's lookahead) stays
 // below 2^31
 #define BSS_MAX_STEP 2147483000
+// horizons one launch holds (the grid's y extent)
+#define BSS_MAX_POINTS 64
+// the A-MPDU cap: two coins per lane
+#define BSS_MAX_MPDUS 64
 
 namespace {
 
@@ -86,9 +104,20 @@ struct Consts {
   const uint8_t* det;    // (N, N) detectable
   const int* interval;   // (N,)
   const int* stop;       // (N,)
-  int N, aifs, data_dur, resp_dur, exch_beacon, sim_end;
+  int N, aifs, data_dur, resp_dur, exch_beacon;
   float nbits, noise_w;
   Psr psr;
+  // AGG: the A-MPDU cap, the data preamble (us), 8 * subframe bytes,
+  // 1 / ndbps and the rate in Mbit/s, each as ops/wifi_error.py::
+  // ampdu_params rounds it
+  int K, preamble;
+  float sub8, inv_ndbps, rate;
+};
+
+// the points of a horizon sweep: each one's horizon and first step
+struct Points {
+  int sim_end[BSS_MAX_POINTS];
+  int step0[BSS_MAX_POINTS];
 };
 
 // the BSS_STATE layout (parallel/bss_cuda.py): per node (R, N), per replica
@@ -139,21 +168,27 @@ __device__ __forceinline__ int draw_backoff(float u, int cw) {
   return __float2int_rz(__fmul_rn(u, static_cast<float>(cw + 1)));
 }
 
+template <bool AGG>
 __global__ void __launch_bounds__(BSS_MAX_N)
-    bss_advance_kernel(Consts c, StateIn si, StateOut so,
+    bss_advance_kernel(Consts c, Points pts, StateIn si, StateOut so,
                        const long long* __restrict__ key, int* done,
-                       int* t_next, uint8_t* pending, int step0, int step1) {
+                       int* t_next, uint8_t* pending, int step1) {
   __shared__ int s_tx[32], s_arr[32], s_ed[32], s_tx0;      // barrier 1
   __shared__ unsigned s_win[32];                            // barrier 2
   __shared__ float s_at_ap[32], s_at_ed[32];
   __shared__ int s_ok[32], s_drop[32], s_data[32], s_occ[32];  // barrier 3
   __shared__ int s_node0[3];
-  __shared__ float s_psr_down[BSS_MAX_N];  // AP -> node i, alone on the air
+  // AP -> node i alone on the air: its success rate (legacy), its
+  // log1p(-pe) (AGG)
+  __shared__ float s_lone_down[BSS_MAX_N];
 
   const int N = c.N, r = blockIdx.x, i = threadIdx.x;
+  const int pr = blockIdx.y * gridDim.x + r;  // (point, replica) row
+  const int sim_end = pts.sim_end[blockIdx.y];
+  const int step0 = pts.step0[blockIdx.y];
   const int lane = i & 31, warp = i >> 5, nw = blockDim.x >> 5;
   const bool valid = i < N, is_ap = i == 0;
-  const long long q = static_cast<long long>(r) * N + (valid ? i : 0);
+  const long long q = static_cast<long long>(pr) * N + (valid ? i : 0);
 
   // this node's state and constants
   int next_arr = valid ? si.next_arr[q] : kInf;
@@ -169,17 +204,18 @@ __global__ void __launch_bounds__(BSS_MAX_N)
   const int stop = valid ? c.stop[i] : kInf;
   const float rx_to_ap = valid ? c.rx_w[i * N] : 0.0f;
   const bool det_to_ap = valid && c.det[i * N] != 0;
-  // the success rates of this node's links with no interference
+  // the chain's values for this node's links with no interference
   const float lone = __fadd_rn(0.0f, c.noise_w);
-  const float psr_up =
-      valid ? xla_math::nist_psr(__fdiv_rn(rx_to_ap, lone), c.psr, c.nbits)
-            : 0.0f;
-  if (valid)
-    s_psr_down[i] =
-        xla_math::nist_psr(__fdiv_rn(c.rx_w[i], lone), c.psr, c.nbits);
+  auto lone_value = [&](float sig) {
+    const float snr = __fdiv_rn(sig, lone);
+    return AGG ? xla_math::nist_lg(snr, c.psr)
+               : xla_math::nist_psr(snr, c.psr, c.nbits);
+  };
+  const float lone_up = valid ? lone_value(rx_to_ap) : 0.0f;
+  if (valid) s_lone_down[i] = lone_value(c.rx_w[i]);
   // the replica's scalars, a copy in every thread
-  int t = si.t[r], bcn = si.bcn_pend[r], busy = si.busy_until[r];
-  int srv = si.srv_rx[r], txd = si.tx_data[r], drops = si.drops[r];
+  int t = si.t[pr], bcn = si.bcn_pend[pr], busy = si.busy_until[pr];
+  int srv = si.srv_rx[pr], txd = si.tx_data[pr], drops = si.drops[pr];
 
   const uint32_t key0 = static_cast<uint32_t>(key[0]);
   const uint32_t key1 = static_cast<uint32_t>(key[1]);
@@ -189,13 +225,17 @@ __global__ void __launch_bounds__(BSS_MAX_N)
 
   for (;;) {
     // 1. transmit instants, the next arrival, the AP's echo destination
+    //    (under AGG packed with min(its pending echoes, K) in 7 bits)
     const int base = max(busy, hold);
     const int tx_if =
         max(imm ? max(t, base) : base + c.aifs + backoff * kSlot, t);
     const bool sta_frame = valid && !is_ap && queue > 0;
     const int m_tx = warp_min(sta_frame ? tx_if : kInf);
     const int m_arr = warp_min(next_arr);
-    const int m_ed = warp_min(valid && ap_pend > 0 ? i : N);
+    const int ed_key =
+        AGG ? (valid && ap_pend > 0 ? (i << 7) | min(ap_pend, c.K) : N << 7)
+            : (valid && ap_pend > 0 ? i : N);
+    const int m_ed = warp_min(ed_key);
     if (lane == 0) {
       s_tx[warp] = m_tx;
       s_arr[warp] = m_arr;
@@ -203,18 +243,20 @@ __global__ void __launch_bounds__(BSS_MAX_N)
     }
     if (is_ap) s_tx0 = tx_if;
     __syncthreads();
-    int tc_sta = kInf, ed = N;
+    int tc_sta = kInf, ed = AGG ? N << 7 : N;
     ta = kInf;
     for (int w = 0; w < nw; ++w) {
       tc_sta = min(tc_sta, s_tx[w]);
       ta = min(ta, s_arr[w]);
       ed = min(ed, s_ed[w]);
     }
+    const int k_ap = AGG ? ed & 127 : 0;
+    if (AGG) ed >>= 7;
     const bool any_ap = ed < N;
     if (!any_ap) ed = 0;
     const bool frame0 = bcn > 0 || any_ap;
     tc = min(tc_sta, frame0 ? s_tx0 : kInf);
-    pend = t < c.sim_end && min(ta, tc) < c.sim_end;
+    pend = t < sim_end && min(ta, tc) < sim_end;
     if (!pend || step >= step1) break;
 
     const int j = (step - step0) & 31;
@@ -240,9 +282,9 @@ __global__ void __launch_bounds__(BSS_MAX_N)
 
     const bool frame = is_ap ? frame0 : sta_frame;
     const int tx_t = frame ? tx_if : kInf;
-    const bool live = t < c.sim_end;
-    const int next_t = live ? min(ta, tc) : c.sim_end;
-    const bool past_end = next_t >= c.sim_end;
+    const bool live = t < sim_end;
+    const int next_t = live ? min(ta, tc) : sim_end;
+    const bool past_end = next_t >= sim_end;
     const bool arrived = live && ta <= tc && ta < kInf && !past_end;
     const bool transmit = live && tc < ta && tc < kInf && !past_end;
 
@@ -291,26 +333,70 @@ __global__ void __launch_bounds__(BSS_MAX_N)
       imm1 = false;
     }
 
-    // the PHY: beacons outrank echoes; a gated data frame's coin vs its PSR
+    // the PHY: beacons outrank echoes; a gated data frame's coins vs its
+    // success rate (under AGG an A-MPDU of the backlog, up to K, whose
+    // airtime and nbits grow with its size k)
     const bool ap_beacon = win0 && bcn > 0;
     const bool beacon_tx = winner && is_ap && ap_beacon;
     const bool data_tx = winner && !beacon_tx;
     const bool det = is_ap ? c.det[ed] != 0 : det_to_ap;
     const bool dst_idle = is_ap ? !win_ed : !win0;
-    bool ok = false;
-    if (data_tx && det && dst_idle) {
+    const bool gated = data_tx && det && dst_idle;
+    int k_agg = 1, dur = c.data_dur, n_ok = 0;
+    if (AGG) {
+      k_agg = max(is_ap ? k_ap : min(queue, c.K), 1);
+      const float x = __fadd_rn(
+          __fmul_rn(static_cast<float>(k_agg), c.sub8), 22.0f);
+      dur = __float2int_rz(__fmul_rn(ceilf(__fmul_rn(x, c.inv_ndbps)),
+                                     4.0f)) + c.preamble;
+    }
+    float rate = 0.0f;  // a gated frame's success rate (per subframe)
+    if (gated) {
       const float sig = is_ap ? c.rx_w[ed] : rx_to_ap;
       const float interf = __fsub_rn(is_ap ? at_ed : at_ap, sig);
-      const float psr =
-          interf == 0.0f
-              ? (is_ap ? s_psr_down[ed] : psr_up)
-              : xla_math::nist_psr(
-                    __fdiv_rn(sig, __fadd_rn(interf, c.noise_w)), c.psr,
-                    c.nbits);
-      ok = threefry::uniform(c0, c1, static_cast<uint32_t>(i)) < psr;
+      const float lone_v = is_ap ? s_lone_down[ed] : lone_up;
+      if (AGG) {
+        const float lg =
+            interf == 0.0f
+                ? lone_v
+                : xla_math::nist_lg(
+                      __fdiv_rn(sig, __fadd_rn(interf, c.noise_w)), c.psr);
+        rate = xla_math::mpdu_rate(
+            lg, __fmul_rn(c.rate, static_cast<float>(dur)), k_agg);
+      } else {
+        rate = interf == 0.0f
+                   ? lone_v
+                   : xla_math::nist_psr(
+                         __fdiv_rn(sig, __fadd_rn(interf, c.noise_w)), c.psr,
+                         c.nbits);
+        n_ok = threefry::uniform(c0, c1, static_cast<uint32_t>(i)) < rate;
+      }
     }
-    const bool success = data_tx && ok, fail = data_tx && !ok;
+    if (AGG) {
+      // each gated frame of the warp in turn, its k coins over the lanes
+      unsigned todo = __ballot_sync(kFull, gated);
+      while (todo != 0u) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const float p = __shfl_sync(kFull, rate, src);
+        const int k = __shfl_sync(kFull, k_agg, src);
+        const uint32_t first = static_cast<uint32_t>((warp * 32 + src) * c.K);
+        const bool ok_lo =
+            lane < k &&
+            threefry::uniform(c0, c1, first + static_cast<uint32_t>(lane)) <
+                p;
+        const bool ok_hi =
+            lane + 32 < k &&
+            threefry::uniform(c0, c1,
+                              first + static_cast<uint32_t>(lane + 32)) < p;
+        const int count = __popc(__ballot_sync(kFull, ok_lo)) +
+                          __popc(__ballot_sync(kFull, ok_hi));
+        if (lane == src) n_ok = count;
+      }
+    }
+    const bool success = data_tx && n_ok > 0, fail = data_tx && n_ok == 0;
     const bool dropped = fail && retries + 1 > kRetryLimit;
+    const int drop_n = dropped ? k_agg : 0;
     const bool reset = success || dropped || beacon_tx;
     const int retries1 = reset ? 0 : retries + (fail ? 1 : 0);
     const int cw1 = reset ? kCwMin : (fail ? min(2 * (cw + 1) - 1, kCwMax) : cw);
@@ -318,14 +404,14 @@ __global__ void __launch_bounds__(BSS_MAX_N)
       backoff1 = draw_backoff(back(), cw1);
       imm1 = false;
     }
-    const int exch = c.data_dur + kSifs + c.resp_dur;
-    const int occ = success ? exch : (beacon_tx ? c.exch_beacon : c.data_dur);
+    const int exch = dur + kSifs + c.resp_dur;
+    const int occ = success ? exch : (beacon_tx ? c.exch_beacon : dur);
     const int hold1 = fail ? next_t + exch + kSlot + 4
                            : (winner ? next_t + occ : hold);
 
     // 3. the outcome counts, the medium's occupancy, node 0's outcome
-    const int sta_ok = (ok && !is_ap) ? 1 : 0;
-    const int w_ok = warp_sum(sta_ok), w_drop = warp_sum(dropped ? 1 : 0);
+    const int sta_ok = is_ap ? 0 : n_ok;
+    const int w_ok = warp_sum(sta_ok), w_drop = warp_sum(drop_n);
     const int w_data = warp_sum(data_tx ? 1 : 0);
     const int w_occ = warp_max(winner ? occ : 0);
     if (lane == 0) {
@@ -335,14 +421,14 @@ __global__ void __launch_bounds__(BSS_MAX_N)
       s_occ[warp] = w_occ;
     }
     if (is_ap) {
-      s_node0[0] = ok ? 1 : 0;
-      s_node0[1] = dropped ? 1 : 0;
+      s_node0[0] = n_ok;
+      s_node0[1] = drop_n;
       s_node0[2] = max(bcn1 - (ap_beacon ? 1 : 0), 0);
     }
     __syncthreads();
-    int n_ok = 0, n_drop = 0, n_data = 0, max_occ = 0;
+    int n_sta_ok = 0, n_drop = 0, n_data = 0, max_occ = 0;
     for (int w = 0; w < nw; ++w) {
-      n_ok += s_ok[w];
+      n_sta_ok += s_ok[w];
       n_drop += s_drop[w];
       n_data += s_data[w];
       max_occ = max(max_occ, s_occ[w]);
@@ -350,12 +436,12 @@ __global__ void __launch_bounds__(BSS_MAX_N)
     const int at_me = i == ed ? 1 : 0;
     const int got_echo = s_node0[0], drop_echo = s_node0[1];
     bcn = s_node0[2];
-    srv += n_ok;
+    srv += n_sta_ok;
     drops += n_drop;
     txd += n_data;
     if (any_win) busy = next_t + max_occ;
     t = max(next_t, t);
-    queue = max(queue1 - sta_ok - (dropped && !is_ap ? 1 : 0), 0);
+    queue = max(queue1 - sta_ok - (is_ap ? 0 : drop_n), 0);
     ap_pend = max(ap_pend + sta_ok - at_me * got_echo - at_me * drop_echo, 0);
     cli += at_me * got_echo;
     next_arr = next_arr1;
@@ -379,15 +465,15 @@ __global__ void __launch_bounds__(BSS_MAX_N)
     so.cli_rx[q] = cli;
   }
   if (is_ap) {
-    so.t[r] = t;
-    so.bcn_pend[r] = bcn;
-    so.busy_until[r] = busy;
-    so.srv_rx[r] = srv;
-    so.tx_data[r] = txd;
-    so.drops[r] = drops;
-    done[r] = step;
-    pending[r] = pend ? 1 : 0;
-    t_next[r] = t < c.sim_end ? max(t, min(ta, tc)) : t;
+    so.t[pr] = t;
+    so.bcn_pend[pr] = bcn;
+    so.busy_until[pr] = busy;
+    so.srv_rx[pr] = srv;
+    so.tx_data[pr] = txd;
+    so.drops[pr] = drops;
+    done[pr] = step;
+    pending[pr] = pend ? 1 : 0;
+    t_next[pr] = t < sim_end ? max(t, min(ta, tc)) : t;
   }
 }
 
@@ -405,20 +491,31 @@ extern "C" int bss_advance_launch(
     int* o_hold, uint8_t* o_immediate, int* o_cw, int* o_retries,
     int* o_busy_until, int* o_srv_rx, int* o_cli_rx, int* o_tx_data,
     int* o_drops, int* done, int* t_next, uint8_t* pending, int R, int N,
-    int aifs, int data_dur, int resp_dur, int exch_beacon, int sim_end,
-    int step0, int step1, float nbits, float noise_w, float scale,
-    float factor, float lc0, float lc1, float lc2, float lc3, float lc4,
-    float lc5, float lc6, float lc7, float lc8, float lc9, float e0,
-    float e1, float e2, float e3, float e4, float e5, float e6, float e7,
-    float e8, float e9, float b, int mask, void* stream) {
-  if (R <= 0 || N <= 0 || N > BSS_MAX_N || step0 < 0 || step1 < step0 ||
-      step1 > BSS_MAX_STEP || static_cast<long long>(R) * N >= (1LL << 31))
+    int aifs, int data_dur, int resp_dur, int exch_beacon,
+    const int* sim_end, const int* step0, int C, int step1, float nbits,
+    float noise_w, float scale, float factor, float lc0, float lc1,
+    float lc2, float lc3, float lc4, float lc5, float lc6, float lc7,
+    float lc8, float lc9, float e0, float e1, float e2, float e3, float e4,
+    float e5, float e6, float e7, float e8, float e9, float b, int mask,
+    int K, int preamble, float sub8, float inv_ndbps, float rate,
+    void* stream) {
+  if (R <= 0 || N <= 0 || N > BSS_MAX_N || C <= 0 || C > BSS_MAX_POINTS ||
+      K <= 0 || K > BSS_MAX_MPDUS || step1 > BSS_MAX_STEP ||
+      static_cast<long long>(C) * R * N >= (1LL << 31))
     return cudaErrorInvalidValue;
+  Points pts{};
+  for (int p = 0; p < C; ++p) {
+    if (step0[p] < 0 || step1 < step0[p]) return cudaErrorInvalidValue;
+    pts.sim_end[p] = sim_end[p];
+    pts.step0[p] = step0[p];
+  }
   const Psr psr{scale, factor,
                 {lc0, lc1, lc2, lc3, lc4, lc5, lc6, lc7, lc8, lc9},
                 {e0, e1, e2, e3, e4, e5, e6, e7, e8, e9}, b, mask};
-  const Consts c{rx_w, det, interval, stop, N, aifs, data_dur, resp_dur,
-                 exch_beacon, sim_end, nbits, noise_w, psr};
+  const Consts c{rx_w,     det,      interval,    stop,    N,
+                 aifs,     data_dur, resp_dur,    exch_beacon,
+                 nbits,    noise_w,  psr,         K,       preamble,
+                 sub8,     inv_ndbps, rate};
   const StateIn si{t, next_arr, queue, ap_pend, bcn_pend, backoff, hold,
                    immediate, cw, retries, busy_until, srv_rx, cli_rx,
                    tx_data, drops};
@@ -426,7 +523,13 @@ extern "C" int bss_advance_launch(
                     o_backoff, o_hold, o_immediate, o_cw, o_retries,
                     o_busy_until, o_srv_rx, o_cli_rx, o_tx_data, o_drops};
   const int threads = ((N + 31) / 32) * 32;
-  bss_advance_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, si, so, key, done, t_next, pending, step0, step1);
+  const dim3 grid(R, C);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (K > 1)
+    bss_advance_kernel<true><<<grid, threads, 0, st>>>(
+        c, pts, si, so, key, done, t_next, pending, step1);
+  else
+    bss_advance_kernel<false><<<grid, threads, 0, st>>>(
+        c, pts, si, so, key, done, t_next, pending, step1);
   return static_cast<int>(cudaGetLastError());
 }

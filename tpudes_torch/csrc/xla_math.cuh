@@ -10,7 +10,8 @@
 // - xla_exp: XLA's CPU exp (fused.exp), flushed below FLT_MIN;
 // - xla_log1p: XLA's Cephes log1p (fused.log1p);
 // - xla_erfc: XLA's f32 erfc as its HLO expands it (fused.erfc);
-// - nist_psr: mode_chunk_success_rate with the mode folded into Psr.
+// - nist_psr: mode_chunk_success_rate with the mode folded into Psr;
+//   nist_lg its SNR part, log1p(-pe); mpdu_rate an A-MPDU subframe's rate.
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 // __fsub_rn, which nvcc cannot contract), divisions are __fdiv_rn and roots
@@ -147,9 +148,9 @@ struct Psr {
   int mask;             // bit k: term k has a nonzero weight
 };
 
-// mode_chunk_success_rate(snr, nbits, mode) (ops/wifi_error.py)
-__device__ __forceinline__ float nist_psr(float snr, const Psr& p,
-                                          float nbits) {
+// log1p(-pe) of the error model at snr: the part of the success rate the
+// SNR alone decides (ops/wifi_error.py::log1p_neg_pe)
+__device__ __forceinline__ float nist_lg(float snr, const Psr& p) {
   const float ber = ftz(__fmul_rn(
       p.factor, xla_erfc(__fsqrt_rn(__fmul_rn(snr, p.scale)))));
   const float pc = fminf(fmaxf(ber, 0.0f), 0.5f);
@@ -163,7 +164,21 @@ __device__ __forceinline__ float nist_psr(float snr, const Psr& p,
       acc = __fadd_rn(acc, xla_exp(fma32(log_d, p.exps[k], p.log_c[k])));
   float pe = fminf(fmaxf(ftz(__fmul_rn(acc, p.b)), 0.0f), 1.0f);
   pe = fminf(pe, static_cast<float>(1.0 - 1e-12));
-  return xla_exp(__fmul_rn(nbits, xla_log1p(-pe)));
+  return xla_log1p(-pe);
+}
+
+// mode_chunk_success_rate(snr, nbits, mode) (ops/wifi_error.py)
+__device__ __forceinline__ float nist_psr(float snr, const Psr& p,
+                                          float nbits) {
+  return xla_exp(__fmul_rn(nbits, nist_lg(snr, p)));
+}
+
+// one subframe's success rate in an A-MPDU of k (ops/wifi_error.py::
+// mpdu_success_rate): psr ** (1 / k) as the compiled step computes it,
+// exp((nbits * lg) * (1 / k)); k = 1 gives nist_psr's value
+__device__ __forceinline__ float mpdu_rate(float lg, float nbits, int k) {
+  return xla_exp(__fmul_rn(__fmul_rn(nbits, lg),
+                           __fdiv_rn(1.0f, static_cast<float>(k))));
 }
 
 }  // namespace xla_math

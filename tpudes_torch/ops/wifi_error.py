@@ -17,6 +17,11 @@ ints, as they are in the step, and the result is bit-equal to the
 reference's jitted ``mode_chunk_success_rate`` with the mode and
 ``nbits`` constant (``tests/test_torch_wifi_error.py``).
 
+An A-MPDU's subframes decode at ``psr ** (1 / k)`` with ``nbits`` the
+whole PPDU's, which depends on ``k``: :func:`ampdu_airtime` and
+:func:`mpdu_success_rate` compute both as the compiled A-MPDU step does
+(``tests/test_torch_bss_ht.py``).
+
 The table model (``per_table``, ``table_chunk_success_rate``) is not on
 the BSS path and is not ported yet (ROADMAP A1).
 """
@@ -220,19 +225,76 @@ def coded_pe(ber: torch.Tensor, rate_class: int) -> torch.Tensor:
     return torch.clamp(fused.ftz(acc * fused.f32(d, b)), 0.0, 1.0)
 
 
-def chunk_success_rate(snr: torch.Tensor, nbits: float, constellation: int,
-                       rate_class: int) -> torch.Tensor:
-    """``(1 - pe)^nbits`` as ``exp(nbits * log1p(-pe))``
-    (``wifi_error.py:138-144``), ``nbits`` a constant."""
+def log1p_neg_pe(snr: torch.Tensor, constellation: int,
+                 rate_class: int) -> torch.Tensor:
+    """``log1p(-pe)``, ``pe`` clamped below 1: the part of the success
+    rate that depends on the SNR alone (``wifi_error.py:138-144``)."""
     pe = coded_pe(uncoded_ber(snr, constellation), rate_class)
     pe = torch.clamp_max(pe, fused.f32(pe, _PE_MAX))
-    return fused.exp(fused.f32(pe, nbits) * fused.log1p(-pe))
+    return fused.log1p(-pe)
 
 
-def mode_chunk_success_rate(snr: torch.Tensor, nbits: float,
+def chunk_success_rate(snr: torch.Tensor, nbits, constellation: int,
+                       rate_class: int) -> torch.Tensor:
+    """``(1 - pe)^nbits`` as ``exp(nbits * log1p(-pe))``
+    (``wifi_error.py:138-144``); ``nbits`` a constant or an f32 tensor
+    that broadcasts against ``snr`` (the product is one f32 multiply
+    either way: the compiled step neither folds nor fuses it)."""
+    lg = log1p_neg_pe(snr, constellation, rate_class)
+    if not isinstance(nbits, torch.Tensor):
+        nbits = fused.f32(lg, nbits)
+    return fused.exp(nbits * lg)
+
+
+def mode_chunk_success_rate(snr: torch.Tensor, nbits,
                             mode_index: int) -> torch.Tensor:
     """Success rate with the mode resolved from the registry by index
-    (``wifi_error.py:223-230``)."""
+    (``wifi_error.py:223-230``); the mode is static, ``nbits`` a
+    constant or a tensor."""
     mode = ALL_MODES[int(mode_index)]
     return chunk_success_rate(snr, nbits, mode.constellation,
                               mode.rate_class)
+
+
+def mpdu_success_rate(snr: torch.Tensor, nbits: torch.Tensor,
+                      k: torch.Tensor, mode_index: int) -> torch.Tensor:
+    """One subframe's success rate in an A-MPDU of ``k`` equal subframes:
+    the PPDU's ``psr ** (1 / k)`` (``replicated.py:935-944``).  The
+    compiled step never takes that power: ``psr`` is ``exp(nbits *
+    log1p(-pe))``, and XLA's simplifier rewrites ``exp(a) ** b`` as
+    ``exp(a * b)``, so the result is ``exp((nbits * log1p(-pe)) * (1 /
+    k))``, three f32 roundings then the compiler's ``exp`` (the
+    ``multiply_exponential_fusion`` of the step's optimised HLO).  With
+    ``k = 1`` it is ``psr`` itself."""
+    mode = ALL_MODES[int(mode_index)]
+    lg = log1p_neg_pe(snr, mode.constellation, mode.rate_class)
+    return fused.exp((nbits * lg) * (1.0 / k.to(torch.float32)))
+
+
+def ampdu_params(subframe_bytes: int, mode_index: int):
+    """The f32 constants of :func:`ampdu_airtime` and the preamble:
+    ``(8 sub, 1 / ndbps, rate / 1e6, preamble_us)``, each rounded to f32
+    as the compiled step folds it (the reciprocal of the f32 ``ndbps``
+    taken in f32)."""
+    mode = ALL_MODES[int(mode_index)]
+    ndbps = mode.data_rate_bps * 4e-6
+    return (float(np.float32(8.0 * subframe_bytes)),
+            float(np.float32(1.0) / np.float32(ndbps)),
+            float(np.float32(mode.data_rate_bps * 1e-6)),
+            36 if mode.standard == "ht" else 20)
+
+
+def ampdu_airtime(k: torch.Tensor, subframe_bytes: int, mode_index: int):
+    """``(dur_us, nbits)`` of an A-MPDU of ``k`` subframes
+    (``replicated.py:935-942``): ``nsym = ceil((22 + 8 sub k) / ndbps)``
+    in f32, the division by the constant ``ndbps`` done as the compiled
+    step does it (times its f32 reciprocal), ``dur = 36 + 4 nsym`` µs
+    with the HT preamble (20 for a legacy mode), and ``nbits = f32(rate
+    / 1e6) * dur``, the PER integral over the whole PPDU at the payload
+    rate.  ``k`` is int32, ``dur_us`` int32, ``nbits`` f32."""
+    sub8, inv_ndbps, rate, preamble = ampdu_params(subframe_bytes,
+                                                   mode_index)
+    x = k.to(torch.float32) * fused.f32(k, sub8) + 22.0
+    nsym = torch.ceil(x * fused.f32(k, inv_ndbps))
+    dur = (nsym * 4.0).to(torch.int32) + preamble
+    return dur, fused.f32(k, rate) * dur.to(torch.float32)

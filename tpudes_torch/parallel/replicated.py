@@ -7,6 +7,8 @@ each to its own next event — an arrival, or the earliest transmit instant
 from backoff, AIFS and the medium's ``busy_until`` — one step at a time,
 until no replica has an event before the horizon.  Per-replica state is
 ``(R, N)`` and ``(R,)`` tensors; time is a per-replica integer µs clock.
+The event loop holds a grid of C horizons, ``(C, R, N)`` and ``(C, R)``;
+a single run is its C = 1.
 
 The event loop is :func:`bss_advance`: on the card one launch of the
 persistent kernel ``csrc/bss_advance.cu`` (:mod:`tpudes_torch.parallel.
@@ -18,16 +20,23 @@ s), r))`` (:func:`tpudes_torch.random.bss_draws`), the reference's
 streams bit for bit, so a run is comparable with the JAX engine per
 replica.
 
-Ported: the static, legacy (single-MPDU) program.  The reference's
-timing model and its documented deviations (``replicated.py:38-60``)
-are reproduced, not corrected: the 1 µs clock with the propagation
-delay folded into the exchange, acks assumed decodable, one
-``busy_until`` per replica, and the same-µs double decode (two senders
-tying on one µs are each decoded at their own destination).
+Ported: the static program, legacy (one MPDU per exchange, an ack) and
+802.11n (``max_mpdus = K > 1``: a winner sends its backlog, up to K
+MPDUs, as one A-MPDU answered by a BlockAck; each subframe decodes on
+its own coin at ``psr ** (1 / k)``), and the ``sim_end_us=[...]``
+horizon sweep: C horizons as a ``(C, R)`` grid of one launch, each point
+its own loop (the reference vmaps its ``while_loop``, so a point stops
+when its own replicas are done, on its own step count).  The
+reference's timing model and its documented deviations
+(``replicated.py:38-60``, ``:962-967``) are reproduced, not corrected:
+the 1 µs clock with the propagation delay folded into the exchange,
+acks assumed decodable, one ``busy_until`` per replica, the same-µs
+double decode (two senders tying on one µs are each decoded at their
+own destination), and the whole A-MPDU dropped at the node's retry
+limit.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): A-MPDU (``max_mpdus > 1``) and the ``sim_end_us=[...]`` horizon
-sweep (A3b), mobility, ``geom_stride``, a traffic program and the
+item): mobility, ``geom_stride``, a traffic program and the
 ``traffic_sweep=`` axis (A3c), checkpoints and ``block=False`` (A11),
 ``mesh`` (A12) and the ``TpudesObs`` columns (A10).  The replica axis is
 not padded to a power of two (A11), so ``steps`` is the maximum over the
@@ -36,6 +45,7 @@ not padded to a power of two (A11), so ``steps`` is the maximum over the
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -47,10 +57,12 @@ from tpudes_torch.ops.interference import thermal_noise_w
 from tpudes_torch.ops.wifi_error import (
     ALL_MODES,
     MODES_BY_NAME,
+    ampdu_airtime,
     mode_chunk_success_rate,
+    mpdu_success_rate,
 )
 from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_advance_cuda
-from tpudes_torch.random import bss_draws
+from tpudes_torch.random import bss_draws, mpdu_coins
 
 __all__ = [
     "BssProgram", "bss_advance", "bss_advance_math", "build_bss_advance",
@@ -70,8 +82,14 @@ INF = 2**30
 MODELED_WARMUP_S = 0.25
 
 #: draws (steps x R x N, each of u_back and u_coin) the plain loop makes
-#: at once: bounds the threefry temporaries to a few hundred MB
+#: at once: bounds the threefry temporaries to a few hundred MB.  An
+#: A-MPDU program's (N, K) coins are hashed only for the gated frames of
+#: a step (:func:`tpudes_torch.random.mpdu_coins`)
 DRAW_CHUNK_ELEMS = 1 << 21
+
+#: the response under a BlockAck session: a compressed BlockAck's on-air
+#: bytes (``models/wifi/mac.py:76-78``), else a normal ack's
+BLOCK_ACK_BYTES, ACK_BYTES = 32, 14
 
 
 def _not_ported(what: str, item: str):
@@ -83,8 +101,8 @@ def _not_ported(what: str, item: str):
 @dataclass(frozen=True)
 class BssProgram:
     """Static description of one BSS scenario (``replicated.py:140-199``),
-    the same fields.  Node 0 is the AP.  The port runs the static legacy
-    program: ``mobility``, ``traffic``, ``max_mpdus > 1`` and a
+    the same fields.  Node 0 is the AP.  The port runs the static
+    program, legacy or A-MPDU: ``mobility``, ``traffic`` and a
     ``geom_stride`` other than 1 raise when the program is built into a
     step (:func:`build_bss_consts`)."""
 
@@ -169,17 +187,17 @@ def _check_ported(prog: BssProgram) -> None:
         raise _not_ported("geom_stride", "A3c")
     if prog.traffic is not None:
         raise _not_ported("a BSS traffic program", "A3c")
-    if int(prog.max_mpdus) > 1:
-        raise _not_ported("A-MPDU aggregation (max_mpdus > 1)", "A3b")
 
 
 def build_bss_consts(prog: BssProgram, device=None) -> dict:
     """The step's per-program constants (``replicated.py:603-637``), on
     ``device`` (the card by default): the f32 rx power table (N, N)
     from the f64 host table (diagonal 0), the detectability table, the
-    arrival timing rows, the exchange durations in µs, ``nbits`` of a
-    data frame (the PPDU airtime at the payload rate), the noise floor
-    and the data mode."""
+    arrival timing rows, the exchange durations in µs (the response a
+    BlockAck under aggregation, else an ack), ``nbits`` of a legacy data
+    frame (the PPDU airtime at the payload rate), the noise floor, the
+    data mode, and the A-MPDU cap ``K`` (1: legacy) with the subframe
+    bytes."""
     _check_ported(prog)
     device = resolve_device(device)
     data_mode = ALL_MODES[prog.data_mode_idx]
@@ -205,7 +223,8 @@ def build_bss_consts(prog: BssProgram, device=None) -> dict:
         stop=i32(prog.stop_us),
         aifs=int(prog.aifs_us),
         data_dur=_ppdu_us(prog.data_bytes, data_mode),
-        resp_dur=_ppdu_us(14, ack_mode),
+        resp_dur=_ppdu_us(BLOCK_ACK_BYTES if prog.max_mpdus > 1
+                          else ACK_BYTES, ack_mode),
         exch_beacon=_ppdu_us(prog.beacon_bytes,
                              MODES_BY_NAME["OfdmRate6Mbps"]),
         nbits=float(np.float32(data_mode.data_rate_bps * data_airtime_s)),
@@ -214,11 +233,13 @@ def build_bss_consts(prog: BssProgram, device=None) -> dict:
         )),
         mode=int(prog.data_mode_idx),
         sim_end=int(prog.sim_end_us),
+        K=max(1, int(prog.max_mpdus)),
+        subframe_bytes=int(prog.subframe_bytes),
     )
 
 
 # --------------------------------------------------------------------------
-# the plain PyTorch step (``replicated.py:674-1103``, non-aggregated)
+# the plain PyTorch step (``replicated.py:674-1103``)
 # --------------------------------------------------------------------------
 
 
@@ -272,29 +293,59 @@ def tx_times(c: dict, s: dict) -> torch.Tensor:
     return torch.where(has_frame(s), torch.maximum(tx, t), INF)
 
 
-def pending(c: dict, s: dict, sim_end: int) -> torch.Tensor:
+def pending(c: dict, s: dict, sim_end) -> torch.Tensor:
     """(R,): the replica has an event before the horizon
     (``replicated.py:1095-1098``)."""
     nxt = torch.minimum(tx_times(c, s).amin(1), s["next_arr"].amin(1))
     return (s["t"] < sim_end) & (nxt < sim_end)
 
 
-def decode(c: dict, sinr: torch.Tensor, coin: torch.Tensor) -> torch.Tensor:
-    """A gated data frame decodes when its coin falls below its NIST
-    success rate at its SINR (``replicated.py:954-958``)."""
-    return coin < mode_chunk_success_rate(sinr, c["nbits"], c["mode"])
+def decode_mpdus(c: dict, sinr: torch.Tensor, k: torch.Tensor,
+                 nbits: torch.Tensor, coins: torch.Tensor):
+    """``(n_ok, p_mpdu)`` of gated A-MPDUs of ``k`` subframes
+    (``replicated.py:919-951``): subframe ``j < k`` decodes when its coin
+    ``coins[:, j]`` falls below ``psr ** (1 / k)`` at the PPDU's SINR and
+    ``nbits``."""
+    p = mpdu_success_rate(sinr, nbits, k, c["mode"])
+    j = torch.arange(coins.shape[-1], device=coins.device)
+    ok = (coins < p[:, None]) & (j[None, :] < k[:, None])
+    return ok.sum(1, dtype=torch.int32), p
 
 
-def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin: torch.Tensor,
-            sim_end: int) -> dict:
-    """One event step of every replica (``replicated.py:738-1093``, the
-    non-aggregated branch) on its ``(R, N)`` draws."""
+def _tally(census: dict, name: str, value: torch.Tensor) -> None:
+    census[name] = census.get(name, 0) + value.to(torch.int64).sum()
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """ulps between non-negative f32 values (their bit patterns' gap)."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
+            sim_end, census: dict | None = None) -> dict:
+    """One event step of every replica (``replicated.py:738-1093``) on
+    its ``(R, N)`` backoff draws and its coins: ``(R, N)`` for a legacy
+    program, for an A-MPDU one a function ``(rows, nodes) -> (G, K)``
+    that draws the rows of the ``(N, K)`` coins the gated frames need
+    (:func:`tpudes_torch.random.mpdu_coins`).  ``sim_end`` is the
+    horizon, an int or an ``(R,)`` tensor (a horizon per row: the
+    event loop's grid of horizons, flattened).
+
+    ``census``, a dict, gathers counts of what the step did, as 0-dim
+    tensors added to in place (no host sync): ``gated`` data frames
+    (decoded at their destination), their ``mpdus``, ``partial``
+    A-MPDUs (some but not all subframes decoded), ``overlap`` (gated
+    frames with another frame on the air), ``three_winners``
+    (replica-steps with three or more same-µs winners, whose
+    interference sum the reference's dot may round in its own order)
+    and ``coin_ties`` (coins within 4 ulp of their success rate)."""
     R, n = u_back.shape
     dev = u_back.device
     i32 = torch.int32
     node = torch.arange(n, device=dev)
     is_ap = node == 0
     aifs = c["aifs"]
+    agg = c["K"] > 1
 
     frame = has_frame(s)
     tx_t = tx_times(c, s)
@@ -362,17 +413,51 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin: torch.Tensor,
     beacon_tx = winners & is_ap & ap_sends_beacon[:, None]
     data_tx = winners & ~beacon_tx
     gate = data_tx & det & dst_idle
-    # the coin against the PSR, taken only where a frame is gated (the
-    # reference computes the PSR everywhere and masks it)
+    # the coins against the success rate, taken only where a frame is
+    # gated (the reference computes the rate everywhere and masks it)
     where = gate.nonzero(as_tuple=True)
-    n_ok = torch.zeros_like(gate)
-    n_ok[where] = decode(c, sinr[where], u_coin[where])
-    success = data_tx & n_ok
-    fail = data_tx & ~n_ok
+    n_ok = torch.zeros(gate.shape, dtype=i32, device=dev)
+    if not agg:
+        # one MPDU: its coin against the NIST success rate at its SINR
+        # (``replicated.py:954-958``)
+        k_agg = 1
+        dur_k = torch.full_like(s["hold"], c["data_dur"])
+        coins = u_coin[where]
+        p = mode_chunk_success_rate(sinr[where], c["nbits"], c["mode"])
+        n_ok[where] = (coins < p).to(i32)
+    else:
+        # an A-MPDU of the winner's backlog, up to K: a STA's queue, the
+        # AP's echoes pending for its destination (``replicated.py:
+        # 919-951``); its airtime and nbits grow with k
+        k_ap = s["ap_pend"].gather(1, echo_dst[:, None]).clamp_max(c["K"])
+        k_agg = torch.clamp_min(torch.where(
+            is_ap, k_ap, s["queue"].clamp_max(c["K"])), 1)
+        dur_k, nbits_k = ampdu_airtime(k_agg, c["subframe_bytes"],
+                                       c["mode"])
+        coins = u_coin(*where)
+        n_ok[where], p = decode_mpdus(c, sinr[where], k_agg[where],
+                                      nbits_k[where], coins)
+    if census is not None:
+        _tally(census, "gated", gate)
+        _tally(census, "overlap", gate & (interf != 0.0))
+        _tally(census, "three_winners", winners.sum(1) >= 3)
+        if agg:
+            k_g = k_agg[where]
+            _tally(census, "mpdus", k_g)
+            _tally(census, "partial", (n_ok[where] > 0) & (n_ok[where] < k_g))
+            used = (torch.arange(c["K"], device=dev)[None, :]
+                    < k_g[:, None])
+            _tally(census, "coin_ties", (_ulp_gap(coins, p[:, None]) <= 4)
+                   & used)
+        else:
+            _tally(census, "mpdus", gate)
+            _tally(census, "coin_ties", _ulp_gap(coins, p) <= 4)
+    success = data_tx & (n_ok > 0)
+    fail = data_tx & (n_ok == 0)
 
-    # ---------- outcome updates
-    sta_ok = (n_ok & ~is_ap).to(i32)
-    got_echo = n_ok[:, 0].to(i32)
+    # ---------- outcome updates (counts: an A-MPDU delivers n_ok MPDUs)
+    sta_ok = torch.where(is_ap, 0, n_ok)
+    got_echo = n_ok[:, 0]
     ed_i = ed_1h.to(i32)
     new_srv = s["srv_rx"] + sta_ok.sum(1, dtype=i32)
     new_cli = s["cli_rx"] + ed_i * got_echo[:, None]
@@ -380,8 +465,9 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin: torch.Tensor,
     new_ap_pend = s["ap_pend"] + sta_ok - ed_i * got_echo[:, None]
     new_bcn = new_bcn - ap_sends_beacon.to(i32)
 
+    # the node's retry counter: at the limit the whole head A-MPDU drops
     retry_exceeded = fail & (s["retries"] + 1 > RETRY_LIMIT)
-    drop_n = retry_exceeded.to(i32)
+    drop_n = retry_exceeded.to(i32) * k_agg
     new_drops = s["drops"] + drop_n.sum(1, dtype=i32)
     new_queue = new_queue - drop_n * (~is_ap).to(i32)
     new_ap_pend = new_ap_pend - ed_i * drop_n[:, :1]
@@ -395,12 +481,12 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin: torch.Tensor,
     new_backoff = torch.where(winners, drawn_post, new_backoff)
     new_immediate = new_immediate & ~winners
 
-    # medium occupancy: the acked exchange, the bare data airtime on a
-    # failure, the beacon's airtime; a failed sender waits its ack timeout
-    exch = c["data_dur"] + SIFS + c["resp_dur"]
-    occ = torch.full_like(s["hold"], c["data_dur"])
-    occ = torch.where(beacon_tx, c["exch_beacon"], occ)
-    occ = torch.where(success, exch, occ)
+    # medium occupancy: the acked (BlockAck'd) exchange, the bare data
+    # airtime on a failure, the beacon's airtime; a failed sender waits
+    # its response timeout
+    exch = dur_k + SIFS + c["resp_dur"]
+    occ = torch.where(success, exch,
+                      torch.where(beacon_tx, c["exch_beacon"], dur_k))
     new_busy = torch.where(
         any_win, next_t + torch.where(winners, occ, 0).amax(1),
         s["busy_until"])
@@ -449,55 +535,104 @@ def build_bss_step(prog: BssProgram, replicas: int, device=None):
 # --------------------------------------------------------------------------
 
 
+def _rows(state: dict, idx) -> dict:
+    return state if idx is None else {k: v[idx] for k, v in state.items()}
+
+
 def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
-                     step0: int, step1: int):
-    """The event loop in plain PyTorch (any device): steps ``step0,
-    step0 + 1, ...`` while ``step < step1`` and any replica is pending
-    (``replicated.py:1150-1159``), on draws made for a block of steps
-    at a time.  Returns ``(state, steps, pending)``: the step counter
-    after the loop and the ``(R,)`` pending flags of the last state."""
-    R, n = state["queue"].shape
-    end = consts["sim_end"]
+                     step0, step1: int, sim_end=None,
+                     census: dict | None = None):
+    """The event loop in plain PyTorch (any device) over a grid of C
+    horizons: ``state`` is ``(C, R, ...)``, ``step0`` a list of C step
+    counters and ``sim_end`` a list of C horizons (None: the program's
+    own, C = 1; a single run is the grid's C = 1).  Each point is its
+    own loop, as the reference runs one and vmaps it over a sweep
+    (``replicated.py:1150-1159``, ``:1403-1422``): it steps while its
+    counter is below ``step1`` and any of its replicas is pending, so a
+    point stops on its own condition and its state stays as it stopped;
+    the points still running at a step run it together, and replica
+    ``r`` of every point draws the single run's streams (backoff draws
+    made for a block of steps at a time).  Returns ``(state, steps,
+    pending)``: the ``(C, R, ...)`` state, the list of C counters after
+    the loop and the ``(C, R)`` pending flags of the last state.
+    ``census`` is :func:`step_fn`'s."""
+    ends = [int(v) for v in (sim_end if sim_end is not None
+                             else [consts["sim_end"]])]
+    C = len(ends)
+    flat = {k: v.flatten(0, 1) for k, v in state.items()}
+    rows, n = flat["queue"].shape
+    R = rows // C
+    dev = flat["queue"].device
+    steps = [int(v) for v in step0]
+    end = torch.tensor(ends, dtype=torch.int32,
+                       device=dev).repeat_interleave(R)
+    K = consts["K"]
     block = max(1, DRAW_CHUNK_ELEMS // (R * n))
-    step, u_back, u_coin, b0 = step0, None, None, step0
-    still = pending(consts, state, end)
-    while step < step1 and bool(still.any()):
-        if u_back is None or step >= b0 + len(u_back):
+    draws, b0 = None, 0
+    still = pending(consts, flat, end).view(C, R)
+    while True:
+        live = still.any(1).tolist()
+        act = [c for c in range(C) if live[c] and steps[c] < step1]
+        if not act:
+            break
+        step = min(steps[c] for c in act)
+        group = [c for c in act if steps[c] == step]
+        if draws is None or step >= b0 + len(draws[0]):
             b0 = step
-            u_back, u_coin = bss_draws(key, step, min(step + block, step1),
-                                       R, n)
-        state = step_fn(consts, state, u_back[step - b0], u_coin[step - b0],
-                        end)
-        step += 1
-        still = pending(consts, state, end)
-    return state, step, still
+            draws = bss_draws(key, step, min(step + block, step1), R, n,
+                              coin_keys=K > 1)
+        idx = None if len(group) == C else torch.cat([
+            torch.arange(c * R, (c + 1) * R, device=dev) for c in group])
+        reps = len(group)
+        u_back = draws[0][step - b0].repeat(reps, 1)
+        coin = draws[1][step - b0].repeat(reps, 1)   # A-MPDU: coin keys
+        u_coin = coin if K == 1 else (
+            lambda r, i, k=coin: mpdu_coins(k[r], i, K))
+        new = step_fn(consts, _rows(flat, idx), u_back, u_coin,
+                      end if idx is None else end[idx], census)
+        if idx is None:
+            flat = new
+        else:
+            flat = {k: v.index_copy(0, idx, new[k]) for k, v in flat.items()}
+        for c in group:
+            steps[c] += 1
+        still = pending(consts, flat, end).view(C, R)
+    return ({k: v.unflatten(0, (C, R)) for k, v in flat.items()}, steps,
+            still)
 
 
-def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0: int,
-                step1: int):
-    """Steps ``[step0, step1)`` of the event loop, ending early when no
-    replica is pending: the plain loop for CPU tensors, one launch of
-    the persistent CUDA kernel for CUDA tensors (or an error).  ``key``
-    is the run's ``(2,)`` int64 key; returns ``(state, steps,
-    pending)`` as :func:`bss_advance_math` does."""
+def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0,
+                step1: int, sim_end=None):
+    """Steps ``[step0, step1)`` of the event loop over a grid of
+    horizons, each point ending early when none of its replicas is
+    pending: the plain loop for CPU tensors, one launch of the
+    persistent CUDA kernel for CUDA tensors (or an error).  ``key`` is
+    the run's ``(2,)`` int64 key; the state, ``step0``, ``sim_end`` and
+    the result as :func:`bss_advance_math` takes and gives them
+    (``(C, R, ...)`` state, a counter and a horizon per point)."""
     if key.device.type == "cpu":
-        return bss_advance_math(consts, state, key, step0, step1)
+        return bss_advance_math(consts, state, key, step0, step1, sim_end)
     if key.device.type == "cuda":
-        return bss_advance_cuda(consts, state, key, step0, step1)
+        return bss_advance_cuda(consts, state, key, step0, step1, sim_end)
     raise ValueError(f"no BSS advance for device {key.device}")
 
 
 def build_bss_advance(prog: BssProgram, replicas: int, device=None):
-    """``(consts, init_state, advance)`` with ``advance(state, key,
-    step0, step1) -> (state, steps, pending)`` (``replicated.py:1127-
-    1191``, :func:`bss_advance`), on ``device`` (the card by
-    default)."""
+    """``(consts, init_state, advance)`` with ``init_state(points=1)``
+    the ``(C, R, ...)`` initial state of C points and ``advance(state,
+    key, step0, step1, sim_end=None) -> (state, steps, pending)``
+    (``replicated.py:1127-1191``, :func:`bss_advance`), on ``device``
+    (the card by default)."""
     consts = build_bss_consts(prog, device)
 
-    def advance(state, key, step0, step1):
-        return bss_advance(consts, state, key, step0, step1)
+    def init(points: int = 1):
+        return {k: v.expand(points, *v.shape).clone()
+                for k, v in init_state(consts, replicas).items()}
 
-    return consts, (lambda: init_state(consts, replicas)), advance
+    def advance(state, key, step0, step1, sim_end=None):
+        return bss_advance(consts, state, key, step0, step1, sim_end)
+
+    return consts, init, advance
 
 
 def chunk_bounds(total: int, chunk: int) -> list[int]:
@@ -509,11 +644,15 @@ def chunk_bounds(total: int, chunk: int) -> list[int]:
     return list(range(chunk, total, chunk)) + [total]
 
 
-def _bss_unpack(state: dict, steps: int, still: torch.Tensor) -> dict:
-    """The result dict (``replicated.py:1237-1267``), as numpy."""
+def _bss_unpack(state: dict, steps: list, still: torch.Tensor) -> list:
+    """The result dicts (``replicated.py:1237-1267``), as numpy, one per
+    point of the ``(C, R, ...)`` state and its C step counts (one copy
+    to the host)."""
     host = {k: state[k].cpu().numpy()
             for k in ("srv_rx", "cli_rx", "tx_data", "drops")}
-    return dict(host, steps=int(steps), all_done=not bool(still.any()))
+    done = ~still.any(-1).cpu().numpy()
+    return [dict({k: v[c] for k, v in host.items()}, steps=int(steps[c]),
+                 all_done=bool(done[c])) for c in range(len(steps))]
 
 
 def run_replicated_bss(
@@ -531,7 +670,7 @@ def run_replicated_bss(
     geom_per_step: bool = False,
     obs: bool = False,
     device=None,
-) -> dict:
+) -> dict | list[dict]:
     """Run ``replicas`` Monte-Carlo replicas of the scenario
     (``replicated.py:1326-1535``).
 
@@ -539,9 +678,18 @@ def run_replicated_bss(
     PRNGKey` or a JAX key's words).  Returns per-replica numpy arrays:
     ``srv_rx`` (R,) echo requests decoded at the AP, ``cli_rx`` (R, N)
     echo replies decoded per STA, ``tx_data`` (R,) data-frame
-    attempts, ``drops`` (R,) frames dropped at the retry limit; and
-    ``steps`` (event-loop iterations) and ``all_done`` (no replica has
-    an event left before the horizon).
+    attempts (exchanges, an A-MPDU counting once), ``drops`` (R,) frames
+    dropped at the retry limit (MPDUs); and ``steps`` (event-loop
+    iterations) and ``all_done`` (no replica has an event left before
+    the horizon).
+
+    ``sim_end_us=[...]`` runs a horizon sweep: C horizons as one
+    ``(C, R)`` grid per launch, and a list of C such dicts, point ``c``
+    equal to the run of ``dataclasses.replace(prog, sim_end_us=v)``
+    with the same key and ``max_steps`` (each point its own loop, its
+    own ``steps``; the reference's vmapped ``while_loop``).  The step
+    budget is shared: the largest of the points' estimates.  On the card
+    one launch holds up to 64 horizons (``bss_cuda.BSS_MAX_POINTS``).
 
     ``max_steps`` defaults to the reference's estimate;
     ``chunk_steps=K`` runs the loop K steps per launch, the same result.
@@ -549,8 +697,6 @@ def run_replicated_bss(
     the persistent kernel."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if sim_end_us is not None:
-        raise _not_ported("the sim_end_us=[...] horizon sweep", "A3b")
     if traffic_sweep is not None:
         raise _not_ported("traffic_sweep", "A3c")
     if geom_per_step:
@@ -561,13 +707,19 @@ def run_replicated_bss(
         raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
+    ends = ([int(prog.sim_end_us)] if sim_end_us is None
+            else [int(v) for v in sim_end_us])
+    if not ends:
+        raise ValueError("sim_end_us=[...] needs at least one horizon")
     dev = resolve_device(device)
     _, init, advance = build_bss_advance(prog, replicas, dev)
     key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
     if max_steps is None:
-        max_steps = _estimate_max_steps(prog)
-    state, steps, still = init(), 0, None
+        max_steps = max(
+            _estimate_max_steps(dataclasses.replace(prog, sim_end_us=v))
+            for v in ends)
+    state, steps, still = init(len(ends)), [0] * len(ends), None
     for bound in chunk_bounds(max_steps, chunk_steps or max_steps):
-        state, steps, still = advance(state, key, steps, bound)
-    return _bss_unpack(state, steps, still)
-
+        state, steps, still = advance(state, key, steps, bound, ends)
+    out = _bss_unpack(state, steps, still)
+    return out if sim_end_us is not None else out[0]

@@ -13,6 +13,9 @@ replicated.py:744-770``):
 
     fold_in(fold_in(key, step), r) -> split -> uniform(., (N,), f32) x 2
 
+with, in an A-MPDU program, ``uniform(., (N, K), f32)`` from the
+second key.
+
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; torch's unsigned arithmetic is thin, so every 32-bit word rides
 in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
 All functions broadcast over leading key axes, so a chunk of TTIs for
@@ -97,7 +100,11 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
 def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32)`` over ``[0, 1)``: the
     top 23 bits become the mantissa of a float in ``[1, 2)``, minus 1."""
-    bits = random_bits32(key, n)
+    return _unit(random_bits32(key, n))
+
+
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """f32 in ``[0, 1)`` from 32 random bits (in int64)."""
     mant = (bits >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
@@ -112,14 +119,33 @@ def tti_coins(keys: torch.Tensor, t0: int, t1: int, n_ue: int) -> torch.Tensor:
 
 
 def bss_draws(key: torch.Tensor, s0: int, s1: int, replicas: int,
-              n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(u_back, u_coin)``, each ``(s1 - s0, R, N)``: the BSS step's
-    draws for steps ``[s0, s1)`` and every replica in one vectorised
-    call.  Step ``s``, replica ``r`` draws ``k_back, k_coin =
-    split(fold_in(fold_in(key, s), r))`` and ``uniform(k, (N,))`` of
-    each (``replicated.py:744-770``): the step is folded in first."""
+              n: int, coin_keys: bool = False):
+    """``(u_back, u_coin)``: the BSS step's draws for steps ``[s0, s1)``
+    and every replica in one vectorised call.  Step ``s``, replica ``r``
+    draws ``k_back, k_coin = split(fold_in(fold_in(key, s), r))``, then
+    ``uniform(k_back, (N,))`` and ``uniform(k_coin, (N,))``, each
+    ``(s1 - s0, R, N)``.  An A-MPDU program draws ``uniform(k_coin, (N,
+    K))`` in place of the second (``replicated.py:748-757``): with
+    ``coin_keys`` the second is ``k_coin`` itself, ``(s1 - s0, R, 2)``,
+    for :func:`mpdu_coins`."""
     steps = torch.arange(s0, s1, dtype=torch.int64, device=key.device)
     ks = fold_in(key[None, :], steps)                        # (S, 2)
     kr = fold_in(ks[:, None, :], torch.arange(replicas, device=key.device))
     kk = split(kr)                                           # (S, R, 2, 2)
-    return uniform(kk[..., 0, :], n), uniform(kk[..., 1, :], n)
+    u_back = uniform(kk[..., 0, :], n)
+    if coin_keys:
+        return u_back, kk[..., 1, :]
+    return u_back, uniform(kk[..., 1, :], n)
+
+
+def mpdu_coins(k_coin: torch.Tensor, nodes: torch.Tensor,
+               mpdus: int) -> torch.Tensor:
+    """``(G, K)``: rows of the ``(N, K)`` MPDU coins, hashed only where
+    they are needed: row ``g`` is ``uniform(k_coin[g], (N, K))[nodes[g]]``
+    (the flat index ``i K + j`` is the threefry counter) for ``G`` coin
+    keys (:func:`bss_draws` with ``coin_keys``) and nodes."""
+    j = torch.arange(mpdus, dtype=torch.int64, device=k_coin.device)
+    lo = nodes.to(torch.int64)[:, None] * mpdus + j[None, :]
+    y0, y1 = threefry2x32(k_coin[:, 0:1], k_coin[:, 1:2],
+                          torch.zeros_like(lo), lo)
+    return _unit(y0 ^ y1)

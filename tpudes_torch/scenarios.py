@@ -16,8 +16,8 @@ reference's own positions to :func:`lena_grid_program`).
 :func:`lena_traffic_program` gives the static drop finite backlogs under
 the ON-OFF workload of the reference's LTE traffic test.
 
-:func:`bss_program` lowers the static legacy BSS of
-``tpudes/scenarios.py::build_bss`` as ``replicated.py::lower_bss`` does,
+:func:`bss_program` lowers the static BSS of ``tpudes/scenarios.py::
+build_bss``, 802.11a or 802.11n, as ``replicated.py::lower_bss`` does,
 from the reference's own arguments and defaults, without building the
 object graph.
 """
@@ -40,6 +40,8 @@ from tpudes_torch.parallel.replicated import (
     DIFS,
     INF,
     MODELED_WARMUP_S,
+    SIFS,
+    SLOT,
     BssProgram,
     _pairwise_rx_dbm,
 )
@@ -69,6 +71,23 @@ BSS_BEACON_BYTES = 50 + 24 + 4
 BSS_BEACON_INTERVAL_US = 102400
 #: the control answer rates, ascending (``models/wifi/mac.py:51-60``)
 BSS_MANDATORY_RATES = ("OfdmRate6Mbps", "OfdmRate12Mbps", "OfdmRate24Mbps")
+#: an A-MPDU's subframe cap, the BlockAck window (``models/wifi/mac.py:80``)
+MAX_AMPDU_FRAMES = 64
+#: the A-MPDU size an HT MAC defaults to (``models/wifi/helper.py:178``)
+HT_MAX_AMPDU_SIZE = 65535
+#: the MPDU delimiter and FCS bytes of a subframe (``models/wifi/mac.py:79``,
+#: ``:46``)
+MPDU_DELIMITER_SIZE, FCS_SIZE = 4, 4
+#: the standards ``bss_program`` lowers: 802.11a (DCF, single MPDUs) and
+#: 802.11n, whose MACs default to QoS and A-MPDUs under a BlockAck
+#: session (``models/wifi/helper.py:129``, ``:171-178``)
+BSS_STANDARDS = ("80211a", "80211n")
+
+
+def ampdu_subframe_bytes(mpdu_size: int) -> int:
+    """On-air bytes of one A-MPDU subframe: the delimiter, the MPDU and
+    its FCS, padded to 4 bytes (``models/wifi/mac.py:83-87``)."""
+    return (MPDU_DELIMITER_SIZE + mpdu_size + FCS_SIZE + 3) & ~3
 
 
 def hex_grid(n: int, spacing: float) -> list[tuple[float, float]]:
@@ -259,31 +278,40 @@ def bss_program(
     interval_s: float = 0.1,
     packet_bytes: int = 512,
     data_mode: str = "OfdmRate54Mbps",
+    standard: str = "80211a",
 ) -> BssProgram:
-    """The static legacy BSS of ``build_bss(n_stas, sim_s, radii,
-    interval_s, packet_bytes, data_mode)`` (``tpudes/scenarios.py:35-
+    """The static BSS of ``build_bss(n_stas, sim_s, radii, interval_s,
+    packet_bytes, data_mode, standard)`` (``tpudes/scenarios.py:35-
     174``) lowered as ``lower_bss`` lowers it (``replicated.py:222-464``):
 
     - the AP at the origin, STA ``i`` on the circle ``radii[i % len]``
       at angle ``2 pi i / n_stas``, positions in f32 of the f64 formula;
-    - 802.11a: data at ``data_mode``, the ack at the control answer
-      rate (the fastest mandatory rate not above it), beacons at 6
-      Mbit/s, DIFS contention;
+    - data at ``data_mode`` (an OFDM or HT mode), the ack at the control
+      answer rate (the fastest mandatory rate not above it), beacons at
+      6 Mbit/s; under 802.11a DIFS contention and one MPDU per exchange,
+      under 802.11n QoS AC_BE contention (AIFS = SIFS + 3 slots) and
+      A-MPDUs of up to ``min(64, 65535 // subframe)`` subframes answered
+      by a BlockAck (``replicated.py:359-369``, ``:402-404``);
     - UDP echo of ``packet_bytes`` from each STA every ``interval_s``,
       starting at ``1 s + 1 ms * i`` and stopping at ``sim_s``; AP
       beacons every 102,400 µs from 0, never stopping;
     - the PHY defaults (16.0206 dBm, log-distance exponent 3 from 46.6777
       dB at 1 m, 7 dB noise figure, 20 MHz, -101 dBm sensitivity).
 
-    Raises ``ValueError`` where a pair of nodes cannot hear each other
-    (the engine's one ``busy_until`` per replica cannot represent hidden
-    nodes), and warns, as the reference does, on a horizon within 5x of
-    the skipped warm-up."""
+    Raises ``ValueError`` for a mode outside the OFDM and HT registry
+    (the DSSS rates), a standard other than :data:`BSS_STANDARDS`, and
+    where a pair of nodes cannot hear each other (the engine's one
+    ``busy_until`` per replica cannot represent hidden nodes); warns, as
+    the reference does, on a horizon within 5x of the skipped warm-up."""
     mode = MODES_BY_NAME.get(data_mode)
-    if mode is None or mode.standard != "ofdm":
+    if mode is None:
         raise ValueError(
-            f"bss_program lowers the 802.11a graph; {data_mode!r} is not an "
-            "OFDM mode"
+            f"bss_program lowers OFDM and HT modes; {data_mode!r} is neither"
+        )
+    if standard not in BSS_STANDARDS:
+        raise ValueError(
+            f"bss_program lowers the standards {BSS_STANDARDS}; got "
+            f"{standard!r}"
         )
     if sim_s < 5.0 * MODELED_WARMUP_S:        # ``replicated.py:251-261``
         warnings.warn(
@@ -300,6 +328,13 @@ def bss_program(
     for name in BSS_MANDATORY_RATES:
         if MODES_BY_NAME[name].data_rate_bps <= mode.data_rate_bps:
             ack = MODES_BY_NAME[name]
+    max_mpdus, subframe_bytes, aifs = 1, 0, DIFS
+    if standard == "80211n":
+        subframe_bytes = ampdu_subframe_bytes(
+            int(packet_bytes) + BSS_FRAME_OVERHEAD - FCS_SIZE)
+        max_mpdus = max(1, min(MAX_AMPDU_FRAMES,
+                               HT_MAX_AMPDU_SIZE // subframe_bytes))
+        aifs = SIFS + 3 * SLOT
     n = n_stas + 1
     start = np.full((n,), INF, np.int64)
     interval = np.full((n,), INF, np.int64)
@@ -319,7 +354,9 @@ def bss_program(
         interval_us=np.minimum(interval, INF).astype(np.int32),
         stop_us=np.minimum(stop, INF).astype(np.int32),
         sim_end_us=int(sim_s * 1e6),
-        aifs_us=DIFS,
+        aifs_us=aifs,
+        max_mpdus=max_mpdus,
+        subframe_bytes=subframe_bytes,
     )
     if not bool((_pairwise_rx_dbm(prog) >= prog.rx_sensitivity_dbm).all()):
         raise ValueError(
