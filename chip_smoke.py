@@ -23,9 +23,13 @@ row), finite backlogs filled from an offered-bits table (traffic) and
 bf16 — and ``lte_sm_step`` (one TTI per launch; the single-step route,
 ``build_sm_step``), f32 and bf16; and ``bss_advance`` (the BSS event
 loop, every step of a chunk in one persistent launch;
-``run_replicated_bss``'s path) in its arms — legacy, ``AGG`` (A-MPDUs)
-and the ``(C, R)`` grid of a horizon sweep.  Phases, in order; any
-failure exits non-zero and no phase carries on past one:
+``run_replicated_bss``'s path) in its arms — legacy, ``AGG`` (A-MPDUs),
+the ``(C, R)`` grid of a horizon sweep, ``MOB`` (``bench.py::
+bench_mobile_bss``'s drifting STAs, the geometry rebuilt in the kernel
+every 8 steps), ``TRF`` (``bench_traffic_burst``'s ON-OFF workload on
+bench_wifi's BSS) and the traffic grid (eight workload points, 8 x 512
+CTAs).  Phases, in order; any failure exits non-zero and no phase
+carries on past one:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``tpudes_torch/csrc`` (``nvcc``, one process
@@ -54,7 +58,15 @@ failure exits non-zero and no phase carries on past one:
    BSS program of each through the plain loop on the CPU against the
    kernel on the card; and the horizon sweep of each, 1.25/1.5/1.75/2 s
    x 512 replicas, one grid launch against the plain grid loop and
-   against each point's own launch;
+   against each point's own launch; then (3h) the ``MOB`` arm on
+   ``bench_mobile_bss``'s program, ``TRF`` on the ON-OFF program, the
+   traffic grid of the eight workload points (8 x 512) and all three
+   composed under 802.11n, at 512 replicas x 2 s (the last two x 1.5
+   s, ``BSS_ARM_CHECK_S``): the whole state
+   (``geom_t`` too), the step counts and the pending flags bit-equal to
+   the plain loop over one launch and over two split mid-stride, the
+   grid also against each point's own launch, a small program of each
+   through the plain loop on the CPU against the kernel on the card;
 4. the slice through the plain loop and through the kernel, both on the
    card, 64 replicas x 500 TTIs, static, moving and with traffic:
    integer outputs (and backlogs) equal; a small program of each through
@@ -79,6 +91,12 @@ failure exits non-zero and no phase carries on past one:
    and five timed runs on keys 1..5, each one launch, every replica
    done; and the four-point horizon sweep of each at 512 replicas, one
    grid launch a run (``sim_s_per_wall_s`` summed over the points);
+   then (5m) ``bench_mobile_bss`` (``wall_vs_static`` against the
+   static run in the same call, ``geom_refreshes``), (5t) the ON-OFF
+   bench (``stage_overhead`` and ``burst_overhead`` as
+   ``bench_traffic_burst`` defines them, the cbr workload's outputs
+   equal to ``traffic=None``'s) and (5w) the workload sweep, each one
+   launch a run, every replica done;
 6. one JSON line with every kernel arm's numbers, then the result line.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
@@ -176,6 +194,26 @@ THREEFRY_OPS = 72
 BSS_NODE_OPS = 25
 BSS_PSR_OPS = 350
 BSS_TAIL_OPS = 30
+#: bench.py::bench_mobile_bss (``:241-322``): bench_wifi's BSS, the STAs
+#: drifting tangentially at 1 m/s, the geometry rebuilt every 8 steps
+BSS_MOBILE = dict(mobility="const_velocity", speed=1.0, geom_stride=8)
+#: the horizon (s) of the arm checks whose plain loop is longest (phase
+#: 3h): the composed program's and the workload sweep's (8 x 512) run
+#: 1.5 s, the last 0.5 s of which carry traffic, so that the script
+#: ends well inside its time limit; their benches run the full 2 s
+BSS_ARM_CHECK_S = {"sweep": 1.5, "composed": 1.5}
+#: the MOB and TRF arms' work: per refresh each node's position (about
+#: 10 f32 operations), its link to the AP (the distance, the compiled
+#: log and the loss, about 45 f32 operations, and glibc's exp2 in f64,
+#: about 12) and its lone-sender chain (BSS_PSR_OPS); in a step where
+#: the AP sends data each winner's link to its destination.  Per gap drawn: mmpp three
+#: threefry hashes and about 30 f32 operations (log1p, a division, the
+#: rounding), onoff 2 C int32 operations (its cycle's count) and the
+#: same 30 f32, trace 2 K int32 (its entry's count), cbr a load
+MOB_POS_OPS, MOB_LINK_F32_OPS, MOB_LINK_F64_OPS = 10, 45, 12
+GAP_F32_OPS = 30
+#: H100 SXM f64 operations/s outside the tensor cores (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12
 #: the kernels line's source and replaced code of bss_advance's arms
 BSS_SOURCE = "tpudes_torch/csrc/bss_advance.cu"
 BSS_REPLACES = ("tpudes/parallel/replicated.py:1155 (lax.while_loop over "
@@ -462,6 +500,12 @@ def gate_census(kc, prog, key, device):
     return out, int(held), R * prog.n_ttis * int(elig.sum())
 
 
+def torch_floordiv(x, d: int):
+    import torch
+
+    return torch.div(x, d, rounding_mode="floor")
+
+
 def bss_bound(consts, state, out, done, step0, census=None):
     """Least time for one ``bss_advance`` launch on these inputs: the
     state read once and written once and the constants read once over
@@ -469,7 +513,9 @@ def bss_bound(consts, state, out, done, step0, census=None):
     replica-steps it ran, ``done - step0`` summed, and its data frames,
     ``tx_data``'s growth; under AGG the plain loop's census of the same
     run: gated frames, their subframes and the overlapping ones) over
-    each type's rate; the larger wins."""
+    each type's rate; the larger wins.  A mobile program adds its
+    refreshes and links, a traffic one its gaps (:data:`MOB_POS_OPS`,
+    :data:`GAP_F32_OPS`), from the census and the CTAs' stops."""
     n = consts["N"]
     nbytes = sum(v.nbytes for v in state.values())
     nbytes += sum(v.nbytes for v in out.values())
@@ -478,6 +524,7 @@ def bss_bound(consts, state, out, done, step0, census=None):
     replica_steps = int((done.long() - step0).sum())
     frames = int((out["tx_data"] - state["tx_data"]).sum())
     int_ops = replica_steps * (3 * THREEFRY_OPS + n * BSS_NODE_OPS)
+    f64_ops = 0
     if consts["K"] > 1:
         ctas = done.numel()
         int_ops += (frames + census["mpdus"]) * THREEFRY_OPS
@@ -486,10 +533,34 @@ def bss_bound(consts, state, out, done, step0, census=None):
     else:
         int_ops += frames * 2 * THREEFRY_OPS
         f32_ops = frames * BSS_PSR_OPS
+    mob, tr = consts["mob"], consts["tr"]
+    if mob is not None:
+        # MOB: the refreshes each CTA ran (multiples of the stride in
+        # [step0, done)), n positions, links and chains each; a link per
+        # transmission
+        stride = mob["stride"]
+        nbytes += sum(v.nbytes for k, v in mob["ops"].items()
+                      if k != "mob_id")
+        refreshes = int((torch_floordiv(done.long() - 1, stride)
+                         - (step0 - 1) // stride).clamp_min(0).sum())
+        links = refreshes * n + census["ed_links"]
+        f32_ops += (refreshes * n * (MOB_POS_OPS + BSS_PSR_OPS)
+                    + links * MOB_LINK_F32_OPS)
+        f64_ops += links * MOB_LINK_F64_OPS
+    if tr is not None:
+        # TRF: the gaps drawn, by model
+        ops = tr["ops"]
+        nbytes += sum(v.nbytes for v in ops.values())
+        C, K = ops["tr_on_start"].shape[2], ops["tr_arr_t"].shape[2]
+        int_ops += (census["gaps_mmpp"] * 3 * THREEFRY_OPS
+                    + census["gaps_onoff"] * 2 * C
+                    + census["gaps_trace"] * 2 * K)
+        f32_ops += (census["gaps_mmpp"] + census["gaps_onoff"]) * GAP_F32_OPS
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         "operations": max(int_ops / INT32_OPS_PER_S,
-                          f32_ops / F32_OPS_PER_S) * 1e3,
+                          f32_ops / F32_OPS_PER_S,
+                          f64_ops / F64_OPS_PER_S) * 1e3,
     }
     by = max(times, key=times.get)
     return times[by], by
@@ -517,99 +588,6 @@ def bss_programs() -> dict:
 
 def census_line(census: dict) -> str:
     return ", ".join(f"{k} {int(v)}" for k, v in sorted(census.items()))
-
-
-def bss_check(kc, dev, which: str) -> dict:
-    """Phase 3g (``which`` "legacy") and 3g-ht ("ht"): ``bss_advance``
-    against the plain loop on the card at bench width, one launch and
-    two launches split at a step boundary; the plain loop's census of
-    what the run did (under 802.11n it must hold a partially decoded
-    A-MPDU; every run a retry-limit drop; the replica-steps with three or
-    more same-µs winners are ROADMAP C2's count); a small program's CPU
-    run against its card run; the kernel's device time per launch and
-    its bound."""
-    import torch
-    from tpudes_torch.parallel import replicated as bss
-    from tpudes_torch.parallel.bss_cuda import (
-        BSS_STATE,
-        bss_advance_cuda,
-        bss_launch,
-    )
-    from tpudes_torch.random import PRNGKey
-
-    progs = bss_programs()
-    prog = progs[which]
-    consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
-    key = PRNGKey(BSS_CHECK_SEED, device=dev)
-    bound = bss._estimate_max_steps(prog)
-    census = {}
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    want, (w_steps,), w_pend = bss.bss_advance_math(
-        consts, init(), key, [0], bound, census=census)
-    torch.cuda.synchronize()
-    plain_s = time.monotonic() - t0
-    census = {k: int(v) for k, v in census.items()}
-    got, (steps,), pend = bss_advance_cuda(consts, init(), key, [0], bound)
-    split = w_steps // 2
-    half, (h_steps,), _ = bss_advance_cuda(consts, init(), key, [0], split)
-    two, (t_steps,), t_pend = bss_advance_cuda(consts, half, key, [h_steps],
-                                               bound)
-    torch.cuda.synchronize()
-    what = f"bss_advance ({which})"
-    if (steps, h_steps, t_steps) != (w_steps, split, w_steps):
-        fail(f"{what} steps {steps}, {h_steps} + {t_steps}; plain loop "
-             f"{w_steps} (split at {split})")
-    if not (torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)):
-        fail(f"{what} pending flags differ from the plain loop's")
-    err = 0.0
-    for k, _, _ in BSS_STATE:
-        for how, x in (("one launch", got), ("two launches", two)):
-            if not torch.equal(x[k], want[k]):
-                fail(f"{what} ({how}) vs plain loop: {k} differs")
-        err = max(err, (got[k].double() - want[k].double()).abs().max().item())
-    if bool(w_pend.any()) or int(want["drops"].sum()) <= 0:
-        fail(f"{what} check: a replica still pending, or no drop")
-    if prog.max_mpdus > 1 and not (census["mpdus"] > census["gated"]
-                                   and census["partial"] > 0):
-        fail(f"{what} check: no A-MPDU of several subframes decoded in "
-             f"part ({census_line(census)})")
-    print(f"{what} vs plain loop: {len(BSS_STATE)} state arrays, the step "
-          f"count ({w_steps}) and the pending flags bit-equal at "
-          f"N={consts['N']} R={BSS_R} K={consts['K']} over one launch and "
-          f"over two split at step {split}; srv_rx "
-          f"{int(want['srv_rx'].sum())}, tx_data "
-          f"{int(want['tx_data'].sum())}, drops {int(want['drops'].sum())}; "
-          f"plain loop wall {plain_s:.3f} s", flush=True)
-    print(f"{what} census of the plain loop (C2: three_winners): "
-          f"{census_line(census)}", flush=True)
-
-    small = progs[f"small_{which}"]
-    on_cpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device="cpu")
-    on_gpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device=dev)
-    for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done"):
-        if not np.array_equal(on_cpu[k], on_gpu[k]):
-            fail(f"small BSS program ({which}): CPU plain loop vs kernel "
-                 f"differs in {k}")
-    print(f"small BSS program ({which}, 8 STAs, 8 x 1.5 s): CPU plain loop "
-          f"== kernel on the card ({on_gpu['steps']} steps, srv_rx "
-          f"{int(on_gpu['srv_rx'].sum())}, drops "
-          f"{int(on_gpu['drops'].sum())})", flush=True)
-
-    s0 = init()
-    ms, host_ms = timed_ms(lambda: bss_launch(consts, s0, key, [0], bound),
-                           BSS_TIMED_CALLS, reps=3)
-    out, done, _, _ = bss_launch(consts, s0, key, [0], bound)
-    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0, census)
-    us_step = ms * 1e3 / w_steps
-    print(f"{what}: one launch of {w_steps} steps x {BSS_R} CTAs: "
-          f"device {ms:.4f} ms/launch = {us_step:.4f} us/step (host "
-          f"{host_ms:.4f} ms/call), plain loop wall {plain_s * 1e3:.1f} ms, "
-          f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, steps=w_steps,
-                us_per_step=us_step, bound=(bound_ms, bound_by),
-                plain_sim_s_per_wall_s=BSS_R * BSS_SIM_S / plain_s,
-                census=census)
 
 
 def bss_sweep_check(kc, dev, which: str) -> dict:
@@ -774,6 +752,344 @@ def bss_sweep_bench(kc, dev, which: str) -> dict:
         sim_s_per_wall_s=BSS_R * sum(BSS_SWEEP_S) / med,
         wall_median_s=med, wall_min_s=min(walls), wall_max_s=max(walls),
         kernel_launches=launches,
+    )), flush=True)
+    return launches
+
+
+def bss_arm_programs() -> dict:
+    """The programs of the ``MOB`` and ``TRF`` arms: ``bench_mobile_bss``'s
+    (bench_wifi's BSS drifting, :data:`BSS_MOBILE`); bench_wifi's BSS
+    under ``bench_traffic_burst``'s ON-OFF workload at its own mean echo
+    rate (``programs.bss_onoff_traffic``), and under the cbr workload of
+    its own intervals (the ``traffic_off`` pair of ``traffic=None``); the
+    eight workload-sweep points on it (``programs.toy_traffic_points``,
+    the AP on its beacons); all three composed under 802.11n; and a small
+    program of each for the CPU-vs-card check (8 STAs on 12/20/28 m
+    rings, 1.3 s)."""
+    import warnings
+
+    from tpudes_torch.parallel.programs import (
+        bss_onoff_traffic,
+        toy_traffic_points,
+    )
+    from tpudes_torch.scenarios import bss_program
+    from tpudes_torch.traffic.program import TrafficProgram
+
+    def points(p):
+        return toy_traffic_points(p.n, p.sim_end_us, start_us=p.start_us,
+                                  beacon=(int(p.interval_us[0]),
+                                          int(p.start_us[0])))
+
+    def onoff(p):
+        return dataclasses.replace(p, traffic=bss_onoff_traffic(p))
+
+    rings = dict(radii=(12.0, 20.0, 28.0))
+    small_mob = dict(mobility="const_velocity", speed=2.0, geom_stride=3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the short-horizon advisory
+        base = bss_program(BSS_N_STAS, BSS_SIM_S)
+        small = bss_program(8, 1.3, **rings)
+        out = dict(
+            mobile=bss_program(BSS_N_STAS, BSS_SIM_S, **BSS_MOBILE),
+            onoff=onoff(base),
+            cbr=dataclasses.replace(base, traffic=TrafficProgram.cbr(
+                base.start_us, base.interval_us)),
+            composed=onoff(bss_program(BSS_N_STAS, BSS_SIM_S, **BSS_MOBILE,
+                                       **BSS_HT)),
+            small_mobile=bss_program(8, 1.3, **rings, **small_mob),
+            small_onoff=onoff(small),
+            small_composed=onoff(bss_program(8, 1.3, **rings, **small_mob,
+                                             **BSS_HT)),
+        )
+    out["sweep_points"] = points(base)
+    out["sweep"] = dataclasses.replace(base, traffic=out["sweep_points"][0])
+    out["small_sweep_points"] = points(small)
+    out["small_sweep"] = dataclasses.replace(
+        small, traffic=out["small_sweep_points"][0])
+    return out
+
+
+def bss_check(kc, dev, name: str) -> dict:
+    """Phases 3g, 3g-ht and 3h: ``bss_advance`` against the plain loop on
+    the card at bench width, ``name`` one of :func:`bss_programs`'s
+    legacy and ht (the legacy arm and ``AGG``) or :func:`bss_arm_programs`'s
+    mobile, onoff, sweep and composed (``MOB``, ``TRF``, the traffic grid
+    of 8 x 512, all three under 802.11n): the whole state (``geom_t``
+    too), the step counts and the pending flags bit-equal over one launch
+    and over two split mid-stride; the sweep also against each point's
+    own launch; the plain loop's census (every run a retry-limit drop;
+    under 802.11n a partially decoded A-MPDU; the replica-steps with
+    three or more same-µs winners are ROADMAP C2's count); the small
+    program's CPU run against its card run; the launch's device time and
+    its bound."""
+    import torch
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import (
+        BSS_STATE,
+        bss_advance_cuda,
+        bss_launch,
+    )
+    from tpudes_torch.random import PRNGKey
+
+    progs = {**bss_programs(), **bss_arm_programs()}
+    prog = progs[name]
+    if name in BSS_ARM_CHECK_S:
+        prog = dataclasses.replace(
+            prog, sim_end_us=int(round(BSS_ARM_CHECK_S[name] * 1e6)))
+    sweep = progs["sweep_points"] if name == "sweep" else None
+    C = len(sweep) if sweep else 1
+    ends = [prog.sim_end_us] * C
+    consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev, sweep)
+    key = PRNGKey(BSS_CHECK_SEED, device=dev)
+    bound = max(bss._estimate_max_steps(dataclasses.replace(
+        prog, traffic=tp)) for tp in (sweep or [prog.traffic]))
+    census = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want, w_steps, w_pend = bss.bss_advance_math(
+        consts, init(C), key, [0] * C, bound, ends, census=census)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    census = {k: int(v) for k, v in census.items()}
+    got, steps, pend = bss_advance_cuda(consts, init(C), key, [0] * C,
+                                        bound, ends)
+    stride = consts["mob"]["stride"] if consts["mob"] is not None else 1
+    split = min(w_steps) // 2
+    split += int(stride > 1 and split % stride == 0)     # mid-stride
+    half, h_steps, _ = bss_advance_cuda(consts, init(C), key, [0] * C,
+                                        split, ends)
+    two, t_steps, t_pend = bss_advance_cuda(consts, half, key, h_steps,
+                                            bound, ends)
+    torch.cuda.synchronize()
+    what = f"bss_advance ({name})"
+    if steps != w_steps or t_steps != w_steps or h_steps != [split] * C:
+        fail(f"{what} steps {steps}, {h_steps} + {t_steps}; plain loop "
+             f"{w_steps} (split at {split})")
+    if not (torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)):
+        fail(f"{what} pending flags differ from the plain loop's")
+    err = 0.0
+    for k, _, _ in BSS_STATE:
+        for how, x in (("one launch", got), ("two launches", two)):
+            if not torch.equal(x[k], want[k]):
+                fail(f"{what} ({how}) vs plain loop: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs().max().item())
+    if bool(w_pend.any()) or int(want["drops"].sum()) <= 0:
+        fail(f"{what} check: a replica still pending, or no drop")
+    if prog.max_mpdus > 1 and not (census["mpdus"] > census["gated"]
+                                   and census["partial"] > 0):
+        fail(f"{what} check: no A-MPDU of several subframes decoded in "
+             f"part ({census_line(census)})")
+    if sweep:
+        for c, tp in enumerate(sweep):
+            pc, pinit, _ = bss.build_bss_advance(
+                dataclasses.replace(prog, traffic=tp), BSS_R, dev)
+            one, o_steps, o_pend = bss_advance_cuda(pc, pinit(), key, [0],
+                                                    bound, ends[:1])
+            if o_steps != [steps[c]] or not torch.equal(o_pend[0], pend[c]):
+                fail(f"{what}: point {c} steps {steps[c]}, its own launch "
+                     f"{o_steps}")
+            for k, _, _ in BSS_STATE:
+                if not torch.equal(got[k][c], one[k][0]):
+                    fail(f"{what}: point {c} differs from its own launch "
+                         f"in {k}")
+    print(f"{what} vs plain loop: {len(BSS_STATE)} state arrays, the step "
+          f"counts ({w_steps}) and the pending flags bit-equal at "
+          f"N={consts['N']} C={C} R={BSS_R} K={consts['K']}, "
+          f"{prog.sim_end_us / 1e6} s, over one launch "
+          f"and over two split at step {split} (stride {stride})"
+          + ("; each point == its own launch" if sweep else "")
+          + f"; srv_rx {int(want['srv_rx'].sum())}, tx_data "
+          f"{int(want['tx_data'].sum())}, drops {int(want['drops'].sum())}; "
+          f"plain loop wall {plain_s:.3f} s", flush=True)
+    print(f"{what} census of the plain loop (C2: three_winners): "
+          f"{census_line(census)}", flush=True)
+
+    small = progs[f"small_{name}"]
+    kw = ({"traffic_sweep": progs["small_sweep_points"]} if sweep else {})
+    on_cpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device="cpu", **kw)
+    on_gpu = bss.run_replicated_bss(small, 8, PRNGKey(3), device=dev, **kw)
+    sim_s = small.sim_end_us / 1e6
+    for c, (a, b) in enumerate(zip(on_cpu if sweep else [on_cpu],
+                                   on_gpu if sweep else [on_gpu])):
+        for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps",
+                  "all_done") + (("geom_refreshes",) if small.mobility
+                                 else ()):
+            if not np.array_equal(a[k], b[k]):
+                fail(f"small BSS program ({name}, point {c}): CPU plain "
+                     f"loop vs kernel differs in {k}")
+    print(f"small BSS program ({name}, 8 STAs, {C} x 8 x {sim_s} s): CPU "
+          f"plain loop == kernel on the card", flush=True)
+
+    s0 = init(C)
+    ms, host_ms = timed_ms(
+        lambda: bss_launch(consts, s0, key, [0] * C, bound, ends),
+        BSS_TIMED_CALLS, reps=3)
+    out, done, _, _ = bss_launch(consts, s0, key, [0] * C, bound, ends)
+    bound_ms, bound_by = bss_bound(consts, s0, out, done, 0, census)
+    us_step = ms * 1e3 / max(w_steps)
+    print(f"{what}: one launch of {C} x {BSS_R} CTAs, {max(w_steps)} steps "
+          f"at most: device {ms:.4f} ms/launch = {us_step:.4f} us/step "
+          f"(host {host_ms:.4f} ms/call), plain loop wall "
+          f"{plain_s * 1e3:.1f} ms, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, steps=max(w_steps),
+                us_per_step=us_step, bound=(bound_ms, bound_by),
+                plain_sim_s_per_wall_s=C * BSS_R * prog.sim_end_us / 1e6
+                / plain_s, census=census)
+
+
+def bss_timed_runs(kc, run, want: dict, what: str):
+    """One warm run (key 0), then ``BSS_TIMED_RUNS`` counted runs on keys
+    1.. (each launch count ``want``'s, every replica done): ``(walls,
+    outputs, launches)``."""
+    run(0)                                                  # warm-up
+    walls, outs, launches = [], [], None
+    for i in range(BSS_TIMED_RUNS):
+        out, wall, launches = counted(kc, lambda: run(1 + i), want, what)
+        if not all(p["all_done"] for p in (out if isinstance(out, list)
+                                           else [out])):
+            fail(f"{what} run {i}: a replica did not finish")
+        walls.append(wall)
+        outs.append(out)
+    return walls, outs, launches
+
+
+def bss_mobile_bench(kc, dev, check: dict) -> dict:
+    """Phase 5m, ``bench.py::bench_mobile_bss`` on the port: the mobile
+    program's main path and, in the same call, the static legacy one's
+    (``wall_vs_static`` the ratio of their medians); prints its JSON line
+    and returns the mobile runs' launches."""
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.random import PRNGKey
+
+    mob = bss_arm_programs()["mobile"]
+    static = bss_programs()["legacy"]
+
+    def runner(prog):
+        return lambda seed: run_replicated_bss(prog, BSS_R, PRNGKey(seed),
+                                               device=dev)
+
+    walls, outs, launches = bss_timed_runs(
+        kc, runner(mob), {"bss_advance": 1, "bss_advance:mobile": 1},
+        "mobile BSS main path")
+    s_walls, _, _ = bss_timed_runs(kc, runner(static), {"bss_advance": 1},
+                                   "static BSS main path")
+    busy, kernel_ms = device_busy_share(lambda: runner(mob)(1),
+                                        "bss_advance")
+    med, s_med = statistics.median(walls), statistics.median(s_walls)
+    print(json.dumps(dict(
+        phase="bench_mobile_bss", replicas=BSS_R, n_stas=BSS_N_STAS,
+        sim_s=BSS_SIM_S, mob_model=BSS_MOBILE["mobility"],
+        speed_mps=BSS_MOBILE["speed"], geom_stride=BSS_MOBILE["geom_stride"],
+        steps=[o["steps"] for o in outs],
+        geom_refreshes=[o["geom_refreshes"] for o in outs],
+        sim_s_per_wall_s=BSS_R * BSS_SIM_S / med,
+        static_sim_s_per_wall_s=BSS_R * BSS_SIM_S / s_med,
+        wall_vs_static=med / s_med, wall_median_s=med,
+        wall_min_s=min(walls), wall_max_s=max(walls),
+        static_wall_median_s=s_med,
+        srv_rx_mean=sum(int(o["srv_rx"].sum()) for o in outs)
+        / (BSS_TIMED_RUNS * BSS_R),
+        kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        kernel_check_ms=check["ms"], plain_loop_wall_s=check["plain_ms"] / 1e3,
+    )), flush=True)
+    return launches
+
+
+def bss_traffic_bench(kc, dev, check: dict) -> dict:
+    """Phase 5t, ``bench.py::bench_traffic_burst``'s measurements on
+    bench_wifi's BSS: ``traffic=None``, the cbr workload of its own
+    intervals and the ON-OFF workload at the same mean load;
+    ``stage_overhead`` = min cbr wall / min ``None`` wall,
+    ``burst_overhead`` = min ON-OFF wall / min cbr wall / (ON-OFF steps /
+    cbr steps); the cbr runs' outputs equal ``None``'s bit for bit, key
+    by key (the ``traffic_off`` pair).  Prints its JSON line and returns
+    the ON-OFF runs' launches."""
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.random import PRNGKey
+
+    progs = bss_arm_programs()
+    none = bss_programs()["legacy"]
+
+    def runner(prog):
+        return lambda seed: run_replicated_bss(prog, BSS_R, PRNGKey(seed),
+                                               device=dev)
+
+    trf = {"bss_advance": 1, "bss_advance:traffic": 1}
+    n_walls, n_outs, _ = bss_timed_runs(kc, runner(none), {"bss_advance": 1},
+                                        "BSS main path, traffic=None")
+    c_walls, c_outs, _ = bss_timed_runs(kc, runner(progs["cbr"]), trf,
+                                        "BSS main path, cbr workload")
+    b_walls, b_outs, launches = bss_timed_runs(
+        kc, runner(progs["onoff"]), trf, "BSS main path, ON-OFF workload")
+    for i, (a, b) in enumerate(zip(c_outs, n_outs)):
+        for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps"):
+            if not np.array_equal(a[k], b[k]):
+                fail(f"traffic_off pair, key {1 + i}: the cbr workload "
+                     f"differs from traffic=None in {k}")
+    busy, kernel_ms = device_busy_share(lambda: runner(progs["onoff"])(1),
+                                        "bss_advance")
+    step_ratio = b_outs[-1]["steps"] / max(c_outs[-1]["steps"], 1)
+    med = statistics.median(b_walls)
+    tp = progs["onoff"].traffic
+    print(json.dumps(dict(
+        phase="bench_traffic_burst", replicas=BSS_R, n_stas=BSS_N_STAS,
+        sim_s=BSS_SIM_S, peak_pps=float(tp.peak_pps[1]),
+        duty=float(tp.rate_pps[1] / tp.peak_pps[1]),
+        burst_steps=[o["steps"] for o in b_outs],
+        cbr_steps=[o["steps"] for o in c_outs],
+        sim_s_per_wall_s=BSS_R * BSS_SIM_S / med, wall_median_s=med,
+        wall_min_s=min(b_walls), wall_max_s=max(b_walls),
+        wall_none_min_s=min(n_walls), wall_cbr_min_s=min(c_walls),
+        stage_overhead=min(c_walls) / min(n_walls),
+        burst_wall_ratio=min(b_walls) / min(c_walls),
+        burst_overhead=min(b_walls) / min(c_walls) / step_ratio,
+        traffic_off_bit_equal=True,
+        srv_rx_mean=sum(int(o["srv_rx"].sum()) for o in b_outs)
+        / (BSS_TIMED_RUNS * BSS_R),
+        kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        kernel_check_ms=check["ms"], plain_loop_wall_s=check["plain_ms"] / 1e3,
+    )), flush=True)
+    return launches
+
+
+def bss_workload_sweep_bench(kc, dev, check: dict) -> dict:
+    """Phase 5w: the eight workload points on bench_wifi's BSS through
+    ``run_replicated_bss(..., traffic_sweep=[...])``, one grid launch of
+    8 x ``BSS_R`` CTAs a run (``sim_s_per_wall_s`` summed over the
+    points); prints its JSON line and returns its launches."""
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.random import PRNGKey
+
+    progs = bss_arm_programs()
+    pts = progs["sweep_points"]
+
+    def run(seed):
+        return run_replicated_bss(progs["sweep"], BSS_R, PRNGKey(seed),
+                                  device=dev, traffic_sweep=pts)
+
+    walls, outs, launches = bss_timed_runs(
+        kc, run, {"bss_advance": 1, "bss_advance:traffic": 1,
+                  "bss_advance:traffic_sweep": 1}, "BSS workload sweep")
+    busy, kernel_ms = device_busy_share(lambda: run(1), "bss_advance")
+    med = statistics.median(walls)
+    print(json.dumps(dict(
+        phase="bench_bss_traffic_sweep", replicas=BSS_R, points=len(pts),
+        models=[tp.model for tp in pts], sim_s=BSS_SIM_S,
+        steps=[[p["steps"] for p in o] for o in outs],
+        sim_s_per_wall_s=BSS_R * len(pts) * BSS_SIM_S / med,
+        wall_median_s=med, wall_min_s=min(walls), wall_max_s=max(walls),
+        kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        kernel_check_ms=check["ms"], plain_loop_wall_s=check["plain_ms"] / 1e3,
     )), flush=True)
     return launches
 
@@ -1262,6 +1578,9 @@ def main(device: str = "cuda") -> int:
     bss_numbers = bss_check(kc, dev, "legacy")
     ht_numbers = bss_check(kc, dev, "ht")
     sweep_numbers = {w: bss_sweep_check(kc, dev, w) for w in ("legacy", "ht")}
+    # 3h. the MOB and TRF arms and the traffic grid at bench width
+    arm_numbers = {w: bss_check(kc, dev, w)
+                   for w in ("mobile", "onoff", "sweep", "composed")}
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -1748,6 +2067,10 @@ def main(device: str = "cuda") -> int:
     wlaunches = bss_bench(kc, dev, bss_numbers, "legacy")
     htlaunches = bss_bench(kc, dev, ht_numbers, "ht")
     swlaunches = {w: bss_sweep_bench(kc, dev, w) for w in ("legacy", "ht")}
+    # 5m. bench_mobile_bss; 5t. the ON-OFF bench; 5w. the workload sweep
+    mob_launches = bss_mobile_bench(kc, dev, arm_numbers["mobile"])
+    trf_launches = bss_traffic_bench(kc, dev, arm_numbers["onoff"])
+    wsw_launches = bss_workload_sweep_bench(kc, dev, arm_numbers["sweep"])
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -1791,6 +2114,22 @@ def main(device: str = "cuda") -> int:
               sweep_numbers["ht"]["plain_ms"], sweep_numbers["ht"]["bound"],
               source=BSS_SOURCE,
               replaces=BSS_REPLACES + ", vmapped over horizons :1403-1422"),
+        entry("bss_advance:mobile", mob_launches["bss_advance:mobile"],
+              arm_numbers["mobile"]["err"], arm_numbers["mobile"]["ms"],
+              arm_numbers["mobile"]["plain_ms"],
+              arm_numbers["mobile"]["bound"], source=BSS_SOURCE,
+              replaces=BSS_REPLACES + ", its geometry stage :864-891"),
+        entry("bss_advance:traffic", trf_launches["bss_advance:traffic"],
+              arm_numbers["onoff"]["err"], arm_numbers["onoff"]["ms"],
+              arm_numbers["onoff"]["plain_ms"],
+              arm_numbers["onoff"]["bound"], source=BSS_SOURCE,
+              replaces=BSS_REPLACES + ", its traffic stage :792-807"),
+        entry("bss_advance:traffic_sweep",
+              wsw_launches["bss_advance:traffic_sweep"],
+              arm_numbers["sweep"]["err"], arm_numbers["sweep"]["ms"],
+              arm_numbers["sweep"]["plain_ms"],
+              arm_numbers["sweep"]["bound"], source=BSS_SOURCE,
+              replaces=BSS_REPLACES + ", vmapped over workloads :1397-1459"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

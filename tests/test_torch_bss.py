@@ -267,9 +267,8 @@ def test_wrapper_takes_the_plain_loop_on_the_cpu(lowered):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()),
-    dict(traffic_sweep=[object()]), dict(checkpoint="x"),
-    dict(block=False), dict(geom_per_step=True), dict(obs=True),
+    dict(mesh=object()), dict(checkpoint="x"), dict(block=False),
+    dict(obs=True),
 ])
 def test_unported_run_options_raise(lowered, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -277,11 +276,30 @@ def test_unported_run_options_raise(lowered, kwargs):
                                device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("fields", [
-    dict(mobility=object()),
-    dict(traffic=object()), dict(geom_stride=8),
-])
+@pytest.mark.parametrize("fields", ["mobility", "traffic", "geom_stride"])
 def test_unported_program_arms_raise(lowered, fields):
-    prog = dataclasses.replace(_port(lowered["two_rings"]), **fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bss.run_replicated_bss(prog, 2, PRNGKey(0), device="cpu")
+    """The program arms once refused here (ROADMAP A3c) now run
+    (``tests/test_torch_bss_mobile.py`` and ``test_torch_bss_traffic.py``
+    hold them against the JAX engine): a motion program of the static
+    model reports its geometry refreshes, the cbr workload of the
+    program's own intervals and a stride without motion give the static
+    run's outputs."""
+    from tpudes_torch.ops.mobility import MobilityProgram
+    from tpudes_torch.traffic.program import TrafficProgram
+
+    port = _port(lowered["two_rings"])
+    arm = dict(
+        mobility=dict(mobility=MobilityProgram.static(port.positions)),
+        traffic=dict(traffic=TrafficProgram.cbr(port.start_us,
+                                                port.interval_us)),
+        geom_stride=dict(geom_stride=8),
+    )[fields]
+    prog = dataclasses.replace(port, **arm)
+    got = bss.run_replicated_bss(prog, 2, PRNGKey(0), device="cpu")
+    assert got["all_done"]
+    if fields == "mobility":
+        assert got["geom_refreshes"] == got["steps"]
+    else:
+        want = bss.run_replicated_bss(port, 2, PRNGKey(0), device="cpu")
+        for k in OUT_KEYS:
+            assert np.array_equal(got[k], want[k]), k

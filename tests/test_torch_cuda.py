@@ -21,8 +21,13 @@ import torch
 
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import replicated as bss
+from tpudes_torch.ops.mobility import MobilityProgram
 from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.parallel.lte_sm import run_lte_sm
+from tpudes_torch.parallel.programs import (
+    bss_onoff_traffic,
+    toy_traffic_points,
+)
 from tpudes_torch.random import PRNGKey, replica_keys
 from tpudes_torch.scenarios import (
     ONOFF_OFF_MEAN_S,
@@ -81,12 +86,15 @@ def _harq_consts(prog, card):
 
 
 def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
-            step_bf16=0, bss=0, bss_agg=0, bss_sweep=0):
+            step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
+            bss_trf=0, bss_trf_sweep=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
             "lte_sm_advance:bf16": bf16, "bss_advance": bss,
-            "bss_advance:agg": bss_agg, "bss_advance:sweep": bss_sweep}
+            "bss_advance:agg": bss_agg, "bss_advance:sweep": bss_sweep,
+            "bss_advance:mobile": bss_mob, "bss_advance:traffic": bss_trf,
+            "bss_advance:traffic_sweep": bss_trf_sweep}
 
 
 def _bit_equal(a, b):
@@ -521,3 +529,120 @@ def test_bss_sweep_grid_equals_plain_and_single_launches(card, ht):
         for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps",
                   "all_done"):
             assert np.array_equal(sweep[c][k], one[k]), (c, k)
+
+
+def _waypoint_program():
+    """8 STAs on 12/20/28 m rings walking three legs of waypoints."""
+    prog = bss_program(8, 1.3, radii=(12.0, 20.0, 28.0))
+    wt = np.tile(np.array([0, 1_100_000, 1_200_000, 10**9]), (9, 1))
+    wt[0] = [0, 1, 2, 3]
+    wp = np.repeat(prog.positions[:, None, :], 4, 1).copy()
+    wp[1:, 1, 0] += 6.0
+    wp[1:, 2, 1] -= 5.0
+    return dataclasses.replace(prog, geom_stride=4,
+                               mobility=MobilityProgram.waypoints(wt, wp))
+
+
+def _onoff(prog):
+    return dataclasses.replace(prog, traffic=bss_onoff_traffic(prog))
+
+
+#: the programs of the MOB and TRF arms' checks (16 STAs, 1.3 s): each
+#: mobility model, the ON-OFF workload, and all three composed under
+#: 802.11n
+ARM_PROGRAMS = {
+    "const_velocity": lambda: bss_program(
+        16, 1.3, mobility="const_velocity", speed=5.0, geom_stride=3),
+    "random_walk": lambda: bss_program(
+        16, 1.3, mobility="random_walk", speed=2.0, geom_stride=2),
+    "waypoint": _waypoint_program,
+    "onoff": lambda: _onoff(bss_program(16, 1.3)),
+    "composed": lambda: _onoff(bss_program(
+        16, 1.3, interval_s=0.01, data_mode="HtMcs7", standard="80211n",
+        mobility="const_velocity", speed=3.0, geom_stride=4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", list(ARM_PROGRAMS))
+def test_bss_mob_trf_kernel_bit_equal_to_plain_loop(card, which):
+    """64 replicas: the ``MOB`` / ``TRF`` arms in one launch and in two
+    split mid-stride, the whole state (``geom_t`` included), the step
+    count and the pending flags bit-equal to the plain loop on the
+    card."""
+    prog = ARM_PROGRAMS[which]()
+    consts, init, _ = bss.build_bss_advance(prog, 64, card)
+    key = PRNGKey(4).to(card)
+    bound = bss._estimate_max_steps(prog)
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(), key, [0],
+                                                 bound)
+    kc.reset_launches()
+    got, steps, pend = bss.bss_advance(consts, init(), key, [0], bound)
+    mid = w_steps[0] // 2 | 1
+    half, h_steps, _ = bss.bss_advance(consts, init(), key, [0], mid)
+    two, t_steps, t_pend = bss.bss_advance(consts, half, key, h_steps, bound)
+    mob, trf = prog.mobility is not None, prog.traffic is not None
+    assert kc.launches == _counts(bss=3, bss_agg=3 * (consts["K"] > 1),
+                                  bss_mob=3 * mob, bss_trf=3 * trf)
+    assert (steps, h_steps, t_steps) == (w_steps, [mid], w_steps)
+    assert torch.equal(pend, w_pend) and torch.equal(t_pend, w_pend)
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[k], want[k]), (which, k)
+        assert torch.equal(two[k], want[k]), (which, "two launches", k)
+    assert int(want["tx_data"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_bss_traffic_grid_equals_plain_and_single_launches(card):
+    """The eight workload points as one ``(C, R)`` launch: the whole state
+    bit-equal to the plain grid loop on the card, each point's step
+    count and pending flags too, and each point's outputs equal to its
+    own run."""
+    prog = bss_program(16, 1.3)
+    pts = toy_traffic_points(prog.n, prog.sim_end_us, start_us=prog.start_us,
+                             beacon=(int(prog.interval_us[0]),
+                                     int(prog.start_us[0])))
+    prog = dataclasses.replace(prog, traffic=pts[0])
+    consts, init, _ = bss.build_bss_advance(prog, 32, card, pts)
+    key = PRNGKey(3).to(card)
+    C = len(pts)
+    bound = max(bss._estimate_max_steps(dataclasses.replace(prog, traffic=tp))
+                for tp in pts)
+    ends = [prog.sim_end_us] * C
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(C), key,
+                                                 [0] * C, bound, ends)
+    kc.reset_launches()
+    got, steps, pend = bss.bss_advance(consts, init(C), key, [0] * C, bound,
+                                       ends)
+    assert kc.launches == _counts(bss=1, bss_trf=1, bss_trf_sweep=1)
+    assert steps == w_steps and len(set(steps)) > 4
+    assert torch.equal(pend, w_pend)
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[k], want[k]), k
+    sweep = bss.run_replicated_bss(prog, 32, PRNGKey(3), device=card,
+                                   traffic_sweep=pts, max_steps=bound)
+    for c, tp in enumerate(pts):
+        one = bss.run_replicated_bss(dataclasses.replace(prog, traffic=tp),
+                                     32, PRNGKey(3), device=card,
+                                     max_steps=bound)
+        for k in ("srv_rx", "cli_rx", "tx_data", "drops", "steps",
+                  "all_done"):
+            assert np.array_equal(sweep[c][k], one[k]), (c, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["random_walk", "composed"])
+def test_bss_mob_trf_card_equals_cpu(card, which):
+    """A mobile / traffic program's outputs on the card equal the CPU's
+    plain loop, per replica, unchunked and chunked mid-stride."""
+    prog = ARM_PROGRAMS[which]()
+    cpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device="cpu")
+    gpu = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card)
+    chunked = bss.run_replicated_bss(prog, 8, PRNGKey(6), device=card,
+                                     chunk_steps=101)
+    keys = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done",
+            "geom_refreshes")
+    for k in keys:
+        assert np.array_equal(gpu[k], cpu[k]), k
+        assert np.array_equal(chunked[k], cpu[k]), k
+    assert gpu["all_done"]

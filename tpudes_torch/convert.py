@@ -44,9 +44,9 @@ TRAFFIC_FIELDS = (
 )
 
 
-#: the reference ``BssProgram``'s fields the port reads (a static
-#: program, legacy or A-MPDU: ``max_mpdus`` and ``subframe_bytes`` carry
-#: the 802.11n arm; ``mobility`` and ``traffic`` are None)
+#: the reference ``BssProgram``'s fields the port reads (``max_mpdus``
+#: and ``subframe_bytes`` carry the 802.11n arm; ``mobility`` and
+#: ``traffic`` cross over on their own, :func:`bss_from_numpy`)
 BSS_FIELDS = (
     "positions", "data_mode_idx", "ack_mode_idx", "data_bytes",
     "beacon_bytes", "start_us", "interval_us", "stop_us", "sim_end_us",
@@ -56,9 +56,13 @@ BSS_FIELDS = (
 )
 
 
-def bss_from_numpy(fields: Mapping) -> BssProgram:
+def bss_from_numpy(fields: Mapping,
+                   mobility: MobilityProgram | None = None,
+                   traffic: TrafficProgram | None = None) -> BssProgram:
     """Port BSS program from the reference ``BssProgram``'s numpy fields
-    (:data:`BSS_FIELDS`)."""
+    (:data:`BSS_FIELDS`), moving as ``mobility`` says
+    (:func:`mobility_from_numpy`) and with the workload ``traffic``
+    (:func:`traffic_from_numpy`)."""
     ints = ("data_mode_idx", "ack_mode_idx", "data_bytes", "beacon_bytes",
             "sim_end_us", "aifs_us", "max_mpdus", "subframe_bytes",
             "geom_stride")
@@ -71,6 +75,8 @@ def bss_from_numpy(fields: Mapping) -> BssProgram:
         stop_us=np.asarray(fields["stop_us"], np.int32),
         **{k: int(fields[k]) for k in ints},
         **{k: float(fields[k]) for k in floats},
+        mobility=mobility,
+        traffic=traffic,
     )
 
 
@@ -79,13 +85,17 @@ def bss_state_from_numpy(state: Mapping, device=None) -> dict:
     from a reference ``build_bss_step`` state dict, on ``device`` (the
     card by default); the reference's ``step`` counter stays behind.  A
     horizon sweep's ``(C, R, ...)`` state carries across as it is (the
-    port's sweep layout)."""
+    port's sweep layout).  ``geom_t`` is 0 (the reference keeps a mobile
+    program's tables, not the time they were built at)."""
     device = resolve_device(device)
-    return {
+    out = {
         k: torch.tensor(np.asarray(state[k]), dtype=torch.bool if dt ==
                         "bool" else torch.int32, device=device)
-        for k, _, dt in BSS_STATE
+        for k, _, dt in BSS_STATE if k != "geom_t"
     }
+    # the reference carries a mobile program's tables, not their time
+    out["geom_t"] = torch.zeros_like(out["t"])
+    return out
 
 
 def mobility_from_numpy(fields: Mapping) -> MobilityProgram:

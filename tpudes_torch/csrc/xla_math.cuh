@@ -10,6 +10,8 @@
 // - xla_exp: XLA's CPU exp (fused.exp), flushed below FLT_MIN;
 // - xla_log1p: XLA's Cephes log1p (fused.log1p);
 // - xla_erfc: XLA's f32 erfc as its HLO expands it (fused.erfc);
+// - xla_exp10: 10 ** y as the compiled power computes it, glibc's powf
+//   (fused.exp10), in f64 operations each rounded on its own;
 // - nist_psr: mode_chunk_success_rate with the mode folded into Psr;
 //   nist_lg its SNR part, log1p(-pe); mpdu_rate an A-MPDU subframe's rate.
 //
@@ -138,6 +140,39 @@ __device__ __forceinline__ float xla_erfc(float x) {
   float far = ftz(__fmul_rn(ftz(__fmul_rn(xla_exp(-x2), __fdiv_rn(1.0f, ax))),
                             poly));
   return x < 0.0f ? __fsub_rn(2.0f, far) : far;
+}
+
+// glibc powf's exp2 table: the bits of 2 ** (i / 32) in f64 (fused.py::
+// _exp2f_table)
+__constant__ long long kExp2Tab[32] = {
+    0x3ff0000000000000LL, 0x3ff059b0d3158574LL, 0x3ff0b5586cf9890fLL,
+    0x3ff11301d0125b51LL, 0x3ff172b83c7d517bLL, 0x3ff1d4873168b9aaLL,
+    0x3ff2387a6e756238LL, 0x3ff29e9df51fdee1LL, 0x3ff306fe0a31b715LL,
+    0x3ff371a7373aa9cbLL, 0x3ff3dea64c123422LL, 0x3ff44e086061892dLL,
+    0x3ff4bfdad5362a27LL, 0x3ff5342b569d4f82LL, 0x3ff5ab07dd485429LL,
+    0x3ff6247eb03a5585LL, 0x3ff6a09e667f3bcdLL, 0x3ff71f75e8ec5f74LL,
+    0x3ff7a11473eb0187LL, 0x3ff82589994cce13LL, 0x3ff8ace5422aa0dbLL,
+    0x3ff93737b0cdc5e5LL, 0x3ff9c49182a3f090LL, 0x3ffa5503b23e255dLL,
+    0x3ffae89f995ad3adLL, 0x3ffb7f76f2fb5e47LL, 0x3ffc199bdd85529cLL,
+    0x3ffcb720dcef9069LL, 0x3ffd5818dcfba487LL, 0x3ffdfc97337b9b5fLL,
+    0x3ffea4afa2a490daLL, 0x3fff50765b6e4540LL};
+
+// 10 ** y for f32 y as glibc's powf(10, y) computes it (fused.exp10):
+// x = y log2(10) in f64, x = k / 32 + r, 2 ** (k / 32) from the table times
+// a cubic in r, rounded once to f32, below FLT_MIN flushed to 0
+__device__ __forceinline__ float xla_exp10(float y) {
+  const double c0 = 0x1.c6af84b912394p-5, c1 = 0x1.ebfce50fac4f3p-3,
+               c2 = 0x1.62e42ff0c52d6p-1, shift = 0x1.8p+47;
+  const double x = __dmul_rn(static_cast<double>(y), 0x1.a934f0979b22dp+1);
+  const double kd = __dsub_rn(__dadd_rn(x, shift), shift);
+  const double r = __dsub_rn(x, kd);
+  const long long k = static_cast<long long>(__dmul_rn(kd, 32.0));
+  const double s = __longlong_as_double(kExp2Tab[k & 31] + ((k >> 5) << 52));
+  const double out = __dmul_rn(
+      __dadd_rn(__dmul_rn(__dadd_rn(__dmul_rn(c0, r), c1), __dmul_rn(r, r)),
+                __dadd_rn(__dmul_rn(c2, r), 1.0)),
+      s);
+  return out < 1.17549435e-38 ? 0.0f : __double2float_rn(out);
 }
 
 // the error model's per-mode constants (bss_cuda.py::psr_params)

@@ -318,3 +318,13 @@ def warn_geom_stride(who: str, mobility: MobilityProgram, geom_stride: int,
             "staleness",
             stacklevel=3,
         )
+
+
+def trajectory_positions(prog: MobilityProgram, t_grid_us) -> np.ndarray:
+    """``(T, N, 3)`` f32 positions at the µs times ``t_grid_us`` on the
+    CPU, through the position math the engines run
+    (``tpudes/ops/mobility.py:425-449``): what a lowering's guards read
+    over a whole trajectory."""
+    ops = prog.operands("cpu")
+    t = torch.as_tensor(np.asarray([int(v) for v in t_grid_us], np.int32))
+    return build_position_fn(prog)(ops, t).numpy()

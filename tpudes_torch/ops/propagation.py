@@ -9,12 +9,23 @@ them:
   ``jnp.log10`` is ``log(x) * (1 / ln 10)`` with the f32 constant below,
   and the quotient is a true division;
 - compiled (``friis(..., fused=True)``, :func:`log_distance`,
-  :func:`db_to_ratio`): the geometry stage runs under ``jit``, whose
-  compiler folds ``-10 * (1 / ln 10)`` into one f32 constant, divides
-  by a constant as a multiplication by its f32 reciprocal, fuses a
-  product into the sum that follows it, and takes its own ``log``
+  :func:`db_to_ratio`, :func:`pairwise_distance`, :func:`dbm_to_w`): the
+  geometry stage runs under ``jit``, whose compiler folds ``-10 * (1 /
+  ln 10)`` into one f32 constant, divides by a constant as a
+  multiplication by its f32 reciprocal, fuses a product into the sum
+  that follows it, and takes its own ``log``
   (:mod:`tpudes_torch.ops.fused`); its ``pow`` is the C library's
   ``powf``, which :func:`db_to_ratio` reproduces.
+
+The mobile BSS step (``tpudes/parallel/replicated.py:654-672``) was read
+from its optimised HLO on the CPU: the squared distance is a reduction
+whose terms fuse into its sum, ``d0 d0`` then ``fma(d1, d1, .)`` then
+``fma(d2, d2, .)``; the loss is ``fma(log(max(d, 1)), 10 n / ln 10,
+L0)``; and ``10 ** ((tx - loss - 30) / 10)`` becomes ``powf(10, ((tx -
+30) - loss) * 0.1)``, the compiler folding the two constants ``tx`` and
+``30`` into one and dividing by 10 as a product with ``0.1``; the HLO
+keeps ``power`` (glibc's ``powf``, :func:`~tpudes_torch.ops.fused.exp10`),
+not ``exp(x ln 10)``.
 """
 
 from __future__ import annotations
@@ -65,6 +76,23 @@ def friis(
     )
 
 
+def log_distance_loss(
+    d: torch.Tensor,
+    exponent: float = 3.0,
+    reference_distance: float = 1.0,
+    reference_loss_db: float = 46.6777,
+) -> torch.Tensor:
+    """The log-distance path loss in dB, compiled arithmetic: ``L0 + 10
+    n log10(max(d, d0) / d0)``, the product fused into the sum."""
+    x = torch.clamp_min(d, reference_distance)
+    if reference_distance != 1.0:
+        x = x * compiled.f32(d, 1.0 / reference_distance)
+    return compiled.fma(
+        compiled.log(x), compiled.f32(d, _folded(10.0 * exponent)),
+        compiled.f32(d, reference_loss_db),
+    )
+
+
 def log_distance(
     tx_power_dbm,
     d: torch.Tensor,
@@ -74,14 +102,28 @@ def log_distance(
 ) -> torch.Tensor:
     """Log-distance loss (LogDistancePropagationLossModel), compiled
     arithmetic: ``rx = tx - (L0 + 10 n log10(max(d, d0) / d0))``."""
-    x = torch.clamp_min(d, reference_distance)
-    if reference_distance != 1.0:
-        x = x * compiled.f32(d, 1.0 / reference_distance)
-    path_loss = compiled.fma(
-        compiled.log(x), compiled.f32(d, _folded(10.0 * exponent)),
-        compiled.f32(d, reference_loss_db),
-    )
-    return tx_power_dbm - path_loss
+    return tx_power_dbm - log_distance_loss(d, exponent, reference_distance,
+                                            reference_loss_db)
+
+
+def pairwise_distance(pos: torch.Tensor) -> torch.Tensor:
+    """``(..., N, 3)`` f32 positions to the ``(..., N, N)`` distances,
+    compiled arithmetic: ``sqrt(fma(dz, dz, fma(dy, dy, dx dx)))``, the
+    root correctly rounded (the matrix is symmetric bit for bit)."""
+    diff = pos[..., :, None, :] - pos[..., None, :, :]
+    dx, dy, dz = diff.unbind(-1)
+    ss = compiled.fma(dz, dz, compiled.fma(dy, dy, dx * dx))
+    return compiled.sqrt(ss)
+
+
+def dbm_to_w(tx_power_dbm: float, loss_db: torch.Tensor) -> torch.Tensor:
+    """The rx power in W of a ``tx_power_dbm`` transmitter behind
+    ``loss_db``, ``10 ** ((tx - loss - 30) / 10)`` as the compiled step
+    computes it: ``powf(10, ((tx - 30) - loss) * 0.1)``, ``tx - 30`` one
+    f32 constant."""
+    tx30 = float(np.float32(tx_power_dbm) - np.float32(30.0))
+    return compiled.exp10((compiled.f32(loss_db, tx30) - loss_db)
+                          * compiled.f32(loss_db, 0.1))
 
 
 def db_to_ratio(db: torch.Tensor) -> torch.Tensor:

@@ -5,13 +5,18 @@
 ``build_bss_step.step_fn``; XLA code, no ``pallas_call``): one launch
 runs every step of a chunk for every replica, one CTA per replica and
 one thread per node, the draws made inside; an A-MPDU program runs its
-``AGG`` arm, and a horizon sweep is a ``(R, C)`` grid, ``blockIdx.y``
-the point with its own horizon.  Each CTA stops when its own replica
+``AGG`` arm, a mobile one its ``MOB`` arm (the geometry rebuilt in the
+kernel every stride steps), a traffic one its ``TRF`` arm (each arrival's
+next gap drawn in the kernel), and a sweep is a ``(R, C)`` grid,
+``blockIdx.y`` the point with its own horizon or, in a workload sweep,
+its own traffic operands.  Each CTA stops when its own replica
 has no event left before its horizon (or at the step bound);
 :func:`join_stops` then gives the replicas that stopped before the last
 one of their point the one move of ``t`` the reference's loop makes in
 their place, so the state equals the plain loop's
-(:func:`tpudes_torch.parallel.replicated.bss_advance_math`) bit for bit.
+(:func:`tpudes_torch.parallel.replicated.bss_advance_math`) bit for bit;
+for a mobile program it also gives them the geometry refresh the
+reference's loop makes in their place (``geom_t``).
 
 State layout (:data:`BSS_STATE`): a grid of C horizons, per node
 ``(C, R, N)``, per replica ``(C, R)``; a single run is C = 1.
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpudes_torch.ops.wifi_error import (
@@ -33,8 +39,10 @@ from tpudes_torch.ops.wifi_error import (
 from tpudes_torch.parallel.kernels_cuda import _check, _launch
 
 #: state layout: (key, axis, dtype) with axis "n" = (C, R, N), "r" =
-#: (C, R),
-#: in the reference's init_state order (``replicated.py:689-707``)
+#: (C, R), in the reference's init_state order (``replicated.py:689-707``),
+#: then ``geom_t``: the event time a mobile program's geometry was last
+#: rebuilt at (the reference carries the ``(R, N, N)`` tables themselves;
+#: they are a function of this time), 0 and never read for a static one
 BSS_STATE = (
     ("t", "r", "i32"), ("next_arr", "n", "i32"), ("queue", "n", "i32"),
     ("ap_pend", "n", "i32"), ("bcn_pend", "r", "i32"),
@@ -43,6 +51,7 @@ BSS_STATE = (
     ("retries", "n", "i32"), ("busy_until", "r", "i32"),
     ("srv_rx", "r", "i32"), ("cli_rx", "n", "i32"),
     ("tx_data", "r", "i32"), ("drops", "r", "i32"),
+    ("geom_t", "r", "i32"),
 )
 _DTYPES = {"i32": torch.int32, "bool": torch.bool}
 
@@ -68,6 +77,95 @@ def psr_params(mode_index: int) -> list:
     coeffs, log_c, exps, b = pe_constants(mode.rate_class)
     mask = sum(1 << k for k, a in enumerate(coeffs) if a > 0.0)
     return [scale, factor, *log_c, *exps, b, mask]
+
+
+class MobArgs(ctypes.Structure):
+    """``Mob`` of csrc/bss_advance.cu: the position math's operands and
+    the link physics (:func:`mob_args`)."""
+    _fields_ = [
+        ("model", ctypes.c_int), ("stride", ctypes.c_int),
+        *[(k, ctypes.c_void_p) for k in ("base", "vel", "speed", "bounds",
+                                         "wp_t", "wp_p", "walk")],
+        ("W", ctypes.c_int), ("n_seg", ctypes.c_int),
+        *[(k, ctypes.c_float) for k in ("seg_us", "tx", "tx30", "k_loss",
+                                        "ref_loss", "sens")],
+    ]
+
+
+class TrafficArgs(ctypes.Structure):
+    """``Traffic`` of csrc/bss_advance.cu: the stacked operand tables
+    (:func:`traffic_args`)."""
+    _fields_ = [
+        *[(k, ctypes.c_void_p) for k in ("id", "start", "interval", "rate",
+                                         "epoch_rate", "on_start", "on_len",
+                                         "peak", "arr_t")],
+        *[(k, ctypes.c_int) for k in ("S", "C", "K", "epoch_us", "multi")],
+    ]
+
+
+#: the mobility operands the kernel reads, their dtype and shape past N
+_MOB_OPS = (("mob_base", torch.float32, (3,)), ("mob_vel", torch.float32, (3,)),
+            ("mob_speed", torch.float32, (2,)))
+
+
+def mob_args(mob: dict, n: int, dev) -> MobArgs:
+    """The ``MOB`` arm's arguments from ``consts["mob"]``
+    (:func:`tpudes_torch.parallel.replicated.build_bss_consts`), its
+    tensors checked for the launch."""
+    from tpudes_torch.ops.mobility import MOB_MODEL_IDS
+    from tpudes_torch.ops.propagation import _folded
+
+    ops = mob["ops"]
+    for k, dt, tail in _MOB_OPS:
+        _check(k, ops[k], (n, *tail), dt, dev)
+    W = ops["mob_wp_t"].shape[1]
+    S = ops["mob_walk_vels"].shape[0]
+    _check("mob_bounds", ops["mob_bounds"], (4,), torch.float32, dev)
+    _check("mob_wp_t", ops["mob_wp_t"], (n, W), torch.int32, dev)
+    _check("mob_wp_p", ops["mob_wp_p"], (n, W, 3), torch.float32, dev)
+    _check("mob_walk_vels", ops["mob_walk_vels"], (S, n, 2), torch.float32,
+           dev)
+    tx = float(np.float32(mob["tx_dbm"]))
+    return MobArgs(
+        MOB_MODEL_IDS[mob["model"]], int(mob["stride"]),
+        *[ops[k].data_ptr() for k in ("mob_base", "mob_vel", "mob_speed",
+                                      "mob_bounds", "mob_wp_t", "mob_wp_p",
+                                      "mob_walk_vels")],
+        W, S, float(mob["seg_us"]), tx,
+        float(np.float32(tx) - np.float32(30.0)),
+        _folded(10.0 * mob["exponent"]), float(np.float32(mob["ref_loss"])),
+        float(np.float32(mob["sens"])),
+    )
+
+
+#: the traffic operands the kernel reads, their dtype and shape past the
+#: point axis (N entities; S epochs, C cycles, K trace entries)
+_TR_OPS = (("tr_id", torch.int32, "n"), ("tr_start", torch.int32, "n"),
+           ("tr_interval", torch.int32, "n"), ("tr_rate", torch.float32, "n"),
+           ("tr_epoch_rate", torch.float32, "s"),
+           ("tr_on_start", torch.int32, "nc"),
+           ("tr_on_len", torch.int32, "nc"), ("tr_peak", torch.float32, "nc"),
+           ("tr_arr_t", torch.int32, "nk"))
+
+
+def traffic_args(tr: dict, n: int, points: int, dev) -> TrafficArgs:
+    """The ``TRF`` arm's arguments from ``consts["tr"]``: ``P`` operand
+    sets, one per point (``P = points``, a workload sweep) or one shared
+    (``P = 1``)."""
+    ops = tr["ops"]
+    P = ops["tr_id"].shape[0]
+    if P not in (1, points):
+        raise ValueError(
+            f"bss_advance takes 1 traffic operand set or one per point; "
+            f"got {P} sets for {points} points")
+    S = ops["tr_epoch_rate"].shape[1]
+    C = ops["tr_on_start"].shape[2]
+    K = ops["tr_arr_t"].shape[2]
+    dims = {"n": (n,), "s": (S,), "nc": (n, C), "nk": (n, K)}
+    for k, dt, ax in _TR_OPS:
+        _check(k, ops[k], (P, *dims[ax]), dt, dev)
+    return TrafficArgs(*[ops[k].data_ptr() for k, _, _ in _TR_OPS],
+                       S, C, K, int(tr["epoch_us"]), int(P > 1))
 
 
 def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
@@ -122,6 +220,12 @@ def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
     psr = psr_params(consts["mode"])
     sub8, inv_ndbps, rate, preamble = ampdu_params(consts["subframe_bytes"],
                                                    consts["mode"])
+    mob = tr = None
+    if consts["mob"] is not None:
+        mob = mob_args(consts["mob"], n, dev)
+    if consts["tr"] is not None:
+        tr = traffic_args(consts["tr"], n, C, dev)
+    multi = tr is not None and tr.multi
     _launch(
         "bss_advance",
         consts["rx_w"].data_ptr(), consts["det"].data_ptr(),
@@ -137,23 +241,43 @@ def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
         *[ctypes.c_float(v) for v in psr[:-1]], psr[-1],
         K, preamble, ctypes.c_float(sub8), ctypes.c_float(inv_ndbps),
         ctypes.c_float(rate),
+        None if mob is None else ctypes.byref(mob),
+        None if tr is None else ctypes.byref(tr),
         torch.cuda.current_stream(dev).cuda_stream,
         argtypes=LAUNCH_ARGTYPES,
-        arms=("agg",) * (K > 1) + ("sweep",) * (C > 1),
+        arms=(("agg",) * (K > 1) + ("sweep",) * (C > 1 and not multi)
+              + ("mobile",) * (mob is not None)
+              + ("traffic",) * (tr is not None) + ("traffic_sweep",) * multi),
     )
     return out, done, t_next, still
 
 
-def join_stops(state: dict, done: torch.Tensor, t_next: torch.Tensor):
+def join_stops(state: dict, done: torch.Tensor, t_next: torch.Tensor,
+               stride: int | None = None, sim_end=None):
     """``(state, steps)`` of the loop from the replicas' own ``(C, R)``
     stops, each point joined on its own (its own loop): the loop ran to
-    the point's last stop, and a replica that stopped before it took one
-    more step there, in which ``t`` moves to its next event (at or past
-    the horizon) and nothing else changes (``replicated.py:776-777``).
-    ``steps``, a list of C counts, is copied to the host."""
+    the point's last stop, and a replica that stopped before it took the
+    steps between, in the first of which ``t`` moves to its next event
+    (at or past the horizon), and in which nothing else changes
+    (``replicated.py:776-777``) but, for a mobile program (``stride``
+    given, with the C horizons ``sim_end``), the geometry: the last of
+    those steps that is a multiple of ``stride`` rebuilds it, at that
+    next event if it is the first step, else at the horizon, and sets
+    ``geom_t`` to it.  ``steps``, a list of C counts, is copied to the
+    host."""
     last = done.amax(1)
-    return (dict(state, t=torch.where(done < last[:, None], t_next,
-                                      state["t"])), last.tolist())
+    late = done < last[:, None]
+    out = dict(state, t=torch.where(late, t_next, state["t"]))
+    if stride is not None:
+        end = torch.tensor(sim_end, dtype=torch.int32,
+                           device=done.device)[:, None]
+        first = torch.where(state["t"] < end, t_next, end)
+        m = torch.div(last - 1, stride, rounding_mode="floor") * stride
+        m = m[:, None].expand_as(done)
+        out["geom_t"] = torch.where(
+            late & (m >= done), torch.where(m == done, first, end),
+            state["geom_t"])
+    return out, last.tolist()
 
 
 def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
@@ -163,7 +287,11 @@ def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
     pending)`` as the plain loop does.  Never takes the plain loop."""
     out, done, t_next, still = bss_launch(consts, state, key, step0, step1,
                                           sim_end)
-    out, steps = join_stops(out, done, t_next)
+    mob = consts["mob"]
+    ends = [int(v) for v in (sim_end if sim_end is not None
+                             else [consts["sim_end"]])]
+    out, steps = join_stops(out, done, t_next,
+                            None if mob is None else mob["stride"], ends)
     return out, steps, still
 
 
@@ -172,10 +300,11 @@ def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
 #: pending, six ints (R, N, aifs, data_dur, resp_dur, exch_beacon), the
 #: C horizons and C first steps (host arrays), C, step1, nbits, noise_w,
 #: the 23 floats of psr_params and its int term mask, the A-MPDU cap K
-#: and the data preamble, the three floats of ampdu_params, stream
+#: and the data preamble, the three floats of ampdu_params, the MOB and
+#: TRF arms' arguments (host structs, or null), stream
 LAUNCH_ARGTYPES = (
     [ctypes.c_void_p] * (5 + 2 * len(BSS_STATE) + 3)
     + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_float] * (2 + 23) + [ctypes.c_int]
-    + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
 )

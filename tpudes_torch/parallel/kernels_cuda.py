@@ -126,13 +126,17 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: ``:dynamic``, ``:sweep``, ``:traffic`` and ``:bf16`` arms, and
 #: ``lte_sm_step``'s in bf16 under ``:bf16``; ``bss_advance`` is the BSS
 #: event loop's (:mod:`tpudes_torch.parallel.bss_cuda`), its launches of
-#: an A-MPDU program also under ``:agg`` and of more than one horizon
-#: under ``:sweep``
+#: an A-MPDU program also under ``:agg``, of more than one horizon under
+#: ``:sweep``, of a mobile program under ``:mobile``, of a traffic program
+#: under ``:traffic`` and of more than one workload under
+#: ``:traffic_sweep``
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
     "lte_sm_advance:traffic": 0, "lte_sm_advance:bf16": 0,
     "bss_advance": 0, "bss_advance:agg": 0, "bss_advance:sweep": 0,
+    "bss_advance:mobile": 0, "bss_advance:traffic": 0,
+    "bss_advance:traffic_sweep": 0,
 }
 
 

@@ -23,8 +23,15 @@ replica.
 Ported: the static program, legacy (one MPDU per exchange, an ack) and
 802.11n (``max_mpdus = K > 1``: a winner sends its backlog, up to K
 MPDUs, as one A-MPDU answered by a BlockAck; each subframe decodes on
-its own coin at ``psr ** (1 / k)``), and the ``sim_end_us=[...]``
-horizon sweep: C horizons as a ``(C, R)`` grid of one launch, each point
+its own coin at ``psr ** (1 / k)``); a mobile program (``mobility``:
+every ``geom_stride`` steps each replica rebuilds its ``(N, N)`` rx power
+and detectability tables at its own next event time, f32 device
+geometry, :func:`geom_tables`; the state carries that time, ``geom_t``);
+a traffic program (``traffic``: each arrival's next gap from the
+workload model, :func:`tpudes_torch.traffic.device.entry_gaps`, keyed by
+``fold_in(fold_in(key, 0x7A), r)``); and the two config axes, the
+``sim_end_us=[...]`` horizon sweep and the ``traffic_sweep=[...]``
+workload sweep: C points as a ``(C, R)`` grid of one launch, each point
 its own loop (the reference vmaps its ``while_loop``, so a point stops
 when its own replicas are done, on its own step count).  The
 reference's timing model and its documented deviations
@@ -36,9 +43,8 @@ own destination), and the whole A-MPDU dropped at the node's retry
 limit.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): mobility, ``geom_stride``, a traffic program and the
-``traffic_sweep=`` axis (A3c), checkpoints and ``block=False`` (A11),
-``mesh`` (A12) and the ``TpudesObs`` columns (A10).  The replica axis is
+item): checkpoints and ``block=False`` (A11), ``mesh`` (A12) and the
+``TpudesObs`` columns (A10).  The replica axis is
 not padded to a power of two (A11), so ``steps`` is the maximum over the
 ``R`` replicas asked for.
 """
@@ -53,7 +59,14 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device
+from tpudes_torch.ops.fused import f32
 from tpudes_torch.ops.interference import thermal_noise_w
+from tpudes_torch.ops.mobility import build_position_fn
+from tpudes_torch.ops.propagation import (
+    dbm_to_w,
+    log_distance_loss,
+    pairwise_distance,
+)
 from tpudes_torch.ops.wifi_error import (
     ALL_MODES,
     MODES_BY_NAME,
@@ -62,11 +75,15 @@ from tpudes_torch.ops.wifi_error import (
     mpdu_success_rate,
 )
 from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_advance_cuda
-from tpudes_torch.random import bss_draws, mpdu_coins
+from tpudes_torch.random import bss_draws, mpdu_coins, traffic_keys
+from tpudes_torch.traffic.device import entry_gaps, stack_traffic_operands
+from tpudes_torch.traffic.host import offered_packets
+from tpudes_torch.traffic.program import TRAFFIC_MODEL_IDS
 
 __all__ = [
     "BssProgram", "bss_advance", "bss_advance_math", "build_bss_advance",
-    "build_bss_consts", "build_bss_step", "run_replicated_bss",
+    "build_bss_consts", "build_bss_step", "geom_tables",
+    "run_replicated_bss",
 ]
 
 # µs timing constants, 802.11a OFDM 20 MHz (``replicated.py:87-93``)
@@ -101,10 +118,12 @@ def _not_ported(what: str, item: str):
 @dataclass(frozen=True)
 class BssProgram:
     """Static description of one BSS scenario (``replicated.py:140-199``),
-    the same fields.  Node 0 is the AP.  The port runs the static
-    program, legacy or A-MPDU: ``mobility``, ``traffic`` and a
-    ``geom_stride`` other than 1 raise when the program is built into a
-    step (:func:`build_bss_consts`)."""
+    the same fields.  Node 0 is the AP.  ``mobility`` (a
+    :class:`tpudes_torch.ops.mobility.MobilityProgram`, None: static)
+    moves the nodes, the geometry rebuilt every ``geom_stride`` steps;
+    ``traffic`` (a :class:`tpudes_torch.traffic.program.TrafficProgram`
+    over the N nodes, entity 0 the AP's beacons; None: the CBR advance)
+    gives every gap after the first arrival, which ``start_us`` sets."""
 
     positions: np.ndarray        # (N, 3) f32
     data_mode_idx: int           # WifiMode index for data frames
@@ -176,20 +195,49 @@ def _total_offered_arrivals(prog: BssProgram) -> int:
 
 def _estimate_max_steps(prog: BssProgram) -> int:
     """One arrival and up to 1 + RETRY_LIMIT transmissions per frame,
-    plus slack (``replicated.py:536-553``, the CBR count)."""
-    return int(_total_offered_arrivals(prog) * (3 + RETRY_LIMIT) * 1.5) + 64
-
-
-def _check_ported(prog: BssProgram) -> None:
-    if prog.mobility is not None:
-        raise _not_ported("a mobile BSS program", "A3c")
-    if int(prog.geom_stride) != 1:
-        raise _not_ported("geom_stride", "A3c")
+    plus slack (``replicated.py:536-553``): the CBR count, or a traffic
+    program's own offered total where that is larger."""
+    total = _total_offered_arrivals(prog)
     if prog.traffic is not None:
-        raise _not_ported("a BSS traffic program", "A3c")
+        horizon = np.minimum(prog.stop_us.astype(np.int64), prog.sim_end_us)
+        total = max(total, int(np.ceil(
+            offered_packets(prog.traffic, horizon).sum())))
+    return int(total * (3 + RETRY_LIMIT) * 1.5) + 64
 
 
-def build_bss_consts(prog: BssProgram, device=None) -> dict:
+def _bss_nominal_step_s(prog: BssProgram) -> float:
+    """The nominal spacing of event steps, the horizon over three events
+    per offered arrival: ``geom_stride`` in seconds for the coherence
+    advisory (``replicated.py:497-505``)."""
+    return prog.sim_end_us * 1e-6 / max(3 * _total_offered_arrivals(prog), 1)
+
+
+def _walk_worst_case_ok(prog: BssProgram, mobility) -> bool:
+    """The exact mutual-sensing bound of a random walk
+    (``replicated.py:467-494``): a walker may reach any point of its
+    bounds rectangle, so the worst separation is the diagonal (two
+    walkers) or the farthest corner from a pinned node."""
+    xmin, xmax, ymin, ymax = (float(v) for v in mobility.bounds)
+    corners = np.array([(xmin, ymin), (xmin, ymax), (xmax, ymin),
+                        (xmax, ymax)])
+    moving = mobility.speed[:, 1] > 0.0
+    zs = mobility.base_pos[:, 2].astype(np.float64)
+    dz_mm = (float(np.abs(zs[moving][:, None] - zs[moving][None, :]).max())
+             if moving.sum() >= 2 else 0.0)
+    worst = 0.0
+    if moving.sum() >= 2:
+        worst = math.hypot(math.hypot(xmax - xmin, ymax - ymin), dz_mm)
+    for pos in mobility.base_pos[~moving].astype(np.float64):
+        for z_m in zs[moving]:
+            d_xy = np.sqrt(((corners - pos[None, :2]) ** 2).sum(-1)).max()
+            worst = max(worst, math.hypot(float(d_xy), float(pos[2] - z_m)))
+    loss = prog.reference_loss_db + 10.0 * prog.path_loss_exponent * (
+        math.log10(max(worst, 1.0)))
+    return prog.tx_power_dbm - loss >= prog.rx_sensitivity_dbm
+
+
+def build_bss_consts(prog: BssProgram, device=None,
+                     traffic_sweep=None) -> dict:
     """The step's per-program constants (``replicated.py:603-637``), on
     ``device`` (the card by default): the f32 rx power table (N, N)
     from the f64 host table (diagonal 0), the detectability table, the
@@ -197,8 +245,14 @@ def build_bss_consts(prog: BssProgram, device=None) -> dict:
     BlockAck under aggregation, else an ack), ``nbits`` of a legacy data
     frame (the PPDU airtime at the payload rate), the noise floor, the
     data mode, and the A-MPDU cap ``K`` (1: legacy) with the subframe
-    bytes."""
-    _check_ported(prog)
+    bytes.
+
+    A mobile program adds ``mob``: the position math's operands, the
+    refresh stride and the physics the tables take (:func:`geom_tables`);
+    a traffic program adds ``tr``, its operands stacked on a leading
+    point axis (the ``traffic_sweep`` programs', one point each, else
+    the program's own) with its ``epoch_us`` and the model ids they
+    run."""
     device = resolve_device(device)
     data_mode = ALL_MODES[prog.data_mode_idx]
     ack_mode = ALL_MODES[prog.ack_mode_idx]
@@ -214,6 +268,26 @@ def build_bss_consts(prog: BssProgram, device=None) -> dict:
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+    mob = None
+    if prog.mobility is not None:
+        mob = dict(
+            ops=prog.mobility.operands(device),
+            model=prog.mobility.model,
+            positions_at=build_position_fn(prog.mobility),
+            stride=max(1, int(prog.geom_stride)),
+            seg_us=float(prog.mobility.seg_us),
+            tx_dbm=float(np.float32(prog.tx_power_dbm)),
+            exponent=float(prog.path_loss_exponent),
+            ref_loss=float(prog.reference_loss_db),
+            sens=float(prog.rx_sensitivity_dbm),
+        )
+    tr = None
+    if traffic_sweep is not None or prog.traffic is not None:
+        progs = (list(traffic_sweep) if traffic_sweep is not None
+                 else [prog.traffic])
+        tr = dict(ops=stack_traffic_operands(progs, device),
+                  epoch_us=int(progs[0].epoch_us),
+                  models={int(m) for tp in progs for m in tp.model_ids()})
     return dict(
         N=prog.n,
         rx_w=torch.as_tensor(rx_w.astype(np.float32), device=device),
@@ -235,7 +309,25 @@ def build_bss_consts(prog: BssProgram, device=None) -> dict:
         sim_end=int(prog.sim_end_us),
         K=max(1, int(prog.max_mpdus)),
         subframe_bytes=int(prog.subframe_bytes),
+        mob=mob,
+        tr=tr,
     )
+
+
+def geom_tables(c: dict, t: torch.Tensor):
+    """The mobile step's geometry stage at the ``(T,)`` int32 event times
+    ``t`` (``replicated.py:654-672``): positions, then ``((T, N, N) rx
+    power in W, diagonal 0; (T, N, N) detectability)`` under the
+    log-distance physics, in the compiled f32 arithmetic of the
+    reference's step (:mod:`tpudes_torch.ops.propagation`)."""
+    m = c["mob"]
+    pos = m["positions_at"](m["ops"], t)
+    loss = log_distance_loss(pairwise_distance(pos), m["exponent"], 1.0,
+                             m["ref_loss"])
+    det = (f32(loss, m["tx_dbm"]) - loss) >= f32(loss, m["sens"])
+    rx_w = dbm_to_w(m["tx_dbm"], loss)
+    eye = torch.eye(pos.shape[1], dtype=torch.bool, device=pos.device)
+    return torch.where(eye, 0.0, rx_w), det
 
 
 # --------------------------------------------------------------------------
@@ -261,7 +353,8 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 def init_state(consts: dict, replicas: int) -> dict:
     """The zero state (``replicated.py:674-707``): arrivals at their
-    start times, CW at its minimum; laid out as :data:`BSS_STATE`."""
+    start times, CW at its minimum, ``geom_t`` 0; laid out as
+    :data:`BSS_STATE`."""
     R, n = replicas, consts["N"]
     dev = consts["rx_w"].device
     out = {}
@@ -272,6 +365,19 @@ def init_state(consts: dict, replicas: int) -> dict:
     out["next_arr"] = consts["start"].expand(R, n).clone()
     out["cw"].fill_(CW_MIN)
     return out
+
+
+def with_tables(consts: dict, state: dict) -> dict:
+    """``state`` (rows first) with a mobile program's tables rebuilt at
+    its ``geom_t`` (:func:`geom_tables`), as the step carries them; the
+    state itself for a static program."""
+    if consts["mob"] is None:
+        return state
+    shape = state["geom_t"].shape
+    rx_w, det = geom_tables(consts, state["geom_t"].reshape(-1))
+    n = consts["N"]
+    return dict(state, geom_rx_w=rx_w.reshape(*shape, n, n),
+                geom_det=det.reshape(*shape, n, n))
 
 
 def has_frame(s: dict) -> torch.Tensor:
@@ -322,7 +428,8 @@ def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
-            sim_end, census: dict | None = None) -> dict:
+            sim_end, census: dict | None = None, refresh: bool = False,
+            tr: dict | None = None) -> dict:
     """One event step of every replica (``replicated.py:738-1093``) on
     its ``(R, N)`` backoff draws and its coins: ``(R, N)`` for a legacy
     program, for an A-MPDU one a function ``(rows, nodes) -> (G, K)``
@@ -331,14 +438,26 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
     horizon, an int or an ``(R,)`` tensor (a horizon per row: the
     event loop's grid of horizons, flattened).
 
+    A mobile program's state carries its tables, ``geom_rx_w`` and
+    ``geom_det`` (``(R, N, N)``, :func:`geom_tables` at ``geom_t``);
+    with ``refresh`` the step rebuilds them at each replica's ``next_t``
+    first and sets ``geom_t`` to it (``replicated.py:864-891``).  A
+    traffic program takes ``tr``: ``point`` (``(R,)``, each row's point
+    of ``c["tr"]``) and ``keys`` (``(R, 2)``,
+    :func:`tpudes_torch.random.traffic_keys`).
+
     ``census``, a dict, gathers counts of what the step did, as 0-dim
     tensors added to in place (no host sync): ``gated`` data frames
     (decoded at their destination), their ``mpdus``, ``partial``
     A-MPDUs (some but not all subframes decoded), ``overlap`` (gated
     frames with another frame on the air), ``three_winners``
     (replica-steps with three or more same-µs winners, whose
-    interference sum the reference's dot may round in its own order)
-    and ``coin_ties`` (coins within 4 ulp of their success rate)."""
+    interference sum the reference's dot may round in its own order),
+    ``coin_ties`` (coins within 4 ulp of their success rate),
+    ``winners`` (transmissions), ``ed_links`` (the winners of steps
+    where the AP sends data, whose power at its destination is summed)
+    and, under a traffic program, the gaps drawn per model
+    (``gaps_cbr``, ``gaps_mmpp``, ...)."""
     R, n = u_back.shape
     dev = u_back.device
     i32 = torch.int32
@@ -361,8 +480,21 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
     is_arr = arrived[:, None] & (s["next_arr"] == next_t[:, None])
     new_queue = s["queue"] + (is_arr & ~is_ap).to(i32)
     new_bcn = s["bcn_pend"] + is_arr[:, 0].to(i32)
-    adv = torch.where(s["next_arr"] >= INF, INF,
-                      s["next_arr"] + c["interval"])
+    gap_ids = None
+    if c["tr"] is None:
+        adv = torch.where(s["next_arr"] >= INF, INF,
+                          s["next_arr"] + c["interval"])
+    else:
+        # the next gap from the workload model, taken at the arrivals
+        # only (their next_arr is next_t < INF)
+        rows, nodes = is_arr.nonzero(as_tuple=True)
+        t_a = s["next_arr"][rows, nodes]
+        adv = s["next_arr"].clone()
+        point = tr["point"][rows]
+        adv[rows, nodes] = t_a + entry_gaps(
+            c["tr"]["ops"], c["tr"]["epoch_us"], point, nodes,
+            tr["keys"][rows], t_a, c["tr"]["models"])
+        gap_ids = c["tr"]["ops"]["tr_id"][point, nodes]
     adv = torch.where(adv >= c["stop"], INF, adv)
     new_next_arr = torch.where(is_arr, adv, s["next_arr"])
     any_ap = (s["ap_pend"] > 0).any(1)
@@ -400,12 +532,29 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
 
     # PHY at each transmitter's destination: STAs send to the AP, the
     # AP to echo_dst; the power there from every winner, a tree sum
-    rx_w, det_t = c["rx_w"], c["det"]
     w = winners.to(torch.float32)
-    at_ap = tree_sum(w * rx_w[:, 0])                          # (R,)
-    at_ed = tree_sum(w * rx_w[:, echo_dst].T)                 # (R,)
-    sig = torch.where(is_ap, rx_w[0, echo_dst][:, None], rx_w[:, 0])
-    det = torch.where(is_ap, det_t[0, echo_dst][:, None], det_t[:, 0])
+    geom = {}
+    if c["mob"] is None:
+        rx_w, det_t = c["rx_w"], c["det"]
+        at_ap = tree_sum(w * rx_w[:, 0])                      # (R,)
+        at_ed = tree_sum(w * rx_w[:, echo_dst].T)             # (R,)
+        sig = torch.where(is_ap, rx_w[0, echo_dst][:, None], rx_w[:, 0])
+        det = torch.where(is_ap, det_t[0, echo_dst][:, None], det_t[:, 0])
+    else:
+        # the replica's own (N, N) tables, rebuilt at its next_t on a
+        # refresh step
+        if refresh:
+            rx_w, det_t = geom_tables(c, next_t)
+            geom = dict(geom_rx_w=rx_w, geom_det=det_t, geom_t=next_t)
+        else:
+            rx_w, det_t = s["geom_rx_w"], s["geom_det"]
+        rr = torch.arange(R, device=dev)
+        at_ap = tree_sum(w * rx_w[:, :, 0])
+        at_ed = tree_sum(w * rx_w[rr, :, echo_dst])
+        sig = torch.where(is_ap, rx_w[rr, 0, echo_dst][:, None],
+                          rx_w[:, :, 0])
+        det = torch.where(is_ap, det_t[rr, 0, echo_dst][:, None],
+                          det_t[:, :, 0])
     interf = torch.where(is_ap, at_ed[:, None], at_ap[:, None]) - sig
     sinr = sig / (interf + c["noise_w"])
     dst_idle = ~torch.where(
@@ -441,6 +590,11 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
         _tally(census, "gated", gate)
         _tally(census, "overlap", gate & (interf != 0.0))
         _tally(census, "three_winners", winners.sum(1) >= 3)
+        _tally(census, "winners", winners)
+        _tally(census, "ed_links", winners.sum(1) * data_tx[:, 0])
+        if gap_ids is not None:
+            for name, mid in TRAFFIC_MODEL_IDS.items():
+                _tally(census, f"gaps_{name}", gap_ids == mid)
         if agg:
             k_g = k_agg[where]
             _tally(census, "mpdus", k_g)
@@ -493,7 +647,10 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
     new_hold = torch.where(
         fail, next_t[:, None] + (exch + SLOT + 4),
         torch.where(winners, next_t[:, None] + occ, s["hold"]))
+    out = {k: s[k] for k in ("geom_rx_w", "geom_det", "geom_t") if k in s}
+    out.update(geom)
     return dict(
+        out,
         t=torch.maximum(next_t, s["t"]),
         next_arr=new_next_arr,
         queue=torch.clamp_min(new_queue, 0),
@@ -515,17 +672,30 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
 def build_bss_step(prog: BssProgram, replicas: int, device=None):
     """``(consts, init_state, has_frame, tx_times, step_fn, pending)``
     (``replicated.py:556-1103``), bound to the program: ``init_state()``,
-    ``has_frame(s)``, ``tx_times(s)``, ``step_fn(s, u_back, u_coin)``
-    on one step's ``(R, N)`` draws, and ``pending(s)``, on ``device``
-    (the card by default)."""
+    ``has_frame(s)``, ``tx_times(s)``, ``step_fn(s, u_back, u_coin,
+    step=0, key=None)`` on one step's ``(R, N)`` draws (a mobile program
+    refreshes its geometry when ``step`` is a multiple of its stride; a
+    traffic program draws its gaps under the run's ``key``), and
+    ``pending(s)``, on ``device`` (the card by default)."""
     consts = build_bss_consts(prog, device)
     end = consts["sim_end"]
+
+    def one_step(s, u_back, u_coin, step=0, key=None):
+        mob, tr = consts["mob"], None
+        if consts["tr"] is not None:
+            tr = dict(point=torch.zeros(replicas, dtype=torch.long,
+                                        device=u_back.device),
+                      keys=traffic_keys(key, replicas))
+        return step_fn(consts, s, u_back, u_coin, end,
+                       refresh=mob is not None and step % mob["stride"] == 0,
+                       tr=tr)
+
     return (
         consts,
-        lambda: init_state(consts, replicas),
+        lambda: with_tables(consts, init_state(consts, replicas)),
         has_frame,
         lambda s: tx_times(consts, s),
-        lambda s, u_back, u_coin: step_fn(consts, s, u_back, u_coin, end),
+        one_step,
         lambda s: pending(consts, s, end),
     )
 
@@ -555,7 +725,12 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
     made for a block of steps at a time).  Returns ``(state, steps,
     pending)``: the ``(C, R, ...)`` state, the list of C counters after
     the loop and the ``(C, R)`` pending flags of the last state.
-    ``census`` is :func:`step_fn`'s."""
+    ``census`` is :func:`step_fn`'s.
+
+    A mobile program's tables are rebuilt from ``geom_t`` at the start
+    and carried through the loop (not returned); a traffic program's
+    replica keys are :func:`traffic_keys`, and under a workload sweep
+    (``c["tr"]`` of C points) point ``c`` takes its own operands."""
     ends = [int(v) for v in (sim_end if sim_end is not None
                              else [consts["sim_end"]])]
     C = len(ends)
@@ -567,6 +742,13 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
     end = torch.tensor(ends, dtype=torch.int32,
                        device=dev).repeat_interleave(R)
     K = consts["K"]
+    mob, tr = consts["mob"], consts["tr"]
+    flat = with_tables(consts, flat)
+    if tr is not None:
+        keys = traffic_keys(key, R)
+        multi = tr["ops"]["tr_id"].shape[0] > 1      # a workload sweep
+        point = (torch.arange(C, device=dev).repeat_interleave(R) if multi
+                 else torch.zeros(rows, dtype=torch.long, device=dev))
     block = max(1, DRAW_CHUNK_ELEMS // (R * n))
     draws, b0 = None, 0
     still = pending(consts, flat, end).view(C, R)
@@ -588,8 +770,14 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
         coin = draws[1][step - b0].repeat(reps, 1)   # A-MPDU: coin keys
         u_coin = coin if K == 1 else (
             lambda r, i, k=coin: mpdu_coins(k[r], i, K))
+        tr_rows = None
+        if tr is not None:
+            tr_rows = dict(point=point if idx is None else point[idx],
+                           keys=keys.repeat(reps, 1))
         new = step_fn(consts, _rows(flat, idx), u_back, u_coin,
-                      end if idx is None else end[idx], census)
+                      end if idx is None else end[idx], census,
+                      refresh=mob is not None and step % mob["stride"] == 0,
+                      tr=tr_rows)
         if idx is None:
             flat = new
         else:
@@ -597,8 +785,8 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
         for c in group:
             steps[c] += 1
         still = pending(consts, flat, end).view(C, R)
-    return ({k: v.unflatten(0, (C, R)) for k, v in flat.items()}, steps,
-            still)
+    return ({k: flat[k].unflatten(0, (C, R)) for k, _, _ in BSS_STATE},
+            steps, still)
 
 
 def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0,
@@ -617,13 +805,15 @@ def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0,
     raise ValueError(f"no BSS advance for device {key.device}")
 
 
-def build_bss_advance(prog: BssProgram, replicas: int, device=None):
+def build_bss_advance(prog: BssProgram, replicas: int, device=None,
+                      traffic_sweep=None):
     """``(consts, init_state, advance)`` with ``init_state(points=1)``
     the ``(C, R, ...)`` initial state of C points and ``advance(state,
     key, step0, step1, sim_end=None) -> (state, steps, pending)``
     (``replicated.py:1127-1191``, :func:`bss_advance`), on ``device``
-    (the card by default)."""
-    consts = build_bss_consts(prog, device)
+    (the card by default).  With ``traffic_sweep`` (C programs of one
+    shape key) point ``c`` runs the ``c``-th workload."""
+    consts = build_bss_consts(prog, device, traffic_sweep)
 
     def init(points: int = 1):
         return {k: v.expand(points, *v.shape).clone()
@@ -644,15 +834,24 @@ def chunk_bounds(total: int, chunk: int) -> list[int]:
     return list(range(chunk, total, chunk)) + [total]
 
 
-def _bss_unpack(state: dict, steps: list, still: torch.Tensor) -> list:
+def _bss_unpack(state: dict, steps: list, still: torch.Tensor,
+                stride: int | None = None) -> list:
     """The result dicts (``replicated.py:1237-1267``), as numpy, one per
     point of the ``(C, R, ...)`` state and its C step counts (one copy
-    to the host)."""
+    to the host); a mobile program's (``stride`` given) add
+    ``geom_refreshes``, ``ceil(steps / stride)``, and ``geom_stride``."""
     host = {k: state[k].cpu().numpy()
             for k in ("srv_rx", "cli_rx", "tx_data", "drops")}
     done = ~still.any(-1).cpu().numpy()
-    return [dict({k: v[c] for k, v in host.items()}, steps=int(steps[c]),
-                 all_done=bool(done[c])) for c in range(len(steps))]
+    out = []
+    for c in range(len(steps)):
+        res = dict({k: v[c] for k, v in host.items()}, steps=int(steps[c]),
+                   all_done=bool(done[c]))
+        if stride is not None:
+            res.update(geom_refreshes=-(-int(steps[c]) // stride),
+                       geom_stride=stride)
+        out.append(res)
+    return out
 
 
 def run_replicated_bss(
@@ -691,35 +890,66 @@ def run_replicated_bss(
     budget is shared: the largest of the points' estimates.  On the card
     one launch holds up to 64 horizons (``bss_cuda.BSS_MAX_POINTS``).
 
+    ``traffic_sweep=[...]`` (traffic programs of one shape key, with
+    ``prog.traffic`` naming the shape) runs a workload sweep instead: C
+    workloads as one ``(C, R)`` grid per launch, point ``c`` equal to
+    the run of ``dataclasses.replace(prog, traffic=tp)``, the budget the
+    largest of the points' estimates.  One config axis per run: both
+    at once raise ``ValueError``.
+
+    A mobile program's results add ``geom_refreshes`` and
+    ``geom_stride``; ``geom_per_step=True`` rebuilds its geometry every
+    step (the reference's unconditional recompute; ``geom_refreshes``
+    still counts by ``geom_stride``, as the reference reports it).
+
     ``max_steps`` defaults to the reference's estimate;
     ``chunk_steps=K`` runs the loop K steps per launch, the same result.
     ``device`` defaults to the card, where each chunk is one launch of
     the persistent kernel."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if traffic_sweep is not None:
-        raise _not_ported("traffic_sweep", "A3c")
-    if geom_per_step:
-        raise _not_ported("geom_per_step", "A3c")
     if checkpoint is not None:
         raise _not_ported("checkpoint", "A11")
     if not block:
         raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
+    if sim_end_us is not None and traffic_sweep is not None:
+        raise ValueError(
+            "one config axis per launch: sweep either the horizon "
+            "(sim_end_us=[...]) or the workload (traffic_sweep=[...])")
     ends = ([int(prog.sim_end_us)] if sim_end_us is None
             else [int(v) for v in sim_end_us])
     if not ends:
         raise ValueError("sim_end_us=[...] needs at least one horizon")
+    sweep_progs = [prog]
+    if traffic_sweep is not None:
+        traffic_sweep = list(traffic_sweep)
+        if not traffic_sweep or prog.traffic is None or any(
+                tp.shape_key() != prog.traffic.shape_key()
+                for tp in traffic_sweep):
+            raise ValueError(
+                "a workload sweep needs prog.traffic set and every point "
+                "sharing its traffic shape key (pad tables to a common "
+                "capacity)")
+        sweep_progs = [dataclasses.replace(prog, traffic=tp)
+                       for tp in traffic_sweep]
+        ends = ends * len(traffic_sweep)
     dev = resolve_device(device)
-    _, init, advance = build_bss_advance(prog, replicas, dev)
+    run_prog = (dataclasses.replace(prog, geom_stride=1) if geom_per_step
+                else prog)
+    _, init, advance = build_bss_advance(run_prog, replicas, dev,
+                                         traffic_sweep)
     key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
     if max_steps is None:
         max_steps = max(
-            _estimate_max_steps(dataclasses.replace(prog, sim_end_us=v))
-            for v in ends)
+            _estimate_max_steps(dataclasses.replace(p, sim_end_us=v))
+            for v in set(ends) for p in sweep_progs)
     state, steps, still = init(len(ends)), [0] * len(ends), None
     for bound in chunk_bounds(max_steps, chunk_steps or max_steps):
         state, steps, still = advance(state, key, steps, bound, ends)
-    out = _bss_unpack(state, steps, still)
-    return out if sim_end_us is not None else out[0]
+    out = _bss_unpack(state, steps, still,
+                      None if prog.mobility is None
+                      else max(1, int(prog.geom_stride)))
+    swept = sim_end_us is not None or traffic_sweep is not None
+    return out if swept else out[0]

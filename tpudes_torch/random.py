@@ -14,7 +14,9 @@ replicated.py:744-770``):
     fold_in(fold_in(key, step), r) -> split -> uniform(., (N,), f32) x 2
 
 with, in an A-MPDU program, ``uniform(., (N, K), f32)`` from the
-second key.
+second key; and a traffic program's per-replica keys
+``fold_in(fold_in(key, 0x7A), r)`` (:func:`traffic_keys`,
+``replicated.py:727-737``).
 
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; torch's unsigned arithmetic is thin, so every 32-bit word rides
 in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
@@ -27,6 +29,9 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
+#: fold tag of the run's traffic key: ``fold_in(key, TRAFFIC_KEY_TAG)``
+#: (``tpudes/traffic/device.py:50``, ``lte_sm.py:1016``)
+TRAFFIC_KEY_TAG = 0x7A
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
@@ -149,3 +154,12 @@ def mpdu_coins(k_coin: torch.Tensor, nodes: torch.Tensor,
     y0, y1 = threefry2x32(k_coin[:, 0:1], k_coin[:, 1:2],
                           torch.zeros_like(lo), lo)
     return _unit(y0 ^ y1)
+
+
+def traffic_keys(key: torch.Tensor, replicas: int) -> torch.Tensor:
+    """``(R, 2)`` per-replica traffic keys ``fold_in(fold_in(key,
+    0x7A), r)`` of the WiFi BSS, pure in the run's key
+    (``replicated.py:727-737``)."""
+    tr_key = fold_in(key, TRAFFIC_KEY_TAG)
+    return fold_in(tr_key[None, :], torch.arange(replicas,
+                                                 device=key.device))

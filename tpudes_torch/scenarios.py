@@ -32,7 +32,12 @@ import numpy as np
 import torch
 
 from tpudes_torch.ops.lte import noise_psd_w
-from tpudes_torch.ops.mobility import MobilityProgram, warn_geom_stride
+from tpudes_torch.ops.mobility import (
+    MobilityProgram,
+    max_speed_mps,
+    trajectory_positions,
+    warn_geom_stride,
+)
 from tpudes_torch.ops.propagation import friis
 from tpudes_torch.ops.wifi_error import MODES_BY_NAME
 from tpudes_torch.parallel.lte_sm import LteSmProgram
@@ -43,7 +48,9 @@ from tpudes_torch.parallel.replicated import (
     SIFS,
     SLOT,
     BssProgram,
+    _bss_nominal_step_s,
     _pairwise_rx_dbm,
+    _walk_worst_case_ok,
 )
 from tpudes_torch.traffic.program import TrafficProgram
 
@@ -78,6 +85,8 @@ HT_MAX_AMPDU_SIZE = 65535
 #: the MPDU delimiter and FCS bytes of a subframe (``models/wifi/mac.py:79``,
 #: ``:46``)
 MPDU_DELIMITER_SIZE, FCS_SIZE = 4, 4
+#: the STA motions ``bss_program`` lowers (``tpudes/scenarios.py:44-47``)
+BSS_MOBILITY = ("static", "const_velocity", "random_walk")
 #: the standards ``bss_program`` lowers: 802.11a (DCF, single MPDUs) and
 #: 802.11n, whose MACs default to QoS and A-MPDUs under a BlockAck
 #: session (``models/wifi/helper.py:129``, ``:171-178``)
@@ -279,10 +288,14 @@ def bss_program(
     packet_bytes: int = 512,
     data_mode: str = "OfdmRate54Mbps",
     standard: str = "80211a",
+    mobility: str = "static",
+    speed: float = 1.0,
+    geom_stride: int = 1,
 ) -> BssProgram:
-    """The static BSS of ``build_bss(n_stas, sim_s, radii, interval_s,
-    packet_bytes, data_mode, standard)`` (``tpudes/scenarios.py:35-
-    174``) lowered as ``lower_bss`` lowers it (``replicated.py:222-464``):
+    """The BSS of ``build_bss(n_stas, sim_s, radii, interval_s,
+    packet_bytes, data_mode, standard, mobility, speed)``
+    (``tpudes/scenarios.py:35-174``) lowered as ``lower_bss(...,
+    geom_stride)`` lowers it (``replicated.py:222-464``):
 
     - the AP at the origin, STA ``i`` on the circle ``radii[i % len]``
       at angle ``2 pi i / n_stas``, positions in f32 of the f64 formula;
@@ -296,13 +309,21 @@ def bss_program(
       starting at ``1 s + 1 ms * i`` and stopping at ``sim_s``; AP
       beacons every 102,400 µs from 0, never stopping;
     - the PHY defaults (16.0206 dBm, log-distance exponent 3 from 46.6777
-      dB at 1 m, 7 dB noise figure, 20 MHz, -101 dBm sensitivity).
+      dB at 1 m, 7 dB noise figure, 20 MHz, -101 dBm sensitivity);
+    - ``mobility`` moves the STAs, the AP staying at the origin:
+      ``"static"`` (no motion program), ``"const_velocity"`` (tangential
+      drift at ``speed`` m/s) or ``"random_walk"`` (1 s segments at
+      ``[speed / 2, speed]`` m/s in the box ``+-(max(radii) + 5)`` m, walk
+      seed 0), its geometry rebuilt every ``geom_stride`` steps.
 
     Raises ``ValueError`` for a mode outside the OFDM and HT registry
-    (the DSSS rates), a standard other than :data:`BSS_STANDARDS`, and
-    where a pair of nodes cannot hear each other (the engine's one
-    ``busy_until`` per replica cannot represent hidden nodes); warns, as
-    the reference does, on a horizon within 5x of the skipped warm-up."""
+    (the DSSS rates), a standard other than :data:`BSS_STANDARDS`, an
+    unknown ``mobility``, and where a pair of nodes cannot hear each
+    other, for a mobile program anywhere on its trajectory
+    (:func:`check_mutual_sensing`: the engine's one ``busy_until`` per
+    replica cannot represent hidden nodes); warns, as the reference
+    does, on a horizon within 5x of the skipped warm-up and on a stride
+    that lets a node drift past the coherence length."""
     mode = MODES_BY_NAME.get(data_mode)
     if mode is None:
         raise ValueError(
@@ -313,6 +334,8 @@ def bss_program(
             f"bss_program lowers the standards {BSS_STANDARDS}; got "
             f"{standard!r}"
         )
+    if mobility not in BSS_MOBILITY:
+        raise ValueError(f"unknown mobility {mobility!r}")
     if sim_s < 5.0 * MODELED_WARMUP_S:        # ``replicated.py:251-261``
         warnings.warn(
             f"sim_end_s={sim_s} s is within ~5x of the association/ARP "
@@ -320,10 +343,27 @@ def bss_program(
             "replica-axis outcomes over so short a horizon are dominated "
             "by the unmodeled transient", stacklevel=2)
     pos = [(0.0, 0.0, 0.0)]
+    vel = [(0.0, 0.0, 0.0)]
     for i in range(n_stas):
         a = 2 * math.pi * i / n_stas
         r = radii[i % len(radii)]
         pos.append((r * math.cos(a), r * math.sin(a), 0.0))
+        vel.append((-speed * math.sin(a), speed * math.cos(a), 0.0))
+    sim_end_us = int(sim_s * 1e6)
+    motion = None
+    if mobility == "const_velocity":
+        # device_mobility_program's const-velocity family, its walk
+        # segment grid sized to the horizon (``models/mobility.py:819-839``)
+        motion = dataclasses.replace(
+            MobilityProgram.constant_velocity(pos, vel),
+            n_seg=sim_end_us // 1_000_000 + 1)
+    elif mobility == "random_walk":
+        r_max = max(radii[i % len(radii)] for i in range(max(n_stas, 1)))
+        bound = r_max + 5.0
+        band = [(0.0, 0.0)] + [(speed / 2.0, speed)] * n_stas
+        motion = MobilityProgram.random_walk(
+            pos, (-bound, bound, -bound, bound), band, seg_s=1.0,
+            horizon_us=sim_end_us, mob_seed=0)
     ack = MODES_BY_NAME["OfdmRate6Mbps"]
     for name in BSS_MANDATORY_RATES:
         if MODES_BY_NAME[name].data_rate_bps <= mode.data_rate_bps:
@@ -353,15 +393,44 @@ def bss_program(
         start_us=np.minimum(start, INF).astype(np.int32),
         interval_us=np.minimum(interval, INF).astype(np.int32),
         stop_us=np.minimum(stop, INF).astype(np.int32),
-        sim_end_us=int(sim_s * 1e6),
+        sim_end_us=sim_end_us,
         aifs_us=aifs,
         max_mpdus=max_mpdus,
         subframe_bytes=subframe_bytes,
+        mobility=motion,
+        geom_stride=int(geom_stride),
     )
-    if not bool((_pairwise_rx_dbm(prog) >= prog.rx_sensitivity_dbm).all()):
-        raise ValueError(
-            "topology has node pairs below rx sensitivity (hidden-node "
-            "regime); the single-medium carrier-sense model cannot "
-            "represent it"
-        )
+    check_mutual_sensing(prog, sim_s)
     return prog
+
+
+def check_mutual_sensing(prog: BssProgram, sim_s: float) -> None:
+    """``lower_bss``'s guard (``replicated.py:406-464``): every pair of
+    nodes must hear each other, for a mobile program at every one of
+    ``clip(ceil(2 vmax sim_s), 65, 1025)`` times spread over the run
+    (and, for a walk, at the worst corner of its box); raises
+    ``ValueError`` where not.  A mobile program then gets the stride's
+    coherence advisory (``warn_geom_stride``)."""
+    hidden = ValueError(
+        "topology has node pairs below rx sensitivity (hidden-node "
+        "regime) at some point of the run; the single-medium "
+        "carrier-sense model cannot represent it"
+    )
+    mob = prog.mobility
+    if mob is None:
+        if not bool((_pairwise_rx_dbm(prog) >= prog.rx_sensitivity_dbm
+                     ).all()):
+            raise hidden
+        return
+    n_samp = int(np.clip(math.ceil(2.0 * max_speed_mps(mob) * sim_s),
+                         65, 1025))
+    grid = np.linspace(0, prog.sim_end_us, n_samp).astype(np.int64)
+    for pos_t in trajectory_positions(mob, grid):
+        moved = dataclasses.replace(prog, positions=pos_t.astype(np.float32))
+        if not bool((_pairwise_rx_dbm(moved) >= prog.rx_sensitivity_dbm
+                     ).all()):
+            raise hidden
+    if mob.model == "random_walk" and not _walk_worst_case_ok(prog, mob):
+        raise hidden
+    warn_geom_stride("bss_program", mob, int(prog.geom_stride),
+                     _bss_nominal_step_s(prog))

@@ -13,23 +13,27 @@ is one fused multiply-add, ``x ** y`` is glibc's ``powf``, and
 ``lo / b ** (1 / a)`` is ``lo * b ** -(1 / a)``.  Two counts differ in
 form only: the onoff cycle index ``sum(on_start <= tau)`` and the trace
 count ``sum(arr_t <= t)`` are ``searchsorted`` over rows that ascend,
-the same integers without a ``(T, N, C)`` temporary.  ``gap_fn`` and
-``avg_mult`` are not ported (the WiFi BSS and AS-flow paths need them).
+the same integers without a ``(T, N, C)`` temporary.
+
+:func:`entry_gaps` is ``build_gap_fn`` (``device.py:185-258``), the
+WiFi BSS's next inter-arrival gap, taken only at the entries that
+arrive (the reference computes every entity's and keeps the arrivals':
+no branch has a side effect).  ``avg_mult`` is not ported (the AS-flow
+path needs it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpudes_torch.ops.fused import f32, fma, powf
-from tpudes_torch.random import fold_in, uniform
+from tpudes_torch.ops.fused import f32, fma, log1p, powf
+from tpudes_torch.random import TRAFFIC_KEY_TAG, fold_in, uniform
 from tpudes_torch.traffic.program import GAP_INF, TRAFFIC_MODEL_IDS
 
-__all__ = ["TRAFFIC_KEY_TAG", "cum_packets", "offered_table", "pareto_sizes"]
-
-#: fold tag of the run's traffic key: ``fold_in(key, TRAFFIC_KEY_TAG)``
-#: (``device.py:50``, ``lte_sm.py:1016``)
-TRAFFIC_KEY_TAG = 0x7A
+__all__ = [
+    "TRAFFIC_KEY_TAG", "cum_packets", "entry_gaps", "offered_table",
+    "pareto_sizes", "stack_traffic_operands",
+]
 
 _TRACE = TRAFFIC_MODEL_IDS["trace"]
 
@@ -148,3 +152,93 @@ def offered_table(ops: dict, epoch_us: int, tr_key: torch.Tensor, t0: int,
     tr_bits = (in_win[:, 1:] - in_win[:, :-1]).t().to(torch.int32).float()
     return torch.where(ops["tr_id"] == _TRACE, tr_bits * 8.0,
                        gen_bits).contiguous()
+
+
+def stack_traffic_operands(progs, device=None) -> dict:
+    """The operand dicts of same-shape programs stacked on a leading
+    point axis, ``(P, N, ...)`` (``device.py:58-72``): a workload sweep's
+    operands, or one program's with ``P = 1``."""
+    keys = {p.shape_key() for p in progs}
+    if len(keys) != 1:
+        raise ValueError(
+            f"workload sweep points must share one traffic shape key (got "
+            f"{sorted(keys)}); pad tables to a common capacity"
+        )
+    ops = [p.operands(device) for p in progs]
+    return {k: torch.stack([o[k] for o in ops]) for k in ops[0]}
+
+
+def _round_gap(x: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x), 1, GAP_INF)`` as int32 (round half to even)."""
+    return torch.clamp(torch.round(x), 1.0, float(GAP_INF)).to(torch.int32)
+
+
+def entry_gaps(ops: dict, epoch_us: int, point: torch.Tensor,
+               ent: torch.Tensor, keys: torch.Tensor, t_arr: torch.Tensor,
+               models=None) -> torch.Tensor:
+    """``(G,)`` int32 µs from an arrival of entity ``ent[g]`` at
+    ``t_arr[g]`` to its next one, under point ``point[g]`` of the
+    stacked operands (:func:`stack_traffic_operands`) and the replica's
+    traffic key ``keys[g]`` (``build_gap_fn``, ``device.py:185-258``):
+
+    - cbr: the interval;
+    - mmpp: ``-log1p(-min(u, 1 - 1e-7)) / max(rate, 1e-9)`` s, rounded
+      half to even in µs, with ``u = uniform(fold_in(fold_in(key, ent),
+      t_arr), ())`` and ``rate`` the entity's times its epoch's;
+    - onoff: the peak spacing inside the burst, else a jump to the next
+      burst's start (:data:`GAP_INF` past the table);
+    - trace: the next live table entry.
+
+    Only the entity's own model's value is kept, as ``_select`` keeps
+    it, so a model no entity runs (absent from ``models``, the model
+    ids of the operands; None: all four) is not computed.  int32 sums
+    wrap as the reference's do."""
+    i32 = torch.int32
+    p, e = point.long(), ent.long()
+    t = t_arr.to(i32)
+    inf = torch.tensor(int(GAP_INF), dtype=i32, device=t.device)
+    tau = torch.clamp_min(t - ops["tr_start"][p, e], 0)
+    models = set(TRAFFIC_MODEL_IDS.values()) if models is None else models
+    g_cbr = ops["tr_interval"][p, e]
+    g_mmpp = g_onoff = g_trace = g_cbr       # never selected where absent
+
+    if TRAFFIC_MODEL_IDS["mmpp"] in models:
+        # the exponential gap at the epoch's rate
+        S = ops["tr_epoch_rate"].shape[1]
+        ep = torch.clamp(torch.div(tau, int(epoch_us), rounding_mode="floor"),
+                         0, S - 1).long()
+        rate = ops["tr_rate"][p, e] * ops["tr_epoch_rate"][p, ep]
+        u = uniform(fold_in(fold_in(keys, ent.long()), t.long()), 1)[..., 0]
+        g_exp = -log1p(-torch.minimum(u, f32(u, 1.0 - 1e-7))) / (
+            torch.clamp_min(rate, f32(u, 1e-9)))
+        g_mmpp = torch.where(rate > f32(u, 1e-9),
+                             _round_gap(g_exp * f32(u, 1e6)), inf)
+
+    if TRAFFIC_MODEL_IDS["onoff"] in models:
+        # the peak spacing inside the burst, else the next burst
+        on_start = ops["tr_on_start"][p, e]                  # (G, C)
+        C = on_start.shape[1]
+        c = torch.clamp((on_start <= tau[:, None]).sum(1) - 1, 0, C - 1)
+        on_s = on_start.gather(1, c[:, None])[:, 0]
+        on_l = ops["tr_on_len"][p, e].gather(1, c[:, None])[:, 0]
+        pk = ops["tr_peak"][p, e].gather(1, c[:, None])[:, 0]
+        p_us = _round_gap(f32(pk, 1e6) / torch.clamp_min(pk, f32(pk, 1e-9)))
+        end = on_s + on_l
+        in_on = (tau >= on_s) & (tau < end)
+        next_c = torch.clamp(c + 1, 0, C - 1)
+        next_on = on_start.gather(1, next_c[:, None])[:, 0]
+        jump = torch.where(next_c == c, inf,
+                           torch.clamp_min(next_on - tau, 1))
+        stays = in_on & (tau + p_us < end) & (pk > f32(pk, 1e-9))
+        g_onoff = torch.where(stays, p_us, jump)
+
+    if TRAFFIC_MODEL_IDS["trace"] in models:
+        # the next live entry
+        arr_t = ops["tr_arr_t"][p, e]                        # (G, K)
+        K = arr_t.shape[1]
+        idx = ((arr_t < inf) & (arr_t <= t[:, None])).sum(1)
+        nxt = arr_t.gather(1, torch.clamp_max(idx, K - 1)[:, None])[:, 0]
+        g_trace = torch.where((idx < K) & (nxt < inf),
+                              torch.clamp_min(nxt - t, 1), inf)
+    return _select(ops["tr_id"][p, e], g_cbr, g_mmpp, g_onoff,
+                   g_trace).to(i32)

@@ -12,12 +12,15 @@ for bit the reference's), so the device side is closed-form arithmetic
 over them (:mod:`tpudes_torch.traffic.device`).
 
 The table arithmetic is the reference's numpy, copied; only the draws
-come from the port.  ``unify_shapes`` and ``with_cbr_rows`` are not
-ported (the WiFi BSS path needs them).
+come from the port.  :meth:`TrafficProgram.with_cbr_rows` pins some
+entities to cbr (the BSS AP's beacons) and :func:`unify_shapes` pads the
+points of a workload sweep to one shape (``program.py:178-197``,
+``:382-431``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -29,7 +32,7 @@ from tpudes_torch.random import PRNGKey, fold_in, uniform
 
 __all__ = [
     "GAP_INF", "TRAFFIC_MODEL_IDS", "TrafficProgram", "bounded_pareto_icdf",
-    "bounded_pareto_mean", "traffic_tables",
+    "bounded_pareto_mean", "traffic_tables", "unify_shapes",
 ]
 
 #: model short name -> dispatch id (``program.py:66``)
@@ -131,6 +134,25 @@ class TrafficProgram:
         if self.model_id is not None:
             return np.asarray(self.model_id, np.int32)
         return np.full((self.n,), TRAFFIC_MODEL_IDS[self.model], np.int32)
+
+    def with_cbr_rows(self, mask, interval_us, start_us=None):
+        """A copy whose ``mask``-selected entities run cbr at
+        ``interval_us`` (from ``start_us`` where given) in place of
+        ``model``: how the BSS keeps the AP's beacons exact while the
+        STAs burst (``program.py:178-197``)."""
+        mask = np.asarray(mask, bool)
+        ids = self.model_ids().copy()
+        ids[mask] = TRAFFIC_MODEL_IDS["cbr"]
+        iv = self.interval_us.copy()
+        iv[mask] = np.minimum(
+            np.asarray(interval_us, np.int64), GAP_INF
+        ).astype(np.int32)
+        start = self.start_us.copy()
+        if start_us is not None:
+            start[mask] = np.asarray(start_us, np.int32)
+        return dataclasses.replace(
+            self, model_id=ids, interval_us=iv, start_us=start
+        )
 
     def operands(self, device=None) -> dict:
         """The device math's tensors on ``device`` (the card by
@@ -296,6 +318,50 @@ class TrafficProgram:
             ).astype(np.int32),
             rate_pps=rate, arr_t=arr_t, arr_b=arr_b,
         )
+
+
+def unify_shapes(progs) -> list:
+    """The points of a workload sweep padded to one
+    :meth:`TrafficProgram.shape_key` (``program.py:382-431``): the epoch
+    grid, the cycle table and the trace width grow to the largest, the
+    trace rows padded with the never-arriving :data:`GAP_INF`.  Padding
+    keeps every realisation (the tables are per-index ``fold_in``
+    streams).  The entity counts must agree, and so must ``epoch_us``
+    among the points whose epoch grid has more than one epoch."""
+    progs = list(progs)
+    if len({p.n for p in progs}) != 1:
+        raise ValueError("workload sweep points must share the entity count")
+    used = {int(p.epoch_us) for p in progs if int(p.n_epoch) > 1}
+    if len(used) > 1:
+        raise ValueError(
+            "workload sweep points must share epoch_us; build the mmpp "
+            "points with one epoch_s"
+        )
+    epoch_us = used.pop() if used else int(progs[0].epoch_us)
+    progs = [
+        p if int(p.epoch_us) == epoch_us
+        else dataclasses.replace(p, epoch_us=epoch_us)
+        for p in progs
+    ]
+    S = max(int(p.n_epoch) for p in progs)
+    C = max(int(p.n_cycle) for p in progs)
+    K = max(int(p.arr_t.shape[1]) for p in progs)
+    out = []
+    for p in progs:
+        arr_t, arr_b = p.arr_t, p.arr_b
+        k0 = arr_t.shape[1]
+        if k0 < K:
+            n = arr_t.shape[0]
+            arr_t = np.concatenate(
+                [arr_t, np.full((n, K - k0), GAP_INF, np.int32)], axis=1
+            )
+            arr_b = np.concatenate(
+                [arr_b, np.zeros((n, K - k0), np.int32)], axis=1
+            )
+        out.append(dataclasses.replace(
+            p, n_epoch=S, n_cycle=C, arr_t=arr_t, arr_b=arr_b
+        ))
+    return out
 
 
 def _env_params(envelope) -> np.ndarray:
