@@ -1,6 +1,7 @@
 """Smoke run of tpudes_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-with DIR   # DIR/bss_advance.cu vs this one
 
 Drives the port's paths — the WiFi BSS replica engine
 (``tpudes_torch.parallel.replicated.run_replicated_bss``) on
@@ -66,7 +67,11 @@ carries on past one:
    (``geom_t`` too), the step counts and the pending flags bit-equal to
    the plain loop over one launch and over two split mid-stride, the
    grid also against each point's own launch, a small program of each
-   through the plain loop on the CPU against the kernel on the card;
+   through the plain loop on the CPU against the kernel on the card; then
+   (3p) the stage probe of ``bss_advance`` (its profiling instantiation,
+   ``bss_cuda.bss_profile``) on legacy, ``AGG``, ``MOB`` and ``TRF`` at
+   bench width: its state bit-equal to the main launch's, and the mean
+   cycles a replica-step spends in each stage, beside the SM clock;
 4. the slice through the plain loop and through the kernel, both on the
    card, 64 replicas x 500 TTIs, static, moving and with traffic:
    integer outputs (and backlogs) equal; a small program of each through
@@ -99,14 +104,23 @@ carries on past one:
    launch a run, every replica done;
 6. one JSON line with every kernel arm's numbers, then the result line.
 
+With ``--compare-with DIR`` it runs only phases 1 and 2 and then
+:func:`compare_main`: an earlier design of the BSS kernel
+(``DIR/bss_advance.cu``, the same C interface and probe) against this one
+in one call, their outputs equal and their times taken in turns.
+
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -215,13 +229,55 @@ GAP_F32_OPS = 30
 #: H100 SXM f64 operations/s outside the tensor cores (NVIDIA's data sheet)
 F64_OPS_PER_S = 34e12
 #: the kernels line's source and replaced code of bss_advance's arms
-BSS_SOURCE = "tpudes_torch/csrc/bss_advance.cu"
+BSS_SOURCE = "tpudes_torch/csrc/bss_advance.cuh"
 BSS_REPLACES = ("tpudes/parallel/replicated.py:1155 (lax.while_loop over "
                 "build_bss_step.step_fn; XLA, no pallas_call)")
+#: the stage probe's arms (phase 3p): (arm, its program in
+#: bss_programs / bss_arm_programs), each at bench width
+BSS_PROBE_ARMS = (("legacy", "legacy"), ("agg", "ht"), ("mobile", "mobile"),
+                  ("traffic", "onoff"))
+#: the programs the compare mode (``--compare-with``) times old against
+#: new, in turns: bench_wifi, bench_wifi_ht, the mobile and ON-OFF
+#: benches, the workload grid (8 x 512 x 2 s), the 802.11n horizon grid
+#: (4 x 512), the composed program and bench_wifi's BSS at
+#: BSS_LARGE_STAS STAs (N = 256: 8 slots a lane, held in local memory)
+BSS_COMPARE = ("legacy", "ht", "mobile", "onoff", "sweep", "ht_sweep",
+               "composed", "large")
+BSS_LARGE_STAS = 255
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def sm_clock_line() -> str:
+    """The card's SM clock now and its maximum (MHz), as nvidia-smi reads
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(name: str, text: str) -> list:
+    """ptxas's registers, shared memory and spills for each kernel
+    instantiation of a build log, the instantiation named by its
+    template arguments (``bss_advance_kernel<3,1,0,0,0>``: slots, AGG,
+    MOB, TRF, PROF)."""
+    out, entry = [], name
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = re.search(r"\d+([a-z][a-z_]*_kernel)I((?:L[a-z]+\d+E)+)E",
+                           m.group(1))
+            entry = (f"{fn.group(1)}<"
+                     + ",".join(re.findall(r"L[a-z]+(\d+)E", fn.group(2)))
+                     + ">") if fn else m.group(1)
+        elif "registers" in line or "spill" in line:
+            out.append(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def card_line() -> str:
@@ -1094,6 +1150,223 @@ def bss_workload_sweep_bench(kc, dev, check: dict) -> dict:
     return launches
 
 
+def bss_stage_split(dev, label: str) -> dict:
+    """Phase 3p: the stage probe (``bss_cuda.bss_profile``: the kernel's
+    profiling instantiation, lane 0 of each row reading ``clock64()`` at
+    the stage edges) on legacy, ``AGG``, ``MOB`` and ``TRF`` at bench
+    width (:data:`BSS_PROBE_ARMS`, ``BSS_R`` replicas x 2 s): its state
+    bit-equal to the main launch's, then the mean cycles a replica-step
+    spends in each stage (``BSS_PROF_STAGES``), their sum, the probe
+    launch's device time, the SM clock that time and the longest row's
+    cycles give, and nvidia-smi's SM clock just after.  Returns each
+    arm's split."""
+    import torch
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import (
+        BSS_PROF_STAGES,
+        BSS_STATE,
+        bss_launch,
+        bss_profile,
+    )
+    from tpudes_torch.random import PRNGKey
+
+    progs = {**bss_programs(), **bss_arm_programs()}
+    split = {}
+    for arm, name in BSS_PROBE_ARMS:
+        prog = progs[name]
+        consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
+        key = PRNGKey(BSS_CHECK_SEED, device=dev)
+        bound = bss._estimate_max_steps(prog)
+        s0 = init()
+        want = bss_launch(consts, s0, key, [0], bound)
+        bss_profile(consts, s0, key, [0], bound)              # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got, cyc = bss_profile(consts, s0, key, [0], bound)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        clock = sm_clock_line()
+        for k, _, _ in BSS_STATE:
+            if not torch.equal(got[0][k], want[0][k]):
+                fail(f"{label} probe ({arm}): {k} differs from the main "
+                     f"launch's")
+        if not torch.equal(got[1], want[1]):
+            fail(f"{label} probe ({arm}): stops differ")
+        steps = int(got[1].long().sum())
+        per = (cyc.sum(0).double() / steps).tolist()
+        rows = cyc.sum(1)
+        mhz = float(rows.max()) / (ms * 1e3)
+        split[arm] = dict(zip(BSS_PROF_STAGES, per), total=sum(per),
+                          probe_ms=ms, clock_mhz_from_probe=mhz,
+                          nvidia_smi_clocks_sm_max=clock,
+                          us_per_step=sum(per) / mhz)
+        print(f"{label} stage probe ({arm}, {BSS_R} x {prog.sim_end_us / 1e6}"
+              f" s, {steps} replica-steps): cycles per step "
+              + ", ".join(f"{k} {v:.1f}" for k, v in zip(BSS_PROF_STAGES,
+                                                        per))
+              + f"; total {sum(per):.1f} = {sum(per) / mhz:.4f} us at "
+              f"{mhz:.1f} MHz (the longest row's cycles over the probe "
+              f"launch's {ms:.4f} ms); nvidia-smi clocks.sm, clocks.max.sm "
+              f"{clock}", flush=True)
+    return split
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """Run ``bss_advance`` from ``lib`` (a loaded library with the same C
+    interface) inside the block."""
+    from tpudes_torch import _build
+
+    saved = _build._LOADED.get("bss_advance")
+    _build._LOADED["bss_advance"] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._LOADED.pop("bss_advance", None)
+        else:
+            _build._LOADED["bss_advance"] = saved
+
+
+def compare_main(old_dir: str, device: str = "cuda") -> int:
+    """``python3 chip_smoke.py --compare-with DIR``: ``DIR/bss_advance.cu``
+    (an earlier design of the kernel with the same C interface and probe)
+    against this one, in one call on one card.  Builds both (in
+    parallel); for each of :data:`BSS_COMPARE` at bench width holds the
+    two launches' outputs equal (state, stops, next times, pending
+    flags), then times them in turns (old, new, new, old): the launch's
+    device time (CUDA events) and the entry point's wall (median of three
+    runs a turn); runs the stage probe of each; prints one JSON line
+    (``phase: bss_old_vs_new``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from tpudes_torch import _build
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_launch
+    from tpudes_torch.random import PRNGKey
+
+    dev = torch.device(device)
+    card = card_line()
+    print(card, flush=True)
+    src = os.path.join(old_dir, "bss_advance.cu")
+    lib_path = _build.BUILD / "libbss_advance_old.so"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    old = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-o",
+         str(lib_path), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = _build.build(["bss_advance"])
+    new_s = time.monotonic() - t0
+    old_log, _ = old.communicate()
+    old_s = time.monotonic() - t0
+    if old.returncode != 0:
+        fail(f"the old kernel's build failed:\n{old_log}")
+    print(f"build: new {new_s:.2f} s, old {old_s:.2f} s (in parallel)",
+          flush=True)
+    print("\n".join(ptxas_lines("bss_advance", logs["bss_advance"])
+                    + ptxas_lines("old", old_log)), flush=True)
+    old_lib = ctypes.CDLL(str(lib_path))
+
+    progs = {**bss_programs(), **bss_arm_programs()}
+    result = dict(phase="bss_old_vs_new", card=card, old=old_dir,
+                  replicas=BSS_R, programs={})
+    for name in BSS_COMPARE:
+        pts, ends = None, None
+        if name == "sweep":
+            prog, pts = progs["sweep"], progs["sweep_points"]
+        elif name == "ht_sweep":
+            prog = progs["ht"]
+            ends = [int(round(v * 1e6)) for v in BSS_SWEEP_S]
+        elif name == "large":
+            from tpudes_torch.scenarios import bss_program
+
+            prog = bss_program(BSS_LARGE_STAS, BSS_SIM_S)
+        else:
+            prog = progs[name]
+        C = len(pts) if pts else len(ends) if ends else 1
+        ends = ends or [prog.sim_end_us] * C
+        consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev, pts)
+        key = PRNGKey(BSS_CHECK_SEED, device=dev)
+        bound = max(bss._estimate_max_steps(dataclasses.replace(
+            prog, traffic=tp, sim_end_us=e))
+            for tp in (pts or [prog.traffic]) for e in ends)
+        s0 = init(C)
+
+        def launch():
+            return bss_launch(consts, s0, key, [0] * C, bound, ends)
+
+        new = launch()
+        with kernel_library(old_lib):
+            was = launch()
+        torch.cuda.synchronize()
+        for k, _, _ in BSS_STATE:
+            if not torch.equal(new[0][k], was[0][k]):
+                fail(f"compare ({name}): {k} differs between old and new")
+        for a, b in zip(new[1:], was[1:]):
+            if not torch.equal(a, b):
+                fail(f"compare ({name}): stops or pending flags differ")
+        steps = int(new[1].max())
+
+        def entry(seed):
+            kw = ({"traffic_sweep": pts} if pts
+                  else {"sim_end_us": ends} if C > 1 else {})
+            return bss.run_replicated_bss(prog, BSS_R, PRNGKey(seed),
+                                          device=dev, **kw)
+
+        times = {"old": [], "new": []}
+        walls = {"old": [], "new": []}
+        for turn in ("old", "new", "new", "old"):
+            ctx = (kernel_library(old_lib) if turn == "old"
+                   else contextlib.nullcontext())
+            with ctx:
+                times[turn].append(timed_ms(launch, BSS_TIMED_CALLS,
+                                            reps=3)[0])
+                entry(0)
+                w = []
+                for i in range(3):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    entry(1 + i)
+                    torch.cuda.synchronize()
+                    w.append(time.perf_counter() - t1)
+                walls[turn].append(statistics.median(w))
+        line = dict(
+            points=C, steps_max=steps,
+            old_ms=times["old"], new_ms=times["new"],
+            old_us_per_step=statistics.mean(times["old"]) * 1e3 / steps,
+            new_us_per_step=statistics.mean(times["new"]) * 1e3 / steps,
+            new_over_old=statistics.mean(times["new"])
+            / statistics.mean(times["old"]),
+            old_wall_s=walls["old"], new_wall_s=walls["new"],
+            wall_new_over_old=statistics.mean(walls["new"])
+            / statistics.mean(walls["old"]),
+        )
+        result["programs"][name] = line
+        print(f"compare ({name}, N={consts['N']}, {C} x {BSS_R}, {steps} "
+              f"steps at most): old "
+              f"{line['old_ms']} ms, new {line['new_ms']} ms a launch "
+              f"(new/old {line['new_over_old']:.4f}: "
+              f"{line['old_us_per_step']:.4f} -> "
+              f"{line['new_us_per_step']:.4f} us/step); walls old "
+              f"{walls['old']}, new {walls['new']} s", flush=True)
+    result["split_new"] = bss_stage_split(dev, "new")
+    with kernel_library(old_lib):
+        result["split_old"] = bss_stage_split(dev, "old")
+    print(json.dumps(result), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -1131,9 +1404,7 @@ def main(device: str = "cuda") -> int:
     logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        print("\n".join(ptxas_lines(name, text)), flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
     enb_pos, ue_pos = lena_ue_drop(E, UES_PER_CELL, generator=gen)
@@ -1581,6 +1852,8 @@ def main(device: str = "cuda") -> int:
     # 3h. the MOB and TRF arms and the traffic grid at bench width
     arm_numbers = {w: bss_check(kc, dev, w)
                    for w in ("mobile", "onoff", "sweep", "composed")}
+    # 3p. the stage probe of bss_advance on legacy, AGG, MOB and TRF
+    bss_stage_split(dev, "bss_advance")
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -2139,4 +2412,8 @@ def main(device: str = "cuda") -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare-with":
+        sys.exit(compare_main(sys.argv[2]))
+    if len(sys.argv) > 1:
+        fail("usage: python3 chip_smoke.py [--compare-with DIR]")
     sys.exit(main())

@@ -646,3 +646,139 @@ def test_bss_mob_trf_card_equals_cpu(card, which):
         assert np.array_equal(gpu[k], cpu[k]), k
         assert np.array_equal(chunked[k], cpu[k]), k
     assert gpu["all_done"]
+
+
+#: node counts at the lane and slot edges of the kernel's layout (node i
+#: on lane i % 32, slot i // 32; up to 4 slots in registers, past it in
+#: local memory; 1024 the most a row holds)
+EDGE_NS = (2, 32, 33, 64, 65, 97, 128, 129, 1024)
+
+
+def _edge_program(n, **kw):
+    """n nodes (an AP and n - 1 STAs on 8/14/20 m rings), echoes every 4
+    ms, 1.08 s: the STAs that start before the horizon collide often."""
+    return bss_program(n - 1, 1.08, radii=(8.0, 14.0, 20.0),
+                       interval_s=0.004, **kw)
+
+
+def _kernel_vs_plain(prog, R, card, ends=None, cuts=()):
+    """One launch of the kernel and, with ``cuts``, launches split at
+    those steps, each against the plain loop on the card: every state
+    array, the step counts and the pending flags bit-equal."""
+    consts, init, _ = bss.build_bss_advance(prog, R, card)
+    C = len(ends) if ends else 1
+    ends = ends or [prog.sim_end_us]
+    key = PRNGKey(4).to(card)
+    bound = max(bss._estimate_max_steps(dataclasses.replace(
+        prog, sim_end_us=e)) for e in ends)
+    want, w_steps, w_pend = bss.bss_advance_math(consts, init(C), key,
+                                                 [0] * C, bound, ends)
+    got, steps, pend = bss.bss_advance(consts, init(C), key, [0] * C,
+                                       bound, ends)
+    assert steps == w_steps and torch.equal(pend, w_pend)
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[k], want[k]), k
+    if cuts:
+        state, at = init(C), [0] * C
+        for cut in (*cuts, bound):
+            state, at, pend = bss.bss_advance(consts, state, key, at, cut,
+                                              ends)
+        assert at == w_steps and torch.equal(pend, w_pend)
+        for k, _, _ in BSS_STATE:
+            assert torch.equal(state[k], want[k]), ("split", k)
+    return want, w_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_bss_layout_edges_bit_equal_to_plain_loop(card, n):
+    """The legacy arm at the lane and slot edges: 2 replicas, one launch
+    against the plain loop, bit for bit."""
+    want, _ = _kernel_vs_plain(_edge_program(n), 2, card)
+    assert int(want["tx_data"].sum()) > 0
+
+
+#: each arm at two of the edge node counts (802.11n A-MPDUs, motion, an
+#: ON-OFF workload, all three composed)
+ARM_EDGES = {
+    ("ht", 33): lambda n: _edge_program(
+        n, data_mode="HtMcs7", standard="80211n"),
+    ("ht", 129): lambda n: _edge_program(
+        n, data_mode="HtMcs7", standard="80211n"),
+    ("mobile", 64): lambda n: _edge_program(
+        n, mobility="const_velocity", speed=5.0, geom_stride=3),
+    ("mobile", 1024): lambda n: _edge_program(
+        n, mobility="random_walk", speed=2.0, geom_stride=2),
+    ("onoff", 32): lambda n: _onoff(_edge_program(n)),
+    ("onoff", 97): lambda n: _onoff(_edge_program(n)),
+    ("composed", 65): lambda n: _onoff(_edge_program(
+        n, data_mode="HtMcs7", standard="80211n",
+        mobility="const_velocity", speed=3.0, geom_stride=4)),
+    ("composed", 128): lambda n: _onoff(_edge_program(
+        n, data_mode="HtMcs7", standard="80211n",
+        mobility="const_velocity", speed=3.0, geom_stride=4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm_n", list(ARM_EDGES), ids=str)
+def test_bss_arms_at_layout_edges_bit_equal_to_plain_loop(card, arm_n):
+    """Each arm at two node counts: 2 replicas, one launch against the
+    plain loop, bit for bit (N = 1024 under MOB takes the shared-memory
+    opt-in)."""
+    arm, n = arm_n
+    _kernel_vs_plain(ARM_EDGES[arm_n](n), 2, card)
+
+
+@pytest.mark.cuda
+def test_bss_ragged_grid_bit_equal_to_plain_loop(card):
+    """Three horizons x 5 replicas: 15 rows, so the last block of 4 rows
+    has an idle warp; the grid bit-equal to the plain grid loop."""
+    _kernel_vs_plain(_edge_program(33), 5, card,
+                     ends=[1_030_000, 1_080_000, 1_055_000])
+
+
+@pytest.mark.cuda
+def test_bss_mobile_chunks_split_mid_stride(card):
+    """A mobile program (stride 3) at N = 97 run in four launches cut
+    mid-stride equals one launch and the plain loop, ``geom_t`` too."""
+    prog = _edge_program(97, mobility="const_velocity", speed=5.0,
+                         geom_stride=3)
+    _, steps = _kernel_vs_plain(prog, 3, card, cuts=(7, 50, 101))
+    assert steps[0] > 101
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["legacy", "ht", "mobile", "onoff"])
+def test_bss_probe_equals_main_launch(card, which):
+    """The profiling instantiation at the bench's slot count (N = 65)
+    computes what the main launch does, and counts cycles in every stage
+    a step runs (the refresh only under MOB)."""
+    from tpudes_torch.parallel.bss_cuda import (
+        BSS_PROF_STAGES,
+        bss_launch,
+        bss_profile,
+    )
+
+    kw = {"ht": dict(data_mode="HtMcs7", standard="80211n"),
+          "mobile": dict(mobility="const_velocity", speed=5.0,
+                         geom_stride=3)}.get(which, {})
+    prog = _edge_program(65, **kw)
+    if which == "onoff":
+        prog = _onoff(prog)
+    consts, init, _ = bss.build_bss_advance(prog, 8, card)
+    key = PRNGKey(4).to(card)
+    bound = bss._estimate_max_steps(prog)
+    kc.reset_launches()
+    want = bss_launch(consts, init(), key, [0], bound)
+    got, cyc = bss_profile(consts, init(), key, [0], bound)
+    assert kc.launches["bss_advance"] == 1          # the probe is not counted
+    for k, _, _ in BSS_STATE:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    total = cyc.sum(0)
+    assert cyc.shape == (8, len(BSS_PROF_STAGES))
+    for k, name in enumerate(BSS_PROF_STAGES):
+        assert (int(total[k]) > 0) == (name != "refresh" or which == "mobile"
+                                       ), name

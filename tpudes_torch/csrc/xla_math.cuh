@@ -144,7 +144,7 @@ __device__ __forceinline__ float xla_erfc(float x) {
 
 // glibc powf's exp2 table: the bits of 2 ** (i / 32) in f64 (fused.py::
 // _exp2f_table)
-__constant__ long long kExp2Tab[32] = {
+static __constant__ long long kExp2Tab[32] = {
     0x3ff0000000000000LL, 0x3ff059b0d3158574LL, 0x3ff0b5586cf9890fLL,
     0x3ff11301d0125b51LL, 0x3ff172b83c7d517bLL, 0x3ff1d4873168b9aaLL,
     0x3ff2387a6e756238LL, 0x3ff29e9df51fdee1LL, 0x3ff306fe0a31b715LL,

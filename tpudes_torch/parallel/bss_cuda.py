@@ -1,16 +1,20 @@
 """The BSS event loop as one persistent CUDA kernel: the wrapper.
 
-``csrc/bss_advance.cu`` replaces the reference's device event loop
+``csrc/bss_advance.cu`` (the kernel in ``csrc/bss_advance.cuh``) replaces
+the reference's device event loop
 (``tpudes/parallel/replicated.py:1155``, a ``lax.while_loop`` over
 ``build_bss_step.step_fn``; XLA code, no ``pallas_call``): one launch
-runs every step of a chunk for every replica, one CTA per replica and
-one thread per node, the draws made inside; an A-MPDU program runs its
-``AGG`` arm, a mobile one its ``MOB`` arm (the geometry rebuilt in the
-kernel every stride steps), a traffic one its ``TRF`` arm (each arrival's
-next gap drawn in the kernel), and a sweep is a ``(R, C)`` grid,
-``blockIdx.y`` the point with its own horizon or, in a workload sweep,
-its own traffic operands.  Each CTA stops when its own replica
-has no event left before its horizon (or at the step bound);
+runs every step of a chunk for every replica, one warp per (point,
+replica) row and :data:`BSS_ROWS_PER_BLOCK` rows a block, node ``i`` on
+lane ``i % 32``, slot ``i // 32`` (its state in registers up to
+:data:`BSS_REG_SLOTS` slots), warp-synchronous steps with ``redux.sync``
+reductions, the draws made inside; an A-MPDU program runs its ``AGG``
+arm, a mobile one its ``MOB`` arm (the geometry rebuilt in the kernel
+every stride steps), a traffic one its ``TRF`` arm (each arrival's next
+gap drawn in the kernel), and a sweep's points are rows of the same
+launch, each with its own horizon or, in a workload sweep, its own
+traffic operands (:func:`launch_geometry`).  Each row stops when its own
+replica has no event left before its horizon (or at the step bound);
 :func:`join_stops` then gives the replicas that stopped before the last
 one of their point the one move of ``t`` the reference's loop makes in
 their place, so the state equals the plain loop's
@@ -55,16 +59,71 @@ BSS_STATE = (
 )
 _DTYPES = {"i32": torch.int32, "bool": torch.bool}
 
-#: nodes one CTA holds, one thread each (BSS_MAX_N in csrc/bss_advance.cu)
+#: nodes one row holds (BSS_MAX_N in csrc/bss_advance.cuh): 32 slots of a
+#: warp's 32 lanes
 BSS_MAX_N = 1024
 #: the last step a launch may reach (BSS_MAX_STEP): step + 31, a warp's
 #: key lookahead, stays below 2^31
 BSS_MAX_STEP = 2147483000
-#: horizons one launch holds (BSS_MAX_POINTS: the grid's y extent, passed
-#: by value in the kernel's parameters)
+#: horizons one launch holds (BSS_MAX_POINTS: its points, each horizon and
+#: first step passed by value in the kernel's parameters)
 BSS_MAX_POINTS = 64
 #: an A-MPDU's subframe cap the kernel holds: two coins per lane of a warp
 BSS_MAX_MPDUS = 64
+#: rows (warps, one per (point, replica)) a block (BSS_ROWS_PER_BLOCK)
+BSS_ROWS_PER_BLOCK = 4
+#: slots a lane holds in registers (BSS_REG_SLOTS): a template
+#: instantiation each for N <= 128; past it one instantiation holds the
+#: slots in local memory
+BSS_REG_SLOTS = 4
+#: shared memory a block takes without the opt-in, and the most it may
+#: opt in to (H100: 227 KB)
+SHARED_DEFAULT_MAX = 48 * 1024
+SHARED_OPTIN_MAX = 232_448
+#: the probe's stages (BSS_PROF_STAGES), in a step's order, and the slot
+#: count it is built for (BSS_PROF_SLOTS: the bench's N = 65)
+BSS_PROF_STAGES = ("reduce", "refresh", "draws_winners", "arrivals", "phy",
+                   "outcome")
+BSS_PROF_SLOTS = 3
+
+
+def launch_geometry(n: int, points: int, replicas: int,
+                    mobile: bool) -> dict:
+    """The launch's shape for ``n`` nodes and ``points`` x ``replicas``
+    rows, as ``bss_advance_launch`` checks it: ``slots`` a lane holds
+    (ceil(n / 32)) and the instantiation that holds them
+    (``template_slots``: the count itself up to :data:`BSS_REG_SLOTS`, 0
+    past it), ``rows`` (point-major, row ``p R + r``), ``blocks`` of
+    ``threads`` (:data:`BSS_ROWS_PER_BLOCK` warps, the last block ragged),
+    each row's slice of dynamic shared memory (``row_bytes``: per node
+    two floats, under MOB five, and a byte, rounded up to 16), the
+    block's ``shared`` bytes and whether they need the opt-in past 48
+    KB."""
+    slots = -(-n // 32)
+    rows = points * replicas
+    row_bytes = -(-((5 if mobile else 2) * 4 * n + n) // 16) * 16
+    shared = BSS_ROWS_PER_BLOCK * row_bytes
+    return dict(
+        slots=slots,
+        template_slots=slots if slots <= BSS_REG_SLOTS else 0,
+        rows=rows, blocks=-(-rows // BSS_ROWS_PER_BLOCK),
+        threads=32 * BSS_ROWS_PER_BLOCK, row_bytes=row_bytes,
+        shared=shared, optin=shared > SHARED_DEFAULT_MAX,
+    )
+
+
+def node_lane_slot(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each node's ``(lane, slot)`` in its row's warp: node ``i`` on lane
+    ``i % 32``, slot ``i // 32`` (the ballot word and bit of its win)."""
+    i = np.arange(n)
+    return i % 32, i // 32
+
+
+def row_point_replica(block: int, warp: int, replicas: int):
+    """The ``(point, replica)`` of the row that warp ``warp`` of block
+    ``block`` runs (None past the last row is the caller's check)."""
+    row = block * BSS_ROWS_PER_BLOCK + warp
+    return divmod(row, replicas)
 
 
 def psr_params(mode_index: int) -> list:
@@ -80,7 +139,7 @@ def psr_params(mode_index: int) -> list:
 
 
 class MobArgs(ctypes.Structure):
-    """``Mob`` of csrc/bss_advance.cu: the position math's operands and
+    """``Mob`` of csrc/bss_advance.cuh: the position math's operands and
     the link physics (:func:`mob_args`)."""
     _fields_ = [
         ("model", ctypes.c_int), ("stride", ctypes.c_int),
@@ -93,7 +152,7 @@ class MobArgs(ctypes.Structure):
 
 
 class TrafficArgs(ctypes.Structure):
-    """``Traffic`` of csrc/bss_advance.cu: the stacked operand tables
+    """``Traffic`` of csrc/bss_advance.cuh: the stacked operand tables
     (:func:`traffic_args`)."""
     _fields_ = [
         *[(k, ctypes.c_void_p) for k in ("id", "start", "interval", "rate",
@@ -168,17 +227,11 @@ def traffic_args(tr: dict, n: int, points: int, dev) -> TrafficArgs:
                        S, C, K, int(tr["epoch_us"]), int(P > 1))
 
 
-def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
-               step1: int, sim_end=None):
-    """Launch ``bss_advance`` once for steps ``[step0, step1)`` of a grid
-    of C horizons: a CTA per replica and point runs its steps until its
-    replica is no longer pending or the bound.  ``state`` is ``(C, R,
-    ...)``, ``step0`` a list of C counters, ``sim_end`` a list of C
-    horizons (None: the program's, C = 1).  Returns ``(state, done,
-    t_next, pending)``, all on the card and nothing copied back: each
-    replica's state where its CTA stopped, the ``(C, R)`` step it
-    stopped at, the ``t`` one more step would give it, and whether it is
-    still pending.  Raises on a bad argument or a launch error."""
+def _launch_args(consts: dict, state: dict, key: torch.Tensor, step0,
+                 step1: int, sim_end, prof) -> tuple:
+    """Check a launch's operands and allocate its outputs: ``(args,
+    (out, done, t_next, still), arms)``, ``args`` the C launcher's
+    arguments (``prof`` the probe's output, or None)."""
     ends = [int(v) for v in (sim_end if sim_end is not None
                              else [consts["sim_end"]])]
     starts = [int(v) for v in step0]
@@ -226,8 +279,8 @@ def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
     if consts["tr"] is not None:
         tr = traffic_args(consts["tr"], n, C, dev)
     multi = tr is not None and tr.multi
-    _launch(
-        "bss_advance",
+    geo = launch_geometry(n, C, R, mob is not None)
+    args = (
         consts["rx_w"].data_ptr(), consts["det"].data_ptr(),
         consts["interval"].data_ptr(), consts["stop"].data_ptr(),
         key.data_ptr(),
@@ -243,13 +296,54 @@ def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
         ctypes.c_float(rate),
         None if mob is None else ctypes.byref(mob),
         None if tr is None else ctypes.byref(tr),
+        geo["slots"], geo["blocks"], geo["shared"],
+        None if prof is None else prof.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
-        argtypes=LAUNCH_ARGTYPES,
-        arms=(("agg",) * (K > 1) + ("sweep",) * (C > 1 and not multi)
-              + ("mobile",) * (mob is not None)
-              + ("traffic",) * (tr is not None) + ("traffic_sweep",) * multi),
     )
-    return out, done, t_next, still
+    arms = (("agg",) * (K > 1) + ("sweep",) * (C > 1 and not multi)
+            + ("mobile",) * (mob is not None)
+            + ("traffic",) * (tr is not None) + ("traffic_sweep",) * multi)
+    return args, (out, done, t_next, still), arms
+
+
+def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
+               step1: int, sim_end=None):
+    """Launch ``bss_advance`` once for steps ``[step0, step1)`` of a grid
+    of C horizons: a warp per replica and point runs its steps until its
+    replica is no longer pending or the bound.  ``state`` is ``(C, R,
+    ...)``, ``step0`` a list of C counters, ``sim_end`` a list of C
+    horizons (None: the program's, C = 1).  Returns ``(state, done,
+    t_next, pending)``, all on the card and nothing copied back: each
+    replica's state where its row stopped, the ``(C, R)`` step it
+    stopped at, the ``t`` one more step would give it, and whether it is
+    still pending.  Raises on a bad argument or a launch error."""
+    args, outs, arms = _launch_args(consts, state, key, step0, step1,
+                                    sim_end, None)
+    _launch("bss_advance", *args, argtypes=LAUNCH_ARGTYPES, arms=arms)
+    return outs
+
+
+def bss_profile(consts: dict, state: dict, key: torch.Tensor, step0,
+                step1: int, sim_end=None):
+    """The probe: the launch :func:`bss_launch` makes, run by the kernel's
+    profiling instantiation (lane 0 of each row reads ``clock64()`` at
+    the stage edges), for N in 65..96 (:data:`BSS_PROF_SLOTS`) and one
+    arm at a time.  Returns ``(outs, cycles)``: :func:`bss_launch`'s
+    outputs and the ``(C R, len(BSS_PROF_STAGES))`` int64 cycles each
+    row spent in each stage, summed over its steps.  Not the main path:
+    not counted in ``kernels_cuda.launches``."""
+    from tpudes_torch.parallel.kernels_cuda import _launcher
+
+    C = len(step0)
+    R = state["queue"].shape[1]
+    prof = torch.zeros((C * R, len(BSS_PROF_STAGES)), dtype=torch.int64,
+                       device=key.device)
+    args, outs, _ = _launch_args(consts, state, key, step0, step1, sim_end,
+                                 prof)
+    err = _launcher("bss_advance", LAUNCH_ARGTYPES)(*args)
+    if err != 0:
+        raise RuntimeError(f"bss_advance probe failed: CUDA error {err}")
+    return outs, prof
 
 
 def join_stops(state: dict, done: torch.Tensor, t_next: torch.Tensor,
@@ -301,10 +395,13 @@ def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
 #: C horizons and C first steps (host arrays), C, step1, nbits, noise_w,
 #: the 23 floats of psr_params and its int term mask, the A-MPDU cap K
 #: and the data preamble, the three floats of ampdu_params, the MOB and
-#: TRF arms' arguments (host structs, or null), stream
+#: TRF arms' arguments (host structs, or null), the geometry's slots,
+#: blocks and shared bytes (:func:`launch_geometry`), the probe's output
+#: (or null), stream
 LAUNCH_ARGTYPES = (
     [ctypes.c_void_p] * (5 + 2 * len(BSS_STATE) + 3)
     + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_float] * (2 + 23) + [ctypes.c_int]
-    + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 )

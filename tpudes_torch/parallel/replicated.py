@@ -12,7 +12,7 @@ a single run is its C = 1.
 
 The event loop is :func:`bss_advance`: on the card one launch of the
 persistent kernel ``csrc/bss_advance.cu`` (:mod:`tpudes_torch.parallel.
-bss_cuda`) runs every step of a chunk for every replica, one CTA per
+bss_cuda`) runs every step of a chunk for every replica, one warp per
 replica; on the CPU :func:`bss_advance_math` runs the step below in a
 loop under the reference's loop condition.  Replica ``r`` draws its
 step-``s`` backoffs and decode coins from ``split(fold_in(fold_in(key,
