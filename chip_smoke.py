@@ -104,6 +104,23 @@ carries on past one:
    launch a run, every replica done;
 6. one JSON line with every kernel arm's numbers, then the result line.
 
+Then the TCP dumbbell engine (``tpudes_torch.parallel.tcp_dumbbell.
+run_tcp_dumbbell``, BASELINE config #2) and its kernel ``tcp_advance``
+(the slot loop, every slot of a chunk in one persistent launch): in
+phase 3t, after 3p, at 256 replicas x 2 s, ``bench.py::bench_tcp``'s
+program (8 TcpCubic flows), ``bench_tcp_variant_sweep``'s (17 flows,
+one per variant, 13 Mbit/s), a RED/ECN program (DCTCP and non-ECT
+NewReno flows; CE marks and early drops required) and a four-point
+``variants=[...]`` grid of bench_tcp's flows: the whole state bit-equal
+to the plain loop on the card over one launch and over two split at a
+slot boundary, the grid also per point; a small program of each through
+the plain loop on the CPU against the kernel on the card; the launch's
+µs per slot beside its bound and the plain loop's wall; and in phase
+5tcp, after 5w, ``bench_tcp`` and ``bench_tcp_variant_sweep`` at 256
+replicas x 20 s (one warm run, five timed runs on keys 1..5, one launch
+each, the busy share; ``vs_scalar`` needs the host DES, which the port
+does not have).
+
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
 (``DIR/bss_advance.cu``, the same C interface and probe) against this one
@@ -244,6 +261,37 @@ BSS_PROBE_ARMS = (("legacy", "legacy"), ("agg", "ht"), ("mobile", "mobile"),
 BSS_COMPARE = ("legacy", "ht", "mobile", "onoff", "sweep", "ht_sweep",
                "composed", "large")
 BSS_LARGE_STAS = 255
+#: bench.py::bench_tcp and bench_tcp_variant_sweep (``:102-111``,
+#: ``:780-826``, ``:1343-1391``): replicas, simulated seconds, timed runs
+#: (keys 1..5 after a warm run on key 0)
+TCP_R, TCP_SIM_S, TCP_TIMED_RUNS = 256, 20.0, 5
+#: the kernel-vs-plain checks' horizon (s) and key (phase 3t)
+TCP_CHECK_S, TCP_CHECK_SEED = 2.0, 7
+#: launches per timed tcp_advance run (each the check's whole horizon)
+TCP_TIMED_CALLS = 5
+#: the four points of the variant grid check: bench_tcp's eight flows as
+#: Cubic, NewReno, the first eight variants and DCTCP/BBR pairs
+TCP_GRID = (("TcpCubic",) * 8, ("TcpNewReno",) * 8,
+            ("TcpNewReno", "TcpCubic", "TcpScalable", "TcpHighSpeed",
+             "TcpVegas", "TcpVeno", "TcpLinuxReno", "TcpBic"),
+            ("TcpDctcp", "TcpBbr") * 4)
+#: tcp_advance's least work: per slot one threefry hash (the slot's key,
+#: which every replica shares); per replica-slot two (its own key and its
+#: departure draw; under RED six: its key, the split's three keys and the
+#: departure and mark draws) and under RED one per flow (its early-drop
+#: draw); per flow-slot about 70 f32 operations (the estimators, the
+#: increase, the departure and the admission) and 40 int32 operations
+#: (the counters, the warp sums and the scan); under RED a powf per
+#: row-slot (about 40 f64 operations)
+TCP_HASHES, TCP_RED_HASHES = 2, 6
+TCP_FLOW_F32_OPS, TCP_FLOW_INT_OPS, TCP_RED_F64_OPS = 70, 40, 40
+TCP_SOURCE = "tpudes_torch/csrc/tcp_advance.cu"
+TCP_REPLACES = ("tpudes/parallel/tcp_dumbbell.py:1199 (lax.while_loop over "
+                "build_dumbbell_step.step_fn; XLA, no pallas_call)")
+#: the RED program of the checks: DCTCP and non-ECT NewReno flows over a
+#: RED queue that marks ECT packets (tests/test_ecn_dctcp.py's shape)
+TCP_RED = dict(MinTh=5.0, MaxTh=15.0, MaxSize=1000, UseEcn=True,
+               UseHardDrop=False)
 
 
 def fail(msg: str):
@@ -1214,6 +1262,210 @@ def bss_stage_split(dev, label: str) -> dict:
     return split
 
 
+def tcp_programs(sim_s: float) -> dict:
+    """The TCP dumbbell programs at ``sim_s`` seconds: ``bench_tcp``'s (8
+    Cubic flows, 10 Mbit/s), ``bench_tcp_variant_sweep``'s (17 flows, one
+    per variant, 13 Mbit/s) and the RED/ECN program (3 DCTCP and 3
+    NewReno flows, 5 Mbit/s)."""
+    from tpudes_torch.parallel.tcp_dumbbell import VARIANTS
+    from tpudes_torch.scenarios import dumbbell_program
+
+    return dict(
+        bench_tcp=dumbbell_program(8, sim_s, variant="TcpCubic"),
+        variants17=dumbbell_program(17, sim_s, variants=list(VARIANTS),
+                                    bottleneck_rate="13Mbps"),
+        red=dumbbell_program(6, sim_s, variants=["TcpDctcp",
+                                                 "TcpNewReno"] * 3,
+                             bottleneck_rate="5Mbps", red=TCP_RED),
+    )
+
+
+def tcp_bound(consts, state, out, slots: int) -> tuple:
+    """Least time for one ``tcp_advance`` launch of ``slots`` slots on
+    these inputs: the state read once and written once over HBM, against
+    the hashes and the per-flow work (:data:`TCP_FLOW_F32_OPS`,
+    :data:`TCP_FLOW_INT_OPS`) each type's rate; the larger wins."""
+    C, R = state["cwnd"].shape[:2]
+    F, red = consts["F"], consts["red"]
+    nbytes = sum(v.nbytes for v in state.values())
+    nbytes += sum(v.nbytes for v in out.values())
+    rows = C * R * slots
+    hashes = slots + rows * ((TCP_RED_HASHES + F) if red else TCP_HASHES)
+    int_ops = hashes * THREEFRY_OPS + rows * F * TCP_FLOW_INT_OPS
+    f32_ops = rows * F * TCP_FLOW_F32_OPS
+    f64_ops = rows * TCP_RED_F64_OPS if red else 0
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": max(int_ops / INT32_OPS_PER_S,
+                          f32_ops / F32_OPS_PER_S,
+                          f64_ops / F64_OPS_PER_S) * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def tcp_check(kc, dev, name: str) -> dict:
+    """Phase 3t: ``tcp_advance`` against the plain loop on the card at
+    ``TCP_R`` replicas x ``TCP_CHECK_S`` s, ``name`` one of
+    :func:`tcp_programs`'s or "grid" (bench_tcp's program as the
+    ``TCP_GRID`` points, one ``(C, R)`` launch): the whole state bit-equal
+    over one launch and over two split at a slot boundary; the grid also
+    against each point's own launch; the RED program must mark and drop
+    early; a small program through the plain loop on the CPU against the
+    kernel on the card; the launch's device time, µs per slot and
+    bound."""
+    import torch
+    from tpudes_torch.parallel import tcp_dumbbell as tcp
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+    from tpudes_torch.random import PRNGKey
+
+    prog = tcp_programs(TCP_CHECK_S)["bench_tcp" if name == "grid" else name]
+    points = [list(p) for p in TCP_GRID] if name == "grid" else None
+    consts = tcp.build_tcp_consts(prog, dev)
+    var, ecn = tcp.sweep_operands(prog, points)
+    var = torch.as_tensor(var, device=dev)
+    ecn = torch.as_tensor(ecn, device=dev)
+    C, n = var.shape[0], prog.n_slots
+    key = PRNGKey(TCP_CHECK_SEED, device=dev)
+    s0 = tcp.init_state(consts, TCP_R, C)
+    census = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = tcp.tcp_advance_math(consts, s0, key, 0, n, var, ecn, census)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    got = tcp_launch(consts, s0, key, 0, n, var, ecn)
+    split = n // 2 + 1
+    two = tcp_launch(consts, tcp_launch(consts, s0, key, 0, split, var, ecn),
+                     key, split, n, var, ecn)
+    torch.cuda.synchronize()
+    what = f"tcp_advance ({name})"
+    err = 0.0
+    for k, _, _ in tcp.TCP_STATE:
+        for how, x in (("one launch", got), ("two launches", two)):
+            if not torch.equal(bits_of(x[k]), bits_of(want[k])):
+                fail(f"{what} ({how}) vs plain loop: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs()
+                  .nan_to_num().max().item())
+    if census["tail_drops"] + census["early_drops"] <= 0 or int(
+            want["delivered"].sum()) <= 0:
+        fail(f"{what} check: nothing delivered or nothing dropped")
+    if consts["red"] and min(census["ce_marks"], census["early_drops"]) <= 0:
+        fail(f"{what} check: RED marked nothing or dropped nothing early "
+             f"({census})")
+    if points:
+        for c in range(C):
+            one = tcp_launch(consts, {k: v[c:c + 1].contiguous()
+                                      for k, v in s0.items()}, key, 0, n,
+                             var[c:c + 1].contiguous(),
+                             ecn[c:c + 1].contiguous())
+            for k, _, _ in tcp.TCP_STATE:
+                if not torch.equal(bits_of(got[k][c]), bits_of(one[k][0])):
+                    fail(f"{what}: point {c} differs from its own launch "
+                         f"in {k}")
+    print(f"{what} vs plain loop: {len(tcp.TCP_STATE)} state arrays "
+          f"bit-equal at F={consts['F']} L={consts['L']} C={C} R={TCP_R}, "
+          f"{n} slots ({TCP_CHECK_S} s), over one launch and over two split "
+          f"at slot {split}" + ("; each point == its own launch" if points
+                                else "")
+          + f"; delivered {int(want['delivered'].sum())}, census "
+          f"{census_line(census)}; plain loop wall {plain_s:.3f} s",
+          flush=True)
+
+    small = tcp_programs(0.5)["bench_tcp" if name == "grid" else name]
+    on_cpu = tcp.run_tcp_dumbbell(small, PRNGKey(3), 8, variants=points,
+                                  device="cpu")
+    on_gpu = tcp.run_tcp_dumbbell(small, PRNGKey(3), 8, variants=points,
+                                  device=dev)
+    for c, (a, b) in enumerate(zip(on_cpu if points else [on_cpu],
+                                   on_gpu if points else [on_gpu])):
+        for k in ("delivered", "drops", "mean_queue", "cwnd_final"):
+            if not np.array_equal(a[k], b[k]):
+                fail(f"small dumbbell ({name}, point {c}): CPU plain loop "
+                     f"vs kernel differs in {k}")
+    print(f"small dumbbell ({name}, {C} x 8 x 0.5 s): CPU plain loop == "
+          f"kernel on the card", flush=True)
+
+    ms, host_ms = timed_ms(lambda: tcp_launch(consts, s0, key, 0, n, var,
+                                              ecn),
+                           TCP_TIMED_CALLS, reps=3)
+    bound_ms, bound_by = tcp_bound(consts, s0, got, n)
+    us_slot = ms * 1e3 / n
+    print(f"{what}: one launch of {C} x {TCP_R} warps, {n} slots: device "
+          f"{ms:.4f} ms/launch = {us_slot:.4f} us/slot (host "
+          f"{host_ms:.4f} ms/call), plain loop wall {plain_s * 1e3:.1f} ms "
+          f"= {plain_s * 1e6 / n:.1f} us/slot, bound {bound_ms * 1e3:.3f} "
+          f"us ({bound_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_s * 1e3, slots=n,
+                us_per_slot=us_slot, bound=(bound_ms, bound_by),
+                plain_sim_s_per_wall_s=C * TCP_R * TCP_CHECK_S / plain_s,
+                census=census)
+
+
+def tcp_bench(kc, dev, check: dict, which: str) -> dict:
+    """Phase 5tcp: ``bench_tcp`` (``which`` "bench_tcp") or
+    ``bench_tcp_variant_sweep`` ("variants17") on the port at ``TCP_R``
+    replicas x ``TCP_SIM_S`` s: one warm run, then ``TCP_TIMED_RUNS``
+    counted runs on keys 1.. (one launch each); prints its JSON line
+    (``bench.py``'s keys; ``vs_scalar`` needs the host DES, which the port
+    does not have) and returns its launches."""
+    from tpudes_torch.parallel.tcp_dumbbell import VARIANTS, run_tcp_dumbbell
+    from tpudes_torch.random import PRNGKey
+
+    prog = tcp_programs(TCP_SIM_S)[which]
+    F = prog.n_flows
+    link_mbps = (prog.seg_bytes + 40) * 8 / prog.slot_s / 1e6
+
+    def run(seed):
+        return run_tcp_dumbbell(prog, PRNGKey(seed), TCP_R, device=dev)
+
+    run(0)                                                  # warm-up
+    walls, goodput, launches, out = [], [], None, None
+    for i in range(TCP_TIMED_RUNS):
+        out, wall, launches = counted(kc, lambda: run(1 + i),
+                                      {"tcp_advance": 1},
+                                      f"dumbbell main path ({which})")
+        g = out["goodput_mbps"]
+        if (g.shape != (TCP_R, F) or out["cwnd_final"].shape != (TCP_R, F)
+                or not np.all(np.isfinite(g))
+                or not np.all(np.isfinite(out["mean_queue"]))
+                or (out["delivered"].sum(1) <= 0).any()
+                or (out["delivered"].sum(1) > prog.n_slots).any()
+                or g.sum(1).max() > link_mbps):
+            fail(f"{which} run {i}: outputs of the wrong shape, not "
+                 f"finite, or past the bottleneck")
+        walls.append(wall)
+        goodput.append(g)
+    busy, kernel_ms = device_busy_share(lambda: run(1), "tcp_advance")
+    med = statistics.median(walls)
+    mean_g = np.mean(goodput, axis=0)
+    line = dict(
+        phase=which if which == "bench_tcp" else "bench_tcp_variant_sweep",
+        replicas=TCP_R, n_flows=F, sim_s=TCP_SIM_S, n_slots=prog.n_slots,
+        sim_s_per_wall_s=TCP_R * TCP_SIM_S / med, wall_median_s=med,
+        wall_min_s=min(walls), wall_max_s=max(walls),
+        agg_goodput_mbps=float(mean_g.sum(1).mean()),
+        obs_drops_per_replica=float(out["drops"].sum(1).mean()),
+        obs_mean_queue_pkts=float(out["mean_queue"].mean()),
+        vs_scalar="not measured: needs the host DES, which the port does "
+                  "not have",
+    )
+    if which == "variants17":
+        line["per_variant_mbps"] = {v: float(mean_g[:, i].mean())
+                                    for i, v in enumerate(VARIANTS)}
+    line.update(
+        kernel_us_per_slot=check["us_per_slot"],
+        kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        plain_loop_wall_s_at_check=check["plain_ms"] / 1e3,
+        plain_loop_sim_s_per_wall_s=check["plain_sim_s_per_wall_s"],
+    )
+    print(json.dumps(line), flush=True)
+    return launches
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Run ``bss_advance`` from ``lib`` (a loaded library with the same C
@@ -1401,7 +1653,8 @@ def main(device: str = "cuda") -> int:
 
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
-    logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance"])
+    logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance",
+                         "tcp_advance"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         print("\n".join(ptxas_lines(name, text)), flush=True)
@@ -1854,6 +2107,10 @@ def main(device: str = "cuda") -> int:
                    for w in ("mobile", "onoff", "sweep", "composed")}
     # 3p. the stage probe of bss_advance on legacy, AGG, MOB and TRF
     bss_stage_split(dev, "bss_advance")
+    # 3t. tcp_advance vs the plain loop at bench width: bench_tcp, the
+    #     17-variant program, RED/ECN and the four-point variant grid
+    tcp_numbers = {w: tcp_check(kc, dev, w)
+                   for w in ("bench_tcp", "variants17", "red", "grid")}
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -2344,6 +2601,9 @@ def main(device: str = "cuda") -> int:
     mob_launches = bss_mobile_bench(kc, dev, arm_numbers["mobile"])
     trf_launches = bss_traffic_bench(kc, dev, arm_numbers["onoff"])
     wsw_launches = bss_workload_sweep_bench(kc, dev, arm_numbers["sweep"])
+    # 5tcp. bench_tcp and bench_tcp_variant_sweep at bench width
+    tcp_launches = tcp_bench(kc, dev, tcp_numbers["bench_tcp"], "bench_tcp")
+    tcp_bench(kc, dev, tcp_numbers["variants17"], "variants17")
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -2403,6 +2663,11 @@ def main(device: str = "cuda") -> int:
               arm_numbers["sweep"]["plain_ms"],
               arm_numbers["sweep"]["bound"], source=BSS_SOURCE,
               replaces=BSS_REPLACES + ", vmapped over workloads :1397-1459"),
+        entry("tcp_advance", tcp_launches["tcp_advance"],
+              tcp_numbers["bench_tcp"]["err"], tcp_numbers["bench_tcp"]["ms"],
+              tcp_numbers["bench_tcp"]["plain_ms"],
+              tcp_numbers["bench_tcp"]["bound"], source=TCP_SOURCE,
+              replaces=TCP_REPLACES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.ops.mobility import MobilityProgram
 from tpudes_torch.parallel.bss_cuda import BSS_STATE
+from tpudes_torch.parallel import tcp_dumbbell as tcp
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.parallel.programs import (
     bss_onoff_traffic,
@@ -34,6 +35,7 @@ from tpudes_torch.scenarios import (
     ONOFF_ON,
     ONOFF_TR_SEED,
     bss_program,
+    dumbbell_program,
     lena_grid_program,
     lena_traffic_program,
     lena_ue_drop,
@@ -87,14 +89,15 @@ def _harq_consts(prog, card):
 
 def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
-            bss_trf=0, bss_trf_sweep=0):
+            bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
             "lte_sm_advance:bf16": bf16, "bss_advance": bss,
             "bss_advance:agg": bss_agg, "bss_advance:sweep": bss_sweep,
             "bss_advance:mobile": bss_mob, "bss_advance:traffic": bss_trf,
-            "bss_advance:traffic_sweep": bss_trf_sweep}
+            "bss_advance:traffic_sweep": bss_trf_sweep, "tcp_advance": tcp,
+            "tcp_advance:red": tcp_red, "tcp_advance:sweep": tcp_sweep}
 
 
 def _bit_equal(a, b):
@@ -782,3 +785,107 @@ def test_bss_probe_equals_main_launch(card, which):
     for k, name in enumerate(BSS_PROF_STAGES):
         assert (int(total[k]) > 0) == (name != "refresh" or which == "mobile"
                                        ), name
+
+
+
+# --------------------------------------------------------------------------
+# tcp_advance, the TCP dumbbell's slot loop
+# --------------------------------------------------------------------------
+
+
+def _dumbbell(n_flows, sim_s=0.3, red=None, queue="30p", **kw):
+    """A dumbbell of ``n_flows`` over all 17 variants in turn (DCTCP's
+    flows ECN-capable), droptail or RED."""
+    return dumbbell_program(
+        n_flows, sim_s, variants=[tcp.VARIANTS[i % 17]
+                                  for i in range(n_flows)],
+        queue=queue, red=red, **kw)
+
+
+def _tcp_kernel_vs_plain(prog, replicas, card, cuts=(), variants=None):
+    """The kernel over launches cut at ``cuts`` against the plain loop on
+    the card: every state array bit-equal.  Returns the kernel's state."""
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+
+    consts = tcp.build_tcp_consts(prog, card)
+    var, ecn = tcp.sweep_operands(prog, variants)
+    var = torch.as_tensor(var, device=card)
+    ecn = torch.as_tensor(ecn, device=card)
+    s0 = tcp.init_state(consts, replicas, var.shape[0])
+    key = PRNGKey(6).to(card)
+    want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn)
+    got, t = s0, 0
+    for bound in (*cuts, prog.n_slots):
+        got = tcp_launch(consts, got, key, t, bound, var, ecn)
+        t = bound
+    torch.cuda.synchronize()
+    for k, _, _ in tcp.TCP_STATE:
+        assert torch.equal(got[k], want[k]), k
+    assert int(got["delivered"].sum()) > 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_flows", [1, 2, 8, 17, 32])
+def test_tcp_advance_bit_equal_to_plain_loop(card, n_flows):
+    got = _tcp_kernel_vs_plain(_dumbbell(n_flows), 3, card)
+    assert int(got["drops"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard_drop", [False, True])
+def test_tcp_advance_red_bit_equal_to_plain_loop(card, hard_drop):
+    """RED with ECN: DCTCP and NewReno flows, marks and early drops."""
+    prog = dumbbell_program(
+        6, 0.6, variants=["TcpDctcp", "TcpNewReno", "TcpCubic"] * 2,
+        bottleneck_rate="5Mbps",
+        red=dict(MinTh=3, MaxTh=8, MaxSize=60, UseEcn=True,
+                 UseHardDrop=hard_drop))
+    got = _tcp_kernel_vs_plain(prog, 4, card, cuts=(333,))
+    assert float(got["dctcp_alpha"][..., 0].min()) < 1.0   # marks arrived
+
+
+@pytest.mark.cuda
+def test_tcp_advance_ragged_grid_and_split(card):
+    """Three variant points x 3 replicas: 9 rows, so the last block of 4
+    has idle warps; three launches split mid-horizon."""
+    points = [["TcpNewReno"] * 5, list(tcp.VARIANTS[4:9]),
+              ["TcpBbr", "TcpLp", "TcpHtcp", "TcpYeah", "TcpLedbat"]]
+    _tcp_kernel_vs_plain(_dumbbell(5), 3, card, cuts=(101, 257),
+                         variants=points)
+
+
+@pytest.mark.cuda
+def test_tcp_advance_global_rings_bit_equal(card):
+    """An ack lag long enough that four rows' rings pass the shared
+    memory a block may hold: the rings stay in global memory."""
+    from tpudes_torch.parallel.tcp_cuda import launch_geometry
+
+    prog = _dumbbell(32, sim_s=0.5, bottleneck_delay="200ms")
+    assert launch_geometry(32, prog.buf_len, 1, 2)["rings"] == "global"
+    _tcp_kernel_vs_plain(prog, 2, card)
+
+
+@pytest.mark.cuda
+def test_tcp_advance_refuses_too_many_flows(card):
+    prog = _dumbbell(33, sim_s=0.01)
+    with pytest.raises(ValueError, match="1..32 flows"):
+        tcp.run_tcp_dumbbell(prog, PRNGKey(0), 2, device=card)
+
+
+@pytest.mark.cuda
+def test_tcp_run_on_card_equals_cpu(card):
+    """run_tcp_dumbbell on the card (one launch a chunk) equals the CPU's
+    plain loop, a sweep included."""
+    prog = _dumbbell(8, sim_s=0.4)
+    points = [list(tcp.VARIANTS[:8]), ["TcpDctcp"] * 8]
+    kc.reset_launches()
+    got = tcp.run_tcp_dumbbell(prog, PRNGKey(2), 4, variants=points,
+                               chunk_slots=200)
+    n = -(-prog.n_slots // 200)
+    assert kc.launches == _counts(tcp=n, tcp_sweep=n)
+    want = tcp.run_tcp_dumbbell(prog, PRNGKey(2), 4, variants=points,
+                                device="cpu")
+    for g, w in zip(got, want):
+        for k in ("delivered", "drops", "mean_queue", "cwnd_final"):
+            assert np.array_equal(g[k], w[k]), k

@@ -1,0 +1,135 @@
+"""The port against the reference on fuzz-drawn configurations.
+
+For each ported engine — the TCP dumbbell, the WiFi BSS and the LTE SM
+engine — a few configurations are drawn by seed from the reference
+fuzzer's envelope (``tpudes/fuzz/engines.py``: ``DumbbellFuzzer``
+``:778``, ``BssFuzzer`` ``:376``, ``LteSmFuzzer`` ``:545``), built with
+the fuzzer's own ``build`` (the reference's scenario builders and
+lowerings), run through the JAX engine (the fuzzer's ``run_scalar``) and
+through the port on the CPU with the same key, and compared with the
+fuzzer's ``first_diff`` (``:70``), whose report names the first
+diverging field, index and values.
+
+Compared bit for bit: the dumbbell's every output; the BSS's
+``outcome_fields`` (its ``steps`` differs where R is not a power of two,
+ROADMAP C1); the LTE engine's integer and traffic outputs, its ``sinr``
+to a relative 1e-6 (the bound of the port's LTE tests).  A random-walk
+BSS draw takes the reference's walk velocities (ROADMAP C3, an ulp in
+about one value of 75).  The dumbbell's app-limited ``traffic`` draws
+are skipped: the port refuses them (ROADMAP A6b).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpudes.fuzz.engines import ENGINE_FUZZERS, first_diff
+from tpudes.fuzz.envelope import ScenarioGen
+from tpudes.ops.mobility import MobilityProgram as JaxMobility
+from tpudes.ops.mobility import walk_segment_velocities as jax_walk
+from tpudes_torch.convert import (
+    BSS_FIELDS,
+    DUMBBELL_FIELDS,
+    MOBILITY_FIELDS,
+    PROGRAM_FIELDS,
+    TRAFFIC_FIELDS,
+    bss_from_numpy,
+    dumbbell_from_numpy,
+    mobility_from_numpy,
+    program_from_numpy,
+    traffic_from_numpy,
+)
+from tpudes_torch.ops import mobility as port_mobility
+from tpudes_torch.parallel.lte_sm import run_lte_sm
+from tpudes_torch.parallel.replicated import run_replicated_bss
+from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+
+SEEDS = range(4)
+LTE_INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
+LTE_TRAFFIC_KEYS = ("goodput_bits", "backlog_bits", "offered_bits")
+
+
+def _fields(obj, names):
+    return {k: getattr(obj, k) for k in names}
+
+
+def _mobility(prog):
+    return None if prog.mobility is None else mobility_from_numpy(
+        _fields(prog.mobility, MOBILITY_FIELDS))
+
+
+def _traffic(prog):
+    return None if prog.traffic is None else traffic_from_numpy(
+        _fields(prog.traffic, TRAFFIC_FIELDS))
+
+
+def _draw(engine: str, seed: int):
+    fuzzer = ENGINE_FUZZERS[engine]
+    cfg = fuzzer.envelope.draw(ScenarioGen(seed))
+    return fuzzer, cfg
+
+
+def _key(cfg):
+    return np.asarray([0, int(cfg["key_seed"])], np.int64)
+
+
+def _assert_agree(engine, cfg, want, got, fields, **tol):
+    diff = first_diff({k: np.asarray(want[k]) for k in fields},
+                      {k: np.asarray(got[k]) for k in fields}, fields,
+                      **tol)
+    assert diff is None, f"{engine} {cfg}: first diff {diff}"
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_dumbbell_draw_equals_reference(seed):
+    fuzzer, cfg = _draw("dumbbell", seed)
+    if cfg["traffic"] != "off":
+        pytest.skip(f"draw {seed} has an app-limited workload "
+                    f"({cfg['traffic']}), which the port refuses (ROADMAP "
+                    f"A6b)")
+    prog = fuzzer.build(cfg)
+    want = fuzzer.run_scalar(prog, cfg)
+    got = run_tcp_dumbbell(dumbbell_from_numpy(_fields(prog,
+                                                       DUMBBELL_FIELDS)),
+                           _key(cfg), int(cfg["replicas"]), device="cpu")
+    _assert_agree("dumbbell", cfg, want, got, sorted(want))
+    assert set(got) == set(want)
+
+
+@pytest.fixture
+def reference_walks(monkeypatch):
+    """The port's walk velocities replaced by the reference's (ROADMAP
+    C3)."""
+
+    def carried(prog, device=None):
+        ref = JaxMobility(**_fields(prog, MOBILITY_FIELDS))
+        return torch.as_tensor(np.array(jax_walk(ref)),
+                               device=torch.device(device or "cpu"))
+
+    monkeypatch.setattr(port_mobility, "walk_segment_velocities", carried)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bss_draw_equals_reference(seed, reference_walks):
+    fuzzer, cfg = _draw("bss", seed)
+    prog = fuzzer.build(cfg)
+    want = fuzzer.run_scalar(prog, cfg)
+    port = bss_from_numpy(_fields(prog, BSS_FIELDS), _mobility(prog),
+                          _traffic(prog))
+    got = run_replicated_bss(port, int(cfg["replicas"]), _key(cfg),
+                             device="cpu")
+    _assert_agree("bss", cfg, want, got, list(fuzzer.outcome_fields))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_lte_sm_draw_equals_reference(seed):
+    fuzzer, cfg = _draw("lte_sm", seed)
+    prog = fuzzer.build(cfg)
+    want = fuzzer.run_scalar(prog, cfg)
+    port = program_from_numpy(_fields(prog, PROGRAM_FIELDS), _mobility(prog),
+                              _traffic(prog))
+    got = run_lte_sm(port, _key(cfg), replicas=int(cfg["replicas"]),
+                     device="cpu")
+    ints = [k for k in LTE_INT_KEYS + LTE_TRAFFIC_KEYS if k in want]
+    _assert_agree("lte_sm", cfg, want, got, ints)
+    _assert_agree("lte_sm", cfg, want, got, ["sinr"], rtol=1e-6)

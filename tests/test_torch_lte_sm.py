@@ -214,7 +214,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     assert {"program.py", "device.py", "host.py"} <= {
         p.name for p in sources if p.parent.name == "traffic"
     }
-    assert {"replicated.py", "bss_cuda.py"} <= {
+    assert {"replicated.py", "bss_cuda.py", "tcp_dumbbell.py",
+            "tcp_cuda.py"} <= {
         p.name for p in sources if p.parent.name == "parallel"
     }
     assert {"wifi_error.py", "interference.py", "fused.py"} <= {

@@ -4,9 +4,13 @@ The JAX package ``tpudes`` is the reference; this package sits beside it
 and imports nothing from it (nor JAX).  Constants and tables it needs
 from the reference are copied, each copy naming its source.
 
-Slice 1 covers the static full-buffer LTE SM engine
-(:func:`tpudes_torch.parallel.lte_sm.run_lte_sm`) with its fused per-TTI
-step as a hand-written CUDA kernel (``csrc/lte_sm_step.cu``).
+The engines: the LTE SM engine
+(:func:`tpudes_torch.parallel.lte_sm.run_lte_sm`, kernels
+``csrc/lte_sm_advance.cu`` and ``csrc/lte_sm_step.cu``), the WiFi BSS
+replica engine (:func:`tpudes_torch.parallel.replicated.
+run_replicated_bss`, ``csrc/bss_advance.cu``) and the TCP dumbbell
+(:func:`tpudes_torch.parallel.tcp_dumbbell.run_tcp_dumbbell`,
+``csrc/tcp_advance.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without CUDA they raise rather than fall back.

@@ -1,11 +1,12 @@
 """Carry the reference's programs and kernel states into the port.
 
 The JAX package's ``LteSmProgram``, its ``MobilityProgram``, its
-``TrafficProgram``, its ``BssProgram`` and their states are numpy-able;
+``TrafficProgram``, its ``BssProgram``, its ``DumbbellProgram`` and their
+states are numpy-able;
 the port takes their numpy values (it never imports the JAX package).
 This is how the tests and a user move a scenario lowered by the
-reference (``tpudes.scenarios.build_lena`` + ``lower_lte_sm``, or
-``build_bss`` + ``lower_bss``) onto the card.
+reference (``tpudes.scenarios.build_lena`` + ``lower_lte_sm``, ``build_bss`` +
+``lower_bss``, or ``build_dumbbell`` + ``lower_dumbbell``) onto the card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.parallel.kernels_cuda import SM_STATE
 from tpudes_torch.parallel.lte_sm import LteSmProgram
 from tpudes_torch.parallel.replicated import BssProgram
+from tpudes_torch.parallel.tcp_dumbbell import (
+    SIDE_KEYS,
+    TCP_STATE,
+    DumbbellProgram,
+)
 from tpudes_torch.traffic.program import TrafficProgram
 
 #: the reference program's fields the port reads
@@ -187,4 +193,53 @@ def state_from_numpy(state: Mapping, device=None) -> dict:
             -1, a.shape[-2]
         )
         out[k] = torch.tensor(a, device=device)
+    return out
+
+
+#: the reference ``DumbbellProgram``'s fields (``traffic``, an app-limited
+#: workload, is not ported: A6b)
+DUMBBELL_FIELDS = (
+    "n_flows", "variant_idx", "start_slot", "stop_slot", "max_pkts",
+    "slot_s", "n_slots", "ack_lag", "queue_cap", "burst_cap", "base_rtt_s",
+    "seg_bytes", "ecn", "qdisc", "red_min_th", "red_max_th", "red_max_p",
+    "red_qw", "red_gentle", "red_use_ecn", "red_use_hard_drop",
+)
+
+
+def dumbbell_from_numpy(fields: Mapping) -> DumbbellProgram:
+    """Port dumbbell program from the reference ``DumbbellProgram``'s
+    numpy fields (:data:`DUMBBELL_FIELDS`; ``ecn`` may be None)."""
+    ecn = fields.get("ecn")
+    return DumbbellProgram(
+        n_flows=int(fields["n_flows"]),
+        **{k: np.asarray(fields[k], np.int32)
+           for k in ("variant_idx", "start_slot", "stop_slot", "max_pkts")},
+        **{k: int(fields[k]) for k in ("n_slots", "ack_lag", "queue_cap",
+                                       "burst_cap", "seg_bytes")},
+        **{k: float(fields[k]) for k in ("slot_s", "base_rtt_s",
+                                         "red_min_th", "red_max_th",
+                                         "red_max_p", "red_qw")},
+        **{k: bool(fields[k]) for k in ("red_gentle", "red_use_ecn",
+                                        "red_use_hard_drop")},
+        ecn=None if ecn is None else np.asarray(ecn, bool),
+        qdisc=str(fields["qdisc"]),
+    )
+
+
+def dumbbell_state_from_numpy(state: Mapping, device=None) -> dict:
+    """Port dumbbell state (:data:`~tpudes_torch.parallel.tcp_dumbbell.
+    TCP_STATE`) from a reference ``build_dumbbell_step`` state dict (its
+    ``side`` dict flattened), on ``device`` (the card by default).  An
+    ``(R, ...)`` state becomes the grid's C = 1; a sweep's ``(C, R,
+    ...)`` state carries across as it is."""
+    device = resolve_device(device)
+    side = state["side"]
+    out = {}
+    for k, ax, dt in TCP_STATE:
+        a = np.asarray(side[k] if k in SIDE_KEYS else state[k])
+        nd = {"f": 2, "lf": 3, "l": 2, "r": 1}[ax]
+        if a.ndim == nd:
+            a = a[None]
+        out[k] = torch.tensor(a, dtype=torch.float32 if dt == "f32"
+                              else torch.int32, device=device)
     return out

@@ -12,6 +12,9 @@
 // - xla_erfc: XLA's f32 erfc as its HLO expands it (fused.erfc);
 // - xla_exp10: 10 ** y as the compiled power computes it, glibc's powf
 //   (fused.exp10), in f64 operations each rounded on its own;
+// - xla_powf: x ** y the same way, glibc powf's table-driven log2 then its
+//   exp2 (fused.powf); xla_cbrt: copysign(xla_powf(|x|, 1/3), x), the
+//   compiled cbrt (fused.cbrt);
 // - nist_psr: mode_chunk_success_rate with the mode folded into Psr;
 //   nist_lg its SNR part, log1p(-pe); mpdu_rate an A-MPDU subframe's rate.
 //
@@ -157,22 +160,89 @@ static __constant__ long long kExp2Tab[32] = {
     0x3ffcb720dcef9069LL, 0x3ffd5818dcfba487LL, 0x3ffdfc97337b9b5fLL,
     0x3ffea4afa2a490daLL, 0x3fff50765b6e4540LL};
 
-// 10 ** y for f32 y as glibc's powf(10, y) computes it (fused.exp10):
-// x = y log2(10) in f64, x = k / 32 + r, 2 ** (k / 32) from the table times
-// a cubic in r, rounded once to f32, below FLT_MIN flushed to 0
-__device__ __forceinline__ float xla_exp10(float y) {
+// glibc powf's exp2 of f64 x before its last rounding (fused.py::_exp2):
+// x = k / 32 + r, 2 ** (k / 32) from the table times a cubic in r
+__device__ __forceinline__ double glibc_exp2(double x) {
   const double c0 = 0x1.c6af84b912394p-5, c1 = 0x1.ebfce50fac4f3p-3,
                c2 = 0x1.62e42ff0c52d6p-1, shift = 0x1.8p+47;
-  const double x = __dmul_rn(static_cast<double>(y), 0x1.a934f0979b22dp+1);
   const double kd = __dsub_rn(__dadd_rn(x, shift), shift);
   const double r = __dsub_rn(x, kd);
   const long long k = static_cast<long long>(__dmul_rn(kd, 32.0));
   const double s = __longlong_as_double(kExp2Tab[k & 31] + ((k >> 5) << 52));
-  const double out = __dmul_rn(
+  return __dmul_rn(
       __dadd_rn(__dmul_rn(__dadd_rn(__dmul_rn(c0, r), c1), __dmul_rn(r, r)),
                 __dadd_rn(__dmul_rn(c2, r), 1.0)),
       s);
+}
+
+// an f64 result rounded to f32, below FLT_MIN flushed to 0 (fused._flush)
+__device__ __forceinline__ float flush_f32(double out) {
   return out < 1.17549435e-38 ? 0.0f : __double2float_rn(out);
+}
+
+// 10 ** y for f32 y as glibc's powf(10, y) computes it (fused.exp10):
+// x = y log2(10) in f64, then glibc_exp2, rounded once to f32
+__device__ __forceinline__ float xla_exp10(float y) {
+  return flush_f32(glibc_exp2(
+      __dmul_rn(static_cast<double>(y), 0x1.a934f0979b22dp+1)));
+}
+
+// glibc powf's log2 (e_powf_log2_data.c): (1 / c, log2 c) of 16
+// subintervals of [OFF, 2 OFF), and the degree-5 polynomial (fused.py::
+// _POWF_LOG2_TAB, _POWF_LOG2_POLY)
+static __constant__ double kPowfInvc[16] = {
+    0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0,
+    0x1.3c995b0b80385p+0, 0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0,
+    0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0, 0x1.0953f419900a7p+0,
+    0x1.0000000000000p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
+    0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1,
+    0x1.767dcf5534862p-1};
+static __constant__ double kPowfLogc[16] = {
+    -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2,
+    -0x1.39de91a6dcf7bp-2, -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3,
+    -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4, -0x1.a6f9db6475fcep-5,
+    0x0.0p+0,              0x1.338ca9f24f53dp-4,  0x1.476a9543891bap-3,
+    0x1.e840b4ac4e4d2p-3,  0x1.40645f0c6651cp-2,  0x1.88e9c2c1b9ff8p-2,
+    0x1.ce0a44eb17bccp-2};
+
+// glibc powf's f64 log2 of positive normal f32 x (fused.py::_log2)
+__device__ __forceinline__ double glibc_log2(float x) {
+  const double a0 = 0x1.27616c9496e0bp-2, a1 = -0x1.71969a075c67ap-2,
+               a2 = 0x1.ec70a6ca7baddp-2, a3 = -0x1.7154748bef6c8p-1,
+               a4 = 0x1.71547652ab82bp+0;
+  const uint32_t ix = __float_as_uint(x);
+  const uint32_t tmp = ix - 0x3F330000u;
+  const int i = static_cast<int>((tmp >> 19) & 15u);
+  const uint32_t top = tmp & 0xFF800000u;
+  const double z = static_cast<double>(__uint_as_float(ix - top));
+  const double k = static_cast<double>(static_cast<int32_t>(top) >> 23);
+  const double r = __dsub_rn(__dmul_rn(z, kPowfInvc[i]), 1.0);
+  const double y0 = __dadd_rn(kPowfLogc[i], k);
+  const double r2 = __dmul_rn(r, r);
+  double q = __dadd_rn(__dmul_rn(a4, r), y0);
+  q = __dadd_rn(__dmul_rn(__dadd_rn(__dmul_rn(a2, r), a3), r2), q);
+  return __dadd_rn(
+      __dmul_rn(__dadd_rn(__dmul_rn(a0, r), a1), __dmul_rn(r2, r2)), q);
+}
+
+// x ** y for f32 x (0 or normal) and y as the compiled power computes it,
+// glibc's powf (fused.powf): y log2 x in f64, glibc_exp2 of it clamped to
+// [-200, 200], rounded once; past the overflow bound inf, at or below -150
+// zero; x = 0 gives 0 (y > 0) or inf (y < 0), y = 0 or x = 1 gives 1, a
+// negative x NaN
+__device__ __forceinline__ float xla_powf(float x, float y) {
+  if (y == 0.0f || x == 1.0f) return 1.0f;
+  if (x < 0.0f) return __int_as_float(0x7FC00000);
+  if (x == 0.0f) return y > 0.0f ? 0.0f : (y < 0.0f ? INFINITY : 1.0f);
+  const double ylogx = __dmul_rn(static_cast<double>(y), glibc_log2(x));
+  if (ylogx > 0x1.fffffffd1d571p+6) return INFINITY;
+  if (ylogx <= -150.0) return 0.0f;
+  return flush_f32(glibc_exp2(fmin(fmax(ylogx, -200.0), 200.0)));
+}
+
+// the compiled cbrt: copysign(powf(|x|, (float)(1 / 3)), x) (fused.cbrt)
+__device__ __forceinline__ float xla_cbrt(float x) {
+  return copysignf(xla_powf(fabsf(x), static_cast<float>(1.0 / 3.0)), x);
 }
 
 // the error model's per-mode constants (bss_cuda.py::psr_params)

@@ -34,8 +34,13 @@ code):
 all with their multiply-adds fused, and every result below the smallest
 normal f32 flushed to 0 (the CPU runs with subnormals flushed).
 
-:func:`fma`, :func:`log`, :func:`exp10`, :func:`powf`, :func:`exp`,
-:func:`log1p` and :func:`erfc` reproduce these from IEEE f32 and f64
+The TCP dumbbell's step (``tpudes/parallel/tcp_dumbbell.py``) adds
+``cbrt``, which the CPU backend computes as ``copysign(powf(|x|, 1/3),
+x)`` with glibc's ``powf`` (it equals that on every value tried, and
+glibc's own ``cbrtf`` on only about two thirds of them).
+
+:func:`fma`, :func:`log`, :func:`exp10`, :func:`powf`, :func:`cbrt`,
+:func:`exp`, :func:`log1p` and :func:`erfc` reproduce these from IEEE f32 and f64
 operations and integer bit operations,
 which round the same way on the CPU and on the card.  An f64 product of
 two f32 values is exact, so ``fma`` rounds the f64 sum once more to
@@ -264,6 +269,13 @@ def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.where(x == 0, zero, out)
     out = torch.where(x < 0, float("nan"), out)
     return torch.where((y == 0) | (x == 1), 1.0, out).float()
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """The cube root of f32 ``x`` as the reference's compiled ``cbrt``
+    computes it on the CPU: ``copysign(powf(|x|, (float)(1/3)), x)``
+    (:func:`powf`)."""
+    return torch.copysign(powf(torch.abs(x), f32(x, 1.0 / 3.0)), x)
 
 
 #: XLA's CPU ``exp`` (Cephes ``expf``): the input clamp, ``log2 e``,

@@ -129,7 +129,9 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: an A-MPDU program also under ``:agg``, of more than one horizon under
 #: ``:sweep``, of a mobile program under ``:mobile``, of a traffic program
 #: under ``:traffic`` and of more than one workload under
-#: ``:traffic_sweep``
+#: ``:traffic_sweep``; ``tcp_advance`` is the TCP dumbbell's slot loop
+#: (:mod:`tpudes_torch.parallel.tcp_cuda`), its launches of a RED program
+#: also under ``:red`` and of more than one sweep point under ``:sweep``
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
@@ -137,6 +139,7 @@ launches = {
     "bss_advance": 0, "bss_advance:agg": 0, "bss_advance:sweep": 0,
     "bss_advance:mobile": 0, "bss_advance:traffic": 0,
     "bss_advance:traffic_sweep": 0,
+    "tcp_advance": 0, "tcp_advance:red": 0, "tcp_advance:sweep": 0,
 }
 
 

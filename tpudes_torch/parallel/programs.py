@@ -1,7 +1,9 @@
-"""Small BSS programs and workload points, built without the host graph.
+"""Small BSS and dumbbell programs and workload points, built without the
+host graph.
 
-Counterpart of ``tpudes/parallel/programs.py``'s ``toy_bss_program``
-and ``toy_traffic_points`` (``programs.py:18-47``, ``:92-136``): the
+Counterpart of ``tpudes/parallel/programs.py``'s ``toy_bss_program``,
+``toy_dumbbell_program`` and ``toy_traffic_points`` (``programs.py:18-47``,
+``:71-89``, ``:92-136``): the
 deterministic numpy recipes the reference's ``bench_traffic_burst`` and
 its workload-sweep tests run, and :func:`bss_onoff_traffic`, that
 bench's ON-OFF workload at a matched mean load
@@ -16,13 +18,15 @@ import numpy as np
 
 from tpudes_torch.ops.wifi_error import MODES_BY_NAME
 from tpudes_torch.parallel.replicated import BssProgram
+from tpudes_torch.parallel.tcp_dumbbell import INT32_MAX, DumbbellProgram
 from tpudes_torch.traffic.program import (
     TrafficProgram,
     bounded_pareto_mean,
     unify_shapes,
 )
 
-__all__ = ["bss_onoff_traffic", "toy_bss_program", "toy_traffic_points"]
+__all__ = ["bss_onoff_traffic", "toy_bss_program", "toy_dumbbell_program",
+           "toy_traffic_points"]
 
 #: the ON-OFF workload of ``bench_traffic_burst`` (``bench.py:441-453``):
 #: bounded-Pareto ON periods (shape, shortest s, longest s), the mean of
@@ -55,6 +59,26 @@ def toy_bss_program(n_sta: int = 4, sim_end_us: int = 60_000) -> BssProgram:
         interval_us=interval,
         stop_us=np.full(n, 2**30, np.int32),
         sim_end_us=int(sim_end_us),
+    )
+
+
+def toy_dumbbell_program(n_flows: int = 3,
+                         n_slots: int = 250) -> DumbbellProgram:
+    """A saturated dumbbell, flow ``i`` on variant ``i % 17``: 1 ms
+    slots, an ack lag of 10, a 25-packet queue, bursts of 4."""
+    return DumbbellProgram(
+        n_flows=n_flows,
+        variant_idx=(np.arange(n_flows) % 17).astype(np.int32),
+        start_slot=np.zeros(n_flows, np.int32),
+        stop_slot=np.full(n_flows, 2**30, np.int32),
+        max_pkts=np.full(n_flows, INT32_MAX, np.int32),
+        slot_s=1e-3,
+        n_slots=int(n_slots),
+        ack_lag=10,
+        queue_cap=25,
+        burst_cap=4,
+        base_rtt_s=0.011,
+        seg_bytes=1000,
     )
 
 

@@ -1,0 +1,135 @@
+"""The TCP dumbbell's slot loop as one persistent CUDA kernel: the wrapper.
+
+``csrc/tcp_advance.cu`` replaces the reference's device loop
+(``tpudes/parallel/tcp_dumbbell.py:1199``, a ``lax.while_loop`` over
+``build_dumbbell_step.step_fn``; XLA code, no ``pallas_call``): one
+launch runs every slot of a chunk for every (point, replica) row, one
+warp per row and :data:`TCP_ROWS_PER_BLOCK` rows a block, flow ``f`` on
+lane ``f`` (up to :data:`TCP_MAX_FLOWS` flows), the rings in the row's
+slice of shared memory (or, past :data:`SHARED_OPTIN_MAX` a block, in the
+output tensors), the draws hashed inside.  Its state equals the plain
+loop's (:func:`tpudes_torch.parallel.tcp_dumbbell.tcp_advance_math`) bit
+for bit.
+
+Launches are counted in :data:`tpudes_torch.parallel.kernels_cuda.
+launches` under ``tcp_advance``, those of a RED program also under
+``tcp_advance:red`` and those of more than one sweep point under
+``tcp_advance:sweep``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpudes_torch.parallel.bss_cuda import SHARED_OPTIN_MAX
+from tpudes_torch.parallel.kernels_cuda import _check, _launch
+from tpudes_torch.parallel.tcp_dumbbell import (
+    _CUBIC_INV_C,
+    _CUBIC_WEST,
+    _DTYPES,
+    _HS_K,
+    _HS_LOG_LOW,
+    _HYBLA_INV,
+    _LEDBAT_INV,
+    TCP_STATE,
+    state_shape,
+)
+
+#: flows a row holds: one a lane of its warp (TCP_MAX_FLOWS)
+TCP_MAX_FLOWS = 32
+#: rows (warps, one per (point, replica)) a block (TCP_ROWS_PER_BLOCK)
+TCP_ROWS_PER_BLOCK = 4
+#: the last slot a launch may reach (TCP_MAX_SLOT): t + ack_lag < 2^31
+TCP_MAX_SLOT = 2147000000
+
+
+def launch_geometry(n_flows: int, buf_len: int, points: int,
+                    replicas: int) -> dict:
+    """The launch's shape, as ``tcp_advance_launch`` checks it: ``rows``
+    (point-major, row ``p R + r``), ``blocks`` of ``threads``
+    (:data:`TCP_ROWS_PER_BLOCK` warps, the last block ragged), a row's
+    ring words ``L (3 F + 1)`` and the block's ``shared`` bytes, 0 when
+    the rings stay in global memory (``rings``: "shared" or
+    "global")."""
+    rows = points * replicas
+    words = buf_len * (3 * n_flows + 1)
+    smem = TCP_ROWS_PER_BLOCK * words * 4
+    in_smem = smem <= SHARED_OPTIN_MAX
+    return dict(rows=rows, blocks=-(-rows // TCP_ROWS_PER_BLOCK),
+                threads=32 * TCP_ROWS_PER_BLOCK, ring_words=words,
+                shared=smem if in_smem else 0,
+                rings="shared" if in_smem else "global")
+
+
+def tcp_launch(consts: dict, state: dict, key: torch.Tensor, t0: int,
+               t1: int, var: torch.Tensor, ecn: torch.Tensor) -> dict:
+    """Launch ``tcp_advance`` once for slots ``[t0, t1)`` of a grid of C
+    points: ``state`` is ``(C, R, ...)`` (:data:`TCP_STATE`), ``var``
+    ``(C, F)`` int32 variant ids, ``ecn`` ``(C, F)`` bool.  Returns the
+    new state in fresh tensors, on the card, nothing copied back: the
+    arguments and result of the plain loop (:func:`tpudes_torch.parallel.
+    tcp_dumbbell.tcp_advance_math`).  Raises on a bad argument or a
+    launch error; never takes the plain loop."""
+    F, L = consts["F"], consts["L"]
+    C, R = state["cwnd"].shape[:2]
+    dev = key.device
+    if not 1 <= F <= TCP_MAX_FLOWS:
+        raise ValueError(
+            f"tcp_advance holds 1..{TCP_MAX_FLOWS} flows a row (one a "
+            f"lane); got {F}")
+    if not 0 <= t0 <= t1 <= TCP_MAX_SLOT - consts["ack_lag"]:
+        raise ValueError(
+            f"tcp_advance runs 0 <= t0 <= t1 with t1 + ack_lag <= "
+            f"{TCP_MAX_SLOT}; got t0={t0}, t1={t1}")
+    if C * R * L * F >= 2**31:
+        raise ValueError(f"tcp_advance indexes state in int32; C*R*L*F="
+                         f"{C * R * L * F}")
+    _check("key", key, (2,), torch.int64, dev)
+    _check("var", var, (C, F), torch.int32, dev)
+    _check("ecn", ecn, (C, F), torch.bool, dev)
+    for k in ("start", "stop", "max_pkts"):
+        _check(k, consts[k], (F,), torch.int32, dev)
+    out = {}
+    for k, ax, dt in TCP_STATE:
+        shape = state_shape(ax, C, R, L, F)
+        _check(k, state[k], shape, _DTYPES[dt], dev)
+        out[k] = torch.empty(shape, dtype=_DTYPES[dt], device=dev)
+    geo = launch_geometry(F, L, C, R)
+    n = len(TCP_STATE)
+    f = ctypes.c_float
+    _launch(
+        "tcp_advance",
+        (ctypes.c_void_p * n)(*[state[k].data_ptr() for k, _, _ in TCP_STATE]),
+        (ctypes.c_void_p * n)(*[out[k].data_ptr() for k, _, _ in TCP_STATE]),
+        var.data_ptr(), ecn.data_ptr(), consts["start"].data_ptr(),
+        consts["stop"].data_ptr(), consts["max_pkts"].data_ptr(),
+        key.data_ptr(), C, R, F, L, consts["ack_lag"], consts["queue_cap"],
+        consts["burst"], consts["rtt_slots"], int(consts["red"]),
+        int(consts["red_gentle"]), int(consts["red_ecn"]),
+        int(consts["red_hard_drop"]), int(t0), int(t1),
+        f(consts["slot_s"]), f(consts["base_rtt_s"]),
+        f(consts["red_min_th"]), f(consts["red_max_th"]),
+        f(consts["red_max_p"]), f(consts["red_forced_th"]),
+        f(consts["red_lin"]), f(consts["red_gentle_k"]),
+        f(consts["red_keep"]), f(_HS_LOG_LOW), f(_HS_K), f(_CUBIC_INV_C),
+        f(_CUBIC_WEST), f(_HYBLA_INV), f(_LEDBAT_INV),
+        geo["blocks"], geo["shared"],
+        torch.cuda.current_stream(dev).cuda_stream,
+        argtypes=LAUNCH_ARGTYPES,
+        arms=("red",) * bool(consts["red"]) + ("sweep",) * (C > 1),
+    )
+    return out
+
+
+#: ctypes signature of ``tcp_advance_launch`` (csrc/tcp_advance.cu): the
+#: host arrays of the state's input and output pointers, var, ecn, start,
+#: stop, max_pkts, key, fourteen ints (C, R, F, L, ack_lag, queue_cap,
+#: burst, rtt_slots, red, gentle, red_ecn, hard_drop, t0, t1), fifteen
+#: floats (slot_s, base_rtt, the seven RED constants, the six folded rule
+#: constants), blocks, shared, stream
+LAUNCH_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_float] * 15
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)

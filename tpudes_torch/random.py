@@ -14,7 +14,13 @@ replicated.py:744-770``):
     fold_in(fold_in(key, step), r) -> split -> uniform(., (N,), f32) x 2
 
 with, in an A-MPDU program, ``uniform(., (N, K), f32)`` from the
-second key; and a traffic program's per-replica keys
+second key; the TCP dumbbell's slot draws (``tpudes/parallel/
+tcp_dumbbell.py:843-862``), slot first, then replica:
+
+    fold_in(fold_in(key, t), r) -> uniform(., (), f32)
+
+or, under RED, ``split(., 3)`` into a scalar, an ``(F,)`` and a scalar
+draw (:func:`tcp_draws`); and a traffic program's per-replica keys
 ``fold_in(fold_in(key, 0x7A), r)`` (:func:`traffic_keys`,
 ``replicated.py:727-737``).
 
@@ -163,3 +169,24 @@ def traffic_keys(key: torch.Tensor, replicas: int) -> torch.Tensor:
     tr_key = fold_in(key, TRAFFIC_KEY_TAG)
     return fold_in(tr_key[None, :], torch.arange(replicas,
                                                  device=key.device))
+
+
+def tcp_draws(key: torch.Tensor, t0: int, t1: int, replicas: int,
+              n_flows: int, red: bool = False):
+    """``(u_dep, u_red, u_mark)``: the dumbbell step's draws for slots
+    ``[t0, t1)`` and every replica in one vectorised call, each ``(t1 -
+    t0, R, ...)``.  Slot ``t``, replica ``r`` keys ``kk = fold_in(
+    fold_in(key, t), r)`` (``tcp_dumbbell.py:843``).  Without RED
+    ``u_dep = uniform(kk, ())`` and the other two are None; with RED
+    ``split(kk, 3)`` (in partitionable mode ``fold_in(kk, i)``) gives the
+    scalar ``u_dep``, the ``(F,)`` ``u_red`` and the scalar ``u_mark``
+    (``:846-858``)."""
+    slots = torch.arange(t0, t1, dtype=torch.int64, device=key.device)
+    kt = fold_in(key[None, :], slots)                        # (T, 2)
+    kk = fold_in(kt[:, None, :],
+                 torch.arange(replicas, device=key.device))  # (T, R, 2)
+    if not red:
+        return uniform(kk, 1)[..., 0], None, None
+    k3 = fold_in(kk[..., None, :], torch.arange(3, device=key.device))
+    return (uniform(k3[..., 0, :], 1)[..., 0], uniform(k3[..., 1, :], n_flows),
+            uniform(k3[..., 2, :], 1)[..., 0])

@@ -20,12 +20,17 @@ the ON-OFF workload of the reference's LTE traffic test.
 build_bss``, 802.11a or 802.11n, as ``replicated.py::lower_bss`` does,
 from the reference's own arguments and defaults, without building the
 object graph.
+
+:func:`dumbbell_program` lowers the TCP dumbbell of ``tpudes/
+scenarios.py::build_dumbbell`` (BASELINE config #2) as ``tcp_dumbbell.py
+::lower_dumbbell`` does, a RED root qdisc on the bottleneck included.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 import warnings
 
 import numpy as np
@@ -41,6 +46,12 @@ from tpudes_torch.ops.mobility import (
 from tpudes_torch.ops.propagation import friis
 from tpudes_torch.ops.wifi_error import MODES_BY_NAME
 from tpudes_torch.parallel.lte_sm import LteSmProgram
+from tpudes_torch.parallel.tcp_dumbbell import (
+    INT32_MAX,
+    REQUIRES_ECN,
+    VARIANTS,
+    DumbbellProgram,
+)
 from tpudes_torch.parallel.replicated import (
     DIFS,
     INF,
@@ -434,3 +445,144 @@ def check_mutual_sensing(prog: BssProgram, sim_s: float) -> None:
         raise hidden
     warn_geom_stride("bss_program", mob, int(prog.geom_stride),
                      _bss_nominal_step_s(prog))
+
+
+#: data-rate suffixes, in bit/s (``tpudes/network/data_rate.py:12-25``)
+_RATE_SUFFIXES = {
+    "bps": 1, "b/s": 1, "kbps": 10**3, "kb/s": 10**3, "kibps": 2**10,
+    "mbps": 10**6, "mb/s": 10**6, "mibps": 2**20, "gbps": 10**9,
+    "gb/s": 10**9, "gibps": 2**30, "bs": 1,
+}
+#: time units as powers of ten of a second (``core/nstime.py:19-30``)
+_TIME_EXPONENTS = {"s": 0, "ms": -3, "us": -6, "ns": -9}
+#: RedQueueDisc's attributes and defaults
+#: (``tpudes/models/traffic_control.py:51``, ``:136-164``)
+RED_DEFAULTS = dict(MinTh=5.0, MaxTh=15.0, QW=0.002, LInterm=50.0,
+                    Gentle=True, UseEcn=False, UseHardDrop=True,
+                    MaxSize=1000)
+#: the bulk senders' start: ``Seconds(0.1 + 0.01 i)`` for flow ``i``
+#: (``tpudes/scenarios.py:238``)
+DUMBBELL_START_S, DUMBBELL_START_STEP_S = 0.1, 0.01
+#: bytes the IPv4 and TCP headers add to a segment on the wire
+TCP_IP_HEADER_BYTES = 40
+
+
+def _rate_bps(spec) -> int:
+    """A data rate (``"10Mbps"`` or a number) in bit/s, as the
+    reference's ``DataRate`` parses it."""
+    if isinstance(spec, (int, float)):
+        return int(spec)
+    m = re.match(r"^\s*([0-9.eE+-]+)\s*([a-zA-Z/]*)\s*$", spec)
+    if not m or (m.group(2).lower() or "bps") not in _RATE_SUFFIXES:
+        raise ValueError(f"cannot parse data rate {spec!r}")
+    return int(float(m.group(1)) * _RATE_SUFFIXES[m.group(2).lower() or
+                                                  "bps"])
+
+
+def _time_s(spec) -> float:
+    """A time (``"10ms"``, or seconds as a number) in seconds, as the
+    reference's ``Time`` holds it: whole ns ticks, read back as
+    ``ticks / 1e9`` (``core/nstime.py:94-113``)."""
+    if isinstance(spec, (int, float)):
+        return int(round(spec * 10**9)) / 10**9
+    m = re.match(r"^\s*([+-]?[0-9.eE+-]+?)\s*(s|ms|us|ns)?\s*$", spec)
+    if not m:
+        raise ValueError(f"cannot parse time {spec!r}")
+    shift = _TIME_EXPONENTS[m.group(2) or "s"] + 9
+    return int(round(float(m.group(1)) * 10**shift)) / 10**9
+
+
+def _queue_packets(spec) -> int:
+    """A queue size in packets (``"100p"``); byte-mode sizes raise, as
+    the slot model counts packets."""
+    m = re.match(r"^\s*([0-9]+)\s*(p)?\s*$", str(spec))
+    if not m:
+        raise ValueError(
+            f"the slot model counts queue capacity in packets; got {spec!r}")
+    return int(m.group(1))
+
+
+def dumbbell_program(
+    n_flows: int,
+    sim_time: float,
+    variant: str = "TcpNewReno",
+    bottleneck_rate="10Mbps",
+    bottleneck_delay="10ms",
+    access_rate="100Mbps",
+    access_delay="1ms",
+    queue="100p",
+    seg_bytes: int = 1000,
+    variants=None,
+    red: dict | None = None,
+    use_ecn: bool = False,
+) -> DumbbellProgram:
+    """The dumbbell of ``build_dumbbell(n_flows, sim_time, variant,
+    bottleneck_rate, bottleneck_delay, access_rate, access_delay, queue,
+    seg_bytes, variants)`` (``tpudes/scenarios.py:177-242``) lowered as
+    ``lower_dumbbell(sim_time)`` lowers it (``tcp_dumbbell.py:167-387``):
+
+    - flow ``i`` runs ``variants[i]`` (else ``variant``), starts at
+      ``Seconds(0.1 + 0.01 i)`` and stops at the horizon, with no byte
+      budget;
+    - the slot is one packet's serialization on the bottleneck, ``(seg
+      + 40) 8 / rate``; the ack lag is the bottleneck's delay twice and
+      the mean access delay four times, in whole slots (``round``); the
+      send burst is the access rate over the bottleneck's;
+    - ``red`` (RedQueueDisc attributes, :data:`RED_DEFAULTS` for the
+      missing ones) puts a RED root qdisc on the bottleneck: its
+      ``MaxSize`` is the queue's capacity and ``1 / LInterm`` its
+      ``max_p``;
+    - a flow is ECN-capable under ``use_ecn`` (the senders' ``UseEcn``)
+      or when its variant requires ECN (DCTCP).
+    """
+    n_flows = int(n_flows)
+    names = list(variants) if variants is not None else [variant] * n_flows
+    if len(names) != n_flows or any(v not in VARIANTS for v in names):
+        raise ValueError(f"want {n_flows} variants of {VARIANTS}; got {names}")
+    bn_rate = float(_rate_bps(bottleneck_rate))
+    acc_rate = float(_rate_bps(access_rate))
+    if acc_rate <= bn_rate:
+        raise ValueError(
+            "access links must be faster than the bottleneck for the slot "
+            "model (queueing would form at the leaves)")
+    bn_delay_s = _time_s(bottleneck_delay)
+    seg = int(seg_bytes)
+    slot_s = (seg + TCP_IP_HEADER_BYTES) * 8 / bn_rate
+    # the sender's and the sink's access delay, once per flow each
+    acc_d = float(np.mean(np.full(2 * n_flows, _time_s(access_delay))))
+    ack_lag_s = 2.0 * bn_delay_s + 4.0 * acc_d
+    sim_end_s = float(sim_time)
+    stop_s = _time_s(sim_end_s)
+    starts = [_time_s(DUMBBELL_START_S + DUMBBELL_START_STEP_S * i)
+              for i in range(n_flows)]
+    red_kw, qdisc, queue_cap = {}, "fifo", _queue_packets(queue)
+    if red is not None:
+        unknown = set(red) - set(RED_DEFAULTS)
+        if unknown:
+            raise ValueError(f"unknown RED attributes {sorted(unknown)}")
+        r = dict(RED_DEFAULTS, **red)
+        qdisc, queue_cap = "red", int(r["MaxSize"])
+        red_kw = dict(
+            red_min_th=float(r["MinTh"]), red_max_th=float(r["MaxTh"]),
+            red_max_p=1.0 / float(r["LInterm"]), red_qw=float(r["QW"]),
+            red_gentle=bool(r["Gentle"]), red_use_ecn=bool(r["UseEcn"]),
+            red_use_hard_drop=bool(r["UseHardDrop"]))
+    return DumbbellProgram(
+        n_flows=n_flows,
+        variant_idx=np.asarray([VARIANTS.index(v) for v in names], np.int32),
+        start_slot=np.asarray([int(s / slot_s) for s in starts], np.int32),
+        stop_slot=np.full(n_flows, int(min(stop_s, sim_end_s) / slot_s),
+                          np.int32),
+        max_pkts=np.full(n_flows, INT32_MAX, np.int32),
+        slot_s=slot_s,
+        n_slots=int(math.ceil(sim_end_s / slot_s)),
+        ack_lag=max(1, int(round(ack_lag_s / slot_s))),
+        queue_cap=queue_cap,
+        burst_cap=max(1, int(acc_rate / bn_rate)),
+        base_rtt_s=ack_lag_s + slot_s,
+        seg_bytes=seg,
+        ecn=np.asarray([bool(use_ecn) or v in REQUIRES_ECN for v in names],
+                       bool),
+        qdisc=qdisc,
+        **red_kw,
+    )
