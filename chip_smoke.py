@@ -1,7 +1,7 @@
 """Smoke run of tpudes_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-with DIR   # DIR/bss_advance.cu vs this one
+    python3 chip_smoke.py --compare-with DIR   # DIR's kernels vs this one
 
 Drives the port's paths — the WiFi BSS replica engine
 (``tpudes_torch.parallel.replicated.run_replicated_bss``) on
@@ -115,7 +115,12 @@ NewReno flows; CE marks and early drops required) and a four-point
 to the plain loop on the card over one launch and over two split at a
 slot boundary, the grid also per point; a small program of each through
 the plain loop on the CPU against the kernel on the card; the launch's
-µs per slot beside its bound and the plain loop's wall; and in phase
+µs per slot beside its bound and the plain loop's wall; the kernel's
+branch-free division against ``__fdiv_rn`` on 2^30 pairs; the stage probe
+(``tcp_cuda.tcp_profile``) on bench_tcp's, the 17-variant and the RED
+programs: its state bit-equal to the main launch's, the cycles a
+row-slot spends in each stage and their sum, the slot's chain floor;
+and in phase
 5tcp, after 5w, ``bench_tcp`` and ``bench_tcp_variant_sweep`` at 256
 replicas x 20 s (one warm run, five timed runs on keys 1..5, one launch
 each, the busy share; ``vs_scalar`` needs the host DES, which the port
@@ -123,8 +128,10 @@ does not have).
 
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
-(``DIR/bss_advance.cu``, the same C interface and probe) against this one
-in one call, their outputs equal and their times taken in turns.
+(``DIR/bss_advance.cu``, the same C interface and probe) and of the TCP
+kernel (``DIR/tcp_advance.cu``, the same C interface), each where DIR
+holds it, against this checkout's in one call, their outputs equal and
+their times taken in turns.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
@@ -288,6 +295,13 @@ TCP_FLOW_F32_OPS, TCP_FLOW_INT_OPS, TCP_RED_F64_OPS = 70, 40, 40
 TCP_SOURCE = "tpudes_torch/csrc/tcp_advance.cu"
 TCP_REPLACES = ("tpudes/parallel/tcp_dumbbell.py:1199 (lax.while_loop over "
                 "build_dumbbell_step.step_fn; XLA, no pallas_call)")
+#: pairs the fast-division check holds against __fdiv_rn (phase 3t;
+#: compare mode)
+TCP_DIV_PAIRS = 1 << 30
+#: the stage probe's programs (phase 3t; compare mode), each at TCP_R x
+#: TCP_CHECK_S, and the compare mode's programs, each at TCP_R x TCP_SIM_S
+TCP_PROBE_PROGRAMS = ("bench_tcp", "variants17", "red")
+TCP_COMPARE = ("bench_tcp", "variants17")
 #: the RED program of the checks: DCTCP and non-ECT NewReno flows over a
 #: RED queue that marks ECT packets (tests/test_ecn_dctcp.py's shape)
 TCP_RED = dict(MinTh=5.0, MaxTh=15.0, MaxSize=1000, UseEcn=True,
@@ -1402,6 +1416,83 @@ def tcp_check(kc, dev, name: str) -> dict:
                 census=census)
 
 
+def tcp_division(dev) -> None:
+    """``tcp_advance``'s branch-free division against the card's IEEE
+    division (``tcp_cuda.division_check``) on :data:`TCP_DIV_PAIRS`
+    hashed operand pairs: every quotient bit-equal."""
+    from tpudes_torch.parallel.tcp_cuda import division_check
+
+    t0 = time.monotonic()
+    bad, done = division_check(TCP_DIV_PAIRS, seed=TCP_CHECK_SEED,
+                               device=dev)
+    if bad or done != TCP_DIV_PAIRS:
+        fail(f"tcp_advance's fast division differs from __fdiv_rn on {bad} "
+             f"of {done} pairs")
+    print(f"tcp_advance's fast division == __fdiv_rn on {done} pairs "
+          f"({time.monotonic() - t0:.2f} s)", flush=True)
+
+
+def tcp_stage_split(dev, label: str) -> dict:
+    """The stage probe of ``tcp_advance`` (``tcp_cuda.tcp_profile``: the
+    kernel's profiling instantiation, each warp reading ``clock64()`` at
+    its stage edges) on :data:`TCP_PROBE_PROGRAMS` at ``TCP_R`` replicas
+    x ``TCP_CHECK_S`` s: its state bit-equal to the main launch's, then
+    the mean cycles a row-slot spends in each stage (``TCP_PROF_STAGES``),
+    each warp's sum (``TCP_PROF_WARPS``: a slot of the two-warp kernel
+    takes about the larger, one of a one-warp kernel the two together,
+    ``total``), the probe launch's device time per slot (CUDA events) and
+    nvidia-smi's SM clock just after.  Returns each program's split."""
+    import torch
+    from tpudes_torch.parallel import tcp_dumbbell as tcp
+    from tpudes_torch.parallel.tcp_cuda import (
+        TCP_PROF_STAGES,
+        TCP_PROF_WARPS,
+        tcp_launch,
+        tcp_profile,
+    )
+    from tpudes_torch.random import PRNGKey
+
+    split = {}
+    for name in TCP_PROBE_PROGRAMS:
+        prog = tcp_programs(TCP_CHECK_S)[name]
+        consts = tcp.build_tcp_consts(prog, dev)
+        var, ecn = (torch.as_tensor(x, device=dev)
+                    for x in tcp.sweep_operands(prog))
+        key = PRNGKey(TCP_CHECK_SEED, device=dev)
+        s0 = tcp.init_state(consts, TCP_R)
+        n = prog.n_slots
+        want = tcp_launch(consts, s0, key, 0, n, var, ecn)
+        tcp_profile(consts, s0, key, 0, n, var, ecn)            # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got, cyc = tcp_profile(consts, s0, key, 0, n, var, ecn)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        clock = sm_clock_line()
+        for k, _, _ in tcp.TCP_STATE:
+            if not torch.equal(bits_of(got[k]), bits_of(want[k])):
+                fail(f"{label} probe ({name}): {k} differs from the main "
+                     f"launch's")
+        per = dict(zip(TCP_PROF_STAGES,
+                       (cyc.sum(0).double() / (cyc.shape[0] * n)).tolist()))
+        warps = {w: sum(per[k] for k in ks) for w, ks in TCP_PROF_WARPS.items()}
+        split[name] = dict(per, **{f"{w}_warp": v for w, v in warps.items()},
+                           total=sum(per.values()), probe_ms=ms,
+                           probe_us_per_slot=ms * 1e3 / n,
+                           nvidia_smi_clocks_sm_max=clock)
+        print(f"{label} stage probe ({name}, {TCP_R} x {TCP_CHECK_S} s, "
+              f"{n} slots): cycles per row-slot "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+              + f"; rules warp {warps['rules']:.1f}, queue warp "
+              f"{warps['queue']:.1f}, total {sum(per.values()):.1f}; probe "
+              f"launch {ms:.4f} ms = {ms * 1e3 / n:.4f} us/slot; nvidia-smi "
+              f"clocks.sm, clocks.max.sm {clock}", flush=True)
+    return split
+
+
 def tcp_bench(kc, dev, check: dict, which: str) -> dict:
     """Phase 5tcp: ``bench_tcp`` (``which`` "bench_tcp") or
     ``bench_tcp_variant_sweep`` ("variants17") on the port at ``TCP_R``
@@ -1467,63 +1558,109 @@ def tcp_bench(kc, dev, check: dict, which: str) -> dict:
 
 
 @contextlib.contextmanager
-def kernel_library(lib):
-    """Run ``bss_advance`` from ``lib`` (a loaded library with the same C
+def kernel_library(lib, name: str = "bss_advance"):
+    """Run kernel ``name`` from ``lib`` (a loaded library with the same C
     interface) inside the block."""
     from tpudes_torch import _build
 
-    saved = _build._LOADED.get("bss_advance")
-    _build._LOADED["bss_advance"] = lib
+    saved = _build._LOADED.get(name)
+    _build._LOADED[name] = lib
     try:
         yield
     finally:
         if saved is None:
-            _build._LOADED.pop("bss_advance", None)
+            _build._LOADED.pop(name, None)
         else:
-            _build._LOADED["bss_advance"] = saved
+            _build._LOADED[name] = saved
 
 
-def compare_main(old_dir: str, device: str = "cuda") -> int:
-    """``python3 chip_smoke.py --compare-with DIR``: ``DIR/bss_advance.cu``
-    (an earlier design of the kernel with the same C interface and probe)
-    against this one, in one call on one card.  Builds both (in
-    parallel); for each of :data:`BSS_COMPARE` at bench width holds the
-    two launches' outputs equal (state, stops, next times, pending
-    flags), then times them in turns (old, new, new, old): the launch's
-    device time (CUDA events) and the entry point's wall (median of three
-    runs a turn); runs the stage probe of each; prints one JSON line
-    (``phase: bss_old_vs_new``)."""
-    import torch
+class OldTcpEntry:
+    """An entry of an earlier ``tcp_advance`` library (``fn``: its
+    ``tcp_advance_launch`` or ``tcp_advance_profile``), called with the
+    blocks and shared bytes of its own geometry in place of this
+    checkout's: ``rpb`` rows a block, ``handoff`` words a row ahead of the
+    rings.  ``at`` is the place of ``blocks`` among the arguments, from
+    the end; ``shared`` follows it."""
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
+    def __init__(self, fn, rpb: int, handoff: int, at: int):
+        self.fn, self.rpb, self.handoff, self.at = fn, rpb, handoff, at
+
+    @property
+    def argtypes(self):
+        return self.fn.argtypes
+
+    @argtypes.setter
+    def argtypes(self, value):
+        self.fn.argtypes = value
+
+    @property
+    def restype(self):
+        return self.fn.restype
+
+    @restype.setter
+    def restype(self, value):
+        self.fn.restype = value
+
+    def __call__(self, *args):
+        from tpudes_torch.parallel.bss_cuda import SHARED_OPTIN_MAX
+
+        args = list(args)
+        C, R, F, L = args[8:12]
+        smem = 4 * self.rpb * L * (3 * F + 1)
+        fits = smem + 4 * self.rpb * self.handoff <= SHARED_OPTIN_MAX
+        args[-self.at] = -(-C * R // self.rpb)
+        args[-self.at + 1] = smem if fits else 0
+        return self.fn(*args)
+
+
+def old_tcp_library(lib, old_dir: str):
+    """An earlier ``tcp_advance`` library, its entries launched at the
+    geometry its source (``DIR/tcp_advance.cu``) names:
+    ``TCP_ROWS_PER_BLOCK`` and ``TCP_HANDOFF_WORDS`` (0 where it has
+    none).  Returns ``(library, rows a block)``."""
+    import types
+
+    text = open(os.path.join(old_dir, "tcp_advance.cu")).read()
+    rpb = re.search(r"constexpr int TCP_ROWS_PER_BLOCK = (\d+);", text)
+    if rpb is None:
+        fail(f"{old_dir}/tcp_advance.cu names no TCP_ROWS_PER_BLOCK")
+    handoff = re.search(r"constexpr int TCP_HANDOFF_WORDS = (\d+);", text)
+    rpb, handoff = int(rpb[1]), int(handoff[1]) if handoff else 0
+    entries = dict(tcp_advance_launch=OldTcpEntry(
+        lib.tcp_advance_launch, rpb, handoff, 3))
+    if hasattr(lib, "tcp_advance_profile"):
+        entries["tcp_advance_profile"] = OldTcpEntry(
+            lib.tcp_advance_profile, rpb, handoff, 4)
+    return types.SimpleNamespace(**entries), rpb
+
+
+def build_old(name: str, old_dir: str):
+    """Start nvcc on ``DIR/<name>.cu`` (an earlier design with the same C
+    interface; its headers from ``DIR``, else this checkout's) into
+    ``build/lib<name>_old.so``.  Returns ``(proc, path)``."""
     from tpudes_torch import _build
+
+    path = _build.BUILD / f"lib{name}_old.so"
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-I",
+         str(_build.CSRC), "-o", str(path), os.path.join(old_dir,
+                                                         f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def bss_compare(old_lib, dev, card: str, old_dir: str) -> dict:
+    """The BSS half of the compare mode: for each of :data:`BSS_COMPARE`
+    at bench width the two launches' outputs equal (state, stops, next
+    times, pending flags), their times in turns (old, new, new, old):
+    the launch's device time (CUDA events) and the entry point's wall
+    (median of three runs a turn); then both stage probes.  Returns the
+    ``bss_old_vs_new`` line."""
+    import torch
     from tpudes_torch.parallel import replicated as bss
     from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_launch
     from tpudes_torch.random import PRNGKey
-
-    dev = torch.device(device)
-    card = card_line()
-    print(card, flush=True)
-    src = os.path.join(old_dir, "bss_advance.cu")
-    lib_path = _build.BUILD / "libbss_advance_old.so"
-    _build.BUILD.mkdir(parents=True, exist_ok=True)
-    t0 = time.monotonic()
-    old = subprocess.Popen(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-o",
-         str(lib_path), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = _build.build(["bss_advance"])
-    new_s = time.monotonic() - t0
-    old_log, _ = old.communicate()
-    old_s = time.monotonic() - t0
-    if old.returncode != 0:
-        fail(f"the old kernel's build failed:\n{old_log}")
-    print(f"build: new {new_s:.2f} s, old {old_s:.2f} s (in parallel)",
-          flush=True)
-    print("\n".join(ptxas_lines("bss_advance", logs["bss_advance"])
-                    + ptxas_lines("old", old_log)), flush=True)
-    old_lib = ctypes.CDLL(str(lib_path))
 
     progs = {**bss_programs(), **bss_arm_programs()}
     result = dict(phase="bss_old_vs_new", card=card, old=old_dir,
@@ -1571,23 +1708,8 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
             return bss.run_replicated_bss(prog, BSS_R, PRNGKey(seed),
                                           device=dev, **kw)
 
-        times = {"old": [], "new": []}
-        walls = {"old": [], "new": []}
-        for turn in ("old", "new", "new", "old"):
-            ctx = (kernel_library(old_lib) if turn == "old"
-                   else contextlib.nullcontext())
-            with ctx:
-                times[turn].append(timed_ms(launch, BSS_TIMED_CALLS,
-                                            reps=3)[0])
-                entry(0)
-                w = []
-                for i in range(3):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    entry(1 + i)
-                    torch.cuda.synchronize()
-                    w.append(time.perf_counter() - t1)
-                walls[turn].append(statistics.median(w))
+        times, walls = in_turns(old_lib, "bss_advance", launch, entry,
+                                BSS_TIMED_CALLS)
         line = dict(
             points=C, steps_max=steps,
             old_ms=times["old"], new_ms=times["new"],
@@ -1610,7 +1732,152 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     result["split_new"] = bss_stage_split(dev, "new")
     with kernel_library(old_lib):
         result["split_old"] = bss_stage_split(dev, "old")
-    print(json.dumps(result), flush=True)
+    return result
+
+
+def in_turns(old_lib, name: str, launch, entry, calls: int):
+    """``(times, walls)``: ``launch``'s device time (ms, :func:`timed_ms`
+    of ``calls`` launches, median of three) and ``entry``'s wall (s, the
+    median of three runs on keys 1..3 after one on key 0), each taken in
+    turns old, new, new, old (the old turns with kernel ``name`` from
+    ``old_lib``)."""
+    import torch
+
+    times = {"old": [], "new": []}
+    walls = {"old": [], "new": []}
+    for turn in ("old", "new", "new", "old"):
+        ctx = (kernel_library(old_lib, name) if turn == "old"
+               else contextlib.nullcontext())
+        with ctx:
+            times[turn].append(timed_ms(launch, calls, reps=3)[0])
+            entry(0)
+            w = []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                entry(1 + i)
+                torch.cuda.synchronize()
+                w.append(time.perf_counter() - t1)
+            walls[turn].append(statistics.median(w))
+    return times, walls
+
+
+def tcp_compare(old_lib, dev, card: str, old_dir: str) -> dict:
+    """The TCP half of the compare mode: for each of :data:`TCP_COMPARE`
+    at ``TCP_R`` replicas x ``TCP_SIM_S`` s the two kernels' states equal
+    after one launch of the whole horizon, their times in turns (old,
+    new, new, old): the launch's device time (CUDA events) and
+    ``run_tcp_dumbbell``'s wall (median of three runs a turn); then the
+    stage probe of the new kernel, and of the old one where its library
+    has ``tcp_advance_profile``.  The old kernel runs at the rows a block
+    its source names (:func:`old_tcp_library`), so an edited copy of this
+    checkout's source times another geometry.  Returns the
+    ``tcp_old_vs_new`` line."""
+    import torch
+    from tpudes_torch.parallel import tcp_dumbbell as tcp
+    from tpudes_torch.parallel.tcp_cuda import TCP_ROWS_PER_BLOCK, tcp_launch
+    from tpudes_torch.random import PRNGKey
+
+    old_lib, old_rpb = old_tcp_library(old_lib, old_dir)
+    tcp_division(dev)
+    result = dict(phase="tcp_old_vs_new", card=card, old=old_dir,
+                  replicas=TCP_R, sim_s=TCP_SIM_S,
+                  rows_per_block=dict(old=old_rpb, new=TCP_ROWS_PER_BLOCK),
+                  programs={})
+    for name in TCP_COMPARE:
+        prog = tcp_programs(TCP_SIM_S)[name]
+        consts = tcp.build_tcp_consts(prog, dev)
+        var, ecn = (torch.as_tensor(x, device=dev)
+                    for x in tcp.sweep_operands(prog))
+        key = PRNGKey(TCP_CHECK_SEED, device=dev)
+        s0 = tcp.init_state(consts, TCP_R)
+        n = prog.n_slots
+
+        def launch():
+            return tcp_launch(consts, s0, key, 0, n, var, ecn)
+
+        def same(a, b):
+            return all(torch.equal(bits_of(a[k]), bits_of(b[k]))
+                       for k, _, _ in tcp.TCP_STATE)
+
+        new = launch()
+        with kernel_library(old_lib, "tcp_advance"):
+            was = launch()
+        torch.cuda.synchronize()
+        if not same(new, was):
+            fail(f"compare ({name}): the states differ between old and new")
+
+        def entry(seed):
+            return tcp.run_tcp_dumbbell(prog, PRNGKey(seed), TCP_R,
+                                        device=dev)
+
+        times, walls = in_turns(old_lib, "tcp_advance", launch, entry, 1)
+        line = dict(
+            n_flows=prog.n_flows, slots=n,
+            old_ms=times["old"], new_ms=times["new"],
+            old_us_per_slot=statistics.mean(times["old"]) * 1e3 / n,
+            new_us_per_slot=statistics.mean(times["new"]) * 1e3 / n,
+            new_over_old=statistics.mean(times["new"])
+            / statistics.mean(times["old"]),
+            old_wall_s=walls["old"], new_wall_s=walls["new"],
+            wall_new_over_old=statistics.mean(walls["new"])
+            / statistics.mean(walls["old"]),
+        )
+        result["programs"][name] = line
+        print(f"compare ({name}, F={prog.n_flows}, {TCP_R} x {TCP_SIM_S} s, "
+              f"{n} slots): states equal; old {line['old_ms']} ms, new "
+              f"{line['new_ms']} ms a launch (new/old "
+              f"{line['new_over_old']:.4f}: {line['old_us_per_slot']:.4f} "
+              f"-> {line['new_us_per_slot']:.4f} us/slot); walls old "
+              f"{walls['old']}, new {walls['new']} s (rows a block old "
+              f"{old_rpb}, new {TCP_ROWS_PER_BLOCK})", flush=True)
+    result["split_new"] = tcp_stage_split(dev, "new")
+    if hasattr(old_lib, "tcp_advance_profile"):
+        with kernel_library(old_lib, "tcp_advance"):
+            result["split_old"] = tcp_stage_split(dev, "old")
+    else:
+        result["split_old"] = "not measured: the old kernel has no probe"
+    return result
+
+
+def compare_main(old_dir: str, device: str = "cuda") -> int:
+    """``python3 chip_smoke.py --compare-with DIR``: each of
+    ``DIR/bss_advance.cu`` and ``DIR/tcp_advance.cu`` that is there (an
+    earlier design of the kernel with the same C interface) against this
+    checkout's, in one call on one card.  Builds all of them in parallel;
+    runs :func:`bss_compare` and :func:`tcp_compare` and prints each one's
+    JSON line (``phase: bss_old_vs_new`` / ``tcp_old_vs_new``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from tpudes_torch import _build
+
+    dev = torch.device(device)
+    card = card_line()
+    print(card, flush=True)
+    names = [k for k in ("bss_advance", "tcp_advance")
+             if os.path.isfile(os.path.join(old_dir, f"{k}.cu"))]
+    if not names:
+        fail(f"{old_dir} holds neither bss_advance.cu nor tcp_advance.cu")
+    t0 = time.monotonic()
+    old = {k: build_old(k, old_dir) for k in names}
+    logs = _build.build(names)
+    new_s = time.monotonic() - t0
+    libs = {}
+    for k, (proc, path) in old.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the old {k} build failed:\n{log}")
+        print("\n".join(ptxas_lines(k, logs[k])
+                        + ptxas_lines(f"{k} (old)", log)), flush=True)
+        libs[k] = ctypes.CDLL(str(path))
+    print(f"build: new {new_s:.2f} s, old {time.monotonic() - t0:.2f} s "
+          f"(in parallel)", flush=True)
+    compares = {"bss_advance": bss_compare, "tcp_advance": tcp_compare}
+    for k in names:
+        print(json.dumps(compares[k](libs[k], dev, card, old_dir)),
+              flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2107,10 +2374,15 @@ def main(device: str = "cuda") -> int:
                    for w in ("mobile", "onoff", "sweep", "composed")}
     # 3p. the stage probe of bss_advance on legacy, AGG, MOB and TRF
     bss_stage_split(dev, "bss_advance")
-    # 3t. tcp_advance vs the plain loop at bench width: bench_tcp, the
-    #     17-variant program, RED/ECN and the four-point variant grid
+    # 3t. tcp_advance's fast division vs __fdiv_rn; tcp_advance vs the
+    #     plain loop at bench width: bench_tcp, the 17-variant program,
+    #     RED/ECN and the four-point variant grid
+    tcp_division(dev)
     tcp_numbers = {w: tcp_check(kc, dev, w)
                    for w in ("bench_tcp", "variants17", "red", "grid")}
+    #     and the stage probe of tcp_advance on bench_tcp, the 17-variant
+    #     and the RED programs
+    tcp_stage_split(dev, "tcp_advance")
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel

@@ -889,3 +889,114 @@ def test_tcp_run_on_card_equals_cpu(card):
     for g, w in zip(got, want):
         for k in ("delivered", "drops", "mean_queue", "cwnd_final"):
             assert np.array_equal(g[k], w[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", [False, True])
+def test_tcp_probe_equals_main_launch(card, red):
+    """The stage probe (the PROF instantiation) gives the main launch's
+    state, is not counted, and counts cycles in every stage (RED's only
+    under RED)."""
+    from tpudes_torch.parallel.tcp_cuda import (
+        TCP_PROF_STAGES,
+        tcp_launch,
+        tcp_profile,
+    )
+
+    prog = _dumbbell(6, sim_s=0.2, red=dict(MinTh=3, MaxTh=8, MaxSize=60,
+                                            UseEcn=True) if red else None)
+    consts = tcp.build_tcp_consts(prog, card)
+    var, ecn = (torch.as_tensor(x, device=card)
+                for x in tcp.sweep_operands(prog))
+    s0 = tcp.init_state(consts, 5)
+    key = PRNGKey(6).to(card)
+    kc.reset_launches()
+    want = tcp_launch(consts, s0, key, 3, prog.n_slots, var, ecn)
+    got, cyc = tcp_profile(consts, s0, key, 3, prog.n_slots, var, ecn)
+    torch.cuda.synchronize()
+    assert kc.launches["tcp_advance"] == 1          # the probe is not counted
+    for k, _, _ in tcp.TCP_STATE:
+        assert torch.equal(got[k], want[k]), k
+    assert cyc.shape == (5, len(TCP_PROF_STAGES))
+    total = cyc.sum(0)
+    for k, name in enumerate(TCP_PROF_STAGES):
+        assert (int(total[k]) > 0) == (name != "red" or red), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas, sim_s", [(9, 0.3), (256, 0.1)])
+def test_tcp_advance_rows_bit_equal(card, replicas, sim_s):
+    """9 rows (a ragged last block) and the bench's 256: the plain loop's
+    state."""
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+
+    prog = _dumbbell(8, sim_s=sim_s)
+    consts = tcp.build_tcp_consts(prog, card)
+    var, ecn = (torch.as_tensor(x, device=card)
+                for x in tcp.sweep_operands(prog))
+    s0 = tcp.init_state(consts, replicas)
+    key = PRNGKey(6).to(card)
+    want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn)
+    got = tcp_launch(consts, s0, key, 0, prog.n_slots, var, ecn)
+    torch.cuda.synchronize()
+    for k, _, _ in tcp.TCP_STATE:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", [False, True])
+def test_tcp_advance_draw_batch_edges(card, red):
+    """Launches that start at t0 % 32 != 0 and run odd lengths (the edges
+    of the kernel's batch of 32 slots' draws) equal one launch."""
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+
+    prog = _dumbbell(7, sim_s=0.3, red=dict(MinTh=3, MaxTh=8, MaxSize=60,
+                                            UseEcn=True) if red else None)
+    consts = tcp.build_tcp_consts(prog, card)
+    var, ecn = (torch.as_tensor(x, device=card)
+                for x in tcp.sweep_operands(prog))
+    s0 = tcp.init_state(consts, 6)
+    key = PRNGKey(9).to(card)
+    n = prog.n_slots
+    one = tcp_launch(consts, s0, key, 0, n, var, ecn)
+    for cuts in ((1, 2, 35, 67, 99), (31, 33, 64, 97, 161, n - 1),
+                 (13, 50, 111)):
+        got, t = s0, 0
+        for bound in (*cuts, n):
+            got = tcp_launch(consts, got, key, t, bound, var, ecn)
+            t = bound
+        torch.cuda.synchronize()
+        for k, _, _ in tcp.TCP_STATE:
+            assert torch.equal(got[k], one[k]), (cuts, k)
+
+
+@pytest.mark.cuda
+def test_tcp_advance_17_variants_at_bench_rows(card):
+    """bench_tcp_variant_sweep's program (17 flows, one per variant, 13
+    Mbit/s) at the bench's 256 rows, cut to 0.3 s: the plain loop's
+    state."""
+    prog = dumbbell_program(17, 0.3, variants=list(tcp.VARIANTS),
+                            bottleneck_rate="13Mbps")
+    _tcp_kernel_vs_plain(prog, 256, card, cuts=(77,))
+
+
+@pytest.mark.cuda
+def test_tcp_division_fast_path_equals_ieee(card):
+    """The kernel's branch-free division (the card's IEEE division's fast
+    path, taken for operands within 2^-60..2^60) gives __fdiv_rn's bits on
+    2^26 hashed pairs."""
+    from tpudes_torch.parallel.tcp_cuda import division_check
+
+    assert division_check(1 << 26, seed=1, device=card) == (0, 1 << 26)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag, delay, access", [(1, "0.1ms", "0.1ms"),
+                                                (3, "0.25ms", "0.5ms")])
+def test_tcp_advance_short_ack_lag(card, lag, delay, access):
+    """Ack lags of one and three slots, where the kernel's two warps take
+    their steps in turn (one slot a step at one)."""
+    prog = _dumbbell(5, sim_s=0.3, bottleneck_delay=delay,
+                     access_delay=access)
+    assert prog.ack_lag == lag
+    _tcp_kernel_vs_plain(prog, 3, card, cuts=(37,))
