@@ -124,7 +124,29 @@ and in phase
 5tcp, after 5w, ``bench_tcp`` and ``bench_tcp_variant_sweep`` at 256
 replicas x 20 s (one warm run, five timed runs on keys 1..5, one launch
 each, the busy share; ``vs_scalar`` needs the host DES, which the port
-does not have).
+does not have).  The dumbbell's app-limited arm (``TRF``: ``prog.traffic``
+and ``traffic_sweep=[...]``): in phase 3w, after the probe, bench_tcp's
+flows each app-limited by an ON-OFF workload (:data:`TCP_TRF_ONOFF`) and
+the eight toy workload points as one 8 x 256 grid, at 256 rows x 1 s
+(:data:`TCP_TRF_CHECK_S`), the whole state bit-equal to the plain loop
+over one launch and over two, the grid per point against each workload's
+own launch, the clip binding; and in phase 5trf, after 5tcp, the
+app-limited bench at 256 x 20 s (one warm run, five timed runs) and the
+grid once, counted.
+
+Then the fused WiFi PHY window (``tpudes_torch.parallel.kernels``:
+``wifi_phy_window``, ``replicated``, ``multi_window_scan``) and its
+kernel ``wifi_window`` at BASELINE.md's round-1 row #3 shape (65 nodes x
+512 replicas x 256 windows, ``make_replica_batch``'s layout from the
+port's own draws, every OFDM and HT mode, 1,000 B frames, tx_prob 0.25):
+in phase 3win, after 3w, the scan's totals against the plain scan over
+all 256 windows, the scan's geometry kernel bit-equal in ``rx_w`` and
+``det``, the window at the same width (NIST and table) bit-equal in
+``ok``, ``sinr`` and ``rx_dbm``, the graft entry's shape
+(``__graft_entry__.py:29-38``) on the card against the CPU, each
+launch's device time, bound and pair evaluations a second; and in phase
+5win, after 5trf, the scan (its geometry and scan kernels) and the
+window (NIST, table) each once, counted.
 
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
@@ -306,6 +328,29 @@ TCP_COMPARE = ("bench_tcp", "variants17")
 #: RED queue that marks ECT packets (tests/test_ecn_dctcp.py's shape)
 TCP_RED = dict(MinTh=5.0, MaxTh=15.0, MaxSize=1000, UseEcn=True,
                UseHardDrop=False)
+#: the app-limited bench (phases 3w and 5trf): bench_tcp's eight flows,
+#: each app-limited by an ON-OFF workload whose mean offered rate is about
+#: 0.8 of a flow's 156.25 pkt/s share, its bursts above it; the clip per
+#: flow-slot (a load, a difference and a min/max: int32 operations); the
+#: TRF checks' horizon (s), shorter than the bench's to bound the plain
+#: loop's wall
+TCP_TRF_ONOFF = dict(peak_pps=250.0, on=(1.5, 0.2, 5.0), off_mean_s=0.5,
+                     tr_seed=0)
+TCP_TRF_INT_OPS = 4
+TCP_TRF_CHECK_S = 1.0
+#: the fused PHY window (phases 3win and 5win) at BASELINE.md's round-1
+#: row #3 shape (``tpudes/parallel/mesh.py:112-130``): nodes, replicas,
+#: windows, the Bernoulli tx probability, the frame size, the square's
+#: side (m) and the batch's seed; the SINR of a pair whose SINR the
+#: function needs (the column sum less the pair's power, the noise added,
+#: the division: f32 operations)
+WIN_N, WIN_R, WIN_W = 65, 512, 256
+WIN_TX_PROB, WIN_FRAME_BYTES, WIN_SPREAD, WIN_SEED = 0.25, 1000.0, 50.0, 0
+WIN_SINR_F32_OPS = 3
+WIN_SOURCE = "tpudes_torch/csrc/wifi_window.cu"
+WIN_REPLACES = ("tpudes/parallel/kernels.py:56 (wifi_phy_window, vmapped "
+                "by replicated :107 and scanned by multi_window_scan :120; "
+                "XLA, no pallas_call)")
 
 
 def fail(msg: str):
@@ -1294,18 +1339,23 @@ def tcp_programs(sim_s: float) -> dict:
     )
 
 
-def tcp_bound(consts, state, out, slots: int) -> tuple:
+def tcp_bound(consts, state, out, slots: int, app=None) -> tuple:
     """Least time for one ``tcp_advance`` launch of ``slots`` slots on
-    these inputs: the state read once and written once over HBM, against
-    the hashes and the per-flow work (:data:`TCP_FLOW_F32_OPS`,
-    :data:`TCP_FLOW_INT_OPS`) each type's rate; the larger wins."""
+    these inputs: the state (and an app limit's table, each of its rows
+    once) read once and written once over HBM, against the hashes and the
+    per-flow work (:data:`TCP_FLOW_F32_OPS`, :data:`TCP_FLOW_INT_OPS`,
+    and :data:`TCP_TRF_INT_OPS` under an app limit) each type's rate; the
+    larger wins."""
     C, R = state["cwnd"].shape[:2]
     F, red = consts["F"], consts["red"]
     nbytes = sum(v.nbytes for v in state.values())
     nbytes += sum(v.nbytes for v in out.values())
+    if app is not None:
+        nbytes += app[0].nbytes if app.stride(0) == 0 else app.nbytes
     rows = C * R * slots
     hashes = slots + rows * ((TCP_RED_HASHES + F) if red else TCP_HASHES)
-    int_ops = hashes * THREEFRY_OPS + rows * F * TCP_FLOW_INT_OPS
+    int_ops = hashes * THREEFRY_OPS + rows * F * (
+        TCP_FLOW_INT_OPS + (TCP_TRF_INT_OPS if app is not None else 0))
     f32_ops = rows * F * TCP_FLOW_F32_OPS
     f64_ops = rows * TCP_RED_F64_OPS if red else 0
     times = {
@@ -1555,6 +1605,459 @@ def tcp_bench(kc, dev, check: dict, which: str) -> dict:
     )
     print(json.dumps(line), flush=True)
     return launches
+
+
+def tcp_trf_programs(sim_s: float):
+    """``(prog, points)``: ``bench_tcp``'s program at ``sim_s`` seconds
+    with each flow app-limited by the ON-OFF workload
+    :data:`TCP_TRF_ONOFF` (its tables drawn over the bench's 20 s, so a
+    shorter horizon runs their first part), and the eight toy workload
+    points (``programs.toy_traffic_points``) of the workload grid."""
+    from tpudes_torch.parallel.programs import toy_traffic_points
+    from tpudes_torch.traffic.program import TrafficProgram
+
+    prog = tcp_programs(sim_s)["bench_tcp"]
+    horizon_us = int(TCP_SIM_S * 1e6)
+    tp = TrafficProgram.onoff(prog.n_flows, horizon_us=horizon_us,
+                              **TCP_TRF_ONOFF)
+    points = toy_traffic_points(prog.n_flows, horizon_us)
+    return dataclasses.replace(prog, traffic=tp), points
+
+
+def tcp_trf_check(kc, dev, name: str) -> dict:
+    """Phase 3w: the ``TRF`` arm of ``tcp_advance`` against the plain loop
+    on the card at ``TCP_R`` rows x ``TCP_TRF_CHECK_S`` s: ``name`` "trf"
+    (bench_tcp's flows app-limited by :data:`TCP_TRF_ONOFF`) or
+    "trf_sweep" (the eight workload points as one ``8 x TCP_R`` grid).
+    The whole state bit-equal over one launch and over two split at a
+    slot boundary, the grid also per point against that workload's own
+    launch; the clip must bind (a flow's deliveries differ from the bulk
+    flows'); a
+    small program through the plain loop on the CPU against the kernel on
+    the card; the launch's device time, µs per slot and bound."""
+    import torch
+    from tpudes_torch.parallel import tcp_dumbbell as tcp
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.traffic.device import app_cum_table
+
+    prog, points = tcp_trf_programs(TCP_TRF_CHECK_S)
+    sweep = points if name == "trf_sweep" else None
+    if sweep:
+        prog = dataclasses.replace(prog, traffic=points[0])
+    consts = tcp.build_tcp_consts(prog, dev)
+    ops = tcp.workload_operands(prog, sweep, dev)
+    C, n = ops["tr_id"].shape[0], prog.n_slots
+    var, ecn = (torch.as_tensor(x, device=dev).repeat(C, 1)
+                for x in tcp.sweep_operands(prog))
+    key = PRNGKey(TCP_CHECK_SEED, device=dev)
+    s0 = tcp.init_state(consts, TCP_R, C)
+
+    def app(t0, t1, ops_=ops):
+        return app_cum_table(ops_, prog.traffic.epoch_us, consts["slot_us"],
+                             t0, t1)
+
+    table = app(0, n)
+    census = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = tcp.tcp_advance_math(consts, s0, key, 0, n, var, ecn, census,
+                                table)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    got = tcp_launch(consts, s0, key, 0, n, var, ecn, table)
+    split = n // 2 + 1
+    two = tcp_launch(consts, tcp_launch(consts, s0, key, 0, split, var, ecn,
+                                        app(0, split)),
+                     key, split, n, var, ecn, app(split, n))
+    bulk = tcp_launch(consts, s0, key, 0, n, var, ecn)
+    torch.cuda.synchronize()
+    what = f"tcp_advance ({name})"
+    err = 0.0
+    for k, _, _ in tcp.TCP_STATE:
+        for how, x in (("one launch", got), ("two launches", two)):
+            if not torch.equal(bits_of(x[k]), bits_of(want[k])):
+                fail(f"{what} ({how}) vs plain loop: {k} differs")
+        err = max(err, (got[k].double() - want[k].double()).abs()
+                  .nan_to_num().max().item())
+    delivered = int(want["delivered"].sum())
+    bound_flows = int((want["delivered"] != bulk["delivered"]).sum())
+    if delivered <= 0 or bound_flows == 0:
+        fail(f"{what}: nothing delivered, or the app limit did not bind "
+             f"(every flow delivered what the bulk flows did)")
+    if sweep:
+        for c, tp in enumerate(points):
+            own_ops = tcp.workload_operands(
+                dataclasses.replace(prog, traffic=tp), None, dev)
+            one = tcp_launch(consts, {k: v[c:c + 1].contiguous()
+                                      for k, v in s0.items()}, key, 0, n,
+                             var[c:c + 1].contiguous(),
+                             ecn[c:c + 1].contiguous(), app(0, n, own_ops))
+            for k, _, _ in tcp.TCP_STATE:
+                if not torch.equal(bits_of(got[k][c]), bits_of(one[k][0])):
+                    fail(f"{what}: point {c} differs from its own launch "
+                         f"in {k}")
+    print(f"{what} vs plain loop: {len(tcp.TCP_STATE)} state arrays "
+          f"bit-equal at F={consts['F']} C={C} R={TCP_R}, {n} slots "
+          f"({TCP_TRF_CHECK_S} s), over one launch and over two split at "
+          f"slot {split}" + ("; each point == its own launch" if sweep
+                             else "")
+          + f"; delivered {delivered}, {bound_flows} of "
+          f"{want['delivered'].numel()} flow counts differ from the bulk "
+          f"flows', census {census_line(census)}; "
+          f"plain loop wall {plain_s:.3f} s", flush=True)
+
+    small, small_pts = tcp_trf_programs(0.5)
+    if sweep:
+        small = dataclasses.replace(small, traffic=small_pts[0])
+    kw = dict(traffic_sweep=small_pts) if sweep else {}
+    on_cpu = tcp.run_tcp_dumbbell(small, PRNGKey(3), 8, device="cpu", **kw)
+    on_gpu = tcp.run_tcp_dumbbell(small, PRNGKey(3), 8, device=dev, **kw)
+    for c, (a, b) in enumerate(zip(on_cpu if sweep else [on_cpu],
+                                   on_gpu if sweep else [on_gpu])):
+        for k in ("delivered", "drops", "mean_queue", "cwnd_final"):
+            if not np.array_equal(a[k], b[k]):
+                fail(f"small dumbbell ({name}, point {c}): CPU plain loop "
+                     f"vs kernel differs in {k}")
+    print(f"small dumbbell ({name}, {C} x 8 x 0.5 s): CPU plain loop == "
+          f"kernel on the card", flush=True)
+
+    ms, host_ms = timed_ms(lambda: tcp_launch(consts, s0, key, 0, n, var,
+                                              ecn, table),
+                           TCP_TIMED_CALLS, reps=3)
+    bulk_ms, _ = timed_ms(lambda: tcp_launch(consts, s0, key, 0, n, var,
+                                             ecn), TCP_TIMED_CALLS, reps=3)
+    bound_ms, bound_by = tcp_bound(consts, s0, got, n, table)
+    us_slot = ms * 1e3 / n
+    print(f"{what}: one launch of {C} x {TCP_R} rows, {n} slots: device "
+          f"{ms:.4f} ms/launch = {us_slot:.4f} us/slot (host "
+          f"{host_ms:.4f} ms/call; the same launch without the app limit "
+          f"{bulk_ms:.4f} ms), plain loop wall {plain_s * 1e3:.1f} ms = "
+          f"{plain_s * 1e6 / n:.1f} us/slot, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by})", flush=True)
+    return dict(err=err, ms=ms, bulk_ms=bulk_ms, plain_ms=plain_s * 1e3,
+                slots=n, us_per_slot=us_slot, bound=(bound_ms, bound_by),
+                plain_sim_s_per_wall_s=C * TCP_R * TCP_TRF_CHECK_S / plain_s)
+
+
+def tcp_trf_bench(kc, dev, check: dict, grid: dict) -> dict:
+    """Phase 5trf: the app-limited bench_tcp (:func:`tcp_trf_programs`) at
+    ``TCP_R`` replicas x ``TCP_SIM_S`` s, one warm run and
+    ``TCP_TIMED_RUNS`` counted runs on keys 1.. (one launch each), then
+    the eight-point workload grid once, counted; prints the JSON line and
+    returns the launches of each."""
+    from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+    from tpudes_torch.random import PRNGKey
+
+    prog, points = tcp_trf_programs(TCP_SIM_S)
+    F = prog.n_flows
+    link_mbps = (prog.seg_bytes + 40) * 8 / prog.slot_s / 1e6
+
+    def run(seed):
+        return run_tcp_dumbbell(prog, PRNGKey(seed), TCP_R, device=dev)
+
+    run(0)                                                  # warm-up
+    walls, goodput, launches, out = [], [], None, None
+    for i in range(TCP_TIMED_RUNS):
+        out, wall, launches = counted(
+            kc, lambda: run(1 + i), {"tcp_advance": 1, "tcp_advance:trf": 1},
+            "app-limited dumbbell main path")
+        g = out["goodput_mbps"]
+        if (g.shape != (TCP_R, F) or not np.all(np.isfinite(g))
+                or (out["delivered"].sum(1) <= 0).any()
+                or g.sum(1).max() > link_mbps):
+            fail(f"app-limited bench run {i}: outputs of the wrong shape, "
+                 f"not finite, or past the bottleneck")
+        walls.append(wall)
+        goodput.append(g)
+    busy, kernel_ms = device_busy_share(lambda: run(1), "tcp_advance")
+    med = statistics.median(walls)
+    mean_g = np.mean(goodput, axis=0)
+    grid_prog = dataclasses.replace(prog, traffic=points[0])
+    swept, grid_wall, grid_launches = counted(
+        kc, lambda: run_tcp_dumbbell(grid_prog, PRNGKey(1), TCP_R,
+                                     traffic_sweep=points, device=dev),
+        {"tcp_advance": 1, "tcp_advance:trf": 1, "tcp_advance:trf_sweep": 1},
+        "workload grid main path")
+    if len(swept) != len(points) or any(
+            (p["delivered"].sum(1) <= 0).any() for p in swept):
+        fail("workload grid: a point of the wrong count or with a replica "
+             "that delivered nothing")
+    line = dict(
+        phase="bench_tcp_app_limited", replicas=TCP_R, n_flows=F,
+        sim_s=TCP_SIM_S, n_slots=prog.n_slots,
+        workload=dict(model="onoff", **TCP_TRF_ONOFF),
+        sim_s_per_wall_s=TCP_R * TCP_SIM_S / med, wall_median_s=med,
+        wall_min_s=min(walls), wall_max_s=max(walls),
+        agg_goodput_mbps=float(mean_g.sum(1).mean()),
+        obs_drops_per_replica=float(out["drops"].sum(1).mean()),
+        obs_mean_queue_pkts=float(out["mean_queue"].mean()),
+        kernel_us_per_slot=check["us_per_slot"], kernel_launches=launches,
+        device_busy_share=busy if busy is not None else "not measured",
+        profiled_kernel_device_ms=(kernel_ms if kernel_ms is not None
+                                   else "not measured"),
+        plain_loop_wall_s_at_check=check["plain_ms"] / 1e3,
+        grid=dict(points=len(points), wall_s=grid_wall,
+                  sim_s_per_wall_s=len(points) * TCP_R * TCP_SIM_S
+                  / grid_wall,
+                  kernel_us_per_slot=grid["us_per_slot"],
+                  kernel_launches=grid_launches,
+                  agg_goodput_mbps=[float(p["goodput_mbps"].sum(1).mean())
+                                    for p in swept]),
+    )
+    print(json.dumps(line), flush=True)
+    return dict(trf=launches, trf_sweep=grid_launches)
+
+
+def window_batch(dev):
+    """BASELINE round-1 row #3's window batch, as
+    ``tpudes/parallel/mesh.py:112-130`` (``make_replica_batch``) draws it,
+    from the port's own draws: ``k_pos, k_keys = split(PRNGKey(seed))``,
+    :data:`WIN_N` positions uniform in a :data:`WIN_SPREAD` m square at z
+    = 0, shared by the :data:`WIN_R` replicas, whose keys are
+    ``replica_keys(k_keys, R)``; ``mode_idx[i] = i % 20`` (every OFDM and
+    HT mode) and 1,000 B frames.  Returns ``(positions, mode, frame_bytes,
+    keys)``."""
+    import torch
+    from tpudes_torch.ops.wifi_error import ALL_MODES
+    from tpudes_torch.random import PRNGKey, replica_keys, split, uniform
+
+    k_pos, k_keys = split(PRNGKey(WIN_SEED, device=dev))
+    pos = uniform(k_pos, (WIN_N, 3)) * WIN_SPREAD
+    pos[:, 2] = 0.0
+    mode = (torch.arange(WIN_N, device=dev) % len(ALL_MODES)).to(torch.int32)
+    fb = torch.full((WIN_N,), WIN_FRAME_BYTES, device=dev)
+    return pos, mode, fb, replica_keys(k_keys, WIN_R)
+
+
+def window_live_pairs(tx, det) -> int:
+    """The pairs of the windows that may decode, a transmitter's frame at
+    a receiver that is not transmitting and clears the sensitivity
+    (``(W, N)`` bool transmitters, ``(N, N)`` bool ``det``): the pairs
+    that run the error model and draw a coin.  Returns their total."""
+    import torch
+
+    txf = tx.double()
+    d = det.double() * (1.0 - torch.eye(det.shape[0], device=det.device,
+                                        dtype=torch.float64))
+    return int(((txf @ d) * (1.0 - txf)).sum().item())
+
+
+def window_bound(n: int, links: int, n_tx: int, sinr_pairs: int,
+                 live: int, hashes: int, nbytes: int) -> tuple:
+    """Least time for windows of ``n`` nodes on these inputs: ``links``
+    links (:data:`MOB_LINK_F32_OPS` f32 and :data:`MOB_LINK_F64_OPS` f64
+    operations each), the column sums over the windows' ``n_tx``
+    transmitters (``n`` adds each), the SINR of ``sinr_pairs`` pairs
+    (:data:`WIN_SINR_F32_OPS`), the PSR chain of the ``live`` pairs that
+    may decode (:data:`BSS_PSR_OPS`) and ``hashes`` threefry hashes (the
+    tx draws, the windows' keys and the live pairs' coins), each type at
+    its rate, against ``nbytes`` over HBM; the larger wins."""
+    f32_ops = (links * MOB_LINK_F32_OPS + n * n_tx
+               + sinr_pairs * WIN_SINR_F32_OPS + live * BSS_PSR_OPS)
+    f64_ops = links * MOB_LINK_F64_OPS
+    int_ops = hashes * (THREEFRY_OPS + 3)
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": max(f32_ops / F32_OPS_PER_S, f64_ops / F64_OPS_PER_S,
+                          int_ops / INT32_OPS_PER_S) * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def window_check(kc, dev) -> dict:
+    """Phase 3win: ``wifi_window`` against its plain version on the card
+    at BASELINE round-1 row #3's shape (:func:`window_batch`, 65 nodes x
+    512 replicas x 256 windows, tx_prob 0.25): the scan's ``(R,)`` totals
+    equal over all 256 windows; the single window at the same ``(R, N)``,
+    its transmitters window 0's draws, ``ok``, ``sinr`` and ``rx_dbm``
+    bit-equal for NIST and table, its decodes summing to the scan's first
+    window; the graft entry's shape (``__graft_entry__.py:29-38``: 32
+    nodes in a 60 m cube, every fourth transmitting, mode 7, 1,000 B)
+    through ``wifi_phy_window`` on the card against the CPU; each
+    launch's device time (CUDA events behind a sleep kernel), its bound,
+    the plain version's time and pair evaluations a second."""
+    import torch
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import geometry_launch
+    from tpudes_torch.random import PRNGKey, uniform, window_keys
+
+    pos, mode, fb, keys = window_batch(dev)
+    prob = torch.full((WIN_N,), WIN_TX_PROB, device=dev)
+    N, R, W = WIN_N, WIN_R, WIN_W
+    out = {}
+
+    # the scan
+    got = win.multi_window_scan(pos, WIN_TX_PROB, mode, fb, keys, W,
+                                device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = win.scan_math(pos, prob, mode, fb, keys, W)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    if not torch.equal(got, want):
+        fail(f"wifi_window scan vs plain: {int((got != want).sum())} of {R} "
+             f"replicas' totals differ")
+    kk = window_keys(keys, W)                               # (R, W, 2, 2)
+    tx_all = uniform(kk[:, :, 0], N) < prob                 # (R, W, N)
+    n_tx = int(tx_all.sum())
+    params = win.WindowParams()
+    t0 = time.monotonic()
+    rx_dbm, rx_w = win.geometry(pos, params)
+    det = rx_dbm >= params.rx_sensitivity_dbm
+    torch.cuda.synchronize()
+    gplain_s = time.monotonic() - t0
+    live = window_live_pairs(tx_all.reshape(-1, N), det)
+    ms, host_ms = timed_ms(lambda: win.multi_window_scan(
+        pos, WIN_TX_PROB, mode, fb, keys, W, device=dev), 3, reps=3)
+    bound = window_bound(N, N * N, n_tx, live, live, R * W * (N + 3) + live,
+                         pos.nbytes + prob.nbytes + mode.nbytes + fb.nbytes
+                         + keys.nbytes + R * 4)
+    pairs = R * W * N * N
+    print(f"wifi_window scan vs plain: {R} totals equal at N={N} R={R} "
+          f"W={W} (mean {got.double().mean().item():.2f} frames a replica, "
+          f"{n_tx / (R * W):.2f} transmitters a window, "
+          f"{live} pairs that may decode, {live / (R * W):.1f} a window); "
+          f"device {ms:.4f} ms/launch (host {host_ms:.4f} ms/call) = "
+          f"{pairs / (ms * 1e-3):.4g} pair evaluations/s; plain version "
+          f"{plain_s * 1e3:.1f} ms; bound {bound[0] * 1e3:.3f} us "
+          f"({bound[1]})", flush=True)
+    out["scan"] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3, bound=bound,
+                       pairs_per_s=pairs / (ms * 1e-3), live=live,
+                       mean_frames=got.double().mean().item())
+
+    # the scan's geometry kernel
+    g_w, g_det = geometry_launch(pos)
+    torch.cuda.synchronize()
+    if not torch.equal(bits_of(g_w), bits_of(rx_w)) or not torch.equal(
+            g_det, det):
+        fail("wifi_window geometry vs plain: rx_w or det differs")
+    gms, ghost = timed_ms(lambda: geometry_launch(pos), 20, reps=3)
+    gbound = window_bound(N, N * N, 0, 0, 0, 0,
+                          pos.nbytes + g_w.nbytes + g_det.nbytes)
+    print(f"wifi_window geometry vs plain: rx_w and det bit-equal at N={N} "
+          f"({int(det.sum())} of {N * N} pairs detectable); device "
+          f"{gms:.4f} ms/launch (host {ghost:.4f} ms/call); plain version "
+          f"{gplain_s * 1e3:.2f} ms; bound {gbound[0] * 1e3:.4f} us "
+          f"({gbound[1]})", flush=True)
+    out["geometry"] = dict(err=0.0, ms=gms, plain_ms=gplain_s * 1e3,
+                           bound=gbound)
+
+    # the single window at the same (R, N): window 0's transmitters
+    posR = pos.expand(R, N, 3).contiguous()
+    modeR = mode.expand(R, N).contiguous()
+    fbR = fb.expand(R, N).contiguous()
+    tx0 = tx_all[:, 0].contiguous()
+    k_phy = kk[:, 0, 1].contiguous()
+    first = int(win.multi_window_scan(pos, WIN_TX_PROB, mode, fb, keys, 1,
+                                      device=dev).sum())
+    for model in ("nist", "table"):
+        params = win.WindowParams(error_model=model)
+        run = win.replicated()
+        g = run(posR, tx0, modeR, fbR, k_phy, params, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        w = win.window_math(posR, tx0, modeR, fbR, uniform(k_phy, (N, N)),
+                            params)
+        torch.cuda.synchronize()
+        wplain_s = time.monotonic() - t0
+        err = 0.0
+        for name, a, b in zip(("ok", "sinr", "rx_dbm"), g, w):
+            if not torch.equal(bits_of(a) if a.dtype != torch.bool else a,
+                               bits_of(b) if b.dtype != torch.bool else b):
+                fail(f"wifi_window ({model}) vs plain: {name} differs")
+            if a.dtype != torch.bool:
+                err = max(err, (a.double() - b.double()).abs().nan_to_num()
+                          .max().item())
+        if model == "nist" and int(g[0].sum()) != first:
+            fail(f"wifi_window: the window's decodes ({int(g[0].sum())}) "
+                 f"differ from the scan's first window's ({first})")
+        wms, whost = timed_ms(lambda: run(posR, tx0, modeR, fbR, k_phy,
+                                          params, device=dev), 10, reps=3)
+        wlive = window_live_pairs(tx0, det)
+        nbytes = (posR.nbytes + tx0.nbytes + modeR.nbytes + fbR.nbytes
+                  + k_phy.nbytes + sum(x.nbytes for x in g))
+        wbound = window_bound(N, R * N * N, int(tx0.sum()), R * N * N,
+                              wlive, wlive, nbytes)
+        print(f"wifi_window ({model}) vs plain: ok, sinr, rx_dbm bit-equal "
+              f"at N={N} R={R} ({int(g[0].sum())} frames decoded"
+              + (f", the scan's first window's {first}" if model == "nist"
+                 else "") + f"); device {wms:.4f} ms/launch (host "
+              f"{whost:.4f} ms/call) = {R * N * N / (wms * 1e-3):.4g} pair "
+              f"evaluations/s; plain version {wplain_s * 1e3:.1f} ms; bound "
+              f"{wbound[0] * 1e3:.3f} us ({wbound[1]})", flush=True)
+        out[model] = dict(err=err, ms=wms, plain_ms=wplain_s * 1e3,
+                          bound=wbound)
+
+    # the graft entry's shape (__graft_entry__.py:29-38)
+    n = 32
+    key = PRNGKey(0, device=dev)
+    epos = uniform(key, (n, 3)) * 60.0
+    etx = torch.zeros(n, dtype=torch.bool, device=dev)
+    etx[::4] = True
+    emode = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    efb = torch.full((n,), 1000.0, device=dev)
+    g = win.wifi_phy_window(epos, etx, emode, efb, key, device=dev)
+    w = win.wifi_phy_window(epos.cpu(), etx.cpu(), emode.cpu(), efb.cpu(),
+                            key.cpu(), device="cpu")
+    for name, a, b in zip(("ok", "sinr", "rx_dbm"), g, w):
+        a = a.cpu()
+        if a.shape != (n, n) or not torch.equal(
+                bits_of(a) if a.dtype != torch.bool else a,
+                bits_of(b) if b.dtype != torch.bool else b):
+            fail(f"wifi_phy_window (graft entry shape): {name} on the card "
+                 f"differs from the CPU's")
+    if not torch.isfinite(g[1]).all() or not torch.isfinite(g[2]).all():
+        fail("wifi_phy_window (graft entry shape): sinr or rx_dbm not "
+             "finite")
+    print(f"wifi_phy_window at the graft entry's shape (N={n}, every "
+          f"fourth node transmitting, mode 7, 1000 B): card == CPU, "
+          f"{int(g[0].sum())} frames decoded", flush=True)
+    return out
+
+
+def window_main(kc, dev) -> dict:
+    """Phase 5win: the window's main paths, counted: the scan at BASELINE
+    row #3's shape (``multi_window_scan`` over the :data:`WIN_R` replica
+    keys, one launch) and the window over the same batch, NIST and table
+    (``replicated``, one launch each).  Returns each run's launches."""
+    import torch
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.random import uniform, window_keys
+
+    pos, mode, fb, keys = window_batch(dev)
+    total, wall, scan_l = counted(
+        kc, lambda: win.multi_window_scan(pos, WIN_TX_PROB, mode, fb, keys,
+                                          WIN_W, device=dev),
+        {"wifi_window": 2, "wifi_window:geometry": 1, "wifi_window:scan": 1},
+        "window scan main path")
+    if total.shape != (WIN_R,) or (total <= 0).any():
+        fail("window scan main path: totals of the wrong shape or a "
+             "replica with no decoded frame")
+    kk = window_keys(keys, 1)[:, 0]
+    tx0 = uniform(kk[:, 0], WIN_N) < WIN_TX_PROB
+    args = (pos.expand(WIN_R, WIN_N, 3), tx0, mode.expand(WIN_R, WIN_N),
+            fb.expand(WIN_R, WIN_N), kk[:, 1])
+    out = {"scan": scan_l}
+    for model in ("nist", "table"):
+        params = win.WindowParams(error_model=model)
+        (ok, sinr, rx_dbm), _, out[model] = counted(
+            kc, lambda: win.replicated()(*args, params, device=dev),
+            {"wifi_window": 1, "wifi_window:table": int(model == "table")},
+            f"window main path ({model})")
+        if ok.shape != (WIN_R, WIN_N, WIN_N) or not torch.isfinite(
+                rx_dbm).all() or not torch.isfinite(sinr).all():
+            fail(f"window main path ({model}): outputs of the wrong shape "
+                 f"or not finite")
+    print(json.dumps(dict(
+        phase="bench_phy_window", n_nodes=WIN_N, replicas=WIN_R,
+        windows=WIN_W, tx_prob=WIN_TX_PROB, frame_bytes=WIN_FRAME_BYTES,
+        scan_wall_s=wall,
+        pair_evaluations_per_wall_s=WIN_R * WIN_W * WIN_N ** 2 / wall,
+        mean_frames_per_replica=total.double().mean().item(),
+        kernel_launches=scan_l)), flush=True)
+    return out
 
 
 @contextlib.contextmanager
@@ -1921,7 +2424,7 @@ def main(device: str = "cuda") -> int:
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
     logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance",
-                         "tcp_advance"])
+                         "tcp_advance", "wifi_window"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         print("\n".join(ptxas_lines(name, text)), flush=True)
@@ -2383,6 +2886,16 @@ def main(device: str = "cuda") -> int:
     #     and the stage probe of tcp_advance on bench_tcp, the 17-variant
     #     and the RED programs
     tcp_stage_split(dev, "tcp_advance")
+    # 3w. tcp_advance's TRF arm vs the plain loop: bench_tcp's flows
+    #     app-limited, and the eight-point workload grid
+    t_phase = time.monotonic()
+    trf_numbers = {w: tcp_trf_check(kc, dev, w)
+                   for w in ("trf", "trf_sweep")}
+    print(f"phase 3w: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 3win. wifi_window vs its plain version at BASELINE row #3's shape
+    t_phase = time.monotonic()
+    win_numbers = window_check(kc, dev)
+    print(f"phase 3win: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -2876,6 +3389,15 @@ def main(device: str = "cuda") -> int:
     # 5tcp. bench_tcp and bench_tcp_variant_sweep at bench width
     tcp_launches = tcp_bench(kc, dev, tcp_numbers["bench_tcp"], "bench_tcp")
     tcp_bench(kc, dev, tcp_numbers["variants17"], "variants17")
+    # 5trf. the app-limited bench_tcp and the workload grid at bench width
+    t_phase = time.monotonic()
+    tcp_trf_launches = tcp_trf_bench(kc, dev, trf_numbers["trf"],
+                                     trf_numbers["trf_sweep"])
+    print(f"phase 5trf: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 5win. the window's main paths at BASELINE row #3's shape
+    t_phase = time.monotonic()
+    win_launches = window_main(kc, dev)
+    print(f"phase 5win: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -2940,6 +3462,41 @@ def main(device: str = "cuda") -> int:
               tcp_numbers["bench_tcp"]["plain_ms"],
               tcp_numbers["bench_tcp"]["bound"], source=TCP_SOURCE,
               replaces=TCP_REPLACES),
+        entry("tcp_advance:trf", tcp_trf_launches["trf"]["tcp_advance:trf"],
+              trf_numbers["trf"]["err"], trf_numbers["trf"]["ms"],
+              trf_numbers["trf"]["plain_ms"], trf_numbers["trf"]["bound"],
+              source=TCP_SOURCE,
+              replaces=TCP_REPLACES + ", its app limit :955-973"),
+        entry("tcp_advance:trf_sweep",
+              tcp_trf_launches["trf_sweep"]["tcp_advance:trf_sweep"],
+              trf_numbers["trf_sweep"]["err"], trf_numbers["trf_sweep"]["ms"],
+              trf_numbers["trf_sweep"]["plain_ms"],
+              trf_numbers["trf_sweep"]["bound"], source=TCP_SOURCE,
+              replaces=TCP_REPLACES + ", vmapped over workloads :1224-1226"),
+        entry("wifi_window", win_launches["nist"]["wifi_window"],
+              win_numbers["nist"]["err"], win_numbers["nist"]["ms"],
+              win_numbers["nist"]["plain_ms"], win_numbers["nist"]["bound"],
+              source=WIN_SOURCE, replaces=WIN_REPLACES),
+        entry("wifi_window:table", win_launches["table"]["wifi_window:table"],
+              win_numbers["table"]["err"], win_numbers["table"]["ms"],
+              win_numbers["table"]["plain_ms"], win_numbers["table"]["bound"],
+              source=WIN_SOURCE,
+              replaces=WIN_REPLACES + ", its table model "
+              "tpudes/ops/wifi_error.py:289"),
+        entry("wifi_window:geometry",
+              win_launches["scan"]["wifi_window:geometry"],
+              win_numbers["geometry"]["err"], win_numbers["geometry"]["ms"],
+              win_numbers["geometry"]["plain_ms"],
+              win_numbers["geometry"]["bound"], source=WIN_SOURCE,
+              replaces="tpudes/parallel/kernels.py:73-80 and :96 "
+              "(wifi_phy_window's distances, rx power and detectability, "
+              "shared by multi_window_scan's windows; XLA, no pallas_call)"),
+        entry("wifi_window:scan", win_launches["scan"]["wifi_window:scan"],
+              win_numbers["scan"]["err"], win_numbers["scan"]["ms"],
+              win_numbers["scan"]["plain_ms"], win_numbers["scan"]["bound"],
+              source=WIN_SOURCE,
+              replaces="tpudes/parallel/kernels.py:120 (multi_window_scan, "
+              "a lax.scan over wifi_phy_window; XLA, no pallas_call)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,7 +89,9 @@ def _harq_consts(prog, card):
 
 def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
-            bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0):
+            bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0,
+            tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
+            win_table=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
@@ -97,7 +99,10 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "bss_advance:agg": bss_agg, "bss_advance:sweep": bss_sweep,
             "bss_advance:mobile": bss_mob, "bss_advance:traffic": bss_trf,
             "bss_advance:traffic_sweep": bss_trf_sweep, "tcp_advance": tcp,
-            "tcp_advance:red": tcp_red, "tcp_advance:sweep": tcp_sweep}
+            "tcp_advance:red": tcp_red, "tcp_advance:sweep": tcp_sweep,
+            "tcp_advance:trf": tcp_trf, "tcp_advance:trf_sweep": tcp_trf_sweep,
+            "wifi_window": win, "wifi_window:geometry": win_geometry,
+            "wifi_window:scan": win_scan, "wifi_window:table": win_table}
 
 
 def _bit_equal(a, b):
@@ -1000,3 +1005,165 @@ def test_tcp_advance_short_ack_lag(card, lag, delay, access):
                      access_delay=access)
     assert prog.ack_lag == lag
     _tcp_kernel_vs_plain(prog, 3, card, cuts=(37,))
+
+
+# --------------------------------------------------------------------------
+# tcp_advance's TRF arm: app-limited flows
+# --------------------------------------------------------------------------
+
+
+def _tcp_trf_vs_plain(prog, workloads, replicas, card, cuts=()):
+    """The TRF arm over launches cut at ``cuts`` against the plain loop on
+    the card, a grid of ``workloads``' points (one: ``prog.traffic``'s):
+    every state array bit-equal.  Returns the kernel's state."""
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+    from tpudes_torch.traffic.device import app_cum_table
+
+    consts = tcp.build_tcp_consts(prog, card)
+    ops = tcp.workload_operands(prog, workloads if len(workloads) > 1
+                                else None, card)
+    C = ops["tr_id"].shape[0]
+    var, ecn = (torch.as_tensor(x, device=card).repeat(C, 1)
+                for x in tcp.sweep_operands(prog))
+    s0 = tcp.init_state(consts, replicas, C)
+    key = PRNGKey(6).to(card)
+
+    def app(t0, t1):
+        return app_cum_table(ops, prog.traffic.epoch_us, consts["slot_us"],
+                             t0, t1)
+
+    want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn,
+                                app_cum=app(0, prog.n_slots))
+    got, t = s0, 0
+    for bound in (*cuts, prog.n_slots):
+        got = tcp_launch(consts, got, key, t, bound, var, ecn, app(t, bound))
+        t = bound
+    torch.cuda.synchronize()
+    for k, _, _ in tcp.TCP_STATE:
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point", [2, 5, 7])
+def test_tcp_advance_trf_bit_equal_to_plain_loop(card, point):
+    """An mmpp, onoff or trace workload of the toy points on 8 flows,
+    three launches."""
+    tp = toy_traffic_points(8, 300_000)[point]
+    prog = dataclasses.replace(_dumbbell(8), traffic=tp)
+    got = _tcp_trf_vs_plain(prog, [tp], 9, card, cuts=(101, 257))
+    assert int(got["delivered"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_tcp_advance_trf_workload_grid(card):
+    """The eight toy workload points as one 8 x 16 grid."""
+    pts = toy_traffic_points(8, 300_000)
+    prog = dataclasses.replace(_dumbbell(8), traffic=pts[0])
+    _tcp_trf_vs_plain(prog, pts, 16, card, cuts=(77,))
+
+
+@pytest.mark.cuda
+def test_tcp_trf_run_on_card_equals_cpu(card):
+    """run_tcp_dumbbell on the card with an app-limited program and with a
+    workload sweep, counted, equals the CPU's plain loop."""
+    pts = toy_traffic_points(8, 400_000)
+    prog = dataclasses.replace(_dumbbell(8, sim_s=0.4), traffic=pts[5])
+    n = -(-prog.n_slots // 150)
+    for kw, counts in ((dict(), _counts(tcp=n, tcp_trf=n)),
+                       (dict(traffic_sweep=pts),
+                        _counts(tcp=n, tcp_trf=n, tcp_trf_sweep=n))):
+        kc.reset_launches()
+        got = tcp.run_tcp_dumbbell(prog, PRNGKey(2), 4, chunk_slots=150,
+                                   **kw)
+        assert kc.launches == counts
+        want = tcp.run_tcp_dumbbell(prog, PRNGKey(2), 4, device="cpu", **kw)
+        for g, w in zip(got if kw else [got], want if kw else [want]):
+            for k in ("delivered", "drops", "mean_queue", "cwnd_final"):
+                assert np.array_equal(g[k], w[k]), k
+
+
+# --------------------------------------------------------------------------
+# wifi_window, the fused PHY window and its scan
+# --------------------------------------------------------------------------
+
+
+def _window_inputs(n, replicas, seed=3):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 50.0, (replicas, n, 3)).astype(np.float32)
+    pos[..., 2] = 0.0
+    return (torch.from_numpy(pos),
+            torch.from_numpy(rng.random((replicas, n)) < 0.25),
+            torch.from_numpy((np.arange(n) % 20).astype(np.int32)
+                             ).expand(replicas, n).contiguous(),
+            torch.full((replicas, n), 1000.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 65, 129])
+@pytest.mark.parametrize("model", ["nist", "table"])
+def test_wifi_window_bit_equal_to_plain(card, model, n):
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import window_launch
+
+    pos, tx, mode, fb = (x.to(card) for x in _window_inputs(n, 64))
+    keys = replica_keys(PRNGKey(4).to(card), 64)
+    params = win.WindowParams(error_model=model)
+    kc.reset_launches()
+    got = window_launch(pos, tx, mode, fb, keys, params)
+    want = win.window_math(pos, tx, mode, fb, win.uniform(keys, (n, n)),
+                           params)
+    torch.cuda.synchronize()
+    assert kc.launches == _counts(win=1, win_table=int(model == "table"))
+    for name, g, w in zip(("ok", "sinr", "rx_dbm"), got, want):
+        assert _bit_equal(g, w), name
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 65])
+def test_wifi_scan_equals_plain(card, n):
+    from tpudes_torch.parallel import kernels as win
+
+    pos, _, mode, fb = _window_inputs(n, 1)
+    keys = replica_keys(PRNGKey(8).to(card), 32)
+    kc.reset_launches()
+    got = win.multi_window_scan(pos[0], 0.25, mode[0], fb[0], keys, 16)
+    assert kc.launches == _counts(win=2, win_geometry=1, win_scan=1)
+    want = win.scan_math(pos[0].to(card), torch.full((n,), 0.25,
+                                                     device=card),
+                         mode[0].to(card), fb[0].to(card), keys, 16)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 65, 1024])
+def test_wifi_geometry_bit_equal_to_plain(card, n):
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import geometry_launch
+
+    pos = _window_inputs(n, 1)[0][0].to(card)
+    kc.reset_launches()
+    rx_w, det = geometry_launch(pos)
+    params = win.WindowParams()
+    rx_dbm, want = win.geometry(pos, params)
+    torch.cuda.synchronize()
+    assert kc.launches == _counts(win=1, win_geometry=1)
+    assert _bit_equal(rx_w, want)
+    assert torch.equal(det, rx_dbm >= params.rx_sensitivity_dbm)
+
+
+@pytest.mark.cuda
+def test_wifi_window_on_card_equals_cpu(card):
+    from tpudes_torch.parallel import kernels as win
+
+    pos, tx, mode, fb = _window_inputs(32, 1)
+    key = PRNGKey(0)
+    got = win.wifi_phy_window(pos[0], tx[0], mode[0], fb[0], key)
+    want = win.wifi_phy_window(pos[0], tx[0], mode[0], fb[0], key,
+                               device="cpu")
+    for g, w in zip(got, want):
+        assert _bit_equal(g.cpu(), w)
+    total = win.multi_window_scan(pos[0], 0.25, mode[0], fb[0], key, 8)
+    assert int(total) == int(win.multi_window_scan(
+        pos[0], 0.25, mode[0], fb[0], key, 8, device="cpu"))

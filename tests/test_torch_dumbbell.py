@@ -39,7 +39,10 @@ from tpudes_torch.convert import (
 )
 from tpudes_torch.ops import fused
 from tpudes_torch.parallel import tcp_dumbbell as P
-from tpudes_torch.parallel.programs import toy_dumbbell_program
+from tpudes_torch.parallel.programs import (
+    toy_dumbbell_program,
+    toy_traffic_points,
+)
 from tpudes_torch.random import PRNGKey, tcp_draws
 from tpudes_torch.scenarios import dumbbell_program
 
@@ -368,16 +371,24 @@ def test_sweep_point_equals_its_own_run(lowered):
 @pytest.mark.parametrize("what", ["traffic", "traffic_sweep", "mesh",
                                   "obs", "checkpoint", "block"])
 def test_refusals_name_their_roadmap_item(what):
+    """What the port does not run names its ROADMAP item; an app-limited
+    workload and a workload sweep run (tests/test_torch_dumbbell_traffic.
+    py), and what they refuse is the reference's: a workload without one
+    entity a flow, a sweep without ``prog.traffic``."""
     prog = toy_dumbbell_program(2, 20)
-    kw = {"traffic_sweep": dict(traffic_sweep=[object()]),
+    workloads = toy_traffic_points(3, 20_000)
+    kw = {"traffic_sweep": dict(traffic_sweep=workloads),
           "mesh": dict(mesh=object()), "obs": dict(obs=True),
           "checkpoint": dict(checkpoint="ckpt"),
           "block": dict(block=False)}.get(what, {})
     if what == "traffic":
-        prog = dataclasses.replace(prog, traffic=object())
+        prog = dataclasses.replace(prog, traffic=workloads[0])
     item = {"mesh": "A12", "obs": "A10", "checkpoint": "A11",
-            "block": "A11"}.get(what, "A6b")
-    with pytest.raises(NotImplementedError, match=item):
+            "block": "A11"}.get(what)
+    error, match = ((NotImplementedError, item) if item else
+                    (ValueError, {"traffic": "one a flow",
+                                  "traffic_sweep": "prog.traffic"}[what]))
+    with pytest.raises(error, match=match):
         P.run_tcp_dumbbell(prog, np.asarray(PRNGKey(0)), 2, device="cpu",
                            **kw)
 

@@ -16,7 +16,7 @@ ROADMAP C1); the LTE engine's integer and traffic outputs, its ``sinr``
 to a relative 1e-6 (the bound of the port's LTE tests).  A random-walk
 BSS draw takes the reference's walk velocities (ROADMAP C3, an ulp in
 about one value of 75).  The dumbbell's app-limited ``traffic`` draws
-are skipped: the port refuses them (ROADMAP A6b).
+run too (``DumbbellProgram.traffic`` crosses with the program).
 """
 
 import numpy as np
@@ -83,10 +83,6 @@ def _assert_agree(engine, cfg, want, got, fields, **tol):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_dumbbell_draw_equals_reference(seed):
     fuzzer, cfg = _draw("dumbbell", seed)
-    if cfg["traffic"] != "off":
-        pytest.skip(f"draw {seed} has an app-limited workload "
-                    f"({cfg['traffic']}), which the port refuses (ROADMAP "
-                    f"A6b)")
     prog = fuzzer.build(cfg)
     want = fuzzer.run_scalar(prog, cfg)
     got = run_tcp_dumbbell(dumbbell_from_numpy(_fields(prog,

@@ -8,7 +8,8 @@ source does not fuse), loaded by ctypes in place of the nvcc build, and
 called through the wrapper (``tcp_cuda.tcp_launch`` / ``tcp_profile``)
 on CPU tensors.  Its whole state must equal ``tcp_advance_math``'s bit
 for bit: F = 1, 8, 17 and 32 flows over every variant, RED/ECN, a
-three-point variant grid, a ragged last block, rings in global memory,
+three-point variant grid, app-limited flows (the TRF arm) alone and as
+an eight-point workload grid, a ragged last block, rings in global memory,
 ack lags of one and three slots (the warps in turn), and launches cut
 at slots that are not multiples of 32 (the edges of the kernel's batch
 of draws) or odd.  Tolerance: none.  A copy of the source with one
@@ -20,6 +21,7 @@ Skips where ``g++`` is missing.
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 import types
@@ -29,10 +31,13 @@ import pytest
 import torch
 
 from tpudes_torch import _build
+from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import tcp_cuda
 from tpudes_torch.parallel import tcp_dumbbell as tcp
+from tpudes_torch.parallel.programs import toy_traffic_points
 from tpudes_torch.random import PRNGKey
 from tpudes_torch.scenarios import dumbbell_program
+from tpudes_torch.traffic.device import app_cum_table
 
 CSRC = Path(_build.CSRC)
 GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
@@ -87,16 +92,31 @@ def _operands(prog, replicas, variants=None, seed=6):
     return consts, s0, PRNGKey(seed), var, ecn
 
 
-def _kernel_vs_plain(prog, replicas, cuts=(), variants=None):
+def _kernel_vs_plain(prog, replicas, cuts=(), variants=None, workloads=None):
     """The kernel over launches cut at ``cuts`` against the plain loop:
-    every state array bit-equal.  Returns ``(state, census)``."""
+    every state array bit-equal.  ``workloads`` (an app-limited program's
+    traffic_sweep, or ``[prog.traffic]``) runs the TRF arm over a grid of
+    its points.  Returns ``(state, census)``."""
     consts, s0, key, var, ecn = _operands(prog, replicas, variants)
+    app = None
+    if workloads is not None:
+        ops = tcp.workload_operands(
+            prog, workloads if len(workloads) > 1 else None, "cpu")
+        points = ops["tr_id"].shape[0]
+        var, ecn = var.repeat(points, 1), ecn.repeat(points, 1)
+        s0 = tcp.init_state(consts, replicas, points)
+
+        def app(t0, t1):
+            return app_cum_table(ops, prog.traffic.epoch_us,
+                                 consts["slot_us"], t0, t1)
     census = {}
     want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn,
-                                census)
+                                census, None if app is None
+                                else app(0, prog.n_slots))
     got, t = s0, 0
     for bound in (*cuts, prog.n_slots):
-        got = tcp_cuda.tcp_launch(consts, got, key, t, bound, var, ecn)
+        got = tcp_cuda.tcp_launch(consts, got, key, t, bound, var, ecn,
+                                  None if app is None else app(t, bound))
         t = bound
     for k, _, _ in tcp.TCP_STATE:
         assert torch.equal(got[k].view(torch.int32),
@@ -132,6 +152,32 @@ def test_mock_kernel_variant_grid(kernel):
     points = [["TcpNewReno"] * 5, list(tcp.VARIANTS[4:9]),
               ["TcpBbr", "TcpLp", "TcpHtcp", "TcpYeah", "TcpLedbat"]]
     _kernel_vs_plain(_dumbbell(5), 3, cuts=(33, 190), variants=points)
+
+
+@pytest.mark.parametrize("point", [2, 5, 7])
+def test_mock_kernel_app_limited(kernel, point):
+    """The TRF arm: an app-limited program (an mmpp, onoff or trace
+    workload of the toy points), cut at slots 45 and 77: the clip binds
+    (the flows deliver other counts than the bulk run's)."""
+    prog = _dumbbell(5)
+    tp = toy_traffic_points(5, 250_000)[point]
+    got, _ = _kernel_vs_plain(dataclasses.replace(prog, traffic=tp), 2,
+                              cuts=(45, 77), workloads=[tp])
+    bulk, _ = _kernel_vs_plain(prog, 2, cuts=(45, 77))
+    assert not torch.equal(got["delivered"], bulk["delivered"])
+
+
+def test_mock_kernel_workload_grid(kernel):
+    """The TRF arm over the eight toy workload points as one grid (8 x 2
+    rows, each point its own table row), cut at slot 33."""
+    pts = toy_traffic_points(5, 250_000)
+    prog = dataclasses.replace(_dumbbell(5), traffic=pts[0])
+    kc.reset_launches()
+    got, _ = _kernel_vs_plain(prog, 2, cuts=(33,), workloads=pts)
+    assert kc.launches["tcp_advance:trf_sweep"] == 2
+    assert kc.launches["tcp_advance:sweep"] == 0
+    per_point = got["delivered"].sum((1, 2))
+    assert len(set(per_point.tolist())) > 1
 
 
 def test_mock_kernel_ragged_last_block(kernel):

@@ -8,9 +8,10 @@ The engines: the LTE SM engine
 (:func:`tpudes_torch.parallel.lte_sm.run_lte_sm`, kernels
 ``csrc/lte_sm_advance.cu`` and ``csrc/lte_sm_step.cu``), the WiFi BSS
 replica engine (:func:`tpudes_torch.parallel.replicated.
-run_replicated_bss`, ``csrc/bss_advance.cu``) and the TCP dumbbell
+run_replicated_bss`, ``csrc/bss_advance.cu``), the TCP dumbbell
 (:func:`tpudes_torch.parallel.tcp_dumbbell.run_tcp_dumbbell`,
-``csrc/tcp_advance.cu``).
+``csrc/tcp_advance.cu``) and the fused WiFi PHY window
+(:mod:`tpudes_torch.parallel.kernels`, ``csrc/wifi_window.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without CUDA they raise rather than fall back.

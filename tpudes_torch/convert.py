@@ -197,19 +197,25 @@ def state_from_numpy(state: Mapping, device=None) -> dict:
 
 
 #: the reference ``DumbbellProgram``'s fields (``traffic``, an app-limited
-#: workload, is not ported: A6b)
+#: workload, crosses as the reference's TrafficProgram or its
+#: :data:`TRAFFIC_FIELDS`)
 DUMBBELL_FIELDS = (
     "n_flows", "variant_idx", "start_slot", "stop_slot", "max_pkts",
     "slot_s", "n_slots", "ack_lag", "queue_cap", "burst_cap", "base_rtt_s",
     "seg_bytes", "ecn", "qdisc", "red_min_th", "red_max_th", "red_max_p",
-    "red_qw", "red_gentle", "red_use_ecn", "red_use_hard_drop",
+    "red_qw", "red_gentle", "red_use_ecn", "red_use_hard_drop", "traffic",
 )
 
 
 def dumbbell_from_numpy(fields: Mapping) -> DumbbellProgram:
     """Port dumbbell program from the reference ``DumbbellProgram``'s
-    numpy fields (:data:`DUMBBELL_FIELDS`; ``ecn`` may be None)."""
+    numpy fields (:data:`DUMBBELL_FIELDS`; ``ecn`` may be None, and
+    ``traffic`` None, the reference's TrafficProgram or a mapping of its
+    fields, carried over by :func:`traffic_from_numpy`)."""
     ecn = fields.get("ecn")
+    traffic = fields.get("traffic")
+    if traffic is not None and not isinstance(traffic, Mapping):
+        traffic = {k: getattr(traffic, k) for k in TRAFFIC_FIELDS}
     return DumbbellProgram(
         n_flows=int(fields["n_flows"]),
         **{k: np.asarray(fields[k], np.int32)
@@ -223,6 +229,7 @@ def dumbbell_from_numpy(fields: Mapping) -> DumbbellProgram:
                                         "red_use_hard_drop")},
         ecn=None if ecn is None else np.asarray(ecn, bool),
         qdisc=str(fields["qdisc"]),
+        traffic=None if traffic is None else traffic_from_numpy(traffic),
     )
 
 

@@ -13,8 +13,10 @@
 // __reduce_*_sync, __any_sync, __syncwarp) meet at a std::barrier of the
 // warp's 32 threads, so every lane must reach each of them, as on the card
 // with a full mask; a named barrier (bar.sync id, 64: the kernel's
-// pair_sync) is a std::barrier of 64 threads.  Dynamic shared memory is the one buffer tcp_smem (the
-// blocks run one at a time).  The f32 and f64 intrinsics are the IEEE
+// pair_sync) is a std::barrier of 64 threads, and __syncthreads one of the
+// block's threads.  Dynamic shared memory is the one buffer tcp_smem, and a
+// __shared__ variable at namespace scope a global (the blocks run one at a
+// time).  The f32 and f64 intrinsics are the IEEE
 // operations they name, rounded to nearest; -ffp-contract=off keeps g++
 // from fusing a product into a sum.  clock64() counts nanoseconds.
 
@@ -82,6 +84,8 @@ inline thread_local Warp* warp_of = nullptr;
 // the block's named barriers (bar.sync id, n), n threads each
 inline thread_local std::vector<std::unique_ptr<std::barrier<>>>* named =
     nullptr;
+// the block's __syncthreads barrier, all its threads
+inline thread_local std::barrier<>* block_barrier = nullptr;
 
 inline void named_barrier_sync(int id, int n) {
   (*named)[id]->arrive_and_wait();
@@ -131,6 +135,7 @@ inline cudaError_t cudaLaunchKernel(void (*f)(P...), dim3 grid, dim3 block,
     std::vector<std::unique_ptr<std::barrier<>>> named;
     for (int i = 0; i < 16; ++i)
       named.push_back(std::make_unique<std::barrier<>>(64));
+    std::barrier<> block_bar(n);
     std::vector<std::thread> threads;
     threads.reserve(n);
     for (unsigned t = 0; t < n; ++t)
@@ -141,6 +146,7 @@ inline cudaError_t cudaLaunchKernel(void (*f)(P...), dim3 grid, dim3 block,
         gridDim = grid;
         cuda_mock::warp_of = &warps[t / 32];
         cuda_mock::named = &named;
+        cuda_mock::block_barrier = &block_bar;
         cuda_mock::call(f, args, std::index_sequence_for<P...>{});
       });
     for (auto& th : threads) th.join();
@@ -228,6 +234,10 @@ inline unsigned long long atomicAdd(unsigned long long* p,
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
 
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline void __syncthreads() { cuda_mock::block_barrier->arrive_and_wait(); }
 inline long long clock64() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(
              std::chrono::steady_clock::now().time_since_epoch())

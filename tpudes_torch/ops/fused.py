@@ -39,7 +39,7 @@ The TCP dumbbell's step (``tpudes/parallel/tcp_dumbbell.py``) adds
 x)`` with glibc's ``powf`` (it equals that on every value tried, and
 glibc's own ``cbrtf`` on only about two thirds of them).
 
-:func:`fma`, :func:`log`, :func:`exp10`, :func:`powf`, :func:`cbrt`,
+:func:`fma`, :func:`log`, :func:`log10`, :func:`exp10`, :func:`powf`, :func:`cbrt`,
 :func:`exp`, :func:`log1p` and :func:`erfc` reproduce these from IEEE f32 and f64
 operations and integer bit operations,
 which round the same way on the CPU and on the card.  An f64 product of
@@ -205,6 +205,19 @@ def log(x: torch.Tensor) -> torch.Tensor:
     y = fma(fma(y0, z3, y1), z3, y2)
     y = fma(y, z3, e * f32(x, _LOG_Q1))
     return (fma(f32(x, -0.5), z2, z) + y) + e * f32(x, _LOG_Q2)
+
+
+#: ``1 / ln 10`` in f32: the compiled ``log10`` is ``log(x)`` times it
+_INV_LN10 = float(np.float32(0.4342944819032518))
+
+
+def log10(x: torch.Tensor) -> torch.Tensor:
+    """``log10`` of positive f32 ``x`` as the reference's compiled
+    ``jnp.log10`` computes it on the CPU (its optimised HLO): :func:`log`
+    times the f32 ``1 / ln 10``, one rounding.  A constant factor before
+    it folds into that constant (``10 log10(x)`` is ``log(x)`` times
+    ``f32(10) * f32(1 / ln 10)``)."""
+    return log(x) * f32(x, _INV_LN10)
 
 
 def _exp2(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,8 @@
 """The thermal noise floor (counterpart of ``tpudes/ops/interference.py``).
 
-The reference module's chunked-interference kernel
-(``frame_success_rate``) belongs to ``parallel/kernels.py::
-wifi_phy_window``'s path, which is not ported yet (ROADMAP A2); the BSS
-engine takes only the noise floor from it.
+The BSS engine and the fused PHY window (``parallel/kernels.py``) take
+only the noise floor from the reference module; its chunked-interference
+kernel (``frame_success_rate``) serves the host paths (ROADMAP A16).
 """
 
 from __future__ import annotations

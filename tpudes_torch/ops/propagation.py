@@ -6,7 +6,7 @@ device geometry stage takes.  Two arithmetics, as the reference has
 them:
 
 - eager (``friis``): the static lowering evaluates the loss op by op.
-  ``jnp.log10`` is ``log(x) * (1 / ln 10)`` with the f32 constant below,
+  ``jnp.log10`` is ``log(x) * (1 / ln 10)`` with ``fused._INV_LN10``,
   and the quotient is a true division;
 - compiled (``friis(..., fused=True)``, :func:`log_distance`,
   :func:`db_to_ratio`, :func:`pairwise_distance`, :func:`dbm_to_w`): the
@@ -39,13 +39,10 @@ from tpudes_torch.ops import fused as compiled
 
 SPEED_OF_LIGHT = 299792458.0
 
-#: the f32 constant ``jnp.log10`` multiplies ``log(x)`` by
-_INV_LN10_F32 = float(np.float32(0.4342944819032518))
-
 
 def _folded(k: float) -> float:
     """``k * log10(x)`` compiled: ``log(x)`` times this f32 constant."""
-    return float(np.float32(k) * np.float32(_INV_LN10_F32))
+    return float(np.float32(k) * np.float32(compiled._INV_LN10))
 
 
 def friis(
@@ -69,7 +66,7 @@ def friis(
         loss_db = compiled.log(numerator / den) * compiled.f32(d, _folded(-10.0))
     else:
         denominator = 16.0 * math.pi * math.pi * d * d * system_loss
-        loss_db = -10.0 * (torch.log(numerator / denominator) * _INV_LN10_F32)
+        loss_db = -10.0 * (torch.log(numerator / denominator) * compiled._INV_LN10)
     loss_db = torch.clamp_min(loss_db, min_loss_db)
     return torch.where(
         d <= 0.0, tx_power_dbm - min_loss_db, tx_power_dbm - loss_db

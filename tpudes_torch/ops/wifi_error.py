@@ -22,8 +22,19 @@ whole PPDU's, which depends on ``k``: :func:`ampdu_airtime` and
 :func:`mpdu_success_rate` compute both as the compiled A-MPDU step does
 (``tests/test_torch_bss_ht.py``).
 
-The table model (``per_table``, ``table_chunk_success_rate``) is not on
-the BSS path and is not ported yet (ROADMAP A1).
+The fused PHY window (:mod:`tpudes_torch.parallel.kernels`) resolves the
+mode per element: :func:`mode_chunk_success_rate` with a mode *tensor*
+gathers each element's constellation and rate class, as the reference's
+traced path does (``wifi_error.py:223-230``), and its compiled arithmetic
+differs from the static one: the per-mode numbers are computed, not
+folded (the QAM factor ``2 (1 - rsqrt M) / (log M log2 e)``, the weights'
+logs by the compiler's ``log``), all three BER branches are evaluated
+and selected (:func:`mode_table`, :func:`uncoded_ber_at`).
+
+The table model (``per_table``, ``table_chunk_success_rate``,
+``wifi_error.py:233-306``): a float64 PER grid made once from the
+float64 oracle :func:`chunk_success_rate_py`, read in f32 by linear
+interpolation over SNR dB and scaled to the frame's size.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.ops import fused
+from tpudes_torch.ops.propagation import _folded
 
 # --- coding-rate classes (``wifi_error.py:27-32``): 0 rate 1/2, 1 rate 2/3,
 # 2 rate 3/4, 3 rate 5/6
@@ -247,10 +259,14 @@ def chunk_success_rate(snr: torch.Tensor, nbits, constellation: int,
 
 
 def mode_chunk_success_rate(snr: torch.Tensor, nbits,
-                            mode_index: int) -> torch.Tensor:
+                            mode_index) -> torch.Tensor:
     """Success rate with the mode resolved from the registry by index
-    (``wifi_error.py:223-230``); the mode is static, ``nbits`` a
-    constant or a tensor."""
+    (``wifi_error.py:223-230``); ``nbits`` a constant or a tensor.  An
+    int mode is static (the BSS step's folded arithmetic); a tensor of
+    mode indices, broadcast against ``snr``, is resolved per element
+    (:func:`mode_table`)."""
+    if isinstance(mode_index, torch.Tensor):
+        return _mode_chunk_success_rate_at(snr, nbits, mode_index)
     mode = ALL_MODES[int(mode_index)]
     return chunk_success_rate(snr, nbits, mode.constellation,
                               mode.rate_class)
@@ -298,3 +314,210 @@ def ampdu_airtime(k: torch.Tensor, subframe_bytes: int, mode_index: int):
     nsym = torch.ceil(x * fused.f32(k, inv_ndbps))
     dur = (nsym * 4.0).to(torch.int32) + preamble
     return dur, fused.f32(k, rate) * dur.to(torch.float32)
+
+
+# --- the mode per element (the fused window's path) ------------------------
+
+#: ``log2 e`` as the compiled ``log2`` folds it (``log(x) * log2 e``)
+_LOG2E_F32 = 1.44269502
+#: the QAM branch's constellation thresholds and erfc-argument divisors
+#: as the compiled select holds them (``wifi_error.py:84-92``)
+_QAM_STEPS = ((16.0, 10.0), (64.0, 21.0), (256.0, 60.0))
+_QAM_LAST_DIV = 155.0
+
+_MODE_TABLES: dict = {}
+
+
+def mode_table(device=None) -> dict:
+    """The per-mode numbers of the traced error model, ``(M,)`` and ``(M,
+    10)`` tensors on ``device``, computed as the compiled window computes
+    them for each element (its optimised HLO): ``constellation``; the
+    QAM branch's ``div`` (selected by ``max(M, 16)``) and ``factor`` ``2
+    (1 - rsqrt M') / (log M' * log2 e)`` with ``M' = max(M, 16)`` (the
+    root of these squares is exact); the union bound's ``log_c``, the
+    compiler's ``log`` of each weight clamped to 1e-35, its ``exps``,
+    the ``keep`` mask of nonzero weights and the rate's factor ``b``.
+    Kept once per device."""
+    dev = torch.device(device or "cpu")
+    key = str(dev)
+    out = _MODE_TABLES.get(key)
+    if out is not None:
+        return out
+    m = torch.as_tensor(MODE_CONSTELLATION, device=dev)
+    rc = torch.as_tensor(MODE_RATE_CLASS, device=dev).long()
+    mq = torch.clamp_min(m, 16.0)
+    div = torch.full_like(mq, _QAM_LAST_DIV)
+    for top, d in reversed(_QAM_STEPS):
+        div = torch.where(mq <= top, fused.f32(mq, d), div)
+    factor = ((1.0 - 1.0 / fused.sqrt(mq)) * 2.0) / (
+        fused.log(mq) * fused.f32(mq, _LOG2E_F32))
+    coeffs = torch.as_tensor(np.asarray(PE_COEFFS_TABLE, np.float32),
+                             device=dev)[rc]
+    out = dict(
+        constellation=m, div=div, factor=factor,
+        log_c=fused.log(torch.clamp_min(coeffs, fused.f32(coeffs,
+                                                          _COEFF_FLOOR))),
+        exps=torch.as_tensor(np.asarray(PE_EXPONENTS_TABLE, np.float32),
+                             device=dev)[rc],
+        keep=coeffs > 0.0,
+        b=torch.as_tensor(np.asarray(B_FACTOR_TABLE, np.float32),
+                          device=dev)[rc],
+    )
+    _MODE_TABLES[key] = out
+    return out
+
+
+def uncoded_ber_at(snr: torch.Tensor, mode_index: torch.Tensor,
+                   qam_z: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-element BER (``wifi_error.py:99-113`` with a traced
+    constellation): BPSK ``erfc(sqrt snr) * 0.5``, QPSK ``erfc(sqrt(snr
+    * 0.5)) * 0.5`` and M-QAM ``factor * erfc(z)``, each flushed, then
+    selected by the element's constellation.  ``z`` is ``sqrt(snr /
+    div)`` unless ``qam_z`` gives it (the window's compiler computes it
+    from the SINR's own quotient, :mod:`tpudes_torch.parallel.kernels`)."""
+    t = mode_table(snr.device)
+    c = t["constellation"][mode_index.long()]
+    half = fused.f32(snr, 0.5)
+    bpsk = fused.ftz(fused.erfc(fused.sqrt(snr)) * half)
+    qpsk = fused.ftz(fused.erfc(fused.sqrt(snr * half)) * half)
+    if qam_z is None:
+        qam_z = fused.sqrt(snr / t["div"][mode_index.long()])
+    qam = fused.ftz(t["factor"][mode_index.long()] * fused.erfc(qam_z))
+    return torch.where(c <= 2.0, bpsk, torch.where(c <= 4.0, qpsk, qam))
+
+
+def coded_pe_at(ber: torch.Tensor, mode_index: torch.Tensor) -> torch.Tensor:
+    """Per-element union bound (``wifi_error.py:116-135`` with a traced
+    rate class): ``D = sqrt(4 p (1 - p))``, each of the mode's ten terms
+    ``exp(log a_k + e_k log D)`` (zero where ``a_k = 0``) summed in
+    order, times ``b``, clamped to ``[0, 1]``."""
+    t = mode_table(ber.device)
+    mi = mode_index.long()
+    p = torch.clamp(ber, 0.0, 0.5)
+    d = fused.sqrt((p * 4.0) * (1.0 - p))
+    log_d = fused.log(torch.clamp_min(d, fused.f32(d, _COEFF_FLOOR)))
+    log_c, exps = t["log_c"][mi], t["exps"][mi]
+    keep = t["keep"][mi]
+    acc = None
+    for k in range(log_c.shape[-1]):
+        term = fused.exp(torch.addcmul(log_c[..., k].double(), log_d.double(),
+                                       exps[..., k].double()).float())
+        term = torch.where(keep[..., k], term, fused.f32(term, 0.0))
+        acc = term if acc is None else acc + term
+    return torch.clamp(fused.ftz(acc * t["b"][mi]), 0.0, 1.0)
+
+
+def log1p_neg_pe_at(snr: torch.Tensor, mode_index: torch.Tensor,
+                    qam_z: torch.Tensor | None = None) -> torch.Tensor:
+    """``log1p(-min(pe, 1 - 1e-12))`` of each element's own mode."""
+    pe = coded_pe_at(uncoded_ber_at(snr, mode_index, qam_z), mode_index)
+    return fused.log1p(-torch.clamp_max(pe, fused.f32(pe, _PE_MAX)))
+
+
+def _mode_chunk_success_rate_at(snr, nbits, mode_index):
+    lg = log1p_neg_pe_at(snr, mode_index)
+    if not isinstance(nbits, torch.Tensor):
+        nbits = fused.f32(lg, nbits)
+    return fused.exp(nbits * lg)
+
+
+# --- the table-based error model (``wifi_error.py:233-306``) ---------------
+
+TABLE_SNR_MIN_DB = -5.0
+TABLE_SNR_STEP_DB = 0.5
+TABLE_SNR_POINTS = 91            # -5 .. +40 dB
+TABLE_REF_SIZE_BYTES = 1458      # upstream's large-payload table size
+#: the interpolated PER's cap, ``1 - 1e-7`` in f32
+_TABLE_PER_MAX = 1.0 - 1e-7
+
+_PER_TABLE_CACHE: dict = {}
+
+
+def chunk_success_rate_py(snr: float, nbits: float, constellation: int,
+                          rate_class: int) -> float:
+    """The float64 oracle (``wifi_error.py:312-331``), the same formulas
+    in the same order: the table below is made from it."""
+    if constellation <= 2:
+        ber = 0.5 * math.erfc(math.sqrt(snr))
+    elif constellation <= 4:
+        ber = 0.5 * math.erfc(math.sqrt(snr / 2.0))
+    else:
+        m = float(constellation)
+        z = math.sqrt(snr / QAM_DIVISORS[m])
+        ber = (2.0 * (1.0 - 1.0 / math.sqrt(m)) / math.log2(m)) * math.erfc(z)
+    p = min(max(ber, 0.0), 0.5)
+    d = math.sqrt(4.0 * p * (1.0 - p))
+    coeffs = PE_COEFFS_TABLE[rate_class]
+    exps = PE_EXPONENTS_TABLE[rate_class]
+    factor = B_FACTOR_TABLE[rate_class]
+    pe = factor * sum(c * d**e for c, e in zip(coeffs, exps) if c > 0)
+    pe = min(pe, 1.0 - 1e-12)
+    return math.exp(nbits * math.log1p(-pe))
+
+
+def per_table() -> np.ndarray:
+    """``(n_modes, TABLE_SNR_POINTS)`` float64 PER at
+    ``TABLE_REF_SIZE_BYTES`` (``wifi_error.py:252-267``), made once from
+    :func:`chunk_success_rate_py` on the same SNR grid."""
+    tbl = _PER_TABLE_CACHE.get("table")
+    if tbl is None:
+        snrs_db = TABLE_SNR_MIN_DB + TABLE_SNR_STEP_DB * np.arange(
+            TABLE_SNR_POINTS)
+        nbits = 8.0 * TABLE_REF_SIZE_BYTES
+        tbl = np.empty((len(ALL_MODES), TABLE_SNR_POINTS))
+        for m in ALL_MODES:
+            for j, snr_db in enumerate(snrs_db):
+                ok = chunk_success_rate_py(10.0 ** (snr_db / 10.0), nbits,
+                                           m.constellation, m.rate_class)
+                tbl[m.index, j] = 1.0 - ok
+        _PER_TABLE_CACHE["table"] = tbl
+        _PER_TABLE_CACHE["f32"] = tbl.astype(np.float32)
+    return tbl
+
+
+def per_table_f32() -> np.ndarray:
+    """:func:`per_table` rounded to f32, as the compiled path reads it."""
+    per_table()
+    return _PER_TABLE_CACHE["f32"]
+
+
+def table_lg(snr: torch.Tensor, mode_index: torch.Tensor) -> torch.Tensor:
+    """``log1p(-per_ref)`` of the table model (``wifi_error.py:289-306``)
+    as its compiled form computes it: ``x = fma(log(max(snr, 1e-30)),
+    10 / ln 10, 5) * 2`` (the dB, less the grid's start, over its step),
+    clamped to the grid, ``lo = trunc(x)`` clamped to ``[0, 89]``, ``frac
+    = x - lo``, ``per_ref = min(fma(per_hi, frac, per_lo (1 - frac)), 1 -
+    1e-7)`` (the compiler fuses the second product, not the first), each
+    element's row its own mode's."""
+    tbl = fused.device_table(per_table_f32(), snr.device)
+    lg = fused.log(torch.clamp_min(snr, fused.f32(snr, 1e-30)))
+    x = fused.fma(lg, fused.f32(snr, _DB_PER_LN), fused.f32(
+        snr, -TABLE_SNR_MIN_DB)) * fused.f32(snr, 1.0 / TABLE_SNR_STEP_DB)
+    x = torch.clamp(x, 0.0, TABLE_SNR_POINTS - 1.0)
+    lo = torch.clamp(x.to(torch.int32), 0, TABLE_SNR_POINTS - 2)
+    frac = x - lo.float()
+    row = mode_index.long() * TABLE_SNR_POINTS + lo.long()
+    flat = tbl.reshape(-1)
+    per_lo, per_hi = flat[row], flat[row + 1]
+    per_ref = fused.fma(per_hi, frac, per_lo * (1.0 - frac))
+    per_ref = torch.clamp_max(per_ref, fused.f32(per_ref, _TABLE_PER_MAX))
+    return fused.log1p(-per_ref)
+
+
+#: ``10 log10(x)`` compiled: ``log(x)`` times ``f32(10) * f32(1 / ln 10)``
+#: (:func:`~tpudes_torch.ops.fused.log10`'s constant folded)
+_DB_PER_LN = _folded(10.0)
+
+
+def table_chunk_success_rate(snr: torch.Tensor, nbits,
+                             mode_index: torch.Tensor) -> torch.Tensor:
+    """The table model's success rate (``wifi_error.py:289-306``): the
+    interpolated PER at the reference size scaled to ``nbits``,
+    ``exp((nbits / ref_bits) * log1p(-per_ref))``, the division a product
+    with the f32 reciprocal of ``ref_bits``."""
+    lg = table_lg(snr, mode_index)
+    if not isinstance(nbits, torch.Tensor):
+        nbits = fused.f32(lg, nbits)
+    inv = fused.f32(lg, float(np.float32(1.0) / np.float32(
+        8.0 * TABLE_REF_SIZE_BYTES)))
+    return fused.exp((nbits * inv) * lg)

@@ -131,7 +131,12 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: under ``:traffic`` and of more than one workload under
 #: ``:traffic_sweep``; ``tcp_advance`` is the TCP dumbbell's slot loop
 #: (:mod:`tpudes_torch.parallel.tcp_cuda`), its launches of a RED program
-#: also under ``:red`` and of more than one sweep point under ``:sweep``
+#: also under ``:red``, of more than one variant point under ``:sweep``, of
+#: an app-limited program under ``:trf`` and of more than one workload under
+#: ``:trf_sweep``; ``wifi_window`` is the fused PHY window's
+#: (:mod:`tpudes_torch.parallel.window_cuda`; a scan is two launches),
+#: the scan's geometry kernel also under ``:geometry``, its scan kernel
+#: under ``:scan`` and its table-model windows under ``:table``
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
@@ -140,6 +145,9 @@ launches = {
     "bss_advance:mobile": 0, "bss_advance:traffic": 0,
     "bss_advance:traffic_sweep": 0,
     "tcp_advance": 0, "tcp_advance:red": 0, "tcp_advance:sweep": 0,
+    "tcp_advance:trf": 0, "tcp_advance:trf_sweep": 0,
+    "wifi_window": 0, "wifi_window:geometry": 0, "wifi_window:scan": 0,
+    "wifi_window:table": 0,
 }
 
 

@@ -14,10 +14,17 @@ tensors), the draws hashed inside.  Its state equals the plain loop's
 bit.  :func:`tcp_profile` runs the stage probe; :func:`division_check`
 holds the kernel's branch-free division against the card's IEEE one.
 
+An app-limited program's launch runs the ``TRF`` instantiation, which
+reads the offered segments of its slots from an ``(C, T, F)`` int32 table
+(:func:`tpudes_torch.traffic.device.app_cum_table`; one workload shared by
+every point is the same row at a point stride of 0).
+
 Launches are counted in :data:`tpudes_torch.parallel.kernels_cuda.
 launches` under ``tcp_advance``, those of a RED program also under
-``tcp_advance:red`` and those of more than one sweep point under
-``tcp_advance:sweep``.
+``tcp_advance:red``, those of more than one variant point under
+``tcp_advance:sweep``, those of an app-limited program under
+``tcp_advance:trf`` and those of more than one workload under
+``tcp_advance:trf_sweep``.
 """
 
 from __future__ import annotations
@@ -77,8 +84,31 @@ def launch_geometry(n_flows: int, buf_len: int, points: int,
                 rings="shared" if in_smem else "global")
 
 
+def _app_args(app_cum, C: int, T: int, F: int, dev) -> tuple:
+    """``(pointer, point stride, slot stride)`` of the app limit's table:
+    ``(C, T, F)`` int32 on the launch's device, its flows contiguous, its
+    slots ``F`` apart, its points ``T F`` apart or 0 (one workload shared
+    by every point, an ``expand``); ``(None, 0, 0)`` for a bulk run."""
+    if app_cum is None:
+        return None, 0, 0
+    if (app_cum.device != dev or app_cum.dtype != torch.int32
+            or tuple(app_cum.shape) != (C, T, F)
+            or app_cum.stride()[1:] != (F, 1)
+            or app_cum.stride(0) not in (0, T * F)):
+        raise ValueError(
+            f"app_cum: want int32 (C, T, F) = {(C, T, F)} on {dev} with "
+            f"strides (T F or 0, F, 1); got {app_cum.dtype} "
+            f"{tuple(app_cum.shape)} strides {app_cum.stride()} on "
+            f"{app_cum.device}")
+    if C * T * F >= 2**31:
+        raise ValueError(f"tcp_advance indexes app_cum in int32; C*T*F="
+                         f"{C * T * F}")
+    return app_cum.data_ptr(), app_cum.stride(0), app_cum.stride(1)
+
+
 def _launch_args(consts: dict, state: dict, key: torch.Tensor, t0: int,
-                 t1: int, var: torch.Tensor, ecn: torch.Tensor) -> tuple:
+                 t1: int, var: torch.Tensor, ecn: torch.Tensor,
+                 app_cum: torch.Tensor | None = None) -> tuple:
     """Check a launch's operands and allocate its outputs: ``(args,
     out)``, ``args`` the C launcher's arguments up to ``shared`` (the
     probe's output and the stream follow)."""
@@ -107,6 +137,7 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, t0: int,
         _check(k, state[k], shape, _DTYPES[dt], dev)
         out[k] = torch.empty(shape, dtype=_DTYPES[dt], device=dev)
     geo = launch_geometry(F, L, C, R)
+    app, app_sc, app_st = _app_args(app_cum, C, t1 - t0, F, dev)
     n = len(TCP_STATE)
     f = ctypes.c_float
     args = (
@@ -114,10 +145,10 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, t0: int,
         (ctypes.c_void_p * n)(*[out[k].data_ptr() for k, _, _ in TCP_STATE]),
         var.data_ptr(), ecn.data_ptr(), consts["start"].data_ptr(),
         consts["stop"].data_ptr(), consts["max_pkts"].data_ptr(),
-        key.data_ptr(), C, R, F, L, consts["ack_lag"], consts["queue_cap"],
-        consts["burst"], consts["rtt_slots"], int(consts["red"]),
-        int(consts["red_gentle"]), int(consts["red_ecn"]),
-        int(consts["red_hard_drop"]), int(t0), int(t1),
+        key.data_ptr(), app, C, R, F, L, consts["ack_lag"],
+        consts["queue_cap"], consts["burst"], consts["rtt_slots"],
+        int(consts["red"]), int(consts["red_gentle"]), int(consts["red_ecn"]),
+        int(consts["red_hard_drop"]), int(t0), int(t1), app_sc, app_st,
         f(consts["slot_s"]), f(consts["base_rtt_s"]),
         f(consts["red_min_th"]), f(consts["red_max_th"]),
         f(consts["red_max_p"]), f(consts["red_forced_th"]),
@@ -130,32 +161,39 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, t0: int,
 
 
 def tcp_launch(consts: dict, state: dict, key: torch.Tensor, t0: int,
-               t1: int, var: torch.Tensor, ecn: torch.Tensor) -> dict:
+               t1: int, var: torch.Tensor, ecn: torch.Tensor,
+               app_cum: torch.Tensor | None = None) -> dict:
     """Launch ``tcp_advance`` once for slots ``[t0, t1)`` of a grid of C
     points: ``state`` is ``(C, R, ...)`` (:data:`TCP_STATE`), ``var``
-    ``(C, F)`` int32 variant ids, ``ecn`` ``(C, F)`` bool.  Returns the
-    new state in fresh tensors, on the card, nothing copied back: the
-    arguments and result of the plain loop (:func:`tpudes_torch.parallel.
-    tcp_dumbbell.tcp_advance_math`).  Raises on a bad argument or a
-    launch error; never takes the plain loop."""
-    args, out = _launch_args(consts, state, key, t0, t1, var, ecn)
+    ``(C, F)`` int32 variant ids, ``ecn`` ``(C, F)`` bool, ``app_cum``
+    (an app-limited program) the ``(C, t1 - t0, F)`` int32 offered
+    segments (:func:`_app_args`).  Returns the new state in fresh
+    tensors, on the card, nothing copied back: the arguments and result
+    of the plain loop (:func:`tpudes_torch.parallel.tcp_dumbbell.
+    tcp_advance_math`).  Raises on a bad argument or a launch error;
+    never takes the plain loop."""
+    args, out = _launch_args(consts, state, key, t0, t1, var, ecn, app_cum)
     C = state["cwnd"].shape[0]
+    trf = app_cum is not None
+    workloads = trf and C > 1 and app_cum.stride(0) != 0
     _launch("tcp_advance", *args,
             torch.cuda.current_stream(key.device).cuda_stream,
             argtypes=LAUNCH_ARGTYPES,
-            arms=("red",) * bool(consts["red"]) + ("sweep",) * (C > 1))
+            arms=("red",) * bool(consts["red"])
+            + ("sweep",) * (C > 1 and not workloads) + ("trf",) * trf
+            + ("trf_sweep",) * workloads)
     return out
 
 
 def tcp_profile(consts: dict, state: dict, key: torch.Tensor, t0: int,
                 t1: int, var: torch.Tensor, ecn: torch.Tensor):
-    """The probe: the launch :func:`tcp_launch` makes, run by the kernel's
-    profiling instantiation (``tcp_advance_profile``: each warp reads
-    ``clock64()`` at its stage edges, its wait at the warps' barrier in no
-    stage).  Returns ``(out, cycles)``: :func:`tcp_launch`'s state and the
-    ``(C R, len(TCP_PROF_STAGES))`` int64 cycles each row's warps spent in
-    each stage, summed over its slots (:data:`TCP_PROF_WARPS` says which
-    warp runs which).  Not the main path: not counted in
+    """The probe: the launch :func:`tcp_launch` makes for bulk flows, run
+    by the kernel's profiling instantiation (``tcp_advance_profile``: each
+    warp reads ``clock64()`` at its stage edges, its wait at the warps'
+    barrier in no stage).  Returns ``(out, cycles)``: :func:`tcp_launch`'s
+    state and the ``(C R, len(TCP_PROF_STAGES))`` int64 cycles each row's
+    warps spent in each stage, summed over its slots (:data:`TCP_PROF_WARPS`
+    says which warp runs which).  Not the main path: not counted in
     ``kernels_cuda.launches``."""
     from tpudes_torch._build import load_library
 
@@ -203,13 +241,14 @@ def division_check(n: int, seed: int = 0, device=None) -> tuple:
 
 #: ctypes signature of ``tcp_advance_launch`` (csrc/tcp_advance.cu): the
 #: host arrays of the state's input and output pointers, var, ecn, start,
-#: stop, max_pkts, key, fourteen ints (C, R, F, L, ack_lag, queue_cap,
-#: burst, rtt_slots, red, gentle, red_ecn, hard_drop, t0, t1), fifteen
-#: floats (slot_s, base_rtt, the seven RED constants, the six folded rule
+#: stop, max_pkts, key, the app limit's table (null: bulk), sixteen ints
+#: (C, R, F, L, ack_lag, queue_cap, burst, rtt_slots, red, gentle, red_ecn,
+#: hard_drop, t0, t1, the table's point and slot strides), fifteen floats
+#: (slot_s, base_rtt, the seven RED constants, the six folded rule
 #: constants), blocks, shared, stream; ``tcp_advance_profile`` takes the
 #: probe's output before the stream
 LAUNCH_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_float] * 15
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 16 + [ctypes.c_float] * 15
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 PROFILE_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_void_p] * 2

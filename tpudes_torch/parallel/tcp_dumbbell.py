@@ -19,7 +19,17 @@ key, t), r)`` (:func:`tpudes_torch.random.tcp_draws`), the reference's
 streams bit for bit, so a run is comparable with the JAX engine per
 replica.  The ``variants=[...]`` sweep is a ``(C, R)`` grid: C variant
 assignments of the same program, each row its point's variant ids and
-ECN flags.
+ECN flags; the ``traffic_sweep=[...]`` sweep is the same grid over C
+workloads, the variants and ECN flags shared.
+
+An app-limited program (``prog.traffic``, a
+:class:`~tpudes_torch.traffic.program.TrafficProgram` of one entity a
+flow) clips each flow's sending to what its application has offered by
+the end of the slot: ``want = min(want, max(floor(cum((t + 1) slot_us)) -
+delivered - inflight, 0))`` (``tcp_dumbbell.py:955-973``), the cum a
+function of ``(point, t, flow)`` shared by the replicas.  A launch reads
+it from an ``(C, T, F)`` int32 table of its slots
+(:func:`tpudes_torch.traffic.device.app_cum_table`).
 
 The step's arithmetic is the reference's as its CPU backend compiles it
 (its optimised HLO of the jitted advance): a product feeding a sum it
@@ -30,8 +40,7 @@ reciprocal, and a constant factor before it folds into that product
 (:mod:`tpudes_torch.ops.fused`).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): app-limited flows (``prog.traffic``) and ``traffic_sweep=``
-(A6b), ``mesh`` (A12), checkpoints and ``block=False`` (A11) and the
+item): ``mesh`` (A12), checkpoints and ``block=False`` (A11) and the
 ``TpudesObs`` columns (A10).  The replica axis is not padded to a power
 of two: a replica's draws are a pure function of ``(key, t, r)``, so the
 real replicas equal the reference's padded run.
@@ -49,6 +58,7 @@ from tpudes_torch.device import resolve_device
 from tpudes_torch.ops.fused import cbrt, device_table, f32, fma, log, powf
 from tpudes_torch.parallel.replicated import _not_ported, chunk_bounds
 from tpudes_torch.random import tcp_draws
+from tpudes_torch.traffic.device import app_cum_table, stack_traffic_operands
 
 # variant ids: the reference's vector-rule dispatch table
 # (``tcp_dumbbell.py:54-60``)
@@ -118,7 +128,8 @@ class DumbbellProgram:
     red_gentle: bool = True
     red_use_ecn: bool = False
     red_use_hard_drop: bool = True
-    #: app-limited workload: not ported yet (A6b); must be None
+    #: app-limited workload: a TrafficProgram of one entity a flow, its
+    #: cumulative offered segments capping each flow's sending (None: bulk)
     traffic: object = None
 
     @property
@@ -217,8 +228,6 @@ def build_tcp_consts(prog: DumbbellProgram, device=None) -> dict:
     scalars of the step, the RED constants as the compiled step holds
     them (:func:`folded`)."""
     dev = resolve_device(device)
-    if prog.traffic is not None:
-        raise _not_ported("an app-limited workload (prog.traffic)", "A6b")
     if prog.qdisc not in ("fifo", "red"):
         raise ValueError(f"qdisc must be 'fifo' or 'red'; got {prog.qdisc!r}")
     F = int(prog.n_flows)
@@ -229,6 +238,8 @@ def build_tcp_consts(prog: DumbbellProgram, device=None) -> dict:
         F=F, L=prog.buf_len, ack_lag=int(prog.ack_lag),
         queue_cap=int(prog.queue_cap), burst=int(prog.burst_cap),
         rtt_slots=max(1, int(round(prog.base_rtt_s / prog.slot_s))),
+        # the app-limit's clock: a slot in whole µs (``:774``)
+        slot_us=max(1, int(round(prog.slot_s * 1e6))),
         slot_s=float(np.float32(prog.slot_s)),
         base_rtt_s=float(prog.base_rtt_s),
         start=i32(prog.start_slot), stop=i32(prog.stop_slot),
@@ -521,13 +532,15 @@ CENSUS_KEYS = ("ce_marks", "early_drops", "tail_drops", "reductions")
 
 def step_math(c: dict, s: dict, t: int, var: torch.Tensor,
               ecn: torch.Tensor, u_dep: torch.Tensor, u_red=None,
-              u_mark=None, census: dict | None = None) -> dict:
+              u_mark=None, census: dict | None = None, app=None) -> dict:
     """Slot ``t`` of every row (``tcp_dumbbell.py:835-1137`` without the
     ``obs`` block): ``s`` is the flat state, ``(N, F)`` per flow, ``(N,
     L, F)`` and ``(N, L)`` rings, ``(N,)`` per row; ``var`` and ``ecn``
     ``(N, F)``; ``u_dep`` ``(N,)`` and, under RED, ``u_red`` ``(N, F)``
-    and ``u_mark`` ``(N,)``.  Returns the new state; ``census``, if
-    given, gains this slot's :data:`CENSUS_KEYS` (as tensors)."""
+    and ``u_mark`` ``(N,)``; ``app`` (an app-limited program) the ``(N,
+    F)`` int32 segments each row's flows have offered by the end of the
+    slot.  Returns the new state; ``census``, if given, gains this slot's
+    :data:`CENSUS_KEYS` (as tensors)."""
     L, F = c["L"], c["F"]
     dev = s["cwnd"].device
     idx = t % L
@@ -604,6 +617,10 @@ def step_math(c: dict, s: dict, t: int, var: torch.Tensor,
     live = ((t >= c["start"]) & (t < c["stop"])
             & (delivered + inflight < c["max_pkts"]))
     want = torch.where(live, want, 0)
+    if app is not None:
+        # app-limited: never past what the application has offered
+        want = torch.minimum(want, torch.clamp_min(app - delivered - inflight,
+                                                   0))
     red_avg = s["red_avg"]
     red_marks = torch.zeros_like(s["q_marked"])
     red_drops = torch.zeros_like(want)
@@ -686,14 +703,18 @@ DRAW_CHUNK_ELEMS = 1 << 20
 
 def tcp_advance_math(consts: dict, state: dict, key: torch.Tensor,
                      t0: int, t1: int, var: torch.Tensor,
-                     ecn: torch.Tensor, census: dict | None = None) -> dict:
+                     ecn: torch.Tensor, census: dict | None = None,
+                     app_cum: torch.Tensor | None = None) -> dict:
     """Slots ``[t0, t1)`` of the loop in plain PyTorch (any device), for
     a grid of C points: ``state`` is ``(C, R, ...)``, ``var`` ``(C, F)``
-    int32 variant ids and ``ecn`` ``(C, F)`` bool ECN flags.  Every
-    point runs every slot (the reference's loop ends at the horizon, not
-    on a condition), and replica ``r`` of every point takes the single
-    run's draws.  Returns the ``(C, R, ...)`` state; ``census``, if
-    given, gains the run's :data:`CENSUS_KEYS` counts (ints)."""
+    int32 variant ids and ``ecn`` ``(C, F)`` bool ECN flags; ``app_cum``
+    (an app-limited program) the ``(C, t1 - t0, F)`` int32 offered
+    segments of each point's flows by the end of each slot
+    (:func:`~tpudes_torch.traffic.device.app_cum_table`).  Every point
+    runs every slot (the reference's loop ends at the horizon, not on a
+    condition), and replica ``r`` of every point takes the single run's
+    draws.  Returns the ``(C, R, ...)`` state; ``census``, if given,
+    gains the run's :data:`CENSUS_KEYS` counts (ints)."""
     C, R = state["cwnd"].shape[:2]
     F = consts["F"]
     flat = {k: v.flatten(0, 1) for k, v in state.items()}
@@ -705,28 +726,32 @@ def tcp_advance_math(consts: dict, state: dict, key: torch.Tensor,
         u_dep, u_red, u_mark = tcp_draws(key, b0, b1, R, F, consts["red"])
         for t in range(b0, b1):
             i = t - b0
+            app = None if app_cum is None else \
+                app_cum[:, t - t0].repeat_interleave(R, 0)
             flat = step_math(
                 consts, flat, t, var_rows, ecn_rows, _row_draw(u_dep[i], C),
                 None if u_red is None else _row_draw(u_red[i], C),
                 None if u_mark is None else _row_draw(u_mark[i], C),
-                census)
+                census, app)
     if census is not None:
         census.update({k: int(v) for k, v in census.items()})
     return {k: flat[k].unflatten(0, (C, R)) for k, _, _ in TCP_STATE}
 
 
 def tcp_advance(consts: dict, state: dict, key: torch.Tensor, t0: int,
-                t1: int, var: torch.Tensor, ecn: torch.Tensor) -> dict:
+                t1: int, var: torch.Tensor, ecn: torch.Tensor,
+                app_cum: torch.Tensor | None = None) -> dict:
     """Slots ``[t0, t1)`` for a grid of C points: the plain loop for CPU
     tensors, one launch of the persistent CUDA kernel for CUDA tensors
     (or an error).  Arguments and result as :func:`tcp_advance_math`
     takes and gives them."""
     if key.device.type == "cpu":
-        return tcp_advance_math(consts, state, key, t0, t1, var, ecn)
+        return tcp_advance_math(consts, state, key, t0, t1, var, ecn,
+                                app_cum=app_cum)
     if key.device.type == "cuda":
         from tpudes_torch.parallel.tcp_cuda import tcp_launch
 
-        return tcp_launch(consts, state, key, t0, t1, var, ecn)
+        return tcp_launch(consts, state, key, t0, t1, var, ecn, app_cum)
     raise ValueError(f"no dumbbell advance for device {key.device}")
 
 
@@ -774,6 +799,34 @@ def sweep_operands(prog: DumbbellProgram, variants=None):
     return var, np.stack(ecns)
 
 
+def workload_operands(prog: DumbbellProgram, traffic_sweep=None,
+                      device=None):
+    """The stacked operand tables of a run's workloads, ``(P, F, ...)``
+    (:func:`~tpudes_torch.traffic.device.stack_traffic_operands`): the
+    program's own (P = 1), one a point of ``traffic_sweep``, or None for
+    a bulk run.  A sweep needs ``prog.traffic`` set and every point
+    sharing its shape key (``tcp_dumbbell.py:1496-1510``); each workload
+    has one entity a flow."""
+    if traffic_sweep is not None:
+        traffic_sweep = list(traffic_sweep)
+        if prog.traffic is None or not traffic_sweep or any(
+                tp.shape_key() != prog.traffic.shape_key()
+                for tp in traffic_sweep):
+            raise ValueError(
+                "a workload sweep needs prog.traffic set and every point "
+                "sharing its traffic shape key (one executable serves the "
+                "sweep; pad tables to a common capacity)")
+        progs = traffic_sweep
+    elif prog.traffic is not None:
+        progs = [prog.traffic]
+    else:
+        return None
+    if progs[0].n != prog.n_flows:
+        raise ValueError(f"the workload has {progs[0].n} entities; the "
+                         f"dumbbell {prog.n_flows} flows (one a flow)")
+    return stack_traffic_operands(progs, device)
+
+
 def run_tcp_dumbbell(
     prog: DumbbellProgram,
     key,
@@ -802,13 +855,22 @@ def run_tcp_dumbbell(
     ``dataclasses.replace(prog, variant_idx=point, ecn=REQUIRES_ECN(
     point))`` with the same key.
 
+    ``prog.traffic`` (a TrafficProgram, one entity a flow) makes the
+    flows app-limited.  ``traffic_sweep=[workload, ...]`` (same-shape
+    TrafficPrograms, ``prog.traffic`` naming the shape) runs a workload
+    sweep instead: the variants and ECN flags shared, a list of C dicts,
+    point ``c`` equal to the run of ``dataclasses.replace(prog,
+    traffic=workload)``.  One config axis a run: ``variants=`` and
+    ``traffic_sweep=`` together raise.
+
     ``chunk_slots=N`` runs the horizon N slots per launch, the same
     result.  ``device`` defaults to the card, where each chunk is one
     launch of the persistent kernel."""
-    if prog.traffic is not None:
-        raise _not_ported("an app-limited workload (prog.traffic)", "A6b")
-    if traffic_sweep is not None:
-        raise _not_ported("traffic_sweep=[...]", "A6b")
+    if variants is not None and traffic_sweep is not None:
+        raise ValueError(
+            "one config axis per launch: sweep either the variant "
+            "assignment (variants=[...]) or the workload "
+            "(traffic_sweep=[...])")
     if mesh is not None:
         raise _not_ported("mesh", "A12")
     if checkpoint is not None:
@@ -819,14 +881,24 @@ def run_tcp_dumbbell(
         raise _not_ported("TpudesObs", "A10")
     dev = resolve_device(device)
     consts = build_tcp_consts(prog, dev)
+    ops = workload_operands(prog, traffic_sweep, dev)
     var, ecn = sweep_operands(prog, variants)
+    if traffic_sweep is not None:
+        points = ops["tr_id"].shape[0]
+        var, ecn = np.repeat(var, points, 0), np.repeat(ecn, points, 0)
     var_t = torch.as_tensor(var, device=dev)
     ecn_t = torch.as_tensor(ecn, device=dev)
     key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
-    state = init_state(consts, int(replicas), var.shape[0])
+    C = var.shape[0]
+    state = init_state(consts, int(replicas), C)
     t = 0
     for bound in chunk_bounds(prog.n_slots, chunk_slots or prog.n_slots):
-        state = tcp_advance(consts, state, key, t, bound, var_t, ecn_t)
+        app = None if ops is None else app_cum_table(
+            ops, prog.traffic.epoch_us, consts["slot_us"], t, bound)
+        if app is not None and app.shape[0] != C:
+            app = app.expand(C, -1, -1)
+        state = tcp_advance(consts, state, key, t, bound, var_t, ecn_t, app)
         t = bound
     out = _tcp_unpack(state, prog)
-    return out if variants is not None else out[0]
+    sweep = variants is not None or traffic_sweep is not None
+    return out if sweep else out[0]

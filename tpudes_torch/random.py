@@ -108,16 +108,35 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), float32)`` over ``[0, 1)``: the
-    top 23 bits become the mantissa of a float in ``[1, 2)``, minus 1."""
-    return _unit(random_bits32(key, n))
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` over ``[0, 1)``:
+    ``shape`` an int ``n`` (``(n,)``) or a tuple; the bits are drawn at
+    the flat index of each element (partitionable mode), and the top 23
+    become the mantissa of a float in ``[1, 2)``, minus 1."""
+    if isinstance(shape, int):
+        return _unit(random_bits32(key, shape))
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    bits = random_bits32(key, n)
+    return _unit(bits).reshape(*bits.shape[:-1], *shape)
 
 
 def _unit(bits: torch.Tensor) -> torch.Tensor:
     """f32 in ``[0, 1)`` from 32 random bits (in int64)."""
     mant = (bits >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def window_keys(key: torch.Tensor, windows) -> torch.Tensor:
+    """``(..., W, 2, 2)``: window ``i``'s ``(k_tx, k_phy) = split(fold_in(
+    key, i))`` for each ``i`` of ``windows`` (an int ``W``: ``0..W-1``, or
+    an int tensor), broadcast over the key's leading axes
+    (``tpudes/parallel/kernels.py:132-133``)."""
+    if isinstance(windows, int):
+        windows = torch.arange(windows, dtype=torch.int64, device=key.device)
+    return split(fold_in(key[..., None, :], windows))
 
 
 def tti_coins(keys: torch.Tensor, t0: int, t1: int, n_ue: int) -> torch.Tensor:

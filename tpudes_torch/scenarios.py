@@ -515,6 +515,7 @@ def dumbbell_program(
     variants=None,
     red: dict | None = None,
     use_ecn: bool = False,
+    traffic=None,
 ) -> DumbbellProgram:
     """The dumbbell of ``build_dumbbell(n_flows, sim_time, variant,
     bottleneck_rate, bottleneck_delay, access_rate, access_delay, queue,
@@ -533,7 +534,9 @@ def dumbbell_program(
       ``MaxSize`` is the queue's capacity and ``1 / LInterm`` its
       ``max_p``;
     - a flow is ECN-capable under ``use_ecn`` (the senders' ``UseEcn``)
-      or when its variant requires ECN (DCTCP).
+      or when its variant requires ECN (DCTCP);
+    - ``traffic`` (a TrafficProgram of one entity a flow) makes the flows
+      app-limited (``DumbbellProgram.traffic``).
     """
     n_flows = int(n_flows)
     names = list(variants) if variants is not None else [variant] * n_flows
@@ -584,5 +587,6 @@ def dumbbell_program(
         ecn=np.asarray([bool(use_ecn) or v in REQUIRES_ECN for v in names],
                        bool),
         qdisc=qdisc,
+        traffic=traffic,
         **red_kw,
     )

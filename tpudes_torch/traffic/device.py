@@ -31,8 +31,8 @@ from tpudes_torch.random import TRAFFIC_KEY_TAG, fold_in, uniform
 from tpudes_torch.traffic.program import GAP_INF, TRAFFIC_MODEL_IDS
 
 __all__ = [
-    "TRAFFIC_KEY_TAG", "cum_packets", "entry_gaps", "offered_table",
-    "pareto_sizes", "stack_traffic_operands",
+    "TRAFFIC_KEY_TAG", "app_cum_table", "cum_packets", "entry_gaps",
+    "offered_table", "pareto_sizes", "stack_traffic_operands",
 ]
 
 _TRACE = TRAFFIC_MODEL_IDS["trace"]
@@ -102,6 +102,25 @@ def cum_packets(ops: dict, epoch_us: int, t_us: torch.Tensor) -> torch.Tensor:
     a_trace = torch.minimum(hit, live_n).float()
 
     return _select(ops["tr_id"], a_cbr, a_mmpp, a_onoff, a_trace)
+
+
+def app_cum_table(ops: dict, epoch_us: int, slot_us: int, t0: int,
+                  t1: int) -> torch.Tensor:
+    """``(P, t1 - t0, N)`` int32: the whole packets each entity of each
+    point of the stacked operands (:func:`stack_traffic_operands`) has
+    offered by the end of slots ``[t0, t1)``, ``floor(cum((t + 1)
+    slot_us))`` cast to int32, the TCP dumbbell's app limit
+    (``tpudes/parallel/tcp_dumbbell.py:955-973``).  The time is the
+    reference's int32 product (it wraps as the reference's does), and
+    :func:`cum_packets` takes every slot of a point in one call."""
+    dev = ops["tr_start"].device
+    t_us = torch.arange(t0 + 1, t1 + 1, dtype=torch.int32,
+                        device=dev) * int(slot_us)
+    points = ops["tr_start"].shape[0]
+    return torch.stack([
+        torch.floor(cum_packets({k: v[p] for k, v in ops.items()}, epoch_us,
+                                t_us)).to(torch.int32)
+        for p in range(points)]).contiguous()
 
 
 def pareto_sizes(u: torch.Tensor, tr_size: torch.Tensor) -> torch.Tensor:
