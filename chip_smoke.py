@@ -348,6 +348,19 @@ WIN_N, WIN_R, WIN_W = 65, 512, 256
 WIN_TX_PROB, WIN_FRAME_BYTES, WIN_SPREAD, WIN_SEED = 0.25, 1000.0, 50.0, 0
 WIN_SINR_F32_OPS = 3
 WIN_SOURCE = "tpudes_torch/csrc/wifi_window.cu"
+#: the SASS opcodes whose counts the build prints for each window kernel
+#: (``cuobjdump -sass``): the conversions, which run at 16 a clock an SM,
+#: the f64 arithmetic, the f32 compares of the f64 chain's range test, and
+#: the branches and calls
+SASS_OPS = ("F2F", "F2I", "I2F", "FRND", "MUFU", "DFMA", "DADD", "DMUL",
+            "DSETP", "DMNMX", "FSETP", "BRA", "CALL")
+#: the window's launches a timed run of :func:`timed_ms` holds (the scan's,
+#: the window's)
+WIN_SCAN_CALLS, WIN_WINDOW_CALLS = 3, 10
+#: the triples of random bits and of constructed double-rounding ties on
+#: which :func:`window_fma_check` holds the window's multiply-add over f64
+#: registers against ``xla_math::fma32``
+WIN_FMA_TRIPLES, WIN_FMA_TIES = 1 << 28, 1 << 24
 WIN_REPLACES = ("tpudes/parallel/kernels.py:56 (wifi_phy_window, vmapped "
                 "by replicated :107 and scanned by multi_window_scan :120; "
                 "XLA, no pallas_call)")
@@ -385,6 +398,57 @@ def ptxas_lines(name: str, text: str) -> list:
         elif "registers" in line or "spill" in line:
             out.append(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def sass_counts(path) -> dict:
+    """``{kernel: {opcode: count}}`` of the static SASS of a built library
+    (``cuobjdump -sass``), each kernel named as :func:`ptxas_lines` names
+    it; an opcode counts under its name before the first dot, and the
+    ``F2F`` conversions also under their full names.  Empty where the
+    toolkit has no ``cuobjdump``."""
+    from tpudes_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = ([None] + list(re.finditer(
+                r"\d+([a-z][a-z_]*_kernel)(I\w*E)?", m.group(1))))[-1]
+            name = (fn.group(1) + ("<" + ",".join(re.findall(
+                r"L[a-z]+(\d+)E", fn.group(2))) + ">" if fn.group(2) else "")
+                    if fn else m.group(1))
+            counts[name] = {}
+            continue
+        m = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            line)
+        if m and name is not None:
+            op = m.group(1)
+            c = counts[name]
+            c[op.split(".")[0]] = c.get(op.split(".")[0], 0) + 1
+            if op.startswith("F2F."):
+                c[op] = c.get(op, 0) + 1
+            c["all"] = c.get("all", 0) + 1
+    return counts
+
+
+def sass_lines(name: str, path) -> list:
+    """One line a kernel of :func:`sass_counts`: the :data:`SASS_OPS`
+    counts, the ``F2F`` split by direction, and all instructions."""
+    out = []
+    for kernel, c in sass_counts(path).items():
+        f2f = ", ".join(f"{k} {v}" for k, v in sorted(c.items())
+                        if k.startswith("F2F."))
+        out.append(f"  {name} {kernel}: SASS "
+                   + ", ".join(f"{k} {c.get(k, 0)}" for k in SASS_OPS)
+                   + (f" ({f2f})" if f2f else "")
+                   + f", {c.get('all', 0)} instructions")
+    return out or [f"  {name}: SASS not counted (no cuobjdump)"]
 
 
 def card_line() -> str:
@@ -1866,6 +1930,46 @@ def window_bound(n: int, links: int, n_tx: int, sinr_pairs: int,
     return times[by], by
 
 
+def window_fma_check(dev) -> None:
+    """The window kernel's multiply-add over f64 registers (``fma32d``,
+    ``window_cuda.fma_check``) against ``xla_math::fma32`` on the card:
+    :data:`WIN_FMA_TRIPLES` triples of random bits (every class of f32; NaN
+    results compared as NaN) in chunks, and :data:`WIN_FMA_TIES` triples
+    whose f64 sum lands on an f32 midpoint (``a = 2^-24 (1 + u) 2^k``, ``b
+    = 1 - u``, ``c`` in ``2^k``'s binade).  Fails on any differing bit."""
+    import torch
+    from tpudes_torch.parallel.window_cuda import fma_check
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.monotonic()
+    bad, chunk = 0, min(1 << 25, WIN_FMA_TRIPLES)
+    for _ in range(WIN_FMA_TRIPLES // chunk):
+        a, b, c = (torch.randint(-2**31, 2**31, (chunk,), device=dev,
+                                 generator=gen, dtype=torch.int64)
+                   .to(torch.int32).view(torch.float32) for _ in range(3))
+        got, want = fma_check(a, b, c)
+        nan = torch.isnan(want)
+        bad += int((torch.isnan(got) != nan).sum())
+        bad += int((got[~nan].view(torch.int32)
+                    != want[~nan].view(torch.int32)).sum())
+    m = WIN_FMA_TIES
+    u = torch.randint(1, 300, (m,), device=dev, generator=gen).double() \
+        * 2.0 ** -23
+    k = torch.randint(-100, 100, (m,), device=dev, generator=gen).double()
+    cm = torch.randint(1, 1 << 23, (m,), device=dev, generator=gen).double()
+    got, want = fma_check((2.0 ** -24 * (1 + u) * 2.0 ** k).float(),
+                          (1 - u).float(),
+                          ((1 + cm * 2.0 ** -23) * 2.0 ** k).float())
+    ties = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    torch.cuda.synchronize()
+    if bad or ties:
+        fail(f"wifi_window's fma32d differs from fma32 on {bad} random and "
+             f"{ties} tie triples")
+    print(f"wifi_window fma32d == xla_math::fma32 on {WIN_FMA_TRIPLES} "
+          f"random-bit triples and {m} double-rounding ties "
+          f"({time.monotonic() - t0:.1f} s)", flush=True)
+
+
 def window_check(kc, dev) -> dict:
     """Phase 3win: ``wifi_window`` against its plain version on the card
     at BASELINE round-1 row #3's shape (:func:`window_batch`, 65 nodes x
@@ -1876,13 +1980,21 @@ def window_check(kc, dev) -> dict:
     window; the graft entry's shape (``__graft_entry__.py:29-38``: 32
     nodes in a 60 m cube, every fourth transmitting, mode 7, 1,000 B)
     through ``wifi_phy_window`` on the card against the CPU; each
-    launch's device time (CUDA events behind a sleep kernel), its bound,
-    the plain version's time and pair evaluations a second."""
+    kernel's device time (CUDA events behind a sleep kernel, around its
+    launch wrapper on card tensors, so that no host sync falls inside the
+    timed run), its bound, the plain version's time and pair evaluations a
+    second; the entry point's time (``multi_window_scan``, ``replicated``:
+    each call reads the modes' range back to the host) on its own line."""
     import torch
     from tpudes_torch.parallel import kernels as win
-    from tpudes_torch.parallel.window_cuda import geometry_launch
+    from tpudes_torch.parallel.window_cuda import (
+        geometry_launch,
+        scan_launch,
+        window_launch,
+    )
     from tpudes_torch.random import PRNGKey, uniform, window_keys
 
+    window_fma_check(dev)
     pos, mode, fb, keys = window_batch(dev)
     prob = torch.full((WIN_N,), WIN_TX_PROB, device=dev)
     N, R, W = WIN_N, WIN_R, WIN_W
@@ -1909,8 +2021,14 @@ def window_check(kc, dev) -> dict:
     torch.cuda.synchronize()
     gplain_s = time.monotonic() - t0
     live = window_live_pairs(tx_all.reshape(-1, N), det)
-    ms, host_ms = timed_ms(lambda: win.multi_window_scan(
-        pos, WIN_TX_PROB, mode, fb, keys, W, device=dev), 3, reps=3)
+    # the kernel's time: its two launches on card tensors, no host sync
+    # inside the timed run; the entry's (multi_window_scan reads the modes'
+    # range back to the host) on its own line
+    ms, _ = timed_ms(lambda: scan_launch(pos, prob, mode, fb, keys, W),
+                     WIN_SCAN_CALLS, reps=3)
+    entry_ms, host_ms = timed_ms(lambda: win.multi_window_scan(
+        pos, WIN_TX_PROB, mode, fb, keys, W, device=dev), WIN_SCAN_CALLS,
+        reps=3)
     bound = window_bound(N, N * N, n_tx, live, live, R * W * (N + 3) + live,
                          pos.nbytes + prob.nbytes + mode.nbytes + fb.nbytes
                          + keys.nbytes + R * 4)
@@ -1919,13 +2037,17 @@ def window_check(kc, dev) -> dict:
           f"W={W} (mean {got.double().mean().item():.2f} frames a replica, "
           f"{n_tx / (R * W):.2f} transmitters a window, "
           f"{live} pairs that may decode, {live / (R * W):.1f} a window); "
-          f"device {ms:.4f} ms/launch (host {host_ms:.4f} ms/call) = "
-          f"{pairs / (ms * 1e-3):.4g} pair evaluations/s; plain version "
-          f"{plain_s * 1e3:.1f} ms; bound {bound[0] * 1e3:.3f} us "
-          f"({bound[1]})", flush=True)
+          f"device {ms:.4f} ms/launch (scan_launch: the geometry and the "
+          f"scan kernel) = {pairs / (ms * 1e-3):.4g} pair evaluations/s; "
+          f"plain version {plain_s * 1e3:.1f} ms; bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+    print(f"wifi_window scan entry (multi_window_scan, its modes' range "
+          f"read back): {entry_ms:.4f} ms/call behind a sleep kernel, host "
+          f"{host_ms:.4f} ms/call", flush=True)
     out["scan"] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3, bound=bound,
                        pairs_per_s=pairs / (ms * 1e-3), live=live,
-                       mean_frames=got.double().mean().item())
+                       mean_frames=got.double().mean().item(),
+                       entry_ms=entry_ms)
 
     # the scan's geometry kernel
     g_w, g_det = geometry_launch(pos)
@@ -1973,8 +2095,12 @@ def window_check(kc, dev) -> dict:
         if model == "nist" and int(g[0].sum()) != first:
             fail(f"wifi_window: the window's decodes ({int(g[0].sum())}) "
                  f"differ from the scan's first window's ({first})")
-        wms, whost = timed_ms(lambda: run(posR, tx0, modeR, fbR, k_phy,
-                                          params, device=dev), 10, reps=3)
+        wms, _ = timed_ms(lambda: window_launch(posR, tx0, modeR, fbR,
+                                                k_phy, params),
+                          WIN_WINDOW_CALLS, reps=3)
+        wentry, whost = timed_ms(lambda: run(posR, tx0, modeR, fbR, k_phy,
+                                             params, device=dev),
+                                 WIN_WINDOW_CALLS, reps=3)
         wlive = window_live_pairs(tx0, det)
         nbytes = (posR.nbytes + tx0.nbytes + modeR.nbytes + fbR.nbytes
                   + k_phy.nbytes + sum(x.nbytes for x in g))
@@ -1983,12 +2109,15 @@ def window_check(kc, dev) -> dict:
         print(f"wifi_window ({model}) vs plain: ok, sinr, rx_dbm bit-equal "
               f"at N={N} R={R} ({int(g[0].sum())} frames decoded"
               + (f", the scan's first window's {first}" if model == "nist"
-                 else "") + f"); device {wms:.4f} ms/launch (host "
-              f"{whost:.4f} ms/call) = {R * N * N / (wms * 1e-3):.4g} pair "
+                 else "") + f"); device {wms:.4f} ms/launch "
+              f"(window_launch) = {R * N * N / (wms * 1e-3):.4g} pair "
               f"evaluations/s; plain version {wplain_s * 1e3:.1f} ms; bound "
               f"{wbound[0] * 1e3:.3f} us ({wbound[1]})", flush=True)
+        print(f"wifi_window ({model}) entry (replicated(), its modes' range "
+              f"read back): {wentry:.4f} ms/call behind a sleep kernel, host "
+              f"{whost:.4f} ms/call", flush=True)
         out[model] = dict(err=err, ms=wms, plain_ms=wplain_s * 1e3,
-                          bound=wbound)
+                          bound=wbound, entry_ms=wentry)
 
     # the graft entry's shape (__graft_entry__.py:29-38)
     n = 32
@@ -2014,7 +2143,155 @@ def window_check(kc, dev) -> dict:
     print(f"wifi_phy_window at the graft entry's shape (N={n}, every "
           f"fourth node transmitting, mode 7, 1000 B): card == CPU, "
           f"{int(g[0].sum())} frames decoded", flush=True)
+    out["split"] = window_stage_split(dev, "wifi_window")
     return out
+
+
+def window_inputs(dev) -> dict:
+    """The window's bench-width inputs on the card, ready for the launch
+    wrappers (no host sync in a call): :func:`window_batch`, ``prob``, and
+    the single window at ``(R, N)`` (``posR``, ``modeR``, ``fbR``, window
+    0's transmitters ``tx0`` and coin keys ``k_phy``)."""
+    import torch
+    from tpudes_torch.random import uniform, window_keys
+
+    pos, mode, fb, keys = window_batch(dev)
+    kk = window_keys(keys, 1)[:, 0]
+    R, N = WIN_R, WIN_N
+    return dict(pos=pos, mode=mode, fb=fb, keys=keys,
+                prob=torch.full((N,), WIN_TX_PROB, device=dev),
+                posR=pos.expand(R, N, 3).contiguous(),
+                modeR=mode.expand(R, N).contiguous(),
+                fbR=fb.expand(R, N).contiguous(),
+                tx0=(uniform(kk[:, 0], N) < WIN_TX_PROB).contiguous(),
+                k_phy=kk[:, 1].contiguous())
+
+
+def same_window(a, b) -> bool:
+    """Whether two ``(ok, sinr, rx_dbm)`` are bit-equal."""
+    import torch
+
+    return all(torch.equal(bits_of(x), bits_of(y)) for x, y in zip(a, b))
+
+
+def window_stage_split(dev, label: str) -> dict:
+    """The stage probe of ``wifi_window`` (``window_cuda.scan_profile`` and
+    ``window_profile``: the kernels' profiling instantiations, each lane
+    reading ``clock64()`` at its stage edges) at bench width: the scan of
+    :data:`WIN_W` windows and the window (NIST and table) at ``WIN_R x
+    WIN_N``, each probe's outputs equal to the main launch's; the
+    warp-cycles a window spends in each stage (each warp's slowest lane,
+    summed over warps), the probe launch's device time (CUDA events) and
+    nvidia-smi's SM clock just after.  Returns the split of each."""
+    import torch
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import (
+        WIN_PROF_STAGES,
+        scan_launch,
+        scan_profile,
+        window_launch,
+        window_profile,
+    )
+
+    x = window_inputs(dev)
+    split = {}
+    runs = {"scan": (lambda: scan_launch(x["pos"], x["prob"], x["mode"],
+                                         x["fb"], x["keys"], WIN_W),
+                     lambda: scan_profile(x["pos"], x["prob"], x["mode"],
+                                          x["fb"], x["keys"], WIN_W))}
+    for model in ("nist", "table"):
+        params = win.WindowParams(error_model=model)
+        args = (x["posR"], x["tx0"], x["modeR"], x["fbR"], x["k_phy"], params)
+        runs[model] = (lambda a=args: window_launch(*a),
+                       lambda a=args: window_profile(*a))
+    for name, (main, probe) in runs.items():
+        want = main()
+        probe()                                                # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got, cyc = probe()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        clock = sm_clock_line()
+        if not (torch.equal(got, want) if name == "scan"
+                else same_window(got, want)):
+            fail(f"{label} window probe ({name}): outputs differ from the "
+                 f"main launch's")
+        per = dict(zip(WIN_PROF_STAGES, cyc.tolist()))
+        split[name] = dict(per, total=sum(per.values()), probe_ms=ms,
+                           nvidia_smi_clocks_sm_max=clock)
+        print(f"{label} stage probe ({name}, N={WIN_N} R={WIN_R}"
+              + (f" W={WIN_W}" if name == "scan" else "")
+              + "): warp-cycles a window "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+              + f"; total {sum(per.values()):.1f}; probe launch {ms:.4f} ms; "
+              f"nvidia-smi clocks.sm, clocks.max.sm {clock}", flush=True)
+    return split
+
+
+def window_compare(old_lib, dev, card: str, old_dir: str) -> dict:
+    """The window half of the compare mode: the old and new
+    ``wifi_window`` equal at bench width (the scan's :data:`WIN_R` totals
+    over :data:`WIN_W` windows; the window's ``ok``, ``sinr`` and
+    ``rx_dbm`` at ``WIN_R x WIN_N``, NIST and table), their times in turns
+    (old, new, new, old): each launch's device time (CUDA events; the scan
+    with its geometry launch) and the entry point's wall (median of three
+    runs a turn, ``multi_window_scan`` / ``replicated``); then the stage
+    probe of the new kernels, and of the old where its library has
+    ``wifi_scan_profile``.  Returns the ``window_old_vs_new`` line."""
+    import torch
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import scan_launch, window_launch
+
+    x = window_inputs(dev)
+    result = dict(phase="window_old_vs_new", card=card, old=old_dir,
+                  n_nodes=WIN_N, replicas=WIN_R, windows=WIN_W, programs={})
+    runs = {"scan": (
+        lambda: scan_launch(x["pos"], x["prob"], x["mode"], x["fb"],
+                            x["keys"], WIN_W),
+        lambda seed: win.multi_window_scan(x["pos"], WIN_TX_PROB, x["mode"],
+                                           x["fb"], x["keys"], WIN_W,
+                                           device=dev),
+        WIN_SCAN_CALLS)}
+    for model in ("nist", "table"):
+        params = win.WindowParams(error_model=model)
+        args = (x["posR"], x["tx0"], x["modeR"], x["fbR"], x["k_phy"], params)
+        runs[model] = (lambda a=args: window_launch(*a),
+                       lambda seed, a=args: win.replicated()(*a, device=dev),
+                       WIN_WINDOW_CALLS)
+    for name, (launch, entry, calls) in runs.items():
+        new = launch()
+        with kernel_library(old_lib, "wifi_window"):
+            was = launch()
+        torch.cuda.synchronize()
+        if not (torch.equal(new, was) if name == "scan"
+                else same_window(new, was)):
+            fail(f"compare (window {name}): outputs differ between old and "
+                 f"new")
+        times, walls = in_turns(old_lib, "wifi_window", launch, entry, calls)
+        line = dict(old_ms=times["old"], new_ms=times["new"],
+                    new_over_old=statistics.mean(times["new"])
+                    / statistics.mean(times["old"]),
+                    old_wall_s=walls["old"], new_wall_s=walls["new"],
+                    wall_new_over_old=statistics.mean(walls["new"])
+                    / statistics.mean(walls["old"]))
+        result["programs"][name] = line
+        print(f"compare (window {name}, N={WIN_N} R={WIN_R}"
+              + (f" W={WIN_W}" if name == "scan" else "")
+              + f"): outputs equal; old {line['old_ms']} ms, new "
+              f"{line['new_ms']} ms a launch (new/old "
+              f"{line['new_over_old']:.4f}); walls old {walls['old']}, new "
+              f"{walls['new']} s", flush=True)
+    result["split_new"] = window_stage_split(dev, "new")
+    if hasattr(old_lib, "wifi_scan_profile"):
+        with kernel_library(old_lib, "wifi_window"):
+            result["split_old"] = window_stage_split(dev, "old")
+    else:
+        result["split_old"] = "not measured: the old kernel has no probe"
+    return result
 
 
 def window_main(kc, dev) -> dict:
@@ -2345,11 +2622,13 @@ def tcp_compare(old_lib, dev, card: str, old_dir: str) -> dict:
 
 def compare_main(old_dir: str, device: str = "cuda") -> int:
     """``python3 chip_smoke.py --compare-with DIR``: each of
-    ``DIR/bss_advance.cu`` and ``DIR/tcp_advance.cu`` that is there (an
-    earlier design of the kernel with the same C interface) against this
-    checkout's, in one call on one card.  Builds all of them in parallel;
-    runs :func:`bss_compare` and :func:`tcp_compare` and prints each one's
-    JSON line (``phase: bss_old_vs_new`` / ``tcp_old_vs_new``)."""
+    ``DIR/bss_advance.cu``, ``DIR/tcp_advance.cu`` and
+    ``DIR/wifi_window.cu`` that is there (an earlier design of the kernel
+    with the same C interface) against this checkout's, in one call on one
+    card.  Builds all of them in parallel (printing the window kernels'
+    SASS counts); runs :func:`bss_compare`, :func:`tcp_compare` and
+    :func:`window_compare` and prints each one's JSON line (``phase:
+    bss_old_vs_new`` / ``tcp_old_vs_new`` / ``window_old_vs_new``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2359,10 +2638,11 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     dev = torch.device(device)
     card = card_line()
     print(card, flush=True)
-    names = [k for k in ("bss_advance", "tcp_advance")
+    names = [k for k in ("bss_advance", "tcp_advance", "wifi_window")
              if os.path.isfile(os.path.join(old_dir, f"{k}.cu"))]
     if not names:
-        fail(f"{old_dir} holds neither bss_advance.cu nor tcp_advance.cu")
+        fail(f"{old_dir} holds none of bss_advance.cu, tcp_advance.cu, "
+             f"wifi_window.cu")
     t0 = time.monotonic()
     old = {k: build_old(k, old_dir) for k in names}
     logs = _build.build(names)
@@ -2374,10 +2654,14 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
             fail(f"the old {k} build failed:\n{log}")
         print("\n".join(ptxas_lines(k, logs[k])
                         + ptxas_lines(f"{k} (old)", log)), flush=True)
+        if k == "wifi_window":
+            print("\n".join(sass_lines(k, _build.library_path(k))
+                            + sass_lines(f"{k} (old)", path)), flush=True)
         libs[k] = ctypes.CDLL(str(path))
     print(f"build: new {new_s:.2f} s, old {time.monotonic() - t0:.2f} s "
           f"(in parallel)", flush=True)
-    compares = {"bss_advance": bss_compare, "tcp_advance": tcp_compare}
+    compares = {"bss_advance": bss_compare, "tcp_advance": tcp_compare,
+                "wifi_window": window_compare}
     for k in names:
         print(json.dumps(compares[k](libs[k], dev, card, old_dir)),
               flush=True)
@@ -2428,6 +2712,9 @@ def main(device: str = "cuda") -> int:
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         print("\n".join(ptxas_lines(name, text)), flush=True)
+    print("\n".join(sass_lines("wifi_window",
+                               _build.library_path("wifi_window"))),
+          flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
     enb_pos, ue_pos = lena_ue_drop(E, UES_PER_CELL, generator=gen)

@@ -1167,3 +1167,126 @@ def test_wifi_window_on_card_equals_cpu(card):
     total = win.multi_window_scan(pos[0], 0.25, mode[0], fb[0], key, 8)
     assert int(total) == int(win.multi_window_scan(
         pos[0], 0.25, mode[0], fb[0], key, 8, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 1024])
+@pytest.mark.parametrize("model", ["nist", "table"])
+def test_wifi_window_large_n_bit_equal_to_plain(card, model, n):
+    """Past the N whose geometry fits in shared memory the window keeps it
+    in its own sinr and rx_dbm slabs: still the plain version's bits."""
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel.window_cuda import window_launch
+
+    pos, tx, mode, fb = (x.to(card) for x in _window_inputs(n, 1, seed=n))
+    keys = replica_keys(PRNGKey(n).to(card), 1)
+    params = win.WindowParams(error_model=model)
+    kc.reset_launches()
+    got = window_launch(pos, tx, mode, fb, keys, params)
+    want = win.window_math(pos, tx, mode, fb, win.uniform(keys, (n, n)),
+                           params)
+    torch.cuda.synchronize()
+    assert kc.launches == _counts(win=1, win_table=int(model == "table"))
+    for name, g, w in zip(("ok", "sinr", "rx_dbm"), got, want):
+        assert _bit_equal(g, w), name
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 1024])
+def test_wifi_scan_large_n_equals_plain(card, n):
+    from tpudes_torch.parallel import kernels as win
+
+    pos, _, mode, fb = _window_inputs(n, 1, seed=n)
+    keys = replica_keys(PRNGKey(n).to(card), 1)
+    kc.reset_launches()
+    got = win.multi_window_scan(pos[0], 0.25, mode[0], fb[0], keys, 4)
+    assert kc.launches == _counts(win=2, win_geometry=1, win_scan=1)
+    want = win.scan_math(pos[0].to(card), torch.full((n,), 0.25,
+                                                     device=card),
+                         mode[0].to(card), fb[0].to(card), keys, 4)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["window", "table", "scan"])
+def test_wifi_probes_return_finite_cycles(card, what):
+    from tpudes_torch.parallel import kernels as win
+    from tpudes_torch.parallel import window_cuda
+
+    pos, tx, mode, fb = (x.to(card) for x in _window_inputs(65, 16))
+    keys = replica_keys(PRNGKey(5).to(card), 16)
+    kc.reset_launches()
+    if what == "scan":
+        args = (pos[0], torch.full((65,), 0.25, device=card), mode[0],
+                fb[0], keys, 8)
+        got, cyc = window_cuda.scan_profile(*args)
+        assert torch.equal(got, window_cuda.scan_launch(*args))
+    else:
+        params = win.WindowParams(error_model="table" if what == "table"
+                                  else "nist")
+        got, cyc = window_cuda.window_profile(pos, tx, mode, fb, keys,
+                                              params)
+        want = window_cuda.window_launch(pos, tx, mode, fb, keys, params)
+        assert all(_bit_equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    assert cyc.shape == (len(window_cuda.WIN_PROF_STAGES),)
+    assert torch.isfinite(cyc).all() and (cyc >= 0).all() and cyc.sum() > 0
+
+
+@pytest.mark.cuda
+def test_wifi_fma_routine_equals_fma32(card):
+    """The window's multiply-add over f64 registers against
+    ``xla_math::fma32`` on 2^24 triples of random bits (every class of
+    f32, NaN bits compared as one pattern) and 2^20 constructed ties."""
+    from tpudes_torch.parallel.window_cuda import fma_check
+
+    gen = torch.Generator(device=card).manual_seed(12)
+    n = 1 << 24
+    a, b, c = (torch.randint(-2**31, 2**31, (n,), device=card,
+                             generator=gen, dtype=torch.int64)
+               .to(torch.int32).view(torch.float32) for _ in range(3))
+    got, want = fma_check(a, b, c)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    m = 1 << 20
+    j = torch.randint(1, 300, (m,), device=card, generator=gen).double()
+    u = j * 2.0 ** -23
+    k = torch.randint(-100, 100, (m,), device=card, generator=gen).double()
+    cm = torch.randint(1, 1 << 23, (m,), device=card, generator=gen).double()
+    ta = (2.0 ** -24 * (1 + u) * 2.0 ** k).float()
+    tb = (1 - u).float()
+    tc = ((1 + cm * 2.0 ** -23) * 2.0 ** k).float()
+    got, want = fma_check(ta, tb, tc)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["exp", "log", "log1p", "erfc"])
+def test_wifi_chain_over_f64_equals_f32(card, fn):
+    """The window's exp, log, log1p and erfc over f64 registers against
+    xla_math.cuh's f32 functions on 2^22 random-bit inputs and 2^22 draws
+    of the error model's domain: equal wherever the f64 chain stays in
+    range, which it does on nearly all the domain draw (erfc's is cut at
+    9: from 9.2 to its flush at 9.42 exp(-x^2) / x leaves f32's normals
+    and the kernels take the f32 path)."""
+    from tpudes_torch.parallel.window_cuda import chain_check
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    n = 1 << 22
+    raw = torch.randint(-2**31, 2**31, (n,), device=card, generator=gen,
+                        dtype=torch.int64).to(torch.int32)
+    lo, hi = {"exp": (-95.0, 95.0), "log": (1e-38, 4.0),
+              "log1p": (-1.0, 1.0), "erfc": (-1.0, 9.0)}[fn]
+    x = torch.cat([raw.view(torch.float32),
+                   torch.rand(n, device=card, generator=gen) * (hi - lo)
+                   + lo])
+    got, want, in_range = chain_check(x, fn)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got)[in_range], nan[in_range])
+    keep = in_range & ~nan
+    assert torch.equal(got[keep].view(torch.int32),
+                       want[keep].view(torch.int32))
+    assert in_range[n:].double().mean().item() > 0.99

@@ -14,9 +14,9 @@
 // warp's 32 threads, so every lane must reach each of them, as on the card
 // with a full mask; a named barrier (bar.sync id, 64: the kernel's
 // pair_sync) is a std::barrier of 64 threads, and __syncthreads one of the
-// block's threads.  Dynamic shared memory is the one buffer tcp_smem, and a
-// __shared__ variable at namespace scope a global (the blocks run one at a
-// time).  The f32 and f64 intrinsics are the IEEE
+// block's threads.  Dynamic shared memory is the one buffer tcp_smem (or
+// dyn_smem), and a __shared__ variable at namespace scope a global (the
+// blocks run one at a time).  The f32 and f64 intrinsics are the IEEE
 // operations they name, rounded to nearest; -ffp-contract=off keeps g++
 // from fusing a product into a sum.  clock64() counts nanoseconds.
 
@@ -46,14 +46,17 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __shared__
 #define __constant__
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 
 // dynamic shared memory of the block that runs (extern __shared__ in the
-// kernel's source): the most a block may opt in to on the card
+// kernel's source): the most a block may opt in to on the card; a kernel
+// may name it tcp_smem or dyn_smem
 alignas(16) inline unsigned char tcp_smem[232448];
+#define dyn_smem tcp_smem
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -283,6 +286,19 @@ inline int __float2int_rz(float x) {
   return static_cast<int>(x);
 }
 inline float __double2float_rn(double x) { return static_cast<float>(x); }
+inline int __double2hiint(double x) {
+  return static_cast<int>(static_cast<uint64_t>(__double_as_longlong(x)) >>
+                          32);
+}
+inline int __double2loint(double x) {
+  return static_cast<int>(
+      static_cast<uint32_t>(static_cast<uint64_t>(__double_as_longlong(x))));
+}
+inline double __hiloint2double(int hi, int lo) {
+  return __longlong_as_double(static_cast<long long>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32) |
+      static_cast<uint32_t>(lo)));
+}
 
 // IEEE arithmetic, each operation rounded to nearest on its own
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -295,3 +311,12 @@ inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __fma_rn(double a, double b, double c) { return fma(a, b, c); }
+// a + b rounded toward -inf: the nearest sum, one step down where it lies
+// above the exact sum (its error, exact by Knuth's two-sum, is negative)
+inline double __dadd_rd(double a, double b) {
+  const double s = a + b;
+  if (!std::isfinite(s)) return s;
+  const double bb = s - a;
+  const double err = (a - (s - bb)) + (b - bb);
+  return err < 0.0 ? std::nextafter(s, -INFINITY) : s;
+}
