@@ -148,6 +148,23 @@ launch's device time, bound and pair evaluations a second; and in phase
 5win, after 5trf, the scan (its geometry and scan kernels) and the
 window (NIST, table) each once, counted.
 
+Then the AS flow engine (``tpudes_torch.parallel.as_flows.run_as_flows``,
+BASELINE config #5) and its kernels ``as_spf`` (the Bellman-Ford rounds
+and the next hop, a CTA a destination row) and ``as_fluid`` (the fluid
+fixed point and the delays, a CTA a (rate scale, replica)) at
+``bench.py::bench_as``'s shape (``scenarios.as_program(10_000, 128,
+10.0, seed=3)``, 1,024 replicas): in phase 3as, after 3win, ``as_spf``
+bit-equal to ``spf_math`` for the hop metric, the delay metric and 3
+rounds (flows left unreachable), its rows in shared and in device
+memory; ``as_fluid`` bit-equal to ``fluid_math`` for the bench program, a
+four-point rate-scale grid whose top points overload links, an ON-OFF
+workload and one round a launch; a toy program through the plain path on
+the CPU against the kernels on the card; each kernel's device time,
+bound and plain wall; and in phase 5as, after 5win, ``bench_as``'s
+numerator (one warm run, five timed runs on keys 1..5, each one
+``as_spf`` and one ``as_fluid`` launch; ``studies_per_s``, the busy
+share, the stages of a run apart) and the grid once, counted.
+
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
 (``DIR/bss_advance.cu``, the same C interface and probe) and of the TCP
@@ -365,6 +382,32 @@ WIN_REPLACES = ("tpudes/parallel/kernels.py:56 (wifi_phy_window, vmapped "
                 "by replicated :107 and scanned by multi_window_scan :120; "
                 "XLA, no pallas_call)")
 
+#: the AS flow engine (phases 3as and 5as) at bench.py::bench_as's shape
+#: (``:1395-1431``, ``:106-111``): a 10,000-node BRITE BA graph, 128 CBR
+#: flows of 400 kbit/s, 1,024 replicas, ``sim_s`` 10 (the graph's and the
+#: flows' seed 3); the key of the kernel-vs-plain checks; the Bellman-Ford
+#: rounds of the truncated check (fewer than the graph's hop diameter); the
+#: rate-scale grid, whose upper points overload links (the bench's busiest
+#: link runs at about 1 % of its capacity); the ON-OFF workload of the
+#: checks (a peak of twice the flows' 97.66 pkt/s)
+AS_NODES, AS_FLOWS, AS_R, AS_SIM_S, AS_SEED = 10_000, 128, 1024, 10.0, 3
+AS_CHECK_KEY, AS_TRUNCATED_ROUNDS, AS_TIMED_RUNS = 7, 3, 5
+AS_SCALES = (1.0, 10.0, 100.0, 1000.0)
+AS_ONOFF = dict(peak_pps=195.3125, on=(1.5, 0.2, 5.0), off_mean_s=0.5,
+                tr_seed=3)
+#: launches per timed run of :func:`timed_ms` (as_spf, as_fluid)
+AS_SPF_CALLS, AS_FLUID_CALLS = 10, 10
+#: f32 and f64 operations of xla_math.cuh's exp and log (each fma32 is one
+#: f64 fused multiply-add: 9 in exp, 10 in log; the range reduction,
+#: clamps and products around them in f32)
+AS_EXP_OPS, AS_LOG_OPS = (10, 9), (12, 10)
+AS_SOURCE = "tpudes_torch/csrc/as_flows.cu"
+AS_SPF_REPLACES = ("tpudes/parallel/as_flows.py:227 (device_spf: the "
+                   "lax.scan of Bellman-Ford scatter-min rounds :253-257 "
+                   "and the next-hop scatter :260-266; XLA, no pallas_call)")
+AS_FLUID_REPLACES = ("tpudes/parallel/as_flows.py:309 (_fluid_round, and "
+                     "_fluid_delay :358, in the while_loop :485-518; XLA, "
+                     "no pallas_call)")
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -2337,6 +2380,316 @@ def window_main(kc, dev) -> dict:
     return out
 
 
+def as_rounds_needed(g: dict, n: int, rounds: int) -> int:
+    """The Bellman-Ford rounds this graph's data needs: those of the first
+    ``rounds`` that change the ``(D, N)`` table (the plain rounds of
+    ``spf_math``, stopped at the first that changes nothing)."""
+    import torch
+    from tpudes_torch.parallel.as_flows import INF
+
+    dsts = g["dsts"].long()
+    D = dsts.shape[0]
+    dist = torch.full((D, n), INF, device=dsts.device)
+    dist[torch.arange(D, device=dsts.device), dsts] = 0.0
+    idx = g["u"][None, :].expand(D, -1)
+    for r in range(rounds):
+        new = dist.scatter_reduce(1, idx, dist[:, g["v"]] + g["w"][None, :],
+                                  "amin", include_self=True)
+        if torch.equal(new, dist):
+            return r
+        dist = new
+    return rounds
+
+
+def as_spf_bound(g: dict, n: int, needed: int, outs) -> tuple:
+    """Least time for one ``as_spf`` launch: the CSR and the destinations
+    read once and the three ``(D, N)`` tables written once over HBM,
+    against ``D 2E (2 needed + 4)`` f32 operations (each round an add and a
+    min an edge; the next hop a score, a min, a product and a compare)."""
+    D, E2 = g["dsts"].shape[0], g["col_v"].shape[0]
+    nbytes = sum(g[k].nbytes for k in ("row_ptr", "col_v", "col_w", "col_e",
+                                       "dsts"))
+    nbytes += sum(x.nbytes for x in outs)
+    ops = D * E2 * (2 * needed + 4)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / F32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def as_fluid_bound(t: dict, args, out: dict, rounds: int,
+                   carry: bool = False) -> tuple:
+    """Least time for the fluid stage over the ``(C, R)`` grid: the tables,
+    rates and draws read once and the outputs written once over HBM (and
+    the carried log deliveries in and out over a split run), against the
+    operations per grid row: each round a contribution (an exp, a product,
+    a sum) a flow-hop and a load product, division and log a link, then a
+    delay (a min, a difference, a division, a multiply-add, two sums) a
+    flow-hop and a rate and a survival (two exps) a flow; f32 and f64 (the
+    multiply-adds) each at its rate, the larger wins."""
+    fm, scale, z, reached = args[1:5]
+    C, R = scale.shape[0], z.shape[0]
+    F, _ = t["hop_link"].shape
+    L = t["c"].shape[0]
+    fh = t["slot"].shape[0]
+    nbytes = sum(t[k].nbytes for k in ("hop_link", "ptr", "slot", "c", "k",
+                                       "dly"))
+    nbytes += fm.nbytes + scale.nbytes + z.nbytes + reached.nbytes
+    nbytes += sum(x.nbytes for x in out.values())
+    nbytes += 2 * C * R * L * 4 * carry
+    f32 = (rounds * (fh * (AS_EXP_OPS[0] + 2) + L * (AS_LOG_OPS[0] + 4))
+           + fh * 5 + F * (2 * AS_EXP_OPS[0] + 4))
+    f64 = rounds * (fh * AS_EXP_OPS[1] + L * AS_LOG_OPS[1]) + fh + F * (
+        2 * AS_EXP_OPS[1] + 1)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": C * R * max(f32 / F32_OPS_PER_S,
+                                       f64 / F64_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def same_bits(x, y) -> bool:
+    import torch
+
+    return torch.equal(bits_of(x), bits_of(y))
+
+
+def as_check(kc, dev) -> dict:
+    """Phase 3as: ``as_spf`` and ``as_fluid`` against their plain versions
+    on the card at bench_as's width (:data:`AS_NODES` nodes,
+    :data:`AS_FLOWS` flows, :data:`AS_R` replicas): the routing tables
+    bit-equal for the hop metric, the delay metric and
+    :data:`AS_TRUNCATED_ROUNDS` rounds (flows left unreachable), the rows
+    in shared memory and in device memory; the fluid outputs bit-equal for
+    the bench program, the :data:`AS_SCALES` grid (``delivered_frac < 1``
+    required), an ON-OFF workload and a run of one round a launch; a toy
+    program through the plain path on the CPU against the kernels on the
+    card; each kernel's device time (CUDA events behind a sleep kernel,
+    around its launch wrapper on card tensors), its bound and the plain
+    version's wall on the card (its second call, after the one
+    compared)."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.parallel.as_cuda import fluid_cuda, spf_cuda
+    from tpudes_torch.parallel.programs import toy_as_program
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import as_program
+    from tpudes_torch.traffic.program import TrafficProgram
+
+    prog = as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED)
+    out = {}
+    for name, p in (("hops", prog),
+                    ("delay", dataclasses.replace(prog, spf_metric="delay")),
+                    ("truncated", dataclasses.replace(
+                        prog, spf_rounds=AS_TRUNCATED_ROUNDS))):
+        g = asf.spf_graph(p, dev)
+        want = asf.spf_math(g, p.n, p.spf_rounds)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        asf.spf_math(g, p.n, p.spf_rounds)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        for shared in (None, False):
+            got = spf_cuda(g, p.n, p.spf_rounds, shared)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("dist", "nh_edge", "nh_node"), want, got):
+                if not same_bits(a, b):
+                    fail(f"as_spf ({name}, rows in "
+                         f"{'device' if shared is False else 'shared'} "
+                         f"memory) vs spf_math: {what} differs")
+        unreached = int((want[0] >= asf.INF).sum())
+        if name == "truncated" and not unreached:
+            fail(f"as_spf (truncated): every node reached in "
+                 f"{AS_TRUNCATED_ROUNDS} rounds")
+        needed = as_rounds_needed(g, p.n, p.spf_rounds)
+        ms, host = timed_ms(lambda: spf_cuda(g, p.n, p.spf_rounds),
+                            AS_SPF_CALLS, reps=3)
+        bound = as_spf_bound(g, p.n, needed, want)
+        D = g["dsts"].shape[0]
+        print(f"as_spf ({name}) vs spf_math: dist, nh_edge, nh_node "
+              f"bit-equal at N={p.n} D={D} 2E={g['col_v'].shape[0]} "
+              f"rounds={p.spf_rounds} ({needed} change the table; "
+              f"{unreached} of {D * p.n} entries unreached), shared and "
+              f"device memory; device {ms:.4f} ms/launch (host "
+              f"{host:.4f} ms/call); plain version {plain_s * 1e3:.2f} ms; "
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+        out[f"spf_{name}"] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3,
+                                  bound=bound)
+
+    onoff = dataclasses.replace(prog, traffic=TrafficProgram.onoff(
+        AS_FLOWS, AS_ONOFF["peak_pps"], horizon_us=int(AS_SIM_S * 1e6),
+        on=AS_ONOFF["on"], off_mean_s=AS_ONOFF["off_mean_s"],
+        tr_seed=AS_ONOFF["tr_seed"]))
+    cases = (("bench", prog, [1.0], (asf.FP_ROUNDS,)),
+             ("sweep", prog, list(AS_SCALES), (asf.FP_ROUNDS,)),
+             ("onoff", onoff, [1.0], (asf.FP_ROUNDS,)),
+             ("chunked", prog, [1.0], (1,) * asf.FP_ROUNDS))
+    for name, p, scales, split in cases:
+        args, _ = asf.fluid_inputs(p, PRNGKey(AS_CHECK_KEY), AS_R, scales,
+                                   dev)
+        want, _ = asf.fluid_math(*args, asf.FP_ROUNDS)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        asf.fluid_math(*args, asf.FP_ROUNDS)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        lf = None
+        for i, rounds in enumerate(split):
+            got, lf = fluid_cuda(*args, rounds, lf,
+                                 carry=i + 1 < len(split))
+        torch.cuda.synchronize()
+        bad = [k for k in want if not same_bits(want[k], got[k])]
+        if bad:
+            fail(f"as_fluid ({name}) vs fluid_math: {bad} differ")
+        frac = got["delivered_frac"]
+        if name == "sweep" and not (frac < 1.0).any():
+            fail("as_fluid (sweep): no flow loses at the grid's top scale")
+        if not torch.isfinite(frac).all():
+            fail(f"as_fluid ({name}): delivered_frac not finite")
+        t = args[0]
+        line = (f"as_fluid ({name}) vs fluid_math: goodput, delay, "
+                f"delivered_frac, max_util bit-equal at C={len(scales)} "
+                f"R={AS_R} F={AS_FLOWS} L={t['c'].shape[0]} "
+                f"({t['slot'].shape[0]} flow-hops, up to "
+                f"{int((t['ptr'][1:] - t['ptr'][:-1]).max())} a link; "
+                f"{len(split)} launch(es); delivered_frac mean "
+                f"{frac.double().mean().item():.6f}, min "
+                f"{frac.min().item():.6f}; max_util max "
+                f"{got['max_util'].max().item():.4f})")
+        if name in ("bench", "sweep"):
+            ms, host = timed_ms(lambda: fluid_cuda(*args, asf.FP_ROUNDS),
+                                AS_FLUID_CALLS, reps=3)
+            bound = as_fluid_bound(t, args, got, asf.FP_ROUNDS)
+            line += (f"; device {ms:.4f} ms/launch (host {host:.4f} "
+                     f"ms/call); plain version {plain_s * 1e3:.2f} ms; bound "
+                     f"{bound[0] * 1e3:.3f} us ({bound[1]})")
+            out[f"fluid_{name}"] = dict(err=0.0, ms=ms,
+                                        plain_ms=plain_s * 1e3, bound=bound)
+        print(line, flush=True)
+
+    # a toy program through the plain path on the CPU vs the kernels
+    toy = dataclasses.replace(toy_as_program(64, 6, 16, seed=2),
+                              flow_bps=np.linspace(3e6, 9e7, 6))
+    key = np.array([0, AS_CHECK_KEY])
+    cpu = asf.run_as_flows(toy, key, 8, device="cpu", rate_scale=[1.0, 4.0])
+    card = asf.run_as_flows(toy, key, 8, device=dev, rate_scale=[1.0, 4.0])
+    for a, b in zip(cpu, card):
+        for k in a:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            if x.dtype == np.float32:
+                x, y = x.view(np.uint32), y.view(np.uint32)
+            if not np.array_equal(x, y):
+                fail(f"run_as_flows (toy): the card's {k} differs from the "
+                     f"CPU's")
+    print(f"run_as_flows (toy, 64 nodes, 6 flows, 8 replicas, 2 scales): "
+          f"card == CPU in every output (delivered_frac min "
+          f"{min(float(p['delivered_frac'].min()) for p in card):.4f})",
+          flush=True)
+    return out
+
+
+def as_stage_walls(prog, dev, key: int) -> dict:
+    """The host wall (ms, each stage ended by a synchronise) of each stage
+    of one ``run_as_flows`` run as the entry point makes it: the graph's
+    tables (host numpy and their copies), ``as_spf``, the path walk, the
+    fluid tables (``torch.unique``'s read-back), the draws, ``as_fluid``
+    and the copy back.  The entry point's own run has no synchronise
+    between its stages, so the sum exceeds its wall."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.parallel.as_cuda import fluid_launch, spf_launch
+    from tpudes_torch.random import PRNGKey, as_replica_draws
+
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        walls[name] = (t1 - t0) * 1e3
+        t0 = t1
+
+    g = asf.spf_graph(prog, dev)
+    lap("graph")
+    dist, nh_e, nh_n = spf_launch(g, prog.n, prog.spf_rounds)
+    lap("as_spf")
+    path, _, arrived = asf.walk_paths(prog, g["ddst"], nh_e, nh_n)
+    src = torch.as_tensor(prog.src, device=dev).long()
+    reached = (dist[g["ddst"], src] < asf.INF) & arrived
+    lap("walk")
+    t = asf.fluid_tables(prog, path)
+    fm = torch.as_tensor(np.float32(prog.flow_bps), device=dev)
+    lap("fluid_tables")
+    z = as_replica_draws(PRNGKey(key, device=dev), AS_R, len(prog.src))
+    scale = torch.tensor([1.0], device=dev)
+    lap("draws")
+    out, _ = fluid_launch(t, fm, scale, z, reached,
+                          *asf.rate_constants(prog), asf.FP_ROUNDS)
+    lap("as_fluid")
+    for v in out.values():
+        v.cpu()
+    lap("copy_back")
+    return walls
+
+
+def as_bench(kc, dev) -> dict:
+    """Phase 5as: bench_as's numerator (``bench.py:1417-1426``): the main
+    path ``run_as_flows`` at :data:`AS_NODES` x :data:`AS_FLOWS` x
+    :data:`AS_R`, one warm run on key 0 and :data:`AS_TIMED_RUNS` timed
+    runs on keys 1..5, each counted (one ``as_spf`` and one ``as_fluid``
+    launch); ``studies_per_s`` is replicas over the median wall.  No
+    ``vs_scalar``: it needs the host DES, which the port does not have.
+    Then the stages of a run apart (:func:`as_stage_walls`, the median
+    of three) and the :data:`AS_SCALES` grid once, counted.  Returns the
+    launches of the last timed run and of the grid."""
+    from tpudes_torch.parallel.as_flows import run_as_flows
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import as_program
+
+    prog = as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED)
+
+    def run(seed, **kw):
+        return run_as_flows(prog, PRNGKey(seed), AS_R, device=dev, **kw)
+
+    run(0)
+    walls, frac, launches = [], [], {}
+    for i in range(AS_TIMED_RUNS):
+        res, wall, launches = counted(kc, lambda: run(1 + i),
+                                      {"as_spf": 1, "as_fluid": 1},
+                                      "bench_as main path")
+        if res["delivered_frac"].shape != (AS_R, AS_FLOWS) or not (
+                np.isfinite(res["delivered_frac"]).all()
+                and np.isfinite(res["delay_s"]).all()
+                and np.isfinite(res["max_util"]).all()):
+            fail("bench_as main path: outputs of the wrong shape or not "
+                 "finite")
+        walls.append(wall)
+        frac.append(float(res["delivered_frac"].mean()))
+    share, kernel_ms = device_busy_share(lambda: run(AS_TIMED_RUNS + 1),
+                                         "as_")
+    splits = [as_stage_walls(prog, dev, AS_TIMED_RUNS + 1) for _ in range(3)]
+    stages = {k: statistics.median(w[k] for w in splits) for k in splits[0]}
+    grid, gwall, glaunches = counted(
+        kc, lambda: run(AS_TIMED_RUNS + 2, rate_scale=list(AS_SCALES)),
+        {"as_spf": 1, "as_fluid": 1, "as_fluid:sweep": 1},
+        "bench_as rate-scale grid")
+    if len(grid) != len(AS_SCALES) or not (
+            grid[-1]["delivered_frac"] < 1.0).any():
+        fail("bench_as rate-scale grid: wrong points or no loss at the top")
+    med = statistics.median(walls)
+    print(json.dumps(dict(
+        phase="bench_as", n_nodes=AS_NODES, n_flows=AS_FLOWS,
+        replicas=AS_R, studies_per_s=AS_R / med, wall_median_s=med,
+        wall_min_s=min(walls), wall_max_s=max(walls), walls_s=walls,
+        delivered_frac=sum(frac) / len(frac), busy_share=share,
+        kernel_ms=kernel_ms, stage_ms=stages,
+        kernel_launches={k: v for k, v in launches.items() if v},
+        grid_points=list(AS_SCALES), grid_wall_s=gwall,
+        grid_kernel_launches={k: v for k, v in glaunches.items() if v},
+        grid_delivered_frac=[float(p["delivered_frac"].mean())
+                             for p in grid])), flush=True)
+    return {"bench": launches, "grid": glaunches}
+
 @contextlib.contextmanager
 def kernel_library(lib, name: str = "bss_advance"):
     """Run kernel ``name`` from ``lib`` (a loaded library with the same C
@@ -2708,7 +3061,7 @@ def main(device: str = "cuda") -> int:
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
     logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance",
-                         "tcp_advance", "wifi_window"])
+                         "tcp_advance", "wifi_window", "as_flows"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         print("\n".join(ptxas_lines(name, text)), flush=True)
@@ -3183,6 +3536,10 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     win_numbers = window_check(kc, dev)
     print(f"phase 3win: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 3as. as_spf and as_fluid vs their plain versions at bench_as's width
+    t_phase = time.monotonic()
+    as_numbers = as_check(kc, dev)
+    print(f"phase 3as: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -3685,6 +4042,10 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     win_launches = window_main(kc, dev)
     print(f"phase 5win: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 5as. bench_as's numerator: the AS flow engine's main path
+    t_phase = time.monotonic()
+    as_launches = as_bench(kc, dev)
+    print(f"phase 5as: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -3784,6 +4145,22 @@ def main(device: str = "cuda") -> int:
               source=WIN_SOURCE,
               replaces="tpudes/parallel/kernels.py:120 (multi_window_scan, "
               "a lax.scan over wifi_phy_window; XLA, no pallas_call)"),
+        entry("as_spf", as_launches["bench"]["as_spf"], 0.0,
+              as_numbers["spf_hops"]["ms"],
+              as_numbers["spf_hops"]["plain_ms"],
+              as_numbers["spf_hops"]["bound"], source=AS_SOURCE,
+              replaces=AS_SPF_REPLACES),
+        entry("as_fluid", as_launches["bench"]["as_fluid"], 0.0,
+              as_numbers["fluid_bench"]["ms"],
+              as_numbers["fluid_bench"]["plain_ms"],
+              as_numbers["fluid_bench"]["bound"], source=AS_SOURCE,
+              replaces=AS_FLUID_REPLACES),
+        entry("as_fluid:sweep", as_launches["grid"]["as_fluid:sweep"], 0.0,
+              as_numbers["fluid_sweep"]["ms"],
+              as_numbers["fluid_sweep"]["plain_ms"],
+              as_numbers["fluid_sweep"]["bound"], source=AS_SOURCE,
+              replaces=AS_FLUID_REPLACES + ", vmapped over rate scales "
+              ":536-540"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,7 +91,7 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
             bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0,
             tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
-            win_table=0):
+            win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
@@ -102,7 +102,9 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "tcp_advance:red": tcp_red, "tcp_advance:sweep": tcp_sweep,
             "tcp_advance:trf": tcp_trf, "tcp_advance:trf_sweep": tcp_trf_sweep,
             "wifi_window": win, "wifi_window:geometry": win_geometry,
-            "wifi_window:scan": win_scan, "wifi_window:table": win_table}
+            "wifi_window:scan": win_scan, "wifi_window:table": win_table,
+            "as_spf": as_spf, "as_fluid": as_fluid,
+            "as_fluid:sweep": as_fluid_sweep}
 
 
 def _bit_equal(a, b):
@@ -1290,3 +1292,79 @@ def test_wifi_chain_over_f64_equals_f32(card, fn):
     assert torch.equal(got[keep].view(torch.int32),
                        want[keep].view(torch.int32))
     assert in_range[n:].double().mean().item() > 0.99
+
+
+def _as_bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["hops", "delay"])
+@pytest.mark.parametrize("rounds, shared", [(48, None), (3, None),
+                                            (48, False)])
+def test_as_spf_bit_equal_to_plain(card, metric, rounds, shared):
+    """as_spf against spf_math on the card: a 3,000-node BA graph, full and
+    truncated rounds, its rows in shared and in device memory."""
+    from tpudes_torch.parallel import as_cuda
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.scenarios import as_program
+
+    prog = dataclasses.replace(as_program(3000, 64, 1.0, seed=4),
+                               spf_metric=metric, spf_rounds=rounds)
+    g = asf.spf_graph(prog, card)
+    want = asf.spf_math(g, prog.n, rounds)
+    kc.reset_launches()
+    got = as_cuda.spf_cuda(g, prog.n, rounds, shared)
+    torch.cuda.synchronize()
+    assert kc.launches["as_spf"] == 1
+    for a, b in zip(want, got):
+        assert torch.equal(_as_bits(a), _as_bits(b))
+    if rounds < 10:
+        assert (want[0] == asf.INF).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales, split", [([1.0], (4,)),
+                                           ([0.5, 1.0, 4.0, 16.0], (4,)),
+                                           ([1.0, 8.0], (1, 3))])
+def test_as_fluid_bit_equal_to_plain(card, scales, split):
+    """as_fluid against fluid_math on the card over a (C, 64) grid whose
+    upper points overload links, one launch and a run split in two."""
+    from tpudes_torch.parallel import as_cuda
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.scenarios import as_program
+
+    prog = dataclasses.replace(as_program(3000, 64, 1.0, seed=4),
+                               flow_bps=np.full(64, 2e7))
+    args, _ = asf.fluid_inputs(prog, np.array([0, 9]), 64, scales, card)
+    want, _ = asf.fluid_math(*args, asf.FP_ROUNDS)
+    lf = None
+    for rounds in split:
+        got, lf = as_cuda.fluid_cuda(*args, rounds, lf, carry=True)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(_as_bits(want[k]), _as_bits(got[k])), k
+    if len(scales) > 2:
+        assert (want["delivered_frac"][-1] < 1.0).any()
+
+
+@pytest.mark.cuda
+def test_as_flows_on_card_equals_cpu(card):
+    """run_as_flows on the card (one as_spf and one as_fluid launch)
+    against the plain path on the CPU."""
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.scenarios import as_program
+
+    prog = as_program(2000, 32, 1.0, seed=6)
+    key = np.array([0, 5])
+    kc.reset_launches()
+    got = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0])
+    assert kc.launches == _counts(as_spf=1, as_fluid=1, as_fluid_sweep=1)
+    want = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0],
+                            device="cpu")
+    for w, g in zip(want, got):
+        for k in w:
+            a, b = np.asarray(w[k]), np.asarray(g[k])
+            if a.dtype == np.float32:
+                a, b = a.view(np.uint32), b.view(np.uint32)
+            assert np.array_equal(a, b), k

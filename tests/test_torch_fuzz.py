@@ -1,7 +1,7 @@
 """The port against the reference on fuzz-drawn configurations.
 
-For each ported engine — the TCP dumbbell, the WiFi BSS and the LTE SM
-engine — a few configurations are drawn by seed from the reference
+For each ported engine — the TCP dumbbell, the WiFi BSS, the LTE SM
+engine and the AS flow engine — a few configurations are drawn by seed from the reference
 fuzzer's envelope (``tpudes/fuzz/engines.py``: ``DumbbellFuzzer``
 ``:778``, ``BssFuzzer`` ``:376``, ``LteSmFuzzer`` ``:545``), built with
 the fuzzer's own ``build`` (the reference's scenario builders and
@@ -16,7 +16,10 @@ ROADMAP C1); the LTE engine's integer and traffic outputs, its ``sinr``
 to a relative 1e-6 (the bound of the port's LTE tests).  A random-walk
 BSS draw takes the reference's walk velocities (ROADMAP C3, an ulp in
 about one value of 75).  The dumbbell's app-limited ``traffic`` draws
-run too (``DumbbellProgram.traffic`` crosses with the program).
+run too (``DumbbellProgram.traffic`` crosses with the program).  The AS
+flow engine's draws take ``surrogate="off"`` (the smooth surrogate is not
+ported, ROADMAP A14) and are compared bit for bit in every output, their
+workload draws included.
 """
 
 import numpy as np
@@ -28,11 +31,13 @@ from tpudes.fuzz.envelope import ScenarioGen
 from tpudes.ops.mobility import MobilityProgram as JaxMobility
 from tpudes.ops.mobility import walk_segment_velocities as jax_walk
 from tpudes_torch.convert import (
+    AS_FIELDS,
     BSS_FIELDS,
     DUMBBELL_FIELDS,
     MOBILITY_FIELDS,
     PROGRAM_FIELDS,
     TRAFFIC_FIELDS,
+    as_from_numpy,
     bss_from_numpy,
     dumbbell_from_numpy,
     mobility_from_numpy,
@@ -40,6 +45,7 @@ from tpudes_torch.convert import (
     traffic_from_numpy,
 )
 from tpudes_torch.ops import mobility as port_mobility
+from tpudes_torch.parallel.as_flows import run_as_flows
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.parallel.replicated import run_replicated_bss
 from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
@@ -129,3 +135,22 @@ def test_lte_sm_draw_equals_reference(seed):
     ints = [k for k in LTE_INT_KEYS + LTE_TRAFFIC_KEYS if k in want]
     _assert_agree("lte_sm", cfg, want, got, ints)
     _assert_agree("lte_sm", cfg, want, got, ["sinr"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_as_flows_draw_equals_reference(seed):
+    fuzzer, cfg = _draw("as_flows", seed)
+    cfg = dict(cfg, surrogate="off")
+    prog = fuzzer.build(cfg)
+    want = fuzzer.run_scalar(prog, cfg)
+    got = run_as_flows(as_from_numpy(_fields(prog, AS_FIELDS)), _key(cfg),
+                       int(cfg["replicas"]), device="cpu")
+    assert set(got) == set(want)
+    _assert_agree("as_flows", cfg, want, got, sorted(want))
+
+
+def test_as_flows_fuzz_axes_are_the_reference_envelope():
+    from tpudes.parallel.as_flows import FUZZ_ENVELOPE
+    from tpudes_torch.parallel.as_flows import FUZZ_AXES
+
+    assert FUZZ_AXES == dict(FUZZ_ENVELOPE.axes)

@@ -10,8 +10,9 @@ The engines: the LTE SM engine
 replica engine (:func:`tpudes_torch.parallel.replicated.
 run_replicated_bss`, ``csrc/bss_advance.cu``), the TCP dumbbell
 (:func:`tpudes_torch.parallel.tcp_dumbbell.run_tcp_dumbbell`,
-``csrc/tcp_advance.cu``) and the fused WiFi PHY window
-(:mod:`tpudes_torch.parallel.kernels`, ``csrc/wifi_window.cu``).
+``csrc/tcp_advance.cu``), the fused WiFi PHY window
+(:mod:`tpudes_torch.parallel.kernels`, ``csrc/wifi_window.cu``) and the AS
+flow engine (:func:`run_as_flows`, ``csrc/as_flows.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without CUDA they raise rather than fall back.
@@ -19,4 +20,13 @@ for ``device="cpu"``; without CUDA they raise rather than fall back.
 
 from tpudes_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "run_as_flows"]
+
+
+def __getattr__(name: str):
+    # the engine is imported when first asked for, not with the package
+    if name == "run_as_flows":
+        from tpudes_torch.parallel.as_flows import run_as_flows
+
+        return run_as_flows
+    raise AttributeError(f"module 'tpudes_torch' has no attribute {name!r}")

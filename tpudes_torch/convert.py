@@ -1,12 +1,13 @@
 """Carry the reference's programs and kernel states into the port.
 
 The JAX package's ``LteSmProgram``, its ``MobilityProgram``, its
-``TrafficProgram``, its ``BssProgram``, its ``DumbbellProgram`` and their
-states are numpy-able;
+``TrafficProgram``, its ``BssProgram``, its ``DumbbellProgram``, its
+``AsFlowsProgram`` and their states are numpy-able;
 the port takes their numpy values (it never imports the JAX package).
 This is how the tests and a user move a scenario lowered by the
 reference (``tpudes.scenarios.build_lena`` + ``lower_lte_sm``, ``build_bss`` +
-``lower_bss``, or ``build_dumbbell`` + ``lower_dumbbell``) onto the card.
+``lower_bss``, ``build_dumbbell`` + ``lower_dumbbell``, or
+``build_as_network`` + ``lower_as_flows``) onto the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from tpudes_torch.device import resolve_device
 from tpudes_torch.ops.mobility import MobilityProgram
+from tpudes_torch.parallel.as_flows import AsFlowsProgram
 from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.parallel.kernels_cuda import SM_STATE
 from tpudes_torch.parallel.lte_sm import LteSmProgram
@@ -250,3 +252,39 @@ def dumbbell_state_from_numpy(state: Mapping, device=None) -> dict:
         out[k] = torch.tensor(a, dtype=torch.float32 if dt == "f32"
                               else torch.int32, device=device)
     return out
+
+
+#: the reference ``AsFlowsProgram``'s fields (``traffic`` crosses through
+#: :func:`traffic_from_numpy`; ``surrogate`` as it is, and the port
+#: refuses to run a program that sets it)
+AS_FIELDS = (
+    "n", "edges", "delay_s", "rate_bps", "src", "dst", "flow_bps",
+    "pkt_bytes", "sim_s", "max_hops", "spf_rounds", "rate_jitter",
+    "spf_metric", "traffic", "surrogate",
+)
+
+
+def as_from_numpy(fields: Mapping) -> AsFlowsProgram:
+    """Port program from the reference ``AsFlowsProgram``'s fields
+    (:data:`AS_FIELDS`; those missing take the defaults).  ``traffic`` is
+    None or a workload with :data:`TRAFFIC_FIELDS` as attributes (the
+    reference's ``TrafficProgram``)."""
+    tr = fields.get("traffic")
+    if tr is not None:
+        tr = traffic_from_numpy({k: getattr(tr, k) for k in TRAFFIC_FIELDS})
+    opt = {k: fields[k] for k in ("max_hops", "spf_rounds") if k in fields}
+    return AsFlowsProgram(
+        n=int(fields["n"]),
+        edges=np.asarray(fields["edges"], np.int32),
+        delay_s=np.asarray(fields["delay_s"], np.float64),
+        rate_bps=np.asarray(fields["rate_bps"], np.float64),
+        src=np.asarray(fields["src"], np.int32),
+        dst=np.asarray(fields["dst"], np.int32),
+        flow_bps=np.asarray(fields["flow_bps"], np.float64),
+        pkt_bytes=int(fields["pkt_bytes"]),
+        sim_s=float(fields["sim_s"]),
+        rate_jitter=float(fields.get("rate_jitter", 0.3)),
+        spf_metric=str(fields.get("spf_metric", "hops")),
+        traffic=tr, surrogate=fields.get("surrogate"),
+        **{k: int(v) for k, v in opt.items()},
+    )

@@ -39,9 +39,13 @@ The TCP dumbbell's step (``tpudes/parallel/tcp_dumbbell.py``) adds
 x)`` with glibc's ``powf`` (it equals that on every value tried, and
 glibc's own ``cbrtf`` on only about two thirds of them).
 
-:func:`fma`, :func:`log`, :func:`log10`, :func:`exp10`, :func:`powf`, :func:`cbrt`,
-:func:`exp`, :func:`log1p` and :func:`erfc` reproduce these from IEEE f32 and f64
-operations and integer bit operations,
+``jax.random.normal`` (the AS flow engine's rate jitter) adds ``erf_inv``,
+XLA's f32 polynomial in ``-log1p(-x^2)`` with its multiply-adds fused
+(read from the optimised HLO of a jitted ``jax.random.normal``).
+
+:func:`fma`, :func:`log`, :func:`log10`, :func:`exp10`, :func:`powf`,
+:func:`cbrt`, :func:`exp`, :func:`log1p`, :func:`erfc` and :func:`erf_inv`
+reproduce these from IEEE f32 and f64 operations and integer bit operations,
 which round the same way on the CPU and on the card.  An f64 product of
 two f32 values is exact, so ``fma`` rounds the f64 sum once more to
 f32: it can differ from a true fused multiply-add only where the f64
@@ -379,3 +383,32 @@ def erfc(x: torch.Tensor) -> torch.Tensor:
     far = torch.where(-x2 < f32(x, _ERFC_EXP_MIN), 0.0, far)
     far = torch.where(x < 0.0, 2.0 - far, far)
     return torch.where(ax < 1.0, near, far)
+
+
+#: XLA's f32 ``erf_inv`` (the CHLO expansion): the polynomials in ``w``
+#: for ``w < 5`` and above, highest degree first
+_ERFINV_NEAR = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_FAR = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``erf_inv`` of f32 ``x`` in ``[-1, 1]`` as the reference's compiled
+    HLO expands it on the CPU: ``w = -log1p(-x^2)`` (:func:`log1p`), then
+    ``w - 2.5`` below 5 or ``sqrt(w) - 3`` above, the matching degree-8
+    polynomial in it with its multiply-adds fused, times ``x``; ``x * inf``
+    at ``|x| = 1``."""
+    w = -log1p(x * -x)
+    near = w < 5.0
+    t = torch.where(near, w - 2.5, sqrt(w) - 3.0)
+    t64 = t.double()
+    acc = torch.where(near, f32_in_f64(x, _ERFINV_NEAR[0]),
+                      f32_in_f64(x, _ERFINV_FAR[0]))
+    for a, b in zip(_ERFINV_NEAR[1:], _ERFINV_FAR[1:]):
+        c = torch.where(near, f32_in_f64(x, a), f32_in_f64(x, b))
+        acc = torch.addcmul(c, acc, t64).float().double()
+    out = acc.float() * x
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), out)

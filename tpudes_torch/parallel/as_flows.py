@@ -1,0 +1,431 @@
+"""The AS flow engine on the card (BASELINE config #5).
+
+Counterpart of ``tpudes/parallel/as_flows.py``: a BRITE AS graph of N
+nodes and E undirected links carries F sparse CBR flows, and R
+Monte-Carlo replicas draw each flow's offered rate around its nominal.
+One run is two stages:
+
+- **routing** (:func:`device_spf`, ``as_flows.py:213-267``): Bellman-Ford
+  over the ``2E`` directed edges (edges first as given, then reversed) for
+  the D distinct destinations, ``spf_rounds`` Jacobi rounds ``new[u] =
+  min(old[u], min over u->v of old[v] + w)``, then each node's next hop
+  toward each destination, the smallest directed index among the edges
+  whose ``w + dist[v]`` is within ``1 + 1e-6`` of the best; then each
+  flow's path, a walk of at most ``max_hops`` hops (:func:`walk_paths`,
+  ``:270-293``), shared by every replica;
+- **the fluid fixed point** (:func:`fluid_math`, ``:309-377`` and the
+  ``while_loop`` at ``:485-518``): :data:`FP_ROUNDS` rounds in which each
+  flow walks its path, adding its surviving rate ``rate * exp(lg)`` to
+  each link's load and the link's log delivery to ``lg``; a link's
+  delivery is ``min(1, capacity / load)``; then the M/M/1 queueing,
+  serialisation and propagation delay summed along each path.
+
+On the card each stage is one launch of a hand-written kernel in
+``csrc/as_flows.cu`` (:mod:`tpudes_torch.parallel.as_cuda`): ``as_spf``, a
+CTA a destination row, and ``as_fluid``, a CTA a ``(point, replica)``.
+On the CPU the wrappers take the plain versions, :func:`spf_math` and
+:func:`fluid_math`.
+
+The arithmetic is the reference's as its CPU backend compiles it (the
+optimised HLO of the jitted runner): ``load / cap`` is a product with the
+folded f32 reciprocal ``1 / cap``; ``8 pkt / cap`` is a folded f32
+constant ``k``; a link's delay ``rho / (1 - rho) * k + k + dly`` fuses its
+product into one multiply-add, as does the rate's exponent ``z * jitter -
+jitter^2 / 2``, and where ``k`` and ``dly`` are each one value on every
+link (a line of equal links) the compiler adds ``k + dly`` first
+(:func:`link_constants`); ``exp`` and ``log`` are the compiled ones
+(:mod:`tpudes_torch.ops.fused`).  A link's load is the sum of its
+contributions in (hop, flow) order, from 0: the CPU applies a scatter's
+duplicate updates in update order, hop after hop.  Neither version sums
+with ``atomicAdd`` or ``index_add_``, whose order is not fixed.
+
+The replica axis is not padded to a power of two (the reference's
+bucket, ``tpudes/parallel/runtime.py:115``): replica ``r``'s draws are
+``normal(fold_in(key, r), (F,))`` and every output row depends on its
+own draws only, so the real replicas equal the reference's padded run.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``mesh`` (A12), checkpoints and ``block=False`` (A11), the
+``TpudesObs`` columns (A10) and the smooth surrogate
+(``prog.surrogate``, ``build_as_diff``: A14); ``as_study`` (A13) and
+``lower_as_flows`` from a host object graph (A16) are not here either.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpudes_torch.device import resolve_device
+from tpudes_torch.ops.fused import exp, f32, fma, log
+from tpudes_torch.parallel.replicated import _not_ported, chunk_bounds
+from tpudes_torch.random import as_replica_draws
+from tpudes_torch.traffic.device import avg_mult
+
+__all__ = ["AsFlowsProgram", "FP_ROUNDS", "INF", "device_spf",
+           "fluid_inputs", "fluid_math", "fluid_tables", "run_as_flows",
+           "spf_graph", "spf_math", "walk_paths"]
+
+#: the distance of an unreachable node (``as_flows.py:37``)
+INF = 1e30
+#: "no edge": the next-hop tables' fill (``as_flows.py:263``)
+BIG = 2**30
+#: fluid fixed-point rounds (``as_flows.py:298``)
+FP_ROUNDS = 4
+#: ``1 + 1e-6`` in f32: the next hop's tie slack (``as_flows.py:264``)
+NEXT_HOP_SLACK = float(np.float32(1 + 1e-6))
+#: a link's utilisation never enters the delay above this
+#: (``as_flows.py:364``)
+RHO_MAX = 0.99
+#: the utilisation below which a link delivers all (``as_flows.py:338``)
+UTIL_MIN = 1e-9
+
+#: the reference fuzzer's axes (``as_flows.py:43-68``): the documented
+#: region of BA graphs and sparse CBR loads the port is held to
+FUZZ_AXES = {
+    "n_nodes": ("int", 24, 72),
+    "n_flows": ("int", 2, 6),
+    "flow_kbps": ("choice", (200.0, 400.0, 800.0)),
+    "pkt_bytes": ("choice", (256, 512)),
+    "topo_seed": ("int", 1, 999),
+    "sim_ms": ("int", 1000, 2500),
+    "replicas": ("int", 2, 9),
+    "chunk_divisor": ("choice", (2,)),
+    "key_seed": ("int", 0, 2**16),
+    "traffic": ("choice", ("off", "cbr", "mmpp", "onoff", "trace")),
+    "tr_burst": ("float", 0.1, 0.6),
+    "tr_phase": ("float", 0.0, 1.0),
+    "surrogate": ("choice", ("off", "ste")),
+}
+
+
+@dataclass(frozen=True)
+class AsFlowsProgram:
+    """Static program of one AS-topology traffic study
+    (``as_flows.py:71-108``), the same fields."""
+
+    n: int                      # nodes
+    edges: np.ndarray           # (E, 2) undirected
+    delay_s: np.ndarray         # (E,)
+    rate_bps: np.ndarray        # (E,)
+    src: np.ndarray             # (F,) flow source node
+    dst: np.ndarray             # (F,) flow destination node
+    flow_bps: np.ndarray        # (F,) nominal offered rate
+    pkt_bytes: int
+    sim_s: float
+    max_hops: int = 32          # path-walk bound
+    spf_rounds: int = 48        # Bellman-Ford rounds
+    rate_jitter: float = 0.3    # per-replica lognormal rate spread
+    #: "hops" (every link weighs 1) or "delay" (propagation delay)
+    spf_metric: str = "hops"
+    #: a :class:`~tpudes_torch.traffic.program.TrafficProgram` over the F
+    #: flows (None: constant nominal rates): each flow's rate scales by
+    #: :func:`~tpudes_torch.traffic.device.avg_mult` over ``sim_s``
+    traffic: object = None
+    #: the reference's smooth-surrogate config; not ported (A14): a
+    #: program that sets it is refused
+    surrogate: object = None
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def spf_graph(prog: AsFlowsProgram, device) -> dict:
+    """The routing stage's graph on ``device``: the ``2E`` directed edges
+    ``u``, ``v`` (int64) and weights ``w`` (f32: 1, or the link's delay in
+    f32), the same edges as a CSR grouped by source node (``row_ptr``
+    ``(N + 1,)``, ``col_v``, ``col_w``, ``col_e`` int32 / f32 in directed
+    index order within a node), the ``(D,)`` distinct destinations
+    ``dsts`` and each flow's row ``ddst`` (``as_flows.py:227-235``)."""
+    e = np.concatenate([prog.edges, prog.edges[:, ::-1]]).astype(np.int64)
+    if prog.spf_metric == "hops":
+        w = np.ones(e.shape[0], np.float32)
+    elif prog.spf_metric == "delay":
+        w = _f32(np.concatenate([prog.delay_s, prog.delay_s]))
+    else:
+        raise ValueError(f"unknown spf_metric {prog.spf_metric!r}")
+    order = np.argsort(e[:, 0], kind="stable")
+    counts = np.bincount(e[:, 0], minlength=prog.n)
+    row_ptr = np.zeros(prog.n + 1, np.int32)
+    row_ptr[1:] = np.cumsum(counts)
+    dsts, inv = np.unique(np.asarray(prog.dst), return_inverse=True)
+
+    def on(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return dict(
+        u=on(e[:, 0], torch.int64), v=on(e[:, 1], torch.int64),
+        w=on(w, torch.float32),
+        row_ptr=on(row_ptr, torch.int32), col_v=on(e[order, 1], torch.int32),
+        col_w=on(w[order], torch.float32), col_e=on(order, torch.int32),
+        dsts=on(dsts, torch.int32), ddst=on(inv, torch.int64),
+    )
+
+
+def spf_math(g: dict, n: int, rounds: int) -> tuple:
+    """The plain routing stage (``as_flows.py:243-266``) on ``g``'s device:
+    ``(dist, nh_edge, nh_node)``, ``(D, N)`` f32, int32, int32.  Each round
+    relaxes every directed edge from the round's old table (a scatter-min,
+    which is exact in any order)."""
+    dsts = g["dsts"].long()
+    D = dsts.shape[0]
+    u, v, w = g["u"], g["v"], g["w"]
+    dev = w.device
+    dist = torch.full((D, n), INF, dtype=torch.float32, device=dev)
+    dist[torch.arange(D, device=dev), dsts] = 0.0
+    idx = u[None, :].expand(D, -1)
+    for _ in range(int(rounds)):
+        dist = dist.scatter_reduce(1, idx, dist[:, v] + w[None, :], "amin",
+                                   include_self=True)
+    score = w[None, :] + dist[:, v]
+    best = torch.full((D, n), INF, dtype=torch.float32, device=dev)
+    best = best.scatter_reduce(1, idx, score, "amin", include_self=True)
+    eidx = torch.arange(u.shape[0], dtype=torch.int32, device=dev)
+    cand = torch.where(score <= best[:, u] * f32(score, NEXT_HOP_SLACK),
+                       eidx[None, :], BIG)
+    nh_edge = torch.full((D, n), BIG, dtype=torch.int32, device=dev)
+    nh_edge = nh_edge.scatter_reduce(1, idx, cand, "amin", include_self=True)
+    nh_node = torch.where(
+        nh_edge < BIG, v[torch.clamp_max(nh_edge, u.shape[0] - 1).long()]
+        .to(torch.int32), -1)
+    return dist, nh_edge, nh_node
+
+
+def device_spf(prog: AsFlowsProgram, device=None) -> tuple:
+    """``(ddst, dist, nh_edge, nh_node)`` for the program's distinct
+    destinations (``as_flows.py:213-267``): ``ddst`` maps a flow to its
+    row of the ``(D, N)`` tables.  One ``as_spf`` launch on the card
+    (:func:`tpudes_torch.parallel.as_cuda.spf_launch`), :func:`spf_math`
+    on the CPU."""
+    from tpudes_torch.parallel.as_cuda import spf_launch
+
+    g = spf_graph(prog, resolve_device(device))
+    return (g["ddst"], *spf_launch(g, prog.n, prog.spf_rounds))
+
+
+def walk_paths(prog: AsFlowsProgram, ddst, nh_edge, nh_node) -> tuple:
+    """``(path, hops, arrived)``: each flow's ``(F, H)`` directed-edge
+    index per hop (``2E`` past its end), its hop count and whether the walk
+    ended at its destination (``as_flows.py:270-293``); shared by every
+    replica."""
+    dev = nh_edge.device
+    E2 = 2 * prog.edges.shape[0]
+    dst = torch.as_tensor(np.asarray(prog.dst), dtype=torch.int64,
+                          device=dev)
+    cur = torch.as_tensor(np.asarray(prog.src), dtype=torch.int64,
+                          device=dev)
+    cols = []
+    for _ in range(int(prog.max_hops)):
+        done = (cur == dst) | (cur < 0)
+        at = torch.clamp_min(cur, 0)
+        edge = torch.where(done, BIG, nh_edge[ddst, at])
+        cur = torch.where(done, -1, nh_node[ddst, at].long())
+        cols.append(torch.where(edge < BIG, edge, E2))
+    path = torch.stack(cols, 1).to(torch.int32) if cols else torch.zeros(
+        (len(prog.src), 0), dtype=torch.int32, device=dev)
+    hops = (path < E2).sum(1, dtype=torch.int32)
+    arrived = (cur == -1) | (cur == dst)
+    return path, hops, arrived
+
+
+def link_constants(prog: AsFlowsProgram) -> tuple:
+    """``(c, k, dly, fold)``: each undirected link's ``(E,)`` f32 constants
+    as the compiled runner folds them, ``1 / cap`` and ``8 pkt / cap``
+    divided in f32 and the delay in f32 (``as_flows.py:336``,
+    ``:366-369``), and whether ``k`` and ``dly`` are each one value on
+    every link.  Then the compiler holds them as two scalar constants and
+    adds them first: a link's delay is ``fma(q, k, k + dly)``, not
+    ``fma(q, k, k) + dly``."""
+    cap = _f32(prog.rate_bps)
+    with np.errstate(divide="ignore"):
+        c = np.float32(1.0) / cap
+        k = np.float32(8.0 * prog.pkt_bytes) / cap
+    dly = _f32(prog.delay_s)
+    fold = bool((k == k[0]).all() and (dly == dly[0]).all())
+    return c, k, dly, fold
+
+
+def fluid_tables(prog: AsFlowsProgram, path: torch.Tensor) -> dict:
+    """The fluid stage's tables, built once per run on ``path``'s device
+    from the ``(F, H)`` paths: the ``L`` touched directed links ``links``
+    (ascending), each flow-hop's compact link ``hop_link`` ``(F, H)``
+    int32 (-1 past the path's end), each link's contributions as a CSR
+    ``ptr`` ``(L + 1,)`` / ``slot`` int32 in (hop, flow) order, a slot
+    being ``h F + f``, and the links' f32 constants ``c``, ``k`` and
+    ``dly`` and the flag ``fold`` (:func:`link_constants`)."""
+    dev = path.device
+    F, H = path.shape
+    E = prog.edges.shape[0]
+    valid = path < 2 * E
+    links = torch.unique(path[valid].long())
+    hop_link = torch.where(valid, torch.searchsorted(links, path.long()),
+                           -1).to(torch.int32)
+    slot = (torch.arange(H, device=dev)[None, :] * F
+            + torch.arange(F, device=dev)[:, None])
+    key = (hop_link.long() * (H * F) + slot)[valid]
+    ordered = torch.sort(key).values
+    counts = torch.bincount(hop_link[valid].long(), minlength=links.numel())
+    ptr = torch.zeros(links.numel() + 1, dtype=torch.int32, device=dev)
+    ptr[1:] = torch.cumsum(counts, 0)
+    *consts, fold = link_constants(prog)
+    c, k, dly = (torch.as_tensor(a, device=dev)[links % E] for a in consts)
+    return dict(links=links, hop_link=hop_link.contiguous(), ptr=ptr,
+                slot=(ordered % (H * F)).to(torch.int32), c=c.contiguous(),
+                k=k.contiguous(), dly=dly.contiguous(), fold=fold)
+
+
+def rate_constants(prog: AsFlowsProgram) -> tuple:
+    """``(jitter, half_jitter_sq)`` in f32, the rate exponent's two
+    constants ``z * jitter - jitter^2 / 2`` (``as_flows.py:491-493``)."""
+    j = float(prog.rate_jitter)
+    return float(np.float32(j)), float(np.float32(0.5 * j ** 2))
+
+
+def flow_rates(fm, scale, z, reached, jitter: float, hj2: float):
+    """``(C, R, F)`` offered rates: ``(fbps mult) * scale * exp(z jitter -
+    jitter^2 / 2)``, that association, the exponent one multiply-add, 0
+    where the flow is not reached (``as_flows.py:491-494``)."""
+    e = exp(fma(z, f32(z, jitter), f32(z, -hj2)))               # (R, F)
+    rate = (fm[None, :] * scale[:, None])[:, None, :] * e[None]
+    return torch.where(reached, rate, f32(rate, 0.0))
+
+
+def _gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` with index ``-1`` reading 0 (a pad column)."""
+    pad = torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], -1)[..., idx.long() % (x.shape[-1] + 1)]
+
+
+def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
+               rounds: int, lfrac=None) -> tuple:
+    """The plain fluid stage over the ``(C, R)`` grid of C rate scales and
+    R replicas: ``rounds`` rounds from the carried log deliveries
+    ``lfrac`` ``(C, R, L)`` (None: zeros), then the outputs.  ``fm`` is
+    ``(F,)`` f32 nominal rate times the workload's multiplier, ``scale``
+    ``(C,)``, ``z`` ``(R, F)``, ``reached`` ``(F,)`` bool.  Returns
+    ``(out, lfrac)``, ``out`` with ``goodput_bps``, ``delay_s``,
+    ``delivered_frac`` ``(C, R, F)`` and ``max_util`` ``(C, R)``.
+
+    A link's load sums its padded contribution list one list position at
+    a time, from 0 (:func:`fluid_tables`' (hop, flow) order)."""
+    hop_link, c, k, dly = t["hop_link"], t["c"], t["k"], t["dly"]
+    F, H = hop_link.shape
+    L = c.shape[0]
+    C, R = scale.shape[0], z.shape[0]
+    dev = z.device
+    rate = flow_rates(fm, scale, z, reached, jitter, hj2)
+    if lfrac is None:
+        lfrac = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
+    counts = (t["ptr"][1:] - t["ptr"][:-1]).long()
+    width = int(counts.max()) if L else 0
+    pos = torch.arange(width, device=dev)
+    # (L, width) slots of each link's list; H F (a zero column) past its end
+    at = t["ptr"][:-1, None].long() + pos[None, :]
+    lists = torch.where(pos[None, :] < counts[:, None],
+                        t["slot"][torch.clamp_max(at, max(
+                            t["slot"].numel() - 1, 0))].long(), H * F)
+    lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
+    util = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
+    for _ in range(int(rounds)):
+        lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
+        contrib = torch.zeros((C, R, H * F + 1), dtype=torch.float32,
+                              device=dev)
+        for h in range(H):
+            contrib[..., h * F:(h + 1) * F] = rate * exp(lg)
+            lg = lg + _gather_last(lfrac, hop_link[:, h])
+        load = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
+        for j in range(width):
+            load = load + contrib[..., lists[:, j]]
+        util = load * c
+        one = torch.ones_like(util)
+        lfrac = log(torch.minimum(
+            one / torch.clamp_min(util, f32(util, UTIL_MIN)), one))
+    rho = torch.clamp_max(util, f32(util, RHO_MAX))
+    q = rho / (1.0 - rho)
+    ldel = fma(q, k, k + dly) if t["fold"] else fma(q, k, k) + dly
+    dl = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
+    for h in range(H):
+        dl = dl + _gather_last(ldel, hop_link[:, h])
+    frac = torch.where(reached, exp(lg), f32(lg, 0.0))
+    max_util = (torch.clamp_min(util.amax(-1), 0.0) if L else
+                torch.zeros((C, R), dtype=torch.float32, device=dev))
+    return dict(goodput_bps=rate * frac,
+                delay_s=torch.where(reached, dl, f32(dl, float("inf"))),
+                delivered_frac=frac, max_util=max_util), lfrac
+
+
+def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
+                 device=None) -> tuple:
+    """``(args, hops)``: the routing stage (:func:`device_spf`, one
+    ``as_spf`` launch on the card) and the path walk of one run, then the
+    fluid stage's leading arguments ``(tables, fm, scale, z, reached,
+    jitter, half_jitter_sq)`` for :func:`fluid_math` and
+    :func:`~tpudes_torch.parallel.as_cuda.fluid_launch`: ``key`` the run's
+    ``(2,)`` key, ``scales`` the C rate scales; and each flow's hop
+    count."""
+    dev = resolve_device(device)
+    key = torch.as_tensor(key, dtype=torch.int64).to(dev)
+    ddst, dist, nh_edge, nh_node = device_spf(prog, dev)
+    path, hops, arrived = walk_paths(prog, ddst, nh_edge, nh_node)
+    src = torch.as_tensor(np.asarray(prog.src), dtype=torch.int64,
+                          device=dev)
+    reached = (dist[ddst, src] < INF) & arrived
+    fm = torch.as_tensor(_f32(prog.flow_bps), device=dev)
+    if prog.traffic is not None:
+        horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
+        fm = fm * avg_mult(prog.traffic.operands(dev),
+                           prog.traffic.epoch_us, horizon)
+    scale = torch.tensor([float(s) for s in scales], dtype=torch.float32,
+                         device=dev)
+    z = as_replica_draws(key, int(replicas), len(prog.src))
+    return (fluid_tables(prog, path), fm, scale, z, reached,
+            *rate_constants(prog)), hops
+
+
+def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
+                 rate_scale=None, chunk_rounds: int | None = None,
+                 device=None, mesh=None, checkpoint=None, block: bool = True,
+                 obs: bool = False):
+    """Run ``replicas`` replicas of ``prog`` (``as_flows.py:647-783``):
+    a dict of numpy arrays, ``goodput_bps``, ``delay_s`` (inf where the
+    flow is not reached) and ``delivered_frac`` ``(R, F)`` f32,
+    ``max_util`` ``(R,)`` f32, ``hops`` ``(F,)`` int32 and
+    ``unreachable`` ``(F,)`` bool.
+
+    ``rate_scale=[...]`` runs C offered-load scales as one ``(C, R)`` grid
+    (the routing stage once) and returns one dict a point.
+    ``chunk_rounds=N`` runs the fixed point N rounds a launch, carrying the
+    links' log deliveries: the same result bit for bit.  ``device``
+    defaults to the card, where a run is one ``as_spf`` launch and one
+    ``as_fluid`` launch a chunk."""
+    if mesh is not None:
+        raise _not_ported("mesh", "A12")
+    if checkpoint is not None:
+        raise _not_ported("checkpoint", "A11")
+    if not block:
+        raise _not_ported("block=False", "A11")
+    if obs:
+        raise _not_ported("TpudesObs", "A10")
+    if prog.surrogate is not None:
+        raise _not_ported("the smooth surrogate (prog.surrogate, "
+                          "build_as_diff)", "A14")
+    from tpudes_torch.parallel.as_cuda import fluid_launch
+
+    scales = [1.0] if rate_scale is None else [float(s) for s in rate_scale]
+    args, hops = fluid_inputs(prog, key, replicas, scales, device)
+    lfrac = None
+    done = 0
+    for bound in chunk_bounds(FP_ROUNDS, chunk_rounds or FP_ROUNDS):
+        out, lfrac = fluid_launch(*args, bound - done, lfrac,
+                                  carry=bound < FP_ROUNDS)
+        done = bound
+    shared = dict(hops=hops.cpu().numpy(),
+                  unreachable=(~args[4]).cpu().numpy())
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    points = [dict({k: v[c] for k, v in host.items()}, **shared)
+              for c in range(len(scales))]
+    return points[0] if rate_scale is None else points

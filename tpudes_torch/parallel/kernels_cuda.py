@@ -136,7 +136,10 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: ``:trf_sweep``; ``wifi_window`` is the fused PHY window's
 #: (:mod:`tpudes_torch.parallel.window_cuda`; a scan is two launches),
 #: the scan's geometry kernel also under ``:geometry``, its scan kernel
-#: under ``:scan`` and its table-model windows under ``:table``
+#: under ``:scan`` and its table-model windows under ``:table``;
+#: ``as_spf`` and ``as_fluid`` are the AS flow engine's routing stage and
+#: fluid fixed point (:mod:`tpudes_torch.parallel.as_cuda`), the latter's
+#: launches over more than one rate scale also under ``:sweep``
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
@@ -148,6 +151,7 @@ launches = {
     "tcp_advance:trf": 0, "tcp_advance:trf_sweep": 0,
     "wifi_window": 0, "wifi_window:geometry": 0, "wifi_window:scan": 0,
     "wifi_window:table": 0,
+    "as_spf": 0, "as_fluid": 0, "as_fluid:sweep": 0,
 }
 
 

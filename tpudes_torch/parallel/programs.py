@@ -1,9 +1,9 @@
-"""Small BSS and dumbbell programs and workload points, built without the
+"""Small BSS, dumbbell and AS programs and workload points, built without the
 host graph.
 
 Counterpart of ``tpudes/parallel/programs.py``'s ``toy_bss_program``,
-``toy_dumbbell_program`` and ``toy_traffic_points`` (``programs.py:18-47``,
-``:71-89``, ``:92-136``): the
+``toy_dumbbell_program``, ``toy_traffic_points`` and ``toy_as_program``
+(``programs.py:18-47``, ``:71-89``, ``:92-136``, ``:139-159``): the
 deterministic numpy recipes the reference's ``bench_traffic_burst`` and
 its workload-sweep tests run, and :func:`bss_onoff_traffic`, that
 bench's ON-OFF workload at a matched mean load
@@ -16,7 +16,9 @@ import math
 
 import numpy as np
 
+from tpudes_torch.helper.topology import BriteTopologyHelper
 from tpudes_torch.ops.wifi_error import MODES_BY_NAME
+from tpudes_torch.parallel.as_flows import AsFlowsProgram
 from tpudes_torch.parallel.replicated import BssProgram
 from tpudes_torch.parallel.tcp_dumbbell import INT32_MAX, DumbbellProgram
 from tpudes_torch.traffic.program import (
@@ -25,8 +27,8 @@ from tpudes_torch.traffic.program import (
     unify_shapes,
 )
 
-__all__ = ["bss_onoff_traffic", "toy_bss_program", "toy_dumbbell_program",
-           "toy_traffic_points"]
+__all__ = ["bss_onoff_traffic", "toy_as_program", "toy_bss_program",
+           "toy_dumbbell_program", "toy_traffic_points"]
 
 #: the ON-OFF workload of ``bench_traffic_burst`` (``bench.py:441-453``):
 #: bounded-Pareto ON periods (shape, shortest s, longest s), the mean of
@@ -137,3 +139,16 @@ def toy_traffic_points(n: int, horizon_us: int, start_us=0,
     sizes = (200 + 37 * (np.arange(n * k) % 29)).reshape(n, k)
     pts.append(pin(TrafficProgram.trace_replay(base, sizes)))
     return unify_shapes(pts)
+
+
+def toy_as_program(n_nodes: int = 64, n_flows: int = 3, spf_rounds: int = 16,
+                   seed: int = 1) -> AsFlowsProgram:
+    """A BRITE BA graph with ``n_flows`` low-to-high-id CBR flows of 100
+    kbit/s (``tpudes/parallel/programs.py:139-159``)."""
+    g = BriteTopologyHelper(model="BA", n=n_nodes, m=2, seed=seed).Generate()
+    return AsFlowsProgram(
+        n=g.n, edges=g.edges, delay_s=g.delay_s, rate_bps=g.rate_bps,
+        src=np.arange(1, 1 + n_flows, dtype=np.int32),
+        dst=np.arange(g.n - n_flows, g.n, dtype=np.int32),
+        flow_bps=np.full(n_flows, 1e5), pkt_bytes=512, sim_s=1.0,
+        max_hops=16, spf_rounds=int(spf_rounds))

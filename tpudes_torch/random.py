@@ -20,9 +20,14 @@ tcp_dumbbell.py:843-862``), slot first, then replica:
     fold_in(fold_in(key, t), r) -> uniform(., (), f32)
 
 or, under RED, ``split(., 3)`` into a scalar, an ``(F,)`` and a scalar
-draw (:func:`tcp_draws`); and a traffic program's per-replica keys
+draw (:func:`tcp_draws`); a traffic program's per-replica keys
 ``fold_in(fold_in(key, 0x7A), r)`` (:func:`traffic_keys`,
-``replicated.py:727-737``).
+``replicated.py:727-737``); and the AS flow engine's rate jitter
+(``tpudes/parallel/as_flows.py:633-644``), a standard normal per flow:
+
+    fold_in(key, r) -> normal(., (F,), f32)
+
+(:func:`normal`, :func:`as_replica_draws`).
 
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; torch's unsigned arithmetic is thin, so every 32-bit word rides
 in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
@@ -32,7 +37,10 @@ every replica is drawn in one vectorised call.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from tpudes_torch.ops.fused import erf_inv
 
 MASK32 = 0xFFFFFFFF
 #: fold tag of the run's traffic key: ``fold_in(key, TRAFFIC_KEY_TAG)``
@@ -209,3 +217,31 @@ def tcp_draws(key: torch.Tensor, t0: int, t1: int, replicas: int,
     k3 = fold_in(kk[..., None, :], torch.arange(3, device=key.device))
     return (uniform(k3[..., 0, :], 1)[..., 0], uniform(k3[..., 1, :], n_flows),
             uniform(k3[..., 2, :], 1)[..., 0])
+
+
+#: ``jax.random.normal``'s lower bound, ``nextafter(-1, 0)`` in f32
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+#: ``sqrt(2)`` in f32
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` as jax 0.9 draws it
+    (``jax/_src/random.py::_normal_real``): ``u = uniform(key, shape,
+    lo, 1)`` with ``lo = nextafter(-1, 0)`` (the unit float times ``1 -
+    lo``, which is 2 in f32, plus ``lo``, clamped below at ``lo``), then
+    ``sqrt(2) * erf_inv(u)`` with the compiled ``erf_inv``
+    (:func:`tpudes_torch.ops.fused.erf_inv`).  Broadcasts over the key's
+    leading axes as :func:`uniform` does."""
+    unit = uniform(key, shape)
+    lo = torch.full((), _NORMAL_LO, dtype=torch.float32, device=key.device)
+    u = torch.maximum(lo, unit * 2.0 + lo)
+    return erf_inv(u) * _SQRT2
+
+
+def as_replica_draws(key: torch.Tensor, replicas: int,
+                     n_flows: int) -> torch.Tensor:
+    """``(R, F)`` f32 rate-jitter draws of the AS flow engine: row ``r``
+    is ``normal(fold_in(key, r), (F,))`` (``tpudes/parallel/as_flows.py:
+    633-644``), independent of the other rows."""
+    return normal(replica_keys(key, replicas), n_flows)

@@ -24,6 +24,10 @@ object graph.
 :func:`dumbbell_program` lowers the TCP dumbbell of ``tpudes/
 scenarios.py::build_dumbbell`` (BASELINE config #2) as ``tcp_dumbbell.py
 ::lower_dumbbell`` does, a RED root qdisc on the bottleneck included.
+
+:func:`as_program` lowers the BRITE AS network of ``tpudes/scenarios.py::
+build_as_network`` (BASELINE config #5) as ``as_flows.py::lower_as_flows``
+does, from arrays.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import warnings
 import numpy as np
 import torch
 
+from tpudes_torch.core.rng import RngStream
+from tpudes_torch.helper.topology import BriteTopologyHelper
 from tpudes_torch.ops.lte import noise_psd_w
 from tpudes_torch.ops.mobility import (
     MobilityProgram,
@@ -45,6 +51,7 @@ from tpudes_torch.ops.mobility import (
 )
 from tpudes_torch.ops.propagation import friis
 from tpudes_torch.ops.wifi_error import MODES_BY_NAME
+from tpudes_torch.parallel.as_flows import AsFlowsProgram
 from tpudes_torch.parallel.lte_sm import LteSmProgram
 from tpudes_torch.parallel.tcp_dumbbell import (
     INT32_MAX,
@@ -590,3 +597,50 @@ def dumbbell_program(
         traffic=traffic,
         **red_kw,
     )
+
+
+def as_program(n_nodes: int, n_flows: int, sim_s: float, model: str = "BA",
+               m: int = 2, flow_kbps: float = 400.0, pkt_bytes: int = 512,
+               seed: int = 1) -> AsFlowsProgram:
+    """BASELINE config #5's program: ``build_as_network(n_nodes, n_flows,
+    sim_s, model, m, flow_kbps, pkt_bytes, seed)`` then
+    ``lower_as_flows(sim_s)`` (``tpudes/scenarios.py:245-303``,
+    ``as_flows.py:115-210``) at the reference's default ``RngSeed`` and
+    ``RngRun``, field by field, without the object graph:
+
+    - the BA graph of ``BriteTopologyHelper(model, n_nodes, m,
+      seed=seed).Generate()``;
+    - each flow's endpoints ``RandInt(0, n - 1)`` on MRG32k3a ``(seed, 0,
+      0)``, the destination redrawn while it equals the source; the
+      lowering lists the flows by source node, each node's in install
+      order;
+    - the lowering's edges: nodes ascending, each node's links in install
+      order, each link once, so an edge is ``(min, max)`` of its endpoints
+      in order of ``(min endpoint, link index)``;
+    - each delay the ns-rounded ``int(d 1e9) / 1e9``, each rate
+      ``floor(rate)`` (its ``"<int>bps"`` attribute);
+    - each flow's rate ``8 pkt / interval``, the interval ``pkt 8 /
+      (kbps 1e3)`` rounded to whole ns."""
+    g = BriteTopologyHelper(model=model, n=n_nodes, m=m, seed=seed).Generate()
+    rng = RngStream(seed, 0, 0)
+    src, dst = [], []
+    for _ in range(n_flows):
+        a = rng.RandInt(0, n_nodes - 1)
+        b = rng.RandInt(0, n_nodes - 1)
+        while b == a:
+            b = rng.RandInt(0, n_nodes - 1)
+        src.append(a)
+        dst.append(b)
+    by_src = np.argsort(np.asarray(src), kind="stable")
+    lo = g.edges.min(1)
+    order = np.lexsort((np.arange(g.m), lo))
+    edges = np.stack([lo, g.edges.max(1)], 1)[order].astype(np.int32)
+    delay = np.asarray([int(d * 1e9) / 1e9 for d in g.delay_s[order]])
+    rate = np.asarray([float(int(r)) for r in g.rate_bps[order]])
+    interval = round(pkt_bytes * 8.0 / (flow_kbps * 1e3) * 1e9) / 1e9
+    return AsFlowsProgram(
+        n=g.n, edges=edges, delay_s=delay, rate_bps=rate,
+        src=np.asarray(src, np.int32)[by_src],
+        dst=np.asarray(dst, np.int32)[by_src],
+        flow_bps=np.full(n_flows, 8.0 * int(pkt_bytes) / interval),
+        pkt_bytes=int(pkt_bytes), sim_s=sim_s)

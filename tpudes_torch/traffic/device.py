@@ -18,8 +18,8 @@ the same integers without a ``(T, N, C)`` temporary.
 :func:`entry_gaps` is ``build_gap_fn`` (``device.py:185-258``), the
 WiFi BSS's next inter-arrival gap, taken only at the entries that
 arrive (the reference computes every entity's and keeps the arrivals':
-no branch has a side effect).  ``avg_mult`` is not ported (the AS-flow
-path needs it).
+no branch has a side effect).  :func:`avg_mult` is ``avg_mult``
+(``device.py:321-340``), the AS flow engine's fluid view of a workload.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from tpudes_torch.random import TRAFFIC_KEY_TAG, fold_in, uniform
 from tpudes_torch.traffic.program import GAP_INF, TRAFFIC_MODEL_IDS
 
 __all__ = [
-    "TRAFFIC_KEY_TAG", "app_cum_table", "cum_packets", "entry_gaps",
+    "TRAFFIC_KEY_TAG", "app_cum_table", "avg_mult", "cum_packets",
+    "entry_gaps",
     "offered_table", "pareto_sizes", "stack_traffic_operands",
 ]
 
@@ -102,6 +103,20 @@ def cum_packets(ops: dict, epoch_us: int, t_us: torch.Tensor) -> torch.Tensor:
     a_trace = torch.minimum(hit, live_n).float()
 
     return _select(ops["tr_id"], a_cbr, a_mmpp, a_onoff, a_trace)
+
+
+def avg_mult(ops: dict, epoch_us: int, horizon_us: int) -> torch.Tensor:
+    """``(N,)`` f32: each entity's realized over nominal offered rate over
+    ``[0, horizon_us]`` (``device.py:321-340``): :func:`cum_packets` at
+    the horizon over ``max(tr_rate * max(horizon, 1) * 1e-6, 1e-9)``, and
+    exactly 1.0 for cbr."""
+    t = torch.full((1,), int(horizon_us), dtype=torch.int32,
+                   device=ops["tr_rate"].device)
+    h_s = torch.clamp_min(t.float(), 1.0) * f32(ops["tr_rate"], 1e-6)
+    nominal = torch.clamp_min(ops["tr_rate"] * h_s, f32(h_s, 1e-9))
+    m = cum_packets(ops, epoch_us, t)[0] / nominal
+    return torch.where(ops["tr_id"] == TRAFFIC_MODEL_IDS["cbr"],
+                       f32(m, 1.0), m)
 
 
 def app_cum_table(ops: dict, epoch_us: int, slot_us: int, t0: int,
