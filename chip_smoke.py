@@ -150,27 +150,32 @@ window (NIST, table) each once, counted.
 
 Then the AS flow engine (``tpudes_torch.parallel.as_flows.run_as_flows``,
 BASELINE config #5) and its kernels ``as_spf`` (the Bellman-Ford rounds
-and the next hop, a CTA a destination row) and ``as_fluid`` (the fluid
-fixed point and the delays, a CTA a (rate scale, replica)) at
-``bench.py::bench_as``'s shape (``scenarios.as_program(10_000, 128,
-10.0, seed=3)``, 1,024 replicas): in phase 3as, after 3win, ``as_spf``
-bit-equal to ``spf_math`` for the hop metric, the delay metric and 3
-rounds (flows left unreachable), its rows in shared and in device
-memory; ``as_fluid`` bit-equal to ``fluid_math`` for the bench program, a
-four-point rate-scale grid whose top points overload links, an ON-OFF
-workload and one round a launch; a toy program through the plain path on
-the CPU against the kernels on the card; each kernel's device time,
-bound and plain wall; and in phase 5as, after 5win, ``bench_as``'s
-numerator (one warm run, five timed runs on keys 1..5, each one
-``as_spf`` and one ``as_fluid`` launch; ``studies_per_s``, the busy
-share, the stages of a run apart) and the grid once, counted.
+over a frontier, the next hops and the paths' walk, a CTA a destination
+row) and ``as_fluid`` (the replica's draws, the fluid fixed point and the
+delays, a CTA a replica) at ``bench.py::bench_as``'s shape
+(``scenarios.as_program(10_000, 128, 10.0, seed=3)``, 1,024 replicas):
+in phase 3as, after 3win, ``as_spf`` bit-equal to ``spf_math`` and
+``walk_math`` (the tables, ``path``, ``hops``, ``reached``) for the hop
+metric, the delay metric and 3 rounds (flows left unreachable), its rows
+in shared and in device memory; ``as_fluid`` bit-equal to
+``as_replica_draws`` and ``fluid_math`` (``z`` and the outputs) for the
+bench program, a four-point rate-scale grid whose top points overload
+links, an ON-OFF workload and one round a launch; a toy program through
+the plain path on the CPU against the kernels on the card; each kernel's
+device time, bound and plain wall; and in phase 5as, after 5win,
+``bench_as``'s numerator (one warm run, five timed runs on keys 1..5,
+each one ``as_spf`` and one ``as_fluid`` launch; ``studies_per_s``, the
+busy share, the device operations of a run, the stages of a run apart)
+and the grid once, counted.
 
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
-(``DIR/bss_advance.cu``, the same C interface and probe) and of the TCP
-kernel (``DIR/tcp_advance.cu``, the same C interface), each where DIR
-holds it, against this checkout's in one call, their outputs equal and
-their times taken in turns.
+(``DIR/bss_advance.cu``, the same C interface and probe), of the TCP
+kernel (``DIR/tcp_advance.cu``, the same C interface), of the window
+(``DIR/wifi_window.cu``) and PR 13's AS kernels (``DIR/as_flows.cu``,
+through PR 13's C interface kept here), each where DIR holds it,
+against this checkout's in one call, their outputs equal, their times
+taken in turns and both stage probes run.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
@@ -401,13 +406,18 @@ AS_SPF_CALLS, AS_FLUID_CALLS = 10, 10
 #: f64 fused multiply-add: 9 in exp, 10 in log; the range reduction,
 #: clamps and products around them in f32)
 AS_EXP_OPS, AS_LOG_OPS = (10, 9), (12, 10)
+#: the draw's erf_inv (fused.erf_inv: log1p's rational, two degree-6
+#: polynomials and a division, or a log; the degree-8 polynomial in w;
+#: the square root, the products and the clamps), f32 and f64
+AS_ERFINV_OPS = (12, 22)
 AS_SOURCE = "tpudes_torch/csrc/as_flows.cu"
 AS_SPF_REPLACES = ("tpudes/parallel/as_flows.py:227 (device_spf: the "
                    "lax.scan of Bellman-Ford scatter-min rounds :253-257 "
-                   "and the next-hop scatter :260-266; XLA, no pallas_call)")
+                   "and the next-hop scatter :260-266; and _walk_paths "
+                   ":270; XLA, no pallas_call)")
 AS_FLUID_REPLACES = ("tpudes/parallel/as_flows.py:309 (_fluid_round, and "
-                     "_fluid_delay :358, in the while_loop :485-518; XLA, "
-                     "no pallas_call)")
+                     "_fluid_delay :358, in the while_loop :485-518; and "
+                     "_as_replica_draws :633; XLA, no pallas_call)")
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -2417,33 +2427,41 @@ def as_spf_bound(g: dict, n: int, needed: int, outs) -> tuple:
     return times[by], by
 
 
-def as_fluid_bound(t: dict, args, out: dict, rounds: int,
+def as_fluid_bound(t: dict, args, out: dict, census: dict,
                    carry: bool = False) -> tuple:
-    """Least time for the fluid stage over the ``(C, R)`` grid: the tables,
-    rates and draws read once and the outputs written once over HBM (and
-    the carried log deliveries in and out over a split run), against the
-    operations per grid row: each round a contribution (an exp, a product,
-    a sum) a flow-hop and a load product, division and log a link, then a
+    """Least time for the draws and the fluid stage over the ``(C, R)``
+    grid: the tables' blob, the rates' operands and the key read once and
+    the outputs written once over HBM (and the carried log deliveries in
+    and out over a split run), against the operations this data needs
+    (``fluid_math``'s ``census``): each replica's draws (a threefry hash
+    for its key and one a flow, then an ``erf_inv`` a flow), a rate exp a
+    grid row and flow, each round a row runs before its fixed point
+    (``row_rounds``) a contribution (a product, a sum; an exp where its
+    exponent is not 0, ``exps``) a flow-hop and a load product, division
+    and min a link (a log where its argument is not 1, ``logs``), then a
     delay (a min, a difference, a division, a multiply-add, two sums) a
-    flow-hop and a rate and a survival (two exps) a flow; f32 and f64 (the
-    multiply-adds) each at its rate, the larger wins."""
-    fm, scale, z, reached = args[1:5]
-    C, R = scale.shape[0], z.shape[0]
-    F, _ = t["hop_link"].shape
+    link and a sum a flow-hop, and a survival exp a flow; f32 (and the
+    hash's integer operations) and f64 (the multiply-adds) each at its
+    rate, the larger wins."""
+    fm, scale, key, R, reached = args[1:6]
+    C = scale.shape[0]
+    F = fm.shape[0]
     L = t["c"].shape[0]
-    fh = t["slot"].shape[0]
-    nbytes = sum(t[k].nbytes for k in ("hop_link", "ptr", "slot", "c", "k",
-                                       "dly"))
-    nbytes += fm.nbytes + scale.nbytes + z.nbytes + reached.nbytes
-    nbytes += sum(x.nbytes for x in out.values())
+    fh = t["fh"]
+    nbytes = t["blob"].nbytes + fm.nbytes + scale.nbytes + key.nbytes
+    nbytes += reached.nbytes + sum(x.nbytes for x in out.values())
     nbytes += 2 * C * R * L * 4 * carry
-    f32 = (rounds * (fh * (AS_EXP_OPS[0] + 2) + L * (AS_LOG_OPS[0] + 4))
-           + fh * 5 + F * (2 * AS_EXP_OPS[0] + 4))
-    f64 = rounds * (fh * AS_EXP_OPS[1] + L * AS_LOG_OPS[1]) + fh + F * (
-        2 * AS_EXP_OPS[1] + 1)
+    rows = C * R
+    f32 = (R * ((1 + F) * THREEFRY_OPS + F * AS_ERFINV_OPS[0])
+           + rows * F * (2 * AS_EXP_OPS[0] + 4)
+           + census["exps"] * AS_EXP_OPS[0] + census["logs"] * AS_LOG_OPS[0]
+           + census["row_rounds"] * (2 * fh + 4 * L) + rows * (6 * L + fh))
+    f64 = (R * F * AS_ERFINV_OPS[1] + rows * F * (2 * AS_EXP_OPS[1] + 1)
+           + census["exps"] * AS_EXP_OPS[1] + census["logs"] * AS_LOG_OPS[1]
+           + rows * L)
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": C * R * max(f32 / F32_OPS_PER_S,
-                                       f64 / F64_OPS_PER_S) * 1e3}
+             "operations": max(f32 / F32_OPS_PER_S,
+                               f64 / F64_OPS_PER_S) * 1e3}
     by = max(times, key=times.get)
     return times[by], by
 
@@ -2454,20 +2472,34 @@ def same_bits(x, y) -> bool:
     return torch.equal(bits_of(x), bits_of(y))
 
 
+AS_SPF_OUTPUTS = ("dist", "nh_edge", "nh_node", "path", "hops", "reached")
+
+
+def as_spf_plain(g: dict, n: int, rounds: int) -> tuple:
+    """The plain routing stage and walk (``spf_math``, ``walk_math``)."""
+    from tpudes_torch.parallel import as_flows as asf
+
+    dist, nh_edge, nh_node = asf.spf_math(g, n, rounds)
+    return (dist, nh_edge, nh_node,
+            *asf.walk_math(g, dist, nh_edge, nh_node))
+
+
 def as_check(kc, dev) -> dict:
     """Phase 3as: ``as_spf`` and ``as_fluid`` against their plain versions
     on the card at bench_as's width (:data:`AS_NODES` nodes,
-    :data:`AS_FLOWS` flows, :data:`AS_R` replicas): the routing tables
-    bit-equal for the hop metric, the delay metric and
-    :data:`AS_TRUNCATED_ROUNDS` rounds (flows left unreachable), the rows
-    in shared memory and in device memory; the fluid outputs bit-equal for
-    the bench program, the :data:`AS_SCALES` grid (``delivered_frac < 1``
-    required), an ON-OFF workload and a run of one round a launch; a toy
-    program through the plain path on the CPU against the kernels on the
-    card; each kernel's device time (CUDA events behind a sleep kernel,
-    around its launch wrapper on card tensors), its bound and the plain
-    version's wall on the card (its second call, after the one
-    compared)."""
+    :data:`AS_FLOWS` flows, :data:`AS_R` replicas): the routing tables and
+    the walk (``dist``, ``nh_edge``, ``nh_node``, ``path``, ``hops``,
+    ``reached``) bit-equal to ``spf_math`` and ``walk_math`` for the hop
+    metric, the delay metric and :data:`AS_TRUNCATED_ROUNDS` rounds (flows
+    left unreachable), the rows in shared memory and in device memory; the
+    draws ``z`` and the fluid outputs bit-equal to ``as_replica_draws``
+    and ``fluid_math`` for the bench program, the :data:`AS_SCALES` grid
+    (``delivered_frac < 1`` required), an ON-OFF workload and a run of one
+    round a launch; a toy program through the plain path on the CPU
+    against the kernels on the card; each kernel's device time (CUDA
+    events behind a sleep kernel, around its launch wrapper on card
+    tensors), its bound and the plain version's wall on the card (its
+    second call, after the one compared)."""
     import torch
     from tpudes_torch.parallel import as_flows as asf
     from tpudes_torch.parallel.as_cuda import fluid_cuda, spf_cuda
@@ -2483,36 +2515,39 @@ def as_check(kc, dev) -> dict:
                     ("truncated", dataclasses.replace(
                         prog, spf_rounds=AS_TRUNCATED_ROUNDS))):
         g = asf.spf_graph(p, dev)
-        want = asf.spf_math(g, p.n, p.spf_rounds)
+        want = as_spf_plain(g, p.n, p.spf_rounds)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        asf.spf_math(g, p.n, p.spf_rounds)
+        as_spf_plain(g, p.n, p.spf_rounds)
         torch.cuda.synchronize()
         plain_s = time.monotonic() - t0
         for shared in (None, False):
             got = spf_cuda(g, p.n, p.spf_rounds, shared)
             torch.cuda.synchronize()
-            for what, a, b in zip(("dist", "nh_edge", "nh_node"), want, got):
+            for what, a, b in zip(AS_SPF_OUTPUTS, want, got):
                 if not same_bits(a, b):
                     fail(f"as_spf ({name}, rows in "
                          f"{'device' if shared is False else 'shared'} "
-                         f"memory) vs spf_math: {what} differs")
+                         f"memory) vs spf_math + walk_math: {what} differs")
         unreached = int((want[0] >= asf.INF).sum())
-        if name == "truncated" and not unreached:
-            fail(f"as_spf (truncated): every node reached in "
+        if name == "truncated" and (not unreached or want[5].all()):
+            fail(f"as_spf (truncated): every node or flow reached in "
                  f"{AS_TRUNCATED_ROUNDS} rounds")
         needed = as_rounds_needed(g, p.n, p.spf_rounds)
         ms, host = timed_ms(lambda: spf_cuda(g, p.n, p.spf_rounds),
                             AS_SPF_CALLS, reps=3)
         bound = as_spf_bound(g, p.n, needed, want)
         D = g["dsts"].shape[0]
-        print(f"as_spf ({name}) vs spf_math: dist, nh_edge, nh_node "
-              f"bit-equal at N={p.n} D={D} 2E={g['col_v'].shape[0]} "
+        print(f"as_spf ({name}) vs spf_math + walk_math: dist, nh_edge, "
+              f"nh_node, path, hops, reached bit-equal at N={p.n} D={D} "
+              f"2E={g['col_v'].shape[0]} F={AS_FLOWS} "
               f"rounds={p.spf_rounds} ({needed} change the table; "
-              f"{unreached} of {D * p.n} entries unreached), shared and "
-              f"device memory; device {ms:.4f} ms/launch (host "
-              f"{host:.4f} ms/call); plain version {plain_s * 1e3:.2f} ms; "
-              f"bound {bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+              f"{unreached} of {D * p.n} entries unreached, "
+              f"{int((~want[5]).sum())} flows unreached, mean hops "
+              f"{want[4].double().mean().item():.4f}), shared and device "
+              f"memory; device {ms:.4f} ms/launch (host {host:.4f} "
+              f"ms/call); plain version {plain_s * 1e3:.2f} ms; bound "
+              f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
         out[f"spf_{name}"] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3,
                                   bound=bound)
 
@@ -2527,39 +2562,47 @@ def as_check(kc, dev) -> dict:
     for name, p, scales, split in cases:
         args, _ = asf.fluid_inputs(p, PRNGKey(AS_CHECK_KEY), AS_R, scales,
                                    dev)
-        want, _ = asf.fluid_math(*args, asf.FP_ROUNDS)
+        want, _, z = asf.fluid_draws_math(*args, asf.FP_ROUNDS)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        asf.fluid_math(*args, asf.FP_ROUNDS)
+        asf.fluid_draws_math(*args, asf.FP_ROUNDS)
         torch.cuda.synchronize()
         plain_s = time.monotonic() - t0
         lf = None
         for i, rounds in enumerate(split):
             got, lf = fluid_cuda(*args, rounds, lf,
-                                 carry=i + 1 < len(split))
+                                 carry=i + 1 < len(split), z_out=True)
         torch.cuda.synchronize()
         bad = [k for k in want if not same_bits(want[k], got[k])]
+        if not same_bits(z, got["z"]):
+            bad.append("z")
         if bad:
-            fail(f"as_fluid ({name}) vs fluid_math: {bad} differ")
+            fail(f"as_fluid ({name}) vs as_replica_draws + fluid_math: {bad} "
+                 f"differ")
         frac = got["delivered_frac"]
         if name == "sweep" and not (frac < 1.0).any():
             fail("as_fluid (sweep): no flow loses at the grid's top scale")
         if not torch.isfinite(frac).all():
             fail(f"as_fluid ({name}): delivered_frac not finite")
         t = args[0]
-        line = (f"as_fluid ({name}) vs fluid_math: goodput, delay, "
-                f"delivered_frac, max_util bit-equal at C={len(scales)} "
-                f"R={AS_R} F={AS_FLOWS} L={t['c'].shape[0]} "
-                f"({t['slot'].shape[0]} flow-hops, up to "
+        census = {}
+        asf.fluid_math(t, args[1], args[2], z, *args[5:], asf.FP_ROUNDS,
+                       census=census)
+        line = (f"as_fluid ({name}) vs as_replica_draws + fluid_math: z, "
+                f"goodput, delay, delivered_frac, max_util bit-equal at "
+                f"C={len(scales)} R={AS_R} F={AS_FLOWS} L={t['c'].shape[0]} "
+                f"({t['fh']} flow-hops, up to "
                 f"{int((t['ptr'][1:] - t['ptr'][:-1]).max())} a link; "
-                f"{len(split)} launch(es); delivered_frac mean "
+                f"{len(split)} launch(es); {census['row_rounds']} row-rounds "
+                f"to the fixed point, {census['exps']} exps and "
+                f"{census['logs']} logs the data needs; delivered_frac mean "
                 f"{frac.double().mean().item():.6f}, min "
                 f"{frac.min().item():.6f}; max_util max "
                 f"{got['max_util'].max().item():.4f})")
         if name in ("bench", "sweep"):
             ms, host = timed_ms(lambda: fluid_cuda(*args, asf.FP_ROUNDS),
                                 AS_FLUID_CALLS, reps=3)
-            bound = as_fluid_bound(t, args, got, asf.FP_ROUNDS)
+            bound = as_fluid_bound(t, args, got, census)
             line += (f"; device {ms:.4f} ms/launch (host {host:.4f} "
                      f"ms/call); plain version {plain_s * 1e3:.2f} ms; bound "
                      f"{bound[0] * 1e3:.3f} us ({bound[1]})")
@@ -2574,13 +2617,9 @@ def as_check(kc, dev) -> dict:
     cpu = asf.run_as_flows(toy, key, 8, device="cpu", rate_scale=[1.0, 4.0])
     card = asf.run_as_flows(toy, key, 8, device=dev, rate_scale=[1.0, 4.0])
     for a, b in zip(cpu, card):
-        for k in a:
-            x, y = np.asarray(a[k]), np.asarray(b[k])
-            if x.dtype == np.float32:
-                x, y = x.view(np.uint32), y.view(np.uint32)
-            if not np.array_equal(x, y):
-                fail(f"run_as_flows (toy): the card's {k} differs from the "
-                     f"CPU's")
+        if not same_run(a, b):
+            fail("run_as_flows (toy): the card's outputs differ from the "
+                 "CPU's")
     print(f"run_as_flows (toy, 64 nodes, 6 flows, 8 replicas, 2 scales): "
           f"card == CPU in every output (delivered_frac min "
           f"{min(float(p['delivered_frac'].min()) for p in card):.4f})",
@@ -2588,17 +2627,32 @@ def as_check(kc, dev) -> dict:
     return out
 
 
+def same_run(a: dict, b: dict) -> bool:
+    """Whether two ``run_as_flows`` results (numpy) are equal, floats bit
+    for bit."""
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype == np.float32:
+            x, y = x.view(np.uint32), y.view(np.uint32)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            return False
+    return True
+
+
 def as_stage_walls(prog, dev, key: int) -> dict:
     """The host wall (ms, each stage ended by a synchronise) of each stage
     of one ``run_as_flows`` run as the entry point makes it: the graph's
-    tables (host numpy and their copies), ``as_spf``, the path walk, the
-    fluid tables (``torch.unique``'s read-back), the draws, ``as_fluid``
-    and the copy back.  The entry point's own run has no synchronise
-    between its stages, so the sum exceeds its wall."""
+    tables (host numpy and their copies), ``as_spf`` (the routing and the
+    walk), the fluid tables (``torch.unique``'s read-back), ``as_fluid``
+    (the draws and the fixed point) and the copy back.  The entry point's
+    own run has no synchronise between its stages, so the sum exceeds its
+    wall."""
     import torch
     from tpudes_torch.parallel import as_flows as asf
     from tpudes_torch.parallel.as_cuda import fluid_launch, spf_launch
-    from tpudes_torch.random import PRNGKey, as_replica_draws
+    from tpudes_torch.random import PRNGKey
 
     walls, t0 = {}, time.perf_counter()
 
@@ -2611,20 +2665,14 @@ def as_stage_walls(prog, dev, key: int) -> dict:
 
     g = asf.spf_graph(prog, dev)
     lap("graph")
-    dist, nh_e, nh_n = spf_launch(g, prog.n, prog.spf_rounds)
+    _, _, _, path, _, reached = spf_launch(g, prog.n, prog.spf_rounds)
     lap("as_spf")
-    path, _, arrived = asf.walk_paths(prog, g["ddst"], nh_e, nh_n)
-    src = torch.as_tensor(prog.src, device=dev).long()
-    reached = (dist[g["ddst"], src] < asf.INF) & arrived
-    lap("walk")
     t = asf.fluid_tables(prog, path)
     fm = torch.as_tensor(np.float32(prog.flow_bps), device=dev)
-    lap("fluid_tables")
-    z = as_replica_draws(PRNGKey(key, device=dev), AS_R, len(prog.src))
     scale = torch.tensor([1.0], device=dev)
-    lap("draws")
-    out, _ = fluid_launch(t, fm, scale, z, reached,
-                          *asf.rate_constants(prog), asf.FP_ROUNDS)
+    lap("fluid_tables")
+    out, _ = fluid_launch(t, fm, scale, PRNGKey(key, device=dev), AS_R,
+                          reached, *asf.rate_constants(prog), asf.FP_ROUNDS)
     lap("as_fluid")
     for v in out.values():
         v.cpu()
@@ -2632,16 +2680,32 @@ def as_stage_walls(prog, dev, key: int) -> dict:
     return walls
 
 
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies and fills) the profiler saw
+    while ``fn()`` ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def as_bench(kc, dev) -> dict:
     """Phase 5as: bench_as's numerator (``bench.py:1417-1426``): the main
     path ``run_as_flows`` at :data:`AS_NODES` x :data:`AS_FLOWS` x
     :data:`AS_R`, one warm run on key 0 and :data:`AS_TIMED_RUNS` timed
     runs on keys 1..5, each counted (one ``as_spf`` and one ``as_fluid``
-    launch); ``studies_per_s`` is replicas over the median wall.  No
-    ``vs_scalar``: it needs the host DES, which the port does not have.
-    Then the stages of a run apart (:func:`as_stage_walls`, the median
-    of three) and the :data:`AS_SCALES` grid once, counted.  Returns the
-    launches of the last timed run and of the grid."""
+    launch, no other launch counter); ``studies_per_s`` is replicas over
+    the median wall.  No ``vs_scalar``: it needs the host DES, which the
+    port does not have.  Then the busy share and the device operations of
+    a run (the profiler), the stages of a run apart
+    (:func:`as_stage_walls`, the median of three) and the
+    :data:`AS_SCALES` grid once, counted.  Returns the launches of the
+    last timed run and of the grid."""
     from tpudes_torch.parallel.as_flows import run_as_flows
     from tpudes_torch.random import PRNGKey
     from tpudes_torch.scenarios import as_program
@@ -2667,6 +2731,7 @@ def as_bench(kc, dev) -> dict:
         frac.append(float(res["delivered_frac"].mean()))
     share, kernel_ms = device_busy_share(lambda: run(AS_TIMED_RUNS + 1),
                                          "as_")
+    ops = device_ops(lambda: run(AS_TIMED_RUNS + 1))
     splits = [as_stage_walls(prog, dev, AS_TIMED_RUNS + 1) for _ in range(3)]
     stages = {k: statistics.median(w[k] for w in splits) for k in splits[0]}
     grid, gwall, glaunches = counted(
@@ -2682,13 +2747,337 @@ def as_bench(kc, dev) -> dict:
         replicas=AS_R, studies_per_s=AS_R / med, wall_median_s=med,
         wall_min_s=min(walls), wall_max_s=max(walls), walls_s=walls,
         delivered_frac=sum(frac) / len(frac), busy_share=share,
-        kernel_ms=kernel_ms, stage_ms=stages,
+        kernel_ms=kernel_ms, device_ops_per_run=ops, stage_ms=stages,
         kernel_launches={k: v for k, v in launches.items() if v},
         grid_points=list(AS_SCALES), grid_wall_s=gwall,
         grid_kernel_launches={k: v for k, v in glaunches.items() if v},
         grid_delivered_frac=[float(p["delivered_frac"].mean())
                              for p in grid])), flush=True)
     return {"bench": launches, "grid": glaunches}
+
+
+#: PR 13's C signatures of ``csrc/as_flows.cu``, through which the
+#: compare mode launches an earlier ``DIR/as_flows.cu``:
+#: ``as_spf_launch(row_ptr, col_v, col_w, col_e, dsts, scratch, dist,
+#: nh_edge, nh_node, N, D, rounds, smem, inf, slack, stream)`` (smem 8 N +
+#: 16 bytes, or 0 with scratch ``(D, 2, N)``) and ``as_fluid_launch(
+#: hop_link, ptr, slot, c, k, dly, fm, scale, z, reached, lfrac_in,
+#: lfrac_out, goodput, delay, frac, max_util, F, H, L, C, R, rounds, smem,
+#: fold, jitter, -hj2, UTIL_MIN, RHO_MAX, stream)`` (smem 4 (2 L + 2 F + H F
+#: + 4) bytes); each probe (``as_spf_profile``, ``as_fluid_profile``) takes
+#: its ``prof`` words before the stream
+OLD_AS_SPF_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+OLD_AS_FLUID_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+                         + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+
+
+def old_as_entry(lib, symbol: str, argtypes: list, *args) -> None:
+    """Call an earlier ``as_flows`` library's entry; fail on an error."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        fail(f"the old {symbol} failed: CUDA error {err}")
+
+
+def old_as_spf(lib, g: dict, n: int, rounds: int, prof=None) -> tuple:
+    """PR 13's ``as_spf`` from ``lib`` on ``g`` (its rows in shared memory
+    where ``2 n`` floats fit): ``(dist, nh_edge, nh_node)``; with ``prof``
+    (int64 words) its probe."""
+    import torch
+    from tpudes_torch.parallel.as_flows import INF, NEXT_HOP_SLACK
+
+    dev = g["w"].device
+    D = g["dsts"].shape[0]
+    smem = 8 * n + 16 if 8 * n + 16 <= 227 * 1024 else 0
+    scratch = None if smem else torch.empty((D, 2, n), device=dev)
+    outs = (torch.empty((D, n), device=dev),
+            torch.empty((D, n), dtype=torch.int32, device=dev),
+            torch.empty((D, n), dtype=torch.int32, device=dev))
+    args = [g["row_ptr"].data_ptr(), g["col_v"].data_ptr(),
+            g["col_w"].data_ptr(), g["col_e"].data_ptr(),
+            g["dsts"].data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            *(x.data_ptr() for x in outs), n, D, int(rounds), smem,
+            ctypes.c_float(INF), ctypes.c_float(NEXT_HOP_SLACK)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prof is None:
+        old_as_entry(lib, "as_spf_launch", OLD_AS_SPF_ARGTYPES, *args, stream)
+    else:
+        old_as_entry(lib, "as_spf_profile", OLD_AS_SPF_ARGTYPES[:-1]
+                     + [ctypes.c_void_p] * 2, *args, prof.data_ptr(), stream)
+    return outs
+
+
+def old_as_fluid(lib, t: dict, fm, scale, z, reached, jitter: float,
+                 hj2: float, rounds: int, prof=None) -> dict:
+    """PR 13's ``as_fluid`` from ``lib`` over the ``(C, R)`` grid of the
+    draws ``z`` ``(R, F)``: the outputs; with ``prof`` its probe."""
+    import torch
+    from tpudes_torch.parallel.as_flows import RHO_MAX, UTIL_MIN
+
+    dev = z.device
+    F, H = t["hop_link"].shape
+    L = t["c"].shape[0]
+    C, R = scale.shape[0], z.shape[0]
+    out = {k: torch.empty((C, R, F), device=dev)
+           for k in ("goodput_bps", "delay_s", "delivered_frac")}
+    out["max_util"] = torch.empty((C, R), device=dev)
+    f = ctypes.c_float
+    args = [t["hop_link"].data_ptr(), t["ptr"].data_ptr(),
+            t["slot"].data_ptr(), t["c"].data_ptr(), t["k"].data_ptr(),
+            t["dly"].data_ptr(), fm.data_ptr(), scale.data_ptr(),
+            z.data_ptr(), reached.data_ptr(), None, None,
+            out["goodput_bps"].data_ptr(), out["delay_s"].data_ptr(),
+            out["delivered_frac"].data_ptr(), out["max_util"].data_ptr(),
+            F, H, L, C, R, int(rounds), 4 * (2 * L + 2 * F + H * F + 4),
+            int(t["fold"]), f(jitter), f(-hj2), f(UTIL_MIN), f(RHO_MAX)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prof is None:
+        old_as_entry(lib, "as_fluid_launch", OLD_AS_FLUID_ARGTYPES, *args,
+                     stream)
+    else:
+        old_as_entry(lib, "as_fluid_profile", OLD_AS_FLUID_ARGTYPES[:-1]
+                     + [ctypes.c_void_p] * 2, *args, prof.data_ptr(), stream)
+    return out
+
+
+def as_inputs(dev, metric: str = "hops") -> dict:
+    """bench_as's program and every input of both kernels on the card,
+    from the plain versions: the graph ``g``, the routing outputs
+    ``spf`` (``dist``, ``nh_edge``, ``nh_node``, ``path``, ``hops``,
+    ``reached``), the fluid tables ``t``, ``fm``, the check key ``key``,
+    its draws ``z`` (:data:`AS_R` replicas) and the rate constants."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.random import PRNGKey, as_replica_draws
+    from tpudes_torch.scenarios import as_program
+
+    prog = dataclasses.replace(
+        as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED),
+        spf_metric=metric)
+    g = asf.spf_graph(prog, dev)
+    spf = dict(zip(AS_SPF_OUTPUTS, as_spf_plain(g, prog.n, prog.spf_rounds)))
+    key = PRNGKey(AS_CHECK_KEY, device=dev)
+    return dict(prog=prog, g=g, spf=spf, t=asf.fluid_tables(prog,
+                                                            spf["path"]),
+        fm=torch.as_tensor(np.float32(prog.flow_bps), device=dev), key=key,
+        z=as_replica_draws(key, AS_R, len(prog.src)),
+        consts=asf.rate_constants(prog))
+
+
+def as_stage_split(dev, label: str, old_lib=None) -> dict:
+    """The stage probe of ``as_spf`` and ``as_fluid`` (their ``PROF``
+    instantiations: clock64() at each warp's stage edges) at bench_as's
+    width: the routing stage (hop metric) and the fluid stage at one rate
+    scale and at the :data:`AS_SCALES` grid, each probe's outputs equal
+    to the plain versions'; the cycles a CTA in each stage
+    (``as_cuda.spf_stages`` / ``fluid_stages``), the probe launch's device
+    time (CUDA events) and nvidia-smi's SM clock just after.  ``old_lib``:
+    PR 13's kernels, through their own C signatures."""
+    import torch
+    from tpudes_torch.parallel import as_cuda
+    from tpudes_torch.parallel import as_flows as asf
+
+    x = as_inputs(dev)
+    g, prog, t = x["g"], x["prog"], x["t"]
+    D = g["dsts"].shape[0]
+    split = {}
+
+    def timed(fn):
+        fn()                                                   # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return res, a.elapsed_time(b)
+
+    def spf_probe():
+        prof = torch.zeros(as_cuda.SPF_PROF_WORDS, dtype=torch.int64,
+                           device=dev)
+        if old_lib is not None:
+            outs = old_as_spf(old_lib, g, prog.n, prog.spf_rounds, prof)
+        else:
+            outs = as_cuda.spf_profile(g, prog.n, prog.spf_rounds, prof)
+        return outs, prof
+
+    (outs, prof), ms = timed(spf_probe)
+    for k, got in zip(AS_SPF_OUTPUTS, outs):
+        if not same_bits(got, x["spf"][k]):
+            fail(f"{label} as_spf probe: {k} differs from the plain version")
+    per = as_cuda.spf_stages(prof.tolist(), D)
+    split["spf"] = dict(per, probe_ms=ms, nvidia_smi_clocks_sm_max=
+                        sm_clock_line())
+    print(f"{label} as_spf stage probe (N={prog.n} D={D}): cycles a CTA "
+          f"{json.dumps(per)}; probe launch {ms:.4f} ms; nvidia-smi "
+          f"clocks.sm, clocks.max.sm {split['spf']['nvidia_smi_clocks_sm_max']}",
+          flush=True)
+    for name, scales in (("bench", [1.0]), ("sweep", list(AS_SCALES))):
+        scale = torch.tensor(scales, device=dev)
+        C = len(scales)
+        want, _ = asf.fluid_math(t, x["fm"], scale, x["z"],
+                                 x["spf"]["reached"], *x["consts"],
+                                 asf.FP_ROUNDS)
+
+        def fluid_probe():
+            prof = torch.zeros(as_cuda.FLUID_PROF_WORDS, dtype=torch.int64,
+                               device=dev)
+            if old_lib is not None:
+                out = old_as_fluid(old_lib, t, x["fm"], scale, x["z"],
+                                   x["spf"]["reached"], *x["consts"],
+                                   asf.FP_ROUNDS, prof)
+            else:
+                out = as_cuda.fluid_profile(
+                    t, x["fm"], scale, x["key"], AS_R, x["spf"]["reached"],
+                    *x["consts"], asf.FP_ROUNDS, prof)
+            return out, prof
+
+        (out, prof), ms = timed(fluid_probe)
+        bad = [k for k in want if not same_bits(want[k], out[k])]
+        if bad:
+            fail(f"{label} as_fluid probe ({name}): {bad} differ from the "
+                 f"plain version")
+        per = as_cuda.fluid_stages(prof.tolist(), C * AS_R, asf.FP_ROUNDS)
+        clock = sm_clock_line()
+        split[f"fluid_{name}"] = dict(per, probe_ms=ms,
+                                      nvidia_smi_clocks_sm_max=clock)
+        print(f"{label} as_fluid stage probe ({name}, C={C} R={AS_R} "
+              f"F={AS_FLOWS} L={t['c'].shape[0]}): cycles a CTA "
+              f"{json.dumps(per)}; probe launch {ms:.4f} ms; nvidia-smi "
+              f"clocks.sm, clocks.max.sm {clock}", flush=True)
+    return split
+
+def old_as_run(lib, prog, seed: int, dev) -> dict:
+    """PR 13's ``run_as_flows`` on PR 13's kernels from ``lib``, step for
+    step: the graph's tables, one ``as_spf`` launch, the walk and the
+    draws as small torch ops (``walk_paths``, ``as_replica_draws``), the
+    fluid tables, one ``as_fluid`` launch and the copy back."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.random import PRNGKey, as_replica_draws
+
+    g = asf.spf_graph(prog, dev)
+    dist, nh_edge, nh_node = old_as_spf(lib, g, prog.n, prog.spf_rounds)
+    path, hops, arrived = asf.walk_paths(prog, g["ddst"], nh_edge, nh_node)
+    src = torch.as_tensor(np.asarray(prog.src), device=dev).long()
+    reached = (dist[g["ddst"], src] < asf.INF) & arrived
+    t = asf.fluid_tables(prog, path)
+    fm = torch.as_tensor(np.float32(prog.flow_bps), device=dev)
+    z = as_replica_draws(PRNGKey(seed, device=dev), AS_R, len(prog.src))
+    out = old_as_fluid(lib, t, fm, torch.tensor([1.0], device=dev), z,
+                       reached, *asf.rate_constants(prog), asf.FP_ROUNDS)
+    host = {k: v[0].cpu().numpy() for k, v in out.items()}
+    return dict(host, hops=hops.cpu().numpy(),
+                unreachable=(~reached).cpu().numpy())
+
+
+def as_compare(old_lib, dev, card: str, old_dir: str) -> dict:
+    """The AS half of the compare mode: PR 13's ``as_flows.cu``
+    (``DIR/as_flows.cu``, launched through PR 13's C signatures,
+    :func:`old_as_spf` and :func:`old_as_fluid`) against this checkout's
+    at bench_as's width: the routing tables equal, the new walk equal to
+    the plain one; the fluid outputs equal at one scale and at the
+    :data:`AS_SCALES` grid, the old kernel fed the draws the new one
+    writes out (equal to ``as_replica_draws``); PR 13's main path
+    (:func:`old_as_run`) equal to ``run_as_flows``; then in turns (old,
+    new, new, old) each kernel's device time (CUDA events, :func:`timed_ms`
+    of its launch, median of three) and the main path's wall (median of
+    three runs on keys 1..3 after one on key 0); each path's device
+    operations a run (the profiler); then both stage probes (the old one's
+    where its library has ``as_spf_profile``).  Returns the
+    ``as_old_vs_new`` line."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.parallel.as_cuda import fluid_cuda, spf_cuda
+    from tpudes_torch.random import PRNGKey
+
+    x = as_inputs(dev)
+    g, prog, t, plain = x["g"], x["prog"], x["t"], x["spf"]
+    new = spf_cuda(g, prog.n, prog.spf_rounds)
+    was = old_as_spf(old_lib, g, prog.n, prog.spf_rounds)
+    torch.cuda.synchronize()
+    for k, a, b, p in zip(AS_SPF_OUTPUTS, new, was, plain.values()):
+        if not same_bits(a, b) or not same_bits(a, p):
+            fail(f"compare (as_spf): {k} differs between old and new")
+    for k, a in list(zip(AS_SPF_OUTPUTS, new))[3:]:
+        if not same_bits(a, plain[k]):
+            fail(f"compare (as_spf): the walk's {k} differs from walk_math")
+    scales = {"bench": [1.0], "sweep": list(AS_SCALES)}
+    for name, sc in scales.items():
+        scale = torch.tensor(sc, device=dev)
+        got, _ = fluid_cuda(t, x["fm"], scale, x["key"], AS_R,
+                            plain["reached"], *x["consts"], asf.FP_ROUNDS,
+                            z_out=True)
+        prev = old_as_fluid(old_lib, t, x["fm"], scale, got["z"],
+                            plain["reached"], *x["consts"], asf.FP_ROUNDS)
+        torch.cuda.synchronize()
+        if not same_bits(got["z"], x["z"]):
+            fail(f"compare (as_fluid {name}): the draws differ from "
+                 f"as_replica_draws")
+        bad = [k for k in prev if not same_bits(prev[k], got[k])]
+        if bad:
+            fail(f"compare (as_fluid {name}): {bad} differ between old and "
+                 f"new")
+
+    def entry(seed):
+        return asf.run_as_flows(prog, PRNGKey(seed), AS_R, device=dev)
+
+    if not same_run(entry(1), old_as_run(old_lib, prog, 1, dev)):
+        fail("compare (bench_as): PR 13's main path and run_as_flows differ")
+    scale1 = torch.tensor([1.0], device=dev)
+    launches = {
+        "old": (lambda: old_as_spf(old_lib, g, prog.n, prog.spf_rounds),
+                lambda: old_as_fluid(old_lib, t, x["fm"], scale1, x["z"],
+                                     plain["reached"], *x["consts"],
+                                     asf.FP_ROUNDS),
+                lambda seed: old_as_run(old_lib, prog, seed, dev)),
+        "new": (lambda: spf_cuda(g, prog.n, prog.spf_rounds),
+                lambda: fluid_cuda(t, x["fm"], scale1, x["key"], AS_R,
+                                   plain["reached"], *x["consts"],
+                                   asf.FP_ROUNDS),
+                entry)}
+    times = {k: {"as_spf": [], "as_fluid": [], "wall": []}
+             for k in launches}
+    for turn in ("old", "new", "new", "old"):
+        spf, fluid, run = launches[turn]
+        times[turn]["as_spf"].append(timed_ms(spf, AS_SPF_CALLS, reps=3)[0])
+        times[turn]["as_fluid"].append(
+            timed_ms(fluid, AS_FLUID_CALLS, reps=3)[0])
+        run(0)
+        w = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(1 + i)
+            torch.cuda.synchronize()
+            w.append(time.perf_counter() - t1)
+        times[turn]["wall"].append(statistics.median(w))
+    ops = {k: device_ops(lambda r=v[2]: r(4)) for k, v in launches.items()}
+    result = dict(phase="as_old_vs_new", card=card, old=old_dir,
+                  n_nodes=AS_NODES, n_flows=AS_FLOWS, replicas=AS_R,
+                  times=times, device_ops_per_run=ops)
+    for k in ("as_spf", "as_fluid", "wall"):
+        result[f"{k}_new_over_old"] = (statistics.mean(times["new"][k])
+                                       / statistics.mean(times["old"][k]))
+    print(f"compare (AS, N={AS_NODES} F={AS_FLOWS} R={AS_R}): outputs "
+          f"equal; as_spf old {times['old']['as_spf']} ms, new "
+          f"{times['new']['as_spf']} ms; as_fluid old "
+          f"{times['old']['as_fluid']} ms, new {times['new']['as_fluid']} "
+          f"ms; main path walls old {times['old']['wall']}, new "
+          f"{times['new']['wall']} s; device operations a run old "
+          f"{ops['old']}, new {ops['new']}", flush=True)
+    result["split_new"] = as_stage_split(dev, "new")
+    if hasattr(old_lib, "as_spf_profile"):
+        result["split_old"] = as_stage_split(dev, "old", old_lib)
+    else:
+        result["split_old"] = "not measured: the old kernel has no probe"
+    return result
+
 
 @contextlib.contextmanager
 def kernel_library(lib, name: str = "bss_advance"):
@@ -2975,13 +3364,15 @@ def tcp_compare(old_lib, dev, card: str, old_dir: str) -> dict:
 
 def compare_main(old_dir: str, device: str = "cuda") -> int:
     """``python3 chip_smoke.py --compare-with DIR``: each of
-    ``DIR/bss_advance.cu``, ``DIR/tcp_advance.cu`` and
-    ``DIR/wifi_window.cu`` that is there (an earlier design of the kernel
-    with the same C interface) against this checkout's, in one call on one
-    card.  Builds all of them in parallel (printing the window kernels'
-    SASS counts); runs :func:`bss_compare`, :func:`tcp_compare` and
-    :func:`window_compare` and prints each one's JSON line (``phase:
-    bss_old_vs_new`` / ``tcp_old_vs_new`` / ``window_old_vs_new``)."""
+    ``DIR/bss_advance.cu``, ``DIR/tcp_advance.cu``, ``DIR/wifi_window.cu``
+    (an earlier design of the kernel with the same C interface) and
+    ``DIR/as_flows.cu`` (PR 13's, through its own C interface) that is
+    there against this checkout's, in one call on one card.  Builds all
+    of them in parallel (printing the window kernels' SASS counts); runs
+    :func:`bss_compare`, :func:`tcp_compare`, :func:`window_compare` and
+    :func:`as_compare` and prints each one's JSON line (``phase:
+    bss_old_vs_new`` / ``tcp_old_vs_new`` / ``window_old_vs_new`` /
+    ``as_old_vs_new``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2991,11 +3382,12 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     dev = torch.device(device)
     card = card_line()
     print(card, flush=True)
-    names = [k for k in ("bss_advance", "tcp_advance", "wifi_window")
+    names = [k for k in ("bss_advance", "tcp_advance", "wifi_window",
+                         "as_flows")
              if os.path.isfile(os.path.join(old_dir, f"{k}.cu"))]
     if not names:
         fail(f"{old_dir} holds none of bss_advance.cu, tcp_advance.cu, "
-             f"wifi_window.cu")
+             f"wifi_window.cu, as_flows.cu")
     t0 = time.monotonic()
     old = {k: build_old(k, old_dir) for k in names}
     logs = _build.build(names)
@@ -3014,7 +3406,7 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     print(f"build: new {new_s:.2f} s, old {time.monotonic() - t0:.2f} s "
           f"(in parallel)", flush=True)
     compares = {"bss_advance": bss_compare, "tcp_advance": tcp_compare,
-                "wifi_window": window_compare}
+                "wifi_window": window_compare, "as_flows": as_compare}
     for k in names:
         print(json.dumps(compares[k](libs[k], dev, card, old_dir)),
               flush=True)

@@ -1303,8 +1303,9 @@ def _as_bits(x):
 @pytest.mark.parametrize("rounds, shared", [(48, None), (3, None),
                                             (48, False)])
 def test_as_spf_bit_equal_to_plain(card, metric, rounds, shared):
-    """as_spf against spf_math on the card: a 3,000-node BA graph, full and
-    truncated rounds, its rows in shared and in device memory."""
+    """as_spf against spf_math and walk_math on the card: a 3,000-node BA
+    graph, full and truncated rounds, its rows in shared and in device
+    memory; the routing tables and the walk's path, hops and reached."""
     from tpudes_torch.parallel import as_cuda
     from tpudes_torch.parallel import as_flows as asf
     from tpudes_torch.scenarios import as_program
@@ -1312,15 +1313,17 @@ def test_as_spf_bit_equal_to_plain(card, metric, rounds, shared):
     prog = dataclasses.replace(as_program(3000, 64, 1.0, seed=4),
                                spf_metric=metric, spf_rounds=rounds)
     g = asf.spf_graph(prog, card)
-    want = asf.spf_math(g, prog.n, rounds)
+    dist, nh_edge, nh_node = asf.spf_math(g, prog.n, rounds)
+    want = (dist, nh_edge, nh_node,
+            *asf.walk_math(g, dist, nh_edge, nh_node))
     kc.reset_launches()
     got = as_cuda.spf_cuda(g, prog.n, rounds, shared)
     torch.cuda.synchronize()
     assert kc.launches["as_spf"] == 1
     for a, b in zip(want, got):
-        assert torch.equal(_as_bits(a), _as_bits(b))
+        assert a.dtype == b.dtype and torch.equal(_as_bits(a), _as_bits(b))
     if rounds < 10:
-        assert (want[0] == asf.INF).any()
+        assert (want[0] == asf.INF).any() and not want[5].all()
 
 
 @pytest.mark.cuda
@@ -1328,8 +1331,9 @@ def test_as_spf_bit_equal_to_plain(card, metric, rounds, shared):
                                            ([0.5, 1.0, 4.0, 16.0], (4,)),
                                            ([1.0, 8.0], (1, 3))])
 def test_as_fluid_bit_equal_to_plain(card, scales, split):
-    """as_fluid against fluid_math on the card over a (C, 64) grid whose
-    upper points overload links, one launch and a run split in two."""
+    """as_fluid against as_replica_draws and fluid_math on the card over a
+    (C, 64) grid whose upper points overload links, one launch and a run
+    split in two; the draws it writes out equal as_replica_draws'."""
     from tpudes_torch.parallel import as_cuda
     from tpudes_torch.parallel import as_flows as asf
     from tpudes_torch.scenarios import as_program
@@ -1337,31 +1341,56 @@ def test_as_fluid_bit_equal_to_plain(card, scales, split):
     prog = dataclasses.replace(as_program(3000, 64, 1.0, seed=4),
                                flow_bps=np.full(64, 2e7))
     args, _ = asf.fluid_inputs(prog, np.array([0, 9]), 64, scales, card)
-    want, _ = asf.fluid_math(*args, asf.FP_ROUNDS)
+    want, _, z = asf.fluid_draws_math(*args, asf.FP_ROUNDS)
     lf = None
     for rounds in split:
-        got, lf = as_cuda.fluid_cuda(*args, rounds, lf, carry=True)
+        got, lf = as_cuda.fluid_cuda(*args, rounds, lf, carry=True,
+                                     z_out=True)
     torch.cuda.synchronize()
     for k in want:
         assert torch.equal(_as_bits(want[k]), _as_bits(got[k])), k
+    assert torch.equal(_as_bits(z), _as_bits(got["z"]))
     if len(scales) > 2:
         assert (want["delivered_frac"][-1] < 1.0).any()
 
 
 @pytest.mark.cuda
-def test_as_flows_on_card_equals_cpu(card):
-    """run_as_flows on the card (one as_spf and one as_fluid launch)
-    against the plain path on the CPU."""
+def test_as_erf_inv_bit_equal_to_plain(card):
+    """The draw's erf_inv (as_fluid's, xla_math::xla_erf_inv) against
+    fused.erf_inv on the card: 2^20 draws' inputs, both branches, +-1."""
+    from tpudes_torch.ops.fused import erf_inv
+    from tpudes_torch.parallel import as_cuda
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.cat([torch.rand(1 << 20, device=card, generator=gen) * 2 - 1,
+                   1 - torch.rand(1 << 12, device=card, generator=gen) * 1e-3,
+                   torch.tensor([1.0, -1.0, 0.0, -0.0], device=card)])
+    assert torch.equal(_as_bits(as_cuda.erf_inv_check(x)),
+                       _as_bits(erf_inv(x)))
+
+
+@pytest.mark.cuda
+def test_as_flows_on_card_equals_cpu(card, monkeypatch):
+    """run_as_flows on the card (one as_spf and one as_fluid launch, and
+    no call of the plain walk or draws) against the plain path on the
+    CPU."""
     from tpudes_torch.parallel import as_flows as asf
     from tpudes_torch.scenarios import as_program
 
     prog = as_program(2000, 32, 1.0, seed=6)
     key = np.array([0, 5])
+    want = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0],
+                            device="cpu")
+
+    def plain(*a, **k):
+        raise AssertionError("the card's run called a plain stage")
+
+    for name in ("walk_paths", "_walk", "as_replica_draws",
+                 "fluid_draws_math", "spf_math", "fluid_math"):
+        monkeypatch.setattr(asf, name, plain)
     kc.reset_launches()
     got = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0])
     assert kc.launches == _counts(as_spf=1, as_fluid=1, as_fluid_sweep=1)
-    want = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0],
-                            device="cpu")
     for w, g in zip(want, got):
         for k in w:
             a, b = np.asarray(w[k]), np.asarray(g[k])

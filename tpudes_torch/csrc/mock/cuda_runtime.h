@@ -13,8 +13,8 @@
 // __reduce_*_sync, __any_sync, __syncwarp) meet at a std::barrier of the
 // warp's 32 threads, so every lane must reach each of them, as on the card
 // with a full mask; a named barrier (bar.sync id, 64: the kernel's
-// pair_sync) is a std::barrier of 64 threads, and __syncthreads one of the
-// block's threads.  Dynamic shared memory is the one buffer tcp_smem (or
+// pair_sync) is a std::barrier of 64 threads, and __syncthreads (and
+// __syncthreads_or) one of the block's threads.  Dynamic shared memory is the one buffer tcp_smem (or
 // dyn_smem), and a __shared__ variable at namespace scope a global (the
 // blocks run one at a time).  The f32 and f64 intrinsics are the IEEE
 // operations they name, rounded to nearest; -ffp-contract=off keeps g++
@@ -67,7 +67,10 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
 
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
@@ -89,6 +92,11 @@ inline thread_local std::vector<std::unique_ptr<std::barrier<>>>* named =
     nullptr;
 // the block's __syncthreads barrier, all its threads
 inline thread_local std::barrier<>* block_barrier = nullptr;
+// __syncthreads_or: call i posts to slot i % 3 and clears slot (i + 2) % 3,
+// whose last readers met at call i's barrier and whose next writers meet at
+// call i + 1's first
+inline thread_local std::atomic<int>* or_slots = nullptr;
+inline thread_local unsigned or_calls = 0;
 
 inline void named_barrier_sync(int id, int n) {
   (*named)[id]->arrive_and_wait();
@@ -139,6 +147,7 @@ inline cudaError_t cudaLaunchKernel(void (*f)(P...), dim3 grid, dim3 block,
     for (int i = 0; i < 16; ++i)
       named.push_back(std::make_unique<std::barrier<>>(64));
     std::barrier<> block_bar(n);
+    std::atomic<int> or_slots[3] = {0, 0, 0};
     std::vector<std::thread> threads;
     threads.reserve(n);
     for (unsigned t = 0; t < n; ++t)
@@ -150,6 +159,8 @@ inline cudaError_t cudaLaunchKernel(void (*f)(P...), dim3 grid, dim3 block,
         cuda_mock::warp_of = &warps[t / 32];
         cuda_mock::named = &named;
         cuda_mock::block_barrier = &block_bar;
+        cuda_mock::or_slots = or_slots;
+        cuda_mock::or_calls = 0;
         cuda_mock::call(f, args, std::index_sequence_for<P...>{});
       });
     for (auto& th : threads) th.join();
@@ -240,7 +251,29 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int o = r.load();
+  while (o < v && !r.compare_exchange_weak(o, v)) {
+  }
+  return o;
+}
+inline int atomicMin(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int o = r.load();
+  while (o > v && !r.compare_exchange_weak(o, v)) {
+  }
+  return o;
+}
 inline void __syncthreads() { cuda_mock::block_barrier->arrive_and_wait(); }
+inline int __syncthreads_or(int pred) {
+  const unsigned i = cuda_mock::or_calls++;
+  if (pred) cuda_mock::or_slots[i % 3].store(1);
+  cuda_mock::block_barrier->arrive_and_wait();
+  const int any = cuda_mock::or_slots[i % 3].load();
+  cuda_mock::or_slots[(i + 2) % 3].store(0);
+  return any;
+}
 inline long long clock64() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(
              std::chrono::steady_clock::now().time_since_epoch())

@@ -10,6 +10,7 @@
 // - xla_exp: XLA's CPU exp (fused.exp), flushed below FLT_MIN;
 // - xla_log1p: XLA's Cephes log1p (fused.log1p);
 // - xla_erfc: XLA's f32 erfc as its HLO expands it (fused.erfc);
+// - xla_erf_inv: XLA's f32 erf_inv as its HLO expands it (fused.erf_inv);
 // - xla_exp10: 10 ** y as the compiled power computes it, glibc's powf
 //   (fused.exp10), in f64 operations each rounded on its own;
 // - xla_powf: x ** y the same way, glibc powf's table-driven log2 then its
@@ -143,6 +144,27 @@ __device__ __forceinline__ float xla_erfc(float x) {
   float far = ftz(__fmul_rn(ftz(__fmul_rn(xla_exp(-x2), __fdiv_rn(1.0f, ax))),
                             poly));
   return x < 0.0f ? __fsub_rn(2.0f, far) : far;
+}
+
+// XLA's f32 erf_inv as its HLO expands it (fused.erf_inv): w = -log1p(-x^2),
+// the degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 with its
+// multiply-adds fused, times x; x * inf at |x| = 1
+__device__ __forceinline__ float xla_erf_inv(float x) {
+  constexpr double kNear[9] = {2.81022636e-08,  3.43273939e-07, -3.5233877e-06,
+                               -4.39150654e-06, 0.00021858087,  -0.00125372503,
+                               -0.00417768164, 0.246640727,    1.50140941};
+  constexpr double kFar[9] = {-0.000200214257, 0.000100950558, 0.00134934322,
+                              -0.00367342844,  0.00573950773,  -0.0076224613,
+                              0.00943887047,   1.00167406,     2.83297682};
+  const float w = -xla_log1p(__fmul_rn(x, -x));
+  const bool near = w < 5.0f;
+  const float t =
+      near ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
+  float acc = static_cast<float>(near ? kNear[0] : kFar[0]);
+#pragma unroll
+  for (int k = 1; k < 9; ++k)
+    acc = fma32(acc, t, static_cast<float>(near ? kNear[k] : kFar[k]));
+  return fabsf(x) == 1.0f ? __fmul_rn(x, INFINITY) : __fmul_rn(acc, x);
 }
 
 // glibc powf's exp2 table: the bits of 2 ** (i / 32) in f64 (fused.py::

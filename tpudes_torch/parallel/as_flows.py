@@ -11,7 +11,7 @@ One run is two stages:
   min(old[u], min over u->v of old[v] + w)``, then each node's next hop
   toward each destination, the smallest directed index among the edges
   whose ``w + dist[v]`` is within ``1 + 1e-6`` of the best; then each
-  flow's path, a walk of at most ``max_hops`` hops (:func:`walk_paths`,
+  flow's path, a walk of at most ``max_hops`` hops (:func:`walk_math`,
   ``:270-293``), shared by every replica;
 - **the fluid fixed point** (:func:`fluid_math`, ``:309-377`` and the
   ``while_loop`` at ``:485-518``): :data:`FP_ROUNDS` rounds in which each
@@ -22,8 +22,10 @@ One run is two stages:
 
 On the card each stage is one launch of a hand-written kernel in
 ``csrc/as_flows.cu`` (:mod:`tpudes_torch.parallel.as_cuda`): ``as_spf``, a
-CTA a destination row, and ``as_fluid``, a CTA a ``(point, replica)``.
-On the CPU the wrappers take the plain versions, :func:`spf_math` and
+CTA a destination row, which also walks the row's flows, and ``as_fluid``,
+a CTA a replica, which also draws the replica's rates.  On
+the CPU the wrappers take the plain versions, :func:`spf_math` with
+:func:`walk_math`, and ``random.as_replica_draws`` with
 :func:`fluid_math`.
 
 The arithmetic is the reference's as its CPU backend compiles it (the
@@ -65,8 +67,9 @@ from tpudes_torch.random import as_replica_draws
 from tpudes_torch.traffic.device import avg_mult
 
 __all__ = ["AsFlowsProgram", "FP_ROUNDS", "INF", "device_spf",
-           "fluid_inputs", "fluid_math", "fluid_tables", "run_as_flows",
-           "spf_graph", "spf_math", "walk_paths"]
+           "fluid_draws_math", "fluid_inputs", "fluid_math", "fluid_tables",
+           "run_as_flows", "spf_graph", "spf_math", "walk_math",
+           "walk_paths"]
 
 #: the distance of an unreachable node (``as_flows.py:37``)
 INF = 1e30
@@ -139,7 +142,11 @@ def spf_graph(prog: AsFlowsProgram, device) -> dict:
     f32), the same edges as a CSR grouped by source node (``row_ptr``
     ``(N + 1,)``, ``col_v``, ``col_w``, ``col_e`` int32 / f32 in directed
     index order within a node), the ``(D,)`` distinct destinations
-    ``dsts`` and each flow's row ``ddst`` (``as_flows.py:227-235``)."""
+    ``dsts`` and each flow's row ``ddst`` (``as_flows.py:227-235``); for
+    the walk, the flows' sources ``src`` and destinations ``fdst``
+    (int32), each row's flows as a CSR (``flow_ptr`` ``(D + 1,)``,
+    ``flow_ids`` ``(F,)``, ascending within a row), and the ints
+    ``max_hops`` and ``e2`` (2E)."""
     e = np.concatenate([prog.edges, prog.edges[:, ::-1]]).astype(np.int64)
     if prog.spf_metric == "hops":
         w = np.ones(e.shape[0], np.float32)
@@ -152,6 +159,8 @@ def spf_graph(prog: AsFlowsProgram, device) -> dict:
     row_ptr = np.zeros(prog.n + 1, np.int32)
     row_ptr[1:] = np.cumsum(counts)
     dsts, inv = np.unique(np.asarray(prog.dst), return_inverse=True)
+    flow_ptr = np.zeros(dsts.size + 1, np.int32)
+    flow_ptr[1:] = np.cumsum(np.bincount(inv, minlength=dsts.size))
 
     def on(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -163,6 +172,10 @@ def spf_graph(prog: AsFlowsProgram, device) -> dict:
         row_ptr=on(row_ptr, torch.int32), col_v=on(e[order, 1], torch.int32),
         col_w=on(w[order], torch.float32), col_e=on(order, torch.int32),
         dsts=on(dsts, torch.int32), ddst=on(inv, torch.int64),
+        src=on(prog.src, torch.int32), fdst=on(prog.dst, torch.int32),
+        flow_ptr=on(flow_ptr, torch.int32),
+        flow_ids=on(np.argsort(inv, kind="stable"), torch.int32),
+        max_hops=int(prog.max_hops), e2=int(e.shape[0]),
     )
 
 
@@ -199,12 +212,31 @@ def device_spf(prog: AsFlowsProgram, device=None) -> tuple:
     """``(ddst, dist, nh_edge, nh_node)`` for the program's distinct
     destinations (``as_flows.py:213-267``): ``ddst`` maps a flow to its
     row of the ``(D, N)`` tables.  One ``as_spf`` launch on the card
-    (:func:`tpudes_torch.parallel.as_cuda.spf_launch`), :func:`spf_math`
-    on the CPU."""
+    (:func:`tpudes_torch.parallel.as_cuda.spf_launch`, which also walks
+    the paths), :func:`spf_math` on the CPU."""
     from tpudes_torch.parallel.as_cuda import spf_launch
 
     g = spf_graph(prog, resolve_device(device))
-    return (g["ddst"], *spf_launch(g, prog.n, prog.spf_rounds))
+    return (g["ddst"], *spf_launch(g, prog.n, prog.spf_rounds)[:3])
+
+
+def _walk(src, dst, ddst, hops_max: int, e2: int, nh_edge, nh_node):
+    """The walk of :func:`walk_paths` over int64 ``src``, ``dst``,
+    ``ddst``."""
+    dev = nh_edge.device
+    cur = src
+    cols = []
+    for _ in range(hops_max):
+        done = (cur == dst) | (cur < 0)
+        at = torch.clamp_min(cur, 0)
+        edge = torch.where(done, BIG, nh_edge[ddst, at])
+        cur = torch.where(done, -1, nh_node[ddst, at].long())
+        cols.append(torch.where(edge < BIG, edge, e2))
+    path = torch.stack(cols, 1).to(torch.int32) if cols else torch.zeros(
+        (src.shape[0], 0), dtype=torch.int32, device=dev)
+    hops = (path < e2).sum(1, dtype=torch.int32)
+    arrived = (cur == -1) | (cur == dst)
+    return path, hops, arrived
 
 
 def walk_paths(prog: AsFlowsProgram, ddst, nh_edge, nh_node) -> tuple:
@@ -213,23 +245,23 @@ def walk_paths(prog: AsFlowsProgram, ddst, nh_edge, nh_node) -> tuple:
     ended at its destination (``as_flows.py:270-293``); shared by every
     replica."""
     dev = nh_edge.device
-    E2 = 2 * prog.edges.shape[0]
-    dst = torch.as_tensor(np.asarray(prog.dst), dtype=torch.int64,
-                          device=dev)
-    cur = torch.as_tensor(np.asarray(prog.src), dtype=torch.int64,
-                          device=dev)
-    cols = []
-    for _ in range(int(prog.max_hops)):
-        done = (cur == dst) | (cur < 0)
-        at = torch.clamp_min(cur, 0)
-        edge = torch.where(done, BIG, nh_edge[ddst, at])
-        cur = torch.where(done, -1, nh_node[ddst, at].long())
-        cols.append(torch.where(edge < BIG, edge, E2))
-    path = torch.stack(cols, 1).to(torch.int32) if cols else torch.zeros(
-        (len(prog.src), 0), dtype=torch.int32, device=dev)
-    hops = (path < E2).sum(1, dtype=torch.int32)
-    arrived = (cur == -1) | (cur == dst)
-    return path, hops, arrived
+    return _walk(torch.as_tensor(np.asarray(prog.src), dtype=torch.int64,
+                                 device=dev),
+                 torch.as_tensor(np.asarray(prog.dst), dtype=torch.int64,
+                                 device=dev),
+                 ddst, int(prog.max_hops), 2 * prog.edges.shape[0], nh_edge,
+                 nh_node)
+
+
+def walk_math(g: dict, dist, nh_edge, nh_node) -> tuple:
+    """The plain walk on the graph ``g`` (:func:`spf_graph`) and its
+    routing tables: ``(path, hops, reached)``, :func:`walk_paths`' paths
+    and hop counts, and whether each flow is reached (its source at a
+    finite distance and its walk arrived; ``as_flows.py:493``)."""
+    src = g["src"].long()
+    path, hops, arrived = _walk(src, g["fdst"].long(), g["ddst"],
+                                g["max_hops"], g["e2"], nh_edge, nh_node)
+    return path, hops, (dist[g["ddst"], src] < INF) & arrived
 
 
 def link_constants(prog: AsFlowsProgram) -> tuple:
@@ -256,7 +288,13 @@ def fluid_tables(prog: AsFlowsProgram, path: torch.Tensor) -> dict:
     int32 (-1 past the path's end), each link's contributions as a CSR
     ``ptr`` ``(L + 1,)`` / ``slot`` int32 in (hop, flow) order, a slot
     being ``h F + f``, and the links' f32 constants ``c``, ``k`` and
-    ``dly`` and the flag ``fold`` (:func:`link_constants`)."""
+    ``dly`` and the flag ``fold`` (:func:`link_constants`); and for
+    ``as_fluid`` the same compacted to the ``FH`` flow-hops in one int32
+    ``blob`` (each part padded to 4 words: each flow's flow-hops ``fh_ptr``
+    ``(F + 1,)``, their compact links and flows, ``(FH,)`` each, flow
+    after flow in hop order; each link's contributions ``lptr`` ``(L +
+    1,)`` and ``lslot`` ``(FH,)``, flow-hop positions in (hop, flow)
+    order; ``c``, ``k``, ``dly`` as f32 bits) and the count ``fh``."""
     dev = path.device
     F, H = path.shape
     E = prog.edges.shape[0]
@@ -273,9 +311,20 @@ def fluid_tables(prog: AsFlowsProgram, path: torch.Tensor) -> dict:
     ptr[1:] = torch.cumsum(counts, 0)
     *consts, fold = link_constants(prog)
     c, k, dly = (torch.as_tensor(a, device=dev)[links % E] for a in consts)
+    slot = ordered % (H * F)
+    fh_ptr = torch.zeros(F + 1, dtype=torch.int64, device=dev)
+    fh_ptr[1:] = torch.cumsum(valid.sum(1), 0)
+    flow = torch.arange(F, device=dev)[:, None].expand(F, H)
+    parts = (fh_ptr, hop_link[valid], flow[valid], ptr,
+             fh_ptr[slot % F] + slot // F,
+             *(x.view(torch.int32) for x in (c, k, dly)))
+    blob = torch.cat([torch.nn.functional.pad(x.to(torch.int32),
+                                              (0, -x.numel() % 4))
+                      for x in parts])
     return dict(links=links, hop_link=hop_link.contiguous(), ptr=ptr,
-                slot=(ordered % (H * F)).to(torch.int32), c=c.contiguous(),
-                k=k.contiguous(), dly=dly.contiguous(), fold=fold)
+                slot=slot.to(torch.int32), c=c.contiguous(),
+                k=k.contiguous(), dly=dly.contiguous(), fold=fold,
+                blob=blob, fh=int(slot.numel()))
 
 
 def rate_constants(prog: AsFlowsProgram) -> tuple:
@@ -301,7 +350,7 @@ def _gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
-               rounds: int, lfrac=None) -> tuple:
+               rounds: int, lfrac=None, census: dict | None = None) -> tuple:
     """The plain fluid stage over the ``(C, R)`` grid of C rate scales and
     R replicas: ``rounds`` rounds from the carried log deliveries
     ``lfrac`` ``(C, R, L)`` (None: zeros), then the outputs.  ``fm`` is
@@ -311,7 +360,14 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
     ``delivered_frac`` ``(C, R, F)`` and ``max_util`` ``(C, R)``.
 
     A link's load sums its padded contribution list one list position at
-    a time, from 0 (:func:`fluid_tables`' (hop, flow) order)."""
+    a time, from 0 (:func:`fluid_tables`' (hop, flow) order).  A
+    ``census`` dict gains the work this data needs, summed over the grid's
+    rows and the rounds each row runs before its fixed point (a row stops
+    after a round that moves none of its ``lfrac``; the rounds after it
+    would repeat it): ``row_rounds``; ``exps``, the flow-hop
+    contributions whose exponent is not 0 (``exp(0)`` is 1); and
+    ``logs``, the link updates whose argument is not 1 (``log(1)`` is
+    0)."""
     hop_link, c, k, dly = t["hop_link"], t["c"], t["k"], t["dly"]
     F, H = hop_link.shape
     L = c.shape[0]
@@ -330,20 +386,33 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
                             t["slot"].numel() - 1, 0))].long(), H * F)
     lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
     util = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
+    active = torch.ones((C, R, 1), dtype=torch.bool, device=dev)
     for _ in range(int(rounds)):
         lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
         contrib = torch.zeros((C, R, H * F + 1), dtype=torch.float32,
                               device=dev)
         for h in range(H):
             contrib[..., h * F:(h + 1) * F] = rate * exp(lg)
+            if census is not None:
+                census["exps"] = census.get("exps", 0) + int(
+                    ((lg != 0) & (hop_link[:, h] >= 0) & active).sum())
             lg = lg + _gather_last(lfrac, hop_link[:, h])
         load = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
         for j in range(width):
             load = load + contrib[..., lists[:, j]]
         util = load * c
         one = torch.ones_like(util)
-        lfrac = log(torch.minimum(
-            one / torch.clamp_min(util, f32(util, UTIL_MIN)), one))
+        arg = torch.minimum(one / torch.clamp_min(util, f32(util, UTIL_MIN)),
+                            one)
+        new = log(arg)
+        if census is not None:
+            census["logs"] = census.get("logs", 0) + int(
+                ((arg != 1) & active).sum())
+            census["row_rounds"] = census.get("row_rounds", 0) + int(
+                active.sum())
+            active = active & (new.view(torch.int32)
+                               != lfrac.view(torch.int32)).any(-1, True)
+        lfrac = new
     rho = torch.clamp_max(util, f32(util, RHO_MAX))
     q = rho / (1.0 - rho)
     ldel = fma(q, k, k + dly) if t["fold"] else fma(q, k, k) + dly
@@ -358,22 +427,34 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
                 delivered_frac=frac, max_util=max_util), lfrac
 
 
+def fluid_draws_math(t: dict, fm, scale, key, replicas: int, reached,
+                     jitter: float, hj2: float, rounds: int,
+                     lfrac=None) -> tuple:
+    """The plain draws and fluid stage (:func:`fluid_inputs`' arguments):
+    ``z = as_replica_draws(key, replicas, F)``, then :func:`fluid_math`.
+    Returns ``(out, lfrac, z)``."""
+    z = as_replica_draws(key, int(replicas), fm.shape[0])
+    out, lf = fluid_math(t, fm, scale, z, reached, jitter, hj2, rounds,
+                         lfrac)
+    return out, lf, z
+
+
 def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
                  device=None) -> tuple:
-    """``(args, hops)``: the routing stage (:func:`device_spf`, one
-    ``as_spf`` launch on the card) and the path walk of one run, then the
-    fluid stage's leading arguments ``(tables, fm, scale, z, reached,
-    jitter, half_jitter_sq)`` for :func:`fluid_math` and
-    :func:`~tpudes_torch.parallel.as_cuda.fluid_launch`: ``key`` the run's
-    ``(2,)`` key, ``scales`` the C rate scales; and each flow's hop
-    count."""
+    """``(args, hops)``: the routing stage and the path walk of one run
+    (:func:`~tpudes_torch.parallel.as_cuda.spf_launch`, one ``as_spf``
+    launch on the card), then the fluid stage's leading arguments
+    ``(tables, fm, scale, key, replicas, reached, jitter,
+    half_jitter_sq)`` for :func:`~tpudes_torch.parallel.as_cuda.
+    fluid_launch`: ``key`` the run's ``(2,)`` key, whose replica ``r``
+    draws ``normal(fold_in(key, r), (F,))``, ``scales`` the C rate
+    scales; and each flow's hop count."""
+    from tpudes_torch.parallel.as_cuda import spf_launch
+
     dev = resolve_device(device)
     key = torch.as_tensor(key, dtype=torch.int64).to(dev)
-    ddst, dist, nh_edge, nh_node = device_spf(prog, dev)
-    path, hops, arrived = walk_paths(prog, ddst, nh_edge, nh_node)
-    src = torch.as_tensor(np.asarray(prog.src), dtype=torch.int64,
-                          device=dev)
-    reached = (dist[ddst, src] < INF) & arrived
+    g = spf_graph(prog, dev)
+    _, _, _, path, hops, reached = spf_launch(g, prog.n, prog.spf_rounds)
     fm = torch.as_tensor(_f32(prog.flow_bps), device=dev)
     if prog.traffic is not None:
         horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
@@ -381,8 +462,7 @@ def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
                            prog.traffic.epoch_us, horizon)
     scale = torch.tensor([float(s) for s in scales], dtype=torch.float32,
                          device=dev)
-    z = as_replica_draws(key, int(replicas), len(prog.src))
-    return (fluid_tables(prog, path), fm, scale, z, reached,
+    return (fluid_tables(prog, path), fm, scale, key, int(replicas), reached,
             *rate_constants(prog)), hops
 
 
@@ -400,8 +480,9 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     (the routing stage once) and returns one dict a point.
     ``chunk_rounds=N`` runs the fixed point N rounds a launch, carrying the
     links' log deliveries: the same result bit for bit.  ``device``
-    defaults to the card, where a run is one ``as_spf`` launch and one
-    ``as_fluid`` launch a chunk."""
+    defaults to the card, where a run is one ``as_spf`` launch (the
+    routing and the walk) and one ``as_fluid`` launch a chunk (the draws
+    and the fixed point)."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
     if checkpoint is not None:
@@ -424,7 +505,7 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
                                   carry=bound < FP_ROUNDS)
         done = bound
     shared = dict(hops=hops.cpu().numpy(),
-                  unreachable=(~args[4]).cpu().numpy())
+                  unreachable=(~args[5]).cpu().numpy())
     host = {k: v.cpu().numpy() for k, v in out.items()}
     points = [dict({k: v[c] for k, v in host.items()}, **shared)
               for c in range(len(scales))]
