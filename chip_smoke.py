@@ -172,10 +172,10 @@ With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
 (``DIR/bss_advance.cu``, the same C interface and probe), of the TCP
 kernel (``DIR/tcp_advance.cu``, the same C interface), of the window
-(``DIR/wifi_window.cu``) and PR 13's AS kernels (``DIR/as_flows.cu``,
-through PR 13's C interface kept here), each where DIR holds it,
-against this checkout's in one call, their outputs equal, their times
-taken in turns and both stage probes run.
+(``DIR/wifi_window.cu``) and the first AS design's kernels
+(``DIR/as_flows.cu``, through that design's C interface kept here), each
+where DIR holds it, against this checkout's in one call, their outputs
+equal, their times taken in turns and both stage probes run.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
@@ -195,6 +195,9 @@ import sys
 import time
 
 import numpy as np
+
+#: the script's start, for the wall it prints before its kernels line
+STARTED = time.monotonic()
 
 SEED = 20261016
 E, UES_PER_CELL, R = 7, 30, 64
@@ -2427,13 +2430,53 @@ def as_spf_bound(g: dict, n: int, needed: int, outs) -> tuple:
     return times[by], by
 
 
+def as_fluid_census(args, z, rounds: int) -> dict:
+    """The work the fluid stage's data needs over the ``(C, R)`` grid of
+    :func:`fluid_inputs`' ``args`` and the draws ``z``, summed over the
+    rows and the rounds each row runs before its fixed point (a row stops
+    after a round that moves none of its ``lfrac``; the rounds after it
+    would repeat it): ``row_rounds``; ``exps``, the flow-hop
+    contributions whose exponent (the sum of ``lfrac`` along the path
+    before the hop) is not 0, since ``exp(0)`` is 1; ``logs``, the link
+    updates whose argument is not 1 (``log(1)`` is 0, and the new
+    ``lfrac`` is not 0 where it is not).  ``fluid_math`` runs the rounds
+    one at a time."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+
+    t, fm, scale = args[:3]
+    reached, jitter, hj2 = args[5:8]
+    hop_link = t["hop_link"].long()
+    F, H = hop_link.shape
+    C, R, L = scale.shape[0], z.shape[0], t["c"].shape[0]
+    lfrac = torch.zeros((C, R, L), dtype=torch.float32, device=z.device)
+    active = torch.ones((C, R, 1), dtype=torch.bool, device=z.device)
+    census = dict(row_rounds=0, exps=0, logs=0)
+    for _ in range(rounds):
+        padded = torch.cat([lfrac, torch.zeros_like(lfrac[..., :1])], -1)
+        lg = torch.zeros((C, R, F), dtype=torch.float32, device=z.device)
+        for h in range(H):
+            census["exps"] += int(((lg != 0) & (hop_link[:, h] >= 0)
+                                   & active).sum())
+            lg = lg + padded[..., hop_link[:, h] % (L + 1)]
+        _, new = asf.fluid_math(t, fm, scale, z, reached, jitter, hj2, 1,
+                                lfrac)
+        census["logs"] += int(((new != 0) & active).sum())
+        census["row_rounds"] += int(active.sum())
+        active &= (new.view(torch.int32)
+                   != lfrac.view(torch.int32)).any(-1, True)
+        lfrac = new
+    return census
+
+
 def as_fluid_bound(t: dict, args, out: dict, census: dict,
                    carry: bool = False) -> tuple:
     """Least time for the draws and the fluid stage over the ``(C, R)``
     grid: the tables' blob, the rates' operands and the key read once and
-    the outputs written once over HBM (and the carried log deliveries in
-    and out over a split run), against the operations this data needs
-    (``fluid_math``'s ``census``): each replica's draws (a threefry hash
+    the outputs ``out`` written once over HBM (the main path's: no ``z``;
+    and the carried log deliveries in and out over a split run), against
+    the operations this data needs (:func:`as_fluid_census`): each
+    replica's draws (a threefry hash
     for its key and one a flow, then an ``erf_inv`` a flow), a rate exp a
     grid row and flow, each round a row runs before its fixed point
     (``row_rounds``) a contribution (a product, a sum; an exp where its
@@ -2548,6 +2591,14 @@ def as_check(kc, dev) -> dict:
               f"memory; device {ms:.4f} ms/launch (host {host:.4f} "
               f"ms/call); plain version {plain_s * 1e3:.2f} ms; bound "
               f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+        if name == "hops":
+            # the GLOBAL instantiation, which graphs past the shared rows'
+            # limit run, at this graph's width
+            gms, ghost = timed_ms(lambda: spf_cuda(g, p.n, p.spf_rounds,
+                                                   False), AS_SPF_CALLS,
+                                  reps=3)
+            print(f"as_spf (hops, rows in device memory): device {gms:.4f} "
+                  f"ms/launch (host {ghost:.4f} ms/call)", flush=True)
         out[f"spf_{name}"] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3,
                                   bound=bound)
 
@@ -2585,9 +2636,7 @@ def as_check(kc, dev) -> dict:
         if not torch.isfinite(frac).all():
             fail(f"as_fluid ({name}): delivered_frac not finite")
         t = args[0]
-        census = {}
-        asf.fluid_math(t, args[1], args[2], z, *args[5:], asf.FP_ROUNDS,
-                       census=census)
+        census = as_fluid_census(args, z, asf.FP_ROUNDS)
         line = (f"as_fluid ({name}) vs as_replica_draws + fluid_math: z, "
                 f"goodput, delay, delivered_frac, max_util bit-equal at "
                 f"C={len(scales)} R={AS_R} F={AS_FLOWS} L={t['c'].shape[0]} "
@@ -2602,7 +2651,8 @@ def as_check(kc, dev) -> dict:
         if name in ("bench", "sweep"):
             ms, host = timed_ms(lambda: fluid_cuda(*args, asf.FP_ROUNDS),
                                 AS_FLUID_CALLS, reps=3)
-            bound = as_fluid_bound(t, args, got, census)
+            bound = as_fluid_bound(t, args, {k: v for k, v in got.items()
+                                             if k != "z"}, census)
             line += (f"; device {ms:.4f} ms/launch (host {host:.4f} "
                      f"ms/call); plain version {plain_s * 1e3:.2f} ms; bound "
                      f"{bound[0] * 1e3:.3f} us ({bound[1]})")
@@ -2756,7 +2806,7 @@ def as_bench(kc, dev) -> dict:
     return {"bench": launches, "grid": glaunches}
 
 
-#: PR 13's C signatures of ``csrc/as_flows.cu``, through which the
+#: the first design's C signatures of ``csrc/as_flows.cu``, through which the
 #: compare mode launches an earlier ``DIR/as_flows.cu``:
 #: ``as_spf_launch(row_ptr, col_v, col_w, col_e, dsts, scratch, dist,
 #: nh_edge, nh_node, N, D, rounds, smem, inf, slack, stream)`` (smem 8 N +
@@ -2783,9 +2833,9 @@ def old_as_entry(lib, symbol: str, argtypes: list, *args) -> None:
 
 
 def old_as_spf(lib, g: dict, n: int, rounds: int, prof=None) -> tuple:
-    """PR 13's ``as_spf`` from ``lib`` on ``g`` (its rows in shared memory
-    where ``2 n`` floats fit): ``(dist, nh_edge, nh_node)``; with ``prof``
-    (int64 words) its probe."""
+    """The first design's ``as_spf`` from ``lib`` on ``g`` (its rows in
+    shared memory where ``2 n`` floats fit): ``(dist, nh_edge,
+    nh_node)``; with ``prof`` (int64 words) its probe."""
     import torch
     from tpudes_torch.parallel.as_flows import INF, NEXT_HOP_SLACK
 
@@ -2813,8 +2863,9 @@ def old_as_spf(lib, g: dict, n: int, rounds: int, prof=None) -> tuple:
 
 def old_as_fluid(lib, t: dict, fm, scale, z, reached, jitter: float,
                  hj2: float, rounds: int, prof=None) -> dict:
-    """PR 13's ``as_fluid`` from ``lib`` over the ``(C, R)`` grid of the
-    draws ``z`` ``(R, F)``: the outputs; with ``prof`` its probe."""
+    """The first design's ``as_fluid`` from ``lib`` over the ``(C, R)``
+    grid of the draws ``z`` ``(R, F)``: the outputs; with ``prof`` its
+    probe."""
     import torch
     from tpudes_torch.parallel.as_flows import RHO_MAX, UTIL_MIN
 
@@ -2876,7 +2927,7 @@ def as_stage_split(dev, label: str, old_lib=None) -> dict:
     to the plain versions'; the cycles a CTA in each stage
     (``as_cuda.spf_stages`` / ``fluid_stages``), the probe launch's device
     time (CUDA events) and nvidia-smi's SM clock just after.  ``old_lib``:
-    PR 13's kernels, through their own C signatures."""
+    the first design's kernels, through their own C signatures."""
     import torch
     from tpudes_torch.parallel import as_cuda
     from tpudes_torch.parallel import as_flows as asf
@@ -2953,8 +3004,8 @@ def as_stage_split(dev, label: str, old_lib=None) -> dict:
     return split
 
 def old_as_run(lib, prog, seed: int, dev) -> dict:
-    """PR 13's ``run_as_flows`` on PR 13's kernels from ``lib``, step for
-    step: the graph's tables, one ``as_spf`` launch, the walk and the
+    """The first design's ``run_as_flows`` on its kernels from ``lib``,
+    step for step: the graph's tables, one ``as_spf`` launch, the walk and the
     draws as small torch ops (``walk_paths``, ``as_replica_draws``), the
     fluid tables, one ``as_fluid`` launch and the copy back."""
     import torch
@@ -2977,14 +3028,14 @@ def old_as_run(lib, prog, seed: int, dev) -> dict:
 
 
 def as_compare(old_lib, dev, card: str, old_dir: str) -> dict:
-    """The AS half of the compare mode: PR 13's ``as_flows.cu``
-    (``DIR/as_flows.cu``, launched through PR 13's C signatures,
+    """The AS half of the compare mode: the first design's ``as_flows.cu``
+    (``DIR/as_flows.cu``, launched through its own C signatures,
     :func:`old_as_spf` and :func:`old_as_fluid`) against this checkout's
     at bench_as's width: the routing tables equal, the new walk equal to
     the plain one; the fluid outputs equal at one scale and at the
     :data:`AS_SCALES` grid, the old kernel fed the draws the new one
-    writes out (equal to ``as_replica_draws``); PR 13's main path
-    (:func:`old_as_run`) equal to ``run_as_flows``; then in turns (old,
+    writes out (equal to ``as_replica_draws``); the first design's main
+    path (:func:`old_as_run`) equal to ``run_as_flows``; then in turns (old,
     new, new, old) each kernel's device time (CUDA events, :func:`timed_ms`
     of its launch, median of three) and the main path's wall (median of
     three runs on keys 1..3 after one on key 0); each path's device
@@ -3028,7 +3079,8 @@ def as_compare(old_lib, dev, card: str, old_dir: str) -> dict:
         return asf.run_as_flows(prog, PRNGKey(seed), AS_R, device=dev)
 
     if not same_run(entry(1), old_as_run(old_lib, prog, 1, dev)):
-        fail("compare (bench_as): PR 13's main path and run_as_flows differ")
+        fail("compare (bench_as): the first design's main path and "
+             "run_as_flows differ")
     scale1 = torch.tensor([1.0], device=dev)
     launches = {
         "old": (lambda: old_as_spf(old_lib, g, prog.n, prog.spf_rounds),
@@ -3366,8 +3418,8 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     """``python3 chip_smoke.py --compare-with DIR``: each of
     ``DIR/bss_advance.cu``, ``DIR/tcp_advance.cu``, ``DIR/wifi_window.cu``
     (an earlier design of the kernel with the same C interface) and
-    ``DIR/as_flows.cu`` (PR 13's, through its own C interface) that is
-    there against this checkout's, in one call on one card.  Builds all
+    ``DIR/as_flows.cu`` (the first design's, through its own C
+    interface) that is there against this checkout's, in one call on one card.  Builds all
     of them in parallel (printing the window kernels' SASS counts); runs
     :func:`bss_compare`, :func:`tcp_compare`, :func:`window_compare` and
     :func:`as_compare` and prints each one's JSON line (``phase:
@@ -4452,6 +4504,8 @@ def main(device: str = "cuda") -> int:
             bound_ms=bound[0], bound_by=bound[1], library_ms=None,
         )
 
+    print(f"wall: {time.monotonic() - STARTED:.1f} s from the script's "
+          f"start, the build included", flush=True)
     print(json.dumps({"kernels": [
         entry("lte_sm_advance", launches["lte_sm_advance"], adv_err, ms_adv,
               ms_adv_plain, (adv_bound_ms, adv_bound_by)),

@@ -326,17 +326,11 @@ def test_probe_equals_main_launch(kernel, what):
 # --------------------------------------------------------------------------
 
 
-def _mutant(tmp_path, monkeypatch, was: str, now: str,
-            name: str = "wifi_window.cu"):
-    """Build the window from a copy of its source with ``was`` in
-    ``name`` (the kernel's file or a header it includes, which the copy
-    then finds beside it) replaced by ``now``."""
-    source = (CSRC / name).read_text()
+def _mutant(tmp_path, monkeypatch, was: str, now: str):
+    source = (CSRC / "wifi_window.cu").read_text()
     assert source.count(was) == 1
-    (tmp_path / name).write_text(source.replace(was, now))
     path = tmp_path / "wifi_window.cu"
-    if name != path.name:
-        path.write_text((CSRC / path.name).read_text())
+    path.write_text(source.replace(was, now))
     _use(_build_mock(path, tmp_path / "libmutant.so"), monkeypatch)
 
 
@@ -345,7 +339,7 @@ def test_mutant_single_rounding_fails(tmp_path, monkeypatch):
     see it."""
     _mutant(tmp_path, monkeypatch, "  return r24(__fma_rn(a, b, c));",
             "  return __fmaf_rn(static_cast<float>(a), static_cast<float>(b), "
-            "static_cast<float>(c));", name="f32d.cuh")
+            "static_cast<float>(c));")
     a, b, c = _ties(np.random.default_rng(2), 1 << 12)
     got, _ = window_cuda.fma_check(*(torch.from_numpy(x) for x in (a, b, c)))
     assert not np.array_equal(_bits(got.numpy()), _bits(_definition(a, b, c)))

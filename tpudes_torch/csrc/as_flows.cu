@@ -74,15 +74,15 @@
 //
 // Arithmetic.  exp, log, erf_inv and the multiply-adds are xla_math.cuh's
 // (the reference's compiled functions over xla_math::fma32).  The WiFi
-// window's f64-register route (f32d.cuh) was measured here and not kept:
-// no chain of this kernel is bound by the f32 <-> f64 conversions, and the
-// route ran 2-5 % slower (PERF.md, PR 14).  Every other product, sum and
-// division is rounded on its own (__fmul_rn, __fadd_rn, __fdiv_rn), which
-// nvcc does not contract.
+// window's f64-register route (F32d in wifi_window.cu) was tried here and
+// not kept: no chain of this kernel is bound by the f32 <-> f64
+// conversions, and the route ran slower (PERF.md).  Every other product,
+// sum and division is rounded on its own (__fmul_rn, __fadd_rn,
+// __fdiv_rn), which nvcc does not contract.
 //
 // Bound (chip_smoke.py's as_spf_bound, as_fluid_bound).  as_spf must write
 // its three (D, N) tables (15 MB at bench_as's 10,000 nodes and 127
-// destinations): bytes bound it.  Its time goes to latency: PR 13's design
+// destinations): bytes bound it.  Its time goes to latency: the first design
 // (a thread a node, every round over the whole CSR from L2) spent 53,000
 // cycles a round waiting on the warp with the most entries, nine rounds and
 // a next-hop pass of 143,000; here each row reads a frontier node's edges
@@ -90,7 +90,7 @@
 // the CSR once in the next-hop pass.  as_fluid is bound by operations, its
 // exps and logs where links are loaded past capacity; the tables in shared
 // memory, the flow-hops a lane, the fixed-point stop and the shortcuts
-// above take it off PR 13's serial chain of exps a flow.
+// above take it off the first design's serial chain of exps a flow.
 //
 // The stage probe (as_spf_profile, as_fluid_profile: the PROF
 // instantiations) reads clock64() at each warp's stage edges (as_cuda.py::

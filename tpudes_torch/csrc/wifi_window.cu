@@ -52,8 +52,8 @@
 // Arithmetic.  Every f32 product, sum and quotient is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, or their f64 forms
 // rounded by r24, which nvcc cannot contract); log, exp, log1p and erfc
-// are xla_math.cuh's, written out over f64 registers in f32d.cuh, and
-// 10 ** x is xla_math::xla_exp10.  The per-mode numbers (the QAM factor and divisor,
+// are xla_math.cuh's, written out here over f64 registers, and 10 ** x is
+// xla_math::xla_exp10.  The per-mode numbers (the QAM factor and divisor,
 // the union bound's logs) arrive from the wrapper as the plain version
 // computes them (ops/wifi_error.py::mode_table).  Build without
 // --use_fast_math.
@@ -71,7 +71,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "f32d.cuh"
 #include "threefry.cuh"
 #include "xla_math.cuh"
 
@@ -79,13 +78,6 @@
 extern __shared__ __align__(16) unsigned char dyn_smem[];
 
 namespace win_kernel {
-
-using f32d::erfc_d;
-using f32d::exp_d;
-using f32d::F32d;
-using f32d::ftz_d;
-using f32d::log1p_d;
-using f32d::log_d;
 
 // the most nodes a window holds (kernels.py::MAX_NODES): the column sum's
 // two levels of 32-row blocks
@@ -146,6 +138,210 @@ struct Clock {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// f32 values in f64 registers
+//
+// xla_math::fma32(a, b, c) is a * b + c rounded once to f64 (the product of
+// two floats is exact there) and once to f32.  Its two conversions between
+// f32 and f64 run at 16 a clock an SM, an eighth of the f32 rate, and the
+// error model runs ~150 of them a pair.  So the chains below hold each value
+// as an f64 that is an f32 value and round every result to f32 in the f64
+// pipe: Veltkamp's split with the factor 2^29 + 1 gives an f64's nearest
+// 24-bit value, ties to even (binary arithmetic rounding to nearest even),
+// which is f32's rounding wherever f32 holds the result as a normal number
+// or as zero; a chain with a result elsewhere (|y| below 2^-126 or at 2^127
+// and above, infinities, NaN) runs again as the f32 chain over
+// xla_math::fma32 (rare: subnormal or huge results).  A sum, difference or
+// product of two f32 values taken in f64 and rounded to f32 equals the f32
+// operation (53 >= 2 x 24 + 2: that double rounding is innocuous), so the
+// chains take those in f64 too; a quotient goes through __fdiv_rn.
+// ---------------------------------------------------------------------------
+
+// the arithmetic of the chains: ok stays true while every result lies
+// where r24 is f32's rounding; a chain that clears it is redone by the f32
+// path (xla_math.cuh's functions), so its result is exact either way.  The
+// test reads y's high word as an f32 (|y|'s exponent and top mantissa bits):
+// 2^-126 <= |y| < 2^127 is [0x1.2p-15, 0x1.cp16) there, and zero is zero.
+//
+// Most steps need no test: every step of the polynomials below (exp's,
+// log's and log1p's, erfc's three) over its input's domain, and exp's
+// reduction, lies in [7e-4, 420] or is an exact f32 (sampled at 8 M points
+// of each domain; the smallest step value, 7.2e-4, is erfc's first near
+// one); those round by round24 and fmau.
+struct F32d {
+  bool ok = true;
+  // y rounded to its nearest 24-bit value (Veltkamp's split)
+  __device__ __forceinline__ static double round24(double y) {
+    const double c = __dmul_rn(y, 536870913.0);
+    return __dsub_rn(c, __dsub_rn(c, y));
+  }
+  // y rounded to f32, as an f64, clearing ok where that is not f32's
+  __device__ __forceinline__ double r24(double y) {
+    const float e = fabsf(__int_as_float(__double2hiint(y)));
+    ok = ok & ((e >= 0x1.2p-15f & e < 0x1.cp16f) | e == 0.0f);
+    return round24(y);
+  }
+  // xla_math::fma32 on f32 values held in f64: a * b + c rounded to f64,
+  // then to f32
+  __device__ __forceinline__ double fma(double a, double b, double c) {
+    return r24(__fma_rn(a, b, c));
+  }
+  // the same for a result known to lie in f32's normal range
+  __device__ __forceinline__ static double fmau(double a, double b,
+                                                double c) {
+    return round24(__fma_rn(a, b, c));
+  }
+  // the same for a result known to lie in [2^E, 2^(E + 1)): y + 1.5 *
+  // 2^(E + 29) rounds y to that binade's f32 grid, ties to even
+  template <int E>
+  __device__ __forceinline__ static double fma_in(double a, double b,
+                                                  double c) {
+    constexpr double m = 1.5 * static_cast<double>(1ll << (E + 40)) /
+                         static_cast<double>(1ll << 11);
+    return __dsub_rn(__dadd_rn(__fma_rn(a, b, c), m), m);
+  }
+  // x is an f32 value: clears ok where it is nonzero below 2^-60 (exp_d's
+  // reduction keeps such an x whole, whose square leaves f32's range)
+  __device__ __forceinline__ void not_tiny(double x) {
+    const float e = fabsf(__int_as_float(__double2hiint(x)));
+    ok = ok & (e >= 0x1.6p-7f | e == 0.0f);
+  }
+  __device__ __forceinline__ double add(double a, double b) {
+    return r24(__dadd_rn(a, b));
+  }
+  __device__ __forceinline__ double mul(double a, double b) {
+    return r24(__dmul_rn(a, b));
+  }
+  // ((c0 x + c1) x + c2) x + ..., every step one fma32 (the polynomials of
+  // exp, log1p and erfc, each step in range)
+  template <int K>
+  __device__ __forceinline__ static double horner(double x,
+                                                  const double (&c)[K]) {
+    double acc = static_cast<float>(c[0]);
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc = fmau(acc, x, static_cast<float>(c[k]));
+    return acc;
+  }
+};
+
+__device__ __forceinline__ double ftz_d(double x) {
+  return fabs(x) < 0x1p-126 ? 0.0 : x;
+}
+
+// xla_math::xla_exp of an f32 value: Cephes expf as XLA's CPU backend
+// compiles it, flushed below FLT_MIN; floor(u) is u + 1.5 * 2^52 rounded
+// down, whose low word is the exponent's integer
+__device__ __forceinline__ double exp_d(F32d& f, double x) {
+  constexpr double kP[6] = {1.9875691500e-4, 1.3981999507e-3,
+                            8.3334519073e-3, 4.1665795894e-2,
+                            1.6666665459e-1, 0.5};
+  constexpr double kMagic = 0x1.8p52;
+  x = fmin(fmax(x, static_cast<double>(static_cast<float>(-87.8))),
+           static_cast<double>(static_cast<float>(88.8)));
+  // u (|u| <= 129, a multiple of 2^-48), r (a multiple of 2^-36, or x:
+  // |r| <= 0.771), the polynomial's steps (the first four each in one
+  // binade), r^2, the last multiply-add (each 0 or at least 2^-120 in
+  // size once x is 0 or at least 2^-60) and y (in [0.7, 2.2]) lie in range
+  f.not_tiny(x);
+  const double u = f.fmau(x, static_cast<float>(1.44269502), 0.5);
+  const double s = __dadd_rd(u, kMagic);
+  const int ni = max(min(__double2loint(s), 127), -127);
+  const double n = ni;
+  double r = f.fmau(n, -static_cast<float>(0.693359375), x);
+  r = f.fmau(n, -static_cast<float>(-2.12194440e-4), r);
+  double q = f.fma_in<-10>(static_cast<float>(kP[0]), r,
+                           static_cast<float>(kP[1]));
+  q = f.fma_in<-7>(q, r, static_cast<float>(kP[2]));
+  q = f.fma_in<-5>(q, r, static_cast<float>(kP[3]));
+  q = f.fma_in<-3>(q, r, static_cast<float>(kP[4]));
+  q = f.fmau(q, r, static_cast<float>(kP[5]));
+  const double v = f.fmau(q, f.round24(__dmul_rn(r, r)), r);
+  const double y = f.round24(__dadd_rn(v, 1.0));
+  // y * 2^n as f32 multiplies it: exact from FLT_MIN up (y, in (0.5, 2.2),
+  // holds 24 bits), so for n in -125 .. 126; infinite from 2^128, below
+  // FLT_MIN rounded to a subnormal, which the flush zeroes unless it rounds
+  // up to FLT_MIN (2^n is 0 at n = -127)
+  const double p = __dmul_rn(y, __hiloint2double((ni + 1023) << 20, 0));
+  if (ni >= -125 && ni <= 126) return p;
+  if (p >= 0x1p128) return __longlong_as_double(0x7FF0000000000000LL);
+  return p >= 0x1.fffffep-127 ? fmax(p, 0x1p-126) : 0.0;
+}
+
+// xla_math::xla_log: Cephes logf as XLA compiles it
+__device__ __forceinline__ double log_d(F32d& f, float x) {
+  constexpr double kP[9] = {
+      7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+      -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+      2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1};
+  const float q1 = static_cast<float>(-2.12194440e-4);
+  const float q2 = static_cast<float>(0.693359375);
+  const float sqrt_half = static_cast<float>(0.70710677);
+  x = fmaxf(x, xla_math::kFltMin);
+  const int bits = __float_as_int(x);
+  float e = __fadd_rn(static_cast<float>((bits >> 23) - 127), 1.0f);
+  const float m = __int_as_float((bits & static_cast<int>(0x807FFFFF)) |
+                                 0x3F000000);
+  const bool low = m < sqrt_half;
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  const float z = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  const float z2 = __fmul_rn(z, z);
+  const double zd = z, z3 = __fmul_rn(z2, z);
+  double p[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) p[k] = static_cast<float>(kP[k]);
+  // z in [sqrt(0.5) - 1, sqrt(2) - 1]: y0, y1, y2 and the next two steps
+  // lie in range
+  const double y0 = f.fmau(f.fmau(zd, p[0], p[1]), zd, p[2]);
+  const double y1 = f.fmau(f.fmau(zd, p[3], p[4]), zd, p[5]);
+  const double y2 = f.fmau(f.fmau(zd, p[6], p[7]), zd, p[8]);
+  double y = f.fmau(f.fmau(y0, z3, y1), z3, y2);
+  y = f.fma(y, z3, __fmul_rn(e, q1));
+  return f.add(f.add(f.fma(-0.5, z2, zd), y), __fmul_rn(e, q2));
+}
+
+// xla_math::xla_log1p of an f32 value: Cephes log1p
+__device__ __forceinline__ double log1p_d(F32d& f, double x) {
+  constexpr double kQ[7] = {
+      1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+      2.2176239823732856465394e2, 3.0909872225312059774938e2,
+      2.1642788614495947685003e2, 6.0118660497603843919306e1};
+  constexpr double kP[7] = {
+      4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+      6.5787325942061044846969e0, 2.9911919328553073277375e1,
+      6.0949667980987787057556e1, 5.7112963590585538103336e1,
+      2.0039553499201281259648e1};
+  if (fabs(x) < static_cast<float>(0.41421356237309504880)) {
+    const double q = __fdiv_rn(static_cast<float>(f.horner(x, kP)),
+                               static_cast<float>(f.horner(x, kQ)));
+    const double x2 = f.mul(x, x);
+    return f.add(x, f.fma(x2, -0.5, f.mul(f.mul(x, x2), q)));
+  }
+  return log_d(f, __fadd_rn(static_cast<float>(x), 1.0f));
+}
+
+// xla_math::xla_erfc: XLA's f32 erfc as its HLO expands it
+__device__ __forceinline__ double erfc_d(F32d& f, float x) {
+  constexpr double kNear[7] = {7.85386146e-05, -0.000801019371,
+                               0.00518832775,  -0.0268538129,
+                               0.112835854,    -0.37612626,
+                               1.12837911};
+  constexpr double kMid[9] = {0.0232682,   -0.138703942, 0.368742466,
+                              -0.582473278, 0.621000469,  -0.494451523,
+                              0.340488,     -0.274112701, 0.563825965};
+  constexpr double kFar[8] = {-10.477664,  12.9772,     -7.49551868,
+                              2.92101908,  -1.01526523, 0.42184633,
+                              -0.282076746, 0.564189494};
+  const float ax = fabsf(x);
+  const float x2 = __fmul_rn(x, x);
+  if (ax < 1.0f) return f.fmau(-x, f.horner(x2, kNear), 1.0);  // erfc(x)
+  if (-x2 < static_cast<float>(-88.7228394)) return x < 0.0f ? 2.0 : 0.0;
+  const double w = __fdiv_rn(1.0f, x2);
+  const double poly = ax < 2.0f ? f.horner(w, kMid) : f.horner(w, kFar);
+  const double far = ftz_d(f.mul(
+      ftz_d(f.mul(exp_d(f, -x2), __fdiv_rn(1.0f, ax))), poly));
+  return x < 0.0f ? f.add(2.0, -far) : far;
+}
 
 // ---------------------------------------------------------------------------
 // the error model

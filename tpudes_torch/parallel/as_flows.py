@@ -350,7 +350,7 @@ def _gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
-               rounds: int, lfrac=None, census: dict | None = None) -> tuple:
+               rounds: int, lfrac=None) -> tuple:
     """The plain fluid stage over the ``(C, R)`` grid of C rate scales and
     R replicas: ``rounds`` rounds from the carried log deliveries
     ``lfrac`` ``(C, R, L)`` (None: zeros), then the outputs.  ``fm`` is
@@ -360,14 +360,7 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
     ``delivered_frac`` ``(C, R, F)`` and ``max_util`` ``(C, R)``.
 
     A link's load sums its padded contribution list one list position at
-    a time, from 0 (:func:`fluid_tables`' (hop, flow) order).  A
-    ``census`` dict gains the work this data needs, summed over the grid's
-    rows and the rounds each row runs before its fixed point (a row stops
-    after a round that moves none of its ``lfrac``; the rounds after it
-    would repeat it): ``row_rounds``; ``exps``, the flow-hop
-    contributions whose exponent is not 0 (``exp(0)`` is 1); and
-    ``logs``, the link updates whose argument is not 1 (``log(1)`` is
-    0)."""
+    a time, from 0 (:func:`fluid_tables`' (hop, flow) order)."""
     hop_link, c, k, dly = t["hop_link"], t["c"], t["k"], t["dly"]
     F, H = hop_link.shape
     L = c.shape[0]
@@ -386,33 +379,20 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
                             t["slot"].numel() - 1, 0))].long(), H * F)
     lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
     util = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
-    active = torch.ones((C, R, 1), dtype=torch.bool, device=dev)
     for _ in range(int(rounds)):
         lg = torch.zeros((C, R, F), dtype=torch.float32, device=dev)
         contrib = torch.zeros((C, R, H * F + 1), dtype=torch.float32,
                               device=dev)
         for h in range(H):
             contrib[..., h * F:(h + 1) * F] = rate * exp(lg)
-            if census is not None:
-                census["exps"] = census.get("exps", 0) + int(
-                    ((lg != 0) & (hop_link[:, h] >= 0) & active).sum())
             lg = lg + _gather_last(lfrac, hop_link[:, h])
         load = torch.zeros((C, R, L), dtype=torch.float32, device=dev)
         for j in range(width):
             load = load + contrib[..., lists[:, j]]
         util = load * c
         one = torch.ones_like(util)
-        arg = torch.minimum(one / torch.clamp_min(util, f32(util, UTIL_MIN)),
-                            one)
-        new = log(arg)
-        if census is not None:
-            census["logs"] = census.get("logs", 0) + int(
-                ((arg != 1) & active).sum())
-            census["row_rounds"] = census.get("row_rounds", 0) + int(
-                active.sum())
-            active = active & (new.view(torch.int32)
-                               != lfrac.view(torch.int32)).any(-1, True)
-        lfrac = new
+        lfrac = log(torch.minimum(
+            one / torch.clamp_min(util, f32(util, UTIL_MIN)), one))
     rho = torch.clamp_max(util, f32(util, RHO_MAX))
     q = rho / (1.0 - rho)
     ldel = fma(q, k, k + dly) if t["fold"] else fma(q, k, k) + dly
