@@ -168,6 +168,27 @@ each one ``as_spf`` and one ``as_fluid`` launch; ``studies_per_s``, the
 busy share, the device operations of a run, the stages of a run apart)
 and the grid once, counted.
 
+Then the wired engine (``tpudes_torch.parallel.wired.run_wired``) and the
+hybrid PDES (``tpudes_torch.parallel.hybrid.run_hybrid``) and their kernel
+``wired_advance`` (every (lane, replica) row's slot loop, a warp a row on
+its own clock, in one launch a window): in phase 3wired, after 3as, the
+kernel bit-equal to ``advance_math`` at 1,024 replicas x 5,535 packets
+over 2,000 slots (the plain loop's horizon; one launch, two launches but
+the egress, a zero-step window) for bench_wired's whole engine and for a
+uniform four-lane chain (the space kernel at full width); bench_wired's
+own 20,000-slot launch timed with its bound; then the main path's hybrid
+launches held against the plain loop as they run: every launch of
+bench_hybrid (a) at k = 4 and each split rank's first windows (peer
+ingress included), window 40 of each timed beside its plain wall and
+bound (about 45 s, the plain loops most of it);
+in phase 5wired, after 5as, bench_wired (``wired_chain(64, 64, period=200,
+n_slots=20_000, jitter_slots=5)`` x 1,024 replicas, a warm run and five
+timed runs, each one counted launch; about 2 s) and in phase 5hyb
+bench_hybrid: (a) ``bench.py:1178``'s weak-scaling row (k = 1, 2, 4 lanes,
+``transport="batched"``, 600-slot windows, one replica; paired rounds)
+and (b) the bench chain split four ways at 1,024 replicas,
+``transport="local"``, equal to ``run_wired`` (about 11 s together).
+
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
 (``DIR/bss_advance.cu``, the same C interface and probe), of the TCP
@@ -421,6 +442,48 @@ AS_SPF_REPLACES = ("tpudes/parallel/as_flows.py:227 (device_spf: the "
 AS_FLUID_REPLACES = ("tpudes/parallel/as_flows.py:309 (_fluid_round, and "
                      "_fluid_delay :358, in the while_loop :485-518; and "
                      "_as_replica_draws :633; XLA, no pallas_call)")
+#: bench_wired: wired_chain(64 links, 64 flows, period 200, 20,000 slots
+#: of 1 ms, jitter 5) at 1,024 replicas (5,535 packets a replica, 34.9 hops
+#: each), one warm run on key 0 and five timed runs on keys 1..5; the
+#: checks' horizon for the plain loop (the kernel's width never cut)
+WIRED_BENCH = dict(n_links=64, n_flows=64, period=200, n_slots=20_000,
+                   jitter_slots=5)
+WIRED_R, WIRED_TIMED_RUNS, WIRED_CHECK_SLOTS = 1024, 5, 2_000
+#: bench_hybrid part (b): the bench chain split four ways (ragged: 1,613 /
+#: 3,037 / 4,365 / 5,535 resident packets, lookahead 242); the space
+#: kernel's full-width check, a uniform four-way chain of 5,535 packets a
+#: lane
+WIRED_SPLIT = dict(WIRED_BENCH, ranks=4, boundary_delay=240)
+WIRED_LANES = dict(links_per_rank=16, flows_per_rank=16, period=36,
+                   cross_period=80, n_slots=20_000, boundary_delay=240,
+                   jitter_slots=5)
+#: the main path's hybrid launches held against the plain loop: each
+#: split rank's priming advance and first WIRED_HELD_WINDOWS windows (every
+#: launch of bench_hybrid (a)), and window WIRED_TIMED_WINDOW of each,
+#: which is also timed
+WIRED_HELD_WINDOWS, WIRED_TIMED_WINDOW = 3, 40
+#: bench_hybrid part (a), bench.py:1178 bench_hybrid_weak_scaling's row:
+#: wired_weak_chain(k, 2 links a rank, period 3573, 108,000 slots, boundary
+#: delay 600, cross period 8793), transport "batched", window_slots 600,
+#: one replica, key 7, k = 1, 2, 4 in turns for HYBRID_PAIRS rounds
+HYBRID_WEAK = dict(links_per_rank=2, period=3573, n_slots=108_000,
+                   boundary_delay=600, cross_period=8793)
+HYBRID_WINDOW, HYBRID_RANKS, HYBRID_PAIRS, HYBRID_KEY = 600, (1, 2, 4), 9, 7
+#: part (b)'s timed runs after a warm one
+HYBRID_SPLIT_RUNS = 3
+#: the least integer work of one service: the head's key compare, the
+#: link's free compare, arrival and free sums, the served and hop
+#: increments, the last-hop compare, the next link's owner read and test,
+#: the state's two writes
+WIRED_SERVE_OPS = 11
+WIRED_SOURCE = "tpudes_torch/csrc/wired_advance.cu"
+WIRED_REPLACES = ("tpudes/parallel/wired.py:578 (build_wired_advance: the "
+                  "lax.while_loop :700-836 over _make_lane_step.step :529; "
+                  "XLA, no pallas_call)")
+WIRED_LANES_REPLACES = ("tpudes/parallel/wired.py:841 "
+                        "(build_wired_space_advance: the step vmapped over "
+                        "rank lanes; XLA, no pallas_call)")
+
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -2806,6 +2869,414 @@ def as_bench(kc, dev) -> dict:
     return {"bench": launches, "grid": glaunches}
 
 
+def wired_clone(carry: dict) -> dict:
+    return {k: (v.clone() if hasattr(v, "clone") else v)
+            for k, v in carry.items()}
+
+
+def wired_bound(tab: dict, before: dict, after: dict) -> tuple:
+    """Least time for one ``wired_advance`` launch: the state read once
+    (hop, ready, deliver ``(N, P)``, free, served ``(N, Lo)``) and written
+    once (those and the egress buffers, the next events and the step
+    counts), the tables read once, over HBM; against the served
+    packet-hops of this launch (``served`` after less before) times
+    :data:`WIRED_SERVE_OPS` integer operations over the int32 issue
+    rate.  ``(ms, "bytes" or "operations", services)``."""
+    N, P = after["hop"].reshape(-1, after["hop"].shape[-1]).shape
+    Lo = after["free"].shape[-1]
+    words = N * (3 * P + 2 * Lo) + N * (5 * P + 2 * Lo + 2)
+    nbytes = 4 * words + sum(tab[k].nbytes for k in (
+        "paths", "nhops", "pkt_flow", "g2l", "svc", "svcdly"))
+    serves = int((after["served"] - before["served"]).sum())
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": serves * WIRED_SERVE_OPS / INT32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, serves
+
+
+def wired_same(want, wm, got, gm, keys, what: str) -> None:
+    """Fail unless ``keys`` of two carries, and their ``t``,
+    ``next_event`` and ``n_steps`` (where ``gm`` is given), are equal."""
+    import torch
+
+    for k in keys:
+        if not torch.equal(want[k], got[k]):
+            fail(f"wired_advance ({what}) differs from advance_math in {k}")
+    if gm is not None and not (
+            want["t"] == got["t"]
+            and torch.equal(wm["next_event"], gm["next_event"])
+            and int(wm["n_steps"]) == int(gm["n_steps"])):
+        fail(f"wired_advance ({what}): t, next_event or n_steps differs")
+
+
+def wired_held(run, hold, timed, what: str) -> tuple:
+    """``run()`` (a ``run_hybrid`` call) with ``wired_cuda.advance_launch``
+    wrapped: each engine's launches (its priming advance is launch 0)
+    whose index ``i`` has ``hold(i)`` or ``timed(i)`` are held against
+    ``advance_math`` on a copy of the carry they get, the whole state,
+    ``t``, ``next_event`` and ``n_steps`` bit-equal; those with
+    ``timed(i)`` are also timed (CUDA events on copies of their carry),
+    beside the plain loop's wall and their bound.  Fails unless every
+    engine had a timed launch.  Returns ``(run's result, [per timed
+    launch dict(ms, plain_ms, bound_ms, bound_by, services, rows,
+    packets, slots)], held launches)``."""
+    import torch
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    real = wired_cuda.advance_launch
+    index, numbers, held, engines_timed = {}, [], [0], set()
+
+    def launch(tab, carry, t_grant):
+        i = index[id(tab)] = index.get(id(tab), -1) + 1
+        if not hold(i) and not timed(i):
+            return real(tab, carry, t_grant)
+        before = wired_clone(carry)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want, wm = wd.advance_math(tab, wired_clone(carry), t_grant)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        if timed(i):
+            pool = [wired_clone(before) for _ in range(11)]
+            ms, _ = timed_ms(lambda: wired_cuda.wired_cuda(
+                tab, pool.pop(), t_grant), 1)
+            del pool
+        got, gm = real(tab, carry, t_grant)
+        torch.cuda.synchronize()
+        wired_same(want, wm, got, gm, [k for k, _ in wd.WIRED_STATE],
+                   f"{what}, launch {i}")
+        held[0] += 1
+        if timed(i):
+            engines_timed.add(id(tab))
+            bound_ms, by, serves = wired_bound(tab, before, want)
+            numbers.append(dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                services=serves,
+                rows=want["hop"].numel() // want["hop"].shape[-1],
+                packets=want["hop"].shape[-1],
+                slots=int(t_grant) - int(before["t"])))
+        return got, gm
+
+    wired_cuda.advance_launch = launch
+    try:
+        out = run()
+    finally:
+        wired_cuda.advance_launch = real
+    if engines_timed != set(index):
+        fail(f"wired_advance ({what}): an engine had no timed launch")
+    return out, numbers, held[0]
+
+
+def wired_check(kc, dev) -> dict:
+    """Phase 3wired: ``wired_advance`` against ``advance_math`` on the card.
+
+    - The whole engine on bench_wired's program at full width
+      (:data:`WIRED_R` replicas, 5,535 packets a row) over
+      :data:`WIRED_CHECK_SLOTS` slots: one launch, two launches (but the
+      egress, which a launch clears) and a zero-step window, every state
+      array, ``t``, ``next_event`` and ``n_steps`` bit-equal; the plain
+      loop's wall.  Then the main path's own launch, 20,000 slots at
+      ``SPAN_SLOTS``, timed (CUDA events around the wrapper on copies of
+      the carry, behind a sleep kernel) with its bound from its state
+      before and after.
+    - The space kernel at full width: the four lanes of
+      :data:`WIRED_LANES` (1,024 rows a lane, 5,535 packets), the same
+      checks.
+    - The main path's own launches, ``run_hybrid`` as phase 5hyb runs it
+      (:func:`wired_held`): bench_hybrid (a) at k = 4, every launch held
+      and timed, and (b), the four-way split at 1,024 replicas, each
+      rank's priming advance and first :data:`WIRED_HELD_WINDOWS` windows
+      held (real peer ingress from the second on), and its window
+      :data:`WIRED_TIMED_WINDOW` held and timed.
+
+    Returns the numbers of the kernels line's three entries: for the
+    hybrid's two, the means over the timed launches (device time, plain
+    wall, bound)."""
+    import torch
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+    from tpudes_torch.parallel.hybrid import run_hybrid
+
+    bench = wd.wired_chain(**WIRED_BENCH)
+    lanes = wd.wired_weak_chain(4, **WIRED_LANES)
+    key = np.array([0, 11])
+    init, _ = wd.build_wired_advance(bench, WIRED_R, device=dev)
+    cases = {"whole": (wd.wired_tables(bench, [(bench, None, None)], dev),
+                       init(key))}
+    init, _, parts = wd.build_wired_space_advance(lanes, WIRED_R, dev)
+    cases["lanes"] = (wd.wired_tables(
+        lanes, [(s, np.asarray(lanes.link_owner) == k, f)
+                for k, (s, f, _) in enumerate(parts)], dev), init(key))
+    state = [k for k, _ in wd.WIRED_STATE]
+    half = WIRED_CHECK_SLOTS // 2
+    out = {}
+    for name, (tab, carry0) in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want, wm = wd.advance_math(tab, wired_clone(carry0),
+                                   WIRED_CHECK_SLOTS)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        one, om = wired_cuda.wired_cuda(tab, wired_clone(carry0),
+                                        WIRED_CHECK_SLOTS)
+        zero, zm = wired_cuda.wired_cuda(tab, wired_clone(carry0), 0)
+        pz, pzm = wd.advance_math(tab, wired_clone(carry0), 0)
+        two, _ = wired_cuda.wired_cuda(tab, wired_clone(carry0), half)
+        two, tm = wired_cuda.wired_cuda(tab, two, WIRED_CHECK_SLOTS)
+        torch.cuda.synchronize()
+        wired_same(want, wm, one, om, state, f"{name}, one launch")
+        wired_same(pz, pzm, zero, zm, state, f"{name}, zero-step")
+        # a launch clears the egress: two launches hold only the second's
+        wired_same(want, wm, two, None, [
+            k for k in state if k not in ("eg_hop", "eg_ready")],
+            f"{name}, two launches")
+        if not torch.equal(wm["next_event"], tm["next_event"]):
+            fail(f"wired_advance ({name}, two launches): next_event differs")
+        delivered = int((want["deliver"] >= 0).sum())
+        egress = int((want["eg_hop"] >= 0).sum())
+        if delivered == 0 or (name == "lanes" and egress == 0):
+            fail(f"wired_advance ({name}) check delivered or handed over "
+                 f"nothing")
+        pool = [wired_clone(carry0) for _ in range(11)]
+        ms, _ = timed_ms(lambda: wired_cuda.wired_cuda(
+            tab, pool.pop(), WIRED_CHECK_SLOTS), 1)
+        del pool
+        _, _, serves = wired_bound(tab, carry0, want)
+        N = want["hop"].numel() // want["hop"].shape[-1]
+        print(f"wired_advance ({name}) vs advance_math: state, t, "
+              f"next_event, n_steps bit-equal at {N} rows x "
+              f"{want['hop'].shape[-1]} packets over {WIRED_CHECK_SLOTS} "
+              f"slots (one launch; two launches but the egress; a "
+              f"zero-step window), n_steps {int(wm['n_steps'])}, "
+              f"{serves} services, {delivered} delivered, egress {egress}; "
+              f"device {ms:.4f} ms a launch, plain loop {plain_ms:.1f} ms",
+              flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms)
+
+    # the main path's launch: bench_wired's whole horizon in one launch
+    tab, carry0 = cases["whole"]
+    n_slots = WIRED_BENCH["n_slots"]
+    after, _ = wired_cuda.wired_cuda(tab, wired_clone(carry0), n_slots)
+    pool = [wired_clone(carry0) for _ in range(11)]
+    ms, _ = timed_ms(lambda: wired_cuda.wired_cuda(tab, pool.pop(),
+                                                   n_slots), 1)
+    del pool
+    bound_ms, by, serves = wired_bound(tab, carry0, after)
+    print(f"wired_advance (whole, the main path's launch): device {ms:.4f} "
+          f"ms a launch of {n_slots} slots x {WIRED_R} rows (span "
+          f"{wired_cuda.SPAN_SLOTS}), {serves} services, bound "
+          f"{bound_ms:.5f} ms ({by})", flush=True)
+    numbers = {"whole": dict(ms=ms, plain_ms=out["whole"]["plain_ms"],
+                             bound=(bound_ms, by))}
+
+    hkey = np.array([0, HYBRID_KEY])
+    weak = wd.wired_weak_chain(4, **HYBRID_WEAK)
+    split = wd.wired_chain(**WIRED_SPLIT)
+    for name, run, hold, timed in (
+            ("lanes", lambda: run_hybrid(
+                weak, hkey, 1, transport="batched",
+                window_slots=HYBRID_WINDOW, device=dev),
+             lambda i: True, lambda i: True),
+            ("owned", lambda: run_hybrid(split, hkey, WIRED_R,
+                                         transport="local", device=dev),
+             lambda i: i <= WIRED_HELD_WINDOWS,
+             lambda i: i == WIRED_TIMED_WINDOW)):
+        _, per, held = wired_held(run, hold, timed, name)
+        if len(per) <= 8:
+            for n in per:
+                print(f"wired_advance ({name}, the main path's window "
+                      f"{WIRED_TIMED_WINDOW}): {n['rows']} rows x "
+                      f"{n['packets']} packets over {n['slots']} slots, "
+                      f"{n['services']} services; device {n['ms']:.4f} ms, "
+                      f"plain loop {n['plain_ms']:.1f} ms, bound "
+                      f"{n['bound_ms']:.5f} ms ({n['bound_by']})",
+                      flush=True)
+        top = max(per, key=lambda n: n["bound_ms"])
+        numbers[name] = dict(
+            ms=statistics.mean(n["ms"] for n in per),
+            plain_ms=statistics.mean(n["plain_ms"] for n in per),
+            bound=(statistics.mean(n["bound_ms"] for n in per),
+                   top["bound_by"]))
+        print(f"wired_advance ({name}): {held} launches of the main path "
+              f"bit-equal to advance_math; over its {len(per)} timed "
+              f"launches ({per[0]['rows']} rows, "
+              f"{sum(n['services'] for n in per)} services) device "
+              f"{numbers[name]['ms']:.4f} ms a launch (min "
+              f"{min(n['ms'] for n in per):.4f}, max "
+              f"{max(n['ms'] for n in per):.4f}), plain loop "
+              f"{numbers[name]['plain_ms']:.2f} ms, bound "
+              f"{numbers[name]['bound'][0]:.6f} ms ({top['bound_by']})",
+              flush=True)
+    return numbers
+
+
+def wired_bench(kc, dev) -> dict:
+    """Phase 5wired: bench_wired, ``run_wired`` on :data:`WIRED_BENCH` at
+    :data:`WIRED_R` replicas, one warm run on key 0 and five timed runs on
+    keys 1..5, each counted (one ``wired_advance`` launch, no other
+    counter); ``sim_s_per_wall_s`` = R x simulated seconds over the median
+    wall.  Rows 1,016..1,023 of the last run must equal a run of 8
+    replicas at ``replica_offset=1016``, at least 90 % of the packets be
+    delivered and none before its path's least latency; the busy share
+    (the profiler).
+    Returns the launches of the last timed run."""
+    from tpudes_torch.parallel.wired import (
+        packet_table,
+        run_wired,
+        wired_chain,
+    )
+
+    prog = wired_chain(**WIRED_BENCH)
+    sim_s = prog.n_slots * prog.slot_s
+
+    def run(seed, **kw):
+        return run_wired(prog, np.array([0, seed]), kw.pop("r", WIRED_R),
+                         device=dev, **kw)
+
+    run(0)
+    walls, launches, res = [], {}, None
+    for i in range(WIRED_TIMED_RUNS):
+        res, wall, launches = counted(kc, lambda: run(1 + i),
+                                      {"wired_advance": 1},
+                                      "bench_wired main path")
+        walls.append(wall)
+    tail = run(WIRED_TIMED_RUNS, r=8, replica_offset=WIRED_R - 8)
+    for k in ("deliver_slot", "delivered", "served"):
+        if not np.array_equal(tail[k], res[k][WIRED_R - 8:]):
+            fail(f"bench_wired: rows {WIRED_R - 8}.. differ from a "
+                 f"replica_offset run in {k}")
+    n_pkts = int(np.asarray(prog.n_pkts).sum())
+    flow, birth, _ = packet_table(prog)
+    paths = np.asarray(prog.paths)
+    cost = np.asarray(prog.service_slots) + np.asarray(prog.delay_slots)
+    least = np.where(paths >= 0, cost[np.maximum(paths, 0)], 0).sum(1)
+    got = res["deliver_slot"]
+    delivered = float((got >= 0).mean())
+    if (got.shape != (WIRED_R, n_pkts) or delivered < 0.9
+            or ((got >= 0) & (got < (birth + least[flow])[None])).any()):
+        fail(f"bench_wired: outputs of the wrong shape, too few deliveries "
+             f"({delivered}) or one before its path's least latency")
+    share, kernel_ms = device_busy_share(lambda: run(1), "wired_advance")
+    med = statistics.median(walls)
+    print(json.dumps(dict(
+        phase="bench_wired", replicas=WIRED_R, n_links=prog.n_links,
+        n_flows=prog.n_flows, packets=n_pkts, n_slots=prog.n_slots,
+        slot_s=prog.slot_s, sim_s_per_wall_s=WIRED_R * sim_s / med,
+        wall_median_s=med, wall_min_s=min(walls), wall_max_s=max(walls),
+        walls_s=walls, delivered_share=delivered,
+        services=int(res["served"].sum()),
+        busy_share=share if share is not None else "not measured",
+        kernel_ms=kernel_ms if kernel_ms is not None else "not measured",
+        kernel_launches={k: v for k, v in launches.items() if v},
+        equals_replica_offset_rows=True)), flush=True)
+    return launches
+
+
+def hybrid_bench(kc, dev) -> dict:
+    """Phase 5hyb: bench_hybrid.  (a) ``bench.py:1178``'s row as it builds
+    it, :data:`HYBRID_WEAK` for k = 1, 2, 4, ``transport="batched"``,
+    ``window_slots=600``, one replica: a warm run each, then
+    :data:`HYBRID_PAIRS` rounds of k in turns; aggregate
+    ``sim_s_per_wall_s`` = k x 108 s over the median wall, ``windows``,
+    ``ratio_vs_1rank`` (the median of each round's k wall_1 / wall_k);
+    each k's result equal to ``run_wired``'s; the k = 4 run counted (one
+    ``wired_advance:lanes`` launch a window and the priming one).  (b)
+    :data:`WIRED_SPLIT` at :data:`WIRED_R` replicas, ``transport=
+    "local"``: a warm run, a counted run (four ``wired_advance:owned``
+    launches a window and four priming ones), equal to ``run_wired`` of
+    the same program, and :data:`HYBRID_SPLIT_RUNS` timed runs.  Returns
+    the counted runs' launches."""
+    from tpudes_torch.parallel.hybrid import run_hybrid
+    from tpudes_torch.parallel.wired import (
+        partition_flows,
+        run_wired,
+        wired_chain,
+        wired_weak_chain,
+    )
+
+    key = np.array([0, HYBRID_KEY])
+    progs = {k: wired_weak_chain(k, **HYBRID_WEAK) for k in HYBRID_RANKS}
+
+    def once(k):
+        t0 = time.monotonic()
+        out = run_hybrid(progs[k], key, 1, transport="batched",
+                         window_slots=HYBRID_WINDOW, device=dev)
+        return time.monotonic() - t0, out
+
+    windows = {}
+    for k in HYBRID_RANKS:
+        out = once(k)[1]
+        want = run_wired(progs[k], key, 1, device=dev)
+        for f in ("deliver_slot", "delivered", "served"):
+            if not np.array_equal(out[f], want[f]):
+                fail(f"bench_hybrid (a) k={k} differs from run_wired in {f}")
+        windows[k] = out["windows"]
+    walls = {k: [] for k in HYBRID_RANKS}
+    for _ in range(HYBRID_PAIRS):
+        for k in HYBRID_RANKS:
+            walls[k].append(once(k)[0])
+    k4 = HYBRID_RANKS[-1]
+    n4 = windows[k4] + 1
+    _, _, batched = counted(kc, lambda: once(k4),
+                            {"wired_advance": n4, "wired_advance:lanes": n4},
+                            "bench_hybrid (a) k=4")
+    rows = {}
+    for k in HYBRID_RANKS:
+        med = statistics.median(walls[k])
+        ratios = [k * w1 / wk for w1, wk in zip(walls[1], walls[k])]
+        rows[str(k)] = dict(
+            wall_med_s=med, windows=windows[k],
+            agg_sim_s_per_wall_s=k * progs[k].n_slots * progs[k].slot_s / med,
+            ratio_vs_1rank=statistics.median(ratios),
+            ratio_min=min(ratios), ratio_max=max(ratios))
+    print(json.dumps(dict(phase="bench_hybrid_weak_scaling",
+                          transport="batched", window_slots=HYBRID_WINDOW,
+                          replicas=1, n_slots=HYBRID_WEAK["n_slots"],
+                          pairs=HYBRID_PAIRS, rows=rows,
+                          kernel_launches_k4={k: v for k, v in
+                                              batched.items() if v})),
+          flush=True)
+
+    split = wired_chain(**WIRED_SPLIT)
+
+    def local():
+        return run_hybrid(split, key, WIRED_R, transport="local", device=dev)
+
+    local()
+    kc.reset_launches()
+    t0 = time.monotonic()
+    got = local()
+    cwall = time.monotonic() - t0
+    owned = dict(kc.launches)
+    n = 4 * (got["windows"] + 1)
+    want_counts = {k: 0 for k in owned}
+    want_counts.update({"wired_advance": n, "wired_advance:owned": n})
+    if owned != want_counts:
+        fail(f"bench_hybrid (b) launched {owned}, want {want_counts}")
+    want = run_wired(split, key, WIRED_R, device=dev)
+    for f in ("deliver_slot", "delivered", "served"):
+        if not np.array_equal(got[f], want[f]):
+            fail(f"bench_hybrid (b) differs from run_wired in {f}")
+    swalls = []
+    for _ in range(HYBRID_SPLIT_RUNS):
+        t0 = time.monotonic()
+        local()
+        swalls.append(time.monotonic() - t0)
+    med = statistics.median(swalls)
+    sim_s = split.n_slots * split.slot_s
+    print(json.dumps(dict(
+        phase="bench_hybrid_split", transport="local", ranks=4,
+        replicas=WIRED_R, windows=got["windows"],
+        resident_packets=[int(partition_flows(split, r)[2].size)
+                          for r in range(split.n_ranks)],
+        sim_s_per_wall_s=WIRED_R * sim_s / med, wall_median_s=med,
+        walls_s=swalls, counted_wall_s=cwall, equals_run_wired=True,
+        kernel_launches={k: v for k, v in owned.items() if v})),
+        flush=True)
+    return {"batched": batched, "local": owned}
+
+
 #: the first design's C signatures of ``csrc/as_flows.cu``, through which the
 #: compare mode launches an earlier ``DIR/as_flows.cu``:
 #: ``as_spf_launch(row_ptr, col_v, col_w, col_e, dsts, scratch, dist,
@@ -3505,7 +3976,8 @@ def main(device: str = "cuda") -> int:
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
     logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance",
-                         "tcp_advance", "wifi_window", "as_flows"])
+                         "tcp_advance", "wifi_window", "as_flows",
+                         "wired_advance"])
     print(f"build: {time.monotonic() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         print("\n".join(ptxas_lines(name, text)), flush=True)
@@ -3984,6 +4456,10 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     as_numbers = as_check(kc, dev)
     print(f"phase 3as: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 3wired. wired_advance vs its plain version at bench_wired's width
+    t_phase = time.monotonic()
+    wired_numbers = wired_check(kc, dev)
+    print(f"phase 3wired: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
@@ -4490,6 +4966,13 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     as_launches = as_bench(kc, dev)
     print(f"phase 5as: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 5wired. bench_wired; 5hyb. bench_hybrid (a) and (b)
+    t_phase = time.monotonic()
+    wired_launches = wired_bench(kc, dev)
+    print(f"phase 5wired: {time.monotonic() - t_phase:.1f} s", flush=True)
+    t_phase = time.monotonic()
+    hybrid_launches = hybrid_bench(kc, dev)
+    print(f"phase 5hyb: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
@@ -4607,6 +5090,24 @@ def main(device: str = "cuda") -> int:
               as_numbers["fluid_sweep"]["bound"], source=AS_SOURCE,
               replaces=AS_FLUID_REPLACES + ", vmapped over rate scales "
               ":536-540"),
+        entry("wired_advance", wired_launches["wired_advance"], 0.0,
+              wired_numbers["whole"]["ms"],
+              wired_numbers["whole"]["plain_ms"],
+              wired_numbers["whole"]["bound"], source=WIRED_SOURCE,
+              replaces=WIRED_REPLACES),
+        entry("wired_advance:owned",
+              hybrid_launches["local"]["wired_advance:owned"], 0.0,
+              wired_numbers["owned"]["ms"],
+              wired_numbers["owned"]["plain_ms"],
+              wired_numbers["owned"]["bound"], source=WIRED_SOURCE,
+              replaces=WIRED_REPLACES + ", one rank's owned links and "
+              "resident flows (tpudes/parallel/hybrid.py:149 HybridRank)"),
+        entry("wired_advance:lanes",
+              hybrid_launches["batched"]["wired_advance:lanes"], 0.0,
+              wired_numbers["lanes"]["ms"],
+              wired_numbers["lanes"]["plain_ms"],
+              wired_numbers["lanes"]["bound"], source=WIRED_SOURCE,
+              replaces=WIRED_LANES_REPLACES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,7 +91,8 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
             bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0,
             tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
-            win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0):
+            win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0, wired=0,
+            wired_owned=0, wired_lanes=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
@@ -104,7 +105,9 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "wifi_window": win, "wifi_window:geometry": win_geometry,
             "wifi_window:scan": win_scan, "wifi_window:table": win_table,
             "as_spf": as_spf, "as_fluid": as_fluid,
-            "as_fluid:sweep": as_fluid_sweep}
+            "as_fluid:sweep": as_fluid_sweep, "wired_advance": wired,
+            "wired_advance:owned": wired_owned,
+            "wired_advance:lanes": wired_lanes}
 
 
 def _bit_equal(a, b):
@@ -1397,3 +1400,108 @@ def test_as_flows_on_card_equals_cpu(card, monkeypatch):
             if a.dtype == np.float32:
                 a, b = a.view(np.uint32), b.view(np.uint32)
             assert np.array_equal(a, b), k
+
+
+def _wired_clone(carry):
+    return {k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in carry.items()}
+
+
+def _wired_equal(want, wm, got, gm):
+    from tpudes_torch.parallel import wired as wd
+
+    for k, _ in wd.WIRED_STATE:
+        assert torch.equal(want[k], got[k]), k
+    assert want["t"] == got["t"]
+    assert torch.equal(wm["next_event"], gm["next_event"])
+    assert int(wm["n_steps"]) == int(gm["n_steps"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [1, 128, 4096])
+def test_wired_advance_bit_equal_to_plain(card, span):
+    """wired_advance against advance_math on the card: the bench chain
+    (64 links, 64 flows, jitter 5) at 64 replicas over a zero-step window
+    and two windows, every state array, t, next_event and n_steps."""
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = wd.wired_chain(64, 64, period=200, n_slots=3000, jitter_slots=5)
+    tab = wd.wired_tables(prog, [(prog, None, None)], card)
+    init, _ = wd.build_wired_advance(prog, 64, device=card)
+    carry = init(np.array([0, 3]))
+    kc.reset_launches()
+    for g in (0, 1200, 3000):
+        want, wm = wd.advance_math(tab, _wired_clone(carry), g)
+        got, gm = wired_cuda.wired_cuda(tab, _wired_clone(carry), g, span)
+        torch.cuda.synchronize()
+        _wired_equal(want, wm, got, gm)
+        carry = want
+    assert kc.launches == _counts(wired=3)
+    assert (carry["deliver"] >= 0).sum() > 10_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport, ranks", [("local", 4), ("batched", 4)])
+def test_wired_hybrid_on_card_equals_cpu(card, monkeypatch, transport,
+                                         ranks):
+    """run_hybrid on the card, every window one wired_advance launch (a
+    rank's owned links, or four lanes), each launch held against
+    advance_math on a copy of its carry; the merged result equal to the
+    CPU's run_wired."""
+    from tpudes_torch.parallel import hybrid as hy
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = (wd.wired_chain(16, 12, period=20, n_slots=2000, ranks=ranks,
+                           boundary_delay=40, jitter_slots=3)
+            if transport == "local" else
+            wd.wired_weak_chain(ranks, links_per_rank=4, period=9,
+                                cross_period=31, n_slots=2000,
+                                boundary_delay=40, jitter_slots=3))
+    want = wd.run_wired(prog, np.array([0, 5]), 32, device="cpu")
+    real = wired_cuda.wired_cuda
+    launches = []
+
+    def held(tab, carry, t_grant):
+        want, wm = wd.advance_math(tab, _wired_clone(carry), t_grant)
+        got, gm = real(tab, carry, t_grant)
+        _wired_equal(want, wm, got, gm)
+        launches.append(tab["paths"].shape[0])
+        return got, gm
+
+    monkeypatch.setattr(wired_cuda, "advance_launch", held)
+    kc.reset_launches()
+    got = hy.run_hybrid(prog, np.array([0, 5]), 32, transport=transport)
+    n = len(launches)
+    assert n > ranks * 3
+    if transport == "local":
+        assert kc.launches == _counts(wired=n, wired_owned=n)
+    else:
+        assert kc.launches == _counts(wired=n, wired_lanes=n)
+    for k in ("deliver_slot", "delivered", "served"):
+        assert np.array_equal(want[k], got[k]), k
+
+
+@pytest.mark.cuda
+def test_run_wired_on_card_equals_cpu(card, monkeypatch):
+    """run_wired on the card (one wired_advance launch a window, no call of
+    the plain loop) against the plain run on the CPU."""
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = wd.wired_chain(24, 16, period=40, n_slots=4000, jitter_slots=5)
+    want = wd.run_wired(prog, np.array([0, 9]), 48, window_slots=1500,
+                        device="cpu")
+
+    def plain(*a, **k):
+        raise AssertionError("the card's run called the plain loop")
+
+    monkeypatch.setattr(wd, "advance_math", plain)
+    monkeypatch.setattr(wd, "wired_step_math", plain)
+    monkeypatch.setattr(wired_cuda, "advance_math", plain)
+    kc.reset_launches()
+    got = wd.run_wired(prog, np.array([0, 9]), 48, window_slots=1500)
+    assert kc.launches == _counts(wired=3)
+    for k in ("deliver_slot", "delivered", "served"):
+        assert np.array_equal(want[k], got[k]), k

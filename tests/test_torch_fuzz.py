@@ -19,7 +19,14 @@ about one value of 75).  The dumbbell's app-limited ``traffic`` draws
 run too (``DumbbellProgram.traffic`` crosses with the program).  The AS
 flow engine's draws take ``surrogate="off"`` (the smooth surrogate is not
 ported, ROADMAP A14) and are compared bit for bit in every output, their
-workload draws included.
+workload draws included.  The wired engine's draws (two-partition chains,
+deterministic CBR, ``wired.py:149``) run the reference's 2-rank hybrid
+protocol and the port's (``run_hybrid(..., ranks=2, transport="local")``)
+and are compared bit for bit in ``deliver_slot``, ``delivered`` and
+``served``, with the port's ``run_wired`` too, and in the number of
+windows with the reference's replica bucketing off (its padded replicas
+join the grant, so where R is not a power of two its window schedule can
+differ; ROADMAP C5).
 """
 
 import numpy as np
@@ -37,18 +44,22 @@ from tpudes_torch.convert import (
     MOBILITY_FIELDS,
     PROGRAM_FIELDS,
     TRAFFIC_FIELDS,
+    WIRED_FIELDS,
     as_from_numpy,
     bss_from_numpy,
     dumbbell_from_numpy,
     mobility_from_numpy,
     program_from_numpy,
     traffic_from_numpy,
+    wired_from_numpy,
 )
 from tpudes_torch.ops import mobility as port_mobility
 from tpudes_torch.parallel.as_flows import run_as_flows
+from tpudes_torch.parallel.hybrid import run_hybrid
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.parallel.replicated import run_replicated_bss
 from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+from tpudes_torch.parallel.wired import run_wired
 
 SEEDS = range(4)
 LTE_INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
@@ -154,3 +165,24 @@ def test_as_flows_fuzz_axes_are_the_reference_envelope():
     from tpudes_torch.parallel.as_flows import FUZZ_AXES
 
     assert FUZZ_AXES == dict(FUZZ_ENVELOPE.axes)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_wired_hybrid_draw_equals_reference(seed, monkeypatch):
+    from tpudes.fuzz.engines import scenario_key
+    from tpudes.parallel.hybrid import run_hybrid as ref_hybrid
+
+    monkeypatch.setenv("TPUDES_BUCKETING", "0")
+    fuzzer, cfg = _draw("wired", seed)
+    prog = fuzzer.build(cfg)
+    R = int(cfg["replicas"])
+    want = ref_hybrid(prog, scenario_key(cfg), R, ranks=2,
+                      transport="local")
+    port = wired_from_numpy(_fields(prog, WIRED_FIELDS))
+    got = run_hybrid(port, _key(cfg), R, ranks=2, transport="local",
+                     device="cpu")
+    fields = list(fuzzer.outcome_fields)
+    _assert_agree("wired", cfg, want, got, fields)
+    _assert_agree("wired", cfg, want, run_wired(port, _key(cfg), R,
+                                                device="cpu"), fields)
+    assert got["windows"] == want["windows"]

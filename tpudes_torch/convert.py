@@ -2,12 +2,13 @@
 
 The JAX package's ``LteSmProgram``, its ``MobilityProgram``, its
 ``TrafficProgram``, its ``BssProgram``, its ``DumbbellProgram``, its
-``AsFlowsProgram`` and their states are numpy-able;
+``AsFlowsProgram``, its ``WiredProgram`` and their states are numpy-able;
 the port takes their numpy values (it never imports the JAX package).
 This is how the tests and a user move a scenario lowered by the
 reference (``tpudes.scenarios.build_lena`` + ``lower_lte_sm``, ``build_bss`` +
 ``lower_bss``, ``build_dumbbell`` + ``lower_dumbbell``, or
-``build_as_network`` + ``lower_as_flows``) onto the card.
+``build_as_network`` + ``lower_as_flows``, or ``wired_chain``) onto the
+card.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from tpudes_torch.parallel.tcp_dumbbell import (
     TCP_STATE,
     DumbbellProgram,
 )
+from tpudes_torch.parallel.wired import WIRED_STATE, WiredProgram
 from tpudes_torch.traffic.program import TrafficProgram
 
 #: the reference program's fields the port reads
@@ -288,3 +290,40 @@ def as_from_numpy(fields: Mapping) -> AsFlowsProgram:
         traffic=tr, surrogate=fields.get("surrogate"),
         **{k: int(v) for k, v in opt.items()},
     )
+
+
+#: the reference ``WiredProgram``'s fields
+WIRED_FIELDS = (
+    "n_links", "service_slots", "delay_slots", "paths", "start_slot",
+    "period_slots", "n_pkts", "n_slots", "slot_s", "jitter_slots",
+    "link_owner",
+)
+
+
+def wired_from_numpy(fields: Mapping) -> WiredProgram:
+    """Port program from the reference ``WiredProgram``'s fields
+    (:data:`WIRED_FIELDS`; ``link_owner`` may be None)."""
+    owner = fields.get("link_owner")
+    return WiredProgram(
+        n_links=int(fields["n_links"]),
+        **{k: np.asarray(fields[k], np.int32)
+           for k in ("service_slots", "delay_slots", "paths", "start_slot",
+                     "period_slots", "n_pkts")},
+        n_slots=int(fields["n_slots"]),
+        slot_s=float(fields.get("slot_s", 1e-3)),
+        jitter_slots=int(fields.get("jitter_slots", 0)),
+        link_owner=None if owner is None else np.asarray(owner, np.int32),
+    )
+
+
+def wired_state_from_numpy(carry: Mapping, device=None) -> dict:
+    """Port wired state from a reference ``build_wired_advance`` (or
+    ``build_wired_space_advance``) carry: ``t`` an int, ``hop``,
+    ``ready``, ``deliver``, ``eg_hop``, ``eg_ready`` ``(R, P)`` and
+    ``free``, ``served`` ``(R, Lo)`` int32 (a leading lane axis kept), on
+    ``device`` (the card by default)."""
+    device = resolve_device(device)
+    out = {k: torch.tensor(np.asarray(carry[k]), dtype=torch.int32,
+                           device=device) for k, _ in WIRED_STATE}
+    out["t"] = int(np.asarray(carry["t"]))
+    return out

@@ -265,6 +265,14 @@ inline int atomicMin(int* p, int v) {
   }
   return o;
 }
+inline unsigned long long atomicMin(unsigned long long* p,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long> r(*p);
+  unsigned long long o = r.load();
+  while (o > v && !r.compare_exchange_weak(o, v)) {
+  }
+  return o;
+}
 inline void __syncthreads() { cuda_mock::block_barrier->arrive_and_wait(); }
 inline int __syncthreads_or(int pred) {
   const unsigned i = cuda_mock::or_calls++;

@@ -152,6 +152,7 @@ launches = {
     "wifi_window": 0, "wifi_window:geometry": 0, "wifi_window:scan": 0,
     "wifi_window:table": 0,
     "as_spf": 0, "as_fluid": 0, "as_fluid:sweep": 0,
+    "wired_advance": 0, "wired_advance:owned": 0, "wired_advance:lanes": 0,
 }
 
 

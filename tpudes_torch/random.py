@@ -27,7 +27,13 @@ draw (:func:`tcp_draws`); a traffic program's per-replica keys
 
     fold_in(key, r) -> normal(., (F,), f32)
 
-(:func:`normal`, :func:`as_replica_draws`).
+(:func:`normal`, :func:`as_replica_draws`); and the wired engine's CBR
+phase jitter (``tpudes/parallel/wired.py:391-426``), one integer per
+replica and flow:
+
+    randint(fold_in(fold_in(key, r), f), 0, jitter + 1)
+
+(:func:`randint`, :func:`wired_jitter`).
 
 A key is an int64 tensor ``(..., 2)`` holding the two uint32 words; torch's unsigned arithmetic is thin, so every 32-bit word rides
 in int64 and is masked with ``& 0xFFFFFFFF`` after each add and shift.
@@ -245,3 +251,45 @@ def as_replica_draws(key: torch.Tensor, replicas: int,
     is ``normal(fold_in(key, r), (F,))`` (``tpudes/parallel/as_flows.py:
     633-644``), independent of the other rows."""
     return normal(replica_keys(key, replicas), n_flows)
+
+
+def randint(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``jax.random.randint(key, (), lo, hi)`` for int32, bit for bit
+    (``jax/_src/random.py::_randint``): ``k1, k2 = split(key)``, a 32-bit
+    draw from each, ``span = hi - lo`` (1 where ``hi <= lo``), the
+    multiplier ``(2^16 % span)^2 % span``, and ``(hi_bits % span *
+    multiplier + lo_bits % span) % span + lo``, every product and sum
+    wrapped to 32 bits as uint32 wraps (the square too: past a span of
+    2^16 it wraps to 0).  Broadcasts over the key's leading
+    axes; returns int64 holding the int32 values."""
+    lo, hi = int(lo), int(hi)
+    if not (-(2**31) <= lo < 2**31 and -(2**31) <= hi < 2**31):
+        raise ValueError(f"randint takes int32 bounds; got {lo}, {hi}")
+    span = max(hi - lo, 1)
+    mult = ((2**16 % span) ** 2 & MASK32) % span
+    k = split(key)
+    hi_bits = random_bits32(k[..., 0, :], 1)[..., 0]
+    lo_bits = random_bits32(k[..., 1, :], 1)[..., 0]
+    off = ((hi_bits % span) * mult) & MASK32
+    off = ((off + lo_bits % span) & MASK32) % span
+    return off + lo
+
+
+def wired_jitter(key: torch.Tensor, replicas: int, flow_ids,
+                 jitter: int, replica_offset: int = 0) -> torch.Tensor:
+    """``(R, F)`` int32 CBR phases of the wired engine
+    (``tpudes/parallel/wired.py:391`` ``_replica_jitter``): entry ``(r,
+    f)`` is ``randint(fold_in(fold_in(key, replica_offset + r),
+    flow_ids[f]), 0, jitter + 1)``, a pure function of the global replica
+    index and the global flow id, so a rank that carries a subset of the
+    flows, or a process that runs a slice of the replicas, draws the same
+    phases as one whole run.  Zeros where ``jitter <= 0``."""
+    ids = torch.as_tensor(np.asarray(flow_ids, np.int64), device=key.device)
+    if jitter <= 0:
+        return torch.zeros((int(replicas), ids.shape[0]), dtype=torch.int32,
+                           device=key.device)
+    rows = torch.arange(int(replicas), device=key.device) + int(
+        replica_offset)
+    kr = fold_in(key[None, :], rows)                          # (R, 2)
+    krf = fold_in(kr[:, None, :], ids[None, :])               # (R, F, 2)
+    return randint(krf, 0, int(jitter) + 1).to(torch.int32)
