@@ -171,7 +171,9 @@ and the grid once, counted.
 Then the wired engine (``tpudes_torch.parallel.wired.run_wired``) and the
 hybrid PDES (``tpudes_torch.parallel.hybrid.run_hybrid``) and their kernel
 ``wired_advance`` (every (lane, replica) row's slot loop, a warp a row on
-its own clock, in one launch a window): in phase 3wired, after 3as, the
+its own clock, its list and link queues in shared memory, a lookahead
+window of slots a round, in one launch a window): in phase 3wired, after
+3as, the
 kernel bit-equal to ``advance_math`` at 1,024 replicas x 5,535 packets
 over 2,000 slots (the plain loop's horizon; one launch, two launches but
 the egress, a zero-step window) for bench_wired's whole engine and for a
@@ -180,7 +182,8 @@ own 20,000-slot launch timed with its bound; then the main path's hybrid
 launches held against the plain loop as they run: every launch of
 bench_hybrid (a) at k = 4 and each split rank's first windows (peer
 ingress included), window 40 of each timed beside its plain wall and
-bound (about 45 s, the plain loops most of it);
+bound, and the kernel's stage probe on bench_wired's launch and the
+split's rank 3 at window 40 (about 45 s, the plain loops most of it);
 in phase 5wired, after 5as, bench_wired (``wired_chain(64, 64, period=200,
 n_slots=20_000, jitter_slots=5)`` x 1,024 replicas, a warm run and five
 timed runs, each one counted launch; about 2 s) and in phase 5hyb
@@ -194,9 +197,11 @@ With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 (``DIR/bss_advance.cu``, the same C interface and probe), of the TCP
 kernel (``DIR/tcp_advance.cu``, the same C interface), of the window
 (``DIR/wifi_window.cu``) and the first AS design's kernels
-(``DIR/as_flows.cu``, through that design's C interface kept here), each
-where DIR holds it, against this checkout's in one call, their outputs
-equal, their times taken in turns and both stage probes run.
+(``DIR/as_flows.cu``, through that design's C interface kept here) and
+the first wired design (``DIR/wired_advance.cu``, through its C
+interface kept here, with a ``PROF`` instantiation), each where DIR holds it,
+against this checkout's in one call, their outputs equal, their times
+taken in turns and both stage probes run.
 
 Needs CUDA, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and the
 repository beside this file; imports nothing of JAX or ``tpudes``.
@@ -2919,7 +2924,9 @@ def wired_held(run, hold, timed, what: str) -> tuple:
     beside the plain loop's wall and their bound.  Fails unless every
     engine had a timed launch.  Returns ``(run's result, [per timed
     launch dict(ms, plain_ms, bound_ms, bound_by, services, rows,
-    packets, slots)], held launches)``."""
+    packets, slots)], held launches)``; ``ms`` times the wrapper,
+    ``kernel_ms`` the kernel alone (``wired_cuda.enqueue``, the wrapper
+    without its error word's read-back)."""
     import torch
     from tpudes_torch.parallel import wired as wd
     from tpudes_torch.parallel import wired_cuda
@@ -2941,6 +2948,15 @@ def wired_held(run, hold, timed, what: str) -> tuple:
             pool = [wired_clone(before) for _ in range(11)]
             ms, _ = timed_ms(lambda: wired_cuda.wired_cuda(
                 tab, pool.pop(), t_grant), 1)
+            # the kernel alone: the wrapper without its error word's
+            # read-back (checked after)
+            pool = [wired_clone(before) for _ in range(11)]
+            errs = []
+            kernel_ms, _ = timed_ms(lambda: errs.append(wired_cuda.enqueue(
+                tab, pool.pop(), t_grant)[2]), 1)
+            if any(e is not None and int(e.item()) != wired_cuda.NO_ERROR
+                   for e in errs):
+                fail(f"wired_advance ({what}): a timed launch overflowed")
             del pool
         got, gm = real(tab, carry, t_grant)
         torch.cuda.synchronize()
@@ -2951,7 +2967,8 @@ def wired_held(run, hold, timed, what: str) -> tuple:
             engines_timed.add(id(tab))
             bound_ms, by, serves = wired_bound(tab, before, want)
             numbers.append(dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by,
                 services=serves,
                 rows=want["hop"].numel() // want["hop"].shape[-1],
                 packets=want["hop"].shape[-1],
@@ -2989,6 +3006,8 @@ def wired_check(kc, dev) -> dict:
       rank's priming advance and first :data:`WIRED_HELD_WINDOWS` windows
       held (real peer ingress from the second on), and its window
       :data:`WIRED_TIMED_WINDOW` held and timed.
+    - The stage probe (:func:`wired_stage_split`) on bench_wired's launch
+      and the split's rank 3 at its window :data:`WIRED_TIMED_WINDOW`.
 
     Returns the numbers of the kernels line's three entries: for the
     hybrid's two, the means over the timed launches (device time, plain
@@ -3088,13 +3107,15 @@ def wired_check(kc, dev) -> dict:
                 print(f"wired_advance ({name}, the main path's window "
                       f"{WIRED_TIMED_WINDOW}): {n['rows']} rows x "
                       f"{n['packets']} packets over {n['slots']} slots, "
-                      f"{n['services']} services; device {n['ms']:.4f} ms, "
+                      f"{n['services']} services; device {n['ms']:.4f} ms "
+                      f"(the kernel alone {n['kernel_ms']:.4f}), "
                       f"plain loop {n['plain_ms']:.1f} ms, bound "
                       f"{n['bound_ms']:.5f} ms ({n['bound_by']})",
                       flush=True)
         top = max(per, key=lambda n: n["bound_ms"])
         numbers[name] = dict(
             ms=statistics.mean(n["ms"] for n in per),
+            kernel_ms=statistics.mean(n["kernel_ms"] for n in per),
             plain_ms=statistics.mean(n["plain_ms"] for n in per),
             bound=(statistics.mean(n["bound_ms"] for n in per),
                    top["bound_by"]))
@@ -3102,12 +3123,14 @@ def wired_check(kc, dev) -> dict:
               f"bit-equal to advance_math; over its {len(per)} timed "
               f"launches ({per[0]['rows']} rows, "
               f"{sum(n['services'] for n in per)} services) device "
-              f"{numbers[name]['ms']:.4f} ms a launch (min "
+              f"{numbers[name]['ms']:.4f} ms a launch (the kernel alone "
+              f"{numbers[name]['kernel_ms']:.4f}; min "
               f"{min(n['ms'] for n in per):.4f}, max "
               f"{max(n['ms'] for n in per):.4f}), plain loop "
               f"{numbers[name]['plain_ms']:.2f} ms, bound "
               f"{numbers[name]['bound'][0]:.6f} ms ({top['bound_by']})",
               flush=True)
+    wired_stage_split(dev, "phase 3wired", wired_shapes(dev))
     return numbers
 
 
@@ -3602,6 +3625,220 @@ def as_compare(old_lib, dev, card: str, old_dir: str) -> dict:
     return result
 
 
+#: compare mode launches an earlier ``DIR/wired_advance.cu`` (the first
+#: design) through its own C interface: ``wired_advance_launch(paths,
+#: nhops, pkt_flow, g2l, svc, svcdly, hop, ready, free, deliver, eg_hop,
+#: eg_ready, served, list, next_out, steps_out, K, R, P, F, H, L, Lo, t,
+#: t_grant, span, smem, stream)`` (list an ``(N, P, 4)`` int32 scratch,
+#: smem 24 Lo + 4 L bytes, span its SPAN_SLOTS); its probe
+#: ``wired_advance_profile`` takes ``prof`` before the stream
+OLD_WIRED_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
+                      + [ctypes.c_void_p])
+OLD_WIRED_SPAN = 128
+#: launches a turn of the wired compare, per shape
+WIRED_COMPARE_CALLS = {"bench": 1, "split_w40": 5}
+
+
+def old_wired(lib, tab: dict, carry: dict, t_grant: int, prof=None):
+    """One launch of an earlier ``wired_advance`` library (the first
+    design's C interface) on ``carry``, in place, as ``wired_cuda.wired_cuda``
+    returns it: ``(carry, metrics)``; ``prof`` (an ``(N, 12)`` int64
+    tensor) runs its probe instead."""
+    import torch
+    from tpudes_torch.parallel.wired import WIRED_STATE
+
+    dev = carry["hop"].device
+    K, F, H = tab["paths"].shape
+    P = tab["pkt_flow"].shape[1]
+    Lo, L = tab["svc"].shape[1], tab["L"]
+    N = carry["hop"].numel() // P
+    t0 = int(carry["t"])
+    scratch = torch.empty((N, P, 4), dtype=torch.int32, device=dev)
+    nxt = torch.empty((N,), dtype=torch.int32, device=dev)
+    steps = torch.empty((N,), dtype=torch.int32, device=dev)
+    args = [*(tab[k].data_ptr() for k in ("paths", "nhops", "pkt_flow",
+                                          "g2l", "svc", "svcdly")),
+            *(carry[k].data_ptr() for k, _ in WIRED_STATE),
+            scratch.data_ptr(), nxt.data_ptr(), steps.data_ptr(),
+            K, N // K, P, F, H, L, Lo, t0, int(t_grant), OLD_WIRED_SPAN,
+            24 * Lo + 4 * L]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prof is None:
+        fn, types_ = lib.wired_advance_launch, OLD_WIRED_ARGTYPES
+    else:
+        fn = lib.wired_advance_profile
+        types_ = OLD_WIRED_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+        args.append(prof.data_ptr())
+    fn.argtypes, fn.restype = types_, ctypes.c_int
+    err = fn(*args, stream)
+    if err != 0:
+        fail(f"the old wired_advance failed: CUDA error {err}")
+    carry["t"] = max(t0, int(t_grant))
+    next_event = nxt.view(K, -1).amin(1)
+    return carry, dict(next_event=next_event if carry["hop"].dim() == 3
+                       else next_event[0], n_steps=steps.max())
+
+
+def wired_shapes(dev) -> dict:
+    """The two main-path launches the wired probe and compare take, each
+    ``(tab, carry, t_grant)``: ``bench``, bench_wired's one launch
+    (:data:`WIRED_BENCH` at :data:`WIRED_R` replicas, 20,000 slots, key
+    ``[0, 11]``), and ``split_w40``, the four-way split's rank 3 (5,535
+    resident packets) at its window :data:`WIRED_TIMED_WINDOW`, its carry
+    taken from ``run_hybrid`` as phase 5hyb runs it (peer ingress
+    written)."""
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+    from tpudes_torch.parallel.hybrid import run_hybrid
+
+    bench = wd.wired_chain(**WIRED_BENCH)
+    init, _ = wd.build_wired_advance(bench, WIRED_R, device=dev)
+    shapes = {"bench": (wd.wired_tables(bench, [(bench, None, None)], dev),
+                        init(np.array([0, 11])), bench.n_slots)}
+    real = wired_cuda.advance_launch
+    index, order = {}, []
+
+    class Taken(Exception):
+        pass
+
+    def launch(tab, carry, t_grant):
+        if id(tab) not in index:
+            order.append(id(tab))
+        i = index[id(tab)] = index.get(id(tab), -1) + 1
+        if order.index(id(tab)) == 3 and i == WIRED_TIMED_WINDOW:
+            shapes["split_w40"] = (tab, wired_clone(carry), int(t_grant))
+            raise Taken
+        return real(tab, carry, t_grant)
+
+    wired_cuda.advance_launch = launch
+    try:
+        run_hybrid(wd.wired_chain(**WIRED_SPLIT), np.array([0, HYBRID_KEY]),
+                   WIRED_R, transport="local", device=dev)
+    except Taken:
+        pass
+    finally:
+        wired_cuda.advance_launch = real
+    if "split_w40" not in shapes:
+        fail("wired shapes: the split never reached rank 3's window "
+             f"{WIRED_TIMED_WINDOW}")
+    return shapes
+
+
+def wired_stage_split(dev, label: str, shapes: dict, old_lib=None) -> dict:
+    """The stage probe of ``wired_advance`` (its ``PROF`` instantiation:
+    clock64() at each warp's stage edges, the refreshes, windows and list
+    lengths counted) on each of :func:`wired_shapes`: the probe's state,
+    ``next_event`` and ``n_steps`` equal to the same kernel's plain
+    launch; the mean cycles a row in each stage and their shares
+    (``wired_cuda.wired_stages``), the probe launch's device time (CUDA
+    events) and nvidia-smi's SM clock just after.  ``old_lib``: the first
+    design's kernel through its own C interface (:func:`old_wired`)."""
+    import torch
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    split = {}
+    for name, (tab, carry0, t_grant) in shapes.items():
+        N = carry0["hop"].numel() // carry0["hop"].shape[-1]
+        prof = torch.zeros((N, wired_cuda.PROF_WORDS), dtype=torch.int64,
+                           device=dev)
+        if old_lib is not None:
+            want, wm = old_wired(old_lib, tab, wired_clone(carry0), t_grant)
+            probe = lambda: old_wired(old_lib, tab, wired_clone(carry0),
+                                      t_grant, prof)
+        else:
+            want, wm = wired_cuda.wired_cuda(tab, wired_clone(carry0),
+                                             t_grant)
+            probe = lambda: wired_cuda.wired_profile(
+                tab, wired_clone(carry0), t_grant, prof)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got, gm = probe()
+        b.record()
+        torch.cuda.synchronize()
+        wired_same(want, wm, got, gm, [k for k, _ in wd.WIRED_STATE],
+                   f"{label} probe, {name}")
+        per = wired_cuda.wired_stages(prof.cpu())
+        clock = sm_clock_line()
+        split[name] = dict(per, probe_ms=a.elapsed_time(b),
+                           nvidia_smi_clocks_sm_max=clock)
+        print(f"{label} wired_advance stage probe ({name}: {N} rows x "
+              f"{carry0['hop'].shape[-1]} packets, slots {carry0['t']}.."
+              f"{t_grant}): {json.dumps(per)}; probe launch "
+              f"{split[name]['probe_ms']:.4f} ms; nvidia-smi clocks.sm, "
+              f"clocks.max.sm {clock}", flush=True)
+    return split
+
+
+def wired_compare(old_lib, dev, card: str, old_dir: str) -> dict:
+    """The wired half of the compare mode: the first design's kernel
+    (``DIR/wired_advance.cu``, through its own C interface,
+    :func:`old_wired`) against this checkout's on both of
+    :func:`wired_shapes`: every state array, ``t``, ``next_event`` and
+    ``n_steps`` equal (and the split's to ``advance_math``); then in
+    turns (old, new, new, old) each launch's device time (:func:`timed_ms`
+    on copies of the carry, CUDA events behind a sleep kernel, median of
+    three); then both stage probes.  Returns the ``wired_old_vs_new``
+    line."""
+    import torch
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    shapes = wired_shapes(dev)
+    state = [k for k, _ in wd.WIRED_STATE]
+    for name, (tab, carry0, t_grant) in shapes.items():
+        new, nm = wired_cuda.wired_cuda(tab, wired_clone(carry0), t_grant)
+        was, om = old_wired(old_lib, tab, wired_clone(carry0), t_grant)
+        torch.cuda.synchronize()
+        wired_same(was, om, new, nm, state, f"compare {name}, old vs new")
+        if name == "split_w40":
+            want, wm = wd.advance_math(tab, wired_clone(carry0), t_grant)
+            wired_same(want, wm, new, nm, state, f"compare {name}")
+    times = {k: {n: [] for n in shapes} for k in ("old", "new")}
+    for turn in ("old", "new", "new", "old"):
+        for name, (tab, carry0, t_grant) in shapes.items():
+            calls = WIRED_COMPARE_CALLS[name]
+            pool = [wired_clone(carry0) for _ in range(6 * calls + 1)]
+            if turn == "old":
+                fn = lambda: old_wired(old_lib, tab, pool.pop(), t_grant)
+            else:
+                fn = lambda: wired_cuda.wired_cuda(tab, pool.pop(), t_grant)
+            times[turn][name].append(timed_ms(fn, calls, reps=3)[0])
+            del pool
+    # the new kernel alone (wired_cuda.enqueue, its error word read once
+    # after the timed launches): the wrapper's time above also holds its
+    # host work around the error word's read-back, a synchronise
+    kernel_ms = {}
+    for name, (tab, carry0, t_grant) in shapes.items():
+        calls = WIRED_COMPARE_CALLS[name]
+        pool = [wired_clone(carry0) for _ in range(6 * calls + 1)]
+        errs = []
+
+        def raw():
+            errs.append(wired_cuda.enqueue(tab, pool.pop(), t_grant)[2])
+
+        kernel_ms[name] = timed_ms(raw, calls, reps=3)[0]
+        if any(e is not None and int(e.item()) != wired_cuda.NO_ERROR
+               for e in errs):
+            fail(f"compare {name}: a timed launch's list overflowed")
+        del pool
+    result = dict(phase="wired_old_vs_new", card=card, old=old_dir,
+                  replicas=WIRED_R, times=times, kernel_ms=kernel_ms)
+    for name in shapes:
+        result[f"{name}_new_over_old"] = (
+            statistics.mean(times["new"][name])
+            / statistics.mean(times["old"][name]))
+    print(f"compare (wired, {WIRED_R} rows): outputs equal; "
+          + "; ".join(f"{n} old {times['old'][n]} ms, new "
+                      f"{times['new'][n]} ms" for n in shapes)
+          + f"; the new kernel alone {kernel_ms} ms", flush=True)
+    result["split_new"] = wired_stage_split(dev, "new", shapes)
+    result["split_old"] = wired_stage_split(dev, "old", shapes, old_lib)
+    return result
+
+
 @contextlib.contextmanager
 def kernel_library(lib, name: str = "bss_advance"):
     """Run kernel ``name`` from ``lib`` (a loaded library with the same C
@@ -3888,14 +4125,16 @@ def tcp_compare(old_lib, dev, card: str, old_dir: str) -> dict:
 def compare_main(old_dir: str, device: str = "cuda") -> int:
     """``python3 chip_smoke.py --compare-with DIR``: each of
     ``DIR/bss_advance.cu``, ``DIR/tcp_advance.cu``, ``DIR/wifi_window.cu``
-    (an earlier design of the kernel with the same C interface) and
+    (an earlier design of the kernel with the same C interface),
     ``DIR/as_flows.cu`` (the first design's, through its own C
-    interface) that is there against this checkout's, in one call on one card.  Builds all
-    of them in parallel (printing the window kernels' SASS counts); runs
-    :func:`bss_compare`, :func:`tcp_compare`, :func:`window_compare` and
-    :func:`as_compare` and prints each one's JSON line (``phase:
+    interface) and ``DIR/wired_advance.cu`` (the first wired design's,
+    through its own C interface) that is there against this checkout's,
+    in one call on one card.  Builds all of them in parallel (printing
+    the window kernels' SASS counts); runs :func:`bss_compare`,
+    :func:`tcp_compare`, :func:`window_compare`, :func:`as_compare` and
+    :func:`wired_compare` and prints each one's JSON line (``phase:
     bss_old_vs_new`` / ``tcp_old_vs_new`` / ``window_old_vs_new`` /
-    ``as_old_vs_new``)."""
+    ``as_old_vs_new`` / ``wired_old_vs_new``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3906,11 +4145,11 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     card = card_line()
     print(card, flush=True)
     names = [k for k in ("bss_advance", "tcp_advance", "wifi_window",
-                         "as_flows")
+                         "as_flows", "wired_advance")
              if os.path.isfile(os.path.join(old_dir, f"{k}.cu"))]
     if not names:
         fail(f"{old_dir} holds none of bss_advance.cu, tcp_advance.cu, "
-             f"wifi_window.cu, as_flows.cu")
+             f"wifi_window.cu, as_flows.cu, wired_advance.cu")
     t0 = time.monotonic()
     old = {k: build_old(k, old_dir) for k in names}
     logs = _build.build(names)
@@ -3929,7 +4168,8 @@ def compare_main(old_dir: str, device: str = "cuda") -> int:
     print(f"build: new {new_s:.2f} s, old {time.monotonic() - t0:.2f} s "
           f"(in parallel)", flush=True)
     compares = {"bss_advance": bss_compare, "tcp_advance": tcp_compare,
-                "wifi_window": window_compare, "as_flows": as_compare}
+                "wifi_window": window_compare, "as_flows": as_compare,
+                "wired_advance": wired_compare}
     for k in names:
         print(json.dumps(compares[k](libs[k], dev, card, old_dir)),
               flush=True)

@@ -1505,3 +1505,61 @@ def test_run_wired_on_card_equals_cpu(card, monkeypatch):
     assert kc.launches == _counts(wired=3)
     for k in ("deliver_slot", "delivered", "served"):
         assert np.array_equal(want[k], got[k]), k
+
+
+@pytest.mark.cuda
+def test_wired_list_overflow_raises_on_card(card):
+    """Six packets reach one link at one slot: a list of four entries
+    raises ListOverflowError naming the capacity and the row (no
+    fallback), a list of six runs bit-equal to advance_math."""
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = wd.WiredProgram(
+        n_links=2, service_slots=np.array([1, 1], np.int32),
+        delay_slots=np.array([2, 2], np.int32),
+        paths=np.array([[0, 1]] * 6, np.int32),
+        start_slot=np.full(6, 3, np.int32),
+        period_slots=np.full(6, 50, np.int32),
+        n_pkts=np.full(6, 2, np.int32), n_slots=120)
+    tab = wd.wired_tables(prog, [(prog, None, None)], card)
+    init, _ = wd.build_wired_advance(prog, 2, device=card)
+    carry = init(np.array([0, 3]))
+    with pytest.raises(wired_cuda.ListOverflowError,
+                       match=r"cap=4 .* row 0"):
+        wired_cuda.wired_cuda(tab, _wired_clone(carry), 120, 8, 4)
+    want, wm = wd.advance_math(tab, _wired_clone(carry), 120)
+    got, gm = wired_cuda.wired_cuda(tab, _wired_clone(carry), 120, 8, 6)
+    torch.cuda.synchronize()
+    _wired_equal(want, wm, got, gm)
+
+
+@pytest.mark.cuda
+def test_wired_profile_stage_sums(card):
+    """wired_profile (the PROF instantiation) on the bench chain at 64
+    replicas over 3,000 slots: its state equal to advance_math's, not
+    counted as a launch; every row's stage cycles >= 0 and their sum
+    within the row's total; refreshes, windows and list lengths
+    positive."""
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = wd.wired_chain(64, 64, period=200, n_slots=3000, jitter_slots=5)
+    tab = wd.wired_tables(prog, [(prog, None, None)], card)
+    init, _ = wd.build_wired_advance(prog, 64, device=card)
+    carry = init(np.array([0, 3]))
+    prof = torch.zeros((64, wired_cuda.PROF_WORDS), dtype=torch.int64,
+                       device=card)
+    kc.reset_launches()
+    want, wm = wd.advance_math(tab, _wired_clone(carry), 3000)
+    got, gm = wired_cuda.wired_profile(tab, _wired_clone(carry), 3000, prof)
+    torch.cuda.synchronize()
+    _wired_equal(want, wm, got, gm)
+    assert kc.launches == _counts()
+    n = len(wired_cuda.PROF_STAGES)
+    stages = prof[:, :n]
+    assert (stages >= 0).all()
+    assert (stages.sum(1) <= prof[:, n]).all()
+    assert (prof[:, n + 1:] > 0).all()
+    per = wired_cuda.wired_stages(prof.cpu())
+    assert 0 < per["list_mean"] <= per["list_max"] <= wired_cuda.LIST_CAP

@@ -197,6 +197,53 @@ def test_tables_partitions_and_lookaheads_equal_reference(name):
                 == W.partition_lookahead(_port(split), r))
 
 
+def _lanes(prog, how):
+    """The lanes a launch takes: the whole program, each rank of its
+    partitions as ``HybridLanes`` builds them, or its uniform space
+    lanes."""
+    if how == "whole":
+        return [[(prog, None, None)]]
+    owner = np.asarray(prog.link_owner)
+    lanes = [(sub, owner == r, fids) for r, (sub, fids, _) in enumerate(
+        W.partition_flows(prog, r) for r in range(prog.n_ranks))]
+    return [lanes] if how == "space" else [[lane] for lane in lanes]
+
+
+@pytest.mark.parametrize("prog, how", [
+    (W.wired_chain(64, 64, period=200, n_slots=20_000, jitter_slots=5),
+     "whole"),
+    (W.wired_chain(64, 64, period=200, n_slots=20_000, jitter_slots=5,
+                   ranks=4, boundary_delay=240), "ranks"),
+    (W.wired_weak_chain(4, links_per_rank=2, period=3573, n_slots=108_000,
+                        boundary_delay=600, cross_period=8793), "space"),
+], ids=["bench_chain", "four_way_split", "weak_chain"])
+def test_lo_at_equals_paths_nhops_g2l(prog, how):
+    """``wired_tables``' derived ``lo_at`` (the kernel's one-load link
+    table) against ``paths``, ``nhops`` and ``g2l`` hop by hop: the local
+    link of each flow's hop, -2 where a peer serves it, -1 from the hop
+    count on (column H included)."""
+    for lanes in _lanes(prog, how):
+        tab = W.wired_tables(prog, lanes, "cpu")
+        K, F, H = tab["paths"].shape
+        assert tab["lo_at"].shape == (K, F, H + 1)
+        assert tab["lo_at"].dtype == torch.int16
+        paths, nhops = tab["paths"].numpy(), tab["nhops"].numpy()
+        g2l, lo_at = tab["g2l"].numpy(), tab["lo_at"].numpy()
+        seen = set()
+        for k in range(K):
+            for f in range(F):
+                for h in range(H + 1):
+                    if h >= nhops[k, f]:
+                        want = W.LO_DELIVERED
+                    elif g2l[k, paths[k, f, h]] < 0:
+                        want = W.LO_PEER
+                    else:
+                        want = g2l[k, paths[k, f, h]]
+                    assert lo_at[k, f, h] == want, (k, f, h)
+                    seen.add(min(int(want), 0))
+        assert seen == ({-1, 0} if how == "whole" else {-2, -1, 0})
+
+
 @pytest.mark.parametrize("kw", [
     dict(n_links=6, n_flows=4, period=7, n_pkts=5, n_slots=90, ranks=2,
          boundary_delay=12, jitter_slots=3),

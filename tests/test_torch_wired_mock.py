@@ -9,12 +9,22 @@ every state array, ``t``, ``next_event`` and ``n_steps`` bit-equal.
 - the whole engine over windows of a jittered chain, a flow that uses
   every column of ``paths``, and refresh spans of 1, 5 and 256 slots (the
   span must not change the result);
+- list capacities of 4 and 8 entries, which force the refresh to retry
+  with half its span, and the default, on a chain whose list holds more
+  than 8 (the default's probe shows it); links of service + delay 2 and,
+  through the tables, 1 (lookahead windows of 2 and 1 slots);
 - a zero-step window (``t_grant`` at or below the carry's ``t``);
+- more live packets at one slot than the list holds: the wrapper raises,
+  naming the capacity and the row;
+- the link table ``lo_at`` read from device memory where it does not fit
+  in a CTA's shared memory beside its rows;
 - one rank's subset (its owned links and resident flows) and the four
   space lanes, through the port's own ``run_hybrid`` (local and batched
   transports: priming advances, ingress from peers, egress every window);
 - mutant builds that must fail: FIFO ties at one arrival slot going to
-  the largest packet id, and the egress buffers not cleared at a launch.
+  the largest packet id, the egress buffers not cleared at a launch, the
+  lookahead window one slot too long, and a queue insertion that puts a
+  packet behind later arrivals.
 
 Tolerance: none (integers).  Skips where ``g++`` is missing.  The same
 source runs on the card in ``tests/test_torch_cuda.py`` and
@@ -44,13 +54,21 @@ KEY = np.array([0, 7])
 #: the mutants: name -> [(text, replacement), ...] in wired_advance.cu
 MUTANTS = {
     "ties_to_largest_id": [
-        ("         static_cast<unsigned>(i);\n}",
-         "         static_cast<unsigned>(0x7FFFFFFF - i);\n}"),
-        ("  return static_cast<int>(key & 0xFFFFFFFFull);",
-         "  return 0x7FFFFFFF - static_cast<int>(key & 0xFFFFFFFFull);"),
+        ("return ra < rb || (ra == rb && ia < ib);",
+         "return ra < rb || (ra == rb && ia > ib);"),
     ],
     "egress_not_cleared": [
-        ("    eg_hop[p] = -1;\n    eg_ready[p] = -1;\n", ""),
+        ("          eg_hop[p] = -1;\n          eg_ready[p] = -1;\n", ""),
+        ("      *reinterpret_cast<int4*>(eg_hop + p) = none;\n"
+         "      *reinterpret_cast<int4*>(eg_ready + p) = none;\n", ""),
+    ],
+    "window_one_slot_too_long": [
+        ("min(min(max(reach, s + win), s + MAX_WINDOW),",
+         "min(min(max(reach, s + win) + 1, s + MAX_WINDOW),"),
+    ],
+    "insert_behind_later_arrival": [
+        ("while (cur >= 0 && before(w.ent[cur].ready, cur, r, e)) {",
+         "while (cur >= 0) {"),
     ],
 }
 
@@ -90,11 +108,12 @@ def _clone(carry):
             for k, v in carry.items()}
 
 
-def _both(tab, carry, t_grant, span=wired_cuda.SPAN_SLOTS):
+def _both(tab, carry, t_grant, span=wired_cuda.SPAN_SLOTS,
+          cap=wired_cuda.LIST_CAP):
     """The kernel and the plain version on copies of ``carry``; asserts
     them equal and returns the plain result."""
     want, wm = W.advance_math(tab, _clone(carry), t_grant)
-    got, gm = wired_cuda.wired_cuda(tab, _clone(carry), t_grant, span)
+    got, gm = wired_cuda.wired_cuda(tab, _clone(carry), t_grant, span, cap)
     for k, _ in W.WIRED_STATE:
         assert torch.equal(want[k], got[k]), k
     assert want["t"] == got["t"]
@@ -133,6 +152,64 @@ def test_kernel_equals_plain_whole_engine(kernel, prog, windows, span):
 
 def _tab(prog, owned=None, flow_ids=None):
     return W.wired_tables(prog, [(prog, owned, flow_ids)], "cpu")
+
+
+#: a chain whose list holds more than 8 live packets at a span of 64
+#: slots, while no more than 4 arrive by any one slot
+BUSY = W.wired_chain(12, 2, service=[1] * 12, period=10, n_slots=400,
+                     jitter_slots=3)
+
+
+@pytest.mark.parametrize("cap", [4, 8, wired_cuda.LIST_CAP])
+def test_list_capacities_equal_plain(kernel, cap):
+    """Capacities that force the refresh's span to halve, and the
+    default, each bit-equal over three windows; the default's probe shows
+    a list longer than 8, so the small capacities had to retry."""
+    tab = _tab(BUSY)
+    init, _ = W.build_wired_advance(BUSY, 3, device="cpu")
+    carry = init(KEY)
+    prof = torch.zeros((3, wired_cuda.PROF_WORDS), dtype=torch.int64)
+    wired_cuda.wired_profile(tab, _clone(carry), 400, prof, 64)
+    assert wired_cuda.wired_stages(prof)["list_max"] > 8
+    for g in (70, 250, 400):
+        carry, _ = _both(tab, carry, g, 64, cap)
+    assert (carry["deliver"] >= 0).sum() > 100
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_lookahead_windows_of_one_and_two(kernel, window):
+    """Links of service 1 and delay 1 (service + delay 2, W = 2), and the
+    same tables with the delay taken out (service + delay 1, W = 1: the
+    program class refuses a zero delay, the kernel and the plain version
+    are held on the tables)."""
+    prog = W.wired_chain(8, 6, service=[1] * 8, delay=[1] * 8, period=2,
+                         n_slots=200, jitter_slots=3)
+    tab = _tab(prog)
+    if window == 1:
+        tab = dict(tab, svcdly=tab["svc"].clone())
+    assert int(tab["svcdly"].min()) == window
+    init, _ = W.build_wired_advance(prog, 2, device="cpu")
+    carry = init(KEY)
+    for g in (33, 120, 200):
+        carry, _ = _both(tab, carry, g, 16)
+    assert (carry["deliver"] >= 0).sum() > 50
+
+
+def test_overflow_at_one_slot_raises(kernel):
+    """Six packets that reach one link at one slot, a list of four: the
+    launch raises, naming the capacity and the row."""
+    prog = W.WiredProgram(
+        n_links=2, service_slots=np.array([1, 1], np.int32),
+        delay_slots=np.array([2, 2], np.int32),
+        paths=np.array([[0, 1]] * 6, np.int32),
+        start_slot=np.full(6, 3, np.int32),
+        period_slots=np.full(6, 50, np.int32),
+        n_pkts=np.full(6, 2, np.int32), n_slots=120)
+    init, _ = W.build_wired_advance(prog, 2, device="cpu")
+    carry = init(KEY)
+    with pytest.raises(wired_cuda.ListOverflowError, match=r"cap=4 .* row 0"):
+        wired_cuda.wired_cuda(_tab(prog), _clone(carry), 120, 8, 4)
+    _both(_tab(prog), carry, 120, 8, 6)
 
 
 def test_zero_step_window(kernel):
@@ -178,8 +255,9 @@ def test_kernel_equals_plain_in_hybrid_windows(kernel, monkeypatch,
 
 @pytest.mark.parametrize("name", sorted(MUTANTS))
 def test_mock_kernel_mutant_fails(name, tmp_path, monkeypatch):
-    """A build with the FIFO tie order or the egress clearing broken must
-    disagree with the plain version on a two-rank run."""
+    """A build with the FIFO tie order, the egress clearing, the
+    lookahead window or the queue order broken must disagree with the
+    plain version on a two-rank run."""
     text = (CSRC / "wired_advance.cu").read_text()
     for old, new in MUTANTS[name]:
         assert text.count(old) == 1, old
@@ -191,3 +269,24 @@ def test_mock_kernel_mutant_fails(name, tmp_path, monkeypatch):
     prog = W.wired_chain(8, 5, ranks=2, n_slots=300, period=3)
     with pytest.raises(AssertionError):
         hybrid.run_hybrid(prog, KEY, 2, transport="local", device="cpu")
+
+
+def test_link_table_in_device_memory(kernel, monkeypatch):
+    """Where ``lo_at`` does not fit in a CTA's shared memory beside its
+    rows the kernel reads it from device memory: the same launches,
+    bit-equal (the limit lowered so that this chain's table is left out)."""
+    prog = W.wired_chain(12, 8, jitter_slots=5, n_slots=300)
+    tab = _tab(prog)
+    K, F, H = tab["paths"].shape
+    Lo = tab["svc"].shape[1]
+    rows = wired_cuda.ROWS_PER_CTA
+    monkeypatch.setattr(wired_cuda, "SMEM_LIMIT", wired_cuda.smem_bytes(
+        F, H, Lo, wired_cuda.LIST_CAP, rows, False))
+    assert wired_cuda.launch_geometry(F, H, Lo, wired_cuda.LIST_CAP,
+                                      rows) == (
+        rows, False, wired_cuda.SMEM_LIMIT)
+    init, _ = W.build_wired_advance(prog, rows, device="cpu")
+    carry = init(KEY)
+    for g in (90, 300):
+        carry, _ = _both(tab, carry, g)
+    assert (carry["deliver"] >= 0).sum() > 50

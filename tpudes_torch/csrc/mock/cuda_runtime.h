@@ -58,6 +58,12 @@
 alignas(16) inline unsigned char tcp_smem[232448];
 #define dyn_smem tcp_smem
 
+// the 16-byte vector type
+struct __align__(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
@@ -77,6 +83,11 @@ inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t n,
+                                   cudaStream_t) {
+  memset(p, value, n);
+  return cudaSuccess;
+}
 
 namespace cuda_mock {
 
@@ -250,6 +261,9 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline int atomicExch(int* p, int v) {
+  return std::atomic_ref<int>(*p).exchange(v);
 }
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> r(*p);

@@ -89,6 +89,9 @@ __all__ = [
 INF_SLOT = 1 << 30
 #: nominal wire bytes a packet (``wired.py:79``)
 WIRED_PKT_BYTES = 1000
+#: ``lo_at``'s codes (:func:`wired_tables`): a packet past its flow's
+#: last hop; a packet at a link its lane does not serve
+LO_DELIVERED, LO_PEER = -1, -2
 #: the order key of a packet that waits nowhere
 _INF_KEY = torch.iinfo(torch.int64).max
 #: the state's arrays: (name, axis after the rows: "p" packets, "l" local
@@ -354,13 +357,17 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
     global link ids, ``nhops`` (K, F), ``pkt_flow`` and ``pkt_birth`` (K,
     P), ``g2l`` (K, L) (a link's local row, -1 where the lane does not
     serve it), ``svc`` and ``svcdly`` (K, Lo) (each local link's service
-    and service + delay); and ``flow_ids`` (K, F) numpy, ``L``, ``H``."""
+    and service + delay), and ``lo_at`` (K, F, H + 1), derived from
+    ``paths``, ``nhops`` and ``g2l``: the local link of flow f's hop h,
+    :data:`LO_DELIVERED` at and past its hop count, :data:`LO_PEER` where
+    the lane does not serve that link (int16 where Lo < 2^15, as the
+    kernel reads it); and ``flow_ids`` (K, F) numpy, ``L``, ``H``."""
     dev = resolve_device(device)
     svc = np.asarray(prog.service_slots, np.int64)
     sd = svc + np.asarray(prog.delay_slots, np.int64)
     L = int(prog.n_links)
     cols = {k: [] for k in ("paths", "nhops", "pkt_flow", "pkt_birth",
-                            "g2l", "svc", "svcdly")}
+                            "g2l", "svc", "svcdly", "lo_at")}
     fids = []
     for sub, owned, flow_ids in lanes:
         paths = np.asarray(sub.paths, np.int32)
@@ -377,6 +384,7 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
         cols["g2l"].append(g2l)
         cols["svc"].append(svc[idx].astype(np.int32))
         cols["svcdly"].append(sd[idx].astype(np.int32))
+        cols["lo_at"].append(_lo_at(paths, g2l))
         fids.append(np.arange(sub.n_flows, dtype=np.int32)
                     if flow_ids is None else np.asarray(flow_ids, np.int32))
     for name, parts in cols.items():
@@ -389,6 +397,21 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
     tab.update(flow_ids=np.stack(fids), L=L,
                H=int(np.asarray(prog.paths).shape[1]))
     return tab
+
+
+def _lo_at(paths: np.ndarray, g2l: np.ndarray) -> np.ndarray:
+    """``(F, H + 1)`` local link of each flow's hop, as :func:`_locate`
+    and :func:`wired_step_math` find it: ``g2l[paths[f, h]]`` (a padded
+    link read as link 0), :data:`LO_PEER` where that is -1, and
+    :data:`LO_DELIVERED` from the flow's hop count on."""
+    F, H = paths.shape
+    nh = (paths >= 0).sum(axis=1)
+    lo = g2l[np.maximum(paths, 0)]
+    lo = np.where(lo >= 0, lo, LO_PEER)
+    lo = np.where(np.arange(H)[None, :] < nh[:, None], lo, LO_DELIVERED)
+    lo = np.concatenate([lo, np.full((F, 1), LO_DELIVERED)], axis=1)
+    return lo.astype(np.int16 if g2l.max(initial=-1) < 2**15 - 1
+                     else np.int32)
 
 
 def _lane_rows(tab: dict, rows: int) -> torch.Tensor:
