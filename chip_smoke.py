@@ -62,8 +62,8 @@ carries on past one:
    against each point's own launch; then (3h) the ``MOB`` arm on
    ``bench_mobile_bss``'s program, ``TRF`` on the ON-OFF program, the
    traffic grid of the eight workload points (8 x 512) and all three
-   composed under 802.11n, at 512 replicas x 2 s (the last two x 1.5
-   s, ``BSS_ARM_CHECK_S``): the whole state
+   composed under 802.11n, at 512 replicas x 2 s (the grid x 1.25 s,
+   the composed x 1.5 s, ``BSS_ARM_CHECK_S``): the whole state
    (``geom_t`` too), the step counts and the pending flags bit-equal to
    the plain loop over one launch and over two split mid-stride, the
    grid also against each point's own launch, a small program of each
@@ -192,6 +192,23 @@ bench_hybrid: (a) ``bench.py:1178``'s weak-scaling row (k = 1, 2, 4 lanes,
 and (b) the bench chain split four ways at 1,024 replicas,
 ``transport="local"``, equal to ``run_wired`` (about 11 s together).
 
+Then the engine runtime and the StudyServer over it
+(``tpudes_torch.parallel.runtime``, ``tpudes_torch.serving``), after 5hyb:
+phase 5srv serves each bench program's studies that differ only in their
+sweep operand (four LTE schedulers on bench_lte's program, four BSS
+horizons on bench_wifi's, eight variant assignments on bench_tcp's, the
+four AS load scales on bench_as's) as one batch each, one counted launch
+of the kernel's sweep arm (``RUNTIME`` counting the same), every study
+bit-equal to its solo run, in ``pump`` mode and through the scheduler
+thread, then runs ``bench.py:988`` bench_serving_closed_loop's row at its
+own size with its chaos phase; phase 5rt times each of the six entries'
+first call after ``RUNTIME.clear()`` (a miss) against five hits (each
+bit-equal to the miss), lists the synchronising calls of a
+``block=False`` hit (PyTorch's sync debug mode), runs ``bench.py:924``
+bench_pipeline_overlap's row and submits a run behind a sleep kernel (not
+done, its result equal); phase 5ckpt kills bench_tcp after the second of
+four checkpointed chunks and resumes it, bit-equal.
+
 With ``--compare-with DIR`` it runs only phases 1 and 2 and then
 :func:`compare_main`: an earlier design of the BSS kernel
 (``DIR/bss_advance.cu``, the same C interface and probe), of the TCP
@@ -309,10 +326,10 @@ BSS_TAIL_OPS = 30
 #: drifting tangentially at 1 m/s, the geometry rebuilt every 8 steps
 BSS_MOBILE = dict(mobility="const_velocity", speed=1.0, geom_stride=8)
 #: the horizon (s) of the arm checks whose plain loop is longest (phase
-#: 3h): the composed program's and the workload sweep's (8 x 512) run
-#: 1.5 s, the last 0.5 s of which carry traffic, so that the script
+#: 3h): the composed program runs 1.5 s, the workload sweep (8 x 512,
+#: whose plain loop took 134.6 s at 1.5 s) 1.25 s, so that the script
 #: ends well inside its time limit; their benches run the full 2 s
-BSS_ARM_CHECK_S = {"sweep": 1.5, "composed": 1.5}
+BSS_ARM_CHECK_S = {"sweep": 1.25, "composed": 1.5}
 #: the MOB and TRF arms' work: per refresh each node's position (about
 #: 10 f32 operations), its link to the AP (the distance, the compiled
 #: log and the loss, about 45 f32 operations, and glibc's exp2 in f64,
@@ -3300,6 +3317,511 @@ def hybrid_bench(kc, dev) -> dict:
     return {"batched": batched, "local": owned}
 
 
+#: the serving phase (5srv): the four engines' batches at bench width —
+#: LTE studies differing in scheduler, BSS studies in horizon (s), TCP
+#: studies in their flows' variant (each of the first eight of the 17),
+#: AS studies in load scale (AS_SCALES)
+SRV_LTE_SCHEDULERS = ("pf", "rr", "tdmt", "fdbet")
+SRV_BSS_ENDS_S = (1.4, 1.6, 1.8, 2.0)
+SRV_TCP_STUDIES = 8
+#: bench.py:976-981 bench_serving_closed_loop's row at its own size
+SERVING_CLIENTS, SERVING_STUDIES_PER_CLIENT = 16, 6
+SERVING_SLOTS, SERVING_REPLICAS = 50, 1
+SERVING_MAX_WAIT_S, SERVING_MAX_BATCH = 0.004, 8
+SERVING_CHAOS_NTH = (2, 5, 9)
+#: the runtime phase (5rt): hits timed a miss; bench.py:924
+#: bench_pipeline_overlap's horizons (fractions of bench_lte's 10 s)
+RT_HITS = 5
+PIPELINE_FRACTIONS = (0.6, 0.8, 1.0, 1.2, 0.7, 0.9)
+PIPELINE_RUNS = 5
+#: the sleep kernel a submitted run is queued behind (s)
+RT_SLEEP_S = 0.25
+#: the checkpoint phase (5ckpt): bench_tcp in this many chunks, killed
+#: after the chunk CKPT_KILL_AFTER
+CKPT_CHUNKS, CKPT_KILL_AFTER = 4, 2
+
+
+def same_result(a, b) -> bool:
+    """Two results (a dict, or a list of dicts) equal in every field, bit
+    for bit."""
+    a = a if isinstance(a, list) else [a]
+    b = b if isinstance(b, list) else [b]
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(np.array_equal(np.asarray(x[k]),
+                                                np.asarray(y[k]),
+                                                equal_nan=np.asarray(
+                                                    x[k]).dtype.kind == "f")
+                                 for k in x)
+        for x, y in zip(a, b))
+
+
+def serving_programs(dev) -> dict:
+    """The 5srv studies at bench width: ``{engine: (replicas, [(prog,
+    extra submit_study kwargs), ...], solo(prog, extra))}``."""
+    import torch
+    from tpudes_torch.parallel.as_flows import run_as_flows
+    from tpudes_torch.parallel.lte_sm import run_lte_sm
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.parallel.tcp_dumbbell import (
+        VARIANTS,
+        run_tcp_dumbbell,
+        variant_ecn,
+    )
+    from tpudes_torch.scenarios import (
+        as_program,
+        lena_grid_program,
+        lena_ue_drop,
+    )
+
+    key = np.array([0, SEED])
+    enb_pos, ue_pos = lena_ue_drop(
+        E, UES_PER_CELL, generator=torch.Generator().manual_seed(SEED))
+    lte = lena_grid_program(enb_pos, ue_pos, BENCH_TTIS)
+    bss = bss_programs()["legacy"]
+    tcp = tcp_programs(TCP_SIM_S)["bench_tcp"]
+    tcp_studies = []
+    for v in VARIANTS[:SRV_TCP_STUDIES]:
+        ids = np.full(tcp.n_flows, VARIANTS.index(v), np.int32)
+        tcp_studies.append((dataclasses.replace(
+            tcp, variant_idx=ids, ecn=variant_ecn(ids)), {}))
+    aspr = as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED)
+    return dict(
+        lte_sm=(R, [(dataclasses.replace(lte, scheduler=s), {})
+                    for s in SRV_LTE_SCHEDULERS],
+                lambda p, x: run_lte_sm(p, key, replicas=R, device=dev)),
+        bss=(BSS_R, [(dataclasses.replace(bss, sim_end_us=int(s * 1e6)), {})
+                     for s in SRV_BSS_ENDS_S],
+             lambda p, x: run_replicated_bss(p, BSS_R, key, device=dev)),
+        dumbbell=(TCP_R, tcp_studies,
+                  lambda p, x: run_tcp_dumbbell(p, key, TCP_R, device=dev)),
+        as_flows=(AS_R, [(aspr, dict(rate_scale=s)) for s in AS_SCALES],
+                  lambda p, x: run_as_flows(p, key, AS_R, device=dev,
+                                            rate_scale=[x["rate_scale"]])[0]),
+    ), key
+
+
+#: each engine's batch: the kernel counters one coalesced launch makes
+SRV_LAUNCHES = {
+    "lte_sm": {"lte_sm_advance": 1, "lte_sm_advance:sweep": 1},
+    "bss": {"bss_advance": 1, "bss_advance:sweep": 1},
+    "dumbbell": {"tcp_advance": 1, "tcp_advance:sweep": 1},
+    "as_flows": {"as_spf": 1, "as_fluid": 1, "as_fluid:sweep": 1},
+}
+#: each engine's kernel counted once a chunk, as RUNTIME counts the engine
+SRV_CHUNK_KERNEL = {"lte_sm": "lte_sm_advance", "bss": "bss_advance",
+                    "dumbbell": "tcp_advance", "as_flows": "as_fluid"}
+
+
+def check_batch_launches(engine: str, launches: dict, runtime_n: int):
+    """One batch's kernel counts must be :data:`SRV_LAUNCHES`' and its
+    chunk kernel's count ``RUNTIME``'s count of the engine's launches."""
+    want = {k: SRV_LAUNCHES[engine].get(k, 0) for k in launches}
+    if launches != want or runtime_n != launches[SRV_CHUNK_KERNEL[engine]]:
+        fail(f"5srv {engine}: the batch launched {launches} (RUNTIME "
+             f"{runtime_n}), want {want}")
+
+
+def serving_batches(kc, dev, programs, key, started: bool) -> dict:
+    """One coalesced batch an engine through a StudyServer (``pump``
+    mode, or the scheduler thread with ``started``): each batch counted
+    (one launch of its kernel's sweep arm, equal to ``RUNTIME``'s count
+    of the engine's launches), each study's result against ``solos``."""
+    import torch
+    from tpudes_torch.parallel.runtime import RUNTIME
+    from tpudes_torch.serving import StudyServer
+
+    out = {}
+    for engine, (reps, studies, _) in programs.items():
+        server = StudyServer(start=started, max_wait_s=0.05,
+                             max_batch=len(studies))
+        before = RUNTIME.launches(engine)
+        kc.reset_launches()
+        t0 = time.monotonic()
+        handles = [server.submit_study(engine, p, key, reps, device=dev,
+                                       tenant=f"t{i}", **x)
+                   for i, (p, x) in enumerate(studies)]
+        if not started:
+            server.pump()
+        results = [h.result(timeout=300) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        server.close()
+        launches = dict(kc.launches)
+        runtime_n = RUNTIME.launches(engine) - before
+        check_batch_launches(engine, launches, runtime_n)
+        if any(h.batch_size != len(studies) for h in handles):
+            fail(f"5srv {engine}: the studies were not one batch")
+        out[engine] = dict(results=results, wall_s=wall,
+                           launches={k: v for k, v in launches.items() if v},
+                           runtime_launches=runtime_n)
+    return out
+
+
+def serving_closed_loop(dev) -> dict:
+    """``bench.py:988`` bench_serving_closed_loop's row on the port at its
+    own size: 16 clients x 6 studies of the toy dumbbell (3 flows, 50
+    slots, one replica; study ``i`` all flows on variant ``i mod 17``),
+    served through a StudyServer (``max_wait_s`` 4 ms, batches of up to
+    8) against the same stream through serialized ``RUNTIME.submit``;
+    then the chaos phase (launch errors at the 2nd, 5th and 9th dispatch,
+    a quarter of the clients gold).  Every served result must equal its
+    serialized run."""
+    import threading
+
+    import tpudes_torch.chaos as chaos
+    from tpudes_torch.obs.serving import ServingTelemetry
+    from tpudes_torch.parallel.programs import toy_dumbbell_program
+    from tpudes_torch.parallel.runtime import RUNTIME
+    from tpudes_torch.parallel.tcp_dumbbell import (
+        VARIANTS,
+        run_tcp_dumbbell,
+        variant_ecn,
+    )
+    from tpudes_torch.serving import StudyServer
+
+    n_clients, per_client = SERVING_CLIENTS, SERVING_STUDIES_PER_CLIENT
+    prog = toy_dumbbell_program(n_flows=3, n_slots=SERVING_SLOTS)
+    key = np.array([0, 0])
+
+    def study_prog(i):
+        ids = np.full(prog.n_flows, i % len(VARIANTS), np.int32)
+        return dataclasses.replace(prog, variant_idx=ids,
+                                   ecn=variant_ecn(ids))
+
+    total = n_clients * per_client
+    stream = [study_prog(i) for i in range(total)]
+    RUNTIME.clear("dumbbell")
+    run_tcp_dumbbell(stream[0], key, SERVING_REPLICAS, device=dev)  # warm
+    t0 = time.monotonic()
+    futs = [RUNTIME.submit(run_tcp_dumbbell, p, key, SERVING_REPLICAS,
+                           device=dev) for p in stream]
+    serial = [f.result() for f in futs]
+    wall_serial = time.monotonic() - t0
+
+    def closed_loop(slo_of=None):
+        ServingTelemetry.reset()
+        server = StudyServer(
+            max_wait_s=SERVING_MAX_WAIT_S, max_batch=SERVING_MAX_BATCH,
+            retry_backoff_s=0.002,
+            warm=[dict(engine="dumbbell", prog=stream[0], key=key,
+                       replicas=SERVING_REPLICAS, device=dev)])
+        got = [None] * total
+
+        def client(c):
+            for j in range(per_client):
+                i = c * per_client + j
+                h = server.submit_study(
+                    "dumbbell", stream[i], key, SERVING_REPLICAS,
+                    tenant=f"tenant{c}", device=dev,
+                    slo=slo_of(c) if slo_of else "standard")
+                got[i] = h.result(timeout=300)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        metrics = server.metrics()
+        server.close()
+        if any(t.is_alive() for t in threads) or not all(
+                same_result(g, s) for g, s in zip(got, serial)):
+            fail("bench_serving_closed_loop: a served study differs from "
+                 "its serialized run, or a client did not finish")
+        return wall, metrics
+
+    wall_served, metrics = closed_loop()
+    chaos.arm(chaos.ChaosSchedule([
+        chaos.ChaosEvent("launch_error", "local_launch", nth=n)
+        for n in SERVING_CHAOS_NTH]))
+    try:
+        wall_degraded, m_deg = closed_loop(
+            slo_of=lambda c: "gold" if c < max(1, n_clients // 4)
+            else "standard")
+    finally:
+        chaos.disarm()
+    f, slo = m_deg["failures"], m_deg["slo"]
+    eng = metrics["engines"]["dumbbell"]
+    return dict(
+        phase="bench_serving_closed_loop", requests=total,
+        clients=n_clients, smoke=False,
+        rps_serialized=total / wall_serial,
+        rps_coalesced=total / wall_served,
+        coalesced_speedup=wall_serial / wall_served,
+        launches=eng["launches"],
+        coalesced_launches=eng["coalesced_launches"],
+        coalesce_rate=metrics["coalesce_rate"],
+        batch_occupancy=eng["batch_occupancy"],
+        latency_p50_ms=eng["study_latency_s"]["p50"] * 1e3,
+        latency_p99_ms=eng["study_latency_s"]["p99"] * 1e3,
+        launch_p99_ms=eng["launch_wall_s"]["p99"] * 1e3,
+        injected_failures=f["injected_failures"],
+        requeued_studies=f["requeued_studies"],
+        retry_budget_exhausted=f["retry_budget_exhausted"],
+        rps_degraded=total / wall_degraded,
+        degraded_speedup=wall_serial / wall_degraded,
+        slo_attainment={n: s["attainment"] for n, s in slo.items()},
+        gold_p99_ms=slo.get("gold", {}).get("latency_s", {}).get(
+            "p99", 0.0) * 1e3,
+        equals_serialized=True,
+    )
+
+
+def serving_phase(kc, dev) -> dict:
+    """Phase 5srv: the StudyServer at full width.  Each engine's studies
+    (:data:`SRV_LTE_SCHEDULERS` on bench_lte's program at R x 10,000
+    TTIs, :data:`SRV_BSS_ENDS_S` on bench_wifi's at 512 replicas, eight
+    variant assignments on bench_tcp's at 256 x 20 s, :data:`AS_SCALES`
+    on bench_as's at 1,024) are one batch, one counted launch of the
+    kernel's sweep arm (``RUNTIME`` counting the same), first in ``pump``
+    mode and then through the scheduler thread (``start()``); every
+    study's result bit-equal to its solo run.  Then
+    :func:`serving_closed_loop`.  Returns the pump batches' launches."""
+    import torch
+    from tpudes_torch.obs.serving import ServingTelemetry
+
+    programs, key = serving_programs(dev)
+    solos = {e: [solo(p, x) for p, x in studies]
+             for e, (_, studies, solo) in programs.items()}
+    torch.cuda.synchronize()
+    ServingTelemetry.reset()
+    rows = {}
+    for started in (False, True):
+        served = serving_batches(kc, dev, programs, key, started)
+        for engine, got in served.items():
+            if not all(same_result(g, s)
+                       for g, s in zip(got["results"], solos[engine])):
+                fail(f"5srv {engine}: a served study differs from its solo "
+                     f"run ({'start()' if started else 'pump'})")
+            rows.setdefault(engine, {})["started" if started else "pump"] = \
+                {k: v for k, v in got.items() if k != "results"}
+    print(json.dumps(dict(phase="serving_batches", studies={
+        e: len(s) for e, (_, s, _) in programs.items()}, rows=rows,
+        equals_solo=True)), flush=True)
+    print(json.dumps(serving_closed_loop(dev)), flush=True)
+    return {e: r["pump"]["launches"] for e, r in rows.items()}
+
+
+def runtime_entries(dev) -> dict:
+    """The six entries at their bench width: ``{name: (engine, run(**kw))}``
+    (the hybrid takes no ``block=``)."""
+    import torch
+    from tpudes_torch.parallel.as_flows import run_as_flows
+    from tpudes_torch.parallel.hybrid import run_hybrid
+    from tpudes_torch.parallel.lte_sm import run_lte_sm
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+    from tpudes_torch.parallel.wired import run_wired, wired_chain
+    from tpudes_torch.scenarios import (
+        as_program,
+        lena_grid_program,
+        lena_ue_drop,
+    )
+
+    key = np.array([0, SEED])
+    enb_pos, ue_pos = lena_ue_drop(
+        E, UES_PER_CELL, generator=torch.Generator().manual_seed(SEED))
+    lte = lena_grid_program(enb_pos, ue_pos, BENCH_TTIS)
+    bss = bss_programs()["legacy"]
+    tcp = tcp_programs(TCP_SIM_S)["bench_tcp"]
+    aspr = as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED)
+    whole, split = wired_chain(**WIRED_BENCH), wired_chain(**WIRED_SPLIT)
+    return {
+        "run_lte_sm": ("lte_sm", lambda **kw: run_lte_sm(
+            lte, key, replicas=R, device=dev, **kw)),
+        "run_replicated_bss": ("bss", lambda **kw: run_replicated_bss(
+            bss, BSS_R, key, device=dev, **kw)),
+        "run_tcp_dumbbell": ("dumbbell", lambda **kw: run_tcp_dumbbell(
+            tcp, key, TCP_R, device=dev, **kw)),
+        "run_as_flows": ("as_flows", lambda **kw: run_as_flows(
+            aspr, key, AS_R, device=dev, **kw)),
+        "run_wired": ("wired", lambda **kw: run_wired(
+            whole, key, WIRED_R, device=dev, **kw)),
+        "run_hybrid": ("wired_hybrid", lambda **kw: run_hybrid(
+            split, key, WIRED_R, transport="local", device=dev, **kw)),
+    }
+
+
+def synchronises(fn) -> list:
+    """The synchronising CUDA calls ``fn()`` makes, as PyTorch's sync
+    debug mode reports them (its first line each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def runtime_phase(kc, dev) -> dict:
+    """Phase 5rt: the runtime.  For each of the six entries at bench
+    width: the wall of the first call after ``RUNTIME.clear()`` (a miss)
+    and the median of :data:`RT_HITS` hits, each hit bit-equal to the
+    miss; the synchronising calls of a hit launched ``block=False`` (the
+    hybrid: of a whole run).  Then ``bench.py:924`` bench_pipeline_overlap's
+    row (bench_lte's program at :data:`PIPELINE_FRACTIONS` of its 10 s,
+    R replicas, blocking against ``RUNTIME.submit``), and a run submitted
+    behind a ``torch.cuda._sleep`` kernel of :data:`RT_SLEEP_S`: not done
+    when submitted, its result equal to the blocking run's."""
+    import torch
+    from tpudes_torch.parallel.lte_sm import run_lte_sm
+    from tpudes_torch.parallel.runtime import RUNTIME, EngineFuture
+    from tpudes_torch.random import PRNGKey, fold_in
+    from tpudes_torch.scenarios import lena_grid_program, lena_ue_drop
+
+    rows = {}
+    for name, (engine, run) in runtime_entries(dev).items():
+        RUNTIME.clear()
+        misses = RUNTIME.misses
+        t0 = time.monotonic()
+        miss = run()
+        torch.cuda.synchronize()
+        miss_s = time.monotonic() - t0
+        if RUNTIME.misses <= misses:
+            fail(f"5rt {name}: the first call after clear() was no miss")
+        hits0, walls = RUNTIME.hits, []
+        for _ in range(RT_HITS):
+            t0 = time.monotonic()
+            hit = run()
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            if not same_result(hit, miss):
+                fail(f"5rt {name}: a hit differs from the miss")
+        if RUNTIME.hits - hits0 < RT_HITS:
+            fail(f"5rt {name}: the runs after the miss were not hits")
+        if engine == "wired_hybrid":
+            res, syncs = synchronises(run)
+        else:
+            fut, syncs = synchronises(lambda: run(block=False))
+            if not isinstance(fut, EngineFuture):
+                fail(f"5rt {name}: block=False returned no EngineFuture")
+            res = fut.result()
+        if not same_result(res, miss):
+            fail(f"5rt {name}: the block=False run differs from the miss")
+        rows[name] = dict(miss_wall_s=miss_s,
+                          hit_wall_median_s=statistics.median(walls),
+                          hit_walls_s=walls, hits_equal_miss=True,
+                          synchronises=len(syncs),
+                          synchronise_calls=sorted(set(syncs)))
+    print(json.dumps(dict(phase="runtime_cache", rows=rows)), flush=True)
+
+    enb_pos, ue_pos = lena_ue_drop(
+        E, UES_PER_CELL, generator=torch.Generator().manual_seed(SEED))
+    bench = lena_grid_program(enb_pos, ue_pos, BENCH_TTIS)
+    progs = [dataclasses.replace(bench, n_ttis=int(BENCH_TTIS * f))
+             for f in PIPELINE_FRACTIONS]
+    RUNTIME.clear()
+    run_lte_sm(progs[0], PRNGKey(0), replicas=R, device=dev)  # warm
+    block_walls, submit_walls = [], []
+    for i in range(PIPELINE_RUNS):
+        key = PRNGKey(1 + i)
+        t0 = time.monotonic()
+        blocked = [run_lte_sm(p, fold_in(key, j), replicas=R, device=dev)
+                   for j, p in enumerate(progs)]
+        block_walls.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        futs = [RUNTIME.submit(run_lte_sm, p, fold_in(key, j), replicas=R,
+                               device=dev) for j, p in enumerate(progs)]
+        submitted = [f.result() for f in futs]
+        submit_walls.append(time.monotonic() - t0)
+        if not all(same_result(a, b) for a, b in zip(blocked, submitted)):
+            fail("pipeline overlap: a submitted run differs from blocking")
+    stats = RUNTIME.stats()
+    blk, sub = statistics.median(block_walls), statistics.median(submit_walls)
+    print(json.dumps(dict(
+        phase="bench_pipeline_overlap", points=len(progs), replicas=R,
+        horizons_ttis=[p.n_ttis for p in progs],
+        wall_blocking_s=blk, wall_submitted_s=sub,
+        overlap_speedup=blk / sub, max_in_flight=stats["max_in_flight"],
+        submitted=stats["submitted"], block_walls_s=block_walls,
+        submit_walls_s=submit_walls, equals_blocking=True)), flush=True)
+
+    key = PRNGKey(SEED)
+    want = run_lte_sm(bench, key, replicas=R, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(RT_SLEEP_S * SLEEP_CYCLES_PER_S))
+    t0 = time.perf_counter()
+    fut = run_lte_sm(bench, key, replicas=R, device=dev, block=False)
+    submit_s = time.perf_counter() - t0
+    behind = fut.done()
+    t1 = time.perf_counter()
+    got = fut.result()
+    wait_s = time.perf_counter() - t1
+    if behind or not same_result(got, want):
+        fail(f"5rt: a run submitted behind a sleep kernel was done at once "
+             f"({behind}) or differs from the blocking run")
+    print(json.dumps(dict(
+        phase="submitted_behind_sleep", sleep_s=RT_SLEEP_S,
+        submit_wall_s=submit_s, done_when_submitted=behind,
+        result_wait_s=wait_s, equals_blocking=True)), flush=True)
+    return rows
+
+
+def checkpoint_phase(kc, dev) -> dict:
+    """Phase 5ckpt: bench_tcp (256 x 20 s) in :data:`CKPT_CHUNKS` chunks
+    with a checkpoint, aborted by a chaos schedule after chunk
+    :data:`CKPT_KILL_AFTER`'s save, then resumed: the resume launches only
+    the chunks left (counted), and its result is bit-equal to the
+    uninterrupted one-launch run's.  The checkpoint lives in a temporary
+    directory, removed after."""
+    import shutil
+    import tempfile
+
+    import torch
+    import tpudes_torch.chaos as chaos
+    from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+
+    prog = tcp_programs(TCP_SIM_S)["bench_tcp"]
+    key = np.array([0, SEED])
+    chunk = -(-prog.n_slots // CKPT_CHUNKS)
+    want = run_tcp_dumbbell(prog, key, TCP_R, device=dev)
+    tmp = tempfile.mkdtemp(prefix="tpudes_ckpt_")
+    path = os.path.join(tmp, "bench_tcp.ckpt")
+    try:
+        chaos.arm(chaos.ChaosSchedule([chaos.ChaosEvent(
+            "checkpoint_kill", "checkpoint_save", nth=CKPT_KILL_AFTER,
+            param="dumbbell")]))
+        t0 = time.monotonic()
+        try:
+            run_tcp_dumbbell(prog, key, TCP_R, device=dev, chunk_slots=chunk,
+                             checkpoint=path)
+            fail("5ckpt: the chaos kill did not fire")
+        except chaos.ChaosInjected:
+            pass
+        finally:
+            chaos.disarm()
+        killed_s = time.monotonic() - t0
+        size = os.path.getsize(path)
+        resumed, wall, launches = counted(
+            kc, lambda: run_tcp_dumbbell(prog, key, TCP_R, device=dev,
+                                         chunk_slots=chunk, checkpoint=path),
+            {"tcp_advance": CKPT_CHUNKS - CKPT_KILL_AFTER},
+            "5ckpt resumed run")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not same_result(resumed, want):
+        fail("5ckpt: the resumed run differs from the uninterrupted run")
+    row = dict(phase="checkpoint_resume", replicas=TCP_R,
+               n_slots=prog.n_slots, chunks=CKPT_CHUNKS,
+               killed_after_chunk=CKPT_KILL_AFTER,
+               killed_run_wall_s=killed_s, resumed_wall_s=wall,
+               checkpoint_bytes=size,
+               kernel_launches={k: v for k, v in launches.items() if v},
+               equals_uninterrupted=True)
+    print(json.dumps(row), flush=True)
+    return row
+
+
 #: the first design's C signatures of ``csrc/as_flows.cu``, through which the
 #: compare mode launches an earlier ``DIR/as_flows.cu``:
 #: ``as_spf_launch(row_ptr, col_v, col_w, col_e, dsts, scratch, dist,
@@ -5213,6 +5735,16 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     hybrid_launches = hybrid_bench(kc, dev)
     print(f"phase 5hyb: {time.monotonic() - t_phase:.1f} s", flush=True)
+    # 5srv. the StudyServer at full width; 5rt. the runtime; 5ckpt.
+    t_phase = time.monotonic()
+    serving_phase(kc, dev)
+    print(f"phase 5srv: {time.monotonic() - t_phase:.1f} s", flush=True)
+    t_phase = time.monotonic()
+    runtime_phase(kc, dev)
+    print(f"phase 5rt: {time.monotonic() - t_phase:.1f} s", flush=True)
+    t_phase = time.monotonic()
+    checkpoint_phase(kc, dev)
+    print(f"phase 5ckpt: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,

@@ -230,8 +230,9 @@ def test_refusals_name_their_roadmap_items():
     p = _port(jax_toy(24, 2, 6))
     key = np.array([0, 0])
     for kw, item in ((dict(mesh=object()), "A12"),
-                     (dict(checkpoint="x"), "A11"),
-                     (dict(block=False), "A11"), (dict(obs=True), "A10")):
+                     (dict(checkpoint="x", mesh=object()), "A12"),
+                     (dict(block=False, obs=True), "A10"),
+                     (dict(obs=True), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             port.run_as_flows(p, key, 2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="A14"):

@@ -22,10 +22,15 @@ called through ``as_cuda.spf_cuda``, ``as_cuda.fluid_cuda`` and
 - ``run_as_flows`` through both kernels equal to the plain run, one
   ``as_spf`` and one ``as_fluid`` launch a chunk, and no call of the
   plain walk or draws;
+- the runner cache: through both kernels, a miss and two hits of
+  ``run_as_flows`` are equal (the fluid tables the cache holds are read,
+  never written);
 - mutant builds that must fail: Gauss-Seidel rounds (one distance buffer
   updated in place), a frontier node's distance read from the round's new
-  buffer, a link's load summed out of (hop, flow) order, and the
-  ``erf_inv`` polynomial's multiply-adds rounded twice.
+  buffer, a link's load summed out of (hop, flow) order, the
+  ``erf_inv`` polynomial's multiply-adds rounded twice, and the last
+  replica's CTA doubling the cached link capacities in the tables' blob
+  after its run (a hit then differs from its miss).
 
 Tolerance: none (bits).  Skips where ``g++`` is missing.  The same source
 runs on the card in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -67,6 +72,14 @@ MUTANTS = {
         "as_flows.cu",
         "      for (int j = lptr[l]; j < lptr[l + 1]; ++j)",
         "      for (int j = lptr[l + 1] - 1; j >= lptr[l]; --j)"),
+    "cached_table_write": (
+        "as_flows.cu",
+        "    stage(FLUID_PROF_WORDS - 1);\n  }\n}\n",
+        "    stage(FLUID_PROF_WORDS - 1);\n  }\n"
+        "  if (tid == 0 && blockIdx.x == gridDim.x - 1)\n"
+        "    for (int l = 0; l < L; ++l)\n"
+        "      reinterpret_cast<float*>(const_cast<int*>(a.blob) + "
+        "b.off[5])[l] *= 2.0f;\n}\n"),
     "erf_inv_double_rounding": (
         "xla_math.cuh",
         "    acc = fma32(acc, t, static_cast<float>(near ? kNear[k] : "
@@ -364,6 +377,32 @@ def test_run_through_both_kernels_equals_plain(kernel, monkeypatch, chunk):
                                   np.float32 else g[k]), k
 
 
+def _miss_hit_hit(monkeypatch) -> list:
+    """``run_as_flows`` through both kernels from a cleared runner cache,
+    three times."""
+    from tpudes_torch.parallel.runtime import RUNTIME
+
+    monkeypatch.setattr(as_cuda, "spf_launch", as_cuda.spf_cuda)
+    monkeypatch.setattr(as_cuda, "fluid_launch", as_cuda.fluid_cuda)
+    prog = dataclasses.replace(toy_as_program(40, 5, 10, seed=3),
+                               flow_bps=np.full(5, 2e7))
+    RUNTIME.clear()
+    return [P.run_as_flows(prog, np.array([0, 7]), 3, device="cpu",
+                           rate_scale=[1.0, 4.0]) for _ in range(3)]
+
+
+def _runs_equal(a, b) -> bool:
+    return all(np.array_equal(x[k], y[k], equal_nan=True)
+               for x, y in zip(a, b) for k in x)
+
+
+def test_runner_cache_hits_through_both_kernels_equal_the_miss(kernel,
+                                                               monkeypatch):
+    miss, hit1, hit2 = _miss_hit_hit(monkeypatch)
+    assert _runs_equal(miss, hit1) and _runs_equal(miss, hit2)
+    assert kc.launches["as_spf"] == kc.launches["as_fluid"] == 3
+
+
 def test_bad_operands_raise(kernel):
     prog = toy_as_program(24, 3, 6)
     g = P.spf_graph(prog, "cpu")
@@ -401,6 +440,10 @@ def test_mock_kernel_mutant_fails(mutant, tmp_path, monkeypatch):
     elif mutant == "frontier_new_buffer":
         with pytest.raises(AssertionError):
             _spf_equal(_frontier_program())
+    elif mutant == "cached_table_write":
+        miss, hit, _ = _miss_hit_hit(monkeypatch)
+        with pytest.raises(AssertionError):
+            assert _runs_equal(miss, hit)
     elif mutant == "link_order":
         args = _fluid_inputs(_converging_program(), 4, [1.0, 2.0])
         with pytest.raises(AssertionError):

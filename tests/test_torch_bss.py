@@ -267,10 +267,13 @@ def test_wrapper_takes_the_plain_loop_on_the_cpu(lowered):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(checkpoint="x"), dict(block=False),
-    dict(obs=True),
+    dict(mesh=object()), dict(mesh=object(), checkpoint="x"),
+    dict(obs=True, block=False), dict(obs=True),
 ])
 def test_unported_run_options_raise(lowered, kwargs):
+    """``mesh=`` (A12) and ``obs=True`` (A10) raise, also beside the
+    runtime's ``checkpoint=`` and ``block=False``, which run
+    (tests/test_torch_checkpoint.py, test_torch_runtime.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bss.run_replicated_bss(_port(lowered["two_rings"]), 2, PRNGKey(0),
                                device="cpu", **kwargs)

@@ -1563,3 +1563,103 @@ def test_wired_profile_stage_sums(card):
     assert (prof[:, n + 1:] > 0).all()
     per = wired_cuda.wired_stages(prof.cpu())
     assert 0 < per["list_mean"] <= per["list_max"] <= wired_cuda.LIST_CAP
+
+
+# --- the engine runtime on the card ------------------------------------------
+
+
+def _same_result(a, b) -> bool:
+    a = a if isinstance(a, list) else [a]
+    b = b if isinstance(b, list) else [b]
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(np.array_equal(np.asarray(x[k]),
+                                                np.asarray(y[k]))
+                                 for k in x)
+        for x, y in zip(a, b))
+
+
+def _runtime_entries(card):
+    from tpudes_torch.parallel.as_flows import run_as_flows
+    from tpudes_torch.parallel.hybrid import run_hybrid
+    from tpudes_torch.parallel.programs import (
+        toy_as_program,
+        toy_bss_program,
+        toy_dumbbell_program,
+    )
+    from tpudes_torch.parallel.wired import run_wired, wired_weak_chain
+
+    key = np.array([0, 3])
+    wired = wired_weak_chain(2, links_per_rank=3, flows_per_rank=2,
+                             period=40, n_slots=600, jitter_slots=3)
+    return {
+        "lte_sm": lambda **kw: run_lte_sm(_program(), key, replicas=3,
+                                          device=card, **kw),
+        "bss": lambda **kw: bss.run_replicated_bss(
+            toy_bss_program(4, 60_000), 3, key, device=card, **kw),
+        "dumbbell": lambda **kw: tcp.run_tcp_dumbbell(
+            toy_dumbbell_program(3, 200), key, 3, device=card, **kw),
+        "as_flows": lambda **kw: run_as_flows(
+            toy_as_program(64, 3), key, 3, rate_scale=[1.0, 8.0],
+            device=card, **kw),
+        "wired": lambda **kw: run_wired(wired, key, 3, window_slots=200,
+                                        device=card, **kw),
+        "hybrid": lambda **kw: run_hybrid(wired, key, 3, transport="local",
+                                          device=card, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["lte_sm", "bss", "dumbbell", "as_flows",
+                                  "wired", "hybrid"])
+def test_runner_cache_hit_bit_equal_to_miss_on_card(card, name):
+    """Miss, hit, hit through each entry on the card: all three equal, and
+    equal to the CPU's run (a cached table a launch wrote into would make
+    the hits differ)."""
+    from tpudes_torch.parallel.runtime import RUNTIME
+
+    run = _runtime_entries(card)[name]
+    RUNTIME.clear()
+    hits = RUNTIME.hits
+    miss, hit1, hit2 = run(), run(), run()
+    assert _same_result(miss, hit1) and _same_result(miss, hit2)
+    assert RUNTIME.hits - hits >= 2
+    cpu = _runtime_entries(torch.device("cpu"))[name]()
+    assert _same_result(miss, cpu)
+
+
+def test_submitted_run_behind_a_sleep_kernel_is_not_done(card):
+    """A run submitted behind a 0.2 s sleep kernel on the same stream is
+    not done when it returns; its result equals the blocking run's."""
+    want = run_lte_sm(_program(), PRNGKey(4), replicas=R, device=card)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.2 * 2.0e9))
+    fut = run_lte_sm(_program(), PRNGKey(4), replicas=R, device=card,
+                     block=False)
+    assert not fut.done()
+    got = fut.result()
+    assert fut.done() and _same_result(got, want)
+
+
+def test_checkpoint_resumes_on_card(card, tmp_path):
+    """The dumbbell in four chunks with a checkpoint, killed after the
+    second chunk's save, resumes with two launches, bit-equal to the
+    uninterrupted run."""
+    import tpudes_torch.chaos as chaos
+    from tpudes_torch.parallel.programs import toy_dumbbell_program
+
+    prog = toy_dumbbell_program(3, 400)
+    key = np.array([0, 8])
+    want = tcp.run_tcp_dumbbell(prog, key, 5, device=card)
+    path = tmp_path / "tcp.ckpt"
+    chaos.arm(chaos.ChaosSchedule([chaos.ChaosEvent(
+        "checkpoint_kill", "checkpoint_save", nth=2)]))
+    try:
+        with pytest.raises(chaos.ChaosInjected):
+            tcp.run_tcp_dumbbell(prog, key, 5, device=card, chunk_slots=100,
+                                 checkpoint=path)
+    finally:
+        chaos.disarm()
+    kc.reset_launches()
+    got = tcp.run_tcp_dumbbell(prog, key, 5, device=card, chunk_slots=100,
+                               checkpoint=path)
+    assert kc.launches["tcp_advance"] == 2
+    assert _same_result(got, want)

@@ -371,20 +371,23 @@ def test_sweep_point_equals_its_own_run(lowered):
 @pytest.mark.parametrize("what", ["traffic", "traffic_sweep", "mesh",
                                   "obs", "checkpoint", "block"])
 def test_refusals_name_their_roadmap_item(what):
-    """What the port does not run names its ROADMAP item; an app-limited
-    workload and a workload sweep run (tests/test_torch_dumbbell_traffic.
-    py), and what they refuse is the reference's: a workload without one
-    entity a flow, a sweep without ``prog.traffic``."""
+    """What the port does not run names its ROADMAP item, also beside the
+    runtime's ``checkpoint=`` and ``block=False``, which run
+    (tests/test_torch_checkpoint.py, test_torch_runtime.py); an
+    app-limited workload and a workload sweep run (tests/
+    test_torch_dumbbell_traffic.py), and what they refuse is the
+    reference's: a workload without one entity a flow, a sweep without
+    ``prog.traffic``."""
     prog = toy_dumbbell_program(2, 20)
     workloads = toy_traffic_points(3, 20_000)
     kw = {"traffic_sweep": dict(traffic_sweep=workloads),
           "mesh": dict(mesh=object()), "obs": dict(obs=True),
-          "checkpoint": dict(checkpoint="ckpt"),
-          "block": dict(block=False)}.get(what, {})
+          "checkpoint": dict(checkpoint="ckpt", mesh=object()),
+          "block": dict(block=False, obs=True)}.get(what, {})
     if what == "traffic":
         prog = dataclasses.replace(prog, traffic=workloads[0])
-    item = {"mesh": "A12", "obs": "A10", "checkpoint": "A11",
-            "block": "A11"}.get(what)
+    item = {"mesh": "A12", "obs": "A10", "checkpoint": "A12",
+            "block": "A10"}.get(what)
     error, match = ((NotImplementedError, item) if item else
                     (ValueError, {"traffic": "one a flow",
                                   "traffic_sweep": "prog.traffic"}[what]))

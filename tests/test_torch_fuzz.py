@@ -26,7 +26,8 @@ and are compared bit for bit in ``deliver_slot``, ``delivered`` and
 ``served``, with the port's ``run_wired`` too, and in the number of
 windows with the reference's replica bucketing off (its padded replicas
 join the grant, so where R is not a power of two its window schedule can
-differ; ROADMAP C5).
+differ; ROADMAP C5).  One draw per engine also runs through
+``block=False`` (an ``EngineFuture``), equal to its blocking run.
 """
 
 import numpy as np
@@ -186,3 +187,37 @@ def test_wired_hybrid_draw_equals_reference(seed, monkeypatch):
     _assert_agree("wired", cfg, want, run_wired(port, _key(cfg), R,
                                                 device="cpu"), fields)
     assert got["windows"] == want["windows"]
+
+
+@pytest.mark.parametrize("engine", ["dumbbell", "bss", "lte_sm", "as_flows",
+                                    "wired"])
+def test_submitted_draw_equals_the_blocking_run(engine):
+    from tpudes_torch.parallel.runtime import EngineFuture
+
+    fuzzer, cfg = _draw(engine, 0)
+    cfg = dict(cfg, surrogate="off") if engine == "as_flows" else cfg
+    prog = fuzzer.build(cfg)
+    R, key = int(cfg["replicas"]), _key(cfg)
+    if engine == "dumbbell":
+        port = dumbbell_from_numpy(_fields(prog, DUMBBELL_FIELDS))
+        run = lambda **kw: run_tcp_dumbbell(port, key, R, **kw)  # noqa: E731
+    elif engine == "bss":
+        port = bss_from_numpy(_fields(prog, BSS_FIELDS), _mobility(prog),
+                              _traffic(prog))
+        run = lambda **kw: run_replicated_bss(port, R, key, **kw)  # noqa: E731
+    elif engine == "lte_sm":
+        port = program_from_numpy(_fields(prog, PROGRAM_FIELDS),
+                                  _mobility(prog), _traffic(prog))
+        run = lambda **kw: run_lte_sm(port, key, replicas=R, **kw)  # noqa: E731
+    elif engine == "as_flows":
+        port = as_from_numpy(_fields(prog, AS_FIELDS))
+        run = lambda **kw: run_as_flows(port, key, R, **kw)  # noqa: E731
+    else:
+        port = wired_from_numpy(_fields(prog, WIRED_FIELDS))
+        run = lambda **kw: run_wired(port, key, R, **kw)  # noqa: E731
+    fut = run(device="cpu", block=False)
+    assert isinstance(fut, EngineFuture)
+    got, want = fut.result(), run(device="cpu")
+    assert set(got) == set(want)
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k

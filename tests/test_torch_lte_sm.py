@@ -221,6 +221,16 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     assert {"wifi_error.py", "interference.py", "fused.py"} <= {
         p.name for p in sources if p.parent.name == "ops"
     }
+    assert {"runtime.py", "checkpoint.py"} <= {
+        p.name for p in sources if p.parent.name == "parallel"
+    }
+    for sub, names in (("serving", {"server.py", "descriptor.py",
+                                    "errors.py"}),
+                       ("chaos", {"schedule.py", "scenario.py"}),
+                       ("obs", {"serving.py", "schema.py"})):
+        assert names | {"__init__.py"} <= {
+            p.name for p in sources if p.parent.name == sub
+        }, sub
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -322,7 +322,7 @@ def test_space_lanes_equal_reference_state():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "A12"), (dict(block=False), "A11"),
+    (dict(mesh=object()), "A12"), (dict(block=False, obs=True), "A10"),
     (dict(obs=True), "A10"),
 ])
 def test_unported_options_raise(kw, item):

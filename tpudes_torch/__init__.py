@@ -11,8 +11,13 @@ replica engine (:func:`tpudes_torch.parallel.replicated.
 run_replicated_bss`, ``csrc/bss_advance.cu``), the TCP dumbbell
 (:func:`tpudes_torch.parallel.tcp_dumbbell.run_tcp_dumbbell`,
 ``csrc/tcp_advance.cu``), the fused WiFi PHY window
-(:mod:`tpudes_torch.parallel.kernels`, ``csrc/wifi_window.cu``) and the AS
-flow engine (:func:`run_as_flows`, ``csrc/as_flows.cu``).
+(:mod:`tpudes_torch.parallel.kernels`, ``csrc/wifi_window.cu``), the AS
+flow engine (:func:`run_as_flows`, ``csrc/as_flows.cu``) and the wired
+engine with the hybrid PDES over it (``csrc/wired_advance.cu``).  They
+run on the engine runtime (:mod:`tpudes_torch.parallel.runtime`: runner
+cache, replica buckets, submitted runs, the chunk drive and
+:mod:`~tpudes_torch.parallel.checkpoint`), and
+:class:`tpudes_torch.serving.StudyServer` serves studies over them.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without CUDA they raise rather than fall back.

@@ -41,16 +41,23 @@ contributions in (hop, flow) order, from 0: the CPU applies a scatter's
 duplicate updates in update order, hop after hop.  Neither version sums
 with ``atomicAdd`` or ``index_add_``, whose order is not fixed.
 
-The replica axis is not padded to a power of two (the reference's
-bucket, ``tpudes/parallel/runtime.py:115``): replica ``r``'s draws are
-``normal(fold_in(key, r), (F,))`` and every output row depends on its
-own draws only, so the real replicas equal the reference's padded run.
+The engine runs on :mod:`tpudes_torch.parallel.runtime`: the graph's
+tables and the fluid stage's tables (built from the first run's paths,
+which are a pure function of the program) sit in the runner cache, keyed
+by value as the reference's ``as_prog_key``; the routing stage and the
+walk still run every call, as the reference's executable runs them.  The
+replica axis is padded to its power-of-two bucket (replica ``r``'s draws
+are ``normal(fold_in(key, r), (F,))`` and every output row depends on its
+own draws only, so the real replicas cannot move), the fixed point's
+chunks go through ``drive_chunks`` (``checkpoint=`` saves the carry
+after each), and ``block=False`` returns an :class:`~tpudes_torch.
+parallel.runtime.EngineFuture`.  :func:`as_study` is the serving layer's
+descriptor.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh`` (A12), checkpoints and ``block=False`` (A11), the
-``TpudesObs`` columns (A10) and the smooth surrogate
-(``prog.surrogate``, ``build_as_diff``: A14); ``as_study`` (A13) and
-``lower_as_flows`` from a host object graph (A16) are not here either.
+item): ``mesh`` (A12), the ``TpudesObs`` columns (A10) and the smooth
+surrogate (``prog.surrogate``, ``build_as_diff``: A14);
+``lower_as_flows`` from a host object graph (A16) is not here either.
 """
 
 from __future__ import annotations
@@ -60,13 +67,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpudes_torch.device import resolve_device
+from tpudes_torch.device import resolve_device, to_device
 from tpudes_torch.ops.fused import exp, f32, fma, log
-from tpudes_torch.parallel.replicated import _not_ported, chunk_bounds
+from tpudes_torch.parallel.runtime import (
+    RUNTIME,
+    EngineFuture,
+    _not_ported,
+    bucket_replicas,
+    chunk_bounds,
+    drive_chunks,
+    finalize_with_flush,
+)
 from tpudes_torch.random import as_replica_draws
 from tpudes_torch.traffic.device import avg_mult
 
-__all__ = ["AsFlowsProgram", "FP_ROUNDS", "INF", "device_spf",
+__all__ = ["AsFlowsProgram", "FP_ROUNDS", "INF", "as_prog_key", "as_study",
+           "device_spf",
            "fluid_draws_math", "fluid_inputs", "fluid_math", "fluid_tables",
            "run_as_flows", "spf_graph", "spf_math", "walk_math",
            "walk_paths"]
@@ -446,6 +462,65 @@ def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
             *rate_constants(prog)), hops
 
 
+def as_prog_key(prog: AsFlowsProgram) -> tuple:
+    """Hashable identity of the fields that shape a run's tables
+    (``as_flows.py:391``, with the node count added): ``sim_s`` is absent
+    (the fixed point has no horizon) and the workload adds only its shape
+    key."""
+    return (
+        int(prog.n), prog.edges.tobytes(), prog.delay_s.tobytes(),
+        prog.rate_bps.tobytes(), prog.src.tobytes(), prog.dst.tobytes(),
+        prog.flow_bps.tobytes(), prog.pkt_bytes, prog.max_hops,
+        prog.spf_rounds, prog.rate_jitter, prog.spf_metric,
+        None if prog.traffic is None else prog.traffic.shape_key(),
+        None if prog.surrogate is None else prog.surrogate,
+    )
+
+
+def as_study(prog: AsFlowsProgram, key, replicas, mesh=None,
+             rate_scale: float = 1.0, device=None):
+    """Serving-layer study descriptor (``as_flows.py:411``): the offered
+    load multiplier is the sweep operand, so two load studies coalesce
+    onto one launch whenever their topology, flows, key, replica count,
+    mesh and device match.  A lone study still launches through
+    ``rate_scale=[x]``."""
+    from tpudes_torch.serving.descriptor import (
+        StudyDescriptor,
+        mesh_fingerprint,
+    )
+
+    dev = resolve_device(device)
+    ck = as_prog_key(prog) + (
+        np.asarray(key, np.int64).tobytes(), int(replicas),
+        mesh_fingerprint(mesh),
+        # the workload by value, and the horizon it averages over
+        None if prog.traffic is None
+        else prog.traffic.param_key() + (float(prog.sim_s),),
+        str(dev),
+    )
+
+    def launch(points, block=False):
+        return run_as_flows(prog, key, replicas, mesh=mesh, device=dev,
+                            rate_scale=[float(v) for v in points],
+                            block=block)
+
+    def warm(n_points):
+        # no horizon to shrink: the fixed point runs once a bucket
+        run_as_flows(prog, key, replicas, mesh=mesh, device=dev,
+                     rate_scale=[1.0] * n_points)
+
+    return StudyDescriptor("as_flows", ck, float(rate_scale), launch, warm)
+
+
+def _as_runner(prog: AsFlowsProgram, dev) -> dict:
+    """A run's cached tables: the graph (:func:`spf_graph`), the nominal
+    rates and the rate constants; :func:`run_as_flows` adds the fluid
+    stage's tables (:func:`fluid_tables`) from the first run's paths."""
+    return dict(g=spf_graph(prog, dev),
+                fm=torch.as_tensor(_f32(prog.flow_bps), device=dev),
+                rates=rate_constants(prog))
+
+
 def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
                  rate_scale=None, chunk_rounds: int | None = None,
                  device=None, mesh=None, checkpoint=None, block: bool = True,
@@ -459,34 +534,74 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     ``rate_scale=[...]`` runs C offered-load scales as one ``(C, R)`` grid
     (the routing stage once) and returns one dict a point.
     ``chunk_rounds=N`` runs the fixed point N rounds a launch, carrying the
-    links' log deliveries: the same result bit for bit.  ``device``
-    defaults to the card, where a run is one ``as_spf`` launch (the
-    routing and the walk) and one ``as_fluid`` launch a chunk (the draws
-    and the fixed point)."""
+    links' log deliveries: the same result bit for bit; ``checkpoint=`` (a
+    path or a :class:`~tpudes_torch.parallel.checkpoint.CarryCheckpoint`)
+    saves the carry after each chunk and resumes a matching run from its
+    last completed chunk, bit-equal.  The replica axis is padded to its
+    power-of-two bucket and the results sliced back.  ``block=False``
+    returns an :class:`~tpudes_torch.parallel.runtime.EngineFuture`.
+    ``device`` defaults to the card, where a run is one ``as_spf`` launch
+    (the routing and the walk) and one ``as_fluid`` launch a chunk (the
+    draws and the fixed point)."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if checkpoint is not None:
-        raise _not_ported("checkpoint", "A11")
-    if not block:
-        raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
     if prog.surrogate is not None:
         raise _not_ported("the smooth surrogate (prog.surrogate, "
                           "build_as_diff)", "A14")
-    from tpudes_torch.parallel.as_cuda import fluid_launch
+    from tpudes_torch.parallel.as_cuda import fluid_launch, spf_launch
+    from tpudes_torch.parallel.checkpoint import checkpoint_ctx
 
+    dev = resolve_device(device)
+    r_pad = bucket_replicas(replicas)
+    n_cfg = None if rate_scale is None else len(rate_scale)
     scales = [1.0] if rate_scale is None else [float(s) for s in rate_scale]
-    args, hops = fluid_inputs(prog, key, replicas, scales, device)
-    lfrac = None
-    done = 0
-    for bound in chunk_bounds(FP_ROUNDS, chunk_rounds or FP_ROUNDS):
-        out, lfrac = fluid_launch(*args, bound - done, lfrac,
+    runner, _ = RUNTIME.runner(
+        "as_flows", as_prog_key(prog) + (r_pad, None, n_cfg, False, str(dev)),
+        lambda: _as_runner(prog, dev))
+    # the routing stage and the walk run every call, as the reference's
+    # executable runs them; their paths are a pure function of the key
+    _, _, _, path, hops, reached = spf_launch(runner["g"], prog.n,
+                                              prog.spf_rounds)
+    if "tables" not in runner:
+        runner["tables"] = fluid_tables(prog, path)
+    fm = runner["fm"]
+    if prog.traffic is not None:
+        horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
+        fm = fm * avg_mult(prog.traffic.operands(dev),
+                           prog.traffic.epoch_us, horizon)
+    key = to_device(key if isinstance(key, torch.Tensor)
+                    else np.asarray(key, np.int64), dev, torch.int64)
+    args = (runner["tables"], fm, to_device(np.asarray(scales, np.float32),
+                                            dev),
+            key, int(r_pad), reached, *runner["rates"])
+
+    def launch(c, bound):
+        out, lfrac = fluid_launch(*args, bound - c["done"], c["lfrac"],
                                   carry=bound < FP_ROUNDS)
-        done = bound
-    shared = dict(hops=hops.cpu().numpy(),
-                  unreachable=(~args[5]).cpu().numpy())
-    host = {k: v.cpu().numpy() for k, v in out.items()}
-    points = [dict({k: v[c] for k, v in host.items()}, **shared)
-              for c in range(len(scales))]
-    return points[0] if rate_scale is None else points
+        return dict(done=bound, lfrac=lfrac, out=out)
+
+    ckpt = checkpoint_ctx(
+        checkpoint, engine="as_flows", key=key, replicas=replicas,
+        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        extra=as_prog_key(prog) + (
+            None if rate_scale is None else tuple(scales),
+            None if prog.traffic is None
+            else prog.traffic.param_key() + (float(prog.sim_s),)),
+    )
+    carry, flush = drive_chunks(
+        "as_flows", chunk_bounds(FP_ROUNDS, chunk_rounds or FP_ROUNDS),
+        dict(done=0, lfrac=None, out=None), launch, checkpoint=ckpt)
+    fetch = dict(out=carry["out"], hops=hops, reached=reached)
+    R = int(replicas)
+
+    def finalize(host):
+        shared = dict(hops=host["hops"], unreachable=~host["reached"])
+        points = [dict({k: v[c, :R] for k, v in host["out"].items()},
+                       **shared) for c in range(len(scales))]
+        return points[0] if rate_scale is None else points
+
+    fut = EngineFuture("as_flows", fetch,
+                       finalize_with_flush(flush, finalize))
+    return fut.result() if block else fut

@@ -27,11 +27,20 @@ only), a launch a window.  The results are merged as the reference merges
 them (``np.maximum`` of ``deliver``, the sum of ``served``) and equal
 ``run_wired``'s bit for bit.
 
+An engine's tables sit in the runner cache of :mod:`tpudes_torch.
+parallel.runtime` (a rank's keyed as the reference's ``HybridRank``,
+``hybrid.py:161``: its sub-program, replica bucket, owned links and flow
+ids; the space lanes' by the whole program with its ownership map), its
+replica axis is padded to its power-of-two bucket (the padded rows join
+the grant, as the reference's do, so ``windows`` counts as the
+reference's), and each window's launch is counted under
+``wired_hybrid`` or ``wired_space``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``transport="mpi"``, one process a rank over ``LaunchDistributed``
 and ``MpiInterface`` (A12, on ``torch.distributed``), and the
 ``DistributedTelemetry`` record of every window (``telemetry=True``,
-A10).  The runner cache (A11) is absent: every run builds its engines.
+A10).
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import torch
 
 from tpudes_torch.device import resolve_device
 from tpudes_torch.parallel import wired_cuda
-from tpudes_torch.parallel.replicated import _not_ported
+from tpudes_torch.parallel.runtime import RUNTIME, _not_ported, bucket_replicas
 from tpudes_torch.parallel.wired import (
     INF_SLOT,
     WiredProgram,
@@ -51,6 +60,7 @@ from tpudes_torch.parallel.wired import (
     partition_flows,
     partition_lookahead,
     uniform_partitions,
+    wired_cache_key,
     wired_tables,
 )
 
@@ -187,18 +197,32 @@ class HybridLanes:
                      for ids in self.pkt_ids]
         self._pkt_flow = [packet_table(sub)[0] for sub, _, _ in parts]
         self._paths = [np.asarray(sub.paths) for sub, _, _ in parts]
-        self.tab = wired_tables(prog, [
-            (sub, own, fids) for (sub, fids, _), own in zip(parts,
-                                                            self.owned)],
-            resolve_device(device))
+        dev = resolve_device(device)
+        r_pad = bucket_replicas(replicas)
+        lanes = [(sub, own, fids)
+                 for (sub, fids, _), own in zip(parts, self.owned)]
+        if len(lanes) == 1:
+            sub, own, fids = lanes[0]
+            fids = (np.arange(sub.n_flows, dtype=np.int32) if fids is None
+                    else np.asarray(fids, np.int32))
+            self.engine = "wired_hybrid"
+            key_ = wired_cache_key(sub) + (r_pad, np.asarray(own).tobytes(),
+                                           fids.tobytes(), str(dev))
+        else:
+            self.engine = "wired_space"
+            key_ = wired_cache_key(prog, keep_owner=True) + (
+                r_pad, "space", tuple(self.ranks), self.size, str(dev))
+        self.tab, _ = RUNTIME.runner(self.engine, key_,
+                                     lambda: wired_tables(prog, lanes, dev))
         self.t_now = self.windows = 0
-        self.carry = _init_rows(self.tab, key, int(replicas),
+        self.carry = _init_rows(self.tab, key, r_pad,
                                 int(prog.jitter_slots))
         self._launch(0)
 
     def _launch(self, t_grant: int) -> None:
         self.carry, self._metrics = wired_cuda.advance_launch(
             self.tab, self.carry, t_grant)
+        RUNTIME.record_launch(self.engine)
 
     def poll(self) -> list:
         """Every lane's ``(outbox, next_event)`` after the last window,
@@ -229,7 +253,7 @@ class HybridLanes:
 
     def results(self) -> list:
         """Each lane's outcome scattered back to global packet and link
-        ids, with the windows run."""
+        ids (the padded replicas' rows too), with the windows run."""
         deliver = self.carry["deliver"].cpu().numpy()
         served = self.carry["served"].cpu().numpy()
         outs = []
@@ -297,9 +321,10 @@ def run_hybrid(prog: WiredProgram, key, replicas: int = 1, *,
                device=None) -> dict:
     """Run ``prog`` space-partitioned over ``ranks`` PDES ranks (default:
     the partitions ``prog.link_owner`` declares), each advancing R
-    replicas of its links by granted windows (``hybrid.py:763``); the
-    merged result is ``run_wired``'s, with ``windows`` (the rounds run)
-    and ``ranks``.  ``transport`` is ``"local"`` or ``"batched"``;
+    replicas of its links (padded to the power-of-two bucket) by granted
+    windows (``hybrid.py:763``); the merged result is ``run_wired``'s,
+    with ``windows`` (the rounds run) and ``ranks``.  ``transport`` is
+    ``"local"`` or ``"batched"``;
     ``window_slots`` bounds every grant (the schedule changes, the
     results do not).  ``key`` is the run's ``(2,)`` key words; ``device``
     defaults to the card.  Not ported: the ``"mpi"`` transport (A12) and

@@ -37,6 +37,14 @@ streams bit for bit (:mod:`tpudes_torch.random`) — so a run is
 comparable with the JAX engine per replica, on integers.  The horizon
 is a fixed count, so a host loop over chunks of TTIs is exact.
 
+The engine runs on :mod:`tpudes_torch.parallel.runtime`: the program's
+constants sit in the runner cache (keyed by value, as the reference's
+``_sm_cache_key``), the replica axis is padded to its power-of-two
+bucket, the chunks go through ``drive_chunks`` (``checkpoint=`` saves
+the carry after each), and ``block=False`` returns an
+:class:`~tpudes_torch.parallel.runtime.EngineFuture`.  :func:`lte_sm_study`
+is the serving layer's descriptor.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``mesh`` and the ``TpudesObs`` FlowMonitor columns.
 """
@@ -49,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpudes_torch.device import resolve_device
+from tpudes_torch.device import resolve_device, to_device
 from tpudes_torch.ops.fused import device_table, f32, fma, sqrt
 from tpudes_torch.ops.lte import (
     RB_BANDWIDTH_HZ,
@@ -76,6 +84,15 @@ from tpudes_torch.parallel.kernels_cuda import (
     sm_step_math,
     table_rows,
 )
+from tpudes_torch.parallel.runtime import (
+    RUNTIME,
+    EngineFuture,
+    _not_ported,
+    bucket_replicas,
+    chunk_bounds,
+    drive_chunks,
+    finalize_with_flush,
+)
 from tpudes_torch.random import fold_in, replica_keys
 from tpudes_torch.traffic.device import TRAFFIC_KEY_TAG, offered_table
 from tpudes_torch.traffic.host import offered_bits_mean
@@ -83,7 +100,7 @@ from tpudes_torch.traffic.host import offered_bits_mean
 __all__ = [
     "SM_DYNAMIC_ROWS", "LteSmProgram", "build_geom_fn", "build_sm_advance",
     "build_sm_mobile_advance", "build_sm_step", "build_sm_traffic_advance",
-    "geom_rows", "run_lte_sm",
+    "geom_rows", "lte_sm_study", "run_lte_sm",
 ]
 
 #: refresh rows one mobile launch's table holds at most (a longer
@@ -100,12 +117,6 @@ PRECISIONS = ("f32", "bf16")
 
 #: the pathloss descriptors the geometry stage takes
 PATHLOSS_KINDS = ("friis", "log_distance")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpudes_torch yet (ROADMAP {item})"
-    )
 
 
 @dataclass(frozen=True)
@@ -181,10 +192,13 @@ class LteSmProgram:
         return int(self.gain.shape[1])
 
 
-def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
+def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True,
+                  consts: dict | None = None):
     """``(consts, init_state, step_fn)`` with
     ``step_fn(state, coin (R, U), t) -> state`` (``lte_sm.py:397``), on
-    ``device`` (the card by default); static programs only.
+    ``device`` (the card by default); static programs only.  ``consts``
+    are the program's :func:`build_sm_consts` where the caller has them
+    (the runner cache), else built here.
 
     ``use_kernel=False`` runs the plain core on any device (the card's
     comparison path); otherwise the step is :func:`sm_step`, which
@@ -193,7 +207,8 @@ def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
         raise ValueError("build_sm_step runs static programs; a mobile "
                          "program runs through build_sm_mobile_advance")
     device = resolve_device(device)
-    consts = build_sm_consts(prog, device=device)
+    if consts is None:
+        consts = build_sm_consts(prog, device=device)
     sid = SM_SCHED_IDS[prog.scheduler]
     step = sm_step if use_kernel else sm_step_math
 
@@ -207,7 +222,8 @@ def build_sm_step(prog: LteSmProgram, device=None, use_kernel: bool = True):
 
 
 def build_sm_advance(prog: LteSmProgram, device=None,
-                     use_kernel: bool = True, chunk_ttis: int | None = None):
+                     use_kernel: bool = True, chunk_ttis: int | None = None,
+                     consts: dict | None = None):
     """``(consts, init_state, advance)`` with
     ``advance(state, keys (R, 2), t0, t_end, sids=None) -> state``
     running TTIs ``[t0, t_end)`` (``lte_sm.py:646``), ``chunk_ttis`` at a
@@ -219,7 +235,7 @@ def build_sm_advance(prog: LteSmProgram, device=None,
     for CUDA tensors, the plain loop (coins drawn in memory-bounded
     chunks) for CPU tensors.  ``use_kernel=False`` runs the plain loop
     on any device."""
-    consts, init_state, _ = build_sm_step(prog, device, use_kernel)
+    consts, init_state, _ = build_sm_step(prog, device, use_kernel, consts)
     run = sm_advance if use_kernel else sm_advance_math
 
     def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int,
@@ -313,7 +329,8 @@ def build_geom_fn(prog: LteSmProgram, consts: dict):
 
 def build_sm_mobile_advance(prog: LteSmProgram, device=None,
                             use_kernel: bool = True,
-                            chunk_ttis: int | None = None):
+                            chunk_ttis: int | None = None,
+                            consts: dict | None = None):
     """``(consts, init_state, advance)`` for a mobile program, with
     ``advance(state, keys (R, 2), t0, t_end, sids=None) -> (state, last,
     refreshes)``: TTIs ``[t0, t_end)`` with the rows refreshed at every
@@ -328,7 +345,7 @@ def build_sm_mobile_advance(prog: LteSmProgram, device=None,
     the refresh before it, as the reference's carried rows do) to the
     one its last TTI runs on."""
     consts, init_state, _ = build_sm_step(
-        _static_twin(prog), device, use_kernel
+        _static_twin(prog), device, use_kernel, consts
     )
     stride = int(prog.geom_stride)
     run = sm_advance if use_kernel else sm_advance_math
@@ -357,7 +374,8 @@ def build_sm_mobile_advance(prog: LteSmProgram, device=None,
 
 def build_sm_traffic_advance(prog: LteSmProgram, device=None,
                              use_kernel: bool = True,
-                             chunk_ttis: int | None = None):
+                             chunk_ttis: int | None = None,
+                             consts: dict | None = None):
     """``(consts, init_state, advance)`` for a traffic program, with
     ``advance(state, keys (R, 2), tr_key (2,), t0, t_end, sids=None) ->
     state`` running TTIs ``[t0, t_end)`` on finite backlogs
@@ -369,7 +387,7 @@ def build_sm_traffic_advance(prog: LteSmProgram, device=None,
     :func:`~tpudes_torch.traffic.device.offered_table` of its TTIs under
     the run's traffic key ``tr_key`` (``fold_in(key,
     TRAFFIC_KEY_TAG)``), built once and read by every lane."""
-    consts, _, _ = build_sm_step(prog, device, use_kernel)
+    consts, _, _ = build_sm_step(prog, device, use_kernel, consts)
     run = sm_advance if use_kernel else sm_advance_math
     dev = consts["mi0"].device
     ops = prog.traffic.operands(dev)
@@ -402,12 +420,35 @@ def _static_twin(prog: LteSmProgram) -> LteSmProgram:
 # --------------------------------------------------------------------------
 
 
-def _sm_unpack(host: dict, shared: dict, replicas) -> dict:
+
+
+def _sm_prog_key(prog: LteSmProgram) -> tuple:
+    """The program fields of the reference's ``_sm_cache_key``
+    (``lte_sm.py:532``): ``scheduler`` and ``n_ttis`` are absent (the
+    scheduler id and the horizon are a launch's operands, not its
+    constants), and so are ``geom_stride`` and every mobility and
+    workload parameter; the mobility and workload shape keys are in."""
+    return (
+        prog.gain.tobytes(), prog.serving.tobytes(),
+        prog.tx_power_dbm.tobytes(), prog.noise_psd, prog.n_rb,
+        prog.pf_alpha, prog.precision,
+        None if prog.mobility is None else prog.mobility.shape_key(),
+        None if prog.enb_pos is None else np.asarray(prog.enb_pos).tobytes(),
+        prog.pathloss,
+        None if prog.traffic is None else prog.traffic.shape_key(),
+    )
+
+
+def _sm_arm(prog: LteSmProgram) -> str:
+    if prog.traffic is not None:
+        return "traffic"
+    return "static" if prog.mobility is None else "mobile"
+
+
+def _sm_unpack(host: dict, shared: dict) -> dict:
     """Result dict (``lte_sm.py:564``) of one config point from its host
-    state: the 52-bit rx counter rebuilt, per-UE rows, and the
-    CQI/MCS/SINR."""
-    if replicas is None:
-        host = {k: v[0] for k, v in host.items()}
+    state, ``(R, ...)`` rows: the 52-bit rx counter rebuilt, per-UE
+    rows, and the CQI/MCS/SINR."""
     out = {
         k: host[k] for k in ("new_tbs", "retx", "drops")
     }
@@ -425,6 +466,51 @@ def _sm_unpack(host: dict, shared: dict, replicas) -> dict:
     return out
 
 
+def lte_sm_study(prog: LteSmProgram, key, replicas=None, mesh=None,
+                 device=None):
+    """Serving-layer study descriptor (``lte_sm.py:591``): the scheduler
+    is the sweep operand, so two studies coalesce onto one launch of C
+    scheduler points whenever their static fields, horizon, key, replica
+    count, mesh and device all match (the mobility and workload
+    parameters too: only the scheduler may differ)."""
+    from tpudes_torch.serving.descriptor import (
+        StudyDescriptor,
+        mesh_fingerprint,
+    )
+
+    dev = resolve_device(device)
+    ck = (
+        prog.gain.tobytes(), prog.serving.tobytes(),
+        prog.tx_power_dbm.tobytes(), prog.noise_psd, prog.n_rb,
+        prog.pf_alpha, prog.precision, prog.n_ttis,
+        np.asarray(key, np.int64).tobytes(), replicas,
+        mesh_fingerprint(mesh),
+        None if prog.mobility is None else prog.mobility.param_key(),
+        int(prog.geom_stride),
+        None if prog.traffic is None else prog.traffic.param_key(),
+        str(dev),
+    )
+
+    def launch(points, block=False):
+        # one point rides the plain entry, as every other caller does
+        if len(points) == 1:
+            return run_lte_sm(
+                dataclasses.replace(prog, scheduler=points[0]), key,
+                replicas=replicas, mesh=mesh, block=block, device=dev,
+            )
+        return run_lte_sm(prog, key, replicas=replicas, mesh=mesh,
+                          schedulers=list(points), block=block, device=dev)
+
+    def warm(n_points):
+        # a 1-TTI run builds the kernel and fills the runner cache
+        tiny = dataclasses.replace(prog, n_ttis=1)
+        run_lte_sm(tiny, key, replicas=replicas, mesh=mesh, device=dev,
+                   schedulers=None if n_points == 1
+                   else [prog.scheduler] * n_points)
+
+    return StudyDescriptor("lte_sm", ck, prog.scheduler, launch, warm)
+
+
 def run_lte_sm(
     prog: LteSmProgram,
     key,
@@ -434,6 +520,8 @@ def run_lte_sm(
     chunk_ttis: int | None = None,
     use_kernel: bool = True,
     schedulers=None,
+    checkpoint=None,
+    block: bool = True,
     mesh=None,
     obs: bool = False,
 ):
@@ -444,19 +532,25 @@ def run_lte_sm(
     per-UE arrays ``{rx_bits, new_tbs, retx, drops, ok, cqi, mcs,
     sinr}``.  With ``replicas=R``: replica ``r`` runs on
     ``fold_in(key, r)`` and the outcome arrays gain a leading ``R``
-    axis.  A mobile program (``prog.mobility``) adds ``geom_refreshes``
-    and ``geom_stride``, and its ``cqi, mcs, sinr`` are the last
-    refresh's.  A traffic program (``prog.traffic``) adds per UE
-    ``backlog_bits`` (f32, what is left), ``goodput_bits`` (int64, what
-    drained) and ``offered_bits`` (the expected offered load over the
-    horizon, ``offered_bits_mean``).  ``schedulers=[...]`` (names of
+    axis; the replica axis is padded to its power-of-two bucket
+    (``TPUDES_BUCKETING``) and the results sliced back.  A mobile
+    program (``prog.mobility``) adds ``geom_refreshes`` and
+    ``geom_stride``, and its ``cqi, mcs, sinr`` are the last refresh's.
+    A traffic program (``prog.traffic``) adds per UE ``backlog_bits``
+    (f32, what is left), ``goodput_bits`` (int64, what drained) and
+    ``offered_bits`` (the expected offered load over the horizon,
+    ``offered_bits_mean``).  ``schedulers=[...]`` (names of
     ``SM_SCHED_IDS``) runs every point in one launch per chunk and
     returns a list of result dicts, each what the single-point run on
     the same key returns.
 
-    ``device`` defaults to the card; on the card the horizon is one
-    kernel launch (``chunk_ttis`` TTIs per launch if given) unless
-    ``use_kernel=False`` asks for the plain loop."""
+    ``device`` defaults to the card; on the card each chunk (the whole
+    horizon, or ``chunk_ttis`` TTIs) is one kernel launch unless
+    ``use_kernel=False`` asks for the plain loop.  ``checkpoint=`` (a
+    path or a :class:`~tpudes_torch.parallel.checkpoint.CarryCheckpoint`)
+    saves the carry after each chunk and resumes a matching run from its
+    last completed chunk, bit-equal.  ``block=False`` returns an
+    :class:`~tpudes_torch.parallel.runtime.EngineFuture`."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
     if obs:
@@ -465,47 +559,84 @@ def run_lte_sm(
     unknown = [n for n in names if n not in SM_SCHED_IDS]
     if unknown or not names:
         raise ValueError(f"schedulers must be names of SM_SCHED_IDS: {names}")
+    from tpudes_torch.parallel.checkpoint import checkpoint_ctx
+
     dev = resolve_device(device)
-    key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
-    keys = key[None, :] if replicas is None else replica_keys(key, replicas)
-    R = len(keys)
-    sids = None if schedulers is None else torch.tensor(
-        [SM_SCHED_IDS[n] for n in names], dtype=torch.int32, device=dev
+    r_pad = bucket_replicas(replicas)
+    n_cfg = None if schedulers is None else len(names)
+    arm = _sm_arm(prog)
+    consts, _ = RUNTIME.runner(
+        "lte_sm",
+        _sm_prog_key(prog) + (use_kernel, r_pad, n_cfg, False, str(dev), arm),
+        lambda: build_sm_consts(_static_twin(prog), device=dev),
     )
+    key = to_device(key if isinstance(key, torch.Tensor)
+                    else np.asarray(key, np.int64), dev, torch.int64)
+    keys = key[None, :] if r_pad is None else replica_keys(key, r_pad)
+    C, R = len(names), len(keys)
+    sid_list = [SM_SCHED_IDS[n] for n in names]
+    sids = None if schedulers is None else to_device(
+        np.asarray(sid_list, np.int32), dev)
+    build = dict(traffic=build_sm_traffic_advance, static=build_sm_advance,
+                 mobile=build_sm_mobile_advance)[arm]
+    _, init_state, advance = build(prog, dev, use_kernel, consts=consts)
+    # a traffic advance takes the run's traffic key after the replica keys
+    tr_args = ((fold_in(key, TRAFFIC_KEY_TAG),) if arm == "traffic"
+               else ())
+    carry = dict(t=0, state={k: v.unflatten(0, (C, R))
+                             for k, v in init_state(C * R).items()})
+    if arm == "mobile":
+        carry.update(last=None, refreshes=0)
+
+    def launch(c, bound):
+        flat = {k: v.flatten(0, 1) for k, v in c["state"].items()}
+        out = dict(c, t=bound)
+        if arm == "mobile":
+            flat, last, n = advance(flat, keys, c["t"], bound, sids)
+            out.update(last=last if last is not None else c["last"],
+                       refreshes=c["refreshes"] + n)
+        else:
+            flat = advance(flat, keys, *tr_args, c["t"], bound, sids)
+        out["state"] = {k: v.unflatten(0, (C, R)) for k, v in flat.items()}
+        return out
+
+    mob = arm == "mobile"
+    ckpt = checkpoint_ctx(
+        checkpoint, engine="lte_sm", key=key, replicas=replicas,
+        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        extra=_sm_prog_key(prog) + (arm, tuple(sid_list),
+                                    int(prog.geom_stride) if mob else None,
+                                    prog.mobility.param_key() if mob
+                                    else None,
+                                    None if prog.traffic is None
+                                    else prog.traffic.param_key()),
+    )
+    carry, flush = drive_chunks(
+        "lte_sm", chunk_bounds(prog.n_ttis, chunk_ttis or prog.n_ttis),
+        carry, launch, checkpoint=ckpt)
     extra = {}
-    if prog.traffic is not None:
-        consts, init_state, advance = build_sm_traffic_advance(
-            prog, dev, use_kernel, chunk_ttis
-        )
-        state = advance(init_state(len(names) * R), keys,
-                        fold_in(key, TRAFFIC_KEY_TAG), 0, prog.n_ttis, sids)
-        shared = consts
+    if arm == "traffic":
         extra = dict(offered_bits=offered_bits_mean(prog.traffic,
                                                     prog.n_ttis * 1000))
-    elif prog.mobility is None:
-        consts, init_state, advance = build_sm_advance(
-            prog, dev, use_kernel, chunk_ttis
-        )
-        state = advance(init_state(len(names) * R), keys, 0, prog.n_ttis,
-                        sids)
-        shared = consts
-    else:
-        consts, init_state, advance = build_sm_mobile_advance(
-            prog, dev, use_kernel, chunk_ttis
-        )
-        state, shared, refreshes = advance(
-            init_state(len(names) * R), keys, 0, prog.n_ttis, sids
-        )
-        if shared is None:  # no TTI ran: the rows are still zeros
-            shared = {k: torch.zeros_like(consts[k])
-                      for k in ("cqi", "mcs", "sinr")}
-        extra = dict(geom_refreshes=refreshes,
+    shared = consts
+    if mob:
+        extra = dict(geom_refreshes=carry["refreshes"],
                      geom_stride=int(prog.geom_stride))
-    host = {k: v.cpu().numpy() for k, v in state.items()}
-    shared = {k: shared[k].cpu().numpy() for k in ("cqi", "mcs", "sinr")}
-    points = [
-        dict(_sm_unpack({k: v[i * R:(i + 1) * R] for k, v in host.items()},
-                        shared, replicas), **extra)
-        for i in range(len(names))
-    ]
-    return points if schedulers is not None else points[0]
+        # no TTI ran: the rows are still zeros
+        shared = carry["last"] or {k: torch.zeros_like(consts[k])
+                                   for k in ("cqi", "mcs", "sinr")}
+    fetch = dict(state=carry["state"],
+                 shared={k: shared[k] for k in ("cqi", "mcs", "sinr")})
+    want = 1 if replicas is None else int(replicas)
+
+    def finalize(host):
+        points = [
+            dict(_sm_unpack({k: v[i, :want] if replicas is not None
+                             else v[i, 0] for k, v in host["state"].items()},
+                            host["shared"]), **extra)
+            for i in range(C)
+        ]
+        return points if schedulers is not None else points[0]
+
+    fut = EngineFuture("lte_sm", fetch, finalize_with_flush(flush, finalize))
+    return fut.result() if block else fut

@@ -42,11 +42,17 @@ double decode (two senders tying on one µs are each decoded at their
 own destination), and the whole A-MPDU dropped at the node's retry
 limit.
 
+The engine runs on :mod:`tpudes_torch.parallel.runtime`: the program's
+constants sit in the runner cache (keyed by value, as the reference's
+``_prog_cache_key``), the replica axis is padded to its power-of-two
+bucket (so ``steps`` counts the padded replicas' steps, as the
+reference's does), the chunks go through ``drive_chunks``
+(``checkpoint=`` saves the carry after each), and ``block=False``
+returns an :class:`~tpudes_torch.parallel.runtime.EngineFuture`.
+:func:`bss_study` is the serving layer's descriptor.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): checkpoints and ``block=False`` (A11), ``mesh`` (A12) and the
-``TpudesObs`` columns (A10).  The replica axis is
-not padded to a power of two (A11), so ``steps`` is the maximum over the
-``R`` replicas asked for.
+item): ``mesh`` (A12) and the ``TpudesObs`` columns (A10).
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpudes_torch.device import resolve_device
+from tpudes_torch.device import resolve_device, to_device
 from tpudes_torch.ops.fused import f32
 from tpudes_torch.ops.interference import thermal_noise_w
 from tpudes_torch.ops.mobility import build_position_fn
@@ -75,6 +81,15 @@ from tpudes_torch.ops.wifi_error import (
     mpdu_success_rate,
 )
 from tpudes_torch.parallel.bss_cuda import BSS_STATE, bss_advance_cuda
+from tpudes_torch.parallel.runtime import (
+    RUNTIME,
+    EngineFuture,
+    _not_ported,
+    bucket_replicas,
+    chunk_bounds,
+    drive_chunks,
+    finalize_with_flush,
+)
 from tpudes_torch.random import bss_draws, mpdu_coins, traffic_keys
 from tpudes_torch.traffic.device import entry_gaps, stack_traffic_operands
 from tpudes_torch.traffic.host import offered_packets
@@ -82,7 +97,7 @@ from tpudes_torch.traffic.program import TRAFFIC_MODEL_IDS
 
 __all__ = [
     "BssProgram", "bss_advance", "bss_advance_math", "build_bss_advance",
-    "build_bss_consts", "build_bss_step", "geom_tables",
+    "build_bss_consts", "build_bss_step", "bss_study", "geom_tables",
     "run_replicated_bss",
 ]
 
@@ -107,12 +122,6 @@ DRAW_CHUNK_ELEMS = 1 << 21
 #: the response under a BlockAck session: a compressed BlockAck's on-air
 #: bytes (``models/wifi/mac.py:76-78``), else a normal ack's
 BLOCK_ACK_BYTES, ACK_BYTES = 32, 14
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpudes_torch yet (ROADMAP {item})"
-    )
 
 
 @dataclass(frozen=True)
@@ -236,8 +245,26 @@ def _walk_worst_case_ok(prog: BssProgram, mobility) -> bool:
     return prog.tx_power_dbm - loss >= prog.rx_sensitivity_dbm
 
 
+def _prog_cache_key(prog: BssProgram) -> tuple:
+    """Hashable identity of a program by value (``replicated.py:1106``):
+    every field, arrays as bytes, but ``sim_end_us`` and ``geom_stride``
+    (a launch's operands) and the mobility and workload parameters (only
+    their shape keys are in)."""
+    out = []
+    for k, v in prog.__dict__.items():
+        if k in ("sim_end_us", "geom_stride"):
+            continue
+        if k in ("mobility", "traffic"):
+            out.append(None if v is None else v.shape_key())
+        elif isinstance(v, np.ndarray):
+            out.append(v.tobytes())
+        else:
+            out.append(v)
+    return tuple(out)
+
+
 def build_bss_consts(prog: BssProgram, device=None,
-                     traffic_sweep=None) -> dict:
+                     traffic_sweep=None, static: dict | None = None) -> dict:
     """The step's per-program constants (``replicated.py:603-637``), on
     ``device`` (the card by default): the f32 rx power table (N, N)
     from the f64 host table (diagonal 0), the detectability table, the
@@ -252,22 +279,9 @@ def build_bss_consts(prog: BssProgram, device=None,
     a traffic program adds ``tr``, its operands stacked on a leading
     point axis (the ``traffic_sweep`` programs', one point each, else
     the program's own) with its ``epoch_us`` and the model ids they
-    run."""
+    run.  ``static`` is :func:`bss_static_consts` where the caller has
+    it (the runner cache), else built here."""
     device = resolve_device(device)
-    data_mode = ALL_MODES[prog.data_mode_idx]
-    ack_mode = ALL_MODES[prog.ack_mode_idx]
-    ndbps = data_mode.data_rate_bps * 4e-6
-    data_airtime_s = (
-        _preamble_us(data_mode) * 1e-6
-        + math.ceil((16 + 8 * prog.data_bytes + 6) / ndbps) * 4e-6
-    )
-    rx_dbm = _pairwise_rx_dbm(prog)
-    rx_w = 10.0 ** ((rx_dbm - 30.0) / 10.0)
-    np.fill_diagonal(rx_w, 0.0)
-
-    def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
-
     mob = None
     if prog.mobility is not None:
         mob = dict(
@@ -288,6 +302,30 @@ def build_bss_consts(prog: BssProgram, device=None,
         tr = dict(ops=stack_traffic_operands(progs, device),
                   epoch_us=int(progs[0].epoch_us),
                   models={int(m) for tp in progs for m in tp.model_ids()})
+    if static is None:
+        static = bss_static_consts(prog, device)
+    return dict(static, sim_end=int(prog.sim_end_us), mob=mob, tr=tr)
+
+
+def bss_static_consts(prog: BssProgram, device=None) -> dict:
+    """The part of :func:`build_bss_consts` that is a pure function of
+    :func:`_prog_cache_key` (what the runner cache holds): the tables,
+    the timing rows and the exchange constants."""
+    device = resolve_device(device)
+    data_mode = ALL_MODES[prog.data_mode_idx]
+    ack_mode = ALL_MODES[prog.ack_mode_idx]
+    ndbps = data_mode.data_rate_bps * 4e-6
+    data_airtime_s = (
+        _preamble_us(data_mode) * 1e-6
+        + math.ceil((16 + 8 * prog.data_bytes + 6) / ndbps) * 4e-6
+    )
+    rx_dbm = _pairwise_rx_dbm(prog)
+    rx_w = 10.0 ** ((rx_dbm - 30.0) / 10.0)
+    np.fill_diagonal(rx_w, 0.0)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
     return dict(
         N=prog.n,
         rx_w=torch.as_tensor(rx_w.astype(np.float32), device=device),
@@ -306,11 +344,8 @@ def build_bss_consts(prog: BssProgram, device=None,
             thermal_noise_w(prog.bandwidth_hz, prog.noise_figure_db)
         )),
         mode=int(prog.data_mode_idx),
-        sim_end=int(prog.sim_end_us),
         K=max(1, int(prog.max_mpdus)),
         subframe_bytes=int(prog.subframe_bytes),
-        mob=mob,
-        tr=tr,
     )
 
 
@@ -806,14 +841,15 @@ def bss_advance(consts: dict, state: dict, key: torch.Tensor, step0,
 
 
 def build_bss_advance(prog: BssProgram, replicas: int, device=None,
-                      traffic_sweep=None):
+                      traffic_sweep=None, static: dict | None = None):
     """``(consts, init_state, advance)`` with ``init_state(points=1)``
     the ``(C, R, ...)`` initial state of C points and ``advance(state,
     key, step0, step1, sim_end=None) -> (state, steps, pending)``
     (``replicated.py:1127-1191``, :func:`bss_advance`), on ``device``
     (the card by default).  With ``traffic_sweep`` (C programs of one
-    shape key) point ``c`` runs the ``c``-th workload."""
-    consts = build_bss_consts(prog, device, traffic_sweep)
+    shape key) point ``c`` runs the ``c``-th workload; ``static`` as
+    :func:`build_bss_consts` takes it."""
+    consts = build_bss_consts(prog, device, traffic_sweep, static)
 
     def init(points: int = 1):
         return {k: v.expand(points, *v.shape).clone()
@@ -825,33 +861,71 @@ def build_bss_advance(prog: BssProgram, replicas: int, device=None,
     return consts, init, advance
 
 
-def chunk_bounds(total: int, chunk: int) -> list[int]:
-    """Segment end-bounds covering ``[0, total)`` in ``chunk``-sized
-    pieces (``tpudes/parallel/runtime.py:155-163``)."""
-    total, chunk = int(total), int(chunk)
-    if chunk <= 0 or chunk >= total:
-        return [total]
-    return list(range(chunk, total, chunk)) + [total]
 
 
-def _bss_unpack(state: dict, steps: list, still: torch.Tensor,
-                stride: int | None = None) -> list:
+def _bss_unpack(state: dict, steps: list, still, stride: int | None = None,
+                replicas: int | None = None) -> list:
     """The result dicts (``replicated.py:1237-1267``), as numpy, one per
-    point of the ``(C, R, ...)`` state and its C step counts (one copy
-    to the host); a mobile program's (``stride`` given) add
+    point of the ``(C, R, ...)`` state (tensors or host arrays), its C
+    step counts and its ``(C, R)`` pending flags; with ``replicas`` the
+    padded replicas sliced off (``steps`` counts theirs too, as the
+    reference's does).  A mobile program's (``stride`` given) add
     ``geom_refreshes``, ``ceil(steps / stride)``, and ``geom_stride``."""
-    host = {k: state[k].cpu().numpy()
-            for k in ("srv_rx", "cli_rx", "tx_data", "drops")}
-    done = ~still.any(-1).cpu().numpy()
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    R = slice(None) if replicas is None else slice(0, int(replicas))
+    done = ~host(still)[:, R].any(-1)
     out = []
     for c in range(len(steps)):
-        res = dict({k: v[c] for k, v in host.items()}, steps=int(steps[c]),
-                   all_done=bool(done[c]))
+        res = dict({k: host(state[k])[c, R]
+                    for k in ("srv_rx", "cli_rx", "tx_data", "drops")},
+                   steps=int(steps[c]), all_done=bool(done[c]))
         if stride is not None:
             res.update(geom_refreshes=-(-int(steps[c]) // stride),
                        geom_stride=stride)
         out.append(res)
     return out
+
+
+def bss_study(prog: BssProgram, key, replicas, mesh=None, device=None):
+    """Serving-layer study descriptor (``replicated.py:1270``): the
+    horizon is the sweep operand, so two BSS studies coalesce onto one
+    ``(C, R)`` grid whenever their static fields, key, replica count,
+    mesh and device match (the mobility and workload parameters and the
+    stride too: only ``sim_end_us`` may differ)."""
+    from tpudes_torch.serving.descriptor import (
+        StudyDescriptor,
+        mesh_fingerprint,
+    )
+
+    dev = resolve_device(device)
+    ck = (
+        _prog_cache_key(prog), np.asarray(key, np.int64).tobytes(),
+        int(replicas), mesh_fingerprint(mesh),
+        None if prog.mobility is None else prog.mobility.param_key(),
+        int(prog.geom_stride),
+        None if prog.traffic is None else prog.traffic.param_key(),
+        str(dev),
+    )
+
+    def launch(points, block=False):
+        if len(points) == 1:
+            return run_replicated_bss(
+                dataclasses.replace(prog, sim_end_us=int(points[0])),
+                replicas, key, mesh=mesh, block=block, device=dev)
+        return run_replicated_bss(prog, replicas, key, mesh=mesh,
+                                  sim_end_us=[int(v) for v in points],
+                                  block=block, device=dev)
+
+    def warm(n_points):
+        # a 1 ms horizon builds the kernel and fills the runner cache
+        tiny = dataclasses.replace(prog, sim_end_us=1000)
+        run_replicated_bss(tiny, replicas, key, mesh=mesh, device=dev,
+                           sim_end_us=None if n_points == 1
+                           else [tiny.sim_end_us] * n_points)
+
+    return StudyDescriptor("bss", ck, int(prog.sim_end_us), launch, warm)
 
 
 def run_replicated_bss(
@@ -869,7 +943,7 @@ def run_replicated_bss(
     geom_per_step: bool = False,
     obs: bool = False,
     device=None,
-) -> dict | list[dict]:
+):
     """Run ``replicas`` Monte-Carlo replicas of the scenario
     (``replicated.py:1326-1535``).
 
@@ -879,8 +953,9 @@ def run_replicated_bss(
     echo replies decoded per STA, ``tx_data`` (R,) data-frame
     attempts (exchanges, an A-MPDU counting once), ``drops`` (R,) frames
     dropped at the retry limit (MPDUs); and ``steps`` (event-loop
-    iterations) and ``all_done`` (no replica has an event left before
-    the horizon).
+    iterations, over the replica axis padded to its power-of-two bucket
+    as the reference's) and ``all_done`` (no replica has an event left
+    before the horizon).
 
     ``sim_end_us=[...]`` runs a horizon sweep: C horizons as one
     ``(C, R)`` grid per launch, and a list of C such dicts, point ``c``
@@ -903,15 +978,15 @@ def run_replicated_bss(
     still counts by ``geom_stride``, as the reference reports it).
 
     ``max_steps`` defaults to the reference's estimate;
-    ``chunk_steps=K`` runs the loop K steps per launch, the same result.
-    ``device`` defaults to the card, where each chunk is one launch of
-    the persistent kernel."""
+    ``chunk_steps=K`` runs the loop K steps per launch, the same result;
+    ``checkpoint=`` (a path or a :class:`~tpudes_torch.parallel.
+    checkpoint.CarryCheckpoint`) saves the carry after each chunk and
+    resumes a matching run from its last completed chunk, bit-equal.
+    ``block=False`` returns an :class:`~tpudes_torch.parallel.runtime.
+    EngineFuture`.  ``device`` defaults to the card, where each chunk is
+    one launch of the persistent kernel."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if checkpoint is not None:
-        raise _not_ported("checkpoint", "A11")
-    if not block:
-        raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
     if sim_end_us is not None and traffic_sweep is not None:
@@ -935,21 +1010,58 @@ def run_replicated_bss(
         sweep_progs = [dataclasses.replace(prog, traffic=tp)
                        for tp in traffic_sweep]
         ends = ends * len(traffic_sweep)
+    from tpudes_torch.parallel.checkpoint import checkpoint_ctx
+
     dev = resolve_device(device)
+    r_pad = bucket_replicas(replicas)
+    n_cfg = len(ends) if sim_end_us is not None or traffic_sweep else None
+    sweep = "traffic" if traffic_sweep is not None else "horizon"
     run_prog = (dataclasses.replace(prog, geom_stride=1) if geom_per_step
                 else prog)
-    _, init, advance = build_bss_advance(run_prog, replicas, dev,
-                                         traffic_sweep)
-    key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
+    static, _ = RUNTIME.runner(
+        "bss",
+        (_prog_cache_key(prog), r_pad, False, n_cfg,
+         prog.mobility is not None, geom_per_step,
+         sweep if n_cfg is not None else None, str(dev)),
+        lambda: bss_static_consts(prog, dev),
+    )
+    _, init, advance = build_bss_advance(run_prog, r_pad, dev,
+                                         traffic_sweep, static)
+    key = to_device(key if isinstance(key, torch.Tensor)
+                    else np.asarray(key, np.int64), dev, torch.int64)
     if max_steps is None:
         max_steps = max(
             _estimate_max_steps(dataclasses.replace(p, sim_end_us=v))
             for v in set(ends) for p in sweep_progs)
-    state, steps, still = init(len(ends)), [0] * len(ends), None
-    for bound in chunk_bounds(max_steps, chunk_steps or max_steps):
-        state, steps, still = advance(state, key, steps, bound, ends)
-    out = _bss_unpack(state, steps, still,
-                      None if prog.mobility is None
-                      else max(1, int(prog.geom_stride)))
-    swept = sim_end_us is not None or traffic_sweep is not None
-    return out if swept else out[0]
+
+    def launch(c, bound):
+        state, steps, still = advance(c["state"], key, c["steps"], bound,
+                                      ends)
+        return dict(state=state, steps=steps, pending=still)
+
+    ckpt = checkpoint_ctx(
+        checkpoint, engine="bss", key=key, replicas=replicas, r_pad=r_pad,
+        n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        extra=_prog_cache_key(prog) + (
+            tuple(ends), geom_per_step, int(prog.geom_stride),
+            None if prog.mobility is None else prog.mobility.param_key(),
+            None if prog.traffic is None else prog.traffic.param_key(),
+            None if traffic_sweep is None
+            else tuple(tp.param_key() for tp in traffic_sweep)),
+    )
+    carry, flush = drive_chunks(
+        "bss", chunk_bounds(max_steps, chunk_steps or max_steps),
+        dict(state=init(len(ends)), steps=[0] * len(ends), pending=None),
+        launch, checkpoint=ckpt)
+    fetch = dict(state={k: carry["state"][k]
+                        for k in ("srv_rx", "cli_rx", "tx_data", "drops")},
+                 steps=list(carry["steps"]), pending=carry["pending"])
+    stride = None if prog.mobility is None else max(1, int(prog.geom_stride))
+
+    def finalize(host):
+        out = _bss_unpack(host["state"], host["steps"], host["pending"],
+                          stride, replicas)
+        return out if n_cfg is not None else out[0]
+
+    fut = EngineFuture("bss", fetch, finalize_with_flush(flush, finalize))
+    return fut.result() if block else fut

@@ -39,24 +39,39 @@ reciprocal, and a constant factor before it folds into that product
 (:func:`folded`); ``log``, ``cbrt`` and ``power`` are the compiled ones
 (:mod:`tpudes_torch.ops.fused`).
 
+The engine runs on :mod:`tpudes_torch.parallel.runtime`: the program's
+constants sit in the runner cache (keyed by value, as the reference's
+``dumbbell_prog_key``), the replica axis is padded to its power-of-two
+bucket (a replica's draws are a pure function of ``(key, t, r)``, so the
+real replicas cannot move), the chunks go through ``drive_chunks``
+(``checkpoint=`` saves the carry after each), and ``block=False``
+returns an :class:`~tpudes_torch.parallel.runtime.EngineFuture`.
+:func:`tcp_study` is the serving layer's descriptor.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh`` (A12), checkpoints and ``block=False`` (A11) and the
-``TpudesObs`` columns (A10).  The replica axis is not padded to a power
-of two: a replica's draws are a pure function of ``(key, t, r)``, so the
-real replicas equal the reference's padded run.
+item): ``mesh`` (A12) and the ``TpudesObs`` columns (A10).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from tpudes_torch.device import resolve_device
+from tpudes_torch.device import resolve_device, to_device
 from tpudes_torch.ops.fused import cbrt, device_table, f32, fma, log, powf
-from tpudes_torch.parallel.replicated import _not_ported, chunk_bounds
+from tpudes_torch.parallel.runtime import (
+    RUNTIME,
+    EngineFuture,
+    _not_ported,
+    bucket_replicas,
+    chunk_bounds,
+    drive_chunks,
+    finalize_with_flush,
+)
 from tpudes_torch.random import tcp_draws
 from tpudes_torch.traffic.device import app_cum_table, stack_traffic_operands
 
@@ -755,24 +770,104 @@ def tcp_advance(consts: dict, state: dict, key: torch.Tensor, t0: int,
     raise ValueError(f"no dumbbell advance for device {key.device}")
 
 
-def _tcp_unpack(state: dict, prog: DumbbellProgram) -> list:
+def _tcp_unpack(host: dict, prog: DumbbellProgram, replicas: int) -> list:
     """The result dicts (``tcp_dumbbell.py:1285-1310``) as numpy, one per
-    point of the ``(C, R, ...)`` state (one copy to the host)."""
-    host = {k: state[k].cpu().numpy()
-            for k in ("delivered", "drops", "qsum", "cwnd")}
+    point of the host ``(C, R_pad, ...)`` state, the padded replicas
+    sliced off."""
+    R = int(replicas)
     sim_s = prog.n_slots * prog.slot_s
     out = []
     for c in range(host["delivered"].shape[0]):
-        delivered = host["delivered"][c]
+        delivered = host["delivered"][c, :R]
         out.append(dict(
             goodput_mbps=delivered.astype(np.float32) * prog.seg_bytes * 8.0
             / sim_s / 1e6,
             delivered=delivered,
-            drops=host["drops"][c],
-            mean_queue=host["qsum"][c] / prog.n_slots,
-            cwnd_final=host["cwnd"][c],
+            drops=host["drops"][c, :R],
+            mean_queue=host["qsum"][c, :R] / prog.n_slots,
+            cwnd_final=host["cwnd"][c, :R],
         ))
     return out
+
+
+#: the RED parameters (``tcp_dumbbell.py:1144``): absent from a fifo
+#: program's key, as they never reach its step
+RED_FIELDS = ("red_min_th", "red_max_th", "red_max_p", "red_qw",
+              "red_gentle", "red_use_ecn", "red_use_hard_drop")
+
+
+def dumbbell_prog_key(prog: DumbbellProgram) -> tuple:
+    """Hashable identity of the fields that shape a run's constants
+    (``tcp_dumbbell.py:1150``): ``n_slots``, ``variant_idx`` and ``ecn``
+    are a launch's operands, a fifo program's RED parameters never reach
+    its step, and the workload adds only its shape key."""
+    skip = {"n_slots", "variant_idx", "ecn", "traffic"}
+    if prog.qdisc != "red":
+        skip.update(RED_FIELDS)
+    return tuple(
+        v.tobytes() if isinstance(v, np.ndarray) else v
+        for k, v in prog.__dict__.items()
+        if k not in skip
+    ) + (None if prog.traffic is None else prog.traffic.shape_key(),)
+
+
+def _keyed_constants(prog: DumbbellProgram, device) -> dict:
+    """:func:`build_tcp_consts` of the program's keyed fields alone (a
+    fifo program's RED parameters at their defaults), so the cached
+    constants are a pure function of :func:`dumbbell_prog_key`."""
+    if prog.qdisc != "red":
+        fields = {f.name: f.default for f in dataclasses.fields(prog)
+                  if f.name in RED_FIELDS}
+        prog = dataclasses.replace(prog, **fields)
+    return build_tcp_consts(prog, device)
+
+
+def tcp_study(prog: DumbbellProgram, key, replicas, mesh=None, device=None):
+    """Serving-layer study descriptor (``tcp_dumbbell.py:1313``): the
+    per-flow variant and ECN assignment is the sweep operand, so two
+    studies coalesce onto one launch whenever their other fields, slot
+    horizon, key, replica count, mesh and device match.  A program whose
+    declared ``ecn`` disagrees with its variants' ``REQUIRES_ECN`` flags
+    is ``solo``: sweep points take ECN from their variants, so only its
+    own run serves it."""
+    from tpudes_torch.serving.descriptor import (
+        StudyDescriptor,
+        mesh_fingerprint,
+    )
+
+    dev = resolve_device(device)
+    ids = np.asarray(prog.variant_idx, np.int32)
+    declared = (np.asarray(prog.ecn, bool) if prog.ecn is not None
+                else np.zeros(prog.n_flows, bool))
+    solo = not np.array_equal(declared, variant_ecn(ids))
+    statics = tuple(
+        v.tobytes() if isinstance(v, np.ndarray) else v
+        for k, v in prog.__dict__.items()
+        if k not in ("variant_idx", "ecn", "traffic")
+    ) + (None if prog.traffic is None else prog.traffic.param_key(),)
+    ck = (statics, np.asarray(key, np.int64).tobytes(), int(replicas),
+          mesh_fingerprint(mesh), str(dev))
+    point = tuple(int(i) for i in ids)
+
+    def launch(points, block=False):
+        if solo or len(points) == 1:
+            pt = variant_point(list(points[0]))
+            p1 = prog if solo else dataclasses.replace(
+                prog, variant_idx=pt, ecn=variant_ecn(pt))
+            return run_tcp_dumbbell(p1, key, replicas, mesh=mesh,
+                                    block=block, device=dev)
+        return run_tcp_dumbbell(prog, key, replicas, mesh=mesh,
+                                variants=[list(p) for p in points],
+                                block=block, device=dev)
+
+    def warm(n_points):
+        # a 1-slot run builds the kernel and fills the runner cache
+        tiny = dataclasses.replace(prog, n_slots=1)
+        run_tcp_dumbbell(tiny, key, replicas, mesh=mesh, device=dev,
+                         variants=None if n_points == 1
+                         else [list(point)] * n_points)
+
+    return StudyDescriptor("dumbbell", ck, point, launch, warm, solo=solo)
 
 
 def sweep_operands(prog: DumbbellProgram, variants=None):
@@ -864,8 +959,14 @@ def run_tcp_dumbbell(
     ``traffic_sweep=`` together raise.
 
     ``chunk_slots=N`` runs the horizon N slots per launch, the same
-    result.  ``device`` defaults to the card, where each chunk is one
-    launch of the persistent kernel."""
+    result; ``checkpoint=`` (a path or a :class:`~tpudes_torch.parallel.
+    checkpoint.CarryCheckpoint`) saves the carry after each chunk and
+    resumes a matching run from its last completed chunk, bit-equal.
+    The replica axis is padded to its power-of-two bucket and the
+    results sliced back.  ``block=False`` returns an
+    :class:`~tpudes_torch.parallel.runtime.EngineFuture`.  ``device``
+    defaults to the card, where each chunk is one launch of the
+    persistent kernel."""
     if variants is not None and traffic_sweep is not None:
         raise ValueError(
             "one config axis per launch: sweep either the variant "
@@ -873,32 +974,60 @@ def run_tcp_dumbbell(
             "(traffic_sweep=[...])")
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if checkpoint is not None:
-        raise _not_ported("checkpoint", "A11")
-    if not block:
-        raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
+    from tpudes_torch.parallel.checkpoint import checkpoint_ctx
+
     dev = resolve_device(device)
-    consts = build_tcp_consts(prog, dev)
+    r_pad = bucket_replicas(replicas)
+    sweep = "traffic" if traffic_sweep is not None else "variant"
+    n_cfg = (len(variants) if variants is not None
+             else len(traffic_sweep) if traffic_sweep is not None else None)
+    consts, _ = RUNTIME.runner(
+        "dumbbell",
+        dumbbell_prog_key(prog) + (r_pad, False, n_cfg, sweep, str(dev)),
+        lambda: _keyed_constants(prog, dev),
+    )
     ops = workload_operands(prog, traffic_sweep, dev)
     var, ecn = sweep_operands(prog, variants)
     if traffic_sweep is not None:
         points = ops["tr_id"].shape[0]
         var, ecn = np.repeat(var, points, 0), np.repeat(ecn, points, 0)
-    var_t = torch.as_tensor(var, device=dev)
-    ecn_t = torch.as_tensor(ecn, device=dev)
-    key = torch.as_tensor(np.asarray(key, dtype=np.int64), device=dev)
+    var_t, ecn_t = to_device(var, dev), to_device(ecn, dev)
+    key = to_device(key if isinstance(key, torch.Tensor)
+                    else np.asarray(key, np.int64), dev, torch.int64)
     C = var.shape[0]
-    state = init_state(consts, int(replicas), C)
-    t = 0
-    for bound in chunk_bounds(prog.n_slots, chunk_slots or prog.n_slots):
+
+    def launch(c, bound):
         app = None if ops is None else app_cum_table(
-            ops, prog.traffic.epoch_us, consts["slot_us"], t, bound)
+            ops, prog.traffic.epoch_us, consts["slot_us"], c["t"], bound)
         if app is not None and app.shape[0] != C:
             app = app.expand(C, -1, -1)
-        state = tcp_advance(consts, state, key, t, bound, var_t, ecn_t, app)
-        t = bound
-    out = _tcp_unpack(state, prog)
-    sweep = variants is not None or traffic_sweep is not None
-    return out if sweep else out[0]
+        return dict(t=bound, state=tcp_advance(consts, c["state"], key,
+                                               c["t"], bound, var_t, ecn_t,
+                                               app))
+
+    ckpt = checkpoint_ctx(
+        checkpoint, engine="dumbbell", key=key, replicas=replicas,
+        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        extra=dumbbell_prog_key(prog) + (
+            tuple(tuple(int(i) for i in p) for p in var),
+            None if prog.traffic is None else prog.traffic.param_key(),
+            None if traffic_sweep is None
+            else tuple(tp.param_key() for tp in traffic_sweep)),
+    )
+    carry, flush = drive_chunks(
+        "dumbbell", chunk_bounds(prog.n_slots, chunk_slots or prog.n_slots),
+        dict(t=0, state=init_state(consts, int(r_pad), C)), launch,
+        checkpoint=ckpt)
+    fetch = {k: carry["state"][k]
+             for k in ("delivered", "drops", "qsum", "cwnd")}
+    swept = variants is not None or traffic_sweep is not None
+
+    def finalize(host):
+        out = _tcp_unpack(host, prog, replicas)
+        return out if swept else out[0]
+
+    fut = EngineFuture("dumbbell", fetch,
+                       finalize_with_flush(flush, finalize))
+    return fut.result() if block else fut

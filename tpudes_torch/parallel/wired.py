@@ -45,12 +45,18 @@ bucket): replica ``r``'s phases are ``randint(fold_in(fold_in(key, r),
 f), 0, jitter + 1)`` and rows never interact, so the real rows equal the
 reference's.
 
+:func:`run_wired` runs on :mod:`tpudes_torch.parallel.runtime`: its
+tables sit in the runner cache (keyed by value, as the reference's
+:func:`wired_cache_key`), the replica axis is padded to its power-of-two
+bucket (rows never interact, so the real rows cannot move), its windows
+go through ``drive_chunks``, and ``block=False`` returns an
+:class:`~tpudes_torch.parallel.runtime.EngineFuture`; like the
+reference's, it takes no ``checkpoint=``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (A12), ``block=False`` (A11), ``TpudesObs`` /
-``obs=True`` (A10).  The runner cache (A11) is absent: every call builds
-its tables anew.  The host DES oracle ``run_wired_host`` runs on the JAX
-package's simulator core and is not ported (A16); the tests call the
-reference's.
+item): ``mesh=`` (A12), ``TpudesObs`` / ``obs=True`` (A10).  The host DES
+oracle ``run_wired_host`` runs on the JAX package's simulator core and is
+not ported (A16); the tests call the reference's.
 """
 
 from __future__ import annotations
@@ -61,8 +67,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpudes_torch.device import resolve_device
-from tpudes_torch.parallel.replicated import _not_ported, chunk_bounds
+from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.parallel.runtime import (
+    RUNTIME,
+    EngineFuture,
+    _not_ported,
+    bucket_replicas,
+    chunk_bounds,
+    drive_chunks,
+)
 from tpudes_torch.random import wired_jitter
 
 __all__ = [
@@ -78,6 +91,7 @@ __all__ = [
     "partition_flows",
     "partition_lookahead",
     "run_wired",
+    "wired_cache_key",
     "wired_chain",
     "wired_step_math",
     "wired_tables",
@@ -332,13 +346,20 @@ def _wired_unpack(host: dict, prog: WiredProgram, replicas: int) -> dict:
                 served=np.asarray(host["served"])[:R])
 
 
-def _delivered(deliver: torch.Tensor, prog: WiredProgram) -> torch.Tensor:
+def _pkt_offsets(prog: WiredProgram, device) -> torch.Tensor:
+    """``(F + 1,)`` int64 first packet id of each flow, then P."""
+    return torch.as_tensor(np.concatenate(([0], np.cumsum(np.asarray(
+        prog.n_pkts, np.int64)))), device=device)
+
+
+def _delivered(deliver: torch.Tensor, prog: WiredProgram,
+               offs: torch.Tensor | None = None) -> torch.Tensor:
     """``(R, F)`` int32 deliveries a flow from ``(R, P)`` deliver slots, on
     their device: packet ids are flow-major, so a flow's count is the
     difference of the running count at its first packet and past its
-    last."""
-    offs = torch.as_tensor(np.concatenate(([0], np.cumsum(np.asarray(
-        prog.n_pkts, np.int64)))), device=deliver.device)
+    last (``offs``, :func:`_pkt_offsets`, where the caller has them)."""
+    if offs is None:
+        offs = _pkt_offsets(prog, deliver.device)
     run = torch.cumsum((deliver >= 0).to(torch.int32), 1, dtype=torch.int32)
     run = torch.cat([torch.zeros_like(run[:, :1]), run], 1)
     return run[:, offs[1:]] - run[:, offs[:-1]]
@@ -395,7 +416,9 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
     tab = {k: torch.as_tensor(np.stack(v), device=dev).contiguous()
            for k, v in cols.items()}
     tab.update(flow_ids=np.stack(fids), L=L,
-               H=int(np.asarray(prog.paths).shape[1]))
+               H=int(np.asarray(prog.paths).shape[1]),
+               flow_ids_t=torch.as_tensor(np.stack(fids).astype(np.int64),
+                                          device=dev))
     return tab
 
 
@@ -549,10 +572,11 @@ def _init_rows(tab: dict, key, replicas: int, jitter: int,
     K, P = tab["pkt_flow"].shape
     Lo = tab["svc"].shape[1]
     R = int(replicas)
-    key = torch.as_tensor(np.asarray(key, np.int64)).to(dev)
+    key = to_device(key if isinstance(key, torch.Tensor)
+                    else np.asarray(key, np.int64), dev, torch.int64)
     ready = []
     for k in range(K):
-        jit = wired_jitter(key, R, tab["flow_ids"][k], jitter,
+        jit = wired_jitter(key, R, tab["flow_ids_t"][k], jitter,
                            replica_offset)
         ready.append(tab["pkt_birth"][k][None, :]
                      + jit[:, tab["pkt_flow"][k].long()])
@@ -586,7 +610,8 @@ def _advance(tab: dict):
 
 
 def build_wired_advance(prog: WiredProgram, replicas: int, owned=None,
-                        flow_ids=None, obs: bool = False, device=None):
+                        flow_ids=None, obs: bool = False, device=None,
+                        tab: dict | None = None):
     """``(init_state, advance)`` of the windowed engine
     (``wired.py:578``).  ``owned`` is the ``(L,)`` mask of the links this
     engine serves (None: all); a packet at another link is a peer's.
@@ -602,10 +627,13 @@ def build_wired_advance(prog: WiredProgram, replicas: int, owned=None,
     on the card one ``wired_advance`` launch that updates the carry's
     tensors in place); returns ``(carry, metrics)`` with the scalar
     ``next_event`` and ``n_steps``.  ``obs=True`` (the ``TpudesObs``
-    FlowMonitor columns) is not ported (A10)."""
+    FlowMonitor columns) is not ported (A10).  ``tab`` is the lane's
+    :func:`wired_tables` where the caller has them (the runner cache),
+    else built here."""
     if obs:
         raise _not_ported("TpudesObs", "A10")
-    tab = wired_tables(prog, [(prog, owned, flow_ids)], device)
+    if tab is None:
+        tab = wired_tables(prog, [(prog, owned, flow_ids)], device)
     jitter = int(prog.jitter_slots)
 
     def init_state(key, replica_offset: int = 0):
@@ -657,9 +685,25 @@ def build_wired_space_advance(prog: WiredProgram, replicas: int,
     return init_state, _advance(tab), parts
 
 
+def wired_cache_key(prog: WiredProgram, keep_owner: bool = False) -> tuple:
+    """Hashable identity of the fields that shape a run's tables
+    (``wired.py:1001``): ``n_slots`` (the grant is a launch's operand)
+    and ``slot_s`` (reporting only) are absent, and so is ``link_owner``
+    unless ``keep_owner`` (only the space-lanes engine derives its lanes
+    from it; the others get their served links as an explicit mask)."""
+    skip = {"n_slots", "slot_s"}
+    if not keep_owner:
+        skip.add("link_owner")
+    return tuple(
+        v.tobytes() if isinstance(v, np.ndarray) else v
+        for k, v in prog.__dict__.items()
+        if k not in skip
+    )
+
+
 def run_wired(prog: WiredProgram, key, replicas: int = 1, mesh=None, *,
               window_slots: int | None = None, replica_offset: int = 0,
-              block: bool = True, obs: bool = False, device=None) -> dict:
+              block: bool = True, obs: bool = False, device=None):
     """Run ``replicas`` replicas of ``prog`` (``wired.py:1045``): a dict
     of numpy arrays, ``deliver_slot`` ``(R, P)`` (-1: not delivered),
     ``delivered`` ``(R, F)`` and ``served`` ``(R, L)``.
@@ -668,19 +712,30 @@ def run_wired(prog: WiredProgram, key, replicas: int = 1, mesh=None, *,
     state: the same result bit for bit.  ``replica_offset`` shifts the
     replicas' phase indices, so ``replicas=k, replica_offset=p k`` gives
     rows ``[p k, (p + 1) k)`` of one large run.  ``key`` is the run's
-    ``(2,)`` key words.  ``device`` defaults to the card, where a window
-    is one ``wired_advance`` launch."""
+    ``(2,)`` key words.  The replica axis is padded to its power-of-two
+    bucket and the results sliced back; ``block=False`` returns an
+    :class:`~tpudes_torch.parallel.runtime.EngineFuture`.  ``device``
+    defaults to the card, where a window is one ``wired_advance``
+    launch."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if not block:
-        raise _not_ported("block=False", "A11")
     if obs:
         raise _not_ported("TpudesObs", "A10")
-    init_state, advance = build_wired_advance(prog, replicas, device=device)
-    carry = init_state(key, replica_offset)
-    for bound in chunk_bounds(prog.n_slots, window_slots or prog.n_slots):
-        carry, _ = advance(carry, None, None, bound)
-    host = dict(deliver=carry["deliver"].cpu().numpy(),
-                delivered=_delivered(carry["deliver"], prog).cpu().numpy(),
-                served=carry["served"].cpu().numpy())
-    return _wired_unpack(host, prog, replicas)
+    dev = resolve_device(device)
+    r_pad = bucket_replicas(replicas)
+    cached, _ = RUNTIME.runner(
+        "wired", wired_cache_key(prog) + (r_pad, False, str(dev)),
+        lambda: dict(tab=wired_tables(prog, [(prog, None, None)], dev),
+                     offs=_pkt_offsets(prog, dev)))
+    init_state, advance = build_wired_advance(prog, r_pad, device=dev,
+                                              tab=cached["tab"])
+    carry, _ = drive_chunks(
+        "wired", chunk_bounds(prog.n_slots, window_slots or prog.n_slots),
+        init_state(key, replica_offset),
+        lambda c, bound: advance(c, None, None, bound)[0])
+    fut = EngineFuture(
+        "wired", dict(deliver=carry["deliver"], served=carry["served"],
+                      delivered=_delivered(carry["deliver"], prog,
+                                           cached["offs"])),
+        lambda host: _wired_unpack(host, prog, replicas))
+    return fut.result() if block else fut

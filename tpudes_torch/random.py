@@ -88,8 +88,12 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 — jax's nam
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: hash of the counter pair
     ``(0, data)`` under ``key``.  ``data`` (int or int tensor)
-    broadcasts against the key's leading axes."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device)
+    broadcasts against the key's leading axes.  An int is filled on the
+    key's device (no copy from the host, which would synchronise)."""
+    if isinstance(data, (int, np.integer)):
+        data = torch.full((), int(data), dtype=torch.int64, device=key.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(
         key[..., 0], key[..., 1], torch.zeros_like(data), data & MASK32
     )
@@ -283,8 +287,10 @@ def wired_jitter(key: torch.Tensor, replicas: int, flow_ids,
     flow_ids[f]), 0, jitter + 1)``, a pure function of the global replica
     index and the global flow id, so a rank that carries a subset of the
     flows, or a process that runs a slice of the replicas, draws the same
-    phases as one whole run.  Zeros where ``jitter <= 0``."""
-    ids = torch.as_tensor(np.asarray(flow_ids, np.int64), device=key.device)
+    phases as one whole run (``flow_ids`` numpy, or an int64 tensor on
+    the key's device).  Zeros where ``jitter <= 0``."""
+    ids = (flow_ids if isinstance(flow_ids, torch.Tensor) else
+           torch.as_tensor(np.asarray(flow_ids, np.int64), device=key.device))
     if jitter <= 0:
         return torch.zeros((int(replicas), ids.shape[0]), dtype=torch.int32,
                            device=key.device)
