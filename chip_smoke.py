@@ -49,21 +49,22 @@ carries on past one:
    ``lte_sm_step`` f32 and bf16; retransmissions and drops occur in
    every check); each one's time per launch on the card (CUDA events)
    and the host's, and its bound; then ``bss_advance`` vs the plain loop
-   on the card at bench width (64 STAs, 512 replicas, 2 s), legacy and
-   (3g-ht) 802.11n: the whole per-replica state, the step count and the
-   pending flags bit-equal, for one launch and for two launches split
-   at a step boundary (the plain loop's wall there is the measurement
-   the choice of a persistent kernel rests on), the plain loop's census
-   (a partially decoded A-MPDU and a retry-limit drop required; the
-   replica-steps with three or more same-µs winners printed); a small
-   BSS program of each through the plain loop on the CPU against the
-   kernel on the card; and the horizon sweep of each, 1.25/1.5/1.75/2 s
-   x 512 replicas, one grid launch against the plain grid loop and
-   against each point's own launch; then (3h) the ``MOB`` arm on
-   ``bench_mobile_bss``'s program, ``TRF`` on the ON-OFF program, the
-   traffic grid of the eight workload points (8 x 512) and all three
-   composed under 802.11n, at 512 replicas x 2 s (the grid x 1.25 s,
-   the composed x 1.5 s, ``BSS_ARM_CHECK_S``): the whole state
+   on the card at bench width (64 STAs, 512 replicas; legacy 1.125 s and
+   (3g-ht) 802.11n 2 s, ``BSS_CHECK_S``): the whole per-replica state,
+   the step count and the pending flags bit-equal, for one launch and
+   for two launches split at a step boundary (the plain loop's wall
+   there is the measurement the choice of a persistent kernel rests
+   on), the plain loop's census (a partially decoded A-MPDU and a
+   retry-limit drop required; the replica-steps with three or more
+   same-µs winners printed); a small BSS program of each through the
+   plain loop on the CPU against the kernel on the card; and the horizon
+   sweep of each, 1.03125/1.0625/1.09375/1.125 s x 512 replicas, one
+   grid launch against the plain grid loop and against each point's own
+   launch; then (3h) the ``MOB`` arm on ``bench_mobile_bss``'s program,
+   ``TRF`` on the ON-OFF program, the traffic grid of the eight workload
+   points (8 x 512) and all three composed under 802.11n, at 512
+   replicas x 1.125 s (the grid x 1.0625 s, the composed x 1.5 s,
+   ``BSS_CHECK_S``): the whole state
    (``geom_t`` too), the step counts and the pending flags bit-equal to
    the plain loop over one launch and over two split mid-stride, the
    grid also against each point's own launch, a small program of each
@@ -107,7 +108,7 @@ carries on past one:
 Then the TCP dumbbell engine (``tpudes_torch.parallel.tcp_dumbbell.
 run_tcp_dumbbell``, BASELINE config #2) and its kernel ``tcp_advance``
 (the slot loop, every slot of a chunk in one persistent launch): in
-phase 3t, after 3p, at 256 replicas x 2 s, ``bench.py::bench_tcp``'s
+phase 3t, after 3p, at 256 replicas x 0.5 s, ``bench.py::bench_tcp``'s
 program (8 TcpCubic flows), ``bench_tcp_variant_sweep``'s (17 flows,
 one per variant, 13 Mbit/s), a RED/ECN program (DCTCP and non-ECT
 NewReno flows; CE marks and early drops required) and a four-point
@@ -127,7 +128,7 @@ each, the busy share; ``vs_scalar`` needs the host DES, which the port
 does not have).  The dumbbell's app-limited arm (``TRF``: ``prog.traffic``
 and ``traffic_sweep=[...]``): in phase 3w, after the probe, bench_tcp's
 flows each app-limited by an ON-OFF workload (:data:`TCP_TRF_ONOFF`) and
-the eight toy workload points as one 8 x 256 grid, at 256 rows x 1 s
+the eight toy workload points as one 8 x 256 grid, at 256 rows x 0.5 s
 (:data:`TCP_TRF_CHECK_S`), the whole state bit-equal to the plain loop
 over one launch and over two, the grid per point against each workload's
 own launch, the clip binding; and in phase 5trf, after 5tcp, the
@@ -229,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -241,6 +243,9 @@ import numpy as np
 
 #: the script's start, for the wall it prints before its kernels line
 STARTED = time.monotonic()
+#: seconds after the start at which every thread's stack goes to standard
+#: error, a little before the run's limit of 1,200 s
+STACK_DUMP_S = 1100
 
 SEED = 20261016
 E, UES_PER_CELL, R = 7, 30, 64
@@ -262,6 +267,9 @@ SWEEP_TIMED_TTIS = 200
 #: calls per timed run: the plain core queues ~60 launches a call, so
 #: fewer calls keep its run inside the CUDA launch queue
 TIMED_KERNEL_CALLS, TIMED_PLAIN_CALLS = 200, 10
+#: timed runs of a plain lte_sm_advance loop (about 2 s each), after the
+#: check that ran it warm
+PLAIN_LOOP_REPS = 1
 TIMED_ADVANCE_CALLS = 20
 #: timed runs per wall figure of a path at bench depth (the median)
 WALL_RUNS = 3
@@ -325,11 +333,17 @@ BSS_TAIL_OPS = 30
 #: bench.py::bench_mobile_bss (``:241-322``): bench_wifi's BSS, the STAs
 #: drifting tangentially at 1 m/s, the geometry rebuilt every 8 steps
 BSS_MOBILE = dict(mobility="const_velocity", speed=1.0, geom_stride=8)
-#: the horizon (s) of the arm checks whose plain loop is longest (phase
-#: 3h): the composed program runs 1.5 s, the workload sweep (8 x 512,
-#: whose plain loop took 134.6 s at 1.5 s) 1.25 s, so that the script
-#: ends well inside its time limit; their benches run the full 2 s
-BSS_ARM_CHECK_S = {"sweep": 1.25, "composed": 1.5}
+#: the horizon (s) of each kernel-vs-plain check (phases 3g-3h; the
+#: STAs start at 1 s, so the plain loop's steps grow from there), cut so
+#: that the script ends in about half its time limit: 802.11n keeps the
+#: bench's 2 s, whose census holds a partially decoded A-MPDU, the
+#: composed program 1.5 s for the same reason; every bench runs the
+#: full 2 s
+BSS_CHECK_S = {"legacy": 1.125, "ht": 2.0, "mobile": 1.125,
+               "onoff": 1.125, "sweep": 1.0625, "composed": 1.5}
+#: the horizon sweep check's points (s): the bench's four points
+#: (BSS_SWEEP_S) cut to the checks' 1.125 s
+BSS_SWEEP_CHECK_S = (1.03125, 1.0625, 1.09375, 1.125)
 #: the MOB and TRF arms' work: per refresh each node's position (about
 #: 10 f32 operations), its link to the AP (the distance, the compiled
 #: log and the loss, about 45 f32 operations, and glibc's exp2 in f64,
@@ -363,7 +377,7 @@ BSS_LARGE_STAS = 255
 #: (keys 1..5 after a warm run on key 0)
 TCP_R, TCP_SIM_S, TCP_TIMED_RUNS = 256, 20.0, 5
 #: the kernel-vs-plain checks' horizon (s) and key (phase 3t)
-TCP_CHECK_S, TCP_CHECK_SEED = 2.0, 7
+TCP_CHECK_S, TCP_CHECK_SEED = 0.5, 7
 #: launches per timed tcp_advance run (each the check's whole horizon)
 TCP_TIMED_CALLS = 5
 #: the four points of the variant grid check: bench_tcp's eight flows as
@@ -405,7 +419,7 @@ TCP_RED = dict(MinTh=5.0, MaxTh=15.0, MaxSize=1000, UseEcn=True,
 TCP_TRF_ONOFF = dict(peak_pps=250.0, on=(1.5, 0.2, 5.0), off_mean_s=0.5,
                      tr_seed=0)
 TCP_TRF_INT_OPS = 4
-TCP_TRF_CHECK_S = 1.0
+TCP_TRF_CHECK_S = 0.5
 #: the fused PHY window (phases 3win and 5win) at BASELINE.md's round-1
 #: row #3 shape (``tpudes/parallel/mesh.py:112-130``): nodes, replicas,
 #: windows, the Bernoulli tx probability, the frame size, the square's
@@ -509,6 +523,14 @@ WIRED_LANES_REPLACES = ("tpudes/parallel/wired.py:841 "
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def progress(phase: str) -> None:
+    """A line on standard error as ``phase`` starts, with the seconds since
+    the script's start, so that a run cut at its time limit shows how far
+    it got."""
+    print(f"chip_smoke: phase {phase} at {time.monotonic() - STARTED:.1f} s",
+          file=sys.stderr, flush=True)
 
 
 def sm_clock_line() -> str:
@@ -667,35 +689,42 @@ def compare_states(kc, got, want, what, traffic=False) -> float:
     return err
 
 
-def timed_ms(fn, n, reps=5):
+def timed_ms(fn, n, reps=5, plain=False):
     """``(device_ms, host_ms)`` per call of ``fn``, medians over ``reps``
-    runs of ``n`` back-to-back calls.
+    runs of ``n`` back-to-back calls after a warm call.
 
     ``host_ms`` is the host clock around a run that ends in a
     synchronise.  ``device_ms`` is one pair of CUDA events around a run
     queued behind a sleep kernel twice as long as that run's host time:
     the card starts the run only when all of it is queued, so the events
-    time the card's work and not the host's enqueue."""
+    time the card's work and not the host's enqueue.  A ``plain`` loop,
+    which its check has just run warm, gets no warm call and one run
+    gives both: its tens of thousands of launches overrun the CUDA launch
+    queue, so no sleep kernel could hold its run back."""
     import torch
 
-    fn()
+    if not plain:
+        fn()
     torch.cuda.synchronize()
     dev, host = [], []
     for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-        host.append(host_s * 1e3 / n)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        if not plain:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
         a.record()
         for _ in range(n):
             fn()
         b.record()
         torch.cuda.synchronize()
+        if plain:
+            host_s = time.perf_counter() - t0
+        host.append(host_s * 1e3 / n)
         dev.append(a.elapsed_time(b) / n)
     return statistics.median(dev), statistics.median(host)
 
@@ -959,7 +988,7 @@ def census_line(census: dict) -> str:
 
 
 def bss_sweep_check(kc, dev, which: str) -> dict:
-    """The horizon sweep: the ``BSS_SWEEP_S`` points x ``BSS_R``
+    """The horizon sweep: the ``BSS_SWEEP_CHECK_S`` points x ``BSS_R``
     replicas of ``which`` as one ``(C, R)`` grid launch against the
     plain grid loop on the card (the whole state, each point's step
     count and pending flags bit-equal) and against each point's own
@@ -975,7 +1004,7 @@ def bss_sweep_check(kc, dev, which: str) -> dict:
     from tpudes_torch.random import PRNGKey
 
     prog = bss_programs()[which]
-    ends = [int(round(v * 1e6)) for v in BSS_SWEEP_S]
+    ends = [int(round(v * 1e6)) for v in BSS_SWEEP_CHECK_S]
     C = len(ends)
     consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
     key = PRNGKey(BSS_CHECK_SEED, device=dev)
@@ -1012,8 +1041,8 @@ def bss_sweep_check(kc, dev, which: str) -> dict:
                      f"in {k}")
     if bool(w_pend.any()):
         fail(f"{what}: a replica still pending")
-    print(f"{what}: {C} horizons {BSS_SWEEP_S} s x {BSS_R} replicas in "
-          f"one grid launch == the plain grid loop (every state array, the "
+    print(f"{what}: {C} horizons {BSS_SWEEP_CHECK_S} s x {BSS_R} replicas "
+          f"in one grid launch == the plain grid loop (every state array, the "
           f"step counts {steps} and the pending flags) == each point's own "
           f"launch; plain grid wall {plain_s:.3f} s", flush=True)
     ms, host_ms = timed_ms(
@@ -1179,7 +1208,8 @@ def bss_arm_programs() -> dict:
 
 def bss_check(kc, dev, name: str) -> dict:
     """Phases 3g, 3g-ht and 3h: ``bss_advance`` against the plain loop on
-    the card at bench width, ``name`` one of :func:`bss_programs`'s
+    the card at bench width over ``BSS_CHECK_S[name]`` s, ``name`` one
+    of :func:`bss_programs`'s
     legacy and ht (the legacy arm and ``AGG``) or :func:`bss_arm_programs`'s
     mobile, onoff, sweep and composed (``MOB``, ``TRF``, the traffic grid
     of 8 x 512, all three under 802.11n): the whole state (``geom_t``
@@ -1201,9 +1231,8 @@ def bss_check(kc, dev, name: str) -> dict:
 
     progs = {**bss_programs(), **bss_arm_programs()}
     prog = progs[name]
-    if name in BSS_ARM_CHECK_S:
-        prog = dataclasses.replace(
-            prog, sim_end_us=int(round(BSS_ARM_CHECK_S[name] * 1e6)))
+    prog = dataclasses.replace(
+        prog, sim_end_us=int(round(BSS_CHECK_S[name] * 1e6)))
     sweep = progs["sweep_points"] if name == "sweep" else None
     C = len(sweep) if sweep else 1
     ends = [prog.sim_end_us] * C
@@ -2916,6 +2945,17 @@ def wired_bound(tab: dict, before: dict, after: dict) -> tuple:
     return times[by], by, serves
 
 
+def wired_bytes_ms(tab: dict, carry: dict) -> float:
+    """:func:`wired_bound`'s bytes time: the state read and written once
+    and the tables read once over HBM."""
+    N, P = carry["hop"].reshape(-1, carry["hop"].shape[-1]).shape
+    Lo = carry["free"].shape[-1]
+    words = N * (3 * P + 2 * Lo) + N * (5 * P + 2 * Lo + 2)
+    nbytes = 4 * words + sum(tab[k].nbytes for k in (
+        "paths", "nhops", "pkt_flow", "g2l", "svc", "svcdly"))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def wired_same(want, wm, got, gm, keys, what: str) -> None:
     """Fail unless ``keys`` of two carries, and their ``t``,
     ``next_event`` and ``n_steps`` (where ``gm`` is given), are equal."""
@@ -3149,6 +3189,319 @@ def wired_check(kc, dev) -> dict:
               flush=True)
     wired_stage_split(dev, "phase 3wired", wired_shapes(dev))
     return numbers
+
+
+#: phase 3obs: each engine's OBS arm against its plain loop at bench width
+#: (replicas and rows in full), the horizon cut for the plain loop (each
+#: under about 15 s, and the phase under 60 s; on an H100 at 700 W
+#: bench_tcp's 2 s took 28.1 s, 1,500 BSS steps 17.7 / 21.9 s, 2,000
+#: wired slots 8.6 s, and the phase at 0.5 s, 400 steps and 1,000 slots
+#: 45.0 s, PERF.md): the LTE drop's
+#: CHECK_TTIS (its nine-point scheduler grid and bf16 arm at
+#: OBS_GRID_TTIS), bench_tcp and the RED program at OBS_TCP_S,
+#: bench_wifi and bench_wifi_ht to OBS_BSS_STEPS steps, bench_wired to
+#: OBS_WIRED_SLOTS slots; then each bench program through its entry with
+#: obs off and on (OBS_WALL_RUNS timed runs each, counted)
+OBS_GRID_TTIS, OBS_BSS_STEPS, OBS_WALL_RUNS = 100, 400, 3
+OBS_TCP_S, OBS_WIRED_SLOTS = 0.5, 600
+LTE_OBS_REPLACES = ("tpudes/parallel/lte_sm.py:650-757 (the obs arm of the "
+                    "TTI loop around K1, tpudes/parallel/kernels_pallas.py:"
+                    "473; flow_accumulate / flow_ring_write, tpudes/obs/"
+                    "flowmon.py:146, :203)")
+TCP_OBS_REPLACES = ("tpudes/parallel/tcp_dumbbell.py:749-784 and :1056-1124 "
+                    "(the obs arm of build_dumbbell_step; XLA, no "
+                    "pallas_call)")
+BSS_OBS_REPLACES = ("tpudes/parallel/replicated.py:594-600, :678 and "
+                    ":1025-1070 (the obs arm of build_bss_step; XLA, no "
+                    "pallas_call)")
+WIRED_OBS_REPLACES = ("tpudes/parallel/wired.py:635-689 and :735-836 (the "
+                      "obs arm of build_wired_advance; XLA, no pallas_call)")
+
+
+def same_trees(want: dict, got: dict, what: str) -> None:
+    """Fail unless every tensor of ``want`` equals ``got``'s bit for bit."""
+    import torch
+
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            if not torch.equal(bits_of(v), bits_of(got[k])):
+                fail(f"{what}: {k} differs")
+        elif v != got[k]:
+            fail(f"{what}: {k} differs ({v} vs {got[k]})")
+
+
+def obs_lte_check(kc, dev, prog) -> dict:
+    """``lte_sm_advance``'s OBS arm vs ``sm_advance_math`` with the
+    columns, on the static drop at R x CHECK_TTIS (one launch, and two
+    split mid-run), the nine-point scheduler grid and the bf16 arm at
+    OBS_GRID_TTIS: the state, every column and the ring bit-equal."""
+    import torch
+    from tpudes_torch.obs.flowmon import flow_carry
+    from tpudes_torch.random import PRNGKey, replica_keys
+
+    consts = kc.build_sm_consts(prog, device=dev)
+    U = prog.n_ue
+    keys = replica_keys(PRNGKey(SEED & 0x7FFFFFFF, device=dev), R)
+    s0 = kc.sm_init_state(E, U, R, dev)
+    fm0 = flow_carry(U, (R,), dev)
+    n = CHECK_TTIS
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = kc.sm_advance_math(consts, s0, keys, 0, n, 0, fm=fm0)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    one = kc.sm_advance_cuda(consts, s0, keys, 0, n, 0, fm=fm0)
+    split = n // 2 + 7      # off the kernel's 32-TTI draw batches
+    half = kc.sm_advance_cuda(consts, s0, keys, 0, split, 0, fm=fm0)
+    two = kc.sm_advance_cuda(consts, half[0], keys, split, n, 0, fm=half[1])
+    for how, got in (("one launch", one), ("two launches", two)):
+        same_trees(want[0], got[0], f"lte_sm_advance:obs ({how}) state")
+        same_trees(want[1], got[1], f"lte_sm_advance:obs ({how}) columns")
+    if int(want[1]["fm_rx"].sum()) <= 0:
+        fail("lte_sm_advance:obs check delivered nothing")
+    sids = torch.arange(len(kc.SM_SCHED_IDS), dtype=torch.int32, device=dev)
+    C = sids.shape[0]
+    sg, fg = kc.sm_init_state(E, U, C * R, dev), flow_carry(U, (C * R,), dev)
+    same_trees(kc.sm_advance_math(consts, sg, keys, 0, OBS_GRID_TTIS, sids,
+                                  fm=fg)[1],
+               kc.sm_advance_cuda(consts, sg, keys, 0, OBS_GRID_TTIS, sids,
+                                  fm=fg)[1], "lte_sm_advance:obs (grid)")
+    bf = kc.build_sm_consts(dataclasses.replace(prog, precision="bf16"),
+                            device=dev)
+    same_trees(kc.sm_advance_math(bf, s0, keys, 0, OBS_GRID_TTIS, 0,
+                                  fm=fm0)[1],
+               kc.sm_advance_cuda(bf, s0, keys, 0, OBS_GRID_TTIS, 0,
+                                  fm=fm0)[1], "lte_sm_advance:obs (bf16)")
+    ms, _ = timed_ms(lambda: kc.sm_advance_cuda(consts, s0, keys, 0, n, 0,
+                                                fm=fm0), 5, reps=3)
+    bound = advance_bound(consts, {**s0, **fm0}, keys,
+                          {**one[0], **one[1]}, n)
+    print(f"lte_sm_advance:obs vs plain loop: 14 state arrays, 11 columns "
+          f"and the ring bit-equal at E={E} U={U} R={R}, {n} TTIs (one "
+          f"launch, two split at {split}), the {C}-point grid and bf16 at "
+          f"{OBS_GRID_TTIS}; rx {int(want[1]['fm_rx'].sum())}, device "
+          f"{ms:.4f} ms a launch, plain loop {plain_ms:.1f} ms, bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bound)
+
+
+def obs_tcp_check(kc, dev, name: str) -> dict:
+    """``tcp_advance``'s OBS arm vs the plain loop with the obs state on
+    ``name`` (bench_tcp or the RED program) at TCP_R x OBS_TCP_S, one
+    launch and two split mid-run: every state array, obs counter, column
+    and the ring bit-equal."""
+    import torch
+    from tpudes_torch.parallel import tcp_dumbbell as tcp
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+    from tpudes_torch.random import PRNGKey
+
+    prog = tcp_programs(OBS_TCP_S)[name]
+    consts = tcp.build_tcp_consts(prog, dev)
+    var, ecn = (torch.as_tensor(x, device=dev)
+                for x in tcp.sweep_operands(prog, None))
+    n = prog.n_slots
+    key = PRNGKey(TCP_CHECK_SEED, device=dev)
+    s0 = tcp.init_state(consts, TCP_R, 1, obs=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = tcp.tcp_advance_math(consts, s0, key, 0, n, var, ecn)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    one = tcp_launch(consts, s0, key, 0, n, var, ecn)
+    split = n // 2 + 1
+    two = tcp_launch(consts, tcp_launch(consts, s0, key, 0, split, var, ecn),
+                     key, split, n, var, ecn)
+    for how, got in (("one launch", one), ("two launches", two)):
+        same_trees(want, got, f"tcp_advance:obs ({name}, {how})")
+    if int(want["fm_rx"].sum()) <= 0 or int(want["cwnd_cuts"].sum()) <= 0:
+        fail(f"tcp_advance:obs ({name}) check: nothing delivered or cut")
+    ms, _ = timed_ms(lambda: tcp_launch(consts, s0, key, 0, n, var, ecn),
+                     TCP_TIMED_CALLS, reps=3)
+    bound = tcp_bound(consts, s0, one, n)
+    print(f"tcp_advance:obs ({name}) vs plain loop: state, obs counters, "
+          f"columns and ring bit-equal at F={consts['F']} R={TCP_R}, {n} "
+          f"slots (one launch, two split at {split}); cuts "
+          f"{int(want['cwnd_cuts'].sum())}, rx {int(want['fm_rx'].sum())}, "
+          f"lost {int(want['fm_lost'].sum())}; device {ms:.4f} ms a "
+          f"launch, plain loop {plain_ms:.1f} ms, bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bound)
+
+
+def obs_bss_check(kc, dev, name: str) -> dict:
+    """``bss_advance``'s OBS arm vs the plain loop with the obs state on
+    bench_wifi's (``legacy``) or bench_wifi_ht's (``ht``) program at
+    BSS_R replicas to OBS_BSS_STEPS steps, one launch and two split
+    mid-run: the state, steps, pending flags, ``retx``, every column and
+    the ring (the idle rows ``join_stops`` writes included) bit-equal."""
+    import torch
+    from tpudes_torch.parallel import replicated as bss
+    from tpudes_torch.parallel.bss_cuda import bss_advance_cuda, bss_launch
+    from tpudes_torch.random import PRNGKey
+
+    prog = bss_programs()[name]
+    consts, init, _ = bss.build_bss_advance(prog, BSS_R, dev)
+    key = PRNGKey(BSS_CHECK_SEED, device=dev)
+    ends, n = [prog.sim_end_us], OBS_BSS_STEPS
+    s0 = init(1, True)
+    census = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want, w_steps, w_pend = bss.bss_advance_math(consts, s0, key, [0], n,
+                                                 ends, census=census)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    census = {k: int(v) for k, v in census.items()}
+    one, steps, pend = bss_advance_cuda(consts, s0, key, [0], n, ends)
+    half, h_steps, _ = bss_advance_cuda(consts, s0, key, [0], n // 2, ends)
+    two, t_steps, _ = bss_advance_cuda(consts, half, key, h_steps, n, ends)
+    if steps != w_steps or t_steps != w_steps or not torch.equal(pend,
+                                                                 w_pend):
+        fail(f"bss_advance:obs ({name}): steps {steps} / {t_steps}, plain "
+             f"loop {w_steps}")
+    for how, got in (("one launch", one), ("two launches", two)):
+        same_trees(want, got, f"bss_advance:obs ({name}, {how})")
+    if int(want["fm_rx"].sum()) <= 0:
+        fail(f"bss_advance:obs ({name}) check delivered nothing")
+    ms, _ = timed_ms(lambda: bss_launch(consts, s0, key, [0], n, ends),
+                     BSS_TIMED_CALLS, reps=3)
+    out, done, _, _ = bss_launch(consts, s0, key, [0], n, ends)
+    bound = bss_bound(consts, s0, out, done, 0, census)
+    print(f"bss_advance:obs ({name}) vs plain loop: state, steps, retx, "
+          f"columns and ring bit-equal at N={consts['N']} R={BSS_R}, {n} "
+          f"steps (one launch, two split at {n // 2}); rx "
+          f"{int(want['fm_rx'].sum())}, retx {int(want['retx'].sum())}; "
+          f"device {ms:.4f} ms a launch, plain loop {plain_ms:.1f} ms, "
+          f"bound {bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bound)
+
+
+def obs_wired_check(kc, dev) -> dict:
+    """``wired_advance``'s OBS arm vs ``advance_math`` with the columns on
+    bench_wired's program at WIRED_R rows over OBS_WIRED_SLOTS slots,
+    one launch and two split at the half: the state, ``t``, ``fm_mark``,
+    every column, the ring, ``next_event`` and ``n_steps`` bit-equal.
+    The bound: wired_bound's state and tables plus the columns and ring
+    read and written once and the births read once, against its
+    services."""
+    import torch
+    from tpudes_torch.parallel import wired as wd
+    from tpudes_torch.parallel import wired_cuda
+
+    bench = wd.wired_chain(**WIRED_BENCH)
+    tab = wd.wired_tables(bench, [(bench, None, None)], dev)
+    init, _ = wd.build_wired_advance(bench, WIRED_R, device=dev, obs=True,
+                                     tab=tab)
+    carry0 = init(np.array([0, 11]))
+    n, half = OBS_WIRED_SLOTS, OBS_WIRED_SLOTS // 2
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want, wm = wd.advance_math(tab, wired_clone(carry0), n)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    one, om = wired_cuda.wired_obs_cuda(tab, wired_clone(carry0), n)
+    two, _ = wired_cuda.wired_obs_cuda(tab, wired_clone(carry0), half)
+    two, tm = wired_cuda.wired_obs_cuda(tab, two, n)
+    pw, pm = wd.advance_math(tab, wd.advance_math(
+        tab, wired_clone(carry0), half)[0], n)
+    same_trees(want, one, "wired_advance:obs (one launch)")
+    same_trees(wm, om, "wired_advance:obs (one launch) metrics")
+    same_trees(pw, two, "wired_advance:obs (two launches)")
+    same_trees(pm, tm, "wired_advance:obs (two launches) metrics")
+    if int(want["fm_rx"].sum()) <= 0:
+        fail("wired_advance:obs check delivered nothing")
+    pool = [wired_clone(carry0) for _ in range(11)]
+    ms, _ = timed_ms(lambda: wired_cuda.wired_obs_cuda(tab, pool.pop(), n),
+                     1)
+    del pool
+    _, _, serves = wired_bound(tab, carry0, want)
+    obs_bytes = 2 * sum(carry0[k].nbytes for k in (
+        "fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost", "fm_dsum",
+        "fm_jsum", "fm_dlast", "fm_t0", "fm_t1", "fm_hist", "fm_ring"))
+    obs_bytes += carry0["fm_birth"].nbytes
+    ops_ms = serves * WIRED_SERVE_OPS / INT32_OPS_PER_S * 1e3
+    bytes_ms = wired_bytes_ms(tab, carry0) + obs_bytes / HBM_BYTES_PER_S * 1e3
+    times = {"bytes": bytes_ms, "operations": ops_ms}
+    by = max(times, key=times.get)
+    print(f"wired_advance:obs vs advance_math: state, columns, ring, "
+          f"next_event and n_steps bit-equal at {WIRED_R} rows x "
+          f"{want['hop'].shape[-1]} packets over {n} slots (one launch, "
+          f"two split at {half}); rx {int(want['fm_rx'].sum())}, n_steps "
+          f"{int(wm['n_steps'])}; device {ms:.4f} ms a launch, plain loop "
+          f"{plain_ms:.1f} ms, bound {times[by] * 1e3:.3f} us ({by})",
+          flush=True)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=(times[by], by))
+
+
+def obs_overhead(kc, dev, name: str, run, arms: dict,
+                 runs: int = OBS_WALL_RUNS) -> dict:
+    """A bench program through its entry with obs off, then on, each
+    ``runs`` timed runs after a warm one, counted (the arm without the
+    columns, then with them, each exactly its ``arms`` launches); prints
+    both medians and their ratio.  Returns the obs run's launches."""
+    import torch
+
+    walls = {}
+    launches = {}
+    for obs in (False, True):
+        run(obs)
+        torch.cuda.synchronize()
+        want = dict(arms)
+        if obs:
+            want.update({f"{k}:obs": v for k, v in arms.items()
+                         if ":" not in k})
+        ws = []
+        for _ in range(runs):
+            _, wall, launches[obs] = counted(kc, lambda: run(obs), want,
+                                             f"{name} main path (obs={obs})")
+            ws.append(wall)
+        walls[obs] = statistics.median(ws)
+    print(json.dumps(dict(
+        phase="obs_overhead", program=name, wall_obs_off_s=walls[False],
+        wall_obs_on_s=walls[True], ratio=walls[True] / walls[False],
+        kernel_launches={k: v for k, v in launches[True].items() if v})),
+        flush=True)
+    return launches[True]
+
+
+def obs_phase(kc, dev, lte_prog) -> dict:
+    """Phase 3obs: the four OBS arms against their plain loops at bench
+    width, then the bench programs with obs off and on through their
+    entries.  Returns ``{arm: (numbers, launches)}`` for the kernels
+    line."""
+    from tpudes_torch.parallel.lte_sm import run_lte_sm
+    from tpudes_torch.parallel.replicated import run_replicated_bss
+    from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
+    from tpudes_torch.parallel.wired import run_wired, wired_chain
+    from tpudes_torch.random import PRNGKey
+
+    checks = dict(
+        lte=obs_lte_check(kc, dev, lte_prog),
+        tcp=obs_tcp_check(kc, dev, "bench_tcp"),
+        tcp_red=obs_tcp_check(kc, dev, "red"),
+        bss=obs_bss_check(kc, dev, "legacy"),
+        bss_ht=obs_bss_check(kc, dev, "ht"),
+        wired=obs_wired_check(kc, dev))
+    bench_lte = dataclasses.replace(lte_prog, n_ttis=BENCH_TTIS)
+    tcp_prog = tcp_programs(TCP_SIM_S)["bench_tcp"]
+    bss_prog = bss_programs()["legacy"]
+    wired_prog = wired_chain(**WIRED_BENCH)
+    key = PRNGKey(SEED & 0x7FFFFFFF)
+    launches = dict(
+        lte=obs_overhead(kc, dev, "bench_lte", lambda obs: run_lte_sm(
+            bench_lte, key, replicas=R, device=dev, obs=obs),
+            {"lte_sm_advance": 1}),
+        tcp=obs_overhead(kc, dev, "bench_tcp", lambda obs: run_tcp_dumbbell(
+            tcp_prog, PRNGKey(1), TCP_R, device=dev, obs=obs),
+            {"tcp_advance": 1}),
+        bss=obs_overhead(kc, dev, "bench_wifi", lambda obs: (
+            run_replicated_bss(bss_prog, BSS_R, PRNGKey(1), device=dev,
+                               obs=obs)), {"bss_advance": 1}),
+        # the OBS arm's bench_wired run takes seconds (PERF.md: 2.67 s)
+        wired=obs_overhead(kc, dev, "bench_wired", lambda obs: run_wired(
+            wired_prog, np.array([0, 1]), WIRED_R, device=dev, obs=obs),
+            {"wired_advance": 1}, runs=1))
+    return dict(checks=checks, launches=launches)
 
 
 def wired_bench(kc, dev) -> dict:
@@ -4708,6 +5061,7 @@ def main(device: str = "cuda") -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    faulthandler.dump_traceback_later(STACK_DUMP_S)
     from tpudes_torch import _build
     from tpudes_torch.parallel import kernels_cuda as kc
     from tpudes_torch.parallel.lte_sm import (
@@ -4735,6 +5089,7 @@ def main(device: str = "cuda") -> int:
     card = card_line()
     print(card, flush=True)
 
+    progress("2")
     # 2. build every kernel of the path, in parallel
     t0 = time.monotonic()
     logs = _build.build(["lte_sm_step", "lte_sm_advance", "bss_advance",
@@ -4760,6 +5115,7 @@ def main(device: str = "cuda") -> int:
     if not np.array_equal(mobile.gain, prog.gain):
         fail("the moving drop does not start on the static drop")
 
+    progress("3")
     # 3. each kernel vs its plain version, every scheduler id, random
     #    warmed states
     rng = np.random.default_rng(SEED)
@@ -4829,7 +5185,7 @@ def main(device: str = "cuda") -> int:
     )
     ms_adv_plain, host_adv_plain = timed_ms(
         lambda: kc.sm_advance_math(consts, s, keys, ta, ta + TIMED_TTIS, 0),
-        1, reps=3,
+        1, reps=PLAIN_LOOP_REPS, plain=True,
     )
     adv_bound_ms, adv_bound_by = advance_bound(
         consts, s, keys,
@@ -4843,6 +5199,7 @@ def main(device: str = "cuda") -> int:
           f"{host_adv_plain * 1e3:.2f} us/call), bound "
           f"{adv_bound_ms * 1e3:.3f} us ({adv_bound_by})", flush=True)
 
+    progress("3b")
     # 3b. the dynamic arm: a stride-8 geometry table of the moving drop,
     #     built on the card, its first-tx MI pulled down as above
     mconsts = kc.build_sm_consts(mobile, device=dev)
@@ -4892,7 +5249,7 @@ def main(device: str = "cuda") -> int:
     ms_dyn_plain, _ = timed_ms(
         lambda: kc.sm_advance_math(mconsts, s, keys, ta, ta + TIMED_TTIS, 0,
                                    tab, MOBILE_STRIDE),
-        1, reps=3,
+        1, reps=PLAIN_LOOP_REPS, plain=True,
     )
     dyn_bound_ms, dyn_bound_by = advance_bound(
         mconsts, s, keys,
@@ -4907,6 +5264,7 @@ def main(device: str = "cuda") -> int:
           f"{ms_dyn_plain * 1e3:.2f} us/call, bound "
           f"{dyn_bound_ms * 1e3:.3f} us ({dyn_bound_by})", flush=True)
 
+    progress("3c")
     # 3c. the sweep arm: one launch of all nine ids against the plain
     #     loop, on the static rows and on the stride-8 table (the launch
     #     the mobile sweep makes), first-tx MI pulled down as above
@@ -4952,7 +5310,7 @@ def main(device: str = "cuda") -> int:
     ms_sweep_plain, _ = timed_ms(
         lambda: kc.sm_advance_math(mconsts, s, keys, ta, tt, sids, stab,
                                    MOBILE_STRIDE),
-        1, reps=2,
+        1, reps=PLAIN_LOOP_REPS, plain=True,
     )
     sweep_bound_ms, sweep_bound_by = advance_bound(
         mconsts, s, keys,
@@ -4968,6 +5326,7 @@ def main(device: str = "cuda") -> int:
           f"{ms_sweep_plain * 1e3:.2f} us/call, bound "
           f"{sweep_bound_ms * 1e3:.3f} us ({sweep_bound_by})", flush=True)
 
+    progress("3d")
     # 3d. the traffic arm: two launches per scheduler id on the full-width
     #     offered table of the ON-OFF workload, from warm backlogs, first-tx
     #     MI pulled down as above; for sid 0 also one launch per TTI, which
@@ -5041,7 +5400,7 @@ def main(device: str = "cuda") -> int:
     ms_trf_plain, _ = timed_ms(
         lambda: kc.sm_advance_math(tconsts, s, keys, ta, ta + TIMED_TTIS, 0,
                                    offered=off_t),
-        1, reps=3,
+        1, reps=PLAIN_LOOP_REPS, plain=True,
     )
     trf_bound_ms, trf_bound_by = advance_bound(
         tconsts, s, keys,
@@ -5056,6 +5415,7 @@ def main(device: str = "cuda") -> int:
           f"{ms_trf_plain * 1e3:.2f} us/call, bound "
           f"{trf_bound_ms * 1e3:.3f} us ({trf_bound_by})", flush=True)
 
+    progress("3e")
     # 3e. bf16: the static rows over two launches per scheduler id; then
     #     one launch of all nine ids on each other arm: the stride-8
     #     table of the moving drop, the offered table, and (f32) the
@@ -5139,7 +5499,7 @@ def main(device: str = "cuda") -> int:
     )
     ms_bf_plain, _ = timed_ms(
         lambda: kc.sm_advance_math(bconsts, s, keys, ta, ta + TIMED_TTIS, 0),
-        1, reps=3,
+        1, reps=PLAIN_LOOP_REPS, plain=True,
     )
     bf_bound_ms, bf_bound_by = advance_bound(
         bconsts, s, keys,
@@ -5154,6 +5514,7 @@ def main(device: str = "cuda") -> int:
           f"{ms_bf_plain * 1e3:.2f} us/call, bound {bf_bound_ms * 1e3:.3f} "
           f"us ({bf_bound_by})", flush=True)
 
+    progress("3f")
     # 3f. lte_sm_step in bf16, every scheduler id
     step_bf_err = 0.0
     for sched, sid in kc.SM_SCHED_IDS.items():
@@ -5185,16 +5546,21 @@ def main(device: str = "cuda") -> int:
           f"{step_bf_bound[0] * 1e3:.3f} us ({step_bf_bound[1]})",
           flush=True)
 
+    progress("3g")
     # 3g. bss_advance vs the plain loop at bench width, legacy and (3g-ht)
     #     802.11n A-MPDUs; then the horizon sweep's grid of each
     bss_numbers = bss_check(kc, dev, "legacy")
+    progress("3g-ht")
     ht_numbers = bss_check(kc, dev, "ht")
     sweep_numbers = {w: bss_sweep_check(kc, dev, w) for w in ("legacy", "ht")}
+    progress("3h")
     # 3h. the MOB and TRF arms and the traffic grid at bench width
     arm_numbers = {w: bss_check(kc, dev, w)
                    for w in ("mobile", "onoff", "sweep", "composed")}
+    progress("3p")
     # 3p. the stage probe of bss_advance on legacy, AGG, MOB and TRF
     bss_stage_split(dev, "bss_advance")
+    progress("3t")
     # 3t. tcp_advance's fast division vs __fdiv_rn; tcp_advance vs the
     #     plain loop at bench width: bench_tcp, the 17-variant program,
     #     RED/ECN and the four-point variant grid
@@ -5204,25 +5570,36 @@ def main(device: str = "cuda") -> int:
     #     and the stage probe of tcp_advance on bench_tcp, the 17-variant
     #     and the RED programs
     tcp_stage_split(dev, "tcp_advance")
+    progress("3w")
     # 3w. tcp_advance's TRF arm vs the plain loop: bench_tcp's flows
     #     app-limited, and the eight-point workload grid
     t_phase = time.monotonic()
     trf_numbers = {w: tcp_trf_check(kc, dev, w)
                    for w in ("trf", "trf_sweep")}
     print(f"phase 3w: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("3win")
     # 3win. wifi_window vs its plain version at BASELINE row #3's shape
     t_phase = time.monotonic()
     win_numbers = window_check(kc, dev)
     print(f"phase 3win: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("3as")
     # 3as. as_spf and as_fluid vs their plain versions at bench_as's width
     t_phase = time.monotonic()
     as_numbers = as_check(kc, dev)
     print(f"phase 3as: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("3wired")
     # 3wired. wired_advance vs its plain version at bench_wired's width
     t_phase = time.monotonic()
     wired_numbers = wired_check(kc, dev)
     print(f"phase 3wired: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("3obs")
+    # 3obs. the four OBS arms vs their plain loops at bench width; the
+    #       bench programs with obs off and on, counted
+    t_phase = time.monotonic()
+    obs_numbers = obs_phase(kc, dev, prog)
+    print(f"phase 3obs: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    progress("4")
     # 4. the slice through the plain loop and the kernel, on the card;
     #    a small program through the plain loop on the CPU vs the kernel
     key = PRNGKey(SEED & 0x7FFFFFFF)
@@ -5246,6 +5623,7 @@ def main(device: str = "cuda") -> int:
     print("small program (2 x 4 UE, 4 x 300 TTIs): CPU plain loop == "
           "kernel on the card", flush=True)
 
+    progress("4b")
     # 4b. the same for the moving drop
     mobile_check = dataclasses.replace(mobile, n_ttis=CHECK_TTIS)
     plain = run_lte_sm(mobile_check, key, replicas=R, device=dev,
@@ -5306,6 +5684,7 @@ def main(device: str = "cuda") -> int:
     if table_diff > TABLE_DIFF_MAX_SHARE * entries:
         fail(f"card and CPU geometry tables differ in {table_diff} entries")
 
+    progress("4c")
     # 4c. the traffic slice: plain loop vs kernel on the card; a small
     #     traffic program through the CPU's plain loop vs the kernel fed
     #     the CPU's offered table; the horizon's offered table card vs CPU
@@ -5358,6 +5737,7 @@ def main(device: str = "cuda") -> int:
     if offered_diff > 0:
         fail(f"card and CPU offered tables differ in {offered_diff} entries")
 
+    progress("5")
     # 5. each path at bench depth, counted: the single-step route, the
     #    static main path, the mobile main path, the sweep
     bench = dataclasses.replace(prog, n_ttis=BENCH_TTIS)
@@ -5413,6 +5793,7 @@ def main(device: str = "cuda") -> int:
         equals_step_route=True,
     )), flush=True)
 
+    progress("5b")
     # 5b. the mobile main path on the same drop
     def mobile_run(**kw):
         return run_lte_sm(mobile, key, replicas=R, device=dev,
@@ -5463,6 +5844,7 @@ def main(device: str = "cuda") -> int:
         wall_vs_static=mobile_med / static_med,
     )), flush=True)
 
+    progress("5c")
     # 5c. the nine-scheduler sweep on the moving drop, one launch
     names = list(kc.SM_SCHED_IDS)
     swept, swall, slaunches = counted(
@@ -5491,6 +5873,7 @@ def main(device: str = "cuda") -> int:
         equals_single_point=names,
     )), flush=True)
 
+    progress("5d")
     # 5d. the traffic main path: the ON-OFF drop at bench depth, one
     #     offered table and one traffic-arm launch per chunk; then the
     #     same run one launch per TTI, which must end in the same state,
@@ -5565,6 +5948,7 @@ def main(device: str = "cuda") -> int:
         wall_vs_full_buffer=traffic_med / static_med,
     )), flush=True)
 
+    progress("5d'")
     # 5d'. the same drop and ON-OFF shape at a peak near what the cells
     #      carry, so backlogs empty all run long and the gate keeps biting
     near = TrafficProgram.onoff(
@@ -5593,6 +5977,7 @@ def main(device: str = "cuda") -> int:
         wall_vs_saturated=near_med / traffic_med,
     )), flush=True)
 
+    progress("5e")
     # 5e. the bf16 static path at bench depth
     b_bench = dataclasses.replace(b_prog, n_ttis=BENCH_TTIS)
 
@@ -5622,6 +6007,7 @@ def main(device: str = "cuda") -> int:
         wall_median_s=median_wall(bf16_run), f32_wall_median_s=static_med,
     )), flush=True)
 
+    progress("5f")
     # 5f. the traffic sweep of all nine ids at bench depth, each point its
     #     single-point run
     tswept, tswall, tslaunches = counted(
@@ -5645,6 +6031,7 @@ def main(device: str = "cuda") -> int:
         equals_single_point=names,
     )), flush=True)
 
+    progress("5g")
     # 5g. bf16 on the moving drop, its nine-point sweep and the
     #     single-step route, at bench depth, each after a warm-up and
     #     beside its f32 twin's figure
@@ -5703,49 +6090,61 @@ def main(device: str = "cuda") -> int:
                         equals_main_path=True),
     )), flush=True)
 
+    progress("5h")
     # 5h. bench_wifi: the BSS main path at bench width; 5-ht. bench_wifi_ht;
     #     then the four-point horizon sweep of each
     wlaunches = bss_bench(kc, dev, bss_numbers, "legacy")
     htlaunches = bss_bench(kc, dev, ht_numbers, "ht")
     swlaunches = {w: bss_sweep_bench(kc, dev, w) for w in ("legacy", "ht")}
+    progress("5m")
     # 5m. bench_mobile_bss; 5t. the ON-OFF bench; 5w. the workload sweep
     mob_launches = bss_mobile_bench(kc, dev, arm_numbers["mobile"])
     trf_launches = bss_traffic_bench(kc, dev, arm_numbers["onoff"])
     wsw_launches = bss_workload_sweep_bench(kc, dev, arm_numbers["sweep"])
+    progress("5tcp")
     # 5tcp. bench_tcp and bench_tcp_variant_sweep at bench width
     tcp_launches = tcp_bench(kc, dev, tcp_numbers["bench_tcp"], "bench_tcp")
     tcp_bench(kc, dev, tcp_numbers["variants17"], "variants17")
+    progress("5trf")
     # 5trf. the app-limited bench_tcp and the workload grid at bench width
     t_phase = time.monotonic()
     tcp_trf_launches = tcp_trf_bench(kc, dev, trf_numbers["trf"],
                                      trf_numbers["trf_sweep"])
     print(f"phase 5trf: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5win")
     # 5win. the window's main paths at BASELINE row #3's shape
     t_phase = time.monotonic()
     win_launches = window_main(kc, dev)
     print(f"phase 5win: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5as")
     # 5as. bench_as's numerator: the AS flow engine's main path
     t_phase = time.monotonic()
     as_launches = as_bench(kc, dev)
     print(f"phase 5as: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5wired")
     # 5wired. bench_wired; 5hyb. bench_hybrid (a) and (b)
     t_phase = time.monotonic()
     wired_launches = wired_bench(kc, dev)
     print(f"phase 5wired: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5hyb")
     t_phase = time.monotonic()
     hybrid_launches = hybrid_bench(kc, dev)
     print(f"phase 5hyb: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5srv")
     # 5srv. the StudyServer at full width; 5rt. the runtime; 5ckpt.
     t_phase = time.monotonic()
     serving_phase(kc, dev)
     print(f"phase 5srv: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5rt")
     t_phase = time.monotonic()
     runtime_phase(kc, dev)
     print(f"phase 5rt: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5ckpt")
     t_phase = time.monotonic()
     checkpoint_phase(kc, dev)
     print(f"phase 5ckpt: {time.monotonic() - t_phase:.1f} s", flush=True)
 
+    progress("6")
     # 6. the kernels line, then the result line
     def entry(name, launches_, err, ms, plain_ms, bound,
               source=None, replaces="tpudes/parallel/kernels_pallas.py:473"):
@@ -5880,6 +6279,21 @@ def main(device: str = "cuda") -> int:
               wired_numbers["lanes"]["plain_ms"],
               wired_numbers["lanes"]["bound"], source=WIRED_SOURCE,
               replaces=WIRED_LANES_REPLACES),
+        *(entry(f"{kernel}:obs", obs_numbers["launches"][arm][
+            f"{kernel}:obs"], obs_numbers["checks"][arm]["err"],
+            obs_numbers["checks"][arm]["ms"],
+            obs_numbers["checks"][arm]["plain_ms"],
+            obs_numbers["checks"][arm]["bound"], source=source,
+            replaces=replaces)
+          for arm, kernel, source, replaces in (
+              ("lte", "lte_sm_advance",
+               "tpudes_torch/csrc/lte_sm_advance_obs.cu", LTE_OBS_REPLACES),
+              ("tcp", "tcp_advance", "tpudes_torch/csrc/tcp_advance_obs.cu",
+               TCP_OBS_REPLACES),
+              ("bss", "bss_advance", BSS_SOURCE, BSS_OBS_REPLACES),
+              ("wired", "wired_advance",
+               "tpudes_torch/csrc/wired_advance_obs.cu",
+               WIRED_OBS_REPLACES))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,8 +231,7 @@ def test_refusals_name_their_roadmap_items():
     key = np.array([0, 0])
     for kw, item in ((dict(mesh=object()), "A12"),
                      (dict(checkpoint="x", mesh=object()), "A12"),
-                     (dict(block=False, obs=True), "A10"),
-                     (dict(obs=True), "A10")):
+                     (dict(block=False, mesh=object()), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             port.run_as_flows(p, key, 2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="A14"):
@@ -241,3 +240,38 @@ def test_refusals_name_their_roadmap_items():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port.run_as_flows(p, key, 2)
+
+
+def test_obs_runs_and_leaves_the_outputs():
+    """``obs=True`` (once refused, ROADMAP A10) runs: the outputs are the
+    obs=False run's, and a chunked run streams one ``max_util`` a chunk
+    (tests/test_torch_obs_engines.py holds them against the reference)."""
+    from tpudes_torch.obs.device import ChunkStream
+
+    p = _port(jax_toy(24, 2, 6))
+    key = np.array([0, 0])
+    ChunkStream.reset()
+    got = port.run_as_flows(p, key, 2, device="cpu", obs=True,
+                            chunk_rounds=2)
+    plain = port.run_as_flows(p, key, 2, device="cpu", chunk_rounds=2)
+    for k in ("goodput_bps", "delay_s", "max_util"):
+        assert np.array_equal(got[k], plain[k]), k
+    entries = ChunkStream.entries("as_flows")
+    assert len(entries) >= 2 and all(
+        set(e["metrics"]) == {"max_util"} for e in entries)
+    ChunkStream.reset()
+
+
+def test_obs_beside_block_false_flushes_at_the_result():
+    """``obs=True, block=False``: the last chunk's metrics are recorded
+    when the future's result is taken, not at the launch."""
+    from tpudes_torch.obs.device import ChunkStream
+
+    p = _port(jax_toy(24, 2, 6))
+    ChunkStream.reset()
+    fut = port.run_as_flows(p, np.array([0, 0]), 2, device="cpu", obs=True,
+                            chunk_rounds=2, block=False)
+    before = len(ChunkStream.entries("as_flows"))
+    fut.result()
+    assert len(ChunkStream.entries("as_flows")) == before + 1
+    ChunkStream.reset()

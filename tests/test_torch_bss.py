@@ -268,15 +268,46 @@ def test_wrapper_takes_the_plain_loop_on_the_cpu(lowered):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(mesh=object(), checkpoint="x"),
-    dict(obs=True, block=False), dict(obs=True),
 ])
 def test_unported_run_options_raise(lowered, kwargs):
-    """``mesh=`` (A12) and ``obs=True`` (A10) raise, also beside the
-    runtime's ``checkpoint=`` and ``block=False``, which run
-    (tests/test_torch_checkpoint.py, test_torch_runtime.py)."""
+    """``mesh=`` (A12) raises, also beside the runtime's ``checkpoint=``,
+    which runs (tests/test_torch_checkpoint.py, test_torch_runtime.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bss.run_replicated_bss(_port(lowered["two_rings"]), 2, PRNGKey(0),
                                device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(obs=True),
+                                    dict(obs=True, block=False)])
+def test_obs_runs_beside_the_runtime_options(lowered, kwargs):
+    """``obs=True`` (once refused, ROADMAP A10) runs, also beside
+    ``block=False``: the outputs are the obs=False run's, plus ``retx``
+    and the FlowMonitor columns (tests/test_torch_obs_bss.py holds them
+    against the reference)."""
+    prog = _port(lowered["two_rings"])
+    got = bss.run_replicated_bss(prog, 2, PRNGKey(0), device="cpu",
+                                 **kwargs)
+    if not isinstance(got, dict):
+        got = got.result()
+    plain = bss.run_replicated_bss(prog, 2, PRNGKey(0), device="cpu")
+    for k in OUT_KEYS:
+        assert np.array_equal(np.asarray(got[k]), np.asarray(plain[k])), k
+    assert got["retx"].shape == (2,)
+    assert got["flow"]["fm_tx"].shape == (2, prog.n)
+    assert got["flow"]["fm_ring"].shape == (2, 512, 5)
+
+
+def test_obs_columns_count_the_exchanges(lowered):
+    """Each node's sent MPDUs are its data exchanges (one MPDU each in the
+    legacy arm), the STAs' deliveries the AP's decoded requests, and the
+    delay histogram holds every delivery."""
+    prog = _port(lowered["two_rings"])
+    got = bss.run_replicated_bss(prog, 2, PRNGKey(0), device="cpu",
+                                 obs=True)
+    flow = got["flow"]
+    assert np.array_equal(flow["fm_tx"].sum(1), got["tx_data"])
+    assert np.array_equal(flow["fm_rx"][:, 1:].sum(1), got["srv_rx"])
+    assert np.array_equal(flow["fm_hist"].sum(-1), flow["fm_rx"])
 
 
 @pytest.mark.parametrize("fields", ["mobility", "traffic", "geom_stride"])

@@ -92,7 +92,8 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0,
             tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
             win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0, wired=0,
-            wired_owned=0, wired_lanes=0):
+            wired_owned=0, wired_lanes=0, lte_obs=0, bss_obs=0, tcp_obs=0,
+            wired_obs=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
@@ -107,7 +108,9 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "as_spf": as_spf, "as_fluid": as_fluid,
             "as_fluid:sweep": as_fluid_sweep, "wired_advance": wired,
             "wired_advance:owned": wired_owned,
-            "wired_advance:lanes": wired_lanes}
+            "wired_advance:lanes": wired_lanes,
+            "lte_sm_advance:obs": lte_obs, "bss_advance:obs": bss_obs,
+            "tcp_advance:obs": tcp_obs, "wired_advance:obs": wired_obs}
 
 
 def _bit_equal(a, b):
@@ -1663,3 +1666,137 @@ def test_checkpoint_resumes_on_card(card, tmp_path):
                                checkpoint=path)
     assert kc.launches["tcp_advance"] == 2
     assert _same_result(got, want)
+
+
+# --------------------------------------------------------------------------
+# the OBS arms (obs=True): the FlowMonitor columns against the plain loops
+
+
+def _same_tree(want: dict, got: dict) -> bool:
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            a, b = v, got[k]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b.to(a.device)):
+                return False
+        elif v != got[k]:
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_lte_obs_arm_bit_equal_to_plain_loop(card, precision):
+    """``lte_sm_advance``'s OBS arm against ``sm_advance_math`` with the
+    columns: one point and the nine-point scheduler grid, two launches."""
+    from tpudes_torch.obs.flowmon import flow_carry
+
+    prog = _program(n_ttis=150, precision=precision)
+    consts = kc.build_sm_consts(prog, device=card)
+    keys = replica_keys(PRNGKey(5, device=card), R)
+    for sids in (3, torch.arange(9, dtype=torch.int32, device=card)):
+        lanes = R * (1 if isinstance(sids, int) else 9)
+        s0 = kc.sm_init_state(prog.n_enb, prog.n_ue, lanes, card)
+        fm0 = flow_carry(prog.n_ue, (lanes,), card)
+        want = kc.sm_advance_math(consts, s0, keys, 0, 150, sids, fm=fm0)
+        half = kc.sm_advance_cuda(consts, s0, keys, 0, 71, sids, fm=fm0)
+        got = kc.sm_advance_cuda(consts, half[0], keys, 71, 150, sids,
+                                 fm=half[1])
+        assert _same_tree(want[0], got[0]) and _same_tree(want[1], got[1])
+        assert int(got[1]["fm_rx"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", [False, True])
+def test_tcp_obs_arm_bit_equal_to_plain_loop(card, red):
+    """``tcp_advance``'s OBS arm against the plain loop's obs_slot, two
+    launches; droptail and RED/ECN."""
+    prog = dumbbell_program(
+        6, 0.5, variants=["TcpDctcp", "TcpNewReno", "TcpCubic"] * 2,
+        bottleneck_rate="5Mbps",
+        red=dict(MinTh=3, MaxTh=8, MaxSize=60, UseEcn=True) if red else None)
+    consts = tcp.build_tcp_consts(prog, card)
+    var, ecn = (torch.as_tensor(x, device=card)
+                for x in tcp.sweep_operands(prog, None))
+    key = PRNGKey(2, device=card)
+    s0 = tcp.init_state(consts, 5, 1, obs=True)
+    from tpudes_torch.parallel.tcp_cuda import tcp_launch
+
+    want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn)
+    got = tcp_launch(consts, tcp_launch(consts, s0, key, 0, 97, var, ecn),
+                     key, 97, prog.n_slots, var, ecn)
+    assert _same_tree(want, got) and int(got["fm_rx"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ht", [False, True])
+def test_bss_obs_arm_bit_equal_to_plain_loop(card, ht):
+    """``bss_advance``'s OBS arm (legacy and A-MPDU) against the plain
+    loop, two launches, the finished replicas' idle ring rows included."""
+    from tpudes_torch.parallel.bss_cuda import bss_advance_cuda
+
+    kw = dict(interval_s=0.01, data_mode="HtMcs7", standard="80211n") \
+        if ht else {}
+    prog = bss_program(8, 1.3, radii=(12.0, 20.0, 28.0), **kw)
+    consts, init, _ = bss.build_bss_advance(prog, 5, card)
+    key = PRNGKey(3, device=card)
+    ends = [prog.sim_end_us]
+    s0 = init(1, True)
+    want, w_steps, w_pend = bss.bss_advance_math(consts, s0, key, [0],
+                                                 100_000, ends)
+    half, steps, _ = bss_advance_cuda(consts, s0, key, [0], 333, ends)
+    got, steps, pend = bss_advance_cuda(consts, half, key, steps, 100_000,
+                                        ends)
+    assert steps == w_steps and torch.equal(pend.cpu(), w_pend.cpu())
+    assert _same_tree(want, got) and int(got["fm_rx"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_wired_obs_arm_bit_equal_to_plain_version(card):
+    """``wired_advance``'s OBS arm against ``advance_math`` with the
+    columns over windows of 37, 1 and 162 slots and the rest."""
+    from tpudes_torch.parallel import wired as W
+    from tpudes_torch.parallel import wired_cuda
+
+    prog = W.wired_chain(12, 8, jitter_slots=5, n_slots=600)
+    tab = W.wired_tables(prog, [(prog, None, None)], card)
+    init, _ = W.build_wired_advance(prog, 6, device=card, obs=True, tab=tab)
+    want = init(np.array([0, 9]))
+    got = {k: (v.clone() if torch.is_tensor(v) else v)
+           for k, v in want.items()}
+    for b in (37, 38, 200, 600):
+        want, wm = W.advance_math(tab, want, b)
+        got, gm = wired_cuda.wired_obs_cuda(tab, got, b)
+        assert _same_tree(want, got) and _same_tree(wm, gm), b
+    assert int(got["fm_rx"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_obs_main_paths_launch_the_obs_arms(card):
+    """``obs=True`` through each entry launches its kernel's OBS arm, once
+    a chunk, and gives the CPU run's columns."""
+    from tpudes_torch.parallel.wired import run_wired, wired_chain
+
+    runs = {
+        "lte_sm_advance": lambda dev: run_lte_sm(
+            _program(80), PRNGKey(4), replicas=R, device=dev, obs=True,
+            chunk_ttis=40),
+        "tcp_advance": lambda dev: tcp.run_tcp_dumbbell(
+            dumbbell_program(4, 0.3), PRNGKey(4), 3, device=dev, obs=True,
+            chunk_slots=128),
+        "bss_advance": lambda dev: bss.run_replicated_bss(
+            bss_program(8, 1.2), 3, PRNGKey(4), device=dev, obs=True),
+        "wired_advance": lambda dev: run_wired(
+            wired_chain(6, 3, n_slots=300), np.array([0, 4]), 3,
+            device=dev, obs=True, window_slots=100),
+    }
+    for name, run in runs.items():
+        kc.reset_launches()
+        got = run(card)
+        assert kc.launches[f"{name}:obs"] == kc.launches[name] > 0, name
+        want = run(torch.device("cpu"))
+        for k, v in want["flow"].items():
+            assert np.array_equal(np.asarray(v).view(np.uint8),
+                                  np.asarray(got["flow"][k]).view(np.uint8)
+                                  ), (name, k)

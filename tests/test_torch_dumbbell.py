@@ -369,7 +369,7 @@ def test_sweep_point_equals_its_own_run(lowered):
 
 
 @pytest.mark.parametrize("what", ["traffic", "traffic_sweep", "mesh",
-                                  "obs", "checkpoint", "block"])
+                                  "checkpoint", "block"])
 def test_refusals_name_their_roadmap_item(what):
     """What the port does not run names its ROADMAP item, also beside the
     runtime's ``checkpoint=`` and ``block=False``, which run
@@ -381,19 +381,37 @@ def test_refusals_name_their_roadmap_item(what):
     prog = toy_dumbbell_program(2, 20)
     workloads = toy_traffic_points(3, 20_000)
     kw = {"traffic_sweep": dict(traffic_sweep=workloads),
-          "mesh": dict(mesh=object()), "obs": dict(obs=True),
+          "mesh": dict(mesh=object()),
           "checkpoint": dict(checkpoint="ckpt", mesh=object()),
-          "block": dict(block=False, obs=True)}.get(what, {})
+          "block": dict(block=False, mesh=object())}.get(what, {})
     if what == "traffic":
         prog = dataclasses.replace(prog, traffic=workloads[0])
-    item = {"mesh": "A12", "obs": "A10", "checkpoint": "A12",
-            "block": "A10"}.get(what)
+    item = {"mesh": "A12", "checkpoint": "A12", "block": "A12"}.get(what)
     error, match = ((NotImplementedError, item) if item else
                     (ValueError, {"traffic": "one a flow",
                                   "traffic_sweep": "prog.traffic"}[what]))
     with pytest.raises(error, match=match):
         P.run_tcp_dumbbell(prog, np.asarray(PRNGKey(0)), 2, device="cpu",
                            **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(obs=True), dict(obs=True, block=False)])
+def test_obs_runs_beside_the_runtime_options(kw):
+    """``obs=True`` (once refused, ROADMAP A10) runs, also beside
+    ``block=False``: the outputs are the obs=False run's, plus the obs
+    counters and the FlowMonitor columns (tests/test_torch_obs_engines.py
+    holds them against the reference)."""
+    prog = toy_dumbbell_program(2, 200)
+    key = np.asarray(PRNGKey(0))
+    got = P.run_tcp_dumbbell(prog, key, 2, device="cpu", **kw)
+    if not isinstance(got, dict):
+        got = got.result()
+    plain = P.run_tcp_dumbbell(prog, key, 2, device="cpu")
+    for k in OUT_KEYS:
+        assert _same(got[k], plain[k]), k
+    assert got["queue_hist"].shape == (2, P.OBS_QHIST_BINS)
+    assert np.array_equal(got["queue_hist"].sum(1), np.full(2, 200))
+    assert np.array_equal(got["flow"]["fm_rx"], got["delivered"])
 
 
 def test_bad_sweep_points_raise():

@@ -167,12 +167,39 @@ def test_wrong_rank_counts_raise_as_reference():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(transport="mpi"), "A12"), (dict(telemetry=True), "A10"),
+    (dict(transport="mpi"), "A12"),
+    (dict(transport="mpi", telemetry=True), "A12"),
 ])
 def test_unported_transport_and_telemetry_raise(kw, item):
     prog = W.wired_chain(6, 3, n_slots=100, ranks=2)
     with pytest.raises(NotImplementedError, match=item):
         H.run_hybrid(prog, _key(), 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("transport", ["local", "batched"])
+def test_telemetry_records_every_window(transport):
+    """``telemetry=True`` (once refused, ROADMAP A10) records one window a
+    rank a round, the grants summing to the horizon, the results the
+    run without it (tests/test_torch_obs_engines.py holds the counts
+    against the reference's drivers)."""
+    from tpudes_torch.obs.distributed import (
+        DistributedTelemetry,
+        validate_distributed_metrics,
+    )
+
+    prog = W.wired_chain(6, 3, n_slots=100, ranks=2)
+    DistributedTelemetry.reset()
+    got = H.run_hybrid(prog, _key(), 1, device="cpu", telemetry=True,
+                       transport=transport)
+    plain = H.run_hybrid(prog, _key(), 1, device="cpu", transport=transport)
+    for k in ("deliver_slot", "delivered", "served", "windows"):
+        assert np.array_equal(got[k], plain[k]), k
+    snap = DistributedTelemetry.snapshot()
+    assert validate_distributed_metrics(snap) == []
+    assert snap["counters"]["windows"] == 2 * got["windows"]
+    for rank in ("0", "1"):
+        assert snap["ranks"][rank]["grant_slots_sum"] == prog.n_slots
+    DistributedTelemetry.reset()
 
 
 def test_packet_outside_the_resident_set_raises():

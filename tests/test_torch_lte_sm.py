@@ -186,10 +186,28 @@ def test_run_takes_schedulers(lena):
             assert np.array_equal(got[k], one[k]), (sched, k)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(obs=True)])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
+                                    dict(mesh=object(), obs=True)])
 def test_unported_run_options_raise(lena, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_lte_sm(_port(lena[0]), PRNGKey(0), device="cpu", **kwargs)
+
+
+def test_obs_runs_and_counts_each_ue(lena):
+    """``obs=True`` (once refused, ROADMAP A10) runs: the outputs are the
+    obs=False run's, and each UE's FlowMonitor columns count its decoded
+    TBs and their bytes (tests/test_torch_obs_engines.py holds them
+    against the reference)."""
+    prog = dataclasses.replace(_port(lena[0]), n_ttis=60)
+    got = run_lte_sm(prog, PRNGKey(0), replicas=2, device="cpu", obs=True)
+    plain = run_lte_sm(prog, PRNGKey(0), replicas=2, device="cpu")
+    for k in INT_KEYS:
+        assert np.array_equal(got[k], plain[k]), k
+    flow = got["flow"]
+    assert np.array_equal(flow["fm_rx"], got["ok"])
+    assert np.array_equal(flow["fm_tx"], got["new_tbs"] + got["retx"])
+    assert np.array_equal(flow["fm_lost"], got["drops"])
+    assert (flow["fm_rxb"] <= got["rx_bits"] // 8).all()
 
 
 def _imported_modules(path: Path):
@@ -227,7 +245,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     for sub, names in (("serving", {"server.py", "descriptor.py",
                                     "errors.py"}),
                        ("chaos", {"schedule.py", "scenario.py"}),
-                       ("obs", {"serving.py", "schema.py"})):
+                       ("obs", {"serving.py", "schema.py", "flowmon.py",
+                                "device.py", "geometry.py", "traffic.py",
+                                "distributed.py", "__main__.py"}),
+                       ("traffic", {"ingest.py", "program.py"})):
         assert names | {"__init__.py"} <= {
             p.name for p in sources if p.parent.name == sub
         }, sub

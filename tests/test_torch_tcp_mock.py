@@ -46,16 +46,31 @@ GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
 
 def _build_mock(source: Path, out_dir: Path):
     """``source`` (csrc/tcp_advance.cu or an edited copy; its headers from
-    csrc/) built by g++ against the CUDA mock, loaded."""
+    csrc/) and its OBS arm's unit (csrc/tcp_advance_obs.cu, copied beside
+    the source, so that it includes the source it sits beside) built by
+    g++ against the CUDA mock, one object each in parallel, linked,
+    loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/tcp_advance.cu against the "
                     "CUDA mock")
+    part = out_dir / "tcp_advance_obs.cu"
+    shutil.copy(CSRC / "tcp_advance_obs.cu", part)
+    flags = [f for f in GXX_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in (source, part):
+        obj = out_dir / f"{src.stem}.o"
+        objs.append(str(obj))
+        procs.append(subprocess.Popen(
+            [gxx, *flags, "-c", "-I", str(CSRC / "mock"), "-I", str(CSRC),
+             "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, out
     lib = out_dir / "libtcp_advance_mock.so"
-    subprocess.run(
-        [gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I", str(CSRC), "-o",
-         str(lib), str(source)],
-        check=True, capture_output=True, text=True)
+    subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib), *objs],
+                   check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -255,3 +270,92 @@ def test_mock_kernel_mutant_fails(tmp_path, monkeypatch, was, now):
     # the first state array that differs
     assert str(differs.value).split("\n")[0] in {k for k, _, _ in
                                                   tcp.TCP_STATE}
+
+
+# --------------------------------------------------------------------------
+# the OBS arm (csrc/tcp_advance_obs.cu)
+
+#: the OBS arm's mutants (in tcp_advance.cu's obs_slot, which the OBS unit
+#: instantiates): the jitter taken without its first-delivery guard, and
+#: the ring row written one slot late
+OBS_MUTANTS = {
+    "jitter_without_seen_guard": ("rx > 0 && o.dlast >= 0.0f",
+                                  "rx > 0"),
+    "ring_slot_off_by_one": ("t % RING_CAP) * RING_COLS",
+                             "(t + 1) % RING_CAP) * RING_COLS"),
+}
+
+
+def _obs_kernel_vs_plain(prog, replicas, cuts=(), variants=None,
+                         workloads=None):
+    """:func:`_kernel_vs_plain` with the obs state: the OBS arm's launches
+    against the plain loop's obs_slot, every state array, obs counter,
+    FlowMonitor column and ring bit-equal."""
+    consts, _, key, var, ecn = _operands(prog, replicas, variants)
+    points, app = var.shape[0], None
+    if workloads is not None:
+        ops = tcp.workload_operands(prog, workloads, "cpu")
+        points = ops["tr_id"].shape[0]
+        var, ecn = var.repeat(points, 1), ecn.repeat(points, 1)
+
+        def app(t0, t1):
+            return app_cum_table(ops, prog.traffic.epoch_us,
+                                 consts["slot_us"], t0, t1)
+    s0 = tcp.init_state(consts, replicas, points, obs=True)
+    kc.reset_launches()
+    want = tcp.tcp_advance_math(consts, s0, key, 0, prog.n_slots, var, ecn,
+                                None, None if app is None
+                                else app(0, prog.n_slots))
+    got, t = s0, 0
+    for bound in (*cuts, prog.n_slots):
+        got = tcp_cuda.tcp_launch(consts, got, key, t, bound, var, ecn,
+                                  None if app is None else app(t, bound))
+        t = bound
+    assert kc.launches["tcp_advance:obs"] == len(cuts) + 1
+    for k in want:
+        a, b = want[k], got[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    assert int(got["fm_rx"].sum()) > 0
+    return got
+
+
+def test_mock_obs_arm_bit_equal_to_plain_loop(kernel):
+    """Bulk flows over every variant, launches cut at slots 37 (a batch
+    edge) and 100: the cuts, consumed losses, occupancy histogram,
+    FlowMonitor columns and ring."""
+    got = _obs_kernel_vs_plain(_dumbbell(17), 2, cuts=(37, 100))
+    assert int(got["cwnd_cuts"].sum()) > 0 and int(got["retx_cnt"].sum()) > 0
+
+
+def test_mock_obs_arm_red_and_grids(kernel):
+    """The OBS arm under RED/ECN over a two-point variant grid, and the
+    app-limited arm over a three-point workload grid."""
+    prog = dumbbell_program(
+        6, 0.3, variants=["TcpDctcp", "TcpNewReno", "TcpCubic"] * 2,
+        bottleneck_rate="5Mbps",
+        red=dict(MinTh=3, MaxTh=8, MaxSize=60, UseEcn=True))
+    got = _obs_kernel_vs_plain(prog, 2, cuts=(97,), variants=[
+        ["TcpDctcp", "TcpNewReno", "TcpCubic"] * 2, ["TcpDctcp"] * 6])
+    assert int(got["fm_lost"].sum()) > 0
+    pts = toy_traffic_points(5, 250_000)[1:4]
+    _obs_kernel_vs_plain(dataclasses.replace(_dumbbell(5), traffic=pts[0]),
+                         2, cuts=(45,), workloads=pts)
+
+
+@pytest.mark.parametrize("name", sorted(OBS_MUTANTS))
+def test_mock_obs_arm_mutant_fails(tmp_path, monkeypatch, name):
+    was, now = OBS_MUTANTS[name]
+    source = (CSRC / "tcp_advance.cu").read_text()
+    assert source.count(was) == 1
+    mutant = tmp_path / "tcp_advance.cu"
+    mutant.write_text(source.replace(was, now))
+    monkeypatch.setitem(_build._LOADED, "tcp_advance",
+                        _build_mock(mutant, tmp_path))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    with pytest.raises(AssertionError) as differs:
+        _obs_kernel_vs_plain(_dumbbell(8), 2, cuts=(45,))
+    assert str(differs.value).split("\n")[0] in {"fm_jsum", "fm_ring"}

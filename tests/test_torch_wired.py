@@ -322,9 +322,38 @@ def test_space_lanes_equal_reference_state():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "A12"), (dict(block=False, obs=True), "A10"),
-    (dict(obs=True), "A10"),
+    (dict(mesh=object()), "A12"), (dict(block=False, mesh=object()), "A12"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         W.run_wired(W.wired_chain(), _key(), 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(obs=True), dict(obs=True, block=False)])
+def test_obs_runs_beside_block_false(kw):
+    """``obs=True`` (once refused, ROADMAP A10) runs, also beside
+    ``block=False``: the outputs are the obs=False run's, and each flow's
+    deliveries are its received packets (tests/test_torch_obs_wired.py
+    holds the columns against the reference)."""
+    prog = W.wired_chain()
+    got = W.run_wired(prog, _key(), 2, device="cpu", **kw)
+    if not isinstance(got, dict):
+        got = got.result()
+    plain = W.run_wired(prog, _key(), 2, device="cpu")
+    for k in FIELDS:
+        assert np.array_equal(got[k], plain[k]), k
+    assert np.array_equal(got["flow"]["fm_rx"], got["delivered"])
+    assert (got["flow"]["fm_txb"] == 1000 * got["flow"]["fm_tx"]).all()
+
+
+def test_obs_delay_sums_are_the_deliveries_delays():
+    """``fm_dsum`` (in seconds) is each flow's delivered packets' delays,
+    ``deliver - birth``, times ``slot_s``: one exact integer a delivery."""
+    prog = W.wired_chain(6, 3, jitter_slots=0)
+    got = W.run_wired(prog, _key(), 1, device="cpu", obs=True)
+    flow, birth, _ = W.packet_table(prog)
+    d = got["deliver_slot"][0]
+    sums = np.zeros(prog.n_flows)
+    np.add.at(sums, flow[d >= 0], (d - birth)[d >= 0])
+    assert np.allclose(got["flow"]["fm_dsum"][0], sums * prog.slot_s,
+                       rtol=0, atol=1e-9)

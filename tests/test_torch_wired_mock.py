@@ -290,3 +290,109 @@ def test_link_table_in_device_memory(kernel, monkeypatch):
     for g in (90, 300):
         carry, _ = _both(tab, carry, g)
     assert (carry["deliver"] >= 0).sum() > 50
+
+
+# --------------------------------------------------------------------------
+# the OBS arm (csrc/wired_advance_obs.cu)
+
+#: the OBS arm's mutants: the jitter taken without its first-delivery
+#: guard, and the ring row written one slot late
+OBS_MUTANTS = {
+    "jitter_without_seen_guard": ("a.jsum[q], a.dlast[q] >= 0.0f",
+                                  "a.jsum[q], true"),
+    "ring_slot_off_by_one": ("s % RING_CAP) * RING_COLS",
+                             "(s + 1) % RING_CAP) * RING_COLS"),
+}
+
+
+@pytest.fixture(scope="module")
+def obs_lib(tmp_path_factory):
+    out = tmp_path_factory.mktemp("wired_obs") / "libwired_obs_mock.so"
+    return _build_mock(CSRC / "wired_advance_obs.cu", out)
+
+
+def _obs_windows(prog, replicas, bounds, stage=True):
+    """The OBS arm over windows ending at ``bounds`` against the plain
+    version's obs visits: every state array, column, ring row, ``t``,
+    ``fm_mark`` and metric bit-equal (``stage=False``: the packets kept
+    in global memory)."""
+    tab = W.wired_tables(prog, [(prog, None, None)], "cpu")
+    init, _ = W.build_wired_advance(prog, replicas, device="cpu", obs=True,
+                                    tab=tab)
+    want = init(KEY)
+    got = _clone(want)
+    for b in bounds:
+        want, wm = W.advance_math(tab, want, b)
+        got, gm = wired_cuda.wired_obs_cuda(tab, got, b, stage)
+        for k, v in want.items():
+            if torch.is_tensor(v):
+                a, g = (v, got[k]) if v.dtype != torch.float32 else (
+                    v.view(torch.int32), got[k].view(torch.int32))
+                assert torch.equal(a, g), (b, k)
+            else:
+                assert v == got[k], (b, k)
+        for k in ("next_event", "n_steps", "fm_ring"):
+            assert torch.equal(wm[k], gm[k]), (b, k)
+    assert int(want["fm_rx"].sum()) > 0
+    return want
+
+
+@pytest.mark.parametrize("replicas", [1, 3])
+def test_obs_arm_bit_equal_to_plain_version(obs_lib, monkeypatch, replicas):
+    """A jittered chain and the every-column program, over windows of 37
+    slots, one slot (37 to 38), 112 and the rest; one replica and three
+    (each row on its own clock)."""
+    _use(obs_lib, monkeypatch)
+    prog = W.wired_chain(12, 8, jitter_slots=5, n_slots=300)
+    _obs_windows(prog, replicas, (37, 38, 150, 300))
+    full = _port_full()
+    got = _obs_windows(full, replicas, (50, full.n_slots))
+    _obs_windows(full, replicas, (50, full.n_slots), stage=False)
+    assert kc.launches["wired_advance:obs"] == 8
+    assert int(got["fm_ring"][..., 0].max()) >= 0
+
+
+def _port_full():
+    """Three flows over all three columns of ``paths``, one backwards."""
+    return W.WiredProgram(
+        n_links=3, service_slots=np.array([1, 2, 1], np.int32),
+        delay_slots=np.array([2, 3, 2], np.int32),
+        paths=np.array([[0, 1, 2], [2, 1, 0], [1, 2, -1]], np.int32),
+        start_slot=np.array([1, 2, 3], np.int32),
+        period_slots=np.array([3, 4, 5], np.int32),
+        n_pkts=np.array([40, 30, 20], np.int32), n_slots=200,
+        jitter_slots=2)
+
+
+def test_obs_arm_runs_through_run_wired(obs_lib, monkeypatch):
+    """``run_wired(obs=True)`` on the card's path (CPU tensors through the
+    mock): the windows launch the OBS arm and give the plain run's
+    columns, in seconds and µs."""
+    _use(obs_lib, monkeypatch)
+    prog = W.wired_chain(6, 3, n_slots=200, jitter_slots=3)
+    plain = W.run_wired(prog, KEY, 2, device="cpu", obs=True,
+                        window_slots=70)
+    monkeypatch.setattr(W, "advance_math", lambda *a: pytest.fail(
+        "the OBS arm must not take the plain version"))
+    monkeypatch.setattr(wired_cuda, "advance_math", lambda tab, carry, t:
+                        wired_cuda.wired_obs_cuda(tab, carry, t))
+    got = W.run_wired(prog, KEY, 2, device="cpu", obs=True,
+                      window_slots=70)
+    assert kc.launches["wired_advance:obs"] == 3
+    for k, v in plain["flow"].items():
+        assert np.array_equal(np.asarray(v).view(np.uint8),
+                              np.asarray(got["flow"][k]).view(np.uint8)), k
+
+
+@pytest.mark.parametrize("name", sorted(OBS_MUTANTS))
+def test_obs_arm_mutant_fails(tmp_path, monkeypatch, name):
+    was, now = OBS_MUTANTS[name]
+    source = (CSRC / "wired_advance_obs.cu").read_text()
+    assert source.count(was) == 1
+    mutant = tmp_path / "wired_advance_obs.cu"
+    mutant.write_text(source.replace(was, now))
+    _use(_build_mock(mutant, tmp_path / "libmutant.so"), monkeypatch)
+    with pytest.raises(AssertionError) as differs:
+        _obs_windows(_port_full(), 2, (50, 200))
+    first = str(differs.value).split("\n")[0]
+    assert "'fm_jsum'" in first or "'fm_ring'" in first, first

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -81,8 +82,13 @@ def _start(name: str):
 def build(names) -> dict[str, str]:
     """Compile every source of every named library, all nvcc processes
     started together, then link each library; returns each library's
-    compiler output (empty when it was cached).  Raises if any build
-    fails."""
+    compiler output (empty when it was cached).  Each library built is one
+    :class:`~tpudes_torch.obs.device.CompileTelemetry` entry,
+    ``"nvcc:<name>"``, with the wall time from the build's start to its
+    link.  Raises if any build fails."""
+    from tpudes_torch.obs.device import CompileTelemetry
+
+    t_start = time.monotonic()
     started = {n: _start(n) for n in names}
     logs, failed = {}, []
     for name, job in started.items():
@@ -112,6 +118,8 @@ def build(names) -> dict[str, str]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                CompileTelemetry.record(f"nvcc:{name}",
+                                        time.monotonic() - t_start)
         for obj in objs:
             obj.unlink(missing_ok=True)
         logs[name] = "".join(texts)

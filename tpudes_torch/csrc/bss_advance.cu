@@ -14,6 +14,11 @@ static_assert(BSS_REG_SLOTS == 4, "one case per register slot count");
 // shared are the launch's geometry as bss_cuda.py::launch_geometry gives
 // it, checked here.  prof, if not null, takes the probe's (C R,
 // BSS_PROF_STAGES) cycles and runs the probe in place of the main path.
+// obs, if not null, is a host array of the OBS arm's 13 device pointers
+// (replicated.py::obs_keys's order: retx, the FlowMonitor columns, the
+// histogram, the ring; updated in place), with a packet's bytes and the
+// histogram's bin factor: the kernel with the columns
+// (bss_advance_obs_s*.cu).
 extern "C" int bss_advance_launch(
     const float* rx_w, const uint8_t* det, const int* interval,
     const int* stop, const long long* key, const int* t,
@@ -34,7 +39,8 @@ extern "C" int bss_advance_launch(
     float e4, float e5, float e6, float e7, float e8, float e9, float b,
     int mask, int K, int preamble, float sub8, float inv_ndbps, float rate,
     const void* mob_args, const void* tr_args, int slots, int blocks,
-    int shared, long long* prof, void* stream) {
+    int shared, long long* prof, void* const* obs, int obs_pkt,
+    float obs_scale, void* stream) {
   using namespace bss_kernel;
   const Mob* mob = static_cast<const Mob*>(mob_args);
   const Traffic* tr = static_cast<const Traffic*>(tr_args);
@@ -53,6 +59,11 @@ extern "C" int bss_advance_launch(
       shared != BSS_ROWS_PER_BLOCK * rb)
     return cudaErrorInvalidValue;
   if (prof && slots != BSS_PROF_SLOTS) return cudaErrorInvalidValue;
+  if (obs && (prof || obs_pkt < 0 || !(obs_scale > 0.0f)))
+    return cudaErrorInvalidValue;
+  if (obs)
+    for (int q = 0; q < 13; ++q)
+      if (obs[q] == nullptr) return cudaErrorInvalidValue;
   Launch a{};
   for (int p = 0; p < C; ++p) {
     if (step0[p] < 0 || step1 < step0[p]) return cudaErrorInvalidValue;
@@ -85,10 +96,24 @@ extern "C" int bss_advance_launch(
   a.blocks = blocks;
   a.shared = shared;
   a.st = static_cast<cudaStream_t>(stream);
+  if (obs) {
+    int* const* q = reinterpret_cast<int* const*>(obs);
+    auto f = [&](int k) { return reinterpret_cast<float*>(q[k]); };
+    a.ob = Obs{q[0], q[1], q[2], q[3], q[4], q[5], f(6), f(7), f(8), f(9),
+               f(10), q[11], q[12], obs_pkt, obs_scale};
+  }
   const bool agg = K > 1, m = mob != nullptr, f = tr != nullptr;
   cudaError_t e;
   if (prof) {
     e = launch_probe(agg, m, f, a);
+  } else if (obs) {
+    switch (slots) {
+      case 1: e = launch_obs1(agg, m, f, a); break;
+      case 2: e = launch_obs2(agg, m, f, a); break;
+      case 3: e = launch_obs3(agg, m, f, a); break;
+      case 4: e = launch_obs4(agg, m, f, a); break;
+      default: e = launch_obs0(agg, m, f, a); break;
+    }
   } else {
     switch (slots) {
       case 1: e = launch_slots1(agg, m, f, a); break;

@@ -189,6 +189,22 @@ struct Traffic {
   int multi;               // 1: point p reads set p
 };
 
+// the OBS arm's state (replicated.py::obs_keys), updated in place: the
+// failed exchanges per replica (C R,), the FlowMonitor columns of each node
+// (C R, N), its delay histogram (C R, N, 16) and the ring (C R, 512, 5); a
+// packet's bytes and the factor taking a delay (s) to its histogram bin
+// (flowmon.py::bin_scale)
+struct Obs {
+  int *retx, *tx, *txb, *rx, *rxb, *lost;
+  float *dsum, *jsum, *dlast, *t0, *t1;
+  int *hist, *ring;
+  int pkt;
+  float scale;
+};
+constexpr int kObsBins = 16;
+constexpr int kRingCap = 512;
+constexpr int kRingCols = 5;
+
 // the BSS_STATE layout (parallel/bss_cuda.py): per node (R, N), per replica
 // (R,)
 struct StateIn {
@@ -451,12 +467,12 @@ __device__ __forceinline__ float slot_tree(float (&v)[P], int ns) {
   return v[0];
 }
 
-template <int S, bool AGG, bool MOB, bool TRF, bool PROF>
+template <int S, bool AGG, bool MOB, bool TRF, bool PROF, bool OBS = false>
 __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
     bss_advance_kernel(Consts c, Points pts, Mob mob, Traffic tr, StateIn si,
                        StateOut so, const long long* __restrict__ key,
                        int* done, int* t_next, uint8_t* pending, Grid g,
-                       long long* prof) {
+                       long long* prof, Obs ob) {
   // SM: a lane's slot arrays; P: the slot tree's width (a power of two)
   constexpr int SM = S > 0 ? S : BSS_MAX_N / 32;
   constexpr int P = SM <= 1 ? 1 : SM <= 2 ? 2 : SM <= 4 ? 4 : 32;
@@ -503,6 +519,32 @@ __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
     stop[s] = valid ? c.stop[i] : kInf;
     rx_to_ap[s] = 0.0f;
     lone_up[s] = 0.0f;
+  }
+  // OBS: the lane's nodes' FlowMonitor columns in its slot arrays (the
+  // histogram stays in global memory: a delivery adds to one bin), and the
+  // replica's failed exchanges
+  int f_tx[OBS ? SM : 1], f_txb[OBS ? SM : 1], f_rx[OBS ? SM : 1],
+      f_rxb[OBS ? SM : 1], f_lost[OBS ? SM : 1];
+  float f_dsum[OBS ? SM : 1], f_jsum[OBS ? SM : 1], f_dlast[OBS ? SM : 1],
+      f_t0[OBS ? SM : 1], f_t1[OBS ? SM : 1];
+  int retx = 0;
+  if constexpr (OBS) {
+    retx = ob.retx[pr];
+#pragma unroll
+    for (int s = 0; s < ns; ++s) {
+      const int i = s * 32 + lane;
+      const long long q = qb + (i < N ? i : 0);
+      f_tx[s] = ob.tx[q];
+      f_txb[s] = ob.txb[q];
+      f_rx[s] = ob.rx[q];
+      f_rxb[s] = ob.rxb[q];
+      f_lost[s] = ob.lost[q];
+      f_dsum[s] = ob.dsum[q];
+      f_jsum[s] = ob.jsum[q];
+      f_dlast[s] = ob.dlast[q];
+      f_t0[s] = ob.t0[q];
+      f_t1[s] = ob.t1[q];
+    }
   }
   // the chain's value for a link with no interference
   const float lone = __fadd_rn(0.0f, c.noise_w);
@@ -855,6 +897,11 @@ __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
     const int elapsed = idle < 0 ? 0 : idle / kSlot;
     int drop_n[SM];
     int w_ok = 0, w_drop = 0, w_data = 0, w_occ = 0;
+    // OBS: the failed exchanges, the lane's best delivering node and first
+    // winner (the ring row's argmax), the step's time in seconds
+    int w_fail = 0, w_best = 0, w_first = kInf;
+    const float obs_ts = OBS ? __fmul_rn(static_cast<float>(next_t), 1e-6f)
+                             : 0.0f;
 #pragma unroll
     for (int s = 0; s < ns; ++s) {
       const int i = s * 32 + lane;
@@ -869,6 +916,37 @@ __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
       const bool fail = data_tx && n_ok[s] == 0;
       const bool dropped = fail && retries[s] + 1 > kRetryLimit;
       drop_n[s] = dropped ? k_agg[s] : 0;
+      if constexpr (OBS) {
+        // the node's FlowMonitor columns (replicated.py::obs_step): an
+        // exchange sends k_agg MPDUs, delivers n_ok, its delay dur us
+        const int tx = data_tx ? k_agg[s] : 0, rx = n_ok[s];
+        if (i < N && (tx > 0 || rx > 0 || drop_n[s] > 0)) {
+          const float delay = __fmul_rn(static_cast<float>(dur[s]), 1e-6f);
+          f_tx[s] += tx;
+          f_txb[s] += tx * ob.pkt;
+          f_rx[s] += rx;
+          f_rxb[s] += rx * ob.pkt;
+          f_lost[s] += drop_n[s];
+          f_dsum[s] = __fadd_rn(f_dsum[s],
+                                __fmul_rn(delay, static_cast<float>(rx)));
+          f_jsum[s] = __fadd_rn(f_jsum[s],
+                                rx > 0 && f_dlast[s] >= 0.0f
+                                    ? fabsf(__fsub_rn(delay, f_dlast[s]))
+                                    : 0.0f);
+          if (rx > 0) {
+            f_dlast[s] = delay;
+            f_t1[s] = obs_ts;
+            const int bin = min(
+                max(__float2int_rz(__fmul_rn(delay, ob.scale)), 0),
+                kObsBins - 1);
+            ob.hist[(qb + i) * kObsBins + bin] += rx;
+          }
+          if (tx > 0 && f_t0[s] < 0.0f) f_t0[s] = obs_ts;
+        }
+        w_fail += fail ? 1 : 0;
+        w_best = max(w_best, rx > 0 ? (rx << 16) | (0xFFFF - i) : 0);
+        if (winner) w_first = min(w_first, i);
+      }
       const bool reset = success || dropped || beacon_tx;
       const int retries1 = reset ? 0 : retries[s] + (fail ? 1 : 0);
       const int cw1 =
@@ -904,6 +982,23 @@ __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
       } else if (is_arr) {
         int adv = next_arr[s] >= kInf ? kInf : next_arr[s] + interval[s];
         next_arr[s] = adv >= stop[s] ? kInf : adv;
+      }
+    }
+    if constexpr (OBS) {
+      // the ring row of the step (replicated.py::obs_step): the first node
+      // with the most deliveries, else the first winner
+      retx += __reduce_add_sync(kFull, w_fail);
+      const int best = __reduce_max_sync(kFull, w_best);
+      const int first = __reduce_min_sync(kFull, w_first);
+      if (lane == 0) {
+        int* w = ob.ring +
+                 (static_cast<long long>(pr) * kRingCap + step % kRingCap) *
+                     kRingCols;
+        w[0] = any_win ? step : -1;
+        w[1] = next_t;
+        w[2] = best > 0 ? 0xFFFF - (best & 0xFFFF) : (any_win ? first : 0);
+        w[3] = ob.pkt;
+        w[4] = best > 0 ? 1 : 0;
       }
     }
     const int n_sta_ok = __reduce_add_sync(kFull, w_ok);
@@ -946,8 +1041,22 @@ __global__ void __launch_bounds__(BSS_ROWS_PER_BLOCK * 32, 4)
       so.cw[q] = cw[s];
       so.retries[q] = retries[s];
       so.cli_rx[q] = cli[s];
+      if constexpr (OBS) {
+        ob.tx[q] = f_tx[s];
+        ob.txb[q] = f_txb[s];
+        ob.rx[q] = f_rx[s];
+        ob.rxb[q] = f_rxb[s];
+        ob.lost[q] = f_lost[s];
+        ob.dsum[q] = f_dsum[s];
+        ob.jsum[q] = f_jsum[s];
+        ob.dlast[q] = f_dlast[s];
+        ob.t0[q] = f_t0[s];
+        ob.t1[q] = f_t1[s];
+      }
     }
   }
+  if constexpr (OBS)
+    if (lane == 0) ob.retx[pr] = retx;
   if (lane == 0) {
     so.t[pr] = t;
     so.bcn_pend[pr] = bcn;
@@ -980,28 +1089,45 @@ struct Launch {
   long long* prof;
   int blocks, shared;
   cudaStream_t st;
+  Obs ob;  // the OBS arm's (its pointers null otherwise)
 };
 
-template <int S, bool AGG, bool MOB, bool TRF, bool PROF>
+template <int S, bool AGG, bool MOB, bool TRF, bool PROF, bool OBS = false>
 inline cudaError_t launch(const Launch& a) {
   if (a.shared > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bss_advance_kernel<S, AGG, MOB, TRF, PROF>,
+        bss_advance_kernel<S, AGG, MOB, TRF, PROF, OBS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, a.shared);
     if (e != cudaSuccess) return e;
   }
-  bss_advance_kernel<S, AGG, MOB, TRF, PROF>
-      <<<a.blocks, BSS_ROWS_PER_BLOCK * 32, a.shared, a.st>>>(
-      a.c, a.pts, a.mob, a.tr, a.si, a.so, a.key, a.done, a.t_next,
-      a.pending, a.g, a.prof);
+  Launch k = a;  // the kernel's arguments, by address
+  void* args[] = {&k.c,    &k.pts,    &k.mob,     &k.tr, &k.si,
+                  &k.so,   &k.key,    &k.done,    &k.t_next,
+                  &k.pending, &k.g,   &k.prof,    &k.ob};
+  const cudaError_t e = cudaLaunchKernel(
+      bss_advance_kernel<S, AGG, MOB, TRF, PROF, OBS>, dim3(a.blocks),
+      dim3(BSS_ROWS_PER_BLOCK * 32), args, a.shared, a.st);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // the arm (AGG, MOB, TRF) of slot count S; the probe only for the bench's
-// slot count and one arm at a time
-template <int S, bool PROF>
+// slot count and one arm at a time; OBS (with the FlowMonitor columns) any
+// arm but the probe
+template <int S, bool PROF, bool OBS = false>
 inline cudaError_t launch_arm(bool agg, bool mob, bool trf, const Launch& a) {
-  if constexpr (PROF) {
+  if constexpr (OBS) {
+    if (agg) {
+      if (mob) return trf ? launch<S, true, true, true, false, true>(a)
+                          : launch<S, true, true, false, false, true>(a);
+      return trf ? launch<S, true, false, true, false, true>(a)
+                 : launch<S, true, false, false, false, true>(a);
+    }
+    if (mob) return trf ? launch<S, false, true, true, false, true>(a)
+                        : launch<S, false, true, false, false, true>(a);
+    return trf ? launch<S, false, false, true, false, true>(a)
+               : launch<S, false, false, false, false, true>(a);
+  } else if constexpr (PROF) {
     if (agg + mob + trf > 1) return cudaErrorInvalidValue;
     if (agg) return launch<S, true, false, false, true>(a);
     if (mob) return launch<S, false, true, false, true>(a);
@@ -1036,6 +1162,13 @@ cudaError_t launch_slots3(bool agg, bool mob, bool trf, const Launch& a);
 cudaError_t launch_slots4(bool agg, bool mob, bool trf, const Launch& a);
 cudaError_t launch_slots0(bool agg, bool mob, bool trf, const Launch& a);
 cudaError_t launch_probe(bool agg, bool mob, bool trf, const Launch& a);
+// the OBS arm of each slot count, one translation unit each
+// (bss_advance_obs_s*.cu)
+cudaError_t launch_obs1(bool agg, bool mob, bool trf, const Launch& a);
+cudaError_t launch_obs2(bool agg, bool mob, bool trf, const Launch& a);
+cudaError_t launch_obs3(bool agg, bool mob, bool trf, const Launch& a);
+cudaError_t launch_obs4(bool agg, bool mob, bool trf, const Launch& a);
+cudaError_t launch_obs0(bool agg, bool mob, bool trf, const Launch& a);
 
 }  // namespace bss_kernel
 

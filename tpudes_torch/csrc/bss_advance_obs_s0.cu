@@ -1,0 +1,15 @@
+// bss_advance_obs_s0.cu — bss_advance.cuh's OBS arm (the kernel with the
+// FlowMonitor columns, tpudes/parallel/replicated.py:1025-1070) for 5 to 32
+// slots a lane, held in local memory (N 129..1024), every arm: one
+// translation unit of the library, built in parallel with the others, so the
+// arms without the columns keep their code.
+
+#include "bss_advance.cuh"
+
+namespace bss_kernel {
+
+cudaError_t launch_obs0(bool agg, bool mob, bool trf, const Launch& a) {
+  return launch_arm<0, false, true>(agg, mob, trf, a);
+}
+
+}  // namespace bss_kernel

@@ -65,6 +65,12 @@
 //   reference refuses traffic with mobility; the sweep grid takes either.
 // - bf16 (template flag BF16, precision="bf16"): lte_sm_common.cuh's metric
 //   and BLER with the reference's bf16 roundings; orthogonal to the arms.
+// - FlowMonitor columns (template flag OBS, obs=True; the reference's obs
+//   arm, lte_sm.py:650-757, in its static arm only): each UE's columns in
+//   registers, updated from the TTI's counter differences, and one ring
+//   row a TTI; instantiated in lte_sm_advance_obs.cu, its own translation
+//   unit, and every line of it under if constexpr, so the arms without it
+//   keep their code.
 //
 // Arithmetic: lte_sm_common.cuh's, bit-identical on the card to the plain
 // PyTorch loop sm_advance_math (tpudes_torch/parallel/kernels_cuda.py).
@@ -90,7 +96,7 @@
 // (a retx due time) stay below 2^31
 #define ADV_MAX_T 2147483000
 
-namespace {
+namespace lte_adv {
 
 using namespace lte_sm;
 
@@ -108,6 +114,47 @@ struct Traffic {
   float* o_backlog;
   int *o_drained_lo, *o_drained_hi;
 };
+
+// the OBS arm's FlowMonitor columns (flow = UE), updated in place: (rows,
+// U) each, hist (rows, U, 16), ring (rows, 512, 5); delay is the one-TTI
+// MAC-to-ACK latency (also the TTI's length in seconds), bin its histogram
+// bin
+struct Obs {
+  int *tx, *txb, *rx, *rxb, *lost;
+  float *dsum, *jsum, *dlast, *t0, *t1;
+  int *hist, *ring;
+  float delay;
+  int bin;
+};
+constexpr int kObsBins = 16;
+constexpr int kRingCap = 512;
+constexpr int kRingCols = 5;
+
+// one UE's event key for the ring's argmax: the count, then the lowest UE
+// index, then the UE's bytes this TTI (a count is 0 or 1 a TTI)
+__device__ __forceinline__ unsigned long long obs_key(int v, int u,
+                                                      int bytes) {
+  return (static_cast<unsigned long long>(v) << 48) |
+         (static_cast<unsigned long long>(0xFFFF - u) << 32) |
+         static_cast<uint32_t>(bytes);
+}
+
+// the ring row of TTI tt from its two keys (deliveries, sends), by one
+// thread: the UE with the most deliveries (the lowest index on a tie),
+// else the one with the most sends; step -1 where neither happened
+__device__ __forceinline__ void obs_ring_row(int* ring, int row, int tt,
+                                             unsigned long long k_ok,
+                                             unsigned long long k_tx) {
+  const bool got = k_ok != 0ull, sent = k_tx != 0ull;
+  const unsigned long long k = got ? k_ok : k_tx;
+  int* w = ring + (static_cast<long long>(row) * kRingCap + tt % kRingCap) *
+                      kRingCols;
+  w[0] = got || sent ? tt : -1;
+  w[1] = static_cast<int>(static_cast<unsigned>(tt) * 1000u);
+  w[2] = k != 0ull ? 0xFFFF - static_cast<int>((k >> 32) & 0xFFFFull) : 0;
+  w[3] = k != 0ull ? static_cast<int>(static_cast<uint32_t>(k)) : 0;
+  w[4] = got ? 1 : 0;
+}
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kBacklogCap = 1073741824.0f;  // 2^30 bits
@@ -149,12 +196,12 @@ __device__ __forceinline__ void load_row(const Table& tab, int j, int U,
   }
 }
 
-template <int K, bool DYN, bool TRF, bool BF16>
+template <int K, bool DYN, bool TRF, bool BF16, bool OBS = false>
 __global__ void __launch_bounds__(ADV_MAX_THREADS)
     lte_sm_advance_kernel(Consts c, Table tab, Traffic tr, StateIn si,
                           StateOut so, const long long* __restrict__ keys,
                           const int* __restrict__ sids, Params p, int t0,
-                          int t1, int stride) {
+                          int t1, int stride, Obs ob) {
   __shared__ int s_scan[ADV_MAX_U];         // in-chunk inclusive request scan
   __shared__ int s_chunk[ADV_MAX_U / 32];   // each 32-position chunk's total
   __shared__ int s_rr[ADV_MAX_E];           // the cells' RR pointers
@@ -178,6 +225,9 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
   // and the next TTI's offered bits in flight
   float backlog[K], bl[K], off_nx[K];
   int drained_lo[K], drained_hi[K];
+  // the OBS arm: each UE's columns, and its deliveries into the bin
+  int f_tx[K], f_txb[K], f_rx[K], f_rxb[K], f_lost[K], f_hist[K];
+  float f_dsum[K], f_jsum[K], f_dlast[K], f_t0[K], f_t1[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int q = k * B + tid;
@@ -207,6 +257,27 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
       drained_hi[k] = valid[k] ? tr.drained_hi[i] : 0;
       off_nx[k] = t1 > t0 ? tr.offered[u] : 0.0f;
     }
+    if constexpr (OBS) {
+      const int i = row * U + u;
+      f_tx[k] = valid[k] ? ob.tx[i] : 0;
+      f_txb[k] = valid[k] ? ob.txb[i] : 0;
+      f_rx[k] = valid[k] ? ob.rx[i] : 0;
+      f_rxb[k] = valid[k] ? ob.rxb[i] : 0;
+      f_lost[k] = valid[k] ? ob.lost[i] : 0;
+      f_dsum[k] = valid[k] ? ob.dsum[i] : 0.0f;
+      f_jsum[k] = valid[k] ? ob.jsum[i] : 0.0f;
+      f_dlast[k] = valid[k] ? ob.dlast[i] : -1.0f;
+      f_t0[k] = valid[k] ? ob.t0[i] : -1.0f;
+      f_t1[k] = valid[k] ? ob.t1[i] : -1.0f;
+      f_hist[k] = 0;
+    }
+  }
+  // the OBS arm's ring keys of the TTI, by parity
+  unsigned long long* s_obs = nullptr;
+  if constexpr (OBS) {
+    __shared__ unsigned long long s_obs_buf[2][2];
+    s_obs = &s_obs_buf[0][0];
+    if (tid < 4) s_obs[tid] = 0ull;
   }
   for (int e = tid; e < E; e += B) {
     s_rr[e] = si.rr_ptr[row * E + e];
@@ -341,6 +412,14 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
       s_used[b ^ 1][e] = 0;
       s_key[b ^ 1][e] = 0ull;
     }
+    if constexpr (OBS) {
+      // the TTI before's ring row (its keys landed before the barrier)
+      if (tid == 0 && t > t0) {
+        obs_ring_row(ob.ring, row, t - 1, s_obs[2 * (b ^ 1)],
+                     s_obs[2 * (b ^ 1) + 1]);
+        s_obs[2 * (b ^ 1)] = s_obs[2 * (b ^ 1) + 1] = 0ull;
+      }
+    }
     __syncthreads();
 
     // C. the winner takes its cell's RBGs left and moves the RR pointer;
@@ -355,9 +434,44 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
                           static_cast<uint32_t>(key) ==
                               ~static_cast<uint32_t>(ue[k]);
       if (winner) s_rr[e] = (pos[k] + 1) % count_c[k];
+      const Ue before = st[k];
       const float served =
           decode_update<BF16>(st[k], fit[k], winner, winner ? rem : 0,
                               coin[k], eff0[k], mi0[k], ecr0[k], t, p);
+      if constexpr (OBS) {
+        // the TTI's counter differences: acked bytes from the split rx
+        // counter, sends, deliveries and drops (lte_sm.py:688-733)
+        const int d_ok = st[k].ok_cnt - before.ok_cnt;
+        const int d_tx = (st[k].new_tbs - before.new_tbs) +
+                         (st[k].retx - before.retx);
+        const int d_drop = st[k].drops - before.drops;
+        const int d_bits = static_cast<int>(
+            (static_cast<unsigned>(st[k].rx_hi - before.rx_hi) << 20) +
+            static_cast<unsigned>(st[k].rx_lo - before.rx_lo));
+        const int d_bytes = d_bits >> 3;
+        const bool got = d_ok > 0;
+        const float ts = __fmul_rn(static_cast<float>(t), ob.delay);
+        f_tx[k] += d_tx;
+        f_txb[k] += d_bytes;
+        f_rx[k] += d_ok;
+        f_rxb[k] += d_bytes;
+        f_lost[k] += d_drop;
+        f_dsum[k] =
+            __fadd_rn(f_dsum[k], __fmul_rn(ob.delay, static_cast<float>(d_ok)));
+        f_jsum[k] = __fadd_rn(
+            f_jsum[k], got && f_dlast[k] >= 0.0f
+                           ? fabsf(__fsub_rn(ob.delay, f_dlast[k]))
+                           : 0.0f);
+        if (got) {
+          f_dlast[k] = ob.delay;
+          f_t1[k] = ts;
+        }
+        if (d_tx > 0 && f_t0[k] < 0.0f) f_t0[k] = ts;
+        f_hist[k] += d_ok;
+        if (got) atomicMax(&s_obs[2 * b], obs_key(d_ok, ue[k], d_bytes));
+        if (d_tx > 0)
+          atomicMax(&s_obs[2 * b + 1], obs_key(d_tx, ue[k], d_bytes));
+      }
       if (TRF) {
         // only the backlog's bits drain (a larger TB is padding)
         const float drain = fminf(served, bl[k]);
@@ -380,6 +494,25 @@ __global__ void __launch_bounds__(ADV_MAX_THREADS)
       tr.o_drained_lo[i] = drained_lo[k];
       tr.o_drained_hi[i] = drained_hi[k];
     }
+    if constexpr (OBS) {
+      ob.tx[i] = f_tx[k];
+      ob.txb[i] = f_txb[k];
+      ob.rx[i] = f_rx[k];
+      ob.rxb[i] = f_rxb[k];
+      ob.lost[i] = f_lost[k];
+      ob.dsum[i] = f_dsum[k];
+      ob.jsum[i] = f_jsum[k];
+      ob.dlast[i] = f_dlast[k];
+      ob.t0[i] = f_t0[k];
+      ob.t1[i] = f_t1[k];
+      ob.hist[static_cast<long long>(i) * kObsBins + ob.bin] += f_hist[k];
+    }
+  }
+  if constexpr (OBS) {
+    if (tid == 0 && t1 > t0) {
+      const int b = (t1 - 1 - t0) & 1;
+      obs_ring_row(ob.ring, row, t1 - 1, s_obs[2 * b], s_obs[2 * b + 1]);
+    }
   }
   for (int e = tid; e < E; e += B) so.rr_ptr[row * E + e] = s_rr[e];
 }
@@ -395,16 +528,21 @@ struct Launch {
   Params p;
   int R, C, B, t0, t1, stride;
   cudaStream_t stream;
+  Obs ob;
 };
 
-template <int K, bool DYN, bool TRF, bool BF16>
+template <int K, bool DYN, bool TRF, bool BF16, bool OBS = false>
 int launch_arm(const Launch& a) {
-  lte_sm_advance_kernel<K, DYN, TRF, BF16>
+  lte_sm_advance_kernel<K, DYN, TRF, BF16, OBS>
       <<<dim3(a.R, a.C), a.B, 0, a.stream>>>(a.c, a.tab, a.tr, a.si, a.so,
                                              a.keys, a.sids, a.p, a.t0, a.t1,
-                                             a.stride);
+                                             a.stride, a.ob);
   return static_cast<int>(cudaGetLastError());
 }
+
+// the OBS arm (static rows, full buffers; either precision, any point
+// count): lte_sm_advance_obs.cu
+int launch_obs(const Launch& a, int K, bool bf16);
 
 template <int K, bool BF16>
 int launch_arms(const Launch& a) {
@@ -418,7 +556,10 @@ int launch(const Launch& a, bool bf16) {
   return bf16 ? launch_arms<K, true>(a) : launch_arms<K, false>(a);
 }
 
-}  // namespace
+}  // namespace lte_adv
+
+#ifndef LTE_ADV_OBS_PART
+using namespace lte_adv;
 
 extern "C" int lte_sm_advance_launch(
     const float* mi0, const float* rate0, const float* eff0,
@@ -439,9 +580,16 @@ extern "C" int lte_sm_advance_launch(
     float* o_tr_backlog, int* o_tr_drained_lo, int* o_tr_drained_hi,
     int R, int C, int E, int U, int n_rbg, int rbg_size, int n_rb,
     float alpha, float one_minus_alpha, float inv_sqrt2, int t0, int t1,
-    int sid, int stride, int bf16, void* stream) {
+    int sid, int stride, int bf16, void* stream, void* const* obs,
+    float obs_delay, int obs_bin) {
   const bool dyn = tab_mi0 != nullptr;
   const bool trf = offered != nullptr;
+  if (obs != nullptr &&
+      (dyn || trf || obs_bin < 0 || obs_bin >= kObsBins))
+    return cudaErrorInvalidValue;
+  if (obs != nullptr)
+    for (int q = 0; q < 12; ++q)
+      if (obs[q] == nullptr) return cudaErrorInvalidValue;
   if (U <= 0 || U > ADV_MAX_U || E <= 0 || E > ADV_MAX_E || R <= 0 ||
       C <= 0 || C > 65535 || (C > 1 && sids == nullptr) || t0 < 0 ||
       t1 < t0 || t1 > ADV_MAX_T || stride <= 0 || (dyn && trf) ||
@@ -466,8 +614,18 @@ extern "C" int lte_sm_advance_launch(
                  alpha, one_minus_alpha, inv_sqrt2};
   const int padded = ((U + 31) / 32) * 32;
   const int B = padded < ADV_MAX_THREADS ? padded : ADV_MAX_THREADS;
+  Obs ob{};
+  if (obs != nullptr) {
+    int* const* q = reinterpret_cast<int* const*>(obs);
+    ob = Obs{q[0], q[1], q[2], q[3], q[4],
+             reinterpret_cast<float*>(q[5]), reinterpret_cast<float*>(q[6]),
+             reinterpret_cast<float*>(q[7]), reinterpret_cast<float*>(q[8]),
+             reinterpret_cast<float*>(q[9]), q[10], q[11], obs_delay,
+             obs_bin};
+  }
   const Launch a{c,    tab, tr, si, so, keys, sids, p, R, C, B, t0, t1,
-                 stride, static_cast<cudaStream_t>(stream)};
+                 stride, static_cast<cudaStream_t>(stream), ob};
+  if (obs != nullptr) return launch_obs(a, (U + B - 1) / B, bf16 != 0);
   switch ((U + B - 1) / B) {
     case 1:
       return launch<1>(a, bf16 != 0);
@@ -479,3 +637,4 @@ extern "C" int lte_sm_advance_launch(
       return launch<4>(a, bf16 != 0);
   }
 }
+#endif  // LTE_ADV_OBS_PART

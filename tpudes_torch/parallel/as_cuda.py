@@ -197,8 +197,19 @@ def spf_profile(g: dict, n: int, rounds: int, prof,
     :data:`SPF_PROF_WORDS` cycles (sums over CTAs, :func:`spf_stages`) to
     the int64 ``prof``.  Returns the outputs.  Not counted in
     ``kernels_cuda.launches``."""
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
     _check("prof", prof, (SPF_PROF_WORDS,), torch.int64, g["w"].device)
-    return spf_cuda(g, n, rounds, shared, prof)
+    before = prof.clone()
+    with timed_launch(g["w"].device) as wall:
+        out = spf_cuda(g, n, rounds, shared, prof)
+    w = (prof - before).tolist()
+    R3 = 3 * SPF_PROF_ROUNDS
+    KernelProfile.record_cycles(
+        "as_spf", dict(setup=w[0], rounds=sum(w[1:1 + R3]),
+                       next_hop=w[1 + R3], rows=w[2 + R3], walk=w[3 + R3]),
+        n, wall[0])
+    return out
 
 
 def fluid_launch(t: dict, fm, scale, key, replicas: int, reached,
@@ -286,9 +297,18 @@ def fluid_profile(t: dict, fm, scale, key, replicas: int, reached,
     :data:`FLUID_PROF_WORDS` cycles (sums over CTAs,
     :func:`fluid_stages`) to the int64 ``prof``.  Returns the outputs.
     Not counted in ``kernels_cuda.launches``."""
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
     _check("prof", prof, (FLUID_PROF_WORDS,), torch.int64, fm.device)
-    return fluid_cuda(t, fm, scale, key, replicas, reached, jitter, hj2,
-                      rounds, prof=prof)[0]
+    before = prof.clone()
+    with timed_launch(fm.device) as wall:
+        out = fluid_cuda(t, fm, scale, key, replicas, reached, jitter, hj2,
+                         rounds, prof=prof)[0]
+    w = (prof - before).tolist()
+    KernelProfile.record_cycles(
+        "as_fluid", dict(setup=w[0], flow=sum(w[1:-1:2]), link=sum(w[2:-1:2]),
+                         delay=w[-1]), replicas, wall[0])
+    return out
 
 
 def erf_inv_check(x: torch.Tensor) -> torch.Tensor:

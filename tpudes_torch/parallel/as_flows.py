@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.ops.fused import exp, f32, fma, log
 from tpudes_torch.parallel.runtime import (
     RUNTIME,
@@ -542,14 +543,16 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     returns an :class:`~tpudes_torch.parallel.runtime.EngineFuture`.
     ``device`` defaults to the card, where a run is one ``as_spf`` launch
     (the routing and the walk) and one ``as_fluid`` launch a chunk (the
-    draws and the fixed point)."""
+    draws and the fixed point).  ``obs=True`` streams a chunked run's
+    per-chunk ``max_util`` (the largest link utilisation over the
+    replicas, a point's) to :class:`~tpudes_torch.obs.device.ChunkStream`
+    (``as_flows.py:515-517``); no kernel changes."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
     if prog.surrogate is not None:
         raise _not_ported("the smooth surrogate (prog.surrogate, "
                           "build_as_diff)", "A14")
+    from tpudes_torch.obs.device import CompileTelemetry
     from tpudes_torch.parallel.as_cuda import fluid_launch, spf_launch
     from tpudes_torch.parallel.checkpoint import checkpoint_ctx
 
@@ -557,8 +560,9 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     r_pad = bucket_replicas(replicas)
     n_cfg = None if rate_scale is None else len(rate_scale)
     scales = [1.0] if rate_scale is None else [float(s) for s in rate_scale]
-    runner, _ = RUNTIME.runner(
-        "as_flows", as_prog_key(prog) + (r_pad, None, n_cfg, False, str(dev)),
+    t_miss = wall_now()
+    runner, compiling = RUNTIME.runner(
+        "as_flows", as_prog_key(prog) + (r_pad, None, n_cfg, obs, str(dev)),
         lambda: _as_runner(prog, dev))
     # the routing stage and the walk run every call, as the reference's
     # executable runs them; their paths are a pure function of the key
@@ -580,19 +584,25 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     def launch(c, bound):
         out, lfrac = fluid_launch(*args, bound - c["done"], c["lfrac"],
                                   carry=bound < FP_ROUNDS)
-        return dict(done=bound, lfrac=lfrac, out=out)
+        new = dict(done=bound, lfrac=lfrac, out=out)
+        if not obs:
+            return new
+        mu = out["max_util"].amax(-1)
+        return new, dict(max_util=mu if rate_scale is not None else mu[0])
 
     ckpt = checkpoint_ctx(
         checkpoint, engine="as_flows", key=key, replicas=replicas,
-        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        r_pad=r_pad, n_cfg=n_cfg, obs=obs, axis=1, device=dev,
         extra=as_prog_key(prog) + (
             None if rate_scale is None else tuple(scales),
             None if prog.traffic is None
             else prog.traffic.param_key() + (float(prog.sim_s),)),
     )
-    carry, flush = drive_chunks(
-        "as_flows", chunk_bounds(FP_ROUNDS, chunk_rounds or FP_ROUNDS),
-        dict(done=0, lfrac=None, out=None), launch, checkpoint=ckpt)
+    with CompileTelemetry.timed("as_flows", compiling, t_miss):
+        carry, flush = drive_chunks(
+            "as_flows", chunk_bounds(FP_ROUNDS, chunk_rounds or FP_ROUNDS),
+            dict(done=0, lfrac=None, out=None), launch, obs=obs,
+            checkpoint=ckpt)
     fetch = dict(out=carry["out"], hops=hops, reached=reached)
     R = int(replicas)
 

@@ -20,7 +20,14 @@ one of their point the one move of ``t`` the reference's loop makes in
 their place, so the state equals the plain loop's
 (:func:`tpudes_torch.parallel.replicated.bss_advance_math`) bit for bit;
 for a mobile program it also gives them the geometry refresh the
-reference's loop makes in their place (``geom_t``).
+reference's loop makes in their place (``geom_t``), and with the obs
+columns the ring rows of those steps (:func:`idle_ring_rows`).
+
+A state with the obs keys (``obs=True``) runs the kernel's ``OBS`` arm
+(``csrc/bss_advance_obs_s*.cu``, counted also under ``bss_advance:obs``):
+each node's FlowMonitor columns in its lane's slot arrays, its delay
+histogram in global memory (a delivery adds to one bin), the replica's
+failed exchanges, and lane 0's ring row a step.
 
 State layout (:data:`BSS_STATE`): a grid of C horizons, per node
 ``(C, R, N)``, per replica ``(C, R)``; a single run is C = 1.
@@ -34,6 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
+from tpudes_torch.obs.flowmon import bin_scale
 from tpudes_torch.ops.wifi_error import (
     ALL_MODES,
     ampdu_params,
@@ -231,7 +239,9 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, step0,
                  step1: int, sim_end, prof) -> tuple:
     """Check a launch's operands and allocate its outputs: ``(args,
     (out, done, t_next, still), arms)``, ``args`` the C launcher's
-    arguments (``prof`` the probe's output, or None)."""
+    arguments (``prof`` the probe's output, or None).  A state with the
+    obs keys (``replicated.obs_keys``) runs the ``OBS`` arm on copies of
+    them, which ``out`` returns."""
     ends = [int(v) for v in (sim_end if sim_end is not None
                              else [consts["sim_end"]])]
     starts = [int(v) for v in step0]
@@ -279,7 +289,13 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, step0,
     if consts["tr"] is not None:
         tr = traffic_args(consts["tr"], n, C, dev)
     multi = tr is not None and tr.multi
+    from tpudes_torch.parallel.replicated import obs_bin_width
+
     geo = launch_geometry(n, C, R, mob is not None)
+    obs = _obs_io(state, C, R, n, dev)
+    if obs and prof is not None:
+        raise ValueError("the bss_advance probe runs without the obs columns")
+    out.update(obs)
     args = (
         consts["rx_w"].data_ptr(), consts["det"].data_ptr(),
         consts["interval"].data_ptr(), consts["stop"].data_ptr(),
@@ -298,12 +314,36 @@ def _launch_args(consts: dict, state: dict, key: torch.Tensor, step0,
         None if tr is None else ctypes.byref(tr),
         geo["slots"], geo["blocks"], geo["shared"],
         None if prof is None else prof.data_ptr(),
+        (ctypes.c_void_p * len(obs))(*[v.data_ptr() for v in obs.values()])
+        if obs else None,
+        consts["pkt_bytes"],
+        ctypes.c_float(bin_scale(obs_bin_width(consts)) if obs else 1.0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     arms = (("agg",) * (K > 1) + ("sweep",) * (C > 1 and not multi)
             + ("mobile",) * (mob is not None)
-            + ("traffic",) * (tr is not None) + ("traffic_sweep",) * multi)
+            + ("traffic",) * (tr is not None) + ("traffic_sweep",) * multi
+            + ("obs",) * bool(obs))
     return args, (out, done, t_next, still), arms
+
+
+def _obs_io(state: dict, C: int, R: int, n: int, dev) -> dict:
+    """Check the obs state and return contiguous copies for the ``OBS``
+    arm to update in place (empty without the obs keys)."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, FLOW_RING_CAP
+    from tpudes_torch.parallel.replicated import obs_keys
+
+    out = {}
+    for k in obs_keys(state):
+        shape = ((C, R) if k == "retx"
+                 else (C, R, n, FLOW_DELAY_BINS) if k == "fm_hist"
+                 else (C, R, FLOW_RING_CAP, 5) if k == "fm_ring"
+                 else (C, R, n))
+        dt = torch.float32 if k in ("fm_dsum", "fm_jsum", "fm_dlast",
+                                    "fm_t0", "fm_t1") else torch.int32
+        _check(k, state[k], shape, dt, dev)
+        out[k] = state[k].clone()
+    return out
 
 
 def bss_launch(consts: dict, state: dict, key: torch.Tensor, step0,
@@ -338,16 +378,44 @@ def bss_profile(consts: dict, state: dict, key: torch.Tensor, step0,
     R = state["queue"].shape[1]
     prof = torch.zeros((C * R, len(BSS_PROF_STAGES)), dtype=torch.int64,
                        device=key.device)
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
     args, outs, _ = _launch_args(consts, state, key, step0, step1, sim_end,
                                  prof)
-    err = _launcher("bss_advance", LAUNCH_ARGTYPES)(*args)
+    with timed_launch(key.device) as wall:
+        err = _launcher("bss_advance", LAUNCH_ARGTYPES)(*args)
     if err != 0:
         raise RuntimeError(f"bss_advance probe failed: CUDA error {err}")
+    KernelProfile.record_cycles(
+        "bss_advance", dict(zip(BSS_PROF_STAGES, prof.sum(0).tolist())),
+        C * R, wall[0])
     return outs, prof
 
 
+def idle_ring_rows(ring: torch.Tensor, done: torch.Tensor,
+                   last: torch.Tensor, first: torch.Tensor,
+                   end: torch.Tensor, pkt: int) -> torch.Tensor:
+    """``ring`` (``(C, R, 512, 5)``) with each row's idle steps ``[done,
+    last)`` written as the reference's shared loop writes them: step -1,
+    at the event ``first`` (``(C, R)``) in step ``done`` and at the
+    horizon ``end`` (``(C, 1)``) after it, flow 0, ``pkt`` bytes, a send.
+    Ring slot ``j`` holds the last such step ``s = last - 1 - (last - 1 -
+    j) mod 512`` where ``s >= done``."""
+    cap = ring.shape[-2]
+    j = torch.arange(cap, device=ring.device)
+    lm = (last - 1)[:, None, None]                        # (C, 1, 1)
+    s = lm - torch.remainder(lm - j, cap)                 # (C, 1, cap)
+    d = done[:, :, None]                                  # (C, R, 1)
+    write = s >= d                                        # (C, R, cap)
+    col1 = torch.where(s == d, first[:, :, None], end[:, :, None])
+    row = torch.stack(torch.broadcast_tensors(
+        torch.full_like(col1, -1), col1, torch.zeros_like(col1),
+        torch.full_like(col1, pkt), torch.zeros_like(col1)), -1)
+    return torch.where(write[..., None], row.to(ring.dtype), ring)
+
+
 def join_stops(state: dict, done: torch.Tensor, t_next: torch.Tensor,
-               stride: int | None = None, sim_end=None):
+               stride: int | None = None, sim_end=None, pkt: int = 0):
     """``(state, steps)`` of the loop from the replicas' own ``(C, R)``
     stops, each point joined on its own (its own loop): the loop ran to
     the point's last stop, and a replica that stopped before it took the
@@ -357,15 +425,21 @@ def join_stops(state: dict, done: torch.Tensor, t_next: torch.Tensor,
     given, with the C horizons ``sim_end``), the geometry: the last of
     those steps that is a multiple of ``stride`` rebuilds it, at that
     next event if it is the first step, else at the horizon, and sets
-    ``geom_t`` to it.  ``steps``, a list of C counts, is copied to the
-    host."""
+    ``geom_t`` to it.  With the obs columns (``pkt`` a packet's bytes),
+    each of those steps writes its idle ring row (:func:`idle_ring_rows`,
+    ``replicated.py:1060-1070``).  ``steps``, a list of C counts, is
+    copied to the host."""
     last = done.amax(1)
     late = done < last[:, None]
     out = dict(state, t=torch.where(late, t_next, state["t"]))
-    if stride is not None:
+    if stride is not None or "fm_ring" in state:
         end = torch.tensor(sim_end, dtype=torch.int32,
                            device=done.device)[:, None]
         first = torch.where(state["t"] < end, t_next, end)
+    if "fm_ring" in state:
+        out["fm_ring"] = idle_ring_rows(state["fm_ring"], done, last, first,
+                                        end, pkt)
+    if stride is not None:
         m = torch.div(last - 1, stride, rounding_mode="floor") * stride
         m = m[:, None].expand_as(done)
         out["geom_t"] = torch.where(
@@ -385,7 +459,8 @@ def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
     ends = [int(v) for v in (sim_end if sim_end is not None
                              else [consts["sim_end"]])]
     out, steps = join_stops(out, done, t_next,
-                            None if mob is None else mob["stride"], ends)
+                            None if mob is None else mob["stride"], ends,
+                            consts["pkt_bytes"])
     return out, steps, still
 
 
@@ -397,11 +472,13 @@ def bss_advance_cuda(consts: dict, state: dict, key: torch.Tensor,
 #: and the data preamble, the three floats of ampdu_params, the MOB and
 #: TRF arms' arguments (host structs, or null), the geometry's slots,
 #: blocks and shared bytes (:func:`launch_geometry`), the probe's output
-#: (or null), stream
+#: (or null), the OBS arm's pointers (host array, or null), its packet
+#: bytes and bin factor, stream
 LAUNCH_ARGTYPES = (
     [ctypes.c_void_p] * (5 + 2 * len(BSS_STATE) + 3)
     + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_float] * (2 + 23) + [ctypes.c_int]
     + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    + [ctypes.c_float] + [ctypes.c_void_p]
 )

@@ -34,13 +34,13 @@ ids; the space lanes' by the whole program with its ownership map), its
 replica axis is padded to its power-of-two bucket (the padded rows join
 the grant, as the reference's do, so ``windows`` counts as the
 reference's), and each window's launch is counted under
-``wired_hybrid`` or ``wired_space``.
+``wired_hybrid`` or ``wired_space``.  ``telemetry=True`` records every
+rank's window in :class:`~tpudes_torch.obs.distributed.
+DistributedTelemetry` (``hybrid.py:556-759``).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``transport="mpi"``, one process a rank over ``LaunchDistributed``
-and ``MpiInterface`` (A12, on ``torch.distributed``), and the
-``DistributedTelemetry`` record of every window (``telemetry=True``,
-A10).
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``transport="mpi"``, one process a rank over ``LaunchDistributed`` and
+``MpiInterface`` (A12, on ``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ import torch
 
 from tpudes_torch.device import resolve_device
 from tpudes_torch.parallel import wired_cuda
+from tpudes_torch.obs.device import CompileTelemetry
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.parallel.runtime import RUNTIME, _not_ported, bucket_replicas
 from tpudes_torch.parallel.wired import (
     INF_SLOT,
@@ -212,12 +214,16 @@ class HybridLanes:
             self.engine = "wired_space"
             key_ = wired_cache_key(prog, keep_owner=True) + (
                 r_pad, "space", tuple(self.ranks), self.size, str(dev))
-        self.tab, _ = RUNTIME.runner(self.engine, key_,
-                                     lambda: wired_tables(prog, lanes, dev))
+        t_miss = wall_now()
+        self.tab, compiling = RUNTIME.runner(
+            self.engine, key_, lambda: wired_tables(prog, lanes, dev))
         self.t_now = self.windows = 0
         self.carry = _init_rows(self.tab, key, r_pad,
                                 int(prog.jitter_slots))
-        self._launch(0)
+        # the priming advance to t = 0 (its miss timed as the reference's,
+        # ``hybrid.py:233``, ``:448``)
+        with CompileTelemetry.timed(self.engine, compiling, t_miss):
+            self._launch(0)
 
     def _launch(self, t_grant: int) -> None:
         self.carry, self._metrics = wired_cuda.advance_launch(
@@ -293,24 +299,56 @@ def _bound_grant(g: int, t_now: int, window_slots: int | None) -> int:
     return g
 
 
+def _pkts(payloads) -> int:
+    """Boundary packets in a list of payloads (each ``dict(r, p, hop,
+    ready)``)."""
+    return sum(int(np.asarray(p["p"]).size) for p in payloads)
+
+
 def _run_windows(engines: list, prog: WiredProgram,
-                 window_slots: int | None) -> list:
+                 window_slots: int | None, telemetry: bool = False) -> list:
     """The granted-window rounds over ``engines`` (their lanes the ranks
     in order) until the horizon (``hybrid.py:551``, ``:653``); each
-    rank's results."""
+    rank's results.  ``telemetry`` records each rank's window in
+    :class:`~tpudes_torch.obs.distributed.DistributedTelemetry` as the
+    reference's drivers do (``hybrid.py:556-601``, ``:653-690``): one
+    engine a rank (``"local"``) times each rank's advance; the lanes of
+    one engine (``"batched"``) give rank 0 the round's poll, grant and
+    advance walls."""
+    from tpudes_torch.obs.distributed import DistributedTelemetry
+
     while True:
+        t0 = wall_now()
         polled = [lane for e in engines for lane in e.poll()]
         inboxes: list[list] = [[] for _ in polled]
         for outbox, _ in polled:
             for dst, payload in outbox.items():
                 inboxes[dst].append(payload)
+        t1 = wall_now()
         lookaheads = [la for e in engines for la in e.lookaheads]
         grant = min(_candidate(nx, inbox, la) for (_, nx), inbox, la
                     in zip(polled, inboxes, lookaheads))
         g = prog.n_slots if grant >= INF_SLOT else min(grant, prog.n_slots)
+        t2 = wall_now()
         for e in engines:
+            t_prev, ta = e.t_now, wall_now()
             e.window([inboxes[r] for r in e.ranks],
                      _bound_grant(g, e.t_now, window_slots))
+            if not telemetry:
+                continue
+            tb = wall_now()
+            lanes = len(e.ranks) > 1
+            for i, r in enumerate(e.ranks):
+                first = lanes and i == 0
+                DistributedTelemetry.record_window(
+                    r, grant_slots=max(0, e.t_now - t_prev),
+                    tx_pkts=_pkts(polled[r][0].values()),
+                    rx_pkts=_pkts(inboxes[r]),
+                    poll_wall_s=t1 - t0 if first else 0.0,
+                    flush_wall_s=0.0,
+                    grant_wall_s=t2 - t1 if first else 0.0,
+                    advance_wall_s=(tb - ta if first or not lanes
+                                    else 0.0))
         if engines[0].t_now >= prog.n_slots:
             return [out for e in engines for out in e.results()]
 
@@ -327,10 +365,11 @@ def run_hybrid(prog: WiredProgram, key, replicas: int = 1, *,
     ``"local"`` or ``"batched"``;
     ``window_slots`` bounds every grant (the schedule changes, the
     results do not).  ``key`` is the run's ``(2,)`` key words; ``device``
-    defaults to the card.  Not ported: the ``"mpi"`` transport (A12) and
-    the ``DistributedTelemetry`` record, ``telemetry=True`` (A10)."""
-    if telemetry:
-        raise _not_ported("DistributedTelemetry recording", "A10")
+    defaults to the card.  ``telemetry=True`` records every rank's window
+    (grant, boundary packets out and in, the phases' walls) in
+    :class:`~tpudes_torch.obs.distributed.DistributedTelemetry`, as the
+    reference's drivers always do.  Not ported: the ``"mpi"`` transport
+    (A12)."""
     size = int(ranks) if ranks is not None else prog.n_ranks
     if transport == "local":
         engines = [HybridRank(prog, key, replicas, r, size, device)
@@ -347,7 +386,7 @@ def run_hybrid(prog: WiredProgram, key, replicas: int = 1, *,
                           "MpiInterface on torch.distributed)", "A12")
     else:
         raise ValueError(f"unknown transport {transport!r}")
-    rank_outs = _run_windows(engines, prog, window_slots)
+    rank_outs = _run_windows(engines, prog, window_slots, telemetry)
     deliver = rank_outs[0]["deliver"]
     served = rank_outs[0]["served"]
     for out in rank_outs[1:]:

@@ -139,11 +139,16 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: under ``:scan`` and its table-model windows under ``:table``;
 #: ``as_spf`` and ``as_fluid`` are the AS flow engine's routing stage and
 #: fluid fixed point (:mod:`tpudes_torch.parallel.as_cuda`), the latter's
-#: launches over more than one rate scale also under ``:sweep``
+#: launches over more than one rate scale also under ``:sweep``; a launch of
+#: ``lte_sm_advance``, ``bss_advance``, ``tcp_advance`` or ``wired_advance``
+#: with the FlowMonitor columns (``obs=True``) is also counted under its
+#: ``:obs`` arm
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
     "lte_sm_advance:traffic": 0, "lte_sm_advance:bf16": 0,
+    "lte_sm_advance:obs": 0, "bss_advance:obs": 0, "tcp_advance:obs": 0,
+    "wired_advance:obs": 0,
     "bss_advance": 0, "bss_advance:agg": 0, "bss_advance:sweep": 0,
     "bss_advance:mobile": 0, "bss_advance:traffic": 0,
     "bss_advance:traffic_sweep": 0,
@@ -409,9 +414,57 @@ def sm_traffic_update(s: dict, new: dict, bl, served) -> dict:
                 tr_drained_hi=s["tr_drained_hi"] + (lo >> 20))
 
 
+#: the LTE flows' one-TTI MAC-to-ACK delay and the histogram's bin width,
+#: in seconds (``lte_sm.py:699``, ``:727``)
+TTI_S = 1e-3
+
+
+def sm_obs_tti(fm: dict, old: dict, new: dict, t: int) -> dict:
+    """The FlowMonitor columns after TTI ``t`` (``lte_sm.py:684-738``):
+    each UE is a flow; its sends, deliveries, drops and acked bytes are
+    the TTI's differences of the counters in ``old`` and ``new`` (bytes
+    from the 20-bit split rx counter, metered at the ACK for both tx and
+    rx), with a delay of one TTI.  The ring row is the UE with the most
+    deliveries, the lowest index on a tie (``argmax``), else the one with
+    the most sends, step -1 where neither happened."""
+    from tpudes_torch.obs.flowmon import (
+        VERDICT_RX,
+        VERDICT_TX,
+        flow_accumulate,
+        flow_ring_write,
+    )
+
+    d_ok = new["ok_cnt"] - old["ok_cnt"]
+    d_tx = (new["new_tbs"] - old["new_tbs"]) + (new["retx"] - old["retx"])
+    d_bytes = torch.div(((new["rx_hi"] - old["rx_hi"]) << 20)
+                        + (new["rx_lo"] - old["rx_lo"]), 8,
+                        rounding_mode="floor")
+    tti = torch.tensor(TTI_S, dtype=torch.float32)
+    fm = flow_accumulate(
+        fm, t_s=torch.tensor(float(t), dtype=torch.float32) * tti, tx=d_tx,
+        tx_bytes=d_bytes, rx=d_ok, rx_bytes=d_bytes,
+        delay_s=tti.expand(d_ok.shape), lost=new["drops"] - old["drops"],
+        bin_width_s=TTI_S)
+    got = d_ok.sum(1) > 0
+    sent = d_tx.sum(1) > 0
+    flow = torch.where(got, d_ok.argmax(1), d_tx.argmax(1))
+    i32 = dict(dtype=torch.int32, device=d_ok.device)
+    row = torch.stack([
+        torch.where(got | sent, t, -1).to(torch.int32),
+        # the reference's int32 product, wrapped
+        torch.full(got.shape, (t * 1000 + 2**31) % 2**32 - 2**31, **i32),
+        flow.to(torch.int32),
+        d_bytes.gather(1, flow[:, None])[:, 0],
+        torch.where(got, VERDICT_RX, VERDICT_TX).to(torch.int32),
+    ], -1)
+    fm["fm_ring"] = flow_ring_write(fm["fm_ring"], t, row)
+    return fm
+
+
 def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
                     sids, rows: dict | None = None, stride: int = 1,
-                    offered: torch.Tensor | None = None) -> dict:
+                    offered: torch.Tensor | None = None,
+                    fm: dict | None = None):
     """TTIs ``[t0, t1)`` in plain PyTorch (any device): the decode coins
     of replica ``r`` at TTI ``t`` are ``uniform(fold_in(keys[r], t),
     (U,))`` (:func:`tpudes_torch.random.tti_coins`), drawn for as many
@@ -428,7 +481,12 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
     ``t`` with row ``t - t0``, gates ``eligible`` by a non-empty backlog
     (``lte_sm.py:876-892``) and drains it after the TTI
     (:func:`sm_traffic_update`); ``rows`` and ``offered`` exclude each
-    other."""
+    other.
+
+    ``fm`` (the FlowMonitor columns of :func:`~tpudes_torch.obs.flowmon.
+    flow_carry`, ``(C * R, U)`` lanes, static rows and full buffers only)
+    adds :func:`sm_obs_tti` after each TTI; the return is then ``(state,
+    fm)``."""
     points = _sid_list(sids)
     R = len(keys)
     if len(points) > 1:
@@ -436,10 +494,18 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
             sm_advance_math(
                 c, {k: v[i * R:(i + 1) * R] for k, v in s.items()}, keys,
                 t0, t1, sid, rows, stride, offered,
+                None if fm is None else {k: v[i * R:(i + 1) * R]
+                                         for k, v in fm.items()},
             )
             for i, sid in enumerate(points)
         ]
-        return {k: torch.cat([p[k] for p in parts]) for k in s}
+        if fm is None:
+            return {k: torch.cat([p[k] for p in parts]) for k in s}
+        return ({k: torch.cat([p[0][k] for p in parts]) for k in s},
+                {k: torch.cat([p[1][k] for p in parts]) for k in fm})
+    if fm is not None and (rows is not None or offered is not None):
+        raise ValueError("the FlowMonitor columns run static rows and full "
+                         "buffers (lte_sm.py:650)")
     sid, U, ct = points[0], c["U"], c
     chunk = max(1, COIN_CHUNK_ELEMS // (R * U))
     for c0 in range(t0, t1, chunk):
@@ -451,7 +517,10 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
                 j = t // stride - t0 // stride
                 ct = {**c, **{k: rows[k][j] for k in SM_DYNAMIC_ROWS}}
             if offered is None:
-                s = sm_step_math(ct, s, coins[i], t, sid)
+                new = sm_step_math(ct, s, coins[i], t, sid)
+                if fm is not None:
+                    fm = sm_obs_tti(fm, s, new, t)
+                s = new
                 continue
             bl = torch.clamp_max(s["tr_backlog"] + offered[t - t0],
                                  TR_BACKLOG_CAP)
@@ -460,7 +529,7 @@ def sm_advance_math(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
             served = ((new["rx_hi"] - s["rx_hi"]).float() * float(2**20)
                       + (new["rx_lo"] - s["rx_lo"]).float())
             s = sm_traffic_update(s, new, bl, served)
-    return s
+    return s if fm is None else (s, fm)
 
 
 def sm_winner_key(metric: np.ndarray, ue: np.ndarray) -> np.ndarray:
@@ -501,17 +570,18 @@ def sm_step(c: dict, s: dict, coin: torch.Tensor, t: int, sid: int) -> dict:
 
 def sm_advance(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
                sids, rows: dict | None = None, stride: int = 1,
-               offered: torch.Tensor | None = None) -> dict:
+               offered: torch.Tensor | None = None, fm: dict | None = None):
     """TTIs ``[t0, t1)``: the plain loop for CPU tensors, one launch of
     the multi-TTI CUDA kernel for CUDA tensors (or an error).  ``keys``
-    is the ``(R, 2)`` int64 replica keys; ``sids``, ``rows``, ``stride``
-    and ``offered`` as in :func:`sm_advance_math`."""
+    is the ``(R, 2)`` int64 replica keys; ``sids``, ``rows``, ``stride``,
+    ``offered`` and ``fm`` as in :func:`sm_advance_math` (with ``fm``,
+    the kernel's ``OBS`` arm)."""
     if keys.device.type == "cpu":
         return sm_advance_math(c, s, keys, t0, t1, sids, rows, stride,
-                               offered)
+                               offered, fm)
     if keys.device.type == "cuda":
         return sm_advance_cuda(c, s, keys, t0, t1, sids, rows, stride,
-                               offered)
+                               offered, fm)
     raise ValueError(f"no LTE SM advance for device {keys.device}")
 
 
@@ -562,11 +632,12 @@ def _scalars(c: dict, R: int) -> list:
     ]
 
 
-def _launch(name: str, *args, arms: tuple = (), argtypes=None) -> None:
-    """Call ``<name>_launch`` (its ctypes signature ``argtypes``, by
-    default :data:`LAUNCH_ARGTYPES`'s) and count the launch (and its
-    ``arms``); raise on an error."""
-    err = _launcher(name, argtypes)(*args)
+def _launch(name: str, *args, arms: tuple = (), argtypes=None,
+            symbol: str | None = None) -> None:
+    """Call ``<name>_launch`` (or the library's ``symbol``; its ctypes
+    signature ``argtypes``, by default :data:`LAUNCH_ARGTYPES`'s) and
+    count the launch (and its ``arms``); raise on an error."""
+    err = _launcher(name, argtypes, symbol)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
@@ -597,14 +668,16 @@ def sm_step_cuda(c: dict, s: dict, coin: torch.Tensor, t: int,
 
 def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
                     sids, rows: dict | None = None, stride: int = 1,
-                    offered: torch.Tensor | None = None) -> dict:
+                    offered: torch.Tensor | None = None,
+                    fm: dict | None = None):
     """Launch ``lte_sm_advance`` once for TTIs ``[t0, t1)``: a grid of
     ``(R, C)`` CTAs, one per replica and config point, the state in
     registers for the whole range, the coins drawn in the kernel, the
     rows reloaded from ``rows`` at each refresh when it is given, the
-    backlogs filled from ``offered`` row by row when it is given.
-    Raises on a bad argument or a launch error; never takes the plain
-    loop."""
+    backlogs filled from ``offered`` row by row when it is given; with
+    ``fm`` (static rows, full buffers) the ``OBS`` arm, which updates a
+    copy of the columns and returns ``(state, fm)``.  Raises on a bad
+    argument or a launch error; never takes the plain loop."""
     if not 0 <= t0 <= t1 <= ADVANCE_MAX_T:
         raise ValueError(
             f"lte_sm_advance runs 0 <= t0 <= t1 <= {ADVANCE_MAX_T}; got "
@@ -639,6 +712,15 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
         _check("offered", offered, (t1 - t0, U), torch.float32, dev)
     layout = SM_STATE + TR_STATE * traffic
     out = _kernel_io("lte_sm_advance", c, s, C * R, dev, layout)
+    obs_ptrs, obs_bin = None, 0
+    if fm is not None:
+        if rows is not None or traffic:
+            raise ValueError("lte_sm_advance's OBS arm runs static rows and "
+                             "full buffers")
+        fm = _obs_io(fm, C * R, U, dev)
+        obs_ptrs = (ctypes.c_void_p * len(_OBS_COLS))(
+            *[fm[k].data_ptr() for k in _OBS_COLS])
+        obs_bin = int(_obs_bin())
     tr_in = [s[k].data_ptr() if traffic else None for k, _, _ in TR_STATE]
     tr_out = [out[k].data_ptr() if traffic else None for k, _, _ in TR_STATE]
     _launch(
@@ -651,10 +733,42 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
         *[out[k].data_ptr() for k, _, _ in SM_STATE], *tr_out,
         R, C, *_scalars(c, R)[1:], int(t0), int(t1), int(sid),
         int(stride), int(c["bf16"]),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, obs_ptrs,
+        ctypes.c_float(TTI_S), obs_bin,
         arms=("dynamic",) * (rows is not None) + ("sweep",) * (C > 1)
-        + ("traffic",) * traffic + ("bf16",) * c["bf16"],
+        + ("traffic",) * traffic + ("bf16",) * c["bf16"]
+        + ("obs",) * (fm is not None),
     )
+    return out if fm is None else (out, fm)
+
+
+#: the columns the ``OBS`` arm updates in place, in its pointer array's
+#: order (csrc/lte_sm_advance.cu's struct Obs)
+_OBS_COLS = ("fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost", "fm_dsum",
+             "fm_jsum", "fm_dlast", "fm_t0", "fm_t1", "fm_hist", "fm_ring")
+
+
+def _obs_bin() -> int:
+    """The histogram bin of the one-TTI delay (a constant of the engine)."""
+    from tpudes_torch.obs.flowmon import delay_bin
+
+    return int(delay_bin(torch.tensor(TTI_S, dtype=torch.float32), TTI_S))
+
+
+def _obs_io(fm: dict, rows: int, U: int, dev) -> dict:
+    """Check the FlowMonitor columns of ``rows`` lanes of ``U`` flows and
+    return contiguous copies for the kernel to update in place."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, FLOW_RING_CAP
+
+    out = {}
+    for k in _OBS_COLS:
+        shape = ((rows, U, FLOW_DELAY_BINS) if k == "fm_hist"
+                 else (rows, FLOW_RING_CAP, 5) if k == "fm_ring"
+                 else (rows, U))
+        dt = torch.float32 if k in ("fm_dsum", "fm_jsum", "fm_dlast",
+                                    "fm_t0", "fm_t1") else torch.int32
+        _check(k, fm[k], shape, dt, dev)
+        out[k] = fm[k].clone()
     return out
 
 
@@ -668,7 +782,8 @@ def sm_advance_cuda(c: dict, s: dict, keys: torch.Tensor, t0: int, t1: int,
 #: point, ``sid``), state in and the three traffic fields (null without
 #: traffic), state out and the three traffic fields, seven ints (R, C,
 #: E, U, n_rbg, rbg_size, n_rb), the three floats, t0, t1, sid, stride,
-#: bf16, stream
+#: bf16, stream, the OBS arm's column pointers (null: none), its delay and
+#: its histogram bin
 LAUNCH_ARGTYPES = {
     "lte_sm_step": (
         [ctypes.c_void_p] * (len(_CONST_ROWS) + 2 + 2 * len(SM_STATE))
@@ -681,17 +796,17 @@ LAUNCH_ARGTYPES = {
             + 2 * (len(SM_STATE) + len(TR_STATE))
         )
         + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int]
     ),
 }
 
 
-def _launcher(name: str, argtypes=None):
-    """``<name>_launch`` from the built library (built on first use),
-    with its ctypes signature."""
+def _launcher(name: str, argtypes=None, symbol: str | None = None):
+    """``<name>_launch`` (or ``symbol``) from library ``name`` (built on
+    first use), with its ctypes signature."""
     from tpudes_torch._build import load_library
 
-    fn = getattr(load_library(name), f"{name}_launch")
+    fn = getattr(load_library(name), symbol or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes or LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int

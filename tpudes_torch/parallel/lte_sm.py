@@ -45,8 +45,19 @@ the carry after each), and ``block=False`` returns an
 :class:`~tpudes_torch.parallel.runtime.EngineFuture`.  :func:`lte_sm_study`
 is the serving layer's descriptor.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh`` and the ``TpudesObs`` FlowMonitor columns.
+``obs=True`` (the reference's ``TpudesObs``, ``lte_sm.py:650-757``)
+keeps ns-3's FlowMonitor columns beside a static program's state, one
+flow a UE (:mod:`tpudes_torch.obs.flowmon`; on the card the kernel's
+``OBS`` arm), returned under ``flow``; every arm streams each chunk's
+``ok``/``drops``/``retx`` (and the static arm its ring) to
+:class:`~tpudes_torch.obs.device.ChunkStream`.  A runner-cache miss is
+a :class:`~tpudes_torch.obs.device.CompileTelemetry` entry, a mobile
+run's refreshes a :class:`~tpudes_torch.obs.geometry.GeomTelemetry` one
+and a traffic run's load a :class:`~tpudes_torch.obs.traffic.
+TrafficTelemetry` one.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``mesh``.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.ops.fused import device_table, f32, fma, sqrt
 from tpudes_torch.ops.lte import (
     RB_BANDWIDTH_HZ,
@@ -234,18 +246,22 @@ def build_sm_advance(prog: LteSmProgram, device=None,
     Each chunk is :func:`sm_advance`: one launch of the multi-TTI kernel
     for CUDA tensors, the plain loop (coins drawn in memory-bounded
     chunks) for CPU tensors.  ``use_kernel=False`` runs the plain loop
-    on any device."""
+    on any device.  ``advance(..., fm=...)`` also carries the FlowMonitor
+    columns (:func:`~tpudes_torch.obs.flowmon.flow_carry` of ``U`` flows,
+    ``(C * R, ...)`` lanes; the kernel's ``OBS`` arm) and returns
+    ``(state, fm)``."""
     consts, init_state, _ = build_sm_step(prog, device, use_kernel, consts)
     run = sm_advance if use_kernel else sm_advance_math
 
     def advance(state: dict, keys: torch.Tensor, t0: int, t_end: int,
-                sids=None):
+                sids=None, fm: dict | None = None):
         sids = SM_SCHED_IDS[prog.scheduler] if sids is None else sids
         chunk = chunk_ttis or max(1, t_end - t0)
         for c0 in range(t0, t_end, chunk):
-            state = run(consts, state, keys, c0, min(c0 + chunk, t_end),
-                        sids)
-        return state
+            out = run(consts, state, keys, c0, min(c0 + chunk, t_end),
+                      sids, fm=fm)
+            state, fm = out if fm is not None else (out, None)
+        return state if fm is None else (state, fm)
 
     return consts, init_state, advance
 
@@ -439,16 +455,27 @@ def _sm_prog_key(prog: LteSmProgram) -> tuple:
     )
 
 
+def _burst_duty(traffic) -> float | None:
+    """The mean ON share of an ON-OFF workload, else None
+    (``lte_sm.py:1084-1094``)."""
+    if traffic.model != "onoff":
+        return None
+    return float(np.clip(
+        traffic.rate_pps.sum() / max(float(traffic.peak_pps.sum()), 1e-9),
+        0.0, 1.0))
+
+
 def _sm_arm(prog: LteSmProgram) -> str:
     if prog.traffic is not None:
         return "traffic"
     return "static" if prog.mobility is None else "mobile"
 
 
-def _sm_unpack(host: dict, shared: dict) -> dict:
+def _sm_unpack(host: dict, shared: dict, fm: dict | None = None) -> dict:
     """Result dict (``lte_sm.py:564``) of one config point from its host
     state, ``(R, ...)`` rows: the 52-bit rx counter rebuilt, per-UE
-    rows, and the CQI/MCS/SINR."""
+    rows, and the CQI/MCS/SINR; the FlowMonitor columns under ``flow``
+    where ``fm`` holds them."""
     out = {
         k: host[k] for k in ("new_tbs", "retx", "drops")
     }
@@ -463,7 +490,17 @@ def _sm_unpack(host: dict, shared: dict) -> dict:
         ) + host["tr_drained_lo"].astype(np.int64)
     for k in ("cqi", "mcs", "sinr"):
         out[k] = shared[k]
+    if fm is not None:
+        out["flow"] = fm
     return out
+
+
+def _lane_sums(state: dict, axes) -> dict:
+    """The chunk metrics ``ok``, ``drops`` and ``retx``: int32 sums of
+    the counters over ``axes`` (``lte_sm.py:750-753``)."""
+    return {name: state[k].sum(dim=axes, dtype=torch.int32)
+            for name, k in (("ok", "ok_cnt"), ("drops", "drops"),
+                            ("retx", "retx"))}
 
 
 def lte_sm_study(prog: LteSmProgram, key, replicas=None, mesh=None,
@@ -550,11 +587,16 @@ def run_lte_sm(
     path or a :class:`~tpudes_torch.parallel.checkpoint.CarryCheckpoint`)
     saves the carry after each chunk and resumes a matching run from its
     last completed chunk, bit-equal.  ``block=False`` returns an
-    :class:`~tpudes_torch.parallel.runtime.EngineFuture`."""
+    :class:`~tpudes_torch.parallel.runtime.EngineFuture`.
+
+    ``obs=True`` adds, for a static program, the FlowMonitor columns of
+    each point under ``flow`` (``fm_*`` per UE, ``(R, U)``; ``fm_hist``
+    ``(R, U, 16)``, ``fm_ring`` ``(R, 512, 5)``; reduce them with
+    :mod:`tpudes_torch.obs.flowmon`), and for every arm streams a chunked
+    run's per-chunk metrics to :class:`~tpudes_torch.obs.device.
+    ChunkStream`."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
     names = [prog.scheduler] if schedulers is None else list(schedulers)
     unknown = [n for n in names if n not in SM_SCHED_IDS]
     if unknown or not names:
@@ -565,9 +607,15 @@ def run_lte_sm(
     r_pad = bucket_replicas(replicas)
     n_cfg = None if schedulers is None else len(names)
     arm = _sm_arm(prog)
-    consts, _ = RUNTIME.runner(
+    from tpudes_torch.obs.device import CompileTelemetry
+    from tpudes_torch.obs.flowmon import flip_ring, flow_carry
+    from tpudes_torch.obs.geometry import GeomTelemetry
+    from tpudes_torch.obs.traffic import TrafficTelemetry
+
+    t_miss = wall_now()
+    consts, compiling = RUNTIME.runner(
         "lte_sm",
-        _sm_prog_key(prog) + (use_kernel, r_pad, n_cfg, False, str(dev), arm),
+        _sm_prog_key(prog) + (use_kernel, r_pad, n_cfg, obs, str(dev), arm),
         lambda: build_sm_consts(_static_twin(prog), device=dev),
     )
     key = to_device(key if isinstance(key, torch.Tensor)
@@ -587,6 +635,27 @@ def run_lte_sm(
                              for k, v in init_state(C * R).items()})
     if arm == "mobile":
         carry.update(last=None, refreshes=0)
+    flows = obs and arm == "static"
+    if flows:
+        carry["fm"] = flow_carry(prog.n_ue, (C, R), dev)
+    # the reference's lanes: (C, R) with a sweep, (R,) with replicas, a
+    # scalar lane without
+    lane_shape = ((C,) if schedulers is not None else ()) + (
+        (R,) if replicas is not None else ())
+
+    def metrics(out):
+        """The chunk's fresh metrics: the static arm's per lane, with
+        its ring reversed (the reference's lane keeps a (1,) row axis),
+        the unbatched arms' sums over every lane (``lte_sm.py:745-757``,
+        ``:826-833``)."""
+        st = out["state"]
+        if not flows:
+            return _lane_sums(st, (0, 1, 2))
+        m = {k: v.reshape(lane_shape)
+             for k, v in _lane_sums(st, (2,)).items()}
+        m["fm_ring"] = flip_ring(out["fm"]["fm_ring"]).reshape(
+            lane_shape + (1,) + out["fm"]["fm_ring"].shape[2:])
+        return m
 
     def launch(c, bound):
         flat = {k: v.flatten(0, 1) for k, v in c["state"].items()}
@@ -595,15 +664,20 @@ def run_lte_sm(
             flat, last, n = advance(flat, keys, c["t"], bound, sids)
             out.update(last=last if last is not None else c["last"],
                        refreshes=c["refreshes"] + n)
+        elif flows:
+            flat, fm = advance(flat, keys, c["t"], bound, sids,
+                               fm={k: v.flatten(0, 1)
+                                   for k, v in c["fm"].items()})
+            out["fm"] = {k: v.unflatten(0, (C, R)) for k, v in fm.items()}
         else:
             flat = advance(flat, keys, *tr_args, c["t"], bound, sids)
         out["state"] = {k: v.unflatten(0, (C, R)) for k, v in flat.items()}
-        return out
+        return (out, metrics(out)) if obs else out
 
     mob = arm == "mobile"
     ckpt = checkpoint_ctx(
         checkpoint, engine="lte_sm", key=key, replicas=replicas,
-        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        r_pad=r_pad, n_cfg=n_cfg, obs=obs, axis=1, device=dev,
         extra=_sm_prog_key(prog) + (arm, tuple(sid_list),
                                     int(prog.geom_stride) if mob else None,
                                     prog.mobility.param_key() if mob
@@ -611,9 +685,10 @@ def run_lte_sm(
                                     None if prog.traffic is None
                                     else prog.traffic.param_key()),
     )
-    carry, flush = drive_chunks(
-        "lte_sm", chunk_bounds(prog.n_ttis, chunk_ttis or prog.n_ttis),
-        carry, launch, checkpoint=ckpt)
+    with CompileTelemetry.timed("lte_sm", compiling, t_miss):
+        carry, flush = drive_chunks(
+            "lte_sm", chunk_bounds(prog.n_ttis, chunk_ttis or prog.n_ttis),
+            carry, launch, obs=obs, checkpoint=ckpt)
     extra = {}
     if arm == "traffic":
         extra = dict(offered_bits=offered_bits_mean(prog.traffic,
@@ -627,15 +702,33 @@ def run_lte_sm(
                                    for k in ("cqi", "mcs", "sinr")}
     fetch = dict(state=carry["state"],
                  shared={k: shared[k] for k in ("cqi", "mcs", "sinr")})
+    if flows:
+        fetch["fm"] = carry["fm"]
     want = 1 if replicas is None else int(replicas)
+
+    def point(tree, i):
+        return {k: v[i, :want] if replicas is not None else v[i, 0]
+                for k, v in tree.items()}
 
     def finalize(host):
         points = [
-            dict(_sm_unpack({k: v[i, :want] if replicas is not None
-                             else v[i, 0] for k, v in host["state"].items()},
-                            host["shared"]), **extra)
+            dict(_sm_unpack(point(host["state"], i), host["shared"],
+                            point(host["fm"], i) if flows else None),
+                 **extra)
             for i in range(C)
         ]
+        if mob:
+            # once a launch: the refreshes are shared by every point
+            GeomTelemetry.record_device("lte_sm", carry["refreshes"],
+                                        prog.n_ttis)
+        if arm == "traffic":
+            TrafficTelemetry.record(
+                "lte_sm", prog.traffic.model,
+                offered=float(extra["offered_bits"].sum()) * C * want,
+                delivered=float(sum(np.asarray(p["goodput_bits"],
+                                               np.float64).sum()
+                                    for p in points)),
+                duty=_burst_duty(prog.traffic))
         return points if schedulers is not None else points[0]
 
     fut = EngineFuture("lte_sm", fetch, finalize_with_flush(flush, finalize))

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.ops.fused import f32
 from tpudes_torch.ops.interference import thermal_noise_w
 from tpudes_torch.ops.mobility import build_position_fn
@@ -346,6 +347,9 @@ def bss_static_consts(prog: BssProgram, device=None) -> dict:
         mode=int(prog.data_mode_idx),
         K=max(1, int(prog.max_mpdus)),
         subframe_bytes=int(prog.subframe_bytes),
+        # the obs columns' packet: an MPDU (a subframe of an A-MPDU)
+        pkt_bytes=int(prog.subframe_bytes if prog.max_mpdus > 1
+                      else prog.data_bytes),
     )
 
 
@@ -386,10 +390,19 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def init_state(consts: dict, replicas: int) -> dict:
+def obs_keys(state: dict) -> tuple:
+    """The obs keys ``state`` holds (``retx`` and the FlowMonitor
+    columns; none without ``obs``)."""
+    from tpudes_torch.obs.flowmon import FM_KEYS
+
+    return ("retx",) + FM_KEYS if "fm_tx" in state else ()
+
+
+def init_state(consts: dict, replicas: int, obs: bool = False) -> dict:
     """The zero state (``replicated.py:674-707``): arrivals at their
     start times, CW at its minimum, ``geom_t`` 0; laid out as
-    :data:`BSS_STATE`."""
+    :data:`BSS_STATE`.  ``obs`` adds the per-replica ``retx`` counter
+    and the FlowMonitor columns, one flow a node (``:676-680``)."""
     R, n = replicas, consts["N"]
     dev = consts["rx_w"].device
     out = {}
@@ -399,7 +412,59 @@ def init_state(consts: dict, replicas: int) -> dict:
                              else torch.int32, device=dev)
     out["next_arr"] = consts["start"].expand(R, n).clone()
     out["cw"].fill_(CW_MIN)
+    if obs:
+        from tpudes_torch.obs.flowmon import flow_carry
+
+        out["retx"] = torch.zeros(R, dtype=torch.int32, device=dev)
+        out.update(flow_carry(n, (R,), dev))
     return out
+
+
+def obs_bin_width(c: dict) -> float:
+    """The delay histogram's bin width in seconds: twice a data frame's
+    airtime over the bins (``replicated.py:1048-1049``)."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS
+
+    return max(1, 2 * c["data_dur"]) * 1e-6 / FLOW_DELAY_BINS
+
+
+def obs_step(c: dict, s: dict, out: dict, step, *, next_t, winners, any_win,
+             data_tx, fail, k_agg, dur_k, n_ok, drop_n) -> None:
+    """The step's obs accumulators into ``out`` (``replicated.py:
+    1025-1070``): the failed exchanges into ``retx``; the FlowMonitor
+    columns, a data exchange sending ``k_agg`` MPDUs and delivering
+    ``n_ok``, its delay the exchange's airtime ``dur_k`` µs, the
+    retry-limit drops lost; the ring row at ``step``: the node whose MPDUs
+    were delivered (the first with the most), else the first winner,
+    step -1 where nobody won."""
+    from tpudes_torch.obs.flowmon import (
+        VERDICT_RX,
+        VERDICT_TX,
+        flow_accumulate,
+        flow_ring_write,
+    )
+
+    i32 = torch.int32
+    dev = next_t.device
+    micro = torch.tensor(1e-6, dtype=torch.float32, device=dev)
+    pkt_b = c["pkt_bytes"]
+    fm_tx = torch.where(data_tx, k_agg, 0).to(i32)
+    out["retx"] = s["retx"] + fail.sum(1, dtype=i32)
+    fm = flow_accumulate(
+        {k: s[k] for k in s if k.startswith("fm_")},
+        t_s=(next_t.float() * micro)[:, None], tx=fm_tx,
+        tx_bytes=fm_tx * pkt_b, rx=n_ok, rx_bytes=n_ok * pkt_b,
+        delay_s=dur_k.float() * micro, lost=drop_n,
+        bin_width_s=obs_bin_width(c))
+    has_rx = n_ok.sum(1, dtype=i32) > 0
+    flow = torch.where(has_rx, n_ok.argmax(1), winners.to(i32).argmax(1))
+    n = next_t.shape[0]
+    row = torch.stack([
+        torch.where(any_win, step, -1).to(i32), next_t.to(i32),
+        flow.to(i32), torch.full((n,), pkt_b, dtype=i32, device=dev),
+        torch.where(has_rx, VERDICT_RX, VERDICT_TX).to(i32)], -1)
+    fm["fm_ring"] = flow_ring_write(fm["fm_ring"], step, row)
+    out.update(fm)
 
 
 def with_tables(consts: dict, state: dict) -> dict:
@@ -464,7 +529,7 @@ def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
             sim_end, census: dict | None = None, refresh: bool = False,
-            tr: dict | None = None) -> dict:
+            tr: dict | None = None, step=0) -> dict:
     """One event step of every replica (``replicated.py:738-1093``) on
     its ``(R, N)`` backoff draws and its coins: ``(R, N)`` for a legacy
     program, for an A-MPDU one a function ``(rows, nodes) -> (G, K)``
@@ -492,7 +557,11 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
     ``winners`` (transmissions), ``ed_links`` (the winners of steps
     where the AP sends data, whose power at its destination is summed)
     and, under a traffic program, the gaps drawn per model
-    (``gaps_cbr``, ``gaps_mmpp``, ...)."""
+    (``gaps_cbr``, ``gaps_mmpp``, ...).
+
+    A state with the obs keys (:func:`init_state` ``obs=True``) gains
+    the step's :func:`obs_step`, its ring row at ``step`` (the loop's
+    step counter)."""
     R, n = u_back.shape
     dev = u_back.device
     i32 = torch.int32
@@ -684,6 +753,11 @@ def step_fn(c: dict, s: dict, u_back: torch.Tensor, u_coin,
         torch.where(winners, next_t[:, None] + occ, s["hold"]))
     out = {k: s[k] for k in ("geom_rx_w", "geom_det", "geom_t") if k in s}
     out.update(geom)
+    if "fm_tx" in s:
+        obs_step(c, s, out, step, next_t=next_t, winners=winners,
+                 any_win=any_win, data_tx=data_tx, fail=fail,
+                 k_agg=k_agg if agg else torch.ones_like(n_ok),
+                 dur_k=dur_k, n_ok=n_ok, drop_n=drop_n)
     return dict(
         out,
         t=torch.maximum(next_t, s["t"]),
@@ -812,7 +886,7 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
         new = step_fn(consts, _rows(flat, idx), u_back, u_coin,
                       end if idx is None else end[idx], census,
                       refresh=mob is not None and step % mob["stride"] == 0,
-                      tr=tr_rows)
+                      tr=tr_rows, step=step)
         if idx is None:
             flat = new
         else:
@@ -820,7 +894,8 @@ def bss_advance_math(consts: dict, state: dict, key: torch.Tensor,
         for c in group:
             steps[c] += 1
         still = pending(consts, flat, end).view(C, R)
-    return ({k: flat[k].unflatten(0, (C, R)) for k, _, _ in BSS_STATE},
+    return ({k: flat[k].unflatten(0, (C, R))
+             for k in (*(k for k, _, _ in BSS_STATE), *obs_keys(flat))},
             steps, still)
 
 
@@ -851,9 +926,9 @@ def build_bss_advance(prog: BssProgram, replicas: int, device=None,
     :func:`build_bss_consts` takes it."""
     consts = build_bss_consts(prog, device, traffic_sweep, static)
 
-    def init(points: int = 1):
+    def init(points: int = 1, obs: bool = False):
         return {k: v.expand(points, *v.shape).clone()
-                for k, v in init_state(consts, replicas).items()}
+                for k, v in init_state(consts, replicas, obs).items()}
 
     def advance(state, key, step0, step1, sim_end=None):
         return bss_advance(consts, state, key, step0, step1, sim_end)
@@ -870,7 +945,11 @@ def _bss_unpack(state: dict, steps: list, still, stride: int | None = None,
     step counts and its ``(C, R)`` pending flags; with ``replicas`` the
     padded replicas sliced off (``steps`` counts theirs too, as the
     reference's does).  A mobile program's (``stride`` given) add
-    ``geom_refreshes``, ``ceil(steps / stride)``, and ``geom_stride``."""
+    ``geom_refreshes``, ``ceil(steps / stride)``, and ``geom_stride``; a
+    state with the obs keys adds ``retx`` and the FlowMonitor columns
+    under ``flow``."""
+    from tpudes_torch.obs.flowmon import FM_KEYS
+
     def host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
@@ -884,6 +963,9 @@ def _bss_unpack(state: dict, steps: list, still, stride: int | None = None,
         if stride is not None:
             res.update(geom_refreshes=-(-int(steps[c]) // stride),
                        geom_stride=stride)
+        if "fm_tx" in state:
+            res["retx"] = host(state["retx"])[c, R]
+            res["flow"] = {k: host(state[k])[c, R] for k in FM_KEYS}
         out.append(res)
     return out
 
@@ -984,11 +1066,17 @@ def run_replicated_bss(
     resumes a matching run from its last completed chunk, bit-equal.
     ``block=False`` returns an :class:`~tpudes_torch.parallel.runtime.
     EngineFuture`.  ``device`` defaults to the card, where each chunk is
-    one launch of the persistent kernel."""
+    one launch of the persistent kernel.
+
+    ``obs=True`` (the reference's ``TpudesObs``, ``replicated.py:
+    586-600``, ``:1025-1070``) adds per replica ``retx`` (R,) and the
+    FlowMonitor columns under ``flow`` (one flow a node, ``(R, N)``;
+    ``fm_hist`` ``(R, N, 16)``, ``fm_ring`` ``(R, 512, 5)``; on the card
+    the kernel's ``OBS`` arm), and streams a chunked run's per-chunk
+    ``srv_rx``, ``drops`` and ring to :class:`~tpudes_torch.obs.device.
+    ChunkStream`."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
     if sim_end_us is not None and traffic_sweep is not None:
         raise ValueError(
             "one config axis per launch: sweep either the horizon "
@@ -1010,6 +1098,9 @@ def run_replicated_bss(
         sweep_progs = [dataclasses.replace(prog, traffic=tp)
                        for tp in traffic_sweep]
         ends = ends * len(traffic_sweep)
+    from tpudes_torch.obs.device import CompileTelemetry
+    from tpudes_torch.obs.flowmon import flip_ring
+    from tpudes_torch.obs.geometry import GeomTelemetry
     from tpudes_torch.parallel.checkpoint import checkpoint_ctx
 
     dev = resolve_device(device)
@@ -1018,9 +1109,10 @@ def run_replicated_bss(
     sweep = "traffic" if traffic_sweep is not None else "horizon"
     run_prog = (dataclasses.replace(prog, geom_stride=1) if geom_per_step
                 else prog)
-    static, _ = RUNTIME.runner(
+    t_miss = wall_now()
+    static, compiling = RUNTIME.runner(
         "bss",
-        (_prog_cache_key(prog), r_pad, False, n_cfg,
+        (_prog_cache_key(prog), r_pad, obs, n_cfg,
          prog.mobility is not None, geom_per_step,
          sweep if n_cfg is not None else None, str(dev)),
         lambda: bss_static_consts(prog, dev),
@@ -1037,11 +1129,20 @@ def run_replicated_bss(
     def launch(c, bound):
         state, steps, still = advance(c["state"], key, c["steps"], bound,
                                       ends)
-        return dict(state=state, steps=steps, pending=still)
+        out = dict(state=state, steps=steps, pending=still)
+        if not obs:
+            return out
+        # the chunk's fresh metrics per point (``replicated.py:1164-1177``)
+        lanes = (len(ends),) if n_cfg is not None else ()
+        ring = state["fm_ring"]
+        return out, dict(
+            srv_rx=state["srv_rx"].sum(1, dtype=torch.int32).reshape(lanes),
+            drops=state["drops"].sum(1, dtype=torch.int32).reshape(lanes),
+            fm_ring=flip_ring(ring).reshape(lanes + ring.shape[1:]))
 
     ckpt = checkpoint_ctx(
         checkpoint, engine="bss", key=key, replicas=replicas, r_pad=r_pad,
-        n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        n_cfg=n_cfg, obs=obs, axis=1, device=dev,
         extra=_prog_cache_key(prog) + (
             tuple(ends), geom_per_step, int(prog.geom_stride),
             None if prog.mobility is None else prog.mobility.param_key(),
@@ -1049,16 +1150,23 @@ def run_replicated_bss(
             None if traffic_sweep is None
             else tuple(tp.param_key() for tp in traffic_sweep)),
     )
-    carry, flush = drive_chunks(
-        "bss", chunk_bounds(max_steps, chunk_steps or max_steps),
-        dict(state=init(len(ends)), steps=[0] * len(ends), pending=None),
-        launch, checkpoint=ckpt)
+    with CompileTelemetry.timed("bss", compiling, t_miss):
+        carry, flush = drive_chunks(
+            "bss", chunk_bounds(max_steps, chunk_steps or max_steps),
+            dict(state=init(len(ends), obs), steps=[0] * len(ends),
+                 pending=None),
+            launch, obs=obs, checkpoint=ckpt)
     fetch = dict(state={k: carry["state"][k]
-                        for k in ("srv_rx", "cli_rx", "tx_data", "drops")},
+                        for k in ("srv_rx", "cli_rx", "tx_data", "drops",
+                                  *obs_keys(carry["state"]))},
                  steps=list(carry["steps"]), pending=carry["pending"])
     stride = None if prog.mobility is None else max(1, int(prog.geom_stride))
 
     def finalize(host):
+        if stride is not None:
+            # once a launch: a sweep's points share the telemetry
+            steps = max(int(v) for v in host["steps"])
+            GeomTelemetry.record_device("bss", -(-steps // stride), steps)
         out = _bss_unpack(host["state"], host["steps"], host["pending"],
                           stride, replicas)
         return out if n_cfg is not None else out[0]

@@ -24,7 +24,8 @@ Counterpart of ``tpudes/parallel/runtime.py``:
 - **The chunk drive** (:func:`drive_chunks`, ``:166``): one launch per
   chunk bound, the carry handed from chunk to chunk, with a
   :mod:`~tpudes_torch.parallel.checkpoint` saved after every chunk when
-  one is given.
+  one is given, and under ``obs`` each chunk's metrics streamed to
+  :class:`~tpudes_torch.obs.device.ChunkStream` one chunk late.
 
 Not ported: ``donate_argnums`` and ``configure_persistent_cache`` are
 XLA's (the kernel build directory ``tpudes_torch/build`` that
@@ -112,19 +113,30 @@ def chunk_bounds(total: int, chunk: int) -> list[int]:
 def drive_chunks(engine: str, bounds, carry, launch, obs: bool = False,
                  checkpoint=None):
     """The chunk protocol every engine runs (``runtime.py:166``): one
-    ``launch(carry, bound) -> carry`` per bound, each counted by
-    :meth:`EngineRuntime.record_launch`.  Returns ``(carry, flush)``;
-    ``flush`` is the deferred last-chunk metrics record of the
-    reference's ``obs`` arm, which is not ported (A10), so always None.
+    ``launch(carry, bound)`` per bound, each counted by
+    :meth:`EngineRuntime.record_launch`.  Returns ``(carry, flush)``.
+
+    Without ``obs`` a launch returns the new carry and ``flush`` is None.
+    With ``obs`` it returns ``(carry, metrics)``, a small dict of fresh
+    tensors (never the carry's own, which the next launch updates); when
+    the run has more than one chunk, chunk k's metrics are copied back
+    and recorded in :class:`~tpudes_torch.obs.device.ChunkStream` only
+    after chunk k + 1 is launched, so the copy overlaps the next chunk's
+    work, and ``flush`` records the last chunk's.  The engines run
+    ``flush`` inside their future's finalize
+    (:func:`finalize_with_flush`), so a ``block=False`` caller never
+    synchronises on a metrics copy.  A one-chunk run streams nothing.
 
     ``checkpoint`` (a :func:`~tpudes_torch.parallel.checkpoint.
     checkpoint_ctx` result) saves the carry after every completed chunk
     and, when a matching checkpoint exists, skips the completed chunks
     and resumes from the restored carry: bit-equal to an uninterrupted
     run, since every engine's draws are pure in their step and replica.
-    Each save copies the carry back, a synchronise a chunk."""
-    if obs:
-        raise _not_ported("the TpudesObs chunk stream", "A10")
+    Each save copies the carry back, a synchronise a chunk.  On the card
+    a chunk's metrics are copied on a side stream that waits for that
+    chunk's event only, so the copy overlaps the next chunk."""
+    from tpudes_torch.obs.device import ChunkStream
+
     bounds = list(bounds)
     start = 0
     if checkpoint is not None:
@@ -132,16 +144,62 @@ def drive_chunks(engine: str, bounds, carry, launch, obs: bool = False,
         if restored is not None:
             done_bound, carry = restored
             start = bounds.index(done_bound) + 1
+    stream = obs and len(bounds) > 1
+    prev = None
     for bound in bounds[start:]:
-        carry = launch(carry, bound)
+        out = launch(carry, bound)
+        carry, metrics = out if obs else (out, None)
         RUNTIME.record_launch(engine)
         if checkpoint is not None:
             checkpoint.ckpt.save(checkpoint, bound, bounds, carry)
-    return carry, None
+        if stream:
+            done = _chunk_done(metrics)
+            if prev is not None:
+                ChunkStream.record(engine, prev[0], _fetch(*prev[1:]))
+            prev = (bound, metrics, done)
+    if not (stream and prev is not None):
+        return carry, None
+
+    def flush(last=prev):
+        ChunkStream.record(engine, last[0], _fetch(*last[1:]))
+
+    return carry, flush
+
+
+def _chunk_done(metrics):
+    """A CUDA event recorded after a chunk's launches where its metrics
+    are on the card (None on the CPU)."""
+    import torch
+
+    dev = _cuda_device(metrics)
+    if dev is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def _fetch(metrics, done):
+    """The chunk's metrics copied back: on a side stream that waits only
+    for the chunk's own ``done`` event, so the copy does not wait for the
+    chunk launched after it."""
+    import torch
+
+    if done is None:
+        return to_host(metrics)
+    dev = _cuda_device(metrics)
+    side = torch.cuda.Stream(dev)
+    side.wait_event(done)
+    with torch.cuda.stream(side):
+        host = tree_map(lambda v: v.to("cpu", non_blocking=True)
+                        if isinstance(v, torch.Tensor) else v, metrics)
+    side.synchronize()
+    return tree_map(lambda v: v.numpy() if isinstance(v, torch.Tensor)
+                    else v, host)
 
 
 def finalize_with_flush(flush, finalize):
-    """Chain the deferred last-chunk flush in front of an
+    """Chain the deferred last-chunk metrics flush in front of an
     :class:`EngineFuture` finalize (identity when there is nothing to
     flush; ``runtime.py:223``)."""
     if flush is None:

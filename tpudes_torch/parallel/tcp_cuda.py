@@ -25,14 +25,23 @@ launches` under ``tcp_advance``, those of a RED program also under
 ``tcp_advance:sweep``, those of an app-limited program under
 ``tcp_advance:trf`` and those of more than one workload under
 ``tcp_advance:trf_sweep``.
+
+A state with the obs keys (``obs=True``) runs the ``OBS`` arm
+(``csrc/tcp_advance_obs.cu``, counted also under ``tcp_advance:obs``):
+the rules warp counts each flow's window reductions; the queue warp keeps
+each flow's consumed losses, FlowMonitor columns and delay histogram in
+its lane's registers and the row's occupancy histogram a bin a lane, and
+lane 0 writes the slot's ring row to global memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from tpudes_torch.obs.flowmon import bin_scale
 from tpudes_torch.parallel.bss_cuda import SHARED_OPTIN_MAX
 from tpudes_torch.parallel.kernels_cuda import _check, _launch
 from tpudes_torch.parallel.tcp_dumbbell import (
@@ -43,7 +52,10 @@ from tpudes_torch.parallel.tcp_dumbbell import (
     _HS_LOG_LOW,
     _HYBLA_INV,
     _LEDBAT_INV,
+    OBS_QHIST_BINS,
     TCP_STATE,
+    obs_bin_width,
+    obs_keys,
     state_shape,
 )
 
@@ -171,17 +183,54 @@ def tcp_launch(consts: dict, state: dict, key: torch.Tensor, t0: int,
     tensors, on the card, nothing copied back: the arguments and result
     of the plain loop (:func:`tpudes_torch.parallel.tcp_dumbbell.
     tcp_advance_math`).  Raises on a bad argument or a launch error;
-    never takes the plain loop."""
+    never takes the plain loop.
+
+    A state with the obs keys (``tcp_dumbbell.init_state(..., obs=True)``)
+    launches the ``OBS`` arm (``tcp_advance_obs_launch``), which updates
+    copies of them in place and returns them in the result."""
     args, out = _launch_args(consts, state, key, t0, t1, var, ecn, app_cum)
-    C = state["cwnd"].shape[0]
+    C, R = state["cwnd"].shape[:2]
     trf = app_cum is not None
     workloads = trf and C > 1 and app_cum.stride(0) != 0
-    _launch("tcp_advance", *args,
-            torch.cuda.current_stream(key.device).cuda_stream,
-            argtypes=LAUNCH_ARGTYPES,
-            arms=("red",) * bool(consts["red"])
+    stream = torch.cuda.current_stream(key.device).cuda_stream
+    arms = (("red",) * bool(consts["red"])
             + ("sweep",) * (C > 1 and not workloads) + ("trf",) * trf
             + ("trf_sweep",) * workloads)
+    if "fm_tx" not in state:
+        _launch("tcp_advance", *args, stream, argtypes=LAUNCH_ARGTYPES,
+                arms=arms)
+        return out
+    obs = _obs_io(consts, state, C, R, key.device)
+    half = float(np.float32(0.5) * np.float32(consts["base_rtt_s"]))
+    _launch("tcp_advance", *args,
+            (ctypes.c_void_p * len(obs))(*[v.data_ptr()
+                                           for v in obs.values()]),
+            ctypes.c_float(half),
+            ctypes.c_float(bin_scale(obs_bin_width(consts))),
+            consts["pkt_bytes"], consts["slot_us"], stream,
+            argtypes=OBS_ARGTYPES, symbol="tcp_advance_obs_launch",
+            arms=arms + ("obs",))
+    out.update(obs)
+    return out
+
+
+def _obs_io(consts: dict, state: dict, C: int, R: int, dev) -> dict:
+    """Check the obs state (:func:`~tpudes_torch.parallel.tcp_dumbbell.
+    obs_keys`) and return contiguous copies for the ``OBS`` arm to update
+    in place."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, FLOW_RING_CAP
+
+    F = consts["F"]
+    out = {}
+    for k in obs_keys(state):
+        shape = ((C, R, OBS_QHIST_BINS) if k == "q_hist"
+                 else (C, R, F, FLOW_DELAY_BINS) if k == "fm_hist"
+                 else (C, R, FLOW_RING_CAP, 5) if k == "fm_ring"
+                 else (C, R, F))
+        dt = torch.float32 if k in ("fm_dsum", "fm_jsum", "fm_dlast",
+                                    "fm_t0", "fm_t1") else torch.int32
+        _check(k, state[k], shape, dt, dev)
+        out[k] = state[k].clone()
     return out
 
 
@@ -205,10 +254,16 @@ def tcp_profile(consts: dict, state: dict, key: torch.Tensor, t0: int,
     if fn.argtypes is None:
         fn.argtypes = PROFILE_ARGTYPES
         fn.restype = ctypes.c_int
-    err = fn(*args, prof.data_ptr(),
-             torch.cuda.current_stream(key.device).cuda_stream)
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
+    with timed_launch(key.device) as wall:
+        err = fn(*args, prof.data_ptr(),
+                 torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tcp_advance probe failed: CUDA error {err}")
+    KernelProfile.record_cycles(
+        "tcp_advance", dict(zip(TCP_PROF_STAGES, prof.sum(0).tolist())),
+        C * R, wall[0])
     return out, prof
 
 
@@ -252,3 +307,9 @@ LAUNCH_ARGTYPES = (
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 PROFILE_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+#: ``tcp_advance_obs_launch`` (csrc/tcp_advance_obs.cu): the launch's
+#: arguments to ``shared``, the obs state's pointers, half the base RTT,
+#: the histogram's bin factor, a packet's bytes, a slot in us, stream
+OBS_ARGTYPES = (LAUNCH_ARGTYPES[:-1] + [ctypes.c_void_p]
+                + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])

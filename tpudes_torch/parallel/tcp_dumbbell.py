@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.ops.fused import cbrt, device_table, f32, fma, log, powf
 from tpudes_torch.parallel.runtime import (
     RUNTIME,
@@ -224,9 +225,21 @@ def state_shape(axis: str, points: int, replicas: int, L: int,
             "l": (points, replicas, L), "r": (points, replicas)}[axis]
 
 
-def init_state(consts: dict, replicas: int, points: int = 1) -> dict:
+#: queue-occupancy histogram bins of the obs accumulators
+#: (``tcp_dumbbell.py:729``)
+OBS_QHIST_BINS = 16
+#: the obs state besides the FlowMonitor columns (``tcp_dumbbell.py:
+#: 776-786``): per flow the window reductions and the losses the detector
+#: consumed, per row the bottleneck-occupancy histogram
+TCP_OBS_STATE = (("cwnd_cuts", "f"), ("retx_cnt", "f"), ("q_hist", "h"))
+
+
+def init_state(consts: dict, replicas: int, points: int = 1,
+               obs: bool = False) -> dict:
     """The ``(C, R, ...)`` initial state of C points (``tcp_dumbbell.py:
-    776-833``), on the constants' device."""
+    776-833``), on the constants' device; ``obs`` adds
+    :data:`TCP_OBS_STATE` and the FlowMonitor columns (one flow a TCP
+    flow)."""
     dev = consts["start"].device
     out = {}
     for k, ax, dt in TCP_STATE:
@@ -235,7 +248,97 @@ def init_state(consts: dict, replicas: int, points: int = 1) -> dict:
             v = float(np.float32(consts["base_rtt_s"]))
         shape = state_shape(ax, points, replicas, consts["L"], consts["F"])
         out[k] = torch.full(shape, v, dtype=_DTYPES[dt], device=dev)
+    if obs:
+        from tpudes_torch.obs.flowmon import flow_carry
+
+        F = consts["F"]
+        for k, ax in TCP_OBS_STATE:
+            out[k] = torch.zeros(
+                (points, replicas, F if ax == "f" else OBS_QHIST_BINS),
+                dtype=torch.int32, device=dev)
+        out.update(flow_carry(F, (points, replicas), dev))
     return out
+
+
+def obs_keys(state: dict) -> tuple:
+    """The obs keys ``state`` holds (none without ``obs``)."""
+    from tpudes_torch.obs.flowmon import FM_KEYS
+
+    if "fm_tx" not in state:
+        return ()
+    return tuple(k for k, _ in TCP_OBS_STATE) + FM_KEYS
+
+
+def obs_delay(c: dict, qtot: torch.Tensor) -> torch.Tensor:
+    """A row's one-way delay this slot, in seconds: half the base RTT plus
+    the bottleneck residence its departure saw, ``0.5 base_rtt + qtot
+    slot_s`` in f32 (``tcp_dumbbell.py:1076-1079``), one multiply-add
+    rounded once, as the reference's compiled step fuses it (the unfused
+    form's delay sums miss the reference's by an ulp)."""
+    q = qtot.float()
+    return fma(q, f32(q, c["slot_s"]),
+               f32(q, np.float32(0.5) * np.float32(c["base_rtt_s"])))
+
+
+def obs_bin_width(c: dict) -> float:
+    """The delay histogram's bin width in seconds (``:1087-1089``)."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS
+
+    return (0.5 * c["base_rtt_s"] + c["queue_cap"] * c["slot_s64"]) \
+        / FLOW_DELAY_BINS
+
+
+def obs_slot(c: dict, s: dict, out: dict, t: int, *, losses, reduce, qtot,
+             dep, dep_oh, want, drop_f) -> None:
+    """Slot ``t``'s obs accumulators into ``out`` (``tcp_dumbbell.py:
+    1056-1124``): the reductions, the consumed losses and the occupancy
+    bucket; the FlowMonitor columns, a packet ``seg_bytes + 40`` bytes,
+    its delay :func:`obs_delay`; and one ring row a row: the delivery if
+    one happened, else a drop (the first flow with the most), else a send,
+    step -1 where none did."""
+    from tpudes_torch.obs.flowmon import (
+        VERDICT_DROP,
+        VERDICT_RX,
+        VERDICT_TX,
+        flow_accumulate,
+        flow_ring_write,
+    )
+
+    Q, F = c["queue_cap"], c["F"]
+    dev = qtot.device
+    bucket = torch.clamp(qtot * OBS_QHIST_BINS // max(Q + 1, 1), 0,
+                         OBS_QHIST_BINS - 1)
+    out["cwnd_cuts"] = s["cwnd_cuts"] + reduce.to(torch.int32)
+    out["retx_cnt"] = s["retx_cnt"] + losses
+    out["q_hist"] = s["q_hist"] + (
+        bucket[:, None] == torch.arange(OBS_QHIST_BINS, device=dev)
+    ).to(torch.int32)
+    pkt_b = c["pkt_bytes"]
+    rx = dep_oh.to(torch.int32)
+    t_s = torch.full((), float(t), dtype=torch.float32, device=dev) \
+        * c["slot_s"]
+    fm = flow_accumulate(
+        {k: s[k] for k in s if k.startswith("fm_")}, t_s=t_s, tx=want,
+        tx_bytes=want * pkt_b, rx=rx, rx_bytes=rx * pkt_b,
+        delay_s=obs_delay(c, qtot)[:, None].expand(-1, F), lost=drop_f,
+        bin_width_s=obs_bin_width(c))
+    backlogged = qtot > 0
+    has_drop = drop_f.sum(1, dtype=torch.int32) > 0
+    has_tx = want.sum(1, dtype=torch.int32) > 0
+    flow = torch.where(backlogged, dep, torch.where(
+        has_drop, drop_f.argmax(1), want.argmax(1)))
+    verdict = torch.where(backlogged, VERDICT_RX,
+                          torch.where(has_drop, VERDICT_DROP, VERDICT_TX))
+    n = qtot.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    row = torch.stack([
+        torch.where(backlogged | has_drop | has_tx, t, -1).to(torch.int32),
+        # the reference's int32 product, wrapped
+        torch.full((n,), (t * c["slot_us"] + 2**31) % 2**32 - 2**31, **i32),
+        flow.to(torch.int32), torch.full((n,), pkt_b, **i32),
+        verdict.to(torch.int32)], -1)
+    fm["fm_ring"] = flow_ring_write(fm["fm_ring"], t, row)
+    out.update(fm)
 
 
 def build_tcp_consts(prog: DumbbellProgram, device=None) -> dict:
@@ -256,6 +359,9 @@ def build_tcp_consts(prog: DumbbellProgram, device=None) -> dict:
         # the app-limit's clock: a slot in whole µs (``:774``)
         slot_us=max(1, int(round(prog.slot_s * 1e6))),
         slot_s=float(np.float32(prog.slot_s)),
+        slot_s64=float(prog.slot_s),
+        # the obs columns' packet: a segment and 40 header bytes
+        pkt_bytes=int(prog.seg_bytes) + 40,
         base_rtt_s=float(prog.base_rtt_s),
         start=i32(prog.start_slot), stop=i32(prog.stop_slot),
         max_pkts=i32(prog.max_pkts),
@@ -555,7 +661,9 @@ def step_math(c: dict, s: dict, t: int, var: torch.Tensor,
     and ``u_mark`` ``(N,)``; ``app`` (an app-limited program) the ``(N,
     F)`` int32 segments each row's flows have offered by the end of the
     slot.  Returns the new state; ``census``, if given, gains this slot's
-    :data:`CENSUS_KEYS` (as tensors)."""
+    :data:`CENSUS_KEYS` (as tensors).  A state with the obs keys
+    (:func:`init_state` ``obs=True``) gains this slot's
+    :func:`obs_slot`."""
     L, F = c["L"], c["F"]
     dev = s["cwnd"].device
     idx = t % L
@@ -688,7 +796,7 @@ def step_math(c: dict, s: dict, t: int, var: torch.Tensor,
         for k, v in zip(CENSUS_KEYS, (red_marks, red_drops, rej, reduce)):
             census[k] = census.get(k, 0) + v.sum(dtype=torch.int64)
 
-    return dict(
+    out = dict(
         side, cwnd=cwnd, ssthresh=ssthresh, inflight=inflight, q=q,
         q_marked=q_marked, delivered=delivered, drops=drops,
         recover_until=recover_until, ack_buf=ack_buf, loss_buf=loss_buf,
@@ -696,6 +804,10 @@ def step_math(c: dict, s: dict, t: int, var: torch.Tensor,
         qsum=s["qsum"] + qtot.float(), red_avg=red_avg,
         dctcp_acked=d_acked, dctcp_marked=d_marked,
     )
+    if "fm_tx" in s:
+        obs_slot(c, s, out, t, losses=losses, reduce=reduce, qtot=qtot,
+                 dep=dep, dep_oh=dep_oh, want=want, drop_f=rej + red_drops)
+    return out
 
 
 def admission_rank(rem: torch.Tensor) -> torch.Tensor:
@@ -750,7 +862,8 @@ def tcp_advance_math(consts: dict, state: dict, key: torch.Tensor,
                 census, app)
     if census is not None:
         census.update({k: int(v) for k, v in census.items()})
-    return {k: flat[k].unflatten(0, (C, R)) for k, _, _ in TCP_STATE}
+    return {k: flat[k].unflatten(0, (C, R))
+            for k in (*(k for k, _, _ in TCP_STATE), *obs_keys(state))}
 
 
 def tcp_advance(consts: dict, state: dict, key: torch.Tensor, t0: int,
@@ -773,7 +886,10 @@ def tcp_advance(consts: dict, state: dict, key: torch.Tensor, t0: int,
 def _tcp_unpack(host: dict, prog: DumbbellProgram, replicas: int) -> list:
     """The result dicts (``tcp_dumbbell.py:1285-1310``) as numpy, one per
     point of the host ``(C, R_pad, ...)`` state, the padded replicas
-    sliced off."""
+    sliced off; with the obs keys, ``cwnd_cuts``, ``retx``,
+    ``queue_hist`` and the FlowMonitor columns under ``flow``."""
+    from tpudes_torch.obs.flowmon import FM_KEYS
+
     R = int(replicas)
     sim_s = prog.n_slots * prog.slot_s
     out = []
@@ -787,6 +903,12 @@ def _tcp_unpack(host: dict, prog: DumbbellProgram, replicas: int) -> list:
             mean_queue=host["qsum"][c, :R] / prog.n_slots,
             cwnd_final=host["cwnd"][c, :R],
         ))
+        if "fm_tx" in host:
+            out[-1].update(
+                cwnd_cuts=host["cwnd_cuts"][c, :R],
+                retx=host["retx_cnt"][c, :R],
+                queue_hist=host["q_hist"][c, :R],
+                flow={k: host[k][c, :R] for k in FM_KEYS})
     return out
 
 
@@ -966,7 +1088,14 @@ def run_tcp_dumbbell(
     results sliced back.  ``block=False`` returns an
     :class:`~tpudes_torch.parallel.runtime.EngineFuture`.  ``device``
     defaults to the card, where each chunk is one launch of the
-    persistent kernel."""
+    persistent kernel.
+
+    ``obs=True`` (the reference's ``TpudesObs``, ``tcp_dumbbell.py:
+    741-786``, ``:1056-1124``) adds per replica ``cwnd_cuts`` and
+    ``retx`` (R, F), ``queue_hist`` (R, 16) and the FlowMonitor columns
+    under ``flow`` (one flow a TCP flow; on the card the kernel's ``OBS``
+    arm), and streams a chunked run's per-chunk ``delivered``, ``drops``
+    and ring to :class:`~tpudes_torch.obs.device.ChunkStream`."""
     if variants is not None and traffic_sweep is not None:
         raise ValueError(
             "one config axis per launch: sweep either the variant "
@@ -974,8 +1103,8 @@ def run_tcp_dumbbell(
             "(traffic_sweep=[...])")
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
+    from tpudes_torch.obs.device import CompileTelemetry
+    from tpudes_torch.obs.flowmon import flip_ring
     from tpudes_torch.parallel.checkpoint import checkpoint_ctx
 
     dev = resolve_device(device)
@@ -983,9 +1112,10 @@ def run_tcp_dumbbell(
     sweep = "traffic" if traffic_sweep is not None else "variant"
     n_cfg = (len(variants) if variants is not None
              else len(traffic_sweep) if traffic_sweep is not None else None)
-    consts, _ = RUNTIME.runner(
+    t_miss = wall_now()
+    consts, compiling = RUNTIME.runner(
         "dumbbell",
-        dumbbell_prog_key(prog) + (r_pad, False, n_cfg, sweep, str(dev)),
+        dumbbell_prog_key(prog) + (r_pad, obs, n_cfg, sweep, str(dev)),
         lambda: _keyed_constants(prog, dev),
     )
     ops = workload_operands(prog, traffic_sweep, dev)
@@ -997,32 +1127,46 @@ def run_tcp_dumbbell(
     key = to_device(key if isinstance(key, torch.Tensor)
                     else np.asarray(key, np.int64), dev, torch.int64)
     C = var.shape[0]
+    swept = variants is not None or traffic_sweep is not None
 
     def launch(c, bound):
         app = None if ops is None else app_cum_table(
             ops, prog.traffic.epoch_us, consts["slot_us"], c["t"], bound)
         if app is not None and app.shape[0] != C:
             app = app.expand(C, -1, -1)
-        return dict(t=bound, state=tcp_advance(consts, c["state"], key,
-                                               c["t"], bound, var_t, ecn_t,
-                                               app))
+        out = dict(t=bound, state=tcp_advance(consts, c["state"], key,
+                                              c["t"], bound, var_t, ecn_t,
+                                              app))
+        if not obs:
+            return out
+        # the chunk's fresh metrics per lane (``tcp_dumbbell.py:1205-1219``)
+        st = out["state"]
+        lanes = (C,) * swept + (int(r_pad),)
+        return out, dict(
+            delivered=st["delivered"].sum(-1, dtype=torch.int32)
+            .reshape(lanes),
+            drops=st["drops"].sum(-1, dtype=torch.int32).reshape(lanes),
+            fm_ring=flip_ring(st["fm_ring"]).reshape(
+                lanes + st["fm_ring"].shape[2:]))
 
     ckpt = checkpoint_ctx(
         checkpoint, engine="dumbbell", key=key, replicas=replicas,
-        r_pad=r_pad, n_cfg=n_cfg, obs=False, axis=1, device=dev,
+        r_pad=r_pad, n_cfg=n_cfg, obs=obs, axis=1, device=dev,
         extra=dumbbell_prog_key(prog) + (
             tuple(tuple(int(i) for i in p) for p in var),
             None if prog.traffic is None else prog.traffic.param_key(),
             None if traffic_sweep is None
             else tuple(tp.param_key() for tp in traffic_sweep)),
     )
-    carry, flush = drive_chunks(
-        "dumbbell", chunk_bounds(prog.n_slots, chunk_slots or prog.n_slots),
-        dict(t=0, state=init_state(consts, int(r_pad), C)), launch,
-        checkpoint=ckpt)
+    with CompileTelemetry.timed("dumbbell", compiling, t_miss):
+        carry, flush = drive_chunks(
+            "dumbbell",
+            chunk_bounds(prog.n_slots, chunk_slots or prog.n_slots),
+            dict(t=0, state=init_state(consts, int(r_pad), C, obs)), launch,
+            obs=obs, checkpoint=ckpt)
     fetch = {k: carry["state"][k]
-             for k in ("delivered", "drops", "qsum", "cwnd")}
-    swept = variants is not None or traffic_sweep is not None
+             for k in ("delivered", "drops", "qsum", "cwnd",
+                       *obs_keys(carry["state"]))}
 
     def finalize(host):
         out = _tcp_unpack(host, prog, replicas)

@@ -159,11 +159,18 @@ def window_profile(pos: torch.Tensor, tx: torch.Tensor, mode: torch.Tensor,
     slowest lane summed over the warps.  Not the main path: not counted in
     ``kernels_cuda.launches``."""
     args, out, _, _held = _window_args(pos, tx, mode, fb, keys, params)
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
     prof = torch.zeros(len(WIN_PROF_STAGES), dtype=torch.int64,
                        device=keys.device)
-    _call("wifi_window_profile", WINDOW_ARGTYPES[:-1] + [ctypes.c_void_p] * 2,
-          *args, prof.data_ptr(),
-          torch.cuda.current_stream(keys.device).cuda_stream)
+    with timed_launch(keys.device) as wall:
+        _call("wifi_window_profile",
+              WINDOW_ARGTYPES[:-1] + [ctypes.c_void_p] * 2, *args,
+              prof.data_ptr(),
+              torch.cuda.current_stream(keys.device).cuda_stream)
+    KernelProfile.record_cycles(
+        "wifi_window", dict(zip(WIN_PROF_STAGES, prof.tolist())),
+        tx.shape[0], wall[0])
     return out, prof.double() / tx.shape[0]
 
 
@@ -253,11 +260,18 @@ def scan_profile(pos: torch.Tensor, prob: torch.Tensor, mode: torch.Tensor,
     if n_windows < 1:
         raise ValueError("the scan's probe needs a window")
     rx_w, det = _geometry(pos)
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
     prof = torch.zeros(len(WIN_PROF_STAGES), dtype=torch.int64,
                        device=keys.device)
-    _scan_call("wifi_scan_profile", SCAN_ARGTYPES[:-1] + [ctypes.c_void_p] * 2,
-               rx_w, det, prob, mode, fb, keys, delivered, n_windows,
-               prof.data_ptr())
+    with timed_launch(keys.device) as wall:
+        _scan_call("wifi_scan_profile",
+                   SCAN_ARGTYPES[:-1] + [ctypes.c_void_p] * 2, rx_w, det,
+                   prob, mode, fb, keys, delivered, n_windows,
+                   prof.data_ptr())
+    KernelProfile.record_cycles(
+        "wifi_window:scan", dict(zip(WIN_PROF_STAGES, prof.tolist())),
+        R * n_windows, wall[0])
     return delivered, prof.double() / (R * n_windows)
 
 

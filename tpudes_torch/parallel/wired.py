@@ -53,8 +53,11 @@ go through ``drive_chunks``, and ``block=False`` returns an
 :class:`~tpudes_torch.parallel.runtime.EngineFuture`; like the
 reference's, it takes no ``checkpoint=``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (A12), ``TpudesObs`` / ``obs=True`` (A10).  The host DES
+``obs=True`` keeps the FlowMonitor columns (:func:`_obs_step`; on the
+card the kernel's ``OBS`` arm, ``csrc/wired_advance_obs.cu``).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``mesh=`` (A12).  The host DES
 oracle ``run_wired_host`` runs on the JAX package's simulator core and is
 not ported (A16); the tests call the reference's.
 """
@@ -68,6 +71,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.device import resolve_device, to_device
+from tpudes_torch.obs.distributed import wall_now
 from tpudes_torch.parallel.runtime import (
     RUNTIME,
     EngineFuture,
@@ -75,6 +79,7 @@ from tpudes_torch.parallel.runtime import (
     bucket_replicas,
     chunk_bounds,
     drive_chunks,
+    finalize_with_flush,
 )
 from tpudes_torch.random import wired_jitter
 
@@ -382,13 +387,18 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
     ``paths``, ``nhops`` and ``g2l``: the local link of flow f's hop h,
     :data:`LO_DELIVERED` at and past its hop count, :data:`LO_PEER` where
     the lane does not serve that link (int16 where Lo < 2^15, as the
-    kernel reads it); and ``flow_ids`` (K, F) numpy, ``L``, ``H``."""
+    kernel reads it); ``f_first``, ``f_period`` and ``f_npk`` (K, F),
+    each flow's first packet, CBR period and packets (the ``OBS`` arm
+    counts a flow's births from them); and ``flow_ids`` (K, F) numpy,
+    ``L``, ``H``, and ``bin_slots`` (the first lane's
+    :func:`obs_bin_slots`)."""
     dev = resolve_device(device)
     svc = np.asarray(prog.service_slots, np.int64)
     sd = svc + np.asarray(prog.delay_slots, np.int64)
     L = int(prog.n_links)
     cols = {k: [] for k in ("paths", "nhops", "pkt_flow", "pkt_birth",
-                            "g2l", "svc", "svcdly", "lo_at")}
+                            "g2l", "svc", "svcdly", "lo_at", "f_first",
+                            "f_period", "f_npk")}
     fids = []
     for sub, owned, flow_ids in lanes:
         paths = np.asarray(sub.paths, np.int32)
@@ -406,6 +416,11 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
         cols["svc"].append(svc[idx].astype(np.int32))
         cols["svcdly"].append(sd[idx].astype(np.int32))
         cols["lo_at"].append(_lo_at(paths, g2l))
+        npk = np.asarray(sub.n_pkts, np.int32)
+        cols["f_first"].append(np.concatenate(
+            ([0], np.cumsum(npk)[:-1])).astype(np.int32))
+        cols["f_period"].append(np.asarray(sub.period_slots, np.int32))
+        cols["f_npk"].append(npk)
         fids.append(np.arange(sub.n_flows, dtype=np.int32)
                     if flow_ids is None else np.asarray(flow_ids, np.int32))
     for name, parts in cols.items():
@@ -417,6 +432,7 @@ def wired_tables(prog: WiredProgram, lanes, device=None) -> dict:
            for k, v in cols.items()}
     tab.update(flow_ids=np.stack(fids), L=L,
                H=int(np.asarray(prog.paths).shape[1]),
+               bin_slots=obs_bin_slots(lanes[0][0]),
                flow_ids_t=torch.as_tensor(np.stack(fids).astype(np.int64),
                                           device=dev))
     return tab
@@ -518,6 +534,90 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
+def obs_bin_slots(prog: WiredProgram) -> float:
+    """The delay histogram's bin width in slots: twice the longest path's
+    service and delay over the bins (``wired.py:660-672``)."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS
+
+    paths = np.asarray(prog.paths)
+    safe = np.clip(paths, 0, int(prog.n_links) - 1)
+    path_slots = np.where(
+        paths >= 0, np.asarray(prog.service_slots)[safe]
+        + np.asarray(prog.delay_slots)[safe], 0).sum(axis=1)
+    return max(1.0, 2.0 * float(path_slots.max()) / FLOW_DELAY_BINS)
+
+
+def _per_flow(x: torch.Tensor, flow: torch.Tensor, F: int) -> torch.Tensor:
+    """``(N, F)`` sums over each flow's packets of the ``(N, P)`` ``x``."""
+    return torch.zeros((x.shape[0], F), dtype=x.dtype,
+                       device=x.device).index_add_(1, flow, x)
+
+
+def _obs_step(tab: dict, fm: dict, st: dict, old_deliver, birth, mark, s,
+              active, bin_slots: float):
+    """The FlowMonitor columns after every active row's visit of its slot
+    ``s`` (``wired.py:735-808``; the row's own clock, see
+    :func:`advance_math`): the packets delivered in the visit (each flow's
+    delays summed, their mean one observation), the births in ``(mark,
+    s]`` sent, and the visit's ring row; returns ``(fm, mark)``.  A flow
+    delivers at most one packet a slot (its last link serves one a slot),
+    so each mean is one delay, an integer below 2^24 slots (asserted):
+    exact in f32 in any order of the sums."""
+    from tpudes_torch.obs.flowmon import (
+        VERDICT_RX,
+        VERDICT_TX,
+        flow_accumulate,
+        flow_ring_write,
+    )
+
+    flow = tab["pkt_flow"][0].long()
+    F = tab["paths"].shape[1]
+    i32 = torch.int32
+    new_del = (st["deliver"] >= 0) & (old_deliver < 0) & active[:, None]
+    born = (birth > mark[:, None]) & (birth <= s[:, None]) & active[:, None]
+    rx_f = _per_flow(new_del.to(i32), flow, F)
+    tx_f = _per_flow(born.to(i32), flow, F)
+    dsum_i = _per_flow(torch.where(new_del, st["deliver"] - birth, 0)
+                       .to(torch.int64), flow, F)
+    assert dsum_i.numel() == 0 or int(dsum_i.max()) < 2**24, \
+        "a delay sum passed 2^24 slots: f32 would round it"
+    mean_d = dsum_i.float() / torch.clamp_min(rx_f, 1).float()
+    new = flow_accumulate(
+        {k: v for k, v in fm.items() if k != "fm_ring"},
+        t_s=s.float()[:, None], tx=tx_f, tx_bytes=tx_f * WIRED_PKT_BYTES,
+        rx=rx_f, rx_bytes=rx_f * WIRED_PKT_BYTES, delay_s=mean_d,
+        lost=torch.zeros_like(rx_f), bin_width_s=bin_slots)
+    any_rx, any_tx = new_del.any(1), born.any(1)
+    row = torch.stack([
+        torch.where(any_rx | any_tx, s, -1), s,
+        torch.where(any_rx, rx_f.argmax(1), tx_f.argmax(1)).to(i32),
+        torch.full_like(s, WIRED_PKT_BYTES),
+        torch.where(any_rx, VERDICT_RX, VERDICT_TX).to(i32)], -1).to(i32)
+    new["fm_ring"] = flow_ring_write(fm["fm_ring"], s, row)
+    out = {k: torch.where(active.view(-1, *([1] * (v.dim() - 1))), new[k], v)
+           for k, v in fm.items()}
+    return out, torch.where(active, s, mark)
+
+
+def _obs_flush(fm: dict, birth, mark, t_grant: int, bin_slots: float,
+               flow, F: int) -> dict:
+    """The window edge (``wired.py:812-833``): the births in ``(mark,
+    t_grant)`` that no visit counted (their first service meets a busy
+    link past the grant) are sends of this window, at ``t_grant - 1``."""
+    from tpudes_torch.obs.flowmon import flow_accumulate
+
+    born = (birth > mark[:, None]) & (birth < t_grant)
+    tx_f = _per_flow(born.to(torch.int32), flow, F)
+    z = torch.zeros_like(tx_f)
+    new = flow_accumulate(
+        {k: v for k, v in fm.items() if k != "fm_ring"},
+        t_s=float(t_grant - 1), tx=tx_f, tx_bytes=tx_f * WIRED_PKT_BYTES,
+        rx=z, rx_bytes=z, delay_s=torch.zeros(tx_f.shape), lost=z,
+        bin_width_s=bin_slots)
+    new["fm_ring"] = fm["fm_ring"]
+    return new
+
+
 def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
     """The plain ``advance`` (``wired.py:700-836``) over the carry's rows
     (``(R, P)`` arrays, or ``(K, R, P)`` for K lanes), its ingress already
@@ -527,7 +627,14 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
     ``(carry, metrics)``: a new carry, ``metrics["next_event"]`` the least next
     event over each lane's rows (``(K,)`` int32; a scalar tensor for a
     carry without a lane axis) and ``metrics["n_steps"]`` the most steps
-    a row took."""
+    a row took.
+
+    A carry with the obs keys (``build_wired_advance(..., obs=True)``, one
+    lane) also updates the FlowMonitor columns (:func:`_obs_step` a visit,
+    :func:`_obs_flush` at the edge) and adds the ring, reversed, to the
+    metrics.  Its rows visit the window's first slot ``t`` too, as the
+    reference's clock does (nothing is served there before the row's next
+    event); that visit counts in ``n_steps``."""
     shape = carry["hop"].shape
     st = {k: _rows(carry[k]) for k, _ in WIRED_STATE}
     N = st["hop"].shape[0]
@@ -536,13 +643,27 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
     st["eg_ready"] = torch.full_like(st["hop"], -1)
     t0, t_grant = int(carry["t"]), int(t_grant)
     steps = torch.zeros(N, dtype=torch.int32, device=st["hop"].device)
+    obs = "fm_tx" in carry
+    if obs:
+        from tpudes_torch.obs.flowmon import FM_KEYS, flip_ring
+
+        fm = {k: carry[k] for k in FM_KEYS}
+        birth, bins = carry["fm_birth"], tab["bin_slots"]
+        mark = torch.full((N,), int(carry["fm_mark"]), dtype=torch.int32,
+                          device=birth.device)
     if t0 < t_grant:
         s = torch.clamp_min(next_of_math(tab, lane, st["hop"], st["ready"],
                                          st["free"]), t0)
+        if obs:
+            s = torch.full_like(s, t0)
         active = s < t_grant
         while bool(active.any()):
+            old_deliver = st["deliver"]
             st = wired_step_math(tab, lane, s, active, st)
             steps += active.to(torch.int32)
+            if obs:
+                fm, mark = _obs_step(tab, fm, st, old_deliver, birth, mark, s,
+                                     active, bins)
             nxt = next_of_math(tab, lane, st["hop"], st["ready"], st["free"])
             s = torch.where(active, torch.maximum(s + 1, nxt), s)
             active = s < t_grant
@@ -552,10 +673,16 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
     out = {k: st[k].reshape(*shape[:-1], st[k].shape[-1])
            for k, _ in WIRED_STATE}
     out["t"] = max(t0, t_grant)
-    return out, dict(next_event=next_event if len(shape) == 3
-                     else next_event[0],
-                     n_steps=steps.max() if N else torch.zeros((), dtype=
-                                                              torch.int32))
+    metrics = dict(next_event=next_event if len(shape) == 3
+                   else next_event[0],
+                   n_steps=steps.max() if N else torch.zeros((), dtype=
+                                                            torch.int32))
+    if obs:
+        fm = _obs_flush(fm, birth, mark, t_grant, bins,
+                        tab["pkt_flow"][0].long(), tab["paths"].shape[1])
+        out.update(fm, fm_birth=birth, fm_mark=t_grant - 1)
+        metrics["fm_ring"] = flip_ring(fm["fm_ring"])
+    return out, metrics
 
 
 # --------------------------------------------------------------------------
@@ -626,19 +753,28 @@ def build_wired_advance(prog: WiredProgram, replicas: int, owned=None,
     clears the egress and serves below ``t_grant`` (:func:`advance_math`;
     on the card one ``wired_advance`` launch that updates the carry's
     tensors in place); returns ``(carry, metrics)`` with the scalar
-    ``next_event`` and ``n_steps``.  ``obs=True`` (the ``TpudesObs``
-    FlowMonitor columns) is not ported (A10).  ``tab`` is the lane's
-    :func:`wired_tables` where the caller has them (the runner cache),
-    else built here."""
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
+    ``next_event`` and ``n_steps``.  ``obs=True`` (the reference's
+    ``TpudesObs``, ``wired.py:635-836``) adds the FlowMonitor columns of
+    ``prog``'s flows to the carry, with ``fm_birth`` (each packet's
+    jittered send slot) and ``fm_mark`` (the last slot whose births were
+    counted), in slot units, and the ring to the metrics; on the card each
+    advance is one launch of the ``OBS`` arm (``csrc/wired_advance_obs.cu``).
+    ``tab`` is the lane's :func:`wired_tables` where the caller has them
+    (the runner cache), else built here."""
     if tab is None:
         tab = wired_tables(prog, [(prog, owned, flow_ids)], device)
     jitter = int(prog.jitter_slots)
 
     def init_state(key, replica_offset: int = 0):
         c = _init_rows(tab, key, replicas, jitter, replica_offset)
-        return {k: (v[0] if k != "t" else v) for k, v in c.items()}
+        c = {k: (v[0] if k != "t" else v) for k, v in c.items()}
+        if obs:
+            from tpudes_torch.obs.flowmon import flow_carry
+
+            c.update(flow_carry(prog.n_flows, (int(replicas),),
+                                c["hop"].device),
+                     fm_birth=c["ready"].clone(), fm_mark=-1)
+        return c
 
     return init_state, _advance(tab)
 
@@ -716,26 +852,72 @@ def run_wired(prog: WiredProgram, key, replicas: int = 1, mesh=None, *,
     bucket and the results sliced back; ``block=False`` returns an
     :class:`~tpudes_torch.parallel.runtime.EngineFuture`.  ``device``
     defaults to the card, where a window is one ``wired_advance``
-    launch."""
+    launch.
+
+    ``obs=True`` adds the FlowMonitor columns under ``flow`` (``(R,
+    F)``, ``fm_hist`` ``(R, F, 16)``, ``fm_ring`` ``(R, 512, 5)``), kept
+    in slot units and scaled here as the reference's unpack does (the
+    float columns to seconds, the ring's times to µs); on the card each
+    window is one launch of the ``OBS`` arm.  A windowed run streams each
+    window's ``next_event``, ``n_steps`` and ring to
+    :class:`~tpudes_torch.obs.device.ChunkStream`.  Each row steps its own
+    clock (ROADMAP Queue C, C5), where the reference steps every row on
+    the union of all rows' clocks: with more than one replica a flow's
+    ``fm_t0`` (the first send it counts) and the ring's rows differ (C6);
+    every other column is equal at each window edge."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if obs:
-        raise _not_ported("TpudesObs", "A10")
+    from tpudes_torch.obs.device import CompileTelemetry
+
     dev = resolve_device(device)
     r_pad = bucket_replicas(replicas)
-    cached, _ = RUNTIME.runner(
-        "wired", wired_cache_key(prog) + (r_pad, False, str(dev)),
+    t_miss = wall_now()
+    cached, compiling = RUNTIME.runner(
+        "wired", wired_cache_key(prog) + (r_pad, obs, str(dev)),
         lambda: dict(tab=wired_tables(prog, [(prog, None, None)], dev),
                      offs=_pkt_offsets(prog, dev)))
     init_state, advance = build_wired_advance(prog, r_pad, device=dev,
-                                              tab=cached["tab"])
-    carry, _ = drive_chunks(
-        "wired", chunk_bounds(prog.n_slots, window_slots or prog.n_slots),
-        init_state(key, replica_offset),
-        lambda c, bound: advance(c, None, None, bound)[0])
-    fut = EngineFuture(
-        "wired", dict(deliver=carry["deliver"], served=carry["served"],
-                      delivered=_delivered(carry["deliver"], prog,
-                                           cached["offs"])),
-        lambda host: _wired_unpack(host, prog, replicas))
+                                              tab=cached["tab"], obs=obs)
+    with CompileTelemetry.timed("wired", compiling, t_miss):
+        carry, flush = drive_chunks(
+            "wired", chunk_bounds(prog.n_slots,
+                                  window_slots or prog.n_slots),
+            init_state(key, replica_offset),
+            lambda c, bound: advance(c, None, None, bound) if obs
+            else advance(c, None, None, bound)[0], obs=obs)
+    fetch = dict(deliver=carry["deliver"], served=carry["served"],
+                 delivered=_delivered(carry["deliver"], prog,
+                                      cached["offs"]))
+    if obs:
+        from tpudes_torch.obs.flowmon import FM_KEYS
+
+        fetch.update({k: carry[k] for k in FM_KEYS})
+
+    def finalize(host):
+        out = _wired_unpack(host, prog, replicas)
+        if obs:
+            out["flow"] = _flow_in_seconds(host, prog, replicas)
+        return out
+
+    fut = EngineFuture("wired", fetch, finalize_with_flush(flush, finalize))
     return fut.result() if block else fut
+
+
+def _flow_in_seconds(host: dict, prog: WiredProgram, replicas: int) -> dict:
+    """The fetched FlowMonitor columns (slot units) as the reference's
+    unpack reports them (``wired.py:1120-1140``): the float columns times
+    ``slot_s`` in f64, the ring's times in µs where a row holds an event;
+    the -1 sentinels stay negative."""
+    from tpudes_torch.obs.flowmon import FM_KEYS
+
+    fm = {k: np.asarray(host[k])[:replicas] for k in FM_KEYS}
+    slot_s = float(prog.slot_s)
+    for k in ("fm_dsum", "fm_jsum", "fm_dlast", "fm_t0", "fm_t1"):
+        fm[k] = np.asarray(fm[k], np.float64) * slot_s
+    ring = np.asarray(fm["fm_ring"], np.int64).copy()
+    ring[..., 1] = np.where(
+        ring[..., 0] >= 0,
+        np.round(ring[..., 1] * slot_s * 1e6).astype(np.int64),
+        ring[..., 1])
+    fm["fm_ring"] = ring
+    return fm

@@ -31,6 +31,7 @@ import torch
 from tpudes_torch.parallel.kernels_cuda import _check
 from tpudes_torch.parallel.wired import (
     INF_SLOT,
+    WIRED_PKT_BYTES,
     WIRED_STATE,
     _rows,
     advance_math,
@@ -130,7 +131,82 @@ def advance_launch(tab: dict, carry: dict, t_grant: int) -> tuple:
         return advance_math(tab, carry, t_grant)
     if dev.type != "cuda":
         raise ValueError(f"no wired_advance for device {dev}")
+    if "fm_tx" in carry:
+        return wired_obs_cuda(tab, carry, t_grant)
     return wired_cuda(tab, carry, t_grant)
+
+
+#: the ``OBS`` arm's device pointers, in csrc/wired_advance_obs.cu's Args
+#: order after the tables: the state, next and steps, then these
+OBS_COLS = ("fm_birth", "fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost",
+            "fm_dsum", "fm_jsum", "fm_dlast", "fm_t0", "fm_t1", "fm_hist",
+            "fm_ring")
+
+
+def wired_obs_cuda(tab: dict, carry: dict, t_grant: int,
+                   stage: bool = True) -> tuple:
+    """One launch of the ``OBS`` arm (``wired_advance_obs_launch``,
+    csrc/wired_advance_obs.cu) on a one-lane carry with the obs keys
+    (:func:`~tpudes_torch.parallel.wired.build_wired_advance` ``obs=True``):
+    :func:`advance_launch`'s arguments and result, the state and the
+    columns updated in place, the ring (reversed) in the metrics.  Raises
+    on a bad argument or a launch error; never takes the plain version.
+    A delay must stay below 2^24 slots (f32's exact integers), so the
+    grant must too.  ``stage=False`` keeps a row's packets in global
+    memory even where they fit in a CTA's shared memory (the path rows
+    too large to stage take); the result depends on neither."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, bin_scale, flip_ring
+
+    dev = carry["hop"].device
+    K, F, H = tab["paths"].shape
+    P = tab["pkt_flow"].shape[1]
+    Lo = tab["svc"].shape[1]
+    t0, t_grant = int(carry["t"]), int(t_grant)
+    if K != 1 or carry["hop"].dim() != 2:
+        raise ValueError("wired_advance's OBS arm runs one lane's (R, P) "
+                         "carry")
+    R = carry["hop"].shape[0]
+    if not 0 <= t0 <= INF_SLOT or not 0 <= t_grant < 2**24:
+        raise ValueError(f"wired_advance's OBS arm takes 0 <= t <= 2^30 and "
+                         f"0 <= t_grant < 2^24 (its delays are exact f32); "
+                         f"got t={t0}, t_grant={t_grant}")
+    for name, want, dtype in (
+            ("lo_at", (K, F, H + 1), torch.int16),
+            ("pkt_flow", (K, P), torch.int32), ("svc", (K, Lo), torch.int32),
+            ("svcdly", (K, Lo), torch.int32),
+            ("f_first", (K, F), torch.int32),
+            ("f_period", (K, F), torch.int32),
+            ("f_npk", (K, F), torch.int32)):
+        _check(name, tab[name], want, dtype, dev)
+    for name, ax in WIRED_STATE:
+        _check(name, carry[name], (R, P if ax == "p" else Lo), torch.int32,
+               dev)
+    for name in OBS_COLS:
+        want = ((R, P) if name == "fm_birth"
+                else (R, F, FLOW_DELAY_BINS) if name == "fm_hist"
+                else (R, 512, 5) if name == "fm_ring" else (R, F))
+        dtype = torch.float32 if name in ("fm_dsum", "fm_jsum", "fm_dlast",
+                                          "fm_t0", "fm_t1") else torch.int32
+        _check(name, carry[name], want, dtype, dev)
+    out = torch.empty((2 * R,), dtype=torch.int32, device=dev)
+    nxt, steps = out[:R], out[R:]
+    ptrs = [*(tab[k].data_ptr() for k in ("lo_at", "pkt_flow", "svc",
+                                          "svcdly", "f_first", "f_period",
+                                          "f_npk")),
+            *(carry[k].data_ptr() for k, _ in WIRED_STATE),
+            nxt.data_ptr(), steps.data_ptr(),
+            *(carry[k].data_ptr() for k in OBS_COLS)]
+    _call("wired_advance_obs_launch", OBS_ARGTYPES,
+          (ctypes.c_void_p * len(ptrs))(*ptrs), R, P, F, H, Lo, t0, t_grant,
+          int(carry["fm_mark"]), WIRED_PKT_BYTES,
+          ctypes.c_float(bin_scale(tab["bin_slots"])), int(stage),
+          torch.cuda.current_stream(dev).cuda_stream)
+    _count("wired_advance")
+    _count("wired_advance:obs")
+    carry["t"] = max(t0, t_grant)
+    carry["fm_mark"] = t_grant - 1
+    return carry, dict(next_event=nxt.amin(), n_steps=steps.max(),
+                       fm_ring=flip_ring(carry["fm_ring"]))
 
 
 def wired_cuda(tab: dict, carry: dict, t_grant: int,
@@ -152,8 +228,17 @@ def wired_profile(tab: dict, carry: dict, t_grant: int, prof: torch.Tensor,
     ``clock64()`` at its stage edges), which also writes each row's
     :data:`PROF_WORDS` words to ``prof`` (``(N, PROF_WORDS)`` int64 on the
     carry's device; :func:`wired_stages` reads them).  Not the main path:
-    not counted in ``kernels_cuda.launches``."""
-    return _launch(tab, carry, t_grant, span, cap, prof)
+    not counted in ``kernels_cuda.launches``; recorded in
+    :class:`~tpudes_torch.obs.device.KernelProfile` (``wired_advance``)."""
+    from tpudes_torch.obs.device import KernelProfile, timed_launch
+
+    with timed_launch(prof.device) as wall:
+        out = _launch(tab, carry, t_grant, span, cap, prof)
+    KernelProfile.record_cycles(
+        "wired_advance",
+        dict(zip(PROF_STAGES, prof[:, :len(PROF_STAGES)].sum(0).tolist())),
+        prof.shape[0], wall[0])
+    return out
 
 
 def _launch(tab: dict, carry: dict, t_grant: int, span: int, cap: int,
@@ -259,4 +344,9 @@ def _count(name: str) -> None:
 #: ``wired_advance_profile`` takes the probe's words before the stream
 ADVANCE_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [
     ctypes.c_void_p]
+#: ``wired_advance_obs_launch`` (csrc/wired_advance_obs.cu): the host array
+#: of its 29 device pointers, nine ints (R, P, F, H, Lo, t, t_grant, the
+#: carried mark, a packet's bytes), the bin factor, stage, stream
+OBS_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_float]
+                + [ctypes.c_int, ctypes.c_void_p])
 PROFILE_ARGTYPES = ADVANCE_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
