@@ -3200,8 +3200,10 @@ def wired_check(kc, dev) -> dict:
 #: CHECK_TTIS (its nine-point scheduler grid and bf16 arm at
 #: OBS_GRID_TTIS), bench_tcp and the RED program at OBS_TCP_S,
 #: bench_wifi and bench_wifi_ht to OBS_BSS_STEPS steps, bench_wired to
-#: OBS_WIRED_SLOTS slots; then each bench program through its entry with
-#: obs off and on (OBS_WALL_RUNS timed runs each, counted)
+#: OBS_WIRED_SLOTS slots (the wired arm and its union pass also timed
+#: apart over bench_wired's full horizon, and probed there); then each
+#: bench program through its entry with obs off and on (OBS_WALL_RUNS
+#: timed runs each, counted)
 OBS_GRID_TTIS, OBS_BSS_STEPS, OBS_WALL_RUNS = 100, 400, 3
 OBS_TCP_S, OBS_WIRED_SLOTS = 0.5, 600
 LTE_OBS_REPLACES = ("tpudes/parallel/lte_sm.py:650-757 (the obs arm of the "
@@ -3216,6 +3218,15 @@ BSS_OBS_REPLACES = ("tpudes/parallel/replicated.py:594-600, :678 and "
                     "pallas_call)")
 WIRED_OBS_REPLACES = ("tpudes/parallel/wired.py:635-689 and :735-836 (the "
                       "obs arm of build_wired_advance; XLA, no pallas_call)")
+WIRED_OBS_SOURCE = "tpudes_torch/csrc/wired_advance_obs.cu"
+UNION_REPLACES = ("tpudes/parallel/wired.py:779-808 and :812-833 (the obs "
+                  "arm's union clock: the sends, fm_mark and the ring row a "
+                  "union step, and the window-edge flush; XLA, no "
+                  "pallas_call)")
+#: the least integer work of the union pass for each flow's sends (their
+#: count in closed form), each ring row (its argmax) and each birth its
+#: ring counts (the birth's step, and its count into that step's)
+UNION_FLOW_OPS = 2
 
 
 def same_trees(want: dict, got: dict, what: str) -> None:
@@ -3376,14 +3387,83 @@ def obs_bss_check(kc, dev, name: str) -> dict:
     return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bound)
 
 
+def obs_wired_bound(tab: dict, before: dict, after: dict,
+                    n_words: int) -> tuple:
+    """Least time for one launch of ``wired_advance:obs`` (the arm, not
+    the union pass): wired_bound's state and tables, plus what the arm
+    alone touches, over HBM: the delivery columns (``fm_rx``, ``fm_rxb``,
+    ``fm_dsum``, ``fm_jsum``, ``fm_dlast``, ``fm_t1`` and ``fm_hist``)
+    read and written once, each flow's first birth and the flows' first
+    packets and periods read once, the rows' visited slots ``(R,
+    n_words)`` and the record ``(R, 512, 2)`` written once; against its
+    services.  ``(ms, by)``."""
+    _, _, serves = wired_bound(tab, before, after)
+    R, F = before["fm_rx"].shape
+    ring = before["fm_ring"].shape[1]
+    obs_bytes = 2 * sum(before[k].nbytes for k in (
+        "fm_rx", "fm_rxb", "fm_dsum", "fm_jsum", "fm_dlast", "fm_t1",
+        "fm_hist"))
+    obs_bytes += 4 * (R * F + 2 * F + R * n_words + R * ring * 2)
+    times = {"bytes": wired_bytes_ms(tab, before)
+             + obs_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": serves * WIRED_SERVE_OPS / INT32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def ring_births(tab: dict, before: dict, after: dict) -> int:
+    """The births the union pass's ring counts in one window, at least:
+    each flow's births from its row's earliest ring step written in the
+    window (a step at or after the window's first slot) to the window's
+    last slot."""
+    import torch
+
+    t0, hi = int(before["t"]), int(after["fm_mark"])
+    b0 = torch.gather(after["fm_birth"], 1,
+                      tab["f_first"].long().expand(after["fm_rx"].shape[0],
+                                                   -1))
+    per, n = tab["f_period"], tab["f_npk"]
+    steps = after["fm_ring"][:, :, 1]
+    lo = torch.where(steps >= t0, steps, hi + 1).amin(1, keepdim=True)
+
+    def born_by(x):
+        return torch.where(x < b0, 0, torch.minimum((x - b0) // per + 1, n))
+
+    return int((born_by(torch.full_like(b0, hi)) - born_by(lo - 1))
+               .clamp(min=0).sum())
+
+
+def union_bound(tab: dict, before: dict, after: dict, n_words: int) -> tuple:
+    """Least time for one union pass (``wired_advance:obs_union``) of the
+    window ``before`` -> ``after``, over HBM: the rows' visited slots,
+    the record (two words a ring row), each flow's first birth and the
+    flows' three tables read once, the sends' three columns (``fm_tx``,
+    ``fm_txb``, ``fm_t0``) read and written once, the ring's rows of 5
+    words and the step count written once; against
+    :data:`UNION_FLOW_OPS` integer operations for each flow, ring row and
+    birth the ring counts (:func:`ring_births`) over the int32 issue rate.
+    ``(ms, by)``."""
+    R, F = before["fm_tx"].shape
+    ring = before["fm_ring"].shape[1]
+    nbytes = 4 * (R * n_words + R * ring * 2 + R * F + 3 * F
+                  + 2 * 3 * R * F + R * ring * 5 + 1)
+    work = R * (F + ring) + ring_births(tab, before, after)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": work * UNION_FLOW_OPS / INT32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
 def obs_wired_check(kc, dev) -> dict:
-    """``wired_advance``'s OBS arm vs ``advance_math`` with the columns on
-    bench_wired's program at WIRED_R rows over OBS_WIRED_SLOTS slots,
-    one launch and two split at the half: the state, ``t``, ``fm_mark``,
-    every column, the ring, ``next_event`` and ``n_steps`` bit-equal.
-    The bound: wired_bound's state and tables plus the columns and ring
-    read and written once and the births read once, against its
-    services."""
+    """``wired_advance``'s OBS arm and the union pass vs ``advance_math``
+    with the columns on bench_wired's program at WIRED_R rows over
+    OBS_WIRED_SLOTS slots, one launch and two split at the half: the
+    state, ``t``, ``fm_mark``, every column, the ring, ``next_event`` and
+    ``n_steps`` bit-equal.  Times the arm alone (``obs_enqueue``), the
+    union pass alone and both through the wrapper, at OBS_WIRED_SLOTS and
+    over bench_wired's full horizon; then the arm's stage probe at the
+    full horizon (``wired_profile``, its ``PROF`` instantiation with
+    ``OBS``) with the union pass on its own line."""
     import torch
     from tpudes_torch.parallel import wired as wd
     from tpudes_torch.parallel import wired_cuda
@@ -3410,35 +3490,132 @@ def obs_wired_check(kc, dev) -> dict:
     same_trees(pm, tm, "wired_advance:obs (two launches) metrics")
     if int(want["fm_rx"].sum()) <= 0:
         fail("wired_advance:obs check delivered nothing")
-    pool = [wired_clone(carry0) for _ in range(11)]
-    ms, _ = timed_ms(lambda: wired_cuda.wired_obs_cuda(tab, pool.pop(), n),
-                     1)
-    del pool
-    _, _, serves = wired_bound(tab, carry0, want)
-    obs_bytes = 2 * sum(carry0[k].nbytes for k in (
-        "fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost", "fm_dsum",
-        "fm_jsum", "fm_dlast", "fm_t0", "fm_t1", "fm_hist", "fm_ring"))
-    obs_bytes += carry0["fm_birth"].nbytes
-    ops_ms = serves * WIRED_SERVE_OPS / INT32_OPS_PER_S * 1e3
-    bytes_ms = wired_bytes_ms(tab, carry0) + obs_bytes / HBM_BYTES_PER_S * 1e3
-    times = {"bytes": bytes_ms, "operations": ops_ms}
-    by = max(times, key=times.get)
-    print(f"wired_advance:obs vs advance_math: state, columns, ring, "
-          f"next_event and n_steps bit-equal at {WIRED_R} rows x "
+    times = {}
+    for slots in (n, bench.n_slots):
+        times[slots] = obs_wired_times(tab, carry0, slots)
+    words = {s: times[s]["n_words"] for s in times}
+    bound = obs_wired_bound(tab, carry0, want, words[n])
+    ubound = union_bound(tab, carry0, want, words[n])
+    full = wired_cuda.wired_obs_cuda(tab, wired_clone(carry0),
+                                     bench.n_slots)[0]
+    full_bound = obs_wired_bound(tab, carry0, full, words[bench.n_slots])
+    full_ubound = union_bound(tab, carry0, full, words[bench.n_slots])
+    print(f"wired_advance:obs + union pass vs advance_math: state, columns, "
+          f"ring, next_event and n_steps bit-equal at {WIRED_R} rows x "
           f"{want['hop'].shape[-1]} packets over {n} slots (one launch, "
           f"two split at {half}); rx {int(want['fm_rx'].sum())}, n_steps "
-          f"{int(wm['n_steps'])}; device {ms:.4f} ms a launch, plain loop "
-          f"{plain_ms:.1f} ms, bound {times[by] * 1e3:.3f} us ({by})",
-          flush=True)
-    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=(times[by], by))
+          f"{int(wm['n_steps'])}; plain loop {plain_ms:.1f} ms; at {n} "
+          f"slots the arm {times[n]['arm_ms']:.4f} ms (bound "
+          f"{bound[0] * 1e3:.3f} us, {bound[1]}), the union pass "
+          f"{times[n]['union_ms']:.4f} ms (bound {ubound[0] * 1e3:.3f} us, "
+          f"{ubound[1]}), both through the wrapper "
+          f"{times[n]['wrapper_ms']:.4f} ms; at {bench.n_slots} slots the "
+          f"arm {times[bench.n_slots]['arm_ms']:.4f} ms (bound "
+          f"{full_bound[0] * 1e3:.3f} us, {full_bound[1]}), the union pass "
+          f"{times[bench.n_slots]['union_ms']:.4f} ms (bound "
+          f"{full_ubound[0] * 1e3:.3f} us, {full_ubound[1]}), the wrapper "
+          f"{times[bench.n_slots]['wrapper_ms']:.4f} ms", flush=True)
+    obs_stage_split(dev, "phase 3obs", tab, carry0, bench.n_slots,
+                    times[bench.n_slots]["union_ms"])
+    return dict(err=0.0, ms=times[n]["arm_ms"], plain_ms=plain_ms,
+                bound=bound, union_ms=times[n]["union_ms"], union_bound=ubound,
+                wrapper_ms=times[n]["wrapper_ms"], full=times[bench.n_slots],
+                full_bound=full_bound)
+
+
+def obs_wired_times(tab: dict, carry0: dict, slots: int) -> dict:
+    """Device ms of one ``slots``-slot advance of ``carry0``: the OBS arm
+    alone (``wired_cuda.obs_enqueue``, its error word read after the
+    timed launches), the union pass alone (``union_pass`` on one arm's
+    output, each call on its own copy of the sends, ``fm_t0`` and the
+    ring, cloned before the timing, so each searches ``fm_t0`` for every
+    flow as the main path's pass does) and both through
+    ``wired_obs_cuda``."""
+    import torch
+    from tpudes_torch.parallel import wired_cuda
+
+    out = {}
+    pool = [wired_clone(carry0) for _ in range(8)]
+    errs = []
+
+    def arm():
+        errs.append(wired_cuda.obs_enqueue(tab, pool.pop(), slots)[2])
+
+    out["arm_ms"] = timed_ms(arm, 1, reps=3)[0]
+    if any(e is not None and int(e.item()) != wired_cuda.NO_ERROR
+           for e in errs):
+        fail("wired_advance:obs: a timed launch's list overflowed")
+    carry, _, _, scratch = wired_cuda.obs_enqueue(tab, pool.pop(), slots)
+    calls, reps = 5, 3
+    fresh = [{**carry, **{k: carry[k].clone() for k in wired_cuda.UNION_COLS}}
+             for _ in range(1 + 2 * calls * reps)]  # timed_ms's calls
+    out["union_ms"] = timed_ms(lambda: wired_cuda.union_pass(
+        tab, fresh.pop(0), scratch), calls, reps=reps)[0]
+    if fresh:
+        fail("wired_advance:obs_union: the timing's copies miscounted")
+    out["n_words"] = scratch["n_words"]
+    del pool, carry, scratch
+    torch.cuda.synchronize()
+    pool = [wired_clone(carry0) for _ in range(7)]
+    out["wrapper_ms"] = timed_ms(lambda: wired_cuda.wired_obs_cuda(
+        tab, pool.pop(), slots), 1, reps=3)[0]
+    return out
+
+
+def obs_stage_split(dev, label: str, tab: dict, carry0: dict, t_grant: int,
+                    union_ms=None, launch=None) -> dict:
+    """The stage probe of ``wired_advance:obs`` (``wired_profile`` on an
+    obs carry: the ``PROF`` instantiation with ``OBS``, then the union
+    pass) on one ``t_grant``-slot advance of ``carry0``: the state, every
+    column and the metrics equal to the plain launches'; the mean cycles
+    a row in each stage, the probe's device time (CUDA events) and, where
+    given, the union pass's time (``union_ms``, timed apart) on its own
+    line.  ``launch(carry, t_grant, prof=None) -> (carry, metrics)``:
+    another design's launch and probe in place of this checkout's."""
+    import torch
+    from tpudes_torch.parallel import wired_cuda
+
+    if launch is None:
+        def launch(carry, t, prof=None):
+            if prof is None:
+                return wired_cuda.wired_obs_cuda(tab, carry, t)
+            return wired_cuda.wired_profile(tab, carry, t, prof)
+    N = carry0["hop"].shape[0]
+    prof = torch.zeros((N, wired_cuda.PROF_WORDS), dtype=torch.int64,
+                       device=dev)
+    want, wm = launch(wired_clone(carry0), t_grant)
+    probe = lambda: launch(wired_clone(carry0), t_grant, prof)
+    probe()  # warm: the instantiation's first launch loads its module
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    got, gm = probe()
+    b.record()
+    torch.cuda.synchronize()
+    same_trees(want, got, f"{label} obs probe")
+    same_trees(wm, gm, f"{label} obs probe metrics")
+    per = wired_cuda.wired_stages(prof.cpu())
+    clock = sm_clock_line()
+    print(f"{label} wired_advance:obs stage probe ({N} rows x "
+          f"{carry0['hop'].shape[-1]} packets, slots {carry0['t']}.."
+          f"{t_grant}): {json.dumps(per)}; probe launch "
+          f"{a.elapsed_time(b):.4f} ms; nvidia-smi clocks.sm, clocks.max.sm "
+          f"{clock}", flush=True)
+    if union_ms is not None:
+        print(f"{label} wired_advance:obs_union (the union pass, apart): "
+              f"{union_ms:.4f} ms", flush=True)
+    return dict(per, probe_ms=a.elapsed_time(b), union_ms=union_ms,
+                nvidia_smi_clocks_sm_max=clock)
 
 
 def obs_overhead(kc, dev, name: str, run, arms: dict,
-                 runs: int = OBS_WALL_RUNS) -> dict:
+                 runs: int = OBS_WALL_RUNS, obs_only: dict = None) -> dict:
     """A bench program through its entry with obs off, then on, each
     ``runs`` timed runs after a warm one, counted (the arm without the
-    columns, then with them, each exactly its ``arms`` launches); prints
-    both medians and their ratio.  Returns the obs run's launches."""
+    columns, then with them and ``obs_only``'s launches, each exactly its
+    ``arms`` launches); prints both medians and their ratio.  Returns the
+    obs run's launches."""
     import torch
 
     walls = {}
@@ -3449,7 +3626,7 @@ def obs_overhead(kc, dev, name: str, run, arms: dict,
         want = dict(arms)
         if obs:
             want.update({f"{k}:obs": v for k, v in arms.items()
-                         if ":" not in k})
+                         if ":" not in k}, **(obs_only or {}))
         ws = []
         for _ in range(runs):
             _, wall, launches[obs] = counted(kc, lambda: run(obs), want,
@@ -3497,10 +3674,10 @@ def obs_phase(kc, dev, lte_prog) -> dict:
         bss=obs_overhead(kc, dev, "bench_wifi", lambda obs: (
             run_replicated_bss(bss_prog, BSS_R, PRNGKey(1), device=dev,
                                obs=obs)), {"bss_advance": 1}),
-        # the OBS arm's bench_wired run takes seconds (PERF.md: 2.67 s)
         wired=obs_overhead(kc, dev, "bench_wired", lambda obs: run_wired(
             wired_prog, np.array([0, 1]), WIRED_R, device=dev, obs=obs),
-            {"wired_advance": 1}, runs=1))
+            {"wired_advance": 1},
+            obs_only={"wired_advance:obs_union": 1}))
     return dict(checks=checks, launches=launches)
 
 
@@ -6291,9 +6468,14 @@ def main(device: str = "cuda") -> int:
               ("tcp", "tcp_advance", "tpudes_torch/csrc/tcp_advance_obs.cu",
                TCP_OBS_REPLACES),
               ("bss", "bss_advance", BSS_SOURCE, BSS_OBS_REPLACES),
-              ("wired", "wired_advance",
-               "tpudes_torch/csrc/wired_advance_obs.cu",
+              ("wired", "wired_advance", WIRED_OBS_SOURCE,
                WIRED_OBS_REPLACES))),
+        entry("wired_advance:obs_union", obs_numbers["launches"]["wired"][
+            "wired_advance:obs_union"], 0.0,
+            obs_numbers["checks"]["wired"]["union_ms"],
+            obs_numbers["checks"]["wired"]["plain_ms"],
+            obs_numbers["checks"]["wired"]["union_bound"],
+            source=WIRED_OBS_SOURCE, replaces=UNION_REPLACES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,7 +93,7 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
             win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0, wired=0,
             wired_owned=0, wired_lanes=0, lte_obs=0, bss_obs=0, tcp_obs=0,
-            wired_obs=0):
+            wired_obs=0, wired_obs_union=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
             "lte_sm_advance": advance, "lte_sm_advance:dynamic": dynamic,
             "lte_sm_advance:sweep": sweep, "lte_sm_advance:traffic": traffic,
@@ -110,7 +110,8 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "wired_advance:owned": wired_owned,
             "wired_advance:lanes": wired_lanes,
             "lte_sm_advance:obs": lte_obs, "bss_advance:obs": bss_obs,
-            "tcp_advance:obs": tcp_obs, "wired_advance:obs": wired_obs}
+            "tcp_advance:obs": tcp_obs, "wired_advance:obs": wired_obs,
+            "wired_advance:obs_union": wired_obs_union}
 
 
 def _bit_equal(a, b):
@@ -1754,8 +1755,10 @@ def test_bss_obs_arm_bit_equal_to_plain_loop(card, ht):
 
 @pytest.mark.cuda
 def test_wired_obs_arm_bit_equal_to_plain_version(card):
-    """``wired_advance``'s OBS arm against ``advance_math`` with the
-    columns over windows of 37, 1 and 162 slots and the rest."""
+    """``wired_advance``'s OBS arm and the union pass against
+    ``advance_math`` with the columns (every row on the union clock) over
+    windows of 37, 1 and 162 slots and the rest, each window one launch of
+    each."""
     from tpudes_torch.parallel import wired as W
     from tpudes_torch.parallel import wired_cuda
 
@@ -1765,10 +1768,12 @@ def test_wired_obs_arm_bit_equal_to_plain_version(card):
     want = init(np.array([0, 9]))
     got = {k: (v.clone() if torch.is_tensor(v) else v)
            for k, v in want.items()}
+    kc.reset_launches()
     for b in (37, 38, 200, 600):
         want, wm = W.advance_math(tab, want, b)
         got, gm = wired_cuda.wired_obs_cuda(tab, got, b)
         assert _same_tree(want, got) and _same_tree(wm, gm), b
+    assert kc.launches == _counts(wired=4, wired_obs=4, wired_obs_union=4)
     assert int(got["fm_rx"].sum()) > 0
 
 
@@ -1795,6 +1800,9 @@ def test_obs_main_paths_launch_the_obs_arms(card):
         kc.reset_launches()
         got = run(card)
         assert kc.launches[f"{name}:obs"] == kc.launches[name] > 0, name
+        if name == "wired_advance":
+            assert kc.launches["wired_advance:obs_union"] == kc.launches[
+                name]
         want = run(torch.device("cpu"))
         for k, v in want["flow"].items():
             assert np.array_equal(np.asarray(v).view(np.uint8),

@@ -2,22 +2,21 @@
 under ``TpudesObs=1``.
 
 The reference steps every replica's row on one clock, the union of all
-rows' next events; the port steps each row on its own (ROADMAP Queue C,
-C5).  So at one replica everything is equal: every FlowMonitor column,
-the raw ring (the reference's -1 rows included) and each window's
-ChunkStream entry (``next_event``, ``n_steps`` and the ring).  With more
-than one replica the reference counts a birth whose first link is busy at
-the first union step at or after it, and stamps -1 rows into a row's ring
-at union steps where the row was idle: ``fm_t0`` and the raw ring may
-differ there (C6, counted below), while ``fm_tx``, ``fm_txb``, ``fm_rx``,
-``fm_rxb``, ``fm_lost``, ``fm_dsum``, ``fm_jsum``, ``fm_dlast``,
-``fm_t1`` and ``fm_hist`` are equal at every window edge.  Deliveries
-inside a visit are grouped by slot: one delay observation per (slot,
-flow).  Tolerance: none (the f32 delay sums are integer-valued and below
-2^24 slots, exact in any order).
+rows' next events, from the window's first slot; so does the port's plain
+version with the columns (ROADMAP Queue C, C6, closed).  So at any replica
+count every FlowMonitor column (``fm_t0`` included), the raw ring (the
+reference's -1 rows at union steps where a row was idle included) and
+each window's ChunkStream entry (``next_event``, ``n_steps``, the ring)
+are equal: one replica, three (padded to their bucket of four, whose
+padded row joins the union), four and eight, one window and windows of
+53 slots.  Deliveries inside a step are grouped by slot: one delay
+observation per (slot, flow).  Tolerance: none (the f32 delay sums are
+integer-valued and below 2^24 slots, exact in any order).  The reference
+runs are shared by the tests of the module.
 """
 
 import contextlib
+import functools
 
 import jax
 import numpy as np
@@ -30,10 +29,9 @@ from tpudes_torch.convert import WIRED_FIELDS, wired_from_numpy
 from tpudes_torch.obs.device import ChunkStream
 from tpudes_torch.obs.flowmon import FM_KEYS
 from tpudes_torch.parallel import wired as W
+from tpudes_torch.parallel.runtime import bucket_replicas
 
 KEY = 11
-EDGE_EQUAL = ("fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost", "fm_dsum",
-              "fm_jsum", "fm_dlast", "fm_t1", "fm_hist")
 
 
 @contextlib.contextmanager
@@ -82,32 +80,45 @@ PROGRAMS = {
 }
 
 
-def _both(prog, replicas, window):
+@functools.lru_cache(maxsize=None)
+def _both(name, replicas, window):
+    """The reference's and the port's ``obs=True`` runs of program
+    ``name`` and their ChunkStream entries, once a module."""
     RefChunkStream.reset()
     ChunkStream.reset()
+    prog = PROGRAMS[name]()
     with ref_obs():
         want = ref.run_wired(prog, jax.random.key(KEY), replicas=replicas,
                              window_slots=window)
     got = W.run_wired(_port(prog), np.array([0, KEY]), replicas,
                       device="cpu", obs=True, window_slots=window)
-    return want, got
+    return dict(want=want, got=got,
+                want_entries=RefChunkStream.entries("wired"),
+                got_entries=ChunkStream.entries("wired"))
+
+
+def _assert_equal(name, replicas, window):
+    """Every column, the raw ring and every ChunkStream entry equal."""
+    run = _both(name, replicas, window)
+    want, got = run["want"], run["got"]
+    for k in FM_KEYS:
+        assert _same(got["flow"][k], want["flow"][k]), k
+    assert int(got["flow"]["fm_rx"].sum()) > 0
+    entries = run["want_entries"]
+    assert len(run["got_entries"]) == len(entries)
+    assert (len(entries) > 1) == (window is not None)
+    for a, b in zip(entries, run["got_entries"]):
+        assert a["t_end"] == b["t_end"] and set(a["metrics"]) == set(
+            b["metrics"])
+        for k in a["metrics"]:
+            assert _same(b["metrics"][k], a["metrics"][k]), k
+    return run
 
 
 @pytest.mark.parametrize("window", [None, 53])
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_one_replica_equals_reference_ring_and_stream_included(name, window):
-    want, got = _both(PROGRAMS[name](), 1, window)
-    for k in FM_KEYS:
-        assert _same(got["flow"][k], want["flow"][k]), k
-    assert int(got["flow"]["fm_rx"].sum()) > 0
-    entries = RefChunkStream.entries("wired")
-    assert len(ChunkStream.entries("wired")) == len(entries)
-    assert (len(entries) > 1) == (window is not None)
-    for a, b in zip(entries, ChunkStream.entries("wired")):
-        assert a["t_end"] == b["t_end"] and set(a["metrics"]) == set(
-            b["metrics"])
-        for k in a["metrics"]:
-            assert _same(b["metrics"][k], a["metrics"][k]), k
+    got = _assert_equal(name, 1, window)["got"]
     plain = W.run_wired(_port(PROGRAMS[name]()), np.array([0, KEY]), 1,
                         device="cpu", window_slots=window)
     for k in ("deliver_slot", "delivered", "served"):
@@ -117,31 +128,31 @@ def test_one_replica_equals_reference_ring_and_stream_included(name, window):
 @pytest.mark.parametrize("window", [None, 53])
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_replicas_equal_reference_at_the_window_edge(name, window):
-    """Four replicas: every column but ``fm_t0`` equal (C6), and each
-    row's ring rows of its own visits are the reference's rows of those
-    steps."""
-    want, got = _both(PROGRAMS[name](), 4, window)
-    for k in EDGE_EQUAL:
-        assert _same(got["flow"][k], want["flow"][k]), k
-    ring_g, ring_w = got["flow"]["fm_ring"], np.asarray(
-        want["flow"]["fm_ring"])
-    for r in range(4):
-        own = ring_g[r][ring_g[r][:, 0] >= 0]
-        theirs = {tuple(row) for row in ring_w[r]}
-        # a row the port stamps at its own event is the reference's row of
-        # that step unless a later union step took the slot
-        later = {int(row[0]) % 512 for row in ring_w[r] if row[0] > 0}
-        for row in own:
-            assert tuple(row) in theirs or int(row[0]) % 512 in later
+    """Four replicas on the union clock: every column, ``fm_t0``
+    included, the raw ring and each window's entry equal."""
+    run = _assert_equal(name, 4, window)
+    ring = run["got"]["flow"]["fm_ring"]
+    # the union clock stamps -1 rows where a row was idle
+    assert (ring[..., 0] == -1).any() and (ring[..., 0] >= 0).any()
 
 
-def _c6_census(prog, replicas):
-    """The C6 class on ``prog``: flows whose ``fm_t0`` differs from the
-    reference's, and rows whose raw ring differs."""
-    want, got = _both(prog, replicas, None)
-    t0_g, t0_w = got["flow"]["fm_t0"], np.asarray(want["flow"]["fm_t0"])
-    ring_g = got["flow"]["fm_ring"]
-    ring_w = np.asarray(want["flow"]["fm_ring"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_three_replicas_bucketed_equal_reference(name):
+    """Three replicas over windows of 53 slots, padded to their bucket of
+    four: the padded row joins the union clock, as the reference's does."""
+    assert bucket_replicas(3) == 4
+    got = _assert_equal(name, 3, 53)["got"]
+    assert got["flow"]["fm_t0"].shape[0] == 3
+
+
+def _c6_census(name, replicas):
+    """The C6 class on program ``name``: flows whose ``fm_t0`` differs
+    from the reference's, and rows whose raw ring differs."""
+    run = _both(name, replicas, None)
+    t0_g = run["got"]["flow"]["fm_t0"]
+    t0_w = np.asarray(run["want"]["flow"]["fm_t0"])
+    ring_g = run["got"]["flow"]["fm_ring"]
+    ring_w = np.asarray(run["want"]["flow"]["fm_ring"])
     return dict(
         t0_flows=int((_bits(t0_g) != _bits(t0_w)).sum()),
         ring_rows=int((ring_g != ring_w).any(axis=(1, 2)).sum()),
@@ -149,18 +160,21 @@ def _c6_census(prog, replicas):
 
 
 def test_union_clock_class_is_counted():
-    """ROADMAP Queue C, C6, counted at eight replicas: the flows whose
-    first counted send (``fm_t0``) and the rows whose raw ring differ from
-    the reference's, on each program; one replica never differs."""
-    census = {name: _c6_census(make(), 8) for name, make in PROGRAMS.items()}
+    """ROADMAP Queue C, C6, closed: at eight replicas no flow's first
+    counted send (``fm_t0``) and no row's raw ring differs from the
+    reference's on any program (a per-row clock differs for 1 of 64 and
+    2 of 24 flows and 8 of 8 rows), and every column and entry is equal;
+    one replica never differs."""
+    census = {name: _c6_census(name, 8) for name in PROGRAMS}
     assert census == {
         "chain_defaults": dict(t0_flows=0, ring_rows=0, flows=24, rows=8),
-        "chain_12x8_jitter5": dict(t0_flows=1, ring_rows=0, flows=64,
+        "chain_12x8_jitter5": dict(t0_flows=0, ring_rows=0, flows=64,
                                    rows=8),
-        "full_columns": dict(t0_flows=2, ring_rows=8, flows=24, rows=8),
+        "full_columns": dict(t0_flows=0, ring_rows=0, flows=24, rows=8),
     }
-    for make in PROGRAMS.values():
-        one = _c6_census(make(), 1)
+    for name in PROGRAMS:
+        _assert_equal(name, 8, None)
+        one = _c6_census(name, 1)
         assert one["t0_flows"] == 0 and one["ring_rows"] == 0
 
 

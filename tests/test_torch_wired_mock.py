@@ -24,7 +24,14 @@ every state array, ``t``, ``next_event`` and ``n_steps`` bit-equal.
 - mutant builds that must fail: FIFO ties at one arrival slot going to
   the largest packet id, the egress buffers not cleared at a launch, the
   lookahead window one slot too long, and a queue insertion that puts a
-  packet behind later arrivals.
+  packet behind later arrivals;
+- the ``OBS`` arm and the union pass (``csrc/wired_advance_obs.cu``)
+  against the plain version's union steps, every column and ring row
+  included: 1 and 3 replicas, lookahead windows of 1 and 2 slots, list
+  capacities that halve the span, the link table in device memory, a
+  zero-step window, a grant below ``t`` and ring counters past 512, and
+  ``run_wired(obs=True)``; its mutants: the jitter taken out of slot
+  order, and the ring or ``fm_t0`` on a row's own clock.
 
 Tolerance: none (integers).  Skips where ``g++`` is missing.  The same
 source runs on the card in ``tests/test_torch_cuda.py`` and
@@ -73,21 +80,70 @@ MUTANTS = {
 }
 
 
-def _build_mock(source: Path, out: Path) -> ctypes.CDLL:
+#: g++ builds of the module at once (each a few hundred MB)
+PARALLEL_BUILDS = 5
+
+
+def _start_build(source: Path, out: Path) -> subprocess.Popen:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/wired_advance.cu against the "
                     "CUDA mock")
-    subprocess.run([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
-                    str(CSRC), "-o", str(out), str(source)], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    return subprocess.Popen([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
+                             str(CSRC), "-o", str(out), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    assert proc.returncode == 0, log
+
+
+def _mutant_sources(where: Path, unit: str, edits: list) -> None:
+    """Both units in ``where``, ``unit`` with each ``(text, replacement)``
+    of ``edits`` made (each text found once); the OBS unit includes the
+    other from its own directory first."""
+    for name in ("wired_advance.cu", "wired_advance_obs.cu"):
+        text = (CSRC / name).read_text()
+        if name == unit:
+            for old, new in edits:
+                assert text.count(old) == 1, old
+                text = text.replace(old, new)
+        (where / name).write_text(text)
 
 
 @pytest.fixture(scope="module")
-def mock_lib(tmp_path_factory):
-    out = tmp_path_factory.mktemp("wired_mock") / "libwired_advance_mock.so"
-    return _build_mock(CSRC / "wired_advance.cu", out)
+def builds(tmp_path_factory):
+    """Every mock library of the module, built by :data:`PARALLEL_BUILDS`
+    g++ processes at a time: ``kernel`` (``wired_advance.cu``), ``obs``
+    (``wired_advance_obs.cu``) and each mutant of :data:`MUTANTS` and
+    :data:`OBS_MUTANTS`; returns their paths by name."""
+    root = tmp_path_factory.mktemp("wired_mock")
+    sources = {"kernel": CSRC / "wired_advance.cu",
+               "obs": CSRC / "wired_advance_obs.cu"}
+    for name, edits in MUTANTS.items():
+        (root / name).mkdir()
+        _mutant_sources(root / name, "wired_advance.cu", edits)
+        sources[name] = root / name / "wired_advance.cu"
+    for name, (unit, old, new) in OBS_MUTANTS.items():
+        (root / name).mkdir()
+        _mutant_sources(root / name, unit, [(old, new)])
+        sources[name] = root / name / "wired_advance_obs.cu"
+    out, running = {}, []
+    for name, src in sources.items():
+        out[name] = root / f"lib{name}.so"
+        running.append(_start_build(src, out[name]))
+        if len(running) == PARALLEL_BUILDS:
+            _finish(running.pop(0))
+    for proc in running:
+        _finish(proc)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mock_lib(builds):
+    return ctypes.CDLL(str(builds["kernel"]))
 
 
 def _use(lib, monkeypatch):
@@ -254,17 +310,11 @@ def test_kernel_equals_plain_in_hybrid_windows(kernel, monkeypatch,
 
 
 @pytest.mark.parametrize("name", sorted(MUTANTS))
-def test_mock_kernel_mutant_fails(name, tmp_path, monkeypatch):
+def test_mock_kernel_mutant_fails(name, builds, monkeypatch):
     """A build with the FIFO tie order, the egress clearing, the
     lookahead window or the queue order broken must disagree with the
     plain version on a two-rank run."""
-    text = (CSRC / "wired_advance.cu").read_text()
-    for old, new in MUTANTS[name]:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    src = tmp_path / "wired_advance.cu"
-    src.write_text(text)
-    _use(_build_mock(src, tmp_path / "libmutant.so"), monkeypatch)
+    _use(ctypes.CDLL(str(builds[name])), monkeypatch)
     monkeypatch.setattr(wired_cuda, "advance_launch", _both)
     prog = W.wired_chain(8, 5, ranks=2, n_slots=300, period=3)
     with pytest.raises(AssertionError):
@@ -293,37 +343,46 @@ def test_link_table_in_device_memory(kernel, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# the OBS arm (csrc/wired_advance_obs.cu)
+# the OBS arm and the union pass (csrc/wired_advance_obs.cu)
 
-#: the OBS arm's mutants: the jitter taken without its first-delivery
-#: guard, and the ring row written one slot late
+#: the OBS arm's mutants, in (file, text, replacement): each delay's
+#: jitter taken against the flow's first delay, not against the one before
+#: it in slot order; the ring's rows stamped on the row's own visits in
+#: place of the union clock; and ``fm_t0`` taken from the row's own visits
 OBS_MUTANTS = {
-    "jitter_without_seen_guard": ("a.jsum[q], a.dlast[q] >= 0.0f",
-                                  "a.jsum[q], true"),
-    "ring_slot_off_by_one": ("s % RING_CAP) * RING_COLS",
-                             "(s + 1) % RING_CAP) * RING_COLS"),
+    "jitter_out_of_slot_order": (
+        "wired_advance.cu", "  o.dlast[q] = d;\n",
+        "  o.dlast[q] = dlast >= 0.0f ? dlast : d;\n"),
+    "ring_on_the_row_clock": (
+        "wired_advance_obs.cu",
+        "const unsigned* ring_clock = a.u;",
+        "const unsigned* ring_clock = a.visits + row * a.n_words;"),
+    "t0_on_the_row_clock": (
+        "wired_advance_obs.cu",
+        "const unsigned* send_clock = a.u;",
+        "const unsigned* send_clock = a.visits + row * a.n_words;"),
 }
 
 
 @pytest.fixture(scope="module")
-def obs_lib(tmp_path_factory):
-    out = tmp_path_factory.mktemp("wired_obs") / "libwired_obs_mock.so"
-    return _build_mock(CSRC / "wired_advance_obs.cu", out)
+def obs_lib(builds):
+    return ctypes.CDLL(str(builds["obs"]))
 
 
-def _obs_windows(prog, replicas, bounds, stage=True):
-    """The OBS arm over windows ending at ``bounds`` against the plain
-    version's obs visits: every state array, column, ring row, ``t``,
-    ``fm_mark`` and metric bit-equal (``stage=False``: the packets kept
-    in global memory)."""
-    tab = W.wired_tables(prog, [(prog, None, None)], "cpu")
+def _obs_windows(prog, replicas, bounds, span=wired_cuda.SPAN_SLOTS,
+                 cap=wired_cuda.LIST_CAP, tab=None):
+    """The OBS arm and the union pass over windows ending at ``bounds``
+    against the plain version's union steps: every state array, column,
+    ring row, ``t``, ``fm_mark`` and metric bit-equal."""
+    if tab is None:
+        tab = W.wired_tables(prog, [(prog, None, None)], "cpu")
     init, _ = W.build_wired_advance(prog, replicas, device="cpu", obs=True,
                                     tab=tab)
     want = init(KEY)
     got = _clone(want)
     for b in bounds:
         want, wm = W.advance_math(tab, want, b)
-        got, gm = wired_cuda.wired_obs_cuda(tab, got, b, stage)
+        got, gm = wired_cuda.wired_obs_cuda(tab, got, b, span, cap)
         for k, v in want.items():
             if torch.is_tensor(v):
                 a, g = (v, got[k]) if v.dtype != torch.float32 else (
@@ -341,15 +400,76 @@ def _obs_windows(prog, replicas, bounds, stage=True):
 def test_obs_arm_bit_equal_to_plain_version(obs_lib, monkeypatch, replicas):
     """A jittered chain and the every-column program, over windows of 37
     slots, one slot (37 to 38), 112 and the rest; one replica and three
-    (each row on its own clock)."""
+    (all on the union clock); each launch one of the arm and one union
+    pass."""
     _use(obs_lib, monkeypatch)
     prog = W.wired_chain(12, 8, jitter_slots=5, n_slots=300)
     _obs_windows(prog, replicas, (37, 38, 150, 300))
     full = _port_full()
     got = _obs_windows(full, replicas, (50, full.n_slots))
-    _obs_windows(full, replicas, (50, full.n_slots), stage=False)
-    assert kc.launches["wired_advance:obs"] == 8
+    assert kc.launches["wired_advance:obs"] == 6
+    assert kc.launches["wired_advance:obs_union"] == 6
     assert int(got["fm_ring"][..., 0].max()) >= 0
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_obs_arm_lookahead_windows_of_one_and_two(obs_lib, monkeypatch,
+                                                  window):
+    """Lookahead windows of 2 slots (service 1, delay 1) and of 1 (the
+    same tables with the delay taken out), three replicas."""
+    _use(obs_lib, monkeypatch)
+    prog = W.wired_chain(8, 6, service=[1] * 8, delay=[1] * 8, period=2,
+                         n_slots=200, jitter_slots=3)
+    tab = W.wired_tables(prog, [(prog, None, None)], "cpu")
+    if window == 1:
+        tab = dict(tab, svcdly=tab["svc"].clone())
+    assert int(tab["svcdly"].min()) == window
+    _obs_windows(prog, 3, (33, 120), span=16, tab=tab)
+
+
+@pytest.mark.parametrize("cap", [4, 8])
+def test_obs_arm_list_capacities_halve_the_span(obs_lib, monkeypatch, cap):
+    """List capacities that force the refresh's span to halve, three
+    replicas over two windows: the default capacity's probe shows a list
+    of more than 8 at a span of 64 in the first window already."""
+    _use(obs_lib, monkeypatch)
+    init, _ = W.build_wired_advance(BUSY, 3, device="cpu", obs=True)
+    prof = torch.zeros((3, wired_cuda.PROF_WORDS), dtype=torch.int64)
+    wired_cuda.wired_profile(_tab(BUSY), init(KEY), 70, prof, 64)
+    assert wired_cuda.wired_stages(prof)["list_max"] > 8
+    _obs_windows(BUSY, 3, (70, 150), span=64, cap=cap)
+
+
+def test_obs_arm_zero_step_and_a_bad_grant(obs_lib, monkeypatch):
+    """A zero-step window (``t_grant`` 0), a grant below the carry's
+    ``t``, and windows past the horizon, whose ring counters wrap past
+    512."""
+    _use(obs_lib, monkeypatch)
+    got = _obs_windows(W.wired_chain(n_slots=700), 2,
+                       (0, 90, 60, 700, 1300, 650))
+    assert int(got["fm_ring"][..., 1].max()) >= 512
+
+
+def test_obs_arm_link_table_in_device_memory(obs_lib, monkeypatch):
+    """Where ``lo_at`` does not fit in a CTA's shared memory beside its
+    rows the arm reads it from device memory: bit-equal (the limit
+    lowered so that this chain's table is left out)."""
+    _use(obs_lib, monkeypatch)
+    prog = W.wired_chain(12, 8, jitter_slots=5, n_slots=300)
+    tab = _tab(prog)
+    K, F, H = tab["paths"].shape
+    Lo = tab["svc"].shape[1]
+    rows = wired_cuda.ROWS_PER_CTA
+    monkeypatch.setattr(wired_cuda, "SMEM_LIMIT", wired_cuda.smem_bytes(
+        F, H, Lo, wired_cuda.LIST_CAP, rows, False, obs=True))
+    wired_cuda.launch_geometry.cache_clear()
+    try:
+        assert wired_cuda.launch_geometry(F, H, Lo, wired_cuda.LIST_CAP,
+                                          rows, True) == (
+            rows, False, wired_cuda.SMEM_LIMIT)
+        _obs_windows(prog, rows, (90, 300), tab=tab)
+    finally:
+        wired_cuda.launch_geometry.cache_clear()
 
 
 def _port_full():
@@ -366,8 +486,8 @@ def _port_full():
 
 def test_obs_arm_runs_through_run_wired(obs_lib, monkeypatch):
     """``run_wired(obs=True)`` on the card's path (CPU tensors through the
-    mock): the windows launch the OBS arm and give the plain run's
-    columns, in seconds and µs."""
+    mock): the windows launch the OBS arm and the union pass and give the
+    plain run's columns, in seconds and µs."""
     _use(obs_lib, monkeypatch)
     prog = W.wired_chain(6, 3, n_slots=200, jitter_slots=3)
     plain = W.run_wired(prog, KEY, 2, device="cpu", obs=True,
@@ -379,20 +499,23 @@ def test_obs_arm_runs_through_run_wired(obs_lib, monkeypatch):
     got = W.run_wired(prog, KEY, 2, device="cpu", obs=True,
                       window_slots=70)
     assert kc.launches["wired_advance:obs"] == 3
+    assert kc.launches["wired_advance:obs_union"] == 3
     for k, v in plain["flow"].items():
         assert np.array_equal(np.asarray(v).view(np.uint8),
                               np.asarray(got["flow"][k]).view(np.uint8)), k
 
 
 @pytest.mark.parametrize("name", sorted(OBS_MUTANTS))
-def test_obs_arm_mutant_fails(tmp_path, monkeypatch, name):
-    was, now = OBS_MUTANTS[name]
-    source = (CSRC / "wired_advance_obs.cu").read_text()
-    assert source.count(was) == 1
-    mutant = tmp_path / "wired_advance_obs.cu"
-    mutant.write_text(source.replace(was, now))
-    _use(_build_mock(mutant, tmp_path / "libmutant.so"), monkeypatch)
+def test_obs_arm_mutant_fails(builds, monkeypatch, name):
+    """A build with the jitter out of slot order, or the ring or ``fm_t0``
+    on the row's own clock, must disagree with the plain version on eight
+    replicas of the every-column program over its first 60 slots (where
+    the union clock and a row's own differ in both)."""
+    _use(ctypes.CDLL(str(builds[name])), monkeypatch)
     with pytest.raises(AssertionError) as differs:
-        _obs_windows(_port_full(), 2, (50, 200))
+        _obs_windows(_port_full(), 8, (60,))
     first = str(differs.value).split("\n")[0]
-    assert "'fm_jsum'" in first or "'fm_ring'" in first, first
+    want = {"jitter_out_of_slot_order": "'fm_jsum'",
+            "ring_on_the_row_clock": "'fm_ring'",
+            "t0_on_the_row_clock": "'fm_t0'"}[name]
+    assert want in first, first

@@ -262,6 +262,9 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
 inline int atomicExch(int* p, int v) {
   return std::atomic_ref<int>(*p).exchange(v);
 }
@@ -284,6 +287,14 @@ inline unsigned long long atomicMin(unsigned long long* p,
   std::atomic_ref<unsigned long long> r(*p);
   unsigned long long o = r.load();
   while (o > v && !r.compare_exchange_weak(o, v)) {
+  }
+  return o;
+}
+inline unsigned long long atomicMax(unsigned long long* p,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long> r(*p);
+  unsigned long long o = r.load();
+  while (o < v && !r.compare_exchange_weak(o, v)) {
   }
   return o;
 }

@@ -70,6 +70,16 @@
 //      a window shorter.  The step count is the popcount of the window's
 //      slot mask, OR-ed over the lanes.
 //
+// The FlowMonitor columns (template flag OBS, obs=True; the reference's obs
+// arm, tpudes/parallel/wired.py:635-689 and :735-836) are the same kernel's
+// instantiation in its own unit, csrc/wired_advance_obs.cu, which includes
+// this file with WIRED_OBS_PART defined and adds the union pass; every line
+// of the arm here sits under if constexpr (OBS), so the instantiations
+// without it keep their code.  The arm's deliveries update the delivery
+// columns, and the row saves its visited slots (a bitmap over [t0,
+// t_grant)) and, at slot % 512, each delivering slot's least delivering
+// flow; the sends, the ring and the union step count are the union pass's.
+//
 // The source also builds with g++ against csrc/mock/cuda_runtime.h, which
 // runs it on the CPU (tests/test_torch_wired_mock.py).
 
@@ -119,6 +129,27 @@ struct Clock {
   }
 };
 
+// OBS: the ring's rows and columns, the histogram's bins, the least-flow
+// sentinel
+constexpr int RING_CAP = 512;
+constexpr int RING_COLS = 5;
+constexpr int BINS = 16;
+constexpr int NO_FLOW = 0x7FFFFFFF;
+
+// the OBS arm's operands (one lane, K = 1)
+struct ObsArgs {
+  const int* birth;     // (R, P) each packet's send slot (fm_birth)
+  const int* f_first;   // (F,) each flow's first packet
+  const int* f_period;  // (F,) its CBR period
+  int *rx, *rxb;        // (R, F) FlowMonitor columns, in place
+  float *dsum, *jsum, *dlast, *t1;
+  int* hist;          // (R, F, BINS)
+  unsigned* visits;   // (R, n_words) the row's visited slots from t0
+  int* rec;           // (R, RING_CAP, 2) (slot, least delivering flow)
+  int n_words, pkt_bytes;
+  float scale;  // a delay (slots) to its bin: flowmon.py::bin_scale
+};
+
 struct Args {
   const short* lo_at;   // (K, F, H + 1) local link of each flow's hop
   const int* pkt_flow;  // (K, P)
@@ -136,6 +167,7 @@ struct Args {
   int* err;        // the least row whose list overflowed at one slot
   long long* prof;  // (N, N_PROF) under PROF
   int R, P, F, H, Lo, t0, t_grant, span, cap, rows, table_smem;
+  ObsArgs obs;  // OBS only
 };
 
 __host__ __device__ constexpr long long round16(long long b) {
@@ -151,6 +183,15 @@ __host__ __device__ constexpr long long table_bytes(int F, int H, int Lo,
 }
 __host__ __device__ constexpr long long row_bytes(int Lo, int cap) {
   return round16(30LL * Lo + 24LL * cap);
+}
+// OBS: shared bytes a row (its least delivering flow at each slot of its
+// window, its flows' first births), and for the CTA the lane's flows'
+// first packets and periods
+__host__ __device__ constexpr long long obs_row_bytes(int F) {
+  return 4LL * MAX_WINDOW + round16(4LL * F);
+}
+__host__ __device__ constexpr long long obs_bytes(int F, int rows) {
+  return rows * obs_row_bytes(F) + round16(8LL * F);
 }
 
 // a list entry: its packet, arrival, lo_at offset of its flow and hop,
@@ -261,7 +302,7 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
 // entries before it (a link may hold most of the list: a hybrid rank's
 // first link holds its peers' packets in flight), and the runs in that
 // order are the queues
-__device__ void build_queues(Row& w, int n, int Lo, int lane) {
+static __device__ void build_queues(Row& w, int n, int Lo, int lane) {
   for (int l = lane; l < Lo; l += WARP) w.cur[l] = 0;
   __syncwarp();
   for (int i = lane; i < n; i += WARP) atomicAdd(&w.cur[w.e_lo[i]], 1);
@@ -486,7 +527,73 @@ struct Pass {
   }
 };
 
-template <bool PROF>
+// OBS: the row's visited slots, a 32-bit word of its bitmap over [t0,
+// t_grant) at a time in a register, each word stored once (the windows'
+// slots rise, so the words do)
+struct Visits {
+  unsigned* out;
+  int t0, word, n_words;
+  unsigned bits;
+
+  // store the words before j (the held one, then empty ones)
+  __device__ __forceinline__ void flush_to(int j, int lane) {
+    if (j <= word) return;
+    for (int i = word + lane; i < j; i += WARP) out[i] = i == word ? bits : 0u;
+    word = j;
+    bits = 0u;
+  }
+  // a window's slot mask, its bit 0 the slot s
+  __device__ __forceinline__ void add(int s, unsigned mask, int lane) {
+    const int o = s - t0, sh = o & (WARP - 1);
+    flush_to(o / WARP, lane);
+    bits |= mask << sh;
+    if (sh != 0 && (mask >> (WARP - sh)) != 0u) {
+      flush_to(o / WARP + 1, lane);
+      bits |= mask >> (WARP - sh);
+    }
+  }
+};
+
+// OBS: a row's shared arrays: the window's least delivering flow a slot
+// (dflow, from the window's first slot s), its flows' first births (b0),
+// and the lane's flows' first packets and periods (a packet's birth is
+// b0 + (p - first) period, so a delivery loads no birth)
+struct ObsRow {
+  int* dflow;
+  int* b0;
+  int* first;
+  int* period;
+};
+
+// OBS: packet p of flow f, delivered at arr by its last link's serve at x
+// (the lane that pops that link, so a flow's deliveries come in slot
+// order): the delivery columns, every load first (one latency), and f into
+// the least delivering flow of slot x
+__device__ __forceinline__ void obs_deliver(const Args& a, const ObsRow& r,
+                                            long long row, int p, int f,
+                                            int x, int arr, int s) {
+  const ObsArgs& o = a.obs;
+  const long long q = row * a.F + f;
+  const int rx = o.rx[q], rxb = o.rxb[q];
+  const float dsum = o.dsum[q], jsum = o.jsum[q], dlast = o.dlast[q];
+  const float d = static_cast<float>(
+      arr - (r.b0[f] + (p - r.first[f]) * r.period[f]));
+  o.rx[q] = rx + 1;
+  o.rxb[q] = rxb + o.pkt_bytes;
+  o.dsum[q] = __fadd_rn(dsum, d);
+  o.jsum[q] =
+      __fadd_rn(jsum, dlast >= 0.0f ? fabsf(__fsub_rn(d, dlast)) : 0.0f);
+  o.dlast[q] = d;
+  o.t1[q] = static_cast<float>(x);
+  // XLA multiplies by the bin width's reciprocal; the histogram's add
+  // waits on no load
+  const int bin = min(max(__float2int_rz(__fmul_rn(d, o.scale)), 0),
+                      BINS - 1);
+  atomicAdd(&o.hist[q * BINS + bin], 1);
+  atomicMin(&r.dflow[x - s], f);
+}
+
+template <bool PROF, bool OBS>
 __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
   Clock<PROF> clk;
   clk.start();
@@ -508,6 +615,22 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
     short* t = reinterpret_cast<short*>(dyn_smem + round16(8LL * Lo));
     for (int i = threadIdx.x; i < a.F * H1; i += blockDim.x) t[i] = lo_at[i];
     lo_at = t;
+  }
+  // OBS: past the rows, each warp's row arrays, then the lane's flows'
+  // first packets and periods
+  ObsRow orow{};
+  if constexpr (OBS) {
+    unsigned char* ob = dyn_smem + table_bytes(a.F, a.H, Lo, a.table_smem) +
+                        a.rows * row_bytes(Lo, cap);
+    orow.first =
+        reinterpret_cast<int*>(ob + a.rows * obs_row_bytes(a.F));
+    orow.period = orow.first + a.F;
+    for (int f = threadIdx.x; f < a.F; f += blockDim.x) {
+      orow.first[f] = a.obs.f_first[f];
+      orow.period[f] = a.obs.f_period[f];
+    }
+    orow.dflow = reinterpret_cast<int*>(ob + warp * obs_row_bytes(a.F));
+    orow.b0 = orow.dflow + MAX_WINDOW;
   }
   __syncthreads();
   if (rep >= a.R) return;
@@ -534,6 +657,17 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
 
   Pass pass{lo_at, a.pkt_flow + static_cast<long long>(k) * P, H1, 0, cap,
             lane, 0, 0, 0, 0, 0};
+  // OBS: the row's flows' first births, no delivering flow yet, and the
+  // row's visits (the window's first slot t0 is one, served or not)
+  Visits vis{};
+  if constexpr (OBS) {
+    for (int f = lane; f < a.F; f += WARP)
+      orow.b0[f] = a.obs.birth[base + orow.first[f]];
+    orow.dflow[lane] = NO_FLOW;
+    vis = Visits{a.obs.visits + row * a.obs.n_words, a.t0, 0, a.obs.n_words,
+                 a.t0 < a.t_grant ? 1u : 0u};
+    __syncwarp();
+  }
   bool clear = true;  // no pass of this launch has cleared the egress
   long long n_refresh = 0, n_windows = 0, list_sum = 0, list_max = 0;
   int steps = 0, next = INF_SLOT;
@@ -652,6 +786,8 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
           ready[p] = arr;
           if (nlo == DELIVERED) {
             deliver[p] = arr;
+            if constexpr (OBS)
+              obs_deliver(a, orow, row, p, pass.flow[p], x, arr, s);
           } else if (nlo == PEER) {
             eg_hop[p] = nh;
             eg_ready[p] = arr;
@@ -678,6 +814,19 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
       }
       __syncwarp();
       clk.mark(S_SERVE);
+      if constexpr (OBS) {
+        // the window's record of its delivering slots, and its visits
+        const int df = orow.dflow[lane];
+        if (df != NO_FLOW) {
+          int* r = a.obs.rec +
+                   (row * RING_CAP + ((s + lane) & (RING_CAP - 1))) * 2;
+          r[0] = s + lane;
+          r[1] = df;
+          orow.dflow[lane] = NO_FLOW;
+        }
+        vis.add(s, __reduce_or_sync(FULL, mask), lane);
+        __syncwarp();
+      }
       m = __reduce_min_sync(FULL, mn);
       reach = __reduce_min_sync(FULL, rc);
       steps += __popc(__reduce_or_sync(FULL, mask));
@@ -703,6 +852,7 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
     a.free_[row * Lo + l] = w.free_[l];
     a.served[row * Lo + l] = w.served[l];
   }
+  if constexpr (OBS) vis.flush_to(vis.n_words, lane);
   if (lane == 0) {
     a.next_out[row] = next;
     a.steps_out[row] = steps;
@@ -720,16 +870,28 @@ __global__ void __launch_bounds__(WARP* MAX_ROWS) wired_advance(Args a) {
   }
 }
 
-template <bool PROF>
+template <bool PROF, bool OBS>
 int launch(const short* lo_at, const int* pkt_flow, const int* svc,
            const int* svcdly, int* hop, int* ready, int* free_, int* deliver,
            int* eg_hop, int* eg_ready, int* served, int* next_out,
            int* steps_out, int* err, int K, int R, int P, int F, int H,
            int Lo, int t0, int t_grant, int span, int cap, int rows,
-           int table_smem, int smem, long long* prof, cudaStream_t st) {
+           int table_smem, int smem, long long* prof, cudaStream_t st,
+           const ObsArgs* obs = nullptr) {
   const long long N = static_cast<long long>(K) * R;
-  const long long need = table_bytes(F, H, Lo, table_smem) +
-                         static_cast<long long>(rows) * row_bytes(Lo, cap);
+  long long need = table_bytes(F, H, Lo, table_smem) +
+                   static_cast<long long>(rows) * row_bytes(Lo, cap);
+  if constexpr (OBS) {
+    need += obs_bytes(F, rows);
+    if (obs == nullptr || K != 1 || t_grant >= (1 << 24) ||
+        obs->n_words != (t_grant > t0 ? (t_grant - t0 + WARP - 1) / WARP
+                                      : 0) ||
+        (obs->n_words > 0 && obs->visits == nullptr) ||
+        obs->birth == nullptr || obs->f_first == nullptr ||
+        obs->f_period == nullptr || obs->rec == nullptr ||
+        !(obs->scale > 0.0f))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (K < 1 || R < 1 || P < 0 || F < 1 || H < 1 || Lo < 0 || Lo > MAX_CAP ||
       N * P >= (1LL << 31) || static_cast<long long>(F) * (H + 1) >=
       (1LL << 31) || cap < 1 || cap > MAX_CAP || rows < 1 ||
@@ -742,7 +904,15 @@ int launch(const short* lo_at, const int* pkt_flow, const int* svc,
          deliver, eg_hop,   eg_ready,  served,    next_out, steps_out,
          err,     prof,     R,         P,         F,     H,     Lo,
          t0,      t_grant,  span,      cap,       rows,  table_smem};
-  auto* kernel = wired_advance<PROF>;
+  if constexpr (OBS) {
+    a.obs = *obs;
+    // the record's slots: -1 matches no slot
+    const cudaError_t m = cudaMemsetAsync(
+        obs->rec, 0xFF, sizeof(int) * 2 * RING_CAP * static_cast<size_t>(R),
+        st);
+    if (m != cudaSuccess) return static_cast<int>(m);
+  }
+  auto* kernel = wired_advance<PROF, OBS>;
   // the shared memory opted in to so far (an attribute call only to raise it)
   static int opted = 48 * 1024;
   if (smem > opted) {
@@ -779,6 +949,7 @@ int launch(const short* lo_at, const int* pkt_flow, const int* svc,
       eg_ready, served, next_out, steps_out, err, K, R, P, F, H, Lo, t0,    \
       t_grant, span, cap, rows, table_smem, smem
 
+#ifndef WIRED_OBS_PART
 // One advance of the K R rows (lane-major): the tables lo_at (K, F, H + 1)
 // int16, pkt_flow (K, P), svc and svcdly (K, Lo) int32; the state hop,
 // ready, free (K R, Lo), deliver, eg_hop, eg_ready, served (K R, Lo),
@@ -789,12 +960,13 @@ int launch(const short* lo_at, const int* pkt_flow, const int* svc,
 // cap (the list's entries a row), rows (a CTA), table_smem (lo_at in
 // shared memory), the shared bytes (table_bytes + rows row_bytes).
 extern "C" int wired_advance_launch(WIRED_PARAMS, cudaStream_t st) {
-  return wired_kernel::launch<false>(WIRED_ARGS, nullptr, st);
+  return wired_kernel::launch<false, false>(WIRED_ARGS, nullptr, st);
 }
 
 // the stage probe: the same launch by the PROF instantiation, which also
 // writes each row's N_PROF words to prof
 extern "C" int wired_advance_profile(WIRED_PARAMS, long long* prof,
                                      cudaStream_t st) {
-  return wired_kernel::launch<true>(WIRED_ARGS, prof, st);
+  return wired_kernel::launch<true, false>(WIRED_ARGS, prof, st);
 }
+#endif  // WIRED_OBS_PART

@@ -1,378 +1,366 @@
-// wired_advance_obs.cu — wired_advance.cu's OBS arm: the wired engine's
-// slot loop with ns-3's FlowMonitor columns, one translation unit of the
-// wired_advance library, built in parallel with wired_advance.cu, whose
-// kernel and its arms keep their code.
+// wired_advance_obs.cu — wired_advance.cu's OBS arm and the union pass: the
+// wired engine's slot loop with ns-3's FlowMonitor columns, one
+// translation unit of the wired_advance library, built in parallel with
+// wired_advance.cu, whose instantiations without the arm keep their code.
 //
 // Replaces the reference's obs arm of the windowed slot loop,
 // tpudes/parallel/wired.py:635-689 and :735-836 (flow_accumulate and
 // flow_ring_write of tpudes/obs/flowmon.py around _make_lane_step.step;
 // XLA code, no pallas_call).  The plain version is
 // tpudes_torch/parallel/wired.py's advance_math with the obs keys
-// (_obs_step a visit, _obs_flush at the window's edge), which this kernel
-// equals bit for bit in every state array, column and ring row, in the
-// next event and in the step count.
+// (_obs_step a union step, _obs_flush at the window's edge), which the two
+// launches equal bit for bit in every state array, column and ring row, in
+// the next event and in the union step count.
 //
-// The model is wired_advance.cu's, one lane (every link of the row's
-// program served here or a peer's).  A row visits the window's first slot
-// t0 (as the reference's clock does; nothing is served there before the
-// row's next event), then each of its own next events below t_grant.  At a
-// visit s it serves every free link's FIFO head, then:
-//  - each packet delivered at s (served on its last hop) is its flow's one
-//    delivery of the visit (a flow's last link serves one packet a slot):
-//    rx, bytes, the delay deliver - birth (an integer below 2^24 slots, so
-//    the reference's f32 mean of the flow's delay sum is that delay),
-//    jitter against the flow's last delay, t1 and the histogram bin;
-//  - each flow's births in (mark, s] are its sends (tx, bytes, t0): a
-//    flow's packets are born at b0 + k period, k < n (b0 its first
-//    packet's jittered birth), so each lane counts its flows' births in
-//    closed form;
-//  - lane 0 writes the visit's ring row at s % 512: the first delivering
-//    flow, else the first flow with the most sends, step -1 where neither.
-// At the edge the births in (mark, t_grant) are sends at t_grant - 1.
+// The reference steps every row on one clock, the union U of all rows'
+// next events (wired.py:779), from the window's first slot t0.  A row
+// stepped before its own next event serves nothing, so its state and its
+// deliveries do not depend on the clock, nor do the delivery columns; only
+// the sends (tx, bytes, t0), the ring, the carried mark and the step count
+// do, and all four follow from U after the rows have run:
+//  1. The main kernel is wired_advance.cu's redesigned one (the link table
+//     lo_at, four rows a CTA, the row's list and per-link FIFO queues in
+//     shared memory, lookahead windows served a warp round), instantiated
+//     with OBS.  The lane that pops a flow's last link applies its
+//     deliveries to the delivery columns in device memory (a flow's
+//     deliveries arrive in slot order, so the jitter sums in the
+//     reference's order; a packet's birth is its flow's first birth,
+//     held in shared memory, plus its index times the period, so a
+//     delivery waits on one load latency); each window ORs its slot mask
+//     into the row's visited slots (a bitmap word in a register, each
+//     word stored once) and records, at slot % 512, each delivering slot
+//     with its least delivering flow (a shared atomicMin over the
+//     window's 32 slots).  It counts no sends.
+//  2. The union pass: visits_or ORs the rows' bitmaps into U (a thread a
+//     word over 32 rows, one atomicOr a word and chunk), then union_rows,
+//     a warp a row: n_steps = popcount(U) (row 0's warp); each flow's sends
+//     are the births in (mark, t_grant - 1], counted in closed form with
+//     32-bit arithmetic, t0 the first step of U at or after the first new
+//     birth (t_grant - 1 past the last, as the window's edge counts it);
+//     the ring's row at each residue mod 512 is the reference's row of the
+//     residue's last step u of U: the record's flow where the row
+//     delivered at u, else the first flow with the most births in (prev u,
+//     u] (prev u is the carried mark at U's first step), stamped -1 with
+//     flow 0 where it neither delivered nor sent.  Those counts come from
+//     walking each flow's births (a flow a lane) after the least such
+//     prev u, each counted at its step, the first of U at or after it:
+//     a few births a flow at bench width, not 512 counts a flow.
 //
-// Design: simple first.  One warp a row, one row a CTA; the row's link
-// state (free, served), each link's FIFO head key (ready << 32 | packet)
-// and, where they fit (``staged``), its packets' hop, ready and flow and
-// the link table lo_at, in shared memory, read from and written back to
-// global memory once a launch; three passes over the row's packets a visit
-// (heads by atomicMin, the serves, the next event); the columns in global
-// memory, each flow's read and written by the one lane that handles its
-// event of the visit.  No lookahead windows and no packet lists:
-// wired_advance.cu's redesign is for the path without the columns.  (One
-// pass a visit, each link's least key over all its packets by a warp
-// reduction a link, ran 1.44x slower on the card: PERF.md.)
+// Bound: the main kernel's, wired_advance.cu's (its services' operations at
+// bench width), plus the columns, the ring and the births read and written
+// once; the union pass is small (the bitmaps, F flows and 512 ring rows a
+// row).
 //
 // The source also builds with g++ against csrc/mock/cuda_runtime.h, which
 // runs it on the CPU (tests/test_torch_wired_mock.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#define WIRED_OBS_PART
+#include "wired_advance.cu"
 
-extern __shared__ __align__(16) unsigned char dyn_smem[];
+namespace wired_kernel {
 
-namespace wired_obs {
+// visits_or: a thread a word, OR_ROWS rows a CTA; union_rows: warps a CTA
+constexpr int OR_THREADS = 128;
+constexpr int OR_ROWS = 32;
+constexpr int UNION_WARPS = 4;
+// union_rows' shared memory: a warp's residues' last steps and most keys
+constexpr int UNION_SMEM = UNION_WARPS * 3 * RING_CAP * sizeof(int);
+// the ring's verdicts (flowmon.py)
+constexpr int VERDICT_TX = 0;
+constexpr int VERDICT_RX = 1;
 
-constexpr int WARP = 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int INF_SLOT = 1 << 30;
-constexpr int BIG = 0x7FFFFFFF;
-constexpr unsigned long long NO_HEAD = 0xFFFFFFFFFFFFFFFFull;
-constexpr short DELIVERED = -1;
-constexpr int BINS = 16;
-constexpr int RING_CAP = 512;
-constexpr int RING_COLS = 5;
-constexpr long long SMEM_LIMIT = 227 * 1024;
-
-struct Args {
-  const short* lo_at;   // (F, H + 1) local link of each flow's hop
-  const int* pkt_flow;  // (P,)
-  const int* svc;       // (Lo,) service of each local link
-  const int* svcdly;    // (Lo,) service + delay
+struct UnionArgs {
   const int* f_first;   // (F,) each flow's first packet
   const int* f_period;  // (F,) its CBR period
   const int* f_npk;     // (F,) its packets
-  int* hop;  // (R, P) state, in place
-  int* ready;
-  int* free_;  // (R, Lo)
-  int* deliver;
-  int* eg_hop;
-  int* eg_ready;
-  int* served;  // (R, Lo)
-  int* next_out;   // (R,)
-  int* steps_out;  // (R,)
-  const int* birth;  // (R, P) fm_birth
-  // the FlowMonitor columns, in place: (R, F), hist (R, F, 16), ring (R,
-  // 512, 5)
-  int *tx, *txb, *rx, *rxb, *lost;
-  float *dsum, *jsum, *dlast, *t0, *t1;
-  int *hist, *ring;
-  int R, P, F, H, Lo, t_start, t_grant, mark, pkt_bytes;
-  int staged;   // the row's packets and lo_at in shared memory
-  float scale;  // a delay (slots) to its bin: flowmon.py::bin_scale
+  const int* birth;     // (R, P) fm_birth
+  const unsigned* visits;  // (R, n_words) each row's visited slots
+  const unsigned* u;    // (n_words) the union clock's slots from t0
+  const int* rec;       // (R, RING_CAP, 2) the main kernel's record
+  int* firsts;          // (R, F) scratch: each flow's first birth
+  int *tx, *txb;        // (R, F) in place
+  float* t0;            // (R, F) fm_t0, in place
+  int* ring;            // (R, RING_CAP, RING_COLS) in place
+  int* n_steps;         // (1,) the union steps
+  int R, P, F, t_start, t_grant, mark, n_words, pkt_bytes;
 };
 
-// the shared bytes a row's CTA takes: a head key, free and served a link,
-// and where staged a packet's hop, ready and flow and the flows' lo_at
-__host__ __device__ inline long long smem_bytes(int P, int F, int H, int Lo,
-                                                bool staged) {
-  const long long base = 16LL * Lo;
-  return staged ? base + 12LL * P + ((2LL * F * (H + 1) + 15) & ~15LL)
-                : base;
+// U: the OR over each chunk of OR_ROWS rows of their words, into the zeroed
+// union (blocks word-chunk-major: one dimension, as the mock runs a grid)
+__global__ void __launch_bounds__(OR_THREADS)
+    visits_or(const unsigned* visits, unsigned* u, int R, int n_words) {
+  const int chunks = (n_words + OR_THREADS - 1) / OR_THREADS;
+  const int w = (blockIdx.x % chunks) * OR_THREADS + threadIdx.x;
+  const int r0 = (blockIdx.x / chunks) * OR_ROWS;
+  if (w >= n_words) return;
+  unsigned x = 0u;
+  for (int r = r0; r < min(R, r0 + OR_ROWS); ++r)
+    x |= visits[static_cast<long long>(r) * n_words + w];
+  if (x != 0u) atomicOr(&u[w], x);
 }
 
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
+// the births b0 + k per (k < n) at or before slot x
+__device__ __forceinline__ int born_by(int b0, int per, int n, int x) {
+  return x < b0 ? 0 : min((x - b0) / per + 1, n);
 }
 
-// the births b0 + k per (k < n) in (lo, hi]
-__device__ __forceinline__ int births_in(int b0, int per, int n, int lo,
-                                         int hi) {
-  if (hi <= lo || n <= 0) return 0;
-  const long long k_hi =
-      min(floor_div(static_cast<long long>(hi) - b0, per),
-          static_cast<long long>(n) - 1);
-  const long long k_lo =
-      max(floor_div(static_cast<long long>(lo) - b0, per) + 1, 0LL);
-  return k_hi >= k_lo ? static_cast<int>(k_hi - k_lo + 1) : 0;
+__device__ __forceinline__ bool in_union(const unsigned* u, int i) {
+  return (u[i / WARP] >> (i % WARP)) & 1u;
 }
 
-// a packet's local link at hop h of flow f (a code below 0 where it waits
-// at none here)
-__device__ __forceinline__ int link_of(const short* lo_at, int H, int h,
-                                       int f) {
-  return lo_at[static_cast<long long>(f) * (H + 1) + h];
-}
-
-// each flow's sends among the births in (lo, hi], at time t_s; returns
-// the lane's (most sends, its first flow) for the ring's argmax
-__device__ __forceinline__ void sends(const Args& a, int row, int lane,
-                                      int lo, int hi, float t_s, int& best,
-                                      int& best_f) {
-  best = 0;
-  best_f = BIG;
-  for (int f = lane; f < a.F; f += WARP) {
-    const long long q = static_cast<long long>(row) * a.F + f;
-    const int b0 = a.birth[static_cast<long long>(row) * a.P + a.f_first[f]];
-    const int n = births_in(b0, a.f_period[f], a.f_npk[f], lo, hi);
-    if (n > 0) {
-      a.tx[q] += n;
-      a.txb[q] += n * a.pkt_bytes;
-      if (a.t0[q] < 0.0f) a.t0[q] = t_s;
-      if (n > best) {
-        best = n;
-        best_f = f;
-      }
-    }
+// the least step of U at or after bit i, or -1
+__device__ __forceinline__ int next_step(const unsigned* u, int n_words,
+                                         int i) {
+  int j = i / WARP;
+  if (j >= n_words) return -1;
+  unsigned w = u[j] & (FULL << (i % WARP));
+  while (w == 0u) {
+    if (++j >= n_words) return -1;
+    w = u[j];
   }
+  return j * WARP + __ffs(w) - 1;
 }
 
-// one warp a row, one row a CTA
-__global__ void __launch_bounds__(WARP)
-    wired_advance_obs_kernel(const Args a) {
-  const int row = blockIdx.x, lane = threadIdx.x;
+// the greatest step of U before bit i, or -1
+__device__ __forceinline__ int prev_step(const unsigned* u, int i) {
+  if (i <= 0) return -1;
+  int j = (i - 1) / WARP;
+  unsigned w = u[j] & (FULL >> (WARP - 1 - (i - 1) % WARP));
+  while (w == 0u) {
+    if (--j < 0) return -1;
+    w = u[j];
+  }
+  return j * WARP + WARP - 1 - __clz(static_cast<int>(w));
+}
+
+// a residue's most births (high word) and ~its first flow with that many
+// (low word): the largest key is the reference's argmax
+__device__ __forceinline__ unsigned long long most_key(int count, int f) {
+  return (static_cast<unsigned long long>(count) << 32) |
+         (0xFFFFFFFFu - static_cast<unsigned>(f));
+}
+
+// a warp a row: the sends, t0 and the ring from U; row 0's warp also the
+// step count.  The ring in three rounds: each lane finds its residues'
+// last steps (writing the rows that delivered); each lane walks its flows'
+// births after the earliest such step's previous one, each birth counted
+// at its step (the first step of U at or after it) where that step is
+// its residue's last, each flow's count a step into the residue's
+// most_key by a shared atomicMax; each lane writes its residues' rows.
+__global__ void __launch_bounds__(WARP* UNION_WARPS) union_rows(UnionArgs a) {
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const int row = blockIdx.x * UNION_WARPS + warp;
+  if (row >= a.R) return;
   const long long pb = static_cast<long long>(row) * a.P;
-  const long long lb = static_cast<long long>(row) * a.Lo;
-  unsigned long long* head = reinterpret_cast<unsigned long long*>(dyn_smem);
-  int* fr = reinterpret_cast<int*>(head + a.Lo);
-  int* sv = fr + a.Lo;
-  int* hop = a.hop + pb;
-  int* ready = a.ready + pb;
-  const int* flow = a.pkt_flow;
-  const short* lo_at = a.lo_at;
-  const int H = a.H;
-  if (a.staged) {
-    int* st_hop = sv + a.Lo;
-    int* st_ready = st_hop + a.P;
-    int* st_flow = st_ready + a.P;
-    short* st_lo = reinterpret_cast<short*>(st_flow + a.P);
-    for (int p = lane; p < a.P; p += WARP) {
-      st_hop[p] = hop[p];
-      st_ready[p] = ready[p];
-      st_flow[p] = flow[p];
-    }
-    for (int i = lane; i < a.F * (H + 1); i += WARP) st_lo[i] = lo_at[i];
-    hop = st_hop;
-    ready = st_ready;
-    flow = st_flow;
-    lo_at = st_lo;
+  const long long fb = static_cast<long long>(row) * a.F;
+  const int hi = a.t_grant - 1;  // the window's last slot
+  // the clock the sends and the ring follow: the union of the rows'
+  const unsigned* send_clock = a.u;
+  const unsigned* ring_clock = a.u;
+  if (row == 0) {
+    int c = 0;
+    for (int i = lane; i < a.n_words; i += WARP) c += __popc(a.u[i]);
+    c = __reduce_add_sync(FULL, c);
+    if (lane == 0) *a.n_steps = c;
   }
-  for (int l = lane; l < a.Lo; l += WARP) {
-    fr[l] = a.free_[lb + l];
-    sv[l] = a.served[lb + l];
+  // each flow's sends: its births in (mark, hi]
+  for (int f = lane; f < a.F; f += WARP) {
+    const int b0 = a.birth[pb + a.f_first[f]], per = a.f_period[f];
+    const int n = a.f_npk[f];
+    a.firsts[fb + f] = b0;
+    const int before = born_by(b0, per, n, a.mark);
+    const int c = born_by(b0, per, n, hi) - before;
+    if (c <= 0) continue;
+    a.tx[fb + f] += c;
+    a.txb[fb + f] += c * a.pkt_bytes;
+    if (a.t0[fb + f] < 0.0f) {
+      const int i = next_step(send_clock, a.n_words,
+                              max(b0 + before * per - a.t_start, 0));
+      a.t0[fb + f] = static_cast<float>(i >= 0 ? a.t_start + i : hi);
+    }
   }
-  for (int p = lane; p < a.P; p += WARP) {
-    a.eg_hop[pb + p] = -1;
-    a.eg_ready[pb + p] = -1;
-  }
-  __syncwarp();
-
-  // the least max(ready, free) over the row's packets at its links
-  auto next_event = [&]() {
-    int m = INF_SLOT;
-    for (int p = lane; p < a.P; p += WARP) {
-      const int lo = link_of(lo_at, H, hop[p], flow[p]);
-      if (lo >= 0) m = min(m, max(ready[p], fr[lo]));
-    }
-    return __reduce_min_sync(FULL, m);
-  };
-
-  int mark = a.mark, steps = 0, nxt = INF_SLOT;
-  for (int s = a.t_start; s < a.t_grant;) {
-    // the heads of the free links, then their serves
-    for (int l = lane; l < a.Lo; l += WARP) head[l] = NO_HEAD;
-    __syncwarp();
-    for (int p = lane; p < a.P; p += WARP) {
-      const int lo = link_of(lo_at, H, hop[p], flow[p]);
-      if (lo >= 0 && ready[p] <= s && fr[lo] <= s)
-        atomicMin(&head[lo], (static_cast<unsigned long long>(ready[p]) << 32) |
-                                 static_cast<unsigned>(p));
-    }
-    __syncwarp();
-    int rx_f = BIG;  // the lane's first flow delivering at s
-    for (int p = lane; p < a.P; p += WARP) {
-      const int f = flow[p], h = hop[p];
-      const int lo = link_of(lo_at, H, h, f);
-      if (lo < 0 || ready[p] > s || fr[lo] > s ||
-          head[lo] != ((static_cast<unsigned long long>(ready[p]) << 32) |
-                       static_cast<unsigned>(p)))
-        continue;
-      const int arr = s + a.svcdly[lo];
-      const int nlo = link_of(lo_at, H, h + 1, f);
-      fr[lo] = s + a.svc[lo];
-      sv[lo] += 1;
-      hop[p] = h + 1;
-      ready[p] = arr;
-      if (nlo == DELIVERED) {
-        a.deliver[pb + p] = arr;
-        // the flow's one delivery of the visit, its delay the mean
-        const long long q = static_cast<long long>(row) * a.F + f;
-        const float d = static_cast<float>(arr - a.birth[pb + p]);
-        a.rx[q] += 1;
-        a.rxb[q] += a.pkt_bytes;
-        a.dsum[q] = __fadd_rn(a.dsum[q], d);
-        a.jsum[q] = __fadd_rn(a.jsum[q], a.dlast[q] >= 0.0f
-                                             ? fabsf(__fsub_rn(d, a.dlast[q]))
-                                             : 0.0f);
-        a.dlast[q] = d;
-        a.t1[q] = static_cast<float>(s);
-        const int bin =
-            min(max(__float2int_rz(__fmul_rn(d, a.scale)), 0), BINS - 1);
-        a.hist[q * BINS + bin] += 1;
-        rx_f = min(rx_f, f);
-      } else if (nlo < 0) {
-        // a peer's link next: the egress buffers
-        a.eg_hop[pb + p] = h + 1;
-        a.eg_ready[pb + p] = arr;
-      }
-    }
-    __syncwarp();
-    int best, best_f;
-    sends(a, row, lane, mark, s, static_cast<float>(s), best, best_f);
-    const int first_rx = __reduce_min_sync(FULL, rx_f);
-    const int most = __reduce_max_sync(FULL, best);
-    const int most_f = __reduce_min_sync(FULL, best == most ? best_f : BIG);
-    if (lane == 0) {
-      int* w = a.ring + (static_cast<long long>(row) * RING_CAP +
-                         s % RING_CAP) * RING_COLS;
-      const bool got = first_rx != BIG, sent = most > 0;
-      w[0] = got || sent ? s : -1;
-      w[1] = s;
-      w[2] = got ? first_rx : sent ? most_f : 0;
+  if (hi < a.t_start) return;
+  // each residue's last step u of U (-1: none, or its row written), and
+  // lo, the least step before such a u (the carried mark before U's first)
+  int* last = reinterpret_cast<int*>(dyn_smem) + warp * 3 * RING_CAP;
+  unsigned long long* most =
+      reinterpret_cast<unsigned long long*>(last + RING_CAP);
+  int* ring = a.ring + static_cast<long long>(row) * RING_CAP * RING_COLS;
+  int lo = INF_SLOT;
+  for (int c = lane; c < RING_CAP; c += WARP) {
+    int u = hi - ((hi - c) % RING_CAP + RING_CAP) % RING_CAP;
+    while (u >= a.t_start && !in_union(ring_clock, u - a.t_start))
+      u -= RING_CAP;
+    last[c] = -1;
+    most[c] = 0ull;
+    if (u < a.t_start) continue;
+    const int* r = a.rec + (static_cast<long long>(row) * RING_CAP + c) * 2;
+    if (r[0] == u) {
+      int* w = ring + c * RING_COLS;
+      w[0] = u;
+      w[1] = u;
+      w[2] = r[1];
       w[3] = a.pkt_bytes;
-      w[4] = got ? 1 : 0;
+      w[4] = VERDICT_RX;
+      continue;
     }
-    mark = s;
-    ++steps;
-    __syncwarp();
-    nxt = next_event();
-    s = max(s + 1, nxt);
+    const int i = prev_step(ring_clock, u - a.t_start);
+    last[c] = u;
+    lo = min(lo, i >= 0 ? a.t_start + i : a.mark);
   }
-  if (steps == 0) nxt = next_event();
-  // the window's edge: the births no visit counted
-  if (a.t_grant - 1 > mark) {
-    int best, best_f;
-    sends(a, row, lane, mark, a.t_grant - 1,
-          static_cast<float>(a.t_grant - 1), best, best_f);
+  lo = __reduce_min_sync(FULL, lo);
+  __syncwarp();
+  for (int f = lane; f < a.F; f += WARP) {
+    const int b0 = a.firsts[fb + f], per = a.f_period[f], n = a.f_npk[f];
+    int at = -1, count = 0;  // the step counted at, its births so far
+    for (int k = born_by(b0, per, n, lo); k < n; ++k) {
+      const int b = b0 + k * per;
+      if (b > hi) break;
+      if (b > at) {
+        if (at >= 0 && last[at % RING_CAP] == at)
+          atomicMax(&most[at % RING_CAP], most_key(count, f));
+        const int i = next_step(ring_clock, a.n_words,
+                                max(b - a.t_start, 0));
+        if (i < 0) break;
+        at = a.t_start + i;
+        count = 0;
+      }
+      ++count;
+    }
+    if (at >= 0 && last[at % RING_CAP] == at)
+      atomicMax(&most[at % RING_CAP], most_key(count, f));
   }
   __syncwarp();
-  for (int l = lane; l < a.Lo; l += WARP) {
-    a.free_[lb + l] = fr[l];
-    a.served[lb + l] = sv[l];
-  }
-  if (a.staged) {
-    for (int p = lane; p < a.P; p += WARP) {
-      a.hop[pb + p] = hop[p];
-      a.ready[pb + p] = ready[p];
-    }
-  }
-  if (lane == 0) {
-    a.next_out[row] = nxt;
-    a.steps_out[row] = steps;
+  // the rest: the first flow with the most births in (prev u, u], step -1
+  // and flow 0 where none
+  for (int c = lane; c < RING_CAP; c += WARP) {
+    const int u = last[c];
+    if (u < 0) continue;
+    const unsigned long long m = most[c];
+    int* w = ring + c * RING_COLS;
+    w[0] = m != 0ull ? u : -1;
+    w[1] = u;
+    w[2] = m != 0ull ? static_cast<int>(0xFFFFFFFFu -
+                                         static_cast<unsigned>(m))
+                     : 0;
+    w[3] = a.pkt_bytes;
+    w[4] = VERDICT_TX;
   }
 }
 
-}  // namespace wired_obs
-
-// the shared bytes a row's CTA takes: staged where that fits a CTA
-extern "C" long long wired_advance_obs_smem(int P, int F, int H, int Lo) {
-  using namespace wired_obs;
-  const long long staged = smem_bytes(P, F, H, Lo, true);
-  return staged <= SMEM_LIMIT ? staged : smem_bytes(P, F, H, Lo, false);
-}
-
-// ptrs: a host array of the 29 device pointers of struct Args, in its
-// order (lo_at .. ring); ints R, P, F, H, Lo, t, t_grant, the carried mark
-// and a packet's bytes; the bin factor; stage (0: the packets stay in
-// global memory even where they fit in shared); stream
-extern "C" int wired_advance_obs_launch(void* const* ptrs, int R, int P,
-                                        int F, int H, int Lo, int t,
-                                        int t_grant, int mark,
-                                        int pkt_bytes, float scale,
-                                        int stage, void* stream) {
-  using namespace wired_obs;
-  const long long smem = stage ? wired_advance_obs_smem(P, F, H, Lo)
-                               : smem_bytes(P, F, H, Lo, false);
-  if (R <= 0 || P <= 0 || F <= 0 || H <= 0 || Lo <= 0 || t < 0 ||
-      t_grant < 0 || t > INF_SLOT || t_grant > INF_SLOT ||
-      static_cast<long long>(R) * P >= (1LL << 31) || smem > SMEM_LIMIT ||
-      !(scale > 0.0f))
-    return cudaErrorInvalidValue;
-  for (int i = 0; i < 29; ++i)
-    if (ptrs[i] == nullptr) return cudaErrorInvalidValue;
-  Args a{};
-  a.lo_at = static_cast<const short*>(ptrs[0]);
-  a.pkt_flow = static_cast<const int*>(ptrs[1]);
-  a.svc = static_cast<const int*>(ptrs[2]);
-  a.svcdly = static_cast<const int*>(ptrs[3]);
-  a.f_first = static_cast<const int*>(ptrs[4]);
-  a.f_period = static_cast<const int*>(ptrs[5]);
-  a.f_npk = static_cast<const int*>(ptrs[6]);
-  int* const* q = reinterpret_cast<int* const*>(ptrs);
-  a.hop = q[7];
-  a.ready = q[8];
-  a.free_ = q[9];
-  a.deliver = q[10];
-  a.eg_hop = q[11];
-  a.eg_ready = q[12];
-  a.served = q[13];
-  a.next_out = q[14];
-  a.steps_out = q[15];
-  a.birth = q[16];
-  a.tx = q[17];
-  a.txb = q[18];
-  a.rx = q[19];
-  a.rxb = q[20];
-  a.lost = q[21];
-  auto fp = [&](int i) { return reinterpret_cast<float*>(q[i]); };
-  a.dsum = fp(22);
-  a.jsum = fp(23);
-  a.dlast = fp(24);
-  a.t0 = fp(25);
-  a.t1 = fp(26);
-  a.hist = q[27];
-  a.ring = q[28];
-  a.R = R;
-  a.P = P;
-  a.F = F;
-  a.H = H;
-  a.Lo = Lo;
-  a.t_start = t;
-  a.t_grant = t_grant;
-  a.mark = mark;
-  a.pkt_bytes = pkt_bytes;
-  a.staged = smem > smem_bytes(P, F, H, Lo, false) ? 1 : 0;
-  a.scale = scale;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wired_advance_obs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+int union_launch(const UnionArgs& a, unsigned* u, cudaStream_t st) {
+  if (a.n_words > 0) {
+    cudaError_t e = cudaMemsetAsync(u, 0, sizeof(unsigned) * a.n_words, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long blocks =
+        static_cast<long long>((a.n_words + OR_THREADS - 1) / OR_THREADS) *
+        ((a.R + OR_ROWS - 1) / OR_ROWS);
+    const unsigned* vis = a.visits;
+    unsigned* un = u;
+    int R = a.R, n_words = a.n_words;
+    void* or_args[] = {&vis, &un, &R, &n_words};
+    e = cudaLaunchKernel(visits_or, dim3(static_cast<unsigned>(blocks)),
+                         dim3(OR_THREADS), or_args, 0, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  void* args[] = {&a};
-  const cudaError_t e =
-      cudaLaunchKernel(wired_advance_obs_kernel, dim3(R), dim3(WARP), args,
-                       static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream));
+  UnionArgs b = a;
+  void* args[] = {&b};
+  const cudaError_t e = cudaLaunchKernel(
+      union_rows, dim3((a.R + UNION_WARPS - 1) / UNION_WARPS),
+      dim3(WARP * UNION_WARPS), args, UNION_SMEM, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the OBS operands from the host array of their N_OBS_PTRS device pointers
+constexpr int N_OBS_PTRS = 12;
+inline bool obs_args(void* const* p, int n_words, int pkt_bytes, float scale,
+                     ObsArgs& o) {
+  for (int i = 0; i < N_OBS_PTRS; ++i)
+    if (p[i] == nullptr && !(i == 10 && n_words == 0)) return false;
+  int* const* q = reinterpret_cast<int* const*>(p);
+  auto fp = [&](int i) { return reinterpret_cast<float*>(q[i]); };
+  o = ObsArgs{q[0],  q[1],  q[2],  q[3],
+              q[4],  fp(5), fp(6), fp(7),
+              fp(8), q[9],  reinterpret_cast<unsigned*>(q[10]),
+              q[11], n_words, pkt_bytes,
+              scale};
+  return true;
+}
+
+}  // namespace wired_kernel
+
+// One advance of the R rows with the FlowMonitor columns:
+// wired_advance_launch's arguments (K = 1, shared bytes table_bytes + rows
+// row_bytes + obs_bytes), then the host array of the arm's 12 device
+// pointers (fm_birth, the tables f_first and f_period (F,), fm_rx, fm_rxb,
+// fm_dsum, fm_jsum, fm_dlast, fm_t1, fm_hist in place; the visits (R,
+// n_words) and the record (R, 512, 2) out), the bitmap's words a row
+// (ceil((t_grant - t) / 32), 0 where t >= t_grant), a packet's bytes, the
+// bin factor, stream.  The sends, the ring and the step count are
+// wired_advance_obs_union_launch's.
+extern "C" int wired_advance_obs_launch(WIRED_PARAMS, void* const* obs,
+                                        int n_words, int pkt_bytes,
+                                        float scale, cudaStream_t st) {
+  wired_kernel::ObsArgs o;
+  if (!wired_kernel::obs_args(obs, n_words, pkt_bytes, scale, o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wired_kernel::launch<false, true>(WIRED_ARGS, nullptr, st, &o);
+}
+
+// the stage probe of the arm: the PROF instantiation with OBS, which also
+// writes each row's N_PROF words to prof
+extern "C" int wired_advance_obs_profile(WIRED_PARAMS, void* const* obs,
+                                         int n_words, int pkt_bytes,
+                                         float scale, long long* prof,
+                                         cudaStream_t st) {
+  wired_kernel::ObsArgs o;
+  if (!wired_kernel::obs_args(obs, n_words, pkt_bytes, scale, o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wired_kernel::launch<true, true>(WIRED_ARGS, prof, st, &o);
+}
+
+// The union pass after wired_advance_obs_launch: ptrs, the host array of
+// 13 device pointers (f_first, f_period, f_npk, fm_birth, the visits, the
+// union (n_words, scratch), the record, the flows' first births ((R, F)
+// scratch); fm_tx, fm_txb, fm_t0, fm_ring in place; the step count out);
+// ints R, P, F, t (the window's first slot),
+// t_grant, the carried mark, n_words, a packet's bytes; stream.
+extern "C" int wired_advance_obs_union_launch(void* const* ptrs, int R, int P,
+                                              int F, int t, int t_grant,
+                                              int mark, int n_words,
+                                              int pkt_bytes,
+                                              cudaStream_t st) {
+  using namespace wired_kernel;
+  if (R < 1 || P < 0 || F < 1 || t < 0 || t_grant < 0 ||
+      t_grant >= (1 << 24) || t > INF_SLOT || mark >= (1 << 24) ||
+      n_words != (t_grant > t ? (t_grant - t + WARP - 1) / WARP : 0) ||
+      static_cast<long long>(R) * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 13; ++i)
+    if (ptrs[i] == nullptr && !((i == 4 || i == 5) && n_words == 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+  int* const* q = reinterpret_cast<int* const*>(ptrs);
+  const UnionArgs a{q[0],
+                    q[1],
+                    q[2],
+                    q[3],
+                    reinterpret_cast<const unsigned*>(q[4]),
+                    reinterpret_cast<const unsigned*>(q[5]),
+                    q[6],
+                    q[7],
+                    q[8],
+                    q[9],
+                    reinterpret_cast<float*>(q[10]),
+                    q[11],
+                    q[12],
+                    R,
+                    P,
+                    F,
+                    t,
+                    t_grant,
+                    mark,
+                    n_words,
+                    pkt_bytes};
+  return union_launch(a, reinterpret_cast<unsigned*>(q[5]), st);
 }

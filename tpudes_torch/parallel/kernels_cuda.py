@@ -142,13 +142,14 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: launches over more than one rate scale also under ``:sweep``; a launch of
 #: ``lte_sm_advance``, ``bss_advance``, ``tcp_advance`` or ``wired_advance``
 #: with the FlowMonitor columns (``obs=True``) is also counted under its
-#: ``:obs`` arm
+#: ``:obs`` arm, and ``wired_advance``'s union pass after such a launch
+#: under ``wired_advance:obs_union``
 launches = {
     "lte_sm_step": 0, "lte_sm_step:bf16": 0, "lte_sm_advance": 0,
     "lte_sm_advance:dynamic": 0, "lte_sm_advance:sweep": 0,
     "lte_sm_advance:traffic": 0, "lte_sm_advance:bf16": 0,
     "lte_sm_advance:obs": 0, "bss_advance:obs": 0, "tcp_advance:obs": 0,
-    "wired_advance:obs": 0,
+    "wired_advance:obs": 0, "wired_advance:obs_union": 0,
     "bss_advance": 0, "bss_advance:agg": 0, "bss_advance:sweep": 0,
     "bss_advance:mobile": 0, "bss_advance:traffic": 0,
     "bss_advance:traffic_sweep": 0,

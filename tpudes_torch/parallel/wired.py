@@ -30,7 +30,9 @@ own next event serves nothing, so this gives the reference's state, its
 its final ``t``, which all rows share (``t_grant`` where ``t <
 t_grant``).  Only the reference's ``n_steps`` metric, the steps of the
 union clock of all rows, differs: the port's ``n_steps`` is the most
-steps any one row took (ROADMAP Queue C).
+steps any one row took (ROADMAP Queue C, C5).  With the FlowMonitor
+columns (``obs=True``) every row steps the union clock, as the
+reference's does: the sends, the ring and ``n_steps`` depend on it.
 
 On the card a launch is one ``wired_advance`` kernel
 (``csrc/wired_advance.cu``, :mod:`tpudes_torch.parallel.wired_cuda`),
@@ -54,7 +56,8 @@ go through ``drive_chunks``, and ``block=False`` returns an
 reference's, it takes no ``checkpoint=``.
 
 ``obs=True`` keeps the FlowMonitor columns (:func:`_obs_step`; on the
-card the kernel's ``OBS`` arm, ``csrc/wired_advance_obs.cu``).
+card the kernel's ``OBS`` arm and the union pass,
+``csrc/wired_advance_obs.cu``).
 
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
 ``mesh=`` (A12).  The host DES
@@ -553,16 +556,16 @@ def _per_flow(x: torch.Tensor, flow: torch.Tensor, F: int) -> torch.Tensor:
                        device=x.device).index_add_(1, flow, x)
 
 
-def _obs_step(tab: dict, fm: dict, st: dict, old_deliver, birth, mark, s,
-              active, bin_slots: float):
-    """The FlowMonitor columns after every active row's visit of its slot
-    ``s`` (``wired.py:735-808``; the row's own clock, see
-    :func:`advance_math`): the packets delivered in the visit (each flow's
-    delays summed, their mean one observation), the births in ``(mark,
-    s]`` sent, and the visit's ring row; returns ``(fm, mark)``.  A flow
-    delivers at most one packet a slot (its last link serves one a slot),
-    so each mean is one delay, an integer below 2^24 slots (asserted):
-    exact in f32 in any order of the sums."""
+def _obs_step(tab: dict, fm: dict, st: dict, old_deliver, birth,
+              mark: int, s: int, bin_slots: float) -> dict:
+    """The FlowMonitor columns after every row's step at the union slot
+    ``s`` (``wired.py:735-808``): the packets delivered in the step (each
+    flow's delays summed, their mean one observation), the births in
+    ``(mark, s]`` sent, and the step's ring row at ``s % 512``, stamped
+    -1 where the row neither delivered nor sent.  A flow delivers at most
+    one packet a slot (its last link serves one a slot), so each mean is
+    one delay, an integer below 2^24 slots (asserted): exact in f32 in any
+    order of the sums."""
     from tpudes_torch.obs.flowmon import (
         VERDICT_RX,
         VERDICT_TX,
@@ -573,8 +576,8 @@ def _obs_step(tab: dict, fm: dict, st: dict, old_deliver, birth, mark, s,
     flow = tab["pkt_flow"][0].long()
     F = tab["paths"].shape[1]
     i32 = torch.int32
-    new_del = (st["deliver"] >= 0) & (old_deliver < 0) & active[:, None]
-    born = (birth > mark[:, None]) & (birth <= s[:, None]) & active[:, None]
+    new_del = (st["deliver"] >= 0) & (old_deliver < 0)
+    born = (birth > mark) & (birth <= s)
     rx_f = _per_flow(new_del.to(i32), flow, F)
     tx_f = _per_flow(born.to(i32), flow, F)
     dsum_i = _per_flow(torch.where(new_del, st["deliver"] - birth, 0)
@@ -584,29 +587,28 @@ def _obs_step(tab: dict, fm: dict, st: dict, old_deliver, birth, mark, s,
     mean_d = dsum_i.float() / torch.clamp_min(rx_f, 1).float()
     new = flow_accumulate(
         {k: v for k, v in fm.items() if k != "fm_ring"},
-        t_s=s.float()[:, None], tx=tx_f, tx_bytes=tx_f * WIRED_PKT_BYTES,
+        t_s=float(s), tx=tx_f, tx_bytes=tx_f * WIRED_PKT_BYTES,
         rx=rx_f, rx_bytes=rx_f * WIRED_PKT_BYTES, delay_s=mean_d,
         lost=torch.zeros_like(rx_f), bin_width_s=bin_slots)
     any_rx, any_tx = new_del.any(1), born.any(1)
+    at = torch.full_like(any_rx, s, dtype=i32)
     row = torch.stack([
-        torch.where(any_rx | any_tx, s, -1), s,
+        torch.where(any_rx | any_tx, at, -1), at,
         torch.where(any_rx, rx_f.argmax(1), tx_f.argmax(1)).to(i32),
-        torch.full_like(s, WIRED_PKT_BYTES),
+        torch.full_like(at, WIRED_PKT_BYTES),
         torch.where(any_rx, VERDICT_RX, VERDICT_TX).to(i32)], -1).to(i32)
     new["fm_ring"] = flow_ring_write(fm["fm_ring"], s, row)
-    out = {k: torch.where(active.view(-1, *([1] * (v.dim() - 1))), new[k], v)
-           for k, v in fm.items()}
-    return out, torch.where(active, s, mark)
+    return new
 
 
-def _obs_flush(fm: dict, birth, mark, t_grant: int, bin_slots: float,
-               flow, F: int) -> dict:
+def _obs_flush(fm: dict, birth, mark: int, t_grant: int,
+               bin_slots: float, flow, F: int) -> dict:
     """The window edge (``wired.py:812-833``): the births in ``(mark,
-    t_grant)`` that no visit counted (their first service meets a busy
+    t_grant)`` that no step counted (their first service meets a busy
     link past the grant) are sends of this window, at ``t_grant - 1``."""
     from tpudes_torch.obs.flowmon import flow_accumulate
 
-    born = (birth > mark[:, None]) & (birth < t_grant)
+    born = (birth > mark) & (birth < t_grant)
     tx_f = _per_flow(born.to(torch.int32), flow, F)
     z = torch.zeros_like(tx_f)
     new = flow_accumulate(
@@ -630,11 +632,14 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
     a row took.
 
     A carry with the obs keys (``build_wired_advance(..., obs=True)``, one
-    lane) also updates the FlowMonitor columns (:func:`_obs_step` a visit,
-    :func:`_obs_flush` at the edge) and adds the ring, reversed, to the
-    metrics.  Its rows visit the window's first slot ``t`` too, as the
-    reference's clock does (nothing is served there before the row's next
-    event); that visit counts in ``n_steps``."""
+    lane) steps every row on the union clock instead, as the reference
+    does (``wired.py:779``): the window's first slot ``t``, then
+    ``max(s + 1, min over rows of the next event)`` below ``t_grant``, the
+    padded replicas' rows included; a row stepped before its own next
+    event serves nothing.  It updates the FlowMonitor columns
+    (:func:`_obs_step` a step, :func:`_obs_flush` at the edge), counts
+    the union steps in ``n_steps`` and adds the ring, reversed, to the
+    metrics."""
     shape = carry["hop"].shape
     st = {k: _rows(carry[k]) for k, _ in WIRED_STATE}
     N = st["hop"].shape[0]
@@ -649,21 +654,23 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
 
         fm = {k: carry[k] for k in FM_KEYS}
         birth, bins = carry["fm_birth"], tab["bin_slots"]
-        mark = torch.full((N,), int(carry["fm_mark"]), dtype=torch.int32,
-                          device=birth.device)
-    if t0 < t_grant:
+        mark, s, n_union = int(carry["fm_mark"]), t0, 0
+        every = torch.ones(N, dtype=torch.bool, device=birth.device)
+        while s < t_grant:
+            old_deliver = st["deliver"]
+            st = wired_step_math(tab, lane, torch.full_like(steps, s), every,
+                                 st)
+            fm = _obs_step(tab, fm, st, old_deliver, birth, mark, s, bins)
+            mark, n_union = s, n_union + 1
+            nxt = next_of_math(tab, lane, st["hop"], st["ready"], st["free"])
+            s = max(s + 1, min(int(nxt.min()), t_grant))
+    elif t0 < t_grant:
         s = torch.clamp_min(next_of_math(tab, lane, st["hop"], st["ready"],
                                          st["free"]), t0)
-        if obs:
-            s = torch.full_like(s, t0)
         active = s < t_grant
         while bool(active.any()):
-            old_deliver = st["deliver"]
             st = wired_step_math(tab, lane, s, active, st)
             steps += active.to(torch.int32)
-            if obs:
-                fm, mark = _obs_step(tab, fm, st, old_deliver, birth, mark, s,
-                                     active, bins)
             nxt = next_of_math(tab, lane, st["hop"], st["ready"], st["free"])
             s = torch.where(active, torch.maximum(s + 1, nxt), s)
             active = s < t_grant
@@ -681,6 +688,8 @@ def advance_math(tab: dict, carry: dict, t_grant: int) -> tuple:
         fm = _obs_flush(fm, birth, mark, t_grant, bins,
                         tab["pkt_flow"][0].long(), tab["paths"].shape[1])
         out.update(fm, fm_birth=birth, fm_mark=t_grant - 1)
+        metrics["n_steps"] = torch.tensor(n_union, dtype=torch.int32,
+                                          device=birth.device)
         metrics["fm_ring"] = flip_ring(fm["fm_ring"])
     return out, metrics
 
@@ -860,11 +869,10 @@ def run_wired(prog: WiredProgram, key, replicas: int = 1, mesh=None, *,
     float columns to seconds, the ring's times to µs); on the card each
     window is one launch of the ``OBS`` arm.  A windowed run streams each
     window's ``next_event``, ``n_steps`` and ring to
-    :class:`~tpudes_torch.obs.device.ChunkStream`.  Each row steps its own
-    clock (ROADMAP Queue C, C5), where the reference steps every row on
-    the union of all rows' clocks: with more than one replica a flow's
-    ``fm_t0`` (the first send it counts) and the ring's rows differ (C6);
-    every other column is equal at each window edge."""
+    :class:`~tpudes_torch.obs.device.ChunkStream`.  Every row steps the
+    union of all rows' clocks, as the reference's do, so every column,
+    the raw ring and each window's entry equal the reference's at any
+    replica count."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
     from tpudes_torch.obs.device import CompileTelemetry

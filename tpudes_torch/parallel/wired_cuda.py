@@ -18,6 +18,10 @@ counted in :data:`tpudes_torch.parallel.kernels_cuda.launches` under
 ``wired_advance``, and also under ``wired_advance:owned`` where its one
 lane serves a subset of the links (a hybrid rank) or
 ``wired_advance:lanes`` where it runs K > 1 lanes (the space kernel).
+A carry with the FlowMonitor columns (``obs=True``) runs the kernel's
+``OBS`` instantiation, counted also under ``wired_advance:obs``, then the
+union pass (``csrc/wired_advance_obs.cu``), counted under
+``wired_advance:obs_union`` (:func:`wired_obs_cuda`).
 :func:`wired_profile` runs the stage probe.
 """
 
@@ -93,26 +97,32 @@ def _round16(b: int) -> int:
 
 
 def smem_bytes(F: int, H: int, Lo: int, cap: int, rows: int,
-               table_smem: bool) -> int:
+               table_smem: bool, obs: bool = False) -> int:
     """Shared memory of a ``wired_advance`` CTA: the lane's service and
     service + delay a local link, ``lo_at`` where it is held there, and
     each of its ``rows`` warps' row: 30 bytes a link (free, served, the
     left-off least arrival, two lists of incoming packets, the build's two
-    run bounds, the queue head) and 24 bytes a list entry."""
+    run bounds, the queue head) and 24 bytes a list entry; the ``OBS``
+    arm adds 128 bytes a row (the least delivering flow at each slot of
+    its window) and 4 a flow and row (its first birth), and 8 bytes a
+    flow a CTA (its first packet and period)."""
     table = _round16(8 * Lo) + (_round16(2 * F * (H + 1)) if table_smem
                                 else 0)
-    return table + rows * _round16(30 * Lo + 24 * cap)
+    obs_row = 128 + _round16(4 * F) if obs else 0
+    return (table + rows * (_round16(30 * Lo + 24 * cap) + obs_row)
+            + (_round16(8 * F) if obs else 0))
 
 
 @functools.lru_cache(maxsize=64)
-def launch_geometry(F: int, H: int, Lo: int, cap: int, R: int) -> tuple:
+def launch_geometry(F: int, H: int, Lo: int, cap: int, R: int,
+                    obs: bool = False) -> tuple:
     """``(rows, table_smem, smem)`` of a launch: :data:`ROWS_PER_CTA` rows
     a CTA (fewer where R is smaller), ``lo_at`` in shared memory where it
     fits beside them, else read from device memory, and fewer rows where
     even that does not fit; raises where one row does not fit."""
     for n in range(min(ROWS_PER_CTA, R), 0, -1):
         for table_smem in (True, False):
-            smem = smem_bytes(F, H, Lo, cap, n, table_smem)
+            smem = smem_bytes(F, H, Lo, cap, n, table_smem, obs)
             if smem <= SMEM_LIMIT:
                 return n, table_smem, smem
     raise ValueError(f"wired_advance: a row of {Lo} local links and a "
@@ -136,77 +146,119 @@ def advance_launch(tab: dict, carry: dict, t_grant: int) -> tuple:
     return wired_cuda(tab, carry, t_grant)
 
 
-#: the ``OBS`` arm's device pointers, in csrc/wired_advance_obs.cu's Args
-#: order after the tables: the state, next and steps, then these
-OBS_COLS = ("fm_birth", "fm_tx", "fm_txb", "fm_rx", "fm_rxb", "fm_lost",
-            "fm_dsum", "fm_jsum", "fm_dlast", "fm_t0", "fm_t1", "fm_hist",
-            "fm_ring")
+#: the ``OBS`` arm's columns: the main kernel's (the births, then, after
+#: the flows' first packets and periods, the delivery columns), then the
+#: union pass's (the sends and the ring), in csrc/wired_advance_obs.cu's
+#: order
+OBS_COLS = ("fm_birth", "fm_rx", "fm_rxb", "fm_dsum", "fm_jsum", "fm_dlast",
+            "fm_t1", "fm_hist")
+UNION_COLS = ("fm_tx", "fm_txb", "fm_t0", "fm_ring")
 
 
 def wired_obs_cuda(tab: dict, carry: dict, t_grant: int,
-                   stage: bool = True) -> tuple:
-    """One launch of the ``OBS`` arm (``wired_advance_obs_launch``,
-    csrc/wired_advance_obs.cu) on a one-lane carry with the obs keys
-    (:func:`~tpudes_torch.parallel.wired.build_wired_advance` ``obs=True``):
-    :func:`advance_launch`'s arguments and result, the state and the
-    columns updated in place, the ring (reversed) in the metrics.  Raises
-    on a bad argument or a launch error; never takes the plain version.
-    A delay must stay below 2^24 slots (f32's exact integers), so the
-    grant must too.  ``stage=False`` keeps a row's packets in global
-    memory even where they fit in a CTA's shared memory (the path rows
-    too large to stage take); the result depends on neither."""
-    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, bin_scale, flip_ring
+                   span: int = SPAN_SLOTS, cap: int = LIST_CAP,
+                   prof=None) -> tuple:
+    """One advance of a one-lane carry with the obs keys
+    (:func:`~tpudes_torch.parallel.wired.build_wired_advance`
+    ``obs=True``): the ``OBS`` instantiation of ``wired_advance`` (each
+    row on its own clock: the state, the delivery columns, each row's
+    visited slots and delivering flows), then :func:`union_pass` (the
+    union clock U of all rows' visits: the sends, ``fm_t0``, the ring and
+    ``n_steps``).  :func:`advance_launch`'s arguments and result, the
+    state and the columns updated in place, the ring (reversed) in the
+    metrics.  Raises on a bad argument, a launch error or a list overflow
+    and never takes the plain version.  A delay must stay below 2^24
+    slots (f32's exact integers), so the grant must too.  ``prof``: the
+    stage probe (:func:`wired_profile`), not counted."""
+    from tpudes_torch.obs.flowmon import flip_ring
+
+    carry, metrics, err, scratch = obs_enqueue(tab, carry, t_grant, span,
+                                               cap, prof)
+    union_pass(tab, carry, scratch, count=prof is None)
+    _raise_on_overflow(err, cap)
+    carry["fm_mark"] = int(t_grant) - 1
+    metrics.update(n_steps=scratch["n_steps"][0],
+                   fm_ring=flip_ring(carry["fm_ring"]))
+    return carry, metrics
+
+
+def obs_enqueue(tab: dict, carry: dict, t_grant: int, span: int = SPAN_SLOTS,
+                cap: int = LIST_CAP, prof=None) -> tuple:
+    """The ``OBS`` instantiation's launch of :func:`wired_obs_cuda`
+    without the union pass or the error word's read-back: ``(carry,
+    metrics, err, scratch)``, :func:`enqueue`'s first three and the
+    union pass's operands (the window's ``t``, grant and carried mark, the
+    rows' visited slots ``(R, n_words)``, the union's words, the record
+    ``(R, 512, 2)``, the flows' first births ``(R, F)`` and the step
+    count's word).  Here for timing the two launches apart."""
+    from tpudes_torch.obs.flowmon import FLOW_DELAY_BINS, bin_scale
 
     dev = carry["hop"].device
     K, F, H = tab["paths"].shape
     P = tab["pkt_flow"].shape[1]
-    Lo = tab["svc"].shape[1]
     t0, t_grant = int(carry["t"]), int(t_grant)
+    mark = int(carry["fm_mark"])
     if K != 1 or carry["hop"].dim() != 2:
         raise ValueError("wired_advance's OBS arm runs one lane's (R, P) "
                          "carry")
     R = carry["hop"].shape[0]
-    if not 0 <= t0 <= INF_SLOT or not 0 <= t_grant < 2**24:
-        raise ValueError(f"wired_advance's OBS arm takes 0 <= t <= 2^30 and "
-                         f"0 <= t_grant < 2^24 (its delays are exact f32); "
-                         f"got t={t0}, t_grant={t_grant}")
-    for name, want, dtype in (
-            ("lo_at", (K, F, H + 1), torch.int16),
-            ("pkt_flow", (K, P), torch.int32), ("svc", (K, Lo), torch.int32),
-            ("svcdly", (K, Lo), torch.int32),
-            ("f_first", (K, F), torch.int32),
-            ("f_period", (K, F), torch.int32),
-            ("f_npk", (K, F), torch.int32)):
-        _check(name, tab[name], want, dtype, dev)
-    for name, ax in WIRED_STATE:
-        _check(name, carry[name], (R, P if ax == "p" else Lo), torch.int32,
-               dev)
-    for name in OBS_COLS:
+    if not 0 <= t0 <= INF_SLOT or not 0 <= t_grant < 2**24 or mark >= 2**24:
+        raise ValueError(f"wired_advance's OBS arm takes 0 <= t <= 2^30, "
+                         f"0 <= t_grant < 2^24 and fm_mark < 2^24 (its "
+                         f"delays are exact f32); got t={t0}, "
+                         f"t_grant={t_grant}, fm_mark={mark}")
+    for name in ("f_first", "f_period", "f_npk"):
+        _check(name, tab[name], (K, F), torch.int32, dev)
+    for name in OBS_COLS + UNION_COLS:
         want = ((R, P) if name == "fm_birth"
                 else (R, F, FLOW_DELAY_BINS) if name == "fm_hist"
                 else (R, 512, 5) if name == "fm_ring" else (R, F))
         dtype = torch.float32 if name in ("fm_dsum", "fm_jsum", "fm_dlast",
                                           "fm_t0", "fm_t1") else torch.int32
         _check(name, carry[name], want, dtype, dev)
-    out = torch.empty((2 * R,), dtype=torch.int32, device=dev)
-    nxt, steps = out[:R], out[R:]
-    ptrs = [*(tab[k].data_ptr() for k in ("lo_at", "pkt_flow", "svc",
-                                          "svcdly", "f_first", "f_period",
-                                          "f_npk")),
-            *(carry[k].data_ptr() for k, _ in WIRED_STATE),
-            nxt.data_ptr(), steps.data_ptr(),
-            *(carry[k].data_ptr() for k in OBS_COLS)]
-    _call("wired_advance_obs_launch", OBS_ARGTYPES,
-          (ctypes.c_void_p * len(ptrs))(*ptrs), R, P, F, H, Lo, t0, t_grant,
-          int(carry["fm_mark"]), WIRED_PKT_BYTES,
-          ctypes.c_float(bin_scale(tab["bin_slots"])), int(stage),
+    n_words = (t_grant - t0 + 31) // 32 if t_grant > t0 else 0
+    sizes = dict(visits=R * n_words, union=n_words, rec=R * 512 * 2,
+                 firsts=R * F, n_steps=1)
+    words = torch.empty((sum(sizes.values()),), dtype=torch.int32,
+                        device=dev)
+    scratch = dict(zip(sizes, words.split(list(sizes.values()))),
+                   t=t0, t_grant=t_grant, mark=mark, n_words=n_words)
+    ptrs = [carry["fm_birth"].data_ptr(), tab["f_first"].data_ptr(),
+            tab["f_period"].data_ptr()] + [
+        carry[k].data_ptr() for k in OBS_COLS[1:]] + [
+        scratch["visits"].data_ptr() if n_words else None,
+        scratch["rec"].data_ptr()]
+    obs = ((ctypes.c_void_p * len(ptrs))(*ptrs), n_words, WIRED_PKT_BYTES,
+           ctypes.c_float(bin_scale(tab["bin_slots"])))
+    carry, metrics, err = enqueue(tab, carry, t_grant, span, cap, prof, obs)
+    return carry, metrics, err, scratch
+
+
+def union_pass(tab: dict, carry: dict, scratch: dict,
+               count: bool = True) -> None:
+    """The union pass after :func:`obs_enqueue`'s launch
+    (``wired_advance_obs_union_launch``: the OR of the rows' visits, then
+    a warp a row): ``fm_tx``, ``fm_txb``, ``fm_t0`` and ``fm_ring``
+    updated in place and the union step count written to
+    ``scratch["n_steps"]``; counted under ``wired_advance:obs_union``
+    where ``count``."""
+    dev = carry["hop"].device
+    R, P = carry["hop"].shape
+    F = tab["paths"].shape[1]
+    n_words = scratch["n_words"]
+    ptrs = [*(tab[k].data_ptr() for k in ("f_first", "f_period", "f_npk")),
+            carry["fm_birth"].data_ptr(),
+            *(scratch[k].data_ptr() if n_words else None
+              for k in ("visits", "union")),
+            scratch["rec"].data_ptr(), scratch["firsts"].data_ptr(),
+            *(carry[k].data_ptr() for k in UNION_COLS),
+            scratch["n_steps"].data_ptr()]
+    _call("wired_advance_obs_union_launch", UNION_ARGTYPES,
+          (ctypes.c_void_p * len(ptrs))(*ptrs), R, P, F, scratch["t"],
+          scratch["t_grant"], scratch["mark"], n_words, WIRED_PKT_BYTES,
           torch.cuda.current_stream(dev).cuda_stream)
-    _count("wired_advance")
-    _count("wired_advance:obs")
-    carry["t"] = max(t0, t_grant)
-    carry["fm_mark"] = t_grant - 1
-    return carry, dict(next_event=nxt.amin(), n_steps=steps.max(),
-                       fm_ring=flip_ring(carry["fm_ring"]))
+    if count:
+        _count("wired_advance:obs_union")
 
 
 def wired_cuda(tab: dict, carry: dict, t_grant: int,
@@ -227,15 +279,21 @@ def wired_profile(tab: dict, carry: dict, t_grant: int, prof: torch.Tensor,
     profiling instantiation (``wired_advance_profile``: each warp reads
     ``clock64()`` at its stage edges), which also writes each row's
     :data:`PROF_WORDS` words to ``prof`` (``(N, PROF_WORDS)`` int64 on the
-    carry's device; :func:`wired_stages` reads them).  Not the main path:
-    not counted in ``kernels_cuda.launches``; recorded in
-    :class:`~tpudes_torch.obs.device.KernelProfile` (``wired_advance``)."""
+    carry's device; :func:`wired_stages` reads them); a carry with the obs
+    keys runs the ``OBS`` instantiation's probe, then the union pass
+    (:func:`wired_obs_cuda`; the deliveries' columns fall in the serve
+    stage, the window's record and visits in the reduce).  Not the main
+    path: not counted in ``kernels_cuda.launches``; recorded in
+    :class:`~tpudes_torch.obs.device.KernelProfile` (``wired_advance``,
+    or ``wired_advance:obs``)."""
     from tpudes_torch.obs.device import KernelProfile, timed_launch
 
+    obs = "fm_tx" in carry
     with timed_launch(prof.device) as wall:
-        out = _launch(tab, carry, t_grant, span, cap, prof)
+        out = (wired_obs_cuda(tab, carry, t_grant, span, cap, prof) if obs
+               else _launch(tab, carry, t_grant, span, cap, prof))
     KernelProfile.record_cycles(
-        "wired_advance",
+        "wired_advance:obs" if obs else "wired_advance",
         dict(zip(PROF_STAGES, prof[:, :len(PROF_STAGES)].sum(0).tolist())),
         prof.shape[0], wall[0])
     return out
@@ -244,6 +302,11 @@ def wired_profile(tab: dict, carry: dict, t_grant: int, prof: torch.Tensor,
 def _launch(tab: dict, carry: dict, t_grant: int, span: int, cap: int,
             prof) -> tuple:
     carry, metrics, err = enqueue(tab, carry, t_grant, span, cap, prof)
+    _raise_on_overflow(err, cap)
+    return carry, metrics
+
+
+def _raise_on_overflow(err, cap: int) -> None:
     # a row of no more than cap packets cannot overflow: the error word is
     # read back (a synchronise, the wrapper's last step) only where one can
     if err is not None and int(err.item()) != NO_ERROR:
@@ -251,18 +314,18 @@ def _launch(tab: dict, carry: dict, t_grant: int, span: int, cap: int,
             f"wired_advance: more than cap={cap} live packets of row "
             f"{int(err.item())} arrive by one slot, more than its list "
             f"holds; launch with a larger cap")
-    return carry, metrics
 
 
 def enqueue(tab: dict, carry: dict, t_grant: int, span: int = SPAN_SLOTS,
-            cap: int = LIST_CAP, prof=None) -> tuple:
+            cap: int = LIST_CAP, prof=None, obs=None) -> tuple:
     """The launch of :func:`wired_cuda` (or :func:`wired_profile`) without
     the error word's read-back: ``(carry, metrics, err)``, ``err`` the
     one-word int32 device tensor where the kernel writes the least row
     whose list overflowed (:data:`NO_ERROR` where none did).  The caller
     must read it before trusting the carry; it is here for timing the
     kernel alone.  ``err`` is None where the rows hold no more than
-    ``cap`` packets: no list can then overflow."""
+    ``cap`` packets: no list can then overflow.  ``obs``: the ``OBS``
+    instantiation's operands (:func:`wired_obs_cuda` makes them)."""
     dev = carry["hop"].device
     K, F, H = tab["paths"].shape
     P = tab["pkt_flow"].shape[1]
@@ -278,7 +341,8 @@ def enqueue(tab: dict, carry: dict, t_grant: int, span: int = SPAN_SLOTS,
                          f"span <= 2^20; got K={K}, N={N}, P={P}, Lo={Lo}, "
                          f"cap={cap}, t={t0}, t_grant={t_grant}, "
                          f"span={span}")
-    rows, table_smem, smem = launch_geometry(F, H, Lo, cap, N // K)
+    rows, table_smem, smem = launch_geometry(F, H, Lo, cap, N // K,
+                                             obs is not None)
     for name, want, dtype in (
             ("lo_at", (K, F, H + 1), torch.int16),
             ("pkt_flow", (K, P), torch.int32), ("svc", (K, Lo), torch.int32),
@@ -300,7 +364,14 @@ def enqueue(tab: dict, carry: dict, t_grant: int, span: int = SPAN_SLOTS,
             K, N // K, P, F, H, Lo, t0, t_grant, int(span), int(cap), rows,
             int(table_smem), smem]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if prof is None:
+    if obs is not None and prof is None:
+        _call("wired_advance_obs_launch", OBS_ARGTYPES, *args, *obs, stream)
+        _count("wired_advance")
+        _count("wired_advance:obs")
+    elif obs is not None:
+        _call("wired_advance_obs_profile", OBS_PROFILE_ARGTYPES, *args, *obs,
+              prof.data_ptr(), stream)
+    elif prof is None:
         _call("wired_advance_launch", ADVANCE_ARGTYPES, *args, stream)
         _count("wired_advance")
         if K > 1:
@@ -344,9 +415,17 @@ def _count(name: str) -> None:
 #: ``wired_advance_profile`` takes the probe's words before the stream
 ADVANCE_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [
     ctypes.c_void_p]
-#: ``wired_advance_obs_launch`` (csrc/wired_advance_obs.cu): the host array
-#: of its 29 device pointers, nine ints (R, P, F, H, Lo, t, t_grant, the
-#: carried mark, a packet's bytes), the bin factor, stage, stream
-OBS_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_float]
-                + [ctypes.c_int, ctypes.c_void_p])
 PROFILE_ARGTYPES = ADVANCE_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+#: ``wired_advance_obs_launch`` (csrc/wired_advance_obs.cu):
+#: ``wired_advance_launch``'s arguments but the stream, the host array of
+#: the arm's 12 device pointers, the bitmap's words a row, a packet's
+#: bytes, the bin factor, stream; ``wired_advance_obs_profile`` takes the
+#: probe's words before the stream
+OBS_ARGTYPES = ADVANCE_ARGTYPES[:-1] + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p]
+OBS_PROFILE_ARGTYPES = OBS_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+#: ``wired_advance_obs_union_launch``: the host array of its 13 device
+#: pointers, eight ints (R, P, F, t, t_grant, the carried mark, the
+#: bitmap's words, a packet's bytes), stream
+UNION_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
