@@ -167,7 +167,25 @@ device time, bound and plain wall; and in phase 5as, after 5win,
 ``bench_as``'s numerator (one warm run, five timed runs on keys 1..5,
 each one ``as_spf`` and one ``as_fluid`` launch; ``studies_per_s``, the
 busy share, the device operations of a run, the stages of a run apart)
-and the grid once, counted.
+and the grid once, counted.  In phase 3diff, after 3as, ``as_fluid``'s
+``SOFT`` instantiation (the softplus delivery gate of
+``Surrogacy(ste=False)``) bit-equal to ``fluid_math``'s soft arm at the
+same width, one point and the grid, whole and carried, timed beside the
+hard gate with its bound.
+
+Then the differentiable simulation (``tpudes_torch.diff``), in phase
+5diff after 5ckpt: ``bench.py::bench_grad_calibration``'s row (its LTE
+calibration's L-BFGS-lite descent, and an Adam descent of the same
+scene that holds the 2 % acceptance, each captured once and timed as
+one CUDA-graph replay, its fit the CPU port's; its AS grad-of-sweep one
+replay), the GradTelemetry snapshot (``chiprun_out/grad_telemetry.json``);
+bench_as's graph under ``Surrogacy()`` over the four scales and the lena
+drop moving (all five operands) each differentiated twice on the card
+(bit-equal) and once on the CPU (the tolerances of the CPU tests), each
+replay against the same work run eagerly, with its device operations;
+``bss_interval_design`` on bench_wifi's cell, one ``traffic_sweep``
+launch a generation; and the soft gate's main path, ``run_as_flows``
+under ``Surrogacy()``, counted.
 
 Then the wired engine (``tpudes_torch.parallel.wired.run_wired``) and the
 hybrid PDES (``tpudes_torch.parallel.hybrid.run_hybrid``) and their kernel
@@ -470,6 +488,10 @@ AS_EXP_OPS, AS_LOG_OPS = (10, 9), (12, 10)
 #: polynomials and a division, or a log; the degree-8 polynomial in w;
 #: the square root, the products and the clamps), f32 and f64
 AS_ERFINV_OPS = (12, 22)
+#: xla_math.cuh's log1p, counted at its rational branch (two degree-6
+#: polynomials, a division and a multiply-add; the other branch, a log, is
+#: 13 and 10), f32 and f64
+AS_LOG1P_OPS = (6, 13)
 AS_SOURCE = "tpudes_torch/csrc/as_flows.cu"
 AS_SPF_REPLACES = ("tpudes/parallel/as_flows.py:227 (device_spf: the "
                    "lax.scan of Bellman-Ford scatter-min rounds :253-257 "
@@ -478,6 +500,28 @@ AS_SPF_REPLACES = ("tpudes/parallel/as_flows.py:227 (device_spf: the "
 AS_FLUID_REPLACES = ("tpudes/parallel/as_flows.py:309 (_fluid_round, and "
                      "_fluid_delay :358, in the while_loop :485-518; and "
                      "_as_replica_draws :633; XLA, no pallas_call)")
+AS_SOFT_REPLACES = ("tpudes/parallel/as_flows.py:340-354 (_fluid_round's "
+                    "softplus delivery gate under Surrogacy(ste=False), in "
+                    "the while_loop :485-518; XLA, no pallas_call)")
+
+#: the differentiable-simulation phases (3diff, 5diff): the soft gate's
+#: temperature (Surrogacy's default); bench.py::bench_grad_calibration's
+#: LTE calibration (3 cells x 4 UEs, L-BFGS-lite 120 steps, the exponent
+#: planted at 3.45, key 15, positions from default_rng(3)) and its AS
+#: grad-of-sweep (toy_as_program(48, 3), 8 replicas, four scales); the ES
+#: design search on bench_wifi's cell under the cbr workload of its own
+#: intervals (two generations of four antithetic pairs, 512 replicas)
+DIFF_GATE_T = 0.25
+GRAD_CAL_E, GRAD_CAL_UE, GRAD_CAL_STEPS, GRAD_CAL_PLANT = 3, 12, 120, 3.45
+#: the Adam descent on the same scene (tests/test_diff_opt.py's lr 0.02,
+#: the row's step count), which the 2 % acceptance holds
+GRAD_CAL_ADAM_STEPS = 120
+GRAD_SWEEP_SCALES = (0.5, 1.0, 2.0, 4.0)
+ES_GENERATIONS, ES_POP = 2, 4
+#: replays timed per measurement of a grad's CUDA graph
+DIFF_REPLAYS = 3
+#: where phase 5diff writes the whole GradTelemetry snapshot (its rings)
+DIFF_TELEMETRY_OUT = "chiprun_out/grad_telemetry.json"
 #: bench_wired: wired_chain(64 links, 64 flows, period 200, 20,000 slots
 #: of 1 ms, jitter 5) at 1,024 replicas (5,535 packets a replica, 34.9 hops
 #: each), one warm run on key 0 and five timed runs on keys 1..5; the
@@ -2544,7 +2588,7 @@ def as_spf_bound(g: dict, n: int, needed: int, outs) -> tuple:
     return times[by], by
 
 
-def as_fluid_census(args, z, rounds: int) -> dict:
+def as_fluid_census(args, z, rounds: int, gate_temp=None) -> dict:
     """The work the fluid stage's data needs over the ``(C, R)`` grid of
     :func:`fluid_inputs`' ``args`` and the draws ``z``, summed over the
     rows and the rounds each row runs before its fixed point (a row stops
@@ -2554,7 +2598,9 @@ def as_fluid_census(args, z, rounds: int) -> dict:
     before the hop) is not 0, since ``exp(0)`` is 1; ``logs``, the link
     updates whose argument is not 1 (``log(1)`` is 0, and the new
     ``lfrac`` is not 0 where it is not).  ``fluid_math`` runs the rounds
-    one at a time."""
+    one at a time.  Under the soft gate (``gate_temp``) every link update
+    of a row's round takes a log, an exp and a log1p: ``logs`` and
+    ``soft`` count them."""
     import torch
     from tpudes_torch.parallel import as_flows as asf
 
@@ -2565,7 +2611,7 @@ def as_fluid_census(args, z, rounds: int) -> dict:
     C, R, L = scale.shape[0], z.shape[0], t["c"].shape[0]
     lfrac = torch.zeros((C, R, L), dtype=torch.float32, device=z.device)
     active = torch.ones((C, R, 1), dtype=torch.bool, device=z.device)
-    census = dict(row_rounds=0, exps=0, logs=0)
+    census = dict(row_rounds=0, exps=0, logs=0, soft=0)
     for _ in range(rounds):
         padded = torch.cat([lfrac, torch.zeros_like(lfrac[..., :1])], -1)
         lg = torch.zeros((C, R, F), dtype=torch.float32, device=z.device)
@@ -2574,8 +2620,12 @@ def as_fluid_census(args, z, rounds: int) -> dict:
                                    & active).sum())
             lg = lg + padded[..., hop_link[:, h] % (L + 1)]
         _, new = asf.fluid_math(t, fm, scale, z, reached, jitter, hj2, 1,
-                                lfrac)
-        census["logs"] += int(((new != 0) & active).sum())
+                                lfrac, gate_temp)
+        if gate_temp is None:
+            census["logs"] += int(((new != 0) & active).sum())
+        else:
+            census["soft"] += int(active.sum()) * L
+            census["logs"] += int(active.sum()) * L
         census["row_rounds"] += int(active.sum())
         active &= (new.view(torch.int32)
                    != lfrac.view(torch.int32)).any(-1, True)
@@ -2599,7 +2649,11 @@ def as_fluid_bound(t: dict, args, out: dict, census: dict,
     delay (a min, a difference, a division, a multiply-add, two sums) a
     link and a sum a flow-hop, and a survival exp a flow; f32 (and the
     hash's integer operations) and f64 (the multiply-adds) each at its
-    rate, the larger wins."""
+    rate, the larger wins.  Under the soft gate (``census["soft"]``) each
+    link update adds an exp, a log1p (:data:`AS_LOG1P_OPS`) and six f32
+    operations (the product with ``1 / t``, the absolute value, the
+    negation, the max, the sum and the product with ``t``) beside its
+    log."""
     fm, scale, key, R, reached = args[1:6]
     C = scale.shape[0]
     F = fm.shape[0]
@@ -2609,13 +2663,15 @@ def as_fluid_bound(t: dict, args, out: dict, census: dict,
     nbytes += reached.nbytes + sum(x.nbytes for x in out.values())
     nbytes += 2 * C * R * L * 4 * carry
     rows = C * R
+    soft = census.get("soft", 0)
     f32 = (R * ((1 + F) * THREEFRY_OPS + F * AS_ERFINV_OPS[0])
            + rows * F * (2 * AS_EXP_OPS[0] + 4)
            + census["exps"] * AS_EXP_OPS[0] + census["logs"] * AS_LOG_OPS[0]
+           + soft * (AS_EXP_OPS[0] + AS_LOG1P_OPS[0] + 6)
            + census["row_rounds"] * (2 * fh + 4 * L) + rows * (6 * L + fh))
     f64 = (R * F * AS_ERFINV_OPS[1] + rows * F * (2 * AS_EXP_OPS[1] + 1)
            + census["exps"] * AS_EXP_OPS[1] + census["logs"] * AS_LOG_OPS[1]
-           + rows * L)
+           + soft * (AS_EXP_OPS[1] + AS_LOG1P_OPS[1]) + rows * L)
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": max(f32 / F32_OPS_PER_S,
                                f64 / F64_OPS_PER_S) * 1e3}
@@ -2918,6 +2974,464 @@ def as_bench(kc, dev) -> dict:
         grid_delivered_frac=[float(p["delivered_frac"].mean())
                              for p in grid])), flush=True)
     return {"bench": launches, "grid": glaunches}
+
+
+def diff_check(kc, dev) -> dict:
+    """Phase 3diff: ``as_fluid``'s ``SOFT`` instantiation (the softplus
+    delivery gate at :data:`DIFF_GATE_T`) against ``fluid_math``'s soft arm
+    on the card at bench_as's width: the draws and every output bit-equal
+    on one point and on the :data:`AS_SCALES` grid, in one launch and in
+    launches that carry the links' log deliveries; the soft gate moves
+    the grid's delivered fraction off the hard gate's; its device time on
+    one point and on the grid beside the hard gate's on the same tables
+    and its bound (:func:`as_fluid_bound` over the soft census).  Returns
+    ``{"point": ..., "grid": ...}``, each with ``err``, ``ms``,
+    ``plain_ms``, ``bound`` and ``hard_ms``."""
+    import torch
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.parallel.as_cuda import fluid_cuda
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import as_program
+
+    prog = as_program(AS_NODES, AS_FLOWS, AS_SIM_S, seed=AS_SEED)
+    FP, T = asf.FP_ROUNDS, DIFF_GATE_T
+    out = {}
+    for name, scales, split in (("point", [1.0], (FP,)),
+                                ("grid", list(AS_SCALES), (FP,)),
+                                ("point_carried", [1.0], (1,) * FP),
+                                ("grid_carried", list(AS_SCALES), (2, 2))):
+        args, _ = asf.fluid_inputs(prog, PRNGKey(AS_CHECK_KEY), AS_R, scales,
+                                   dev)
+        want, _, z = asf.fluid_draws_math(*args, FP, None, T)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        asf.fluid_draws_math(*args, FP, None, T)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        lf = None
+        for i, rounds in enumerate(split):
+            got, lf = fluid_cuda(*args, rounds, lf,
+                                 carry=i + 1 < len(split), z_out=True,
+                                 gate_temp=T)
+        torch.cuda.synchronize()
+        bad = [k for k in want if not same_bits(want[k], got[k])]
+        if not same_bits(z, got["z"]):
+            bad.append("z")
+        if bad:
+            fail(f"as_fluid:soft ({name}) vs as_replica_draws + fluid_math's "
+                 f"soft arm: {bad} differ")
+        frac = got["delivered_frac"]
+        if not torch.isfinite(frac).all():
+            fail(f"as_fluid:soft ({name}): delivered_frac not finite")
+        hard = fluid_cuda(*args, FP)[0]["delivered_frac"]
+        if name == "grid" and same_bits(hard, frac):
+            fail("as_fluid:soft (grid): the soft gate left every delivered "
+                 "fraction where the hard gate puts it")
+        t = args[0]
+        line = (f"as_fluid:soft ({name}) vs as_replica_draws + fluid_math "
+                f"(gate_temp {T}): z, goodput, delay, delivered_frac, "
+                f"max_util bit-equal at C={len(scales)} R={AS_R} "
+                f"F={AS_FLOWS} L={t['c'].shape[0]} ({len(split)} "
+                f"launch(es)); delivered_frac mean "
+                f"{frac.double().mean().item():.6f} (hard "
+                f"{hard.double().mean().item():.6f})")
+        if name in ("point", "grid"):
+            census = as_fluid_census(args, z, FP, T)
+            ms, host = timed_ms(lambda: fluid_cuda(*args, FP, gate_temp=T),
+                                AS_FLUID_CALLS, reps=3)
+            hard_ms, _ = timed_ms(lambda: fluid_cuda(*args, FP),
+                                  AS_FLUID_CALLS, reps=3)
+            bound = as_fluid_bound(t, args, {k: v for k, v in got.items()
+                                             if k != "z"}, census)
+            line += (f"; {census['row_rounds']} row-rounds, "
+                     f"{census['exps']} flow-hop exps, {census['soft']} soft "
+                     f"link updates (a log, an exp and a log1p each); device "
+                     f"{ms:.4f} ms/launch (host {host:.4f} ms/call), the hard "
+                     f"gate {hard_ms:.4f} ms/launch on the same tables; plain "
+                     f"version {plain_s * 1e3:.2f} ms; bound "
+                     f"{bound[0] * 1e3:.3f} us ({bound[1]})")
+            out[name] = dict(err=0.0, ms=ms, plain_ms=plain_s * 1e3,
+                             bound=bound, hard_ms=hard_ms)
+        print(line, flush=True)
+    return out
+
+
+def graph_of(engine: str):
+    """The most recently used CUDA-graph runner of ``engine`` on the card
+    in the runner cache."""
+    from tpudes_torch.diff.graphs import GraphCall
+    from tpudes_torch.parallel.runtime import RUNTIME
+
+    found = [v for k, v in RUNTIME._runners.items()
+             if k[0] == engine and isinstance(v, GraphCall)
+             and v.device.type == "cuda"]
+    if not found:
+        fail(f"no CUDA-graph runner of {engine} in the runner cache")
+    return found[-1]
+
+
+def replay_profile(graph) -> dict:
+    """A replay of ``graph`` and its function run eagerly on the same
+    static inputs: each one's device time (CUDA events; a replay the median
+    of :data:`DIFF_REPLAYS` after a warm one, the eager run once, warm from
+    the capture's warm-up) and host wall, the device operations of a replay
+    and its five kernels with the most device time (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudes_torch.diff.graphs import unflatten
+
+    def eager():
+        return graph.fn(**unflatten(graph.static_in))
+
+    rows = {}
+    for name, fn, runs in (("replay", graph.graph.replay, DIFF_REPLAYS),
+                           ("eager", eager, 1)):
+        if name == "replay":
+            fn()
+        torch.cuda.synchronize()
+        dev_ms, host_ms = [], []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(a.elapsed_time(b))
+        rows[f"{name}_ms"] = statistics.median(dev_ms)
+        rows[f"{name}_host_ms"] = statistics.median(host_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    rows["device_ops"] = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0))
+    rows["top_kernels"] = [
+        (e.key[:60], round(getattr(e, "self_device_time_total", 0) / 1e3, 4))
+        for e in top[:5] if getattr(e, "self_device_time_total", 0) > 0]
+    return rows
+
+
+def ulps32(a, b) -> int:
+    """The largest distance in f32 ulps between ``a`` and ``b``."""
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(key(a) - key(b)).max())
+
+
+def grads_agree(card: dict, cpu: dict, what: str, batched: bool) -> float:
+    """Fails unless every card gradient is within 1e-4 of that operand's
+    largest ``|g|`` on the CPU, point by point where ``batched`` (a
+    leading C axis); returns the largest such ratio."""
+    worst = 0.0
+    for k, w in cpu.items():
+        w = np.asarray(w, np.float64)
+        g = np.asarray(card[k], np.float64)
+        for wc, gc in (zip(w, g) if batched else [(w, g)]):
+            top = np.abs(wc).max()
+            err = np.abs(gc - wc).max()
+            if err > 1e-4 * top:
+                fail(f"{what}: the card's {k} gradient is {err:.3e} off the "
+                     f"CPU's (largest |g| {top:.3e})")
+            worst = max(worst, err / top if top else 0.0)
+    return worst
+
+
+def diff_as_bound(prog, R: int, C: int, H: int, L: int) -> tuple:
+    """Least time for one bench-width AS grad of ``C`` points (the work of
+    ``build_as_diff``'s forward at the soft gate and its backward, the
+    backward counted at twice the forward's operations): each point and
+    round a contribution exp a replica and flow-hop slot (``H F`` of
+    them) and a soft link update a replica and link (a log, an exp and a
+    log1p and six operations), then the delay's sums; the draws
+    (:data:`THREEFRY_OPS`, ``erf_inv``) once; f32 at its rate and the
+    compiled functions' multiply-adds in f64 at theirs.  Its bytes (the
+    operands, the draws' keys and the grads) are far below: bound by
+    operations."""
+    from tpudes_torch.parallel.as_flows import FP_ROUNDS
+
+    F = len(prog.src)
+    slots = R * H * F
+    links = R * L
+    f32 = C * 3 * (FP_ROUNDS * (slots * (AS_EXP_OPS[0] + 3)
+                                + links * (AS_LOG_OPS[0] + AS_EXP_OPS[0]
+                                           + AS_LOG1P_OPS[0] + 6))
+                   + slots + links * 6) + R * ((1 + F) * THREEFRY_OPS
+                                               + F * AS_ERFINV_OPS[0])
+    f64 = C * 3 * FP_ROUNDS * (slots * AS_EXP_OPS[1]
+                               + links * (AS_LOG_OPS[1] + AS_EXP_OPS[1]
+                                          + AS_LOG1P_OPS[1])) \
+        + R * F * AS_ERFINV_OPS[1]
+    ms = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S) * 1e3
+    return ms, "operations"
+
+
+def diff_phase(kc, dev, mobile) -> dict:
+    """Phase 5diff, the differentiable simulation on the card:
+
+    - ``bench.py::bench_grad_calibration``'s row: the LTE calibration
+      (:data:`GRAD_CAL_E` cells x :data:`GRAD_CAL_UE` UEs, the exponent
+      planted at :data:`GRAD_CAL_PLANT`), the row's L-BFGS-lite descent
+      (:data:`GRAD_CAL_STEPS` steps, lr 0.5) and an Adam descent
+      (:data:`GRAD_CAL_ADAM_STEPS` steps, lr 0.02), each one CUDA graph: a
+      warm call captures it, the timed call is one replay (one launch, no
+      new runner and no capture), its fit within 1e-3 of the CPU port's;
+      the Adam descent's exponent within 2 % (the row's L-BFGS-lite step
+      leaves the basin at this width, in the JAX package too); each
+      replay against its function run eagerly; then the AS grad-of-sweep
+      (toy 48 nodes, 3 flows, 8 replicas, :data:`GRAD_SWEEP_SCALES`) warm
+      and timed, one replay; the ``GradTelemetry`` snapshot (schema-valid,
+      ``nonfinite`` 0) in the row;
+    - bench_as's graph with ``Surrogacy()`` at :data:`AS_R` replicas over
+      the :data:`AS_SCALES` grid and the lena drop moving
+      (``lena_mobile_program(7, 30, ...)``, Friis, all five operands):
+      each grad twice on the card, bit-equal, then once on the CPU (the
+      port's plain path) with the loss within 4 ulp and each gradient
+      within 1e-4 of that operand's largest ``|g|``; each replay's device
+      time against the same function run eagerly, its device operations
+      and top kernels, the AS grad's bound (:func:`diff_as_bound`);
+    - ``bss_interval_design`` on bench_wifi's cell under its cbr workload
+      at :data:`BSS_R` replicas, :data:`ES_GENERATIONS` generations of
+      :data:`ES_POP` pairs: one ``bss_advance:traffic_sweep`` launch and
+      one ``RUNTIME`` launch a generation;
+    - the main path of ``as_fluid:soft``: ``run_as_flows`` of bench_as's
+      program under ``Surrogacy()``, counted (one ``as_spf``, one
+      ``as_fluid`` and one ``as_fluid:soft`` launch).
+
+    Returns the soft main path's launches."""
+    import torch
+    from tpudes_torch.diff import (
+        Surrogacy,
+        bss_interval_design,
+        calibrate_lte,
+        grad_as_flows,
+        grad_lte_sm,
+    )
+    from tpudes_torch.diff.lte_grad import build_lte_diff, lte_default_params
+    from tpudes_torch.obs.device import CompileTelemetry
+    from tpudes_torch.obs.grad import GradTelemetry, validate_grad_metrics
+    from tpudes_torch.parallel.as_flows import diff_tables, run_as_flows
+    from tpudes_torch.parallel.lte_sm import LteSmProgram
+    from tpudes_torch.parallel.programs import toy_as_program
+    from tpudes_torch.parallel.runtime import RUNTIME
+    from tpudes_torch.random import PRNGKey
+    from tpudes_torch.scenarios import as_program
+
+    GradTelemetry.reset()
+    # (a) bench_grad_calibration
+    key = np.asarray(PRNGKey(15))
+    serving = (np.arange(GRAD_CAL_UE) % GRAD_CAL_E).astype(np.int32)
+    rng = np.random.default_rng(3)
+    enb_pos = np.asarray([[600.0 * i, 0.0, 30.0] for i in range(GRAD_CAL_E)],
+                         np.float32)
+    ue_pos = (enb_pos[serving]
+              + np.c_[rng.uniform(-220, 220, GRAD_CAL_UE),
+                      rng.uniform(-220, 220, GRAD_CAL_UE),
+                      np.full(GRAD_CAL_UE, -28.5)]).astype(np.float32)
+    cal = LteSmProgram(
+        gain=np.full((GRAD_CAL_E, GRAD_CAL_UE), 1e-12), serving=serving,
+        tx_power_dbm=np.full((GRAD_CAL_E,), 43.0),
+        noise_psd=10.0**0.9 * 1.380649e-23 * 290.0, n_rb=25, n_ttis=400,
+        scheduler="pf", enb_pos=enb_pos,
+        pathloss=("log_distance", 3.0, 1.0, 46.67))
+    p = lte_default_params(cal, {"ue_pos": ue_pos}, dev)
+    p["ploss"] = torch.tensor([GRAD_CAL_PLANT, 1.0, 46.67], device=dev)
+    observed = build_lte_diff(cal, Surrogacy(), dev)(p)["cqi"].cpu().numpy()
+
+    def calibration(opt, steps, lr, device):
+        return calibrate_lte(cal, key, observed, wrt=("ploss",),
+                             at={"ue_pos": ue_pos}, steps=steps, lr=lr,
+                             loss="cqi_mse", opt=opt, device=device)
+
+    descents = {}
+    for opt, steps, lr in (("lbfgs", GRAD_CAL_STEPS, 0.5),
+                           ("adam", GRAD_CAL_ADAM_STEPS, 0.02)):
+        t0 = time.monotonic()
+        calibration(opt, steps, lr, dev)
+        capture_s = time.monotonic() - t0
+        descent = graph_of("diff_lte")
+        l0, c0 = RUNTIME.launches("diff_lte"), CompileTelemetry.compiles(
+            "diff_lte")
+        caps0, reps0 = descent.captures, descent.replays
+        t0 = time.monotonic()
+        res = calibration(opt, steps, lr, dev)
+        torch.cuda.synchronize()
+        cal_wall = time.monotonic() - t0
+        launches = RUNTIME.launches("diff_lte") - l0
+        compiles = CompileTelemetry.compiles("diff_lte") - c0
+        if (launches, compiles, descent.captures - caps0,
+                descent.replays - reps0) != (1, 0, 0, 1):
+            fail(f"bench_grad_calibration ({opt}): the timed descent made "
+                 f"{launches} launches, {compiles} new runners, "
+                 f"{descent.captures - caps0} captures and "
+                 f"{descent.replays - reps0} replays, want 1, 0, 0, 1")
+        cpu = calibration(opt, steps, lr, "cpu")
+        fit = np.abs(res.params["ploss"] - cpu.params["ploss"]) / np.abs(
+            cpu.params["ploss"])
+        if not (fit <= 1e-3).all() or not np.isfinite(res.loss).all():
+            fail(f"bench_grad_calibration ({opt}): the card's fit "
+                 f"{res.params['ploss']} is off the CPU's "
+                 f"{cpu.params['ploss']} (or a loss is not finite)")
+        rel = abs(float(res.params["ploss"][0]) - GRAD_CAL_PLANT) / \
+            GRAD_CAL_PLANT
+        descents[opt] = dict(
+            steps=steps, lr=lr, rel_err=rel, wall_s=cal_wall,
+            capture_wall_s=capture_s, launches=launches,
+            compiles_timed=compiles,
+            recovered=float(res.params["ploss"][0]),
+            cpu_recovered=float(cpu.params["ploss"][0]),
+            loss_curve=res.loss[::max(1, steps // 12)].tolist()
+            + [float(res.loss[-1])], **replay_profile(descent))
+    # the row's own L-BFGS-lite descent (lr 0.5 from 3.0) leaves the basin
+    # at this width in the JAX package too (its loss 0.70 -> 111.7 at the
+    # second step, where every CQI sits at 0 and the gradient is 0); the
+    # planted exponent is held to 2 % on the Adam descent
+    rel_err = descents["adam"]["rel_err"]
+    if not rel_err <= 0.02:
+        fail(f"bench_grad_calibration: the Adam descent's exponent is "
+             f"{rel_err:.4%} off the plant")
+    toy = dataclasses.replace(toy_as_program(48, 3), surrogate=Surrogacy())
+    grad_as_flows(toy, key, 8, loss="neg_goodput",
+                  rate_scale=list(GRAD_SWEEP_SCALES), device=dev)
+    l0, c0 = RUNTIME.launches("diff_as"), CompileTelemetry.compiles(
+        "diff_as")
+    t0 = time.monotonic()
+    sweep = grad_as_flows(toy, key, 8, loss="neg_goodput",
+                          rate_scale=list(GRAD_SWEEP_SCALES), device=dev)
+    sweep_wall = time.monotonic() - t0
+    sweep_launches = RUNTIME.launches("diff_as") - l0
+    sweep_compiles = CompileTelemetry.compiles("diff_as") - c0
+    if (sweep_launches, sweep_compiles) != (1, 0) or not (
+            np.isfinite(sweep["loss"]).all()
+            and np.isfinite(sweep["grads"]["rate_scale"]).all()):
+        fail(f"bench_grad_calibration: the grad-of-sweep made "
+             f"{sweep_launches} launches and {sweep_compiles} new runners "
+             f"(want 1, 0), or a loss or grad is not finite")
+    snap = GradTelemetry.snapshot()
+    problems = validate_grad_metrics(snap)
+    if problems or any(e["nonfinite"] for e in snap["engines"].values()):
+        fail(f"bench_grad_calibration: GradTelemetry {problems or 'counts '}"
+             f"non-finite steps")
+    print(json.dumps(dict(
+        phase="bench_grad_calibration", n_ue=GRAD_CAL_UE, n_cells=GRAD_CAL_E,
+        planted=GRAD_CAL_PLANT, rel_err=rel_err, descents=descents,
+        grad_sweep_points=list(GRAD_SWEEP_SCALES),
+        grad_sweep_launches=sweep_launches,
+        grad_sweep_compiles_timed=sweep_compiles, grad_sweep_wall_s=sweep_wall,
+        grad_sweep_loss=np.asarray(sweep["loss"]).tolist(),
+        grad_telemetry={name: {k: v for k, v in e.items()
+                               if not k.endswith("_ring")}
+                        for name, e in snap["engines"].items()},
+        grad_telemetry_file=DIFF_TELEMETRY_OUT)), flush=True)
+    os.makedirs(os.path.dirname(DIFF_TELEMETRY_OUT), exist_ok=True)
+    with open(DIFF_TELEMETRY_OUT, "w") as f:
+        json.dump(snap, f)
+
+    # (b) the bench-width grads: twice on the card, once on the CPU
+    rows = {}
+    big = dataclasses.replace(as_program(AS_NODES, AS_FLOWS, AS_SIM_S,
+                                         seed=AS_SEED), surrogate=Surrogacy())
+    akey = np.asarray(PRNGKey(AS_CHECK_KEY))
+    for name, call in (
+            ("as_grid", lambda d: grad_as_flows(
+                big, akey, AS_R, loss="neg_goodput",
+                rate_scale=list(AS_SCALES), device=d)),
+            ("lte_lena", lambda d: grad_lte_sm(
+                mobile, loss="neg_goodput", device=d))):
+        engine = "diff_as" if name == "as_grid" else "diff_lte"
+        kc.reset_launches()
+        t0 = time.monotonic()
+        first = call(dev)
+        miss_s = time.monotonic() - t0
+        miss_launches = {k: v for k, v in kc.launches.items() if v}
+        if name == "as_grid" and miss_launches != {"as_spf": 1}:
+            fail(f"{name}: the runner's build launched {miss_launches}, "
+                 f"want one as_spf (the routing and the walk)")
+        again = call(dev)
+        for k in first["grads"]:
+            if not same_bits(torch.from_numpy(np.asarray(first["grads"][k])),
+                             torch.from_numpy(np.asarray(again["grads"][k]))):
+                fail(f"{name}: two calls on the card differ in the {k} "
+                     f"gradient")
+        if not np.array_equal(np.asarray(first["loss"], np.float32).view(
+                np.uint32), np.asarray(again["loss"], np.float32).view(
+                np.uint32)):
+            fail(f"{name}: two calls on the card differ in the loss")
+        prof = replay_profile(graph_of(engine))
+        t0 = time.monotonic()
+        cpu = call("cpu")
+        cpu_s = time.monotonic() - t0
+        loss_ulps = ulps32(first["loss"], cpu["loss"])
+        if loss_ulps > 4:
+            fail(f"{name}: the card's loss is {loss_ulps} ulp off the CPU's")
+        worst = grads_agree(first["grads"], cpu["grads"], name,
+                            batched=name == "as_grid")
+        row = dict(miss_wall_s=miss_s, cpu_wall_s=cpu_s, loss_ulps=loss_ulps,
+                   worst_grad_ratio=worst, miss_launches=miss_launches,
+                   loss=np.asarray(first["loss"]).tolist(), **prof)
+        if name == "as_grid":
+            d = diff_tables(big, dev)
+            row["bound"] = diff_as_bound(big, AS_R, len(AS_SCALES), d["H"],
+                                         d["L"])
+            row.update(H=d["H"], L=d["L"])
+        rows[name] = row
+        print(f"5diff {name}: two card calls bit-equal, CPU loss within "
+              f"{loss_ulps} ulp and grads within {worst:.2e} of the largest "
+              f"|g|; replay {prof['replay_ms']:.3f} ms on the card (host "
+              f"{prof['replay_host_ms']:.3f} ms), eager "
+              f"{prof['eager_ms']:.3f} ms (host {prof['eager_host_ms']:.3f} "
+              f"ms); {prof['device_ops']} device operations a replay",
+              flush=True)
+    print(json.dumps(dict(phase="bench_grads", **rows)), flush=True)
+
+    # (c) the ES design search, one sweep launch a generation
+    es_prog = bss_arm_programs()["cbr"]
+    l0 = RUNTIME.launches("bss")
+    kc.reset_launches()
+    t0 = time.monotonic()
+    es = bss_interval_design(es_prog, np.asarray(PRNGKey(SEED)), BSS_R,
+                             generations=ES_GENERATIONS, pop=ES_POP,
+                             device=dev)
+    es_wall = time.monotonic() - t0
+    es_launches = {k: v for k, v in kc.launches.items() if v}
+    if not (es.launches == RUNTIME.launches("bss") - l0 == ES_GENERATIONS
+            == es_launches.get("bss_advance:traffic_sweep", 0)):
+        fail(f"bss_interval_design: {es.launches} generations launched "
+             f"{es_launches} ({RUNTIME.launches('bss') - l0} runtime "
+             f"launches), want one traffic sweep a generation")
+    if not np.isfinite(es.theta).all():
+        fail("bss_interval_design: theta not finite")
+    print(json.dumps(dict(
+        phase="es_bss_interval_design", replicas=BSS_R,
+        generations=ES_GENERATIONS, pop=ES_POP, wall_s=es_wall,
+        launches=es_launches, theta=es.theta.tolist(),
+        fitness=es.fitness.tolist(),
+        mean_fitness=es.mean_fitness.tolist())), flush=True)
+
+    # (d) the soft gate's main path
+    soft = dataclasses.replace(as_program(AS_NODES, AS_FLOWS, AS_SIM_S,
+                                          seed=AS_SEED), surrogate=Surrogacy())
+    run_as_flows(soft, PRNGKey(0), AS_R, device=dev)
+    out, wall, launches = counted(
+        kc, lambda: run_as_flows(soft, PRNGKey(1), AS_R, device=dev),
+        {"as_spf": 1, "as_fluid": 1, "as_fluid:soft": 1},
+        "as_flows soft-gate main path")
+    if out["delivered_frac"].shape != (AS_R, AS_FLOWS) or not (
+            np.isfinite(out["delivered_frac"]).all()
+            and np.isfinite(out["max_util"]).all()):
+        fail("as_flows soft-gate main path: outputs of the wrong shape or "
+             "not finite")
+    print(f"5diff as_flows soft-gate main path: {wall:.4f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return dict(soft=launches, rows=rows)
 
 
 def wired_clone(carry: dict) -> dict:
@@ -5764,6 +6278,12 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     as_numbers = as_check(kc, dev)
     print(f"phase 3as: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("3diff")
+    # 3diff. as_fluid's soft delivery gate vs its plain version at
+    #        bench_as's width
+    t_phase = time.monotonic()
+    diff_numbers = diff_check(kc, dev)
+    print(f"phase 3diff: {time.monotonic() - t_phase:.1f} s", flush=True)
     progress("3wired")
     # 3wired. wired_advance vs its plain version at bench_wired's width
     t_phase = time.monotonic()
@@ -6320,6 +6840,12 @@ def main(device: str = "cuda") -> int:
     t_phase = time.monotonic()
     checkpoint_phase(kc, dev)
     print(f"phase 5ckpt: {time.monotonic() - t_phase:.1f} s", flush=True)
+    progress("5diff")
+    # 5diff. the differentiable simulation: bench_grad_calibration, the
+    #        bench-width grads, the ES design search, the soft main path
+    t_phase = time.monotonic()
+    diff_launches = diff_phase(kc, dev, mobile)
+    print(f"phase 5diff: {time.monotonic() - t_phase:.1f} s", flush=True)
 
     progress("6")
     # 6. the kernels line, then the result line
@@ -6438,6 +6964,10 @@ def main(device: str = "cuda") -> int:
               as_numbers["fluid_sweep"]["bound"], source=AS_SOURCE,
               replaces=AS_FLUID_REPLACES + ", vmapped over rate scales "
               ":536-540"),
+        entry("as_fluid:soft", diff_launches["soft"]["as_fluid:soft"], 0.0,
+              diff_numbers["point"]["ms"], diff_numbers["point"]["plain_ms"],
+              diff_numbers["point"]["bound"], source=AS_SOURCE,
+              replaces=AS_SOFT_REPLACES),
         entry("wired_advance", wired_launches["wired_advance"], 0.0,
               wired_numbers["whole"]["ms"],
               wired_numbers["whole"]["plain_ms"],

@@ -14,8 +14,10 @@ bit-equal.  Programs: the toy BA programs under both metrics, the
 reference tests' overloaded line and exact-``max_hops`` line, truncated
 Bellman-Ford rounds that leave flows unreachable, an ON-OFF and an MMPP
 workload, a four-point ``rate_scale`` grid whose upper points overload
-links, ``chunk_rounds=1``, R = 3 and 5, and the bench's own graph
-(``as_program(10_000, 128, 10.0, seed=3)``) at R = 8.
+links, ``chunk_rounds=1``, R = 3 and 5, the bench's own graph
+(``as_program(10_000, 128, 10.0, seed=3)``) at R = 8, and the smooth
+surrogate: straight-through (the legacy run bit for bit) and soft (the
+softplus delivery gate).
 """
 
 import dataclasses
@@ -25,12 +27,16 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.parallel import as_flows as ref
 from tpudes.parallel.programs import toy_as_program as jax_toy
 from tpudes.traffic import TrafficProgram as JaxTraffic
 from tpudes_torch.convert import AS_FIELDS, as_from_numpy
 from tpudes_torch.parallel import as_flows as port
 from tpudes_torch.scenarios import as_program
+
+_torch_cpu.one_thread()
 
 FLOATS = ("goodput_bps", "delay_s", "delivered_frac", "max_util")
 INTS = ("hops", "unreachable")
@@ -234,12 +240,52 @@ def test_refusals_name_their_roadmap_items():
                      (dict(block=False, mesh=object()), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             port.run_as_flows(p, key, 2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.run_as_flows(dataclasses.replace(p, surrogate=object()), key, 2,
-                          device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port.run_as_flows(p, key, 2)
+
+
+@pytest.mark.parametrize("scales", [None, [0.5, 1.0, 4.0]])
+def test_straight_through_surrogate_is_the_legacy_run(scales):
+    """``Surrogacy(ste=True)``: the reference's forward is the hard gate
+    plus an exact zero, and the port's run equals it and the port's
+    legacy run bit for bit, on a grid whose upper points overload."""
+    from tpudes.diff import Surrogacy as JaxSurrogacy
+
+    jprog = dataclasses.replace(jax_toy(40, 5, 10, seed=3),
+                                flow_bps=np.full(5, 2e7))
+    ste = dataclasses.replace(jprog, surrogate=JaxSurrogacy(ste=True))
+    kw = {} if scales is None else dict(rate_scale=scales)
+    want, got = _run_both(ste, 3, seed=5, **kw)
+    legacy = port.run_as_flows(_port(jprog), np.array([0, 5]), 3,
+                               device="cpu", **kw)
+    for w, g, h in zip(*(x if scales else [x] for x in (want, got, legacy))):
+        _same(w, g)
+        _same(h, g)
+
+
+@pytest.mark.parametrize("gate_temp, chunk", [(0.25, None), (0.6, 1)])
+def test_soft_surrogate_equals_reference(gate_temp, chunk):
+    """``Surrogacy()``: the softplus delivery gate (the f32 ``1 / t`` the
+    compiled divide multiplies by) equals the reference bit for bit,
+    chunked or not, and moves the overloaded flows' delivery."""
+    from tpudes.diff import Surrogacy as JaxSurrogacy
+
+    jprog = dataclasses.replace(jax_toy(40, 5, 10, seed=3),
+                                flow_bps=np.full(5, 2e7))
+    soft = dataclasses.replace(
+        jprog, surrogate=JaxSurrogacy(gate_temp=gate_temp))
+    scales = [0.25, 1.0, 3.0]
+    want = ref.run_as_flows(soft, jax.random.PRNGKey(5), 3,
+                            rate_scale=scales)
+    got = port.run_as_flows(_port(soft), np.array([0, 5]), 3, device="cpu",
+                            rate_scale=scales, chunk_rounds=chunk)
+    hard = port.run_as_flows(_port(jprog), np.array([0, 5]), 3,
+                             device="cpu", rate_scale=scales)
+    for w, g in zip(want, got):
+        _same(w, g)
+    assert not np.array_equal(hard[2]["delivered_frac"],
+                              got[2]["delivered_frac"])
 
 
 def test_obs_runs_and_leaves_the_outputs():

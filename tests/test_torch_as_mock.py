@@ -1,7 +1,7 @@
 """``csrc/as_flows.cu`` on the CPU, through the CUDA mock.
 
 The kernels' source is built by ``g++`` against
-``tpudes_torch/csrc/mock/cuda_runtime.h`` (a thread per CUDA thread) and
+``tpudes_torch/csrc/mock/cuda_runtime.h`` (a fiber per CUDA thread) and
 called through ``as_cuda.spf_cuda``, ``as_cuda.fluid_cuda`` and
 ``as_cuda.erf_inv_check`` on CPU tensors:
 
@@ -16,7 +16,10 @@ called through ``as_cuda.spf_cuda``, ``as_cuda.fluid_cuda`` and
   ``as_replica_draws`` + ``fluid_math`` on a toy program, a rate-scale
   grid that overloads links, a line of equal links (the folded delay), a
   run split into launches that carry the links' log deliveries, and the
-  draws ``z`` over a range of keys;
+  draws ``z`` over a range of keys; its ``SOFT`` instantiation (the
+  softplus delivery gate) bit-equal to ``fluid_math``'s soft arm at two
+  temperatures, on one point and a grid, from zeros and from a carried
+  ``lfrac``;
 - the draw's ``erf_inv`` bit-equal to ``ops.fused.erf_inv`` on f32 inputs
   across both of its branches, at the edges and at +-1;
 - ``run_as_flows`` through both kernels equal to the plain run, one
@@ -27,12 +30,15 @@ called through ``as_cuda.spf_cuda``, ``as_cuda.fluid_cuda`` and
   never written);
 - mutant builds that must fail: Gauss-Seidel rounds (one distance buffer
   updated in place), a frontier node's distance read from the round's new
-  buffer, a link's load summed out of (hop, flow) order, the
-  ``erf_inv`` polynomial's multiply-adds rounded twice, and the last
+  buffer, a link's load summed out of (hop, flow) order, the soft gate
+  without its ``* t``, the ``erf_inv`` polynomial's multiply-adds rounded
+  twice, and the last
   replica's CTA doubling the cached link capacities in the tables' blob
   after its run (a hit then differs from its miss).
 
-Tolerance: none (bits).  Skips where ``g++`` is missing.  The same source
+Tolerance: none (bits).  Skips where ``g++`` is missing.  The kernel's
+build and the mutants' are made together, all ``g++`` processes started at
+once (the module's ``builds`` fixture).  The same source
 runs on the card in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -47,6 +53,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes_torch import _build
 from tpudes_torch.ops.fused import erf_inv
 from tpudes_torch.parallel import as_cuda
@@ -54,6 +62,8 @@ from tpudes_torch.parallel import as_flows as P
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.programs import toy_as_program
 from tpudes_torch.random import as_replica_draws
+
+_torch_cpu.one_thread()
 
 CSRC = Path(_build.CSRC)
 GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
@@ -80,6 +90,9 @@ MUTANTS = {
         "    for (int l = 0; l < L; ++l)\n"
         "      reinterpret_cast<float*>(const_cast<int*>(a.blob) + "
         "b.off[5])[l] *= 2.0f;\n}\n"),
+    "soft_gate_without_t": (
+        "as_flows.cu", "          lf = __fmul_rn(-sp, a.gate_t);",
+        "          lf = -sp;"),
     "erf_inv_double_rounding": (
         "xla_math.cuh",
         "    acc = fma32(acc, t, static_cast<float>(near ? kNear[k] : "
@@ -89,21 +102,51 @@ MUTANTS = {
 }
 
 
-def _build_mock(source: Path, out: Path) -> ctypes.CDLL:
+def _start_build(source: Path, out: Path) -> subprocess.Popen:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/as_flows.cu against the CUDA "
                     "mock")
-    subprocess.run([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
-                    str(CSRC), "-o", str(out), str(source)], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    return subprocess.Popen([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
+                             str(CSRC), "-o", str(out), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _mutant_source(mutant: str, where: Path) -> Path:
+    """``as_flows.cu`` with :data:`MUTANTS`' edit ``mutant`` in ``where``
+    (a mutant header beside a copy of the kernel, which includes it)."""
+    name, old, new = MUTANTS[mutant]
+    text = (CSRC / name).read_text()
+    assert text.count(old) == 1
+    where.mkdir()
+    (where / name).write_text(text.replace(old, new))
+    src = where / "as_flows.cu"
+    if name != src.name:
+        src.write_text((CSRC / src.name).read_text())
+    return src
 
 
 @pytest.fixture(scope="module")
-def mock_lib(tmp_path_factory):
-    out = tmp_path_factory.mktemp("as_mock") / "libas_flows_mock.so"
-    return _build_mock(CSRC / "as_flows.cu", out)
+def builds(tmp_path_factory):
+    """The kernel's mock build and every mutant's, all ``g++`` processes
+    started together; their paths by name (``"main"`` and each of
+    :data:`MUTANTS`)."""
+    root = tmp_path_factory.mktemp("as_mock")
+    sources = {"main": CSRC / "as_flows.cu"}
+    for mutant in MUTANTS:
+        sources[mutant] = _mutant_source(mutant, root / mutant)
+    procs = {name: (_start_build(src, root / f"lib{name}.so"),
+                    root / f"lib{name}.so") for name, src in sources.items()}
+    for name, (proc, _) in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"{name}: {out}"
+    return {name: path for name, (_, path) in procs.items()}
+
+
+@pytest.fixture(scope="module")
+def mock_lib(builds):
+    return ctypes.CDLL(str(builds["main"]))
 
 
 def _use(lib, monkeypatch):
@@ -251,10 +294,11 @@ def _fluid_inputs(prog, replicas, scales, key=3):
                           "cpu")[0]
 
 
-def _fluid_equal(args, rounds=P.FP_ROUNDS, lfrac=None) -> torch.Tensor:
-    want, wl, z = P.fluid_draws_math(*args, rounds, lfrac)
+def _fluid_equal(args, rounds=P.FP_ROUNDS, lfrac=None,
+                 gate_temp=None) -> torch.Tensor:
+    want, wl, z = P.fluid_draws_math(*args, rounds, lfrac, gate_temp)
     got, gl = as_cuda.fluid_cuda(*args, rounds, lfrac, carry=True,
-                                 z_out=True)
+                                 z_out=True, gate_temp=gate_temp)
     for k in want:
         assert _same(want[k], got[k]), k
     assert _same(wl, gl)
@@ -273,6 +317,27 @@ def test_fluid_kernel_equals_plain(kernel, scales):
     if len(scales) > 1:
         frac = as_cuda.fluid_cuda(*args, P.FP_ROUNDS)[0]["delivered_frac"]
         assert (frac[-1] < 1.0).any() and frac[-1].sum() < frac[0].sum()
+
+
+@pytest.mark.parametrize("scales, gate_temp", [([1.0], 0.25),
+                                               ([0.5, 1.0, 3.0, 8.0], 0.6)])
+def test_fluid_soft_kernel_equals_plain(kernel, scales, gate_temp):
+    """The ``SOFT`` instantiation (the softplus delivery gate) equals
+    ``fluid_math``'s soft arm bit for bit, from zeros and from a carried
+    ``lfrac``, and counts ``as_fluid:soft``; the hard gate differs on the
+    overloaded links."""
+    prog = dataclasses.replace(toy_as_program(40, 5, 10, seed=3),
+                               flow_bps=np.linspace(2e6, 4e7, 5))
+    args = _fluid_inputs(prog, 3, scales)
+    lf = _fluid_equal(args, 2, gate_temp=gate_temp)
+    _fluid_equal(args, 2, lf, gate_temp=gate_temp)
+    assert kc.launches["as_fluid:soft"] == 2
+    hard = as_cuda.fluid_cuda(*args, P.FP_ROUNDS)[0]["delivered_frac"]
+    soft = as_cuda.fluid_cuda(*args, P.FP_ROUNDS,
+                              gate_temp=gate_temp)[0]["delivered_frac"]
+    assert not _same(hard, soft)
+    with pytest.raises(ValueError, match="gate_temp"):
+        as_cuda.fluid_cuda(*args, P.FP_ROUNDS, gate_temp=0.0)
 
 
 @pytest.mark.parametrize("key", [(0, 0), (0, 2**32 - 1), (123456789,
@@ -425,15 +490,8 @@ def test_bad_operands_raise(kernel):
 
 
 @pytest.mark.parametrize("mutant", sorted(MUTANTS))
-def test_mock_kernel_mutant_fails(mutant, tmp_path, monkeypatch):
-    name, old, new = MUTANTS[mutant]
-    text = (CSRC / name).read_text()
-    assert text.count(old) == 1
-    (tmp_path / name).write_text(text.replace(old, new))
-    src = tmp_path / "as_flows.cu"
-    if name != src.name:  # the copy's include finds the mutant beside it
-        src.write_text((CSRC / src.name).read_text())
-    _use(_build_mock(src, tmp_path / "libmutant.so"), monkeypatch)
+def test_mock_kernel_mutant_fails(mutant, builds, monkeypatch):
+    _use(ctypes.CDLL(str(builds[mutant])), monkeypatch)
     if mutant == "gauss_seidel":
         with pytest.raises(AssertionError):
             _spf_equal(toy_as_program(40, 4, 10, seed=5))
@@ -448,6 +506,11 @@ def test_mock_kernel_mutant_fails(mutant, tmp_path, monkeypatch):
         args = _fluid_inputs(_converging_program(), 4, [1.0, 2.0])
         with pytest.raises(AssertionError):
             _fluid_equal(args)
+    elif mutant == "soft_gate_without_t":
+        args = _fluid_inputs(_converging_program(), 4, [1.0, 2.0])
+        _fluid_equal(args)  # the hard gate is untouched
+        with pytest.raises(AssertionError):
+            _fluid_equal(args, gate_temp=0.25)
     else:
         x = torch.from_numpy(np.random.default_rng(5).uniform(
             -1, 1, 4096).astype(np.float32))

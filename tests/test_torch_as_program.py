@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.rng import RngStream as JaxRng
 from tpudes.core.world import reset_world
 from tpudes.helper.topology import BriteTopologyHelper as JaxBrite
@@ -32,6 +34,8 @@ from tpudes_torch.core.rng import RngStream, seeded_bulk_generator
 from tpudes_torch.helper.topology import BriteTopologyHelper, component_labels
 from tpudes_torch.parallel.programs import toy_as_program
 from tpudes_torch.scenarios import as_program
+
+_torch_cpu.one_thread()
 
 
 def _bits(x) -> np.ndarray:

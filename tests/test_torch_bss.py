@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.replicated import build_bss_step as jax_build_bss_step
 from tpudes.parallel.replicated import lower_bss
@@ -48,6 +50,8 @@ from tpudes_torch.parallel.bss_cuda import (
 )
 from tpudes_torch.random import PRNGKey, bss_draws
 from tpudes_torch.scenarios import bss_program
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done")
 

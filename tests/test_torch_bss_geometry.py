@@ -9,6 +9,8 @@ from its own, so these are the shapes the card runs."""
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes_torch.parallel.bss_cuda import (
     BSS_MAX_N,
     BSS_MAX_POINTS,
@@ -21,6 +23,8 @@ from tpudes_torch.parallel.bss_cuda import (
     node_lane_slot,
     row_point_replica,
 )
+
+_torch_cpu.one_thread()
 
 
 @pytest.mark.parametrize("mobile", [False, True])

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.ops.wifi_error import mode_chunk_success_rate as jax_psr
 from tpudes.parallel.replicated import build_bss_advance as jax_build_advance
@@ -54,6 +56,8 @@ from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.parallel.bss_cuda import BSS_STATE
 from tpudes_torch.random import PRNGKey, bss_draws, mpdu_coins
 from tpudes_torch.scenarios import bss_program
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done")
 HT = dict(data_mode="HtMcs7", standard="80211n")

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.ops.mobility import MobilityProgram as JaxMobility
 from tpudes.ops.mobility import build_position_fn as jax_position_fn
@@ -53,6 +55,8 @@ from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.parallel.bss_cuda import BSS_STATE, join_stops
 from tpudes_torch.random import PRNGKey, bss_draws
 from tpudes_torch.scenarios import bss_program
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done",
             "geom_refreshes", "geom_stride")

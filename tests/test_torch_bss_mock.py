@@ -3,7 +3,7 @@ event loop's kernel with and without its ``OBS`` arm.
 
 The one-slot units (``bss_advance.cu``, ``bss_advance_s1.cu`` and
 ``bss_advance_obs_s1.cu``: N <= 32 nodes) are built by ``g++`` against
-``tpudes_torch/csrc/mock/cuda_runtime.h`` (a thread per CUDA thread; the
+``tpudes_torch/csrc/mock/cuda_runtime.h`` (a fiber per CUDA thread; the
 kernel's dynamic shared memory is the mock's buffer), the other slot
 counts stubbed out, and called through ``bss_cuda.bss_advance_cuda`` on
 CPU tensors against the plain ``replicated.bss_advance_math``: every state
@@ -29,6 +29,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.programs import toy_bss_program as jax_toy_bss
 from tpudes.parallel.programs import toy_traffic_points as jax_toy_points
@@ -47,6 +49,8 @@ from tpudes_torch.parallel import bss_cuda
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.random import PRNGKey
+
+_torch_cpu.one_thread()
 
 CSRC = Path(_build.CSRC)
 FLAGS = ("-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -74,9 +78,10 @@ OBS_MUTANTS = {
 }
 
 
-def _build_mock(out_dir: Path, header: str | None = None) -> ctypes.CDLL:
-    """The one-slot units and the stubs in ``out_dir`` (``header`` an
-    edited bss_advance.cuh beside them), one g++ a unit in parallel."""
+def _start_build(out_dir: Path, header: str | None = None) -> tuple:
+    """Start the one-slot units and the stubs in ``out_dir`` (``header``
+    an edited bss_advance.cuh beside them), one g++ a unit; returns
+    ``(procs, objects, library path)`` for :func:`_finish_build`."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/bss_advance.cuh against the "
@@ -97,18 +102,42 @@ def _build_mock(out_dir: Path, header: str | None = None) -> ctypes.CDLL:
             [gxx, *FLAGS, "-c", "-I", str(CSRC / "mock"), "-I", str(CSRC),
              "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, objs, out_dir / "libbss_advance_mock.so"
+
+
+def _finish_build(build: tuple) -> Path:
+    """Wait for :func:`_start_build`'s objects and link them."""
+    procs, objs, lib = build
     for proc in procs:
         out, _ = proc.communicate()
         assert proc.returncode == 0, out
-    lib = out_dir / "libbss_advance_mock.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib), *objs],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
+    subprocess.run([shutil.which("g++"), "-shared", "-pthread", "-o",
+                    str(lib), *objs], check=True, capture_output=True,
+                   text=True)
+    return lib
 
 
 @pytest.fixture(scope="module")
-def mock_lib(tmp_path_factory):
-    return _build_mock(tmp_path_factory.mktemp("bss_mock"))
+def builds(tmp_path_factory):
+    """The kernel's mock build and each of :data:`OBS_MUTANTS`', all
+    ``g++`` processes started together; the libraries' paths by name."""
+    root = tmp_path_factory.mktemp("bss_mock")
+    header = (CSRC / "bss_advance.cuh").read_text()
+    started = {}
+    for name in ("main", *OBS_MUTANTS):
+        (root / name).mkdir()
+        edited = None
+        if name != "main":
+            was, now = OBS_MUTANTS[name]
+            assert header.count(was) == 1
+            edited = header.replace(was, now)
+        started[name] = _start_build(root / name, edited)
+    return {name: _finish_build(b) for name, b in started.items()}
+
+
+@pytest.fixture(scope="module")
+def mock_lib(builds):
+    return ctypes.CDLL(str(builds["main"]))
 
 
 def _use(lib, monkeypatch):
@@ -211,11 +240,8 @@ def test_kernel_without_obs_bit_equal_to_plain_loop(kernel):
 
 
 @pytest.mark.parametrize("name", sorted(OBS_MUTANTS))
-def test_obs_arm_mutant_fails(tmp_path, monkeypatch, name):
-    was, now = OBS_MUTANTS[name]
-    header = (CSRC / "bss_advance.cuh").read_text()
-    assert header.count(was) == 1
-    _use(_build_mock(tmp_path, header.replace(was, now)), monkeypatch)
+def test_obs_arm_mutant_fails(builds, monkeypatch, name):
+    _use(ctypes.CDLL(str(builds[name])), monkeypatch)
     prog, ends, sweep = _program("legacy")
     with pytest.raises(AssertionError) as differs:
         _kernel_vs_plain(prog, ends, sweep, obs=True)

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.replicated import lower_bss
 from tpudes.parallel.replicated import run_replicated_bss as jax_run_bss
@@ -32,6 +34,8 @@ from tpudes_torch.convert import BSS_FIELDS, bss_from_numpy
 from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.parallel.bss_cuda import join_stops
 from tpudes_torch.random import PRNGKey, bss_draws, mpdu_coins
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done")
 HT = dict(interval_s=0.01, data_mode="HtMcs7", standard="80211n")

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.programs import toy_bss_program as jax_toy_bss
 from tpudes.parallel.programs import toy_traffic_points as jax_toy_points
@@ -51,6 +53,8 @@ from tpudes_torch.traffic.device import (
     stack_traffic_operands,
 )
 from tpudes_torch.traffic.program import unify_shapes
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done")
 SIM_US = 320_000

@@ -10,6 +10,8 @@ completed and equal to its solo run.
 
 import pytest
 
+import _torch_cpu
+
 import tpudes.chaos as ref_chaos
 import tpudes_torch.chaos as chaos
 from tpudes.chaos.scenario import run_local_scenario as ref_scenario
@@ -24,6 +26,8 @@ from tpudes_torch.chaos import (
 from tpudes_torch.chaos.scenario import run_local_scenario
 from tpudes_torch.obs.serving import ServingTelemetry, validate_serving_metrics
 from tpudes_torch.parallel.runtime import RUNTIME
+
+_torch_cpu.one_thread()
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,8 @@ are the reference's toy programs carried over as numpy fields.
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 import tpudes_torch.chaos as chaos
 from tpudes.parallel import programs as ref_programs
 from tpudes_torch.chaos import ChaosEvent, ChaosInjected, ChaosSchedule
@@ -31,6 +33,8 @@ from tpudes_torch.convert import (
 from tpudes_torch.obs.serving import ServingTelemetry
 from tpudes_torch.parallel.checkpoint import CarryCheckpoint, CheckpointError
 from tpudes_torch.parallel.runtime import RUNTIME
+
+_torch_cpu.one_thread()
 
 KEY = np.array([0, 17])
 

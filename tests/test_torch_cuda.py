@@ -9,7 +9,10 @@ conftest:
 
 Tolerance: none — each kernel and its plain version must give
 bit-identical state, and the slice's integer outputs must be equal;
-the BSS engine's outputs on the card equal the CPU's.
+the BSS engine's outputs on the card equal the CPU's.  The diff
+subsystem's grads on the card repeat bit for bit and agree with the
+CPU's within 4 ulp (losses) and 1e-4 of each operand's largest |g|
+(gradients); a descent's fit within 1e-3.
 """
 
 import dataclasses
@@ -91,7 +94,8 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             step_bf16=0, bss=0, bss_agg=0, bss_sweep=0, bss_mob=0,
             bss_trf=0, bss_trf_sweep=0, tcp=0, tcp_red=0, tcp_sweep=0,
             tcp_trf=0, tcp_trf_sweep=0, win=0, win_geometry=0, win_scan=0,
-            win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0, wired=0,
+            win_table=0, as_spf=0, as_fluid=0, as_fluid_sweep=0,
+            as_fluid_soft=0, wired=0,
             wired_owned=0, wired_lanes=0, lte_obs=0, bss_obs=0, tcp_obs=0,
             wired_obs=0, wired_obs_union=0):
     return {"lte_sm_step": step, "lte_sm_step:bf16": step_bf16,
@@ -106,7 +110,8 @@ def _counts(step=0, advance=0, dynamic=0, sweep=0, traffic=0, bf16=0,
             "wifi_window": win, "wifi_window:geometry": win_geometry,
             "wifi_window:scan": win_scan, "wifi_window:table": win_table,
             "as_spf": as_spf, "as_fluid": as_fluid,
-            "as_fluid:sweep": as_fluid_sweep, "wired_advance": wired,
+            "as_fluid:sweep": as_fluid_sweep, "as_fluid:soft": as_fluid_soft,
+            "wired_advance": wired,
             "wired_advance:owned": wired_owned,
             "wired_advance:lanes": wired_lanes,
             "lte_sm_advance:obs": lte_obs, "bss_advance:obs": bss_obs,
@@ -1404,6 +1409,205 @@ def test_as_flows_on_card_equals_cpu(card, monkeypatch):
             if a.dtype == np.float32:
                 a, b = a.view(np.uint32), b.view(np.uint32)
             assert np.array_equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales, split, gate_temp", [
+    ([1.0], (4,), 0.25), ([0.5, 1.0, 4.0, 16.0], (4,), 0.25),
+    ([1.0, 8.0], (1, 3), 0.6)])
+def test_as_fluid_soft_bit_equal_to_plain(card, scales, split, gate_temp):
+    """as_fluid's SOFT instantiation (the softplus delivery gate) against
+    fluid_math's soft arm on the card, one launch and a run split in two
+    carrying lfrac; the draws too."""
+    from tpudes_torch.parallel import as_cuda
+    from tpudes_torch.parallel import as_flows as asf
+    from tpudes_torch.scenarios import as_program
+
+    prog = dataclasses.replace(as_program(3000, 64, 1.0, seed=4),
+                               flow_bps=np.full(64, 2e7))
+    args, _ = asf.fluid_inputs(prog, np.array([0, 9]), 64, scales, card)
+    want, _, z = asf.fluid_draws_math(*args, asf.FP_ROUNDS, None, gate_temp)
+    lf = None
+    kc.reset_launches()
+    for rounds in split:
+        got, lf = as_cuda.fluid_cuda(*args, rounds, lf, carry=True,
+                                     z_out=True, gate_temp=gate_temp)
+    torch.cuda.synchronize()
+    assert kc.launches["as_fluid:soft"] == len(split)
+    for k in want:
+        assert torch.equal(_as_bits(want[k]), _as_bits(got[k])), k
+    assert torch.equal(_as_bits(z), _as_bits(got["z"]))
+
+
+def _diff_program():
+    from tpudes_torch.diff import Surrogacy
+    from tpudes_torch.scenarios import as_program
+
+    return dataclasses.replace(as_program(2000, 32, 1.0, seed=6),
+                               flow_bps=np.full(32, 2e7),
+                               surrogate=Surrogacy())
+
+
+@pytest.mark.cuda
+def test_as_flows_soft_surrogate_on_card_equals_cpu(card):
+    """run_as_flows with a soft surrogate on the card (one as_spf and one
+    as_fluid:soft launch) against the plain path on the CPU."""
+    from tpudes_torch.parallel import as_flows as asf
+
+    prog = _diff_program()
+    key = np.array([0, 5])
+    want = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0],
+                            device="cpu")
+    kc.reset_launches()
+    got = asf.run_as_flows(prog, key, 16, rate_scale=[1.0, 40.0])
+    assert kc.launches == _counts(as_spf=1, as_fluid=1, as_fluid_sweep=1,
+                                  as_fluid_soft=1)
+    for w, g in zip(want, got):
+        for k in w:
+            a, b = np.asarray(w[k]), np.asarray(g[k])
+            if a.dtype == np.float32:
+                a, b = a.view(np.uint32), b.view(np.uint32)
+            assert np.array_equal(a, b), k
+
+
+def _ulps(a, b) -> int:
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(key(a) - key(b)).max())
+
+
+def _graph(engine):
+    from tpudes_torch.diff.graphs import GraphCall
+    from tpudes_torch.parallel.runtime import RUNTIME
+
+    return [v for k, v in RUNTIME._runners.items()
+            if k[0] == engine and isinstance(v, GraphCall)][-1]
+
+
+@pytest.mark.cuda
+def test_grad_as_flows_replays_one_graph_and_equals_cpu(card):
+    """grad_as_flows on the card: the miss captures one CUDA graph (one
+    as_spf launch builds the routing tables), a second call replays it
+    bit for bit, a batch's points equal their solo calls bit for bit, and
+    the CPU's loss is within 4 ulp, each gradient within 1e-4 of the
+    operand's largest |g|."""
+    from tpudes_torch.diff import grad_as_flows
+
+    prog = _diff_program()
+    key = np.array([0, 3])
+    kc.reset_launches()
+    first = grad_as_flows(prog, key, 16, loss="neg_goodput",
+                          rate_scale=[0.5, 2.0], device=card)
+    assert kc.launches == _counts(as_spf=1)
+    graph = _graph("diff_as")
+    again = grad_as_flows(prog, key, 16, loss="neg_goodput",
+                          rate_scale=[0.5, 2.0], device=card)
+    assert (graph.captures, graph.replays) == (1, 2)
+    assert np.array_equal(first["loss"], again["loss"])
+    for k in first["grads"]:
+        assert np.array_equal(first["grads"][k], again["grads"][k]), k
+    cpu = grad_as_flows(prog, key, 16, loss="neg_goodput",
+                        rate_scale=[0.5, 2.0], device="cpu")
+    assert _ulps(first["loss"], cpu["loss"]) <= 4
+    for k, w in cpu["grads"].items():
+        for c in range(2):
+            assert (np.abs(first["grads"][k][c] - w[c]).max()
+                    <= 1e-4 * np.abs(w[c]).max()), (k, c)
+    solo = grad_as_flows(prog, key, 16, loss="neg_goodput",
+                         at={"rate_scale": 2.0}, device=card)
+    assert np.float32(solo["loss"]) == np.float32(first["loss"][1])
+    for k in ("flow_bps", "cap_bps"):
+        assert np.array_equal(solo["grads"][k], first["grads"][k][1]), k
+
+
+@pytest.mark.cuda
+def test_grad_lte_sm_on_card_equals_cpu(card):
+    """grad_lte_sm on a moving lena drop (Friis, all five operands): two
+    card calls bit-equal, the CPU within the tolerances."""
+    from tpudes_torch.diff import grad_lte_sm
+    from tpudes_torch.scenarios import lena_mobile_program
+
+    prog = lena_mobile_program(3, 5, 100, "const_velocity", 10.0, 8,
+                               generator=torch.Generator().manual_seed(11))
+    first = grad_lte_sm(prog, loss="neg_goodput", device=card)
+    again = grad_lte_sm(prog, loss="neg_goodput", device=card)
+    assert first["loss"] == again["loss"]
+    assert set(first["grads"]) == {"tx_power_dbm", "sched_w", "ploss",
+                                   "enb_pos", "ue_pos"}
+    cpu = grad_lte_sm(prog, loss="neg_goodput", device="cpu")
+    assert _ulps(first["loss"], cpu["loss"]) <= 4
+    for k, w in cpu["grads"].items():
+        assert np.array_equal(first["grads"][k], again["grads"][k]), k
+        assert (np.abs(first["grads"][k] - w).max()
+                <= 1e-4 * np.abs(w).max()), k
+
+
+@pytest.mark.cuda
+def test_descent_is_one_graph_replay_on_card(card):
+    """A calibration on the card: the first call captures the whole
+    descent, a repeat is one replay (no capture, no new runner) equal to
+    the first, and the fit is the CPU's to 1e-3."""
+    from tpudes_torch.diff import calibrate_lte
+    from tpudes_torch.diff.lte_grad import build_lte_diff, lte_default_params
+    from tpudes_torch.diff.surrogate import Surrogacy
+    from tpudes_torch.obs.device import CompileTelemetry
+    from tpudes_torch.parallel.lte_sm import LteSmProgram
+    from tpudes_torch.parallel.runtime import RUNTIME
+
+    E, U = 2, 6
+    serving = (np.arange(U) % E).astype(np.int32)
+    rng = np.random.default_rng(0)
+    enb = np.array([[0.0, 0.0, 30.0], [600.0, 0.0, 30.0]], np.float32)
+    ue = (enb[serving] + np.c_[rng.uniform(-200, 200, U),
+                               rng.uniform(-200, 200, U),
+                               np.full(U, -28.5)]).astype(np.float32)
+    prog = LteSmProgram(gain=np.full((E, U), 1e-12), serving=serving,
+                        tx_power_dbm=np.full((E,), 43.0),
+                        noise_psd=10.0**0.9 * 1.380649e-23 * 290.0, n_rb=25,
+                        n_ttis=400, scheduler="pf", enb_pos=enb,
+                        pathloss=("log_distance", 3.0, 1.0, 46.67))
+    p = lte_default_params(prog, {"ue_pos": ue}, card)
+    p["ploss"] = torch.tensor([3.45, 1.0, 46.67], device=card)
+    observed = build_lte_diff(prog, Surrogacy(), card)(p)["cqi"].cpu().numpy()
+    kw = dict(wrt=("ploss",), at={"ue_pos": ue}, steps=80, lr=0.5,
+              loss="cqi_mse", opt="lbfgs")
+    first = calibrate_lte(prog, np.array([0, 17]), observed, device=card,
+                          **kw)
+    graph = _graph("diff_lte")
+    l0, c0 = RUNTIME.launches("diff_lte"), CompileTelemetry.compiles(
+        "diff_lte")
+    again = calibrate_lte(prog, np.array([0, 17]), observed, device=card,
+                          **kw)
+    assert RUNTIME.launches("diff_lte") - l0 == 1
+    assert CompileTelemetry.compiles("diff_lte") - c0 == 0
+    assert (graph.captures, graph.replays) == (1, 2)
+    assert np.array_equal(first.loss, again.loss)
+    assert abs(again.params["ploss"][0] - 3.45) < 1e-3
+    cpu = calibrate_lte(prog, np.array([0, 17]), observed, device="cpu",
+                        **kw)
+    np.testing.assert_allclose(again.params["ploss"], cpu.params["ploss"],
+                               rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_bss_interval_design_on_card_equals_cpu(card):
+    """The ES design search on the card: one traffic_sweep launch a
+    generation, theta and fitness the CPU's exactly."""
+    from tpudes_torch.diff import bss_interval_design
+
+    prog = bss_program(8, 1.3, radii=(12.0, 20.0, 28.0))
+    prog = dataclasses.replace(prog, traffic=TrafficProgram.cbr(
+        prog.start_us, prog.interval_us))
+    kc.reset_launches()
+    got = bss_interval_design(prog, np.array([0, 17]), 8, generations=2,
+                              pop=2, device=card)
+    assert kc.launches["bss_advance:traffic_sweep"] == got.launches == 2
+    want = bss_interval_design(prog, np.array([0, 17]), 8, generations=2,
+                               pop=2, device="cpu")
+    assert np.array_equal(got.theta, want.theta)
+    assert np.array_equal(got.fitness, want.fitness)
 
 
 def _wired_clone(carry):

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.models.traffic_control import TrafficControlHelper
 from tpudes.parallel import tcp_dumbbell as J
@@ -45,6 +47,8 @@ from tpudes_torch.parallel.programs import (
 )
 from tpudes_torch.random import PRNGKey, tcp_draws
 from tpudes_torch.scenarios import dumbbell_program
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("goodput_mbps", "delivered", "drops", "mean_queue",
             "cwnd_final")

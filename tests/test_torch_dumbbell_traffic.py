@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.parallel import tcp_dumbbell as J
 from tpudes.parallel.programs import toy_dumbbell_program as jax_toy
 from tpudes.parallel.programs import toy_traffic_points as jax_points
@@ -44,6 +46,8 @@ from tpudes_torch.parallel import tcp_dumbbell as P
 from tpudes_torch.parallel.programs import toy_dumbbell_program
 from tpudes_torch.scenarios import dumbbell_program
 from tpudes_torch.traffic.device import app_cum_table, stack_traffic_operands
+
+_torch_cpu.one_thread()
 
 OUT_KEYS = ("goodput_mbps", "delivered", "drops", "mean_queue",
             "cwnd_final")

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.obs import distributed as ref_dist
 from tpudes.obs import flowmon as ref_fm
 from tpudes.obs import geometry as ref_geom
@@ -34,6 +36,8 @@ from tpudes_torch.obs import distributed as port_dist
 from tpudes_torch.obs import flowmon as fm
 from tpudes_torch.obs import geometry as port_geom
 from tpudes_torch.obs import traffic as port_traffic
+
+_torch_cpu.one_thread()
 
 F, R, STEPS = 5, 3, 40
 

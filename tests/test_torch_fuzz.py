@@ -17,9 +17,10 @@ to a relative 1e-6 (the bound of the port's LTE tests).  A random-walk
 BSS draw takes the reference's walk velocities (ROADMAP C3, an ulp in
 about one value of 75).  The dumbbell's app-limited ``traffic`` draws
 run too (``DumbbellProgram.traffic`` crosses with the program).  The AS
-flow engine's draws take ``surrogate="off"`` (the smooth surrogate is not
-ported, ROADMAP A14) and are compared bit for bit in every output, their
-workload draws included.  The wired engine's draws (two-partition chains,
+flow engine's draws take the envelope's ``surrogate`` draw (``"off"`` or
+``"ste"``, the straight-through program, whose forward is the legacy
+engine's) and are compared bit for bit in every output, their workload
+draws included.  The wired engine's draws (two-partition chains,
 deterministic CBR, ``wired.py:149``) run the reference's 2-rank hybrid
 protocol and the port's (``run_hybrid(..., ranks=2, transport="local")``)
 and are compared bit for bit in ``deliver_slot``, ``delivered`` and
@@ -33,6 +34,8 @@ differ; ROADMAP C5).  One draw per engine also runs through
 import numpy as np
 import pytest
 import torch
+
+import _torch_cpu
 
 from tpudes.fuzz.engines import ENGINE_FUZZERS, first_diff
 from tpudes.fuzz.envelope import ScenarioGen
@@ -61,6 +64,8 @@ from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.parallel.replicated import run_replicated_bss
 from tpudes_torch.parallel.tcp_dumbbell import run_tcp_dumbbell
 from tpudes_torch.parallel.wired import run_wired
+
+_torch_cpu.one_thread()
 
 SEEDS = range(4)
 LTE_INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
@@ -152,7 +157,6 @@ def test_lte_sm_draw_equals_reference(seed):
 @pytest.mark.parametrize("seed", range(6))
 def test_as_flows_draw_equals_reference(seed):
     fuzzer, cfg = _draw("as_flows", seed)
-    cfg = dict(cfg, surrogate="off")
     prog = fuzzer.build(cfg)
     want = fuzzer.run_scalar(prog, cfg)
     got = run_as_flows(as_from_numpy(_fields(prog, AS_FIELDS)), _key(cfg),
@@ -195,7 +199,6 @@ def test_submitted_draw_equals_the_blocking_run(engine):
     from tpudes_torch.parallel.runtime import EngineFuture
 
     fuzzer, cfg = _draw(engine, 0)
-    cfg = dict(cfg, surrogate="off") if engine == "as_flows" else cfg
     prog = fuzzer.build(cfg)
     R, key = int(cfg["replicas"]), _key(cfg)
     if engine == "dumbbell":

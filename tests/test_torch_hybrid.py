@@ -22,11 +22,15 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.parallel import hybrid as ref_hybrid
 from tpudes.parallel import wired as ref
 from tpudes_torch.convert import WIRED_FIELDS, wired_from_numpy
 from tpudes_torch.parallel import hybrid as H
 from tpudes_torch.parallel import wired as W
+
+_torch_cpu.one_thread()
 
 KEY = 7
 FIELDS = ("deliver_slot", "delivered", "served")

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 import tpudes.ops.lte as ref
 from tpudes.core.world import reset_world
 from tpudes.parallel import kernels_pallas as kp
@@ -49,6 +51,8 @@ from tpudes_torch.ops import lte as port
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.lte_sm import SM_DYNAMIC_ROWS, geom_rows, run_lte_sm
 from tpudes_torch.random import PRNGKey
+
+_torch_cpu.one_thread()
 
 INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
 KEY_SEED = 3

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.kernels_pallas import build_sm_consts as jax_consts
 from tpudes.parallel.lte_sm import SM_SCHED_IDS, _build_geom_fn, lower_lte_sm
@@ -45,6 +47,8 @@ from tpudes_torch.parallel.lte_sm import (
     run_lte_sm,
 )
 from tpudes_torch.random import PRNGKey, replica_keys
+
+_torch_cpu.one_thread()
 
 INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")
 KEY_SEED = 3

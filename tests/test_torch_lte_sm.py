@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.lte_sm import SM_SCHED_IDS, lower_lte_sm
 from tpudes.parallel.lte_sm import run_lte_sm as jax_run_lte_sm
@@ -34,6 +36,8 @@ from tpudes_torch.parallel.lte_sm import LteSmProgram, run_lte_sm
 from tpudes_torch.random import PRNGKey
 from tpudes_torch.scenarios import hex_grid, lena_grid_program, lena_ue_drop
 from tpudes_torch.traffic.program import TrafficProgram
+
+_torch_cpu.one_thread()
 
 REPO = Path(__file__).resolve().parents[1]
 INT_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok", "cqi", "mcs")

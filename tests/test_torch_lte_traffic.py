@@ -21,6 +21,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.core.world import reset_world
 from tpudes.parallel.lte_sm import lower_lte_sm
 from tpudes.parallel.lte_sm import run_lte_sm as jax_run_lte_sm
@@ -35,6 +37,8 @@ from tpudes_torch.convert import (
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.lte_sm import build_sm_traffic_advance, run_lte_sm
 from tpudes_torch.random import PRNGKey, replica_keys
+
+_torch_cpu.one_thread()
 
 LTE_KEYS = ("rx_bits", "new_tbs", "retx", "drops", "ok")
 TRAFFIC_KEYS = LTE_KEYS + ("goodput_bits",)

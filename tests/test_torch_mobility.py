@@ -23,9 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.ops import mobility as ref
 from tpudes_torch.convert import MOBILITY_FIELDS, mobility_from_numpy
 from tpudes_torch.ops import mobility as mob
+
+_torch_cpu.one_thread()
 
 N = 12
 HORIZON_US = 3_500_000

@@ -20,6 +20,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.core.global_value import GlobalValue
 from tpudes.core.world import reset_world
 from tpudes.obs.device import ChunkStream as RefChunkStream
@@ -41,6 +43,8 @@ from tpudes_torch.obs.flowmon import FM_KEYS
 from tpudes_torch.obs.geometry import GeomTelemetry
 from tpudes_torch.parallel import replicated as bss
 from tpudes_torch.random import PRNGKey
+
+_torch_cpu.one_thread()
 
 OUT = ("srv_rx", "cli_rx", "tx_data", "drops", "steps", "all_done")
 

@@ -20,6 +20,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.core.global_value import GlobalValue
 from tpudes.core.world import reset_world
 from tpudes.obs.device import ChunkStream as RefChunkStream
@@ -56,6 +58,8 @@ from tpudes_torch.parallel import tcp_dumbbell as port_tcp
 from tpudes_torch.parallel.lte_sm import run_lte_sm
 from tpudes_torch.parallel.runtime import RUNTIME
 from tpudes_torch.random import PRNGKey
+
+_torch_cpu.one_thread()
 
 KEY = 3
 

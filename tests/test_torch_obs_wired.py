@@ -22,6 +22,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.core.global_value import GlobalValue
 from tpudes.obs.device import ChunkStream as RefChunkStream
 from tpudes.parallel import wired as ref
@@ -30,6 +32,8 @@ from tpudes_torch.obs.device import ChunkStream
 from tpudes_torch.obs.flowmon import FM_KEYS
 from tpudes_torch.parallel import wired as W
 from tpudes_torch.parallel.runtime import bucket_replicas
+
+_torch_cpu.one_thread()
 
 KEY = 11
 

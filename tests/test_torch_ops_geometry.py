@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.ops import lte as ref_lte
 from tpudes.ops import propagation as ref_prop
 from tpudes_torch.ops import fused
 from tpudes_torch.ops import lte, propagation
+
+_torch_cpu.one_thread()
 
 RNG = np.random.default_rng(20261016)
 

@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 import tpudes.models.lte.scheduler as ref_sched
 import tpudes.ops.lte as ref
 import tpudes.ops.propagation as ref_prop
 import tpudes_torch.models.lte.scheduler as port_sched
 import tpudes_torch.ops.lte as port
 import tpudes_torch.ops.propagation as port_prop
+
+_torch_cpu.one_thread()
 
 
 def _sinr_sweep(n=4096, seed=0):

@@ -17,7 +17,7 @@ any difference in the PSR's last bit could flip a decode) is printed.
 The scan's totals are equal.
 
 The CUDA kernel ``csrc/wifi_window.cu`` runs here too: built by ``g++``
-against ``tpudes_torch/csrc/mock/cuda_runtime.h`` (a thread per CUDA
+against ``tpudes_torch/csrc/mock/cuda_runtime.h`` (a fiber per CUDA
 thread) and called through its wrapper on CPU tensors, it must equal the
 plain version bit for bit (skips where ``g++`` is missing); on the card
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold it.
@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.ops import wifi_error as ref_err
 from tpudes.parallel import kernels as J
 from tpudes_torch import _build
@@ -44,6 +46,8 @@ from tpudes_torch.parallel import kernels as P
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import window_cuda
 from tpudes_torch.random import PRNGKey, replica_keys, uniform, window_keys
+
+_torch_cpu.one_thread()
 
 M = len(ref_err.ALL_MODES)
 SNR = (10.0 ** (np.linspace(-10.0, 45.0, 1001) / 10.0)).astype(np.float32)

@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.parallel.runtime import replica_keys as jax_replica_keys
 from tpudes_torch import random as tr
+
+_torch_cpu.one_thread()
 
 SEEDS = (0, 1, 3, 11, 2**31 - 1, -7)
 

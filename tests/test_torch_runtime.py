@@ -25,6 +25,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 from tpudes.parallel import programs as ref_programs
 from tpudes.parallel import runtime as ref_runtime
 from tpudes_torch.convert import (
@@ -41,6 +43,8 @@ from tpudes_torch.convert import (
 )
 from tpudes_torch.parallel import runtime
 from tpudes_torch.parallel.runtime import RUNTIME, EngineFuture
+
+_torch_cpu.one_thread()
 
 KEY = np.array([0, 5])
 

@@ -21,6 +21,8 @@ import jax
 import numpy as np
 import pytest
 
+import _torch_cpu
+
 import tpudes.chaos as ref_chaos
 import tpudes_torch.chaos as chaos
 from tpudes.obs.serving import ServingTelemetry as RefTelemetry
@@ -41,6 +43,8 @@ from tpudes_torch.convert import (
 from tpudes_torch.obs.serving import ServingTelemetry, validate_serving_metrics
 from tpudes_torch.parallel.runtime import RUNTIME
 from tpudes_torch.serving import AdmissionError, RetryBudgetError, StudyServer
+
+_torch_cpu.one_thread()
 
 SEED = 11
 KEY = np.array([0, SEED])

@@ -28,10 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.lte_sm import LteSmProgram
 from tpudes_torch.random import PRNGKey, replica_keys, tti_coins
 from tpudes_torch.scenarios import lena_grid_program, lena_ue_drop
+
+_torch_cpu.one_thread()
 
 R = 3
 CSRC = Path(kc.__file__).parents[1] / "csrc"

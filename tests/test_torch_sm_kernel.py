@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.parallel import kernels_pallas as ref
 from tpudes.parallel.programs import toy_lte_program
 from tpudes_torch.convert import (
@@ -29,6 +31,8 @@ from tpudes_torch.convert import (
 )
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel.lte_sm import run_lte_sm
+
+_torch_cpu.one_thread()
 
 FLOAT_KEYS = ("avg", "p_mi", "p_tbb")
 R = 3

@@ -2,7 +2,7 @@
 
 The kernel's own source is compiled by ``g++`` against the mock of the
 CUDA runtime and intrinsics in ``tpudes_torch/csrc/mock/`` (a block's
-threads as ``std::thread``s, 32 a warp, the warp collectives through a
+threads as fibers run in turn, 32 a warp, the warp collectives through a
 barrier; ``-ffp-contract=off``, so no product fuses into a sum that the
 source does not fuse), loaded by ctypes in place of the nvcc build, and
 called through the wrapper (``tcp_cuda.tcp_launch`` / ``tcp_profile``)
@@ -17,7 +17,9 @@ constant or the admission's tie order changed fails the comparison.
 
 The card runs the same source through nvcc (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``); this test shows the logic, not the card's arithmetic.
-Skips where ``g++`` is missing.
+Skips where ``g++`` is missing.  The kernel's build and the mutants' are
+made together, all ``g++`` processes started at once (the module's
+``builds`` fixture).
 """
 
 import ctypes
@@ -30,6 +32,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes_torch import _build
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import tcp_cuda
@@ -39,17 +43,33 @@ from tpudes_torch.random import PRNGKey
 from tpudes_torch.scenarios import dumbbell_program
 from tpudes_torch.traffic.device import app_cum_table
 
+_torch_cpu.one_thread()
+
 CSRC = Path(_build.CSRC)
 GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
              "-shared", "-pthread")
 
 
-def _build_mock(source: Path, out_dir: Path):
-    """``source`` (csrc/tcp_advance.cu or an edited copy; its headers from
-    csrc/) and its OBS arm's unit (csrc/tcp_advance_obs.cu, copied beside
-    the source, so that it includes the source it sits beside) built by
-    g++ against the CUDA mock, one object each in parallel, linked,
-    loaded."""
+#: the mutants of the plain arms: (the source's text, its replacement)
+MUTANTS = [
+    ("if (var == CUBIC) g = 0.7f;", "if (var == CUBIC) g = 0.71f;"),
+    ("(rg == rem && g < lane)", "(rg == rem && g > lane)"),
+]
+#: the OBS arm's mutants, by name
+OBS_MUTANTS = {
+    "jitter_without_seen_guard": ("rx > 0 && o.dlast >= 0.0f",
+                                  "rx > 0"),
+    "ring_slot_off_by_one": ("t % RING_CAP) * RING_COLS",
+                             "(t + 1) % RING_CAP) * RING_COLS"),
+}
+
+
+def _start_build(source: Path, out_dir: Path) -> tuple:
+    """Start ``g++`` on ``source`` (csrc/tcp_advance.cu or an edited copy;
+    its headers from csrc/) and on its OBS arm's unit (csrc/
+    tcp_advance_obs.cu, copied beside the source, so that it includes the
+    source it sits beside) against the CUDA mock, an object each; returns
+    ``(procs, objects, library path)`` for :func:`_finish_build`."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/tcp_advance.cu against the "
@@ -65,19 +85,49 @@ def _build_mock(source: Path, out_dir: Path):
             [gxx, *flags, "-c", "-I", str(CSRC / "mock"), "-I", str(CSRC),
              "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, objs, out_dir / "libtcp_advance_mock.so"
+
+
+def _finish_build(build: tuple) -> Path:
+    """Wait for :func:`_start_build`'s objects and link them."""
+    procs, objs, lib = build
     for proc in procs:
         out, _ = proc.communicate()
         assert proc.returncode == 0, out
-    lib = out_dir / "libtcp_advance_mock.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib), *objs],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
+    subprocess.run([shutil.which("g++"), "-shared", "-pthread", "-o",
+                    str(lib), *objs], check=True, capture_output=True,
+                   text=True)
+    return lib
+
+
+def _mutant_dir(root: Path, name: str, was: str, now: str) -> Path:
+    source = (CSRC / "tcp_advance.cu").read_text()
+    assert source.count(was) == 1
+    where = root / name
+    where.mkdir()
+    (where / "tcp_advance.cu").write_text(source.replace(was, now))
+    return where
 
 
 @pytest.fixture(scope="module")
-def mock_lib(tmp_path_factory):
-    return _build_mock(CSRC / "tcp_advance.cu",
-                       tmp_path_factory.mktemp("tcp_mock"))
+def builds(tmp_path_factory):
+    """The kernel's mock build and every mutant's (:data:`MUTANTS` as
+    ``"mutant<i>"``, :data:`OBS_MUTANTS` by name), all ``g++`` processes
+    started together; the libraries' paths by name."""
+    root = tmp_path_factory.mktemp("tcp_mock")
+    (root / "main").mkdir()
+    started = {"main": _start_build(CSRC / "tcp_advance.cu", root / "main")}
+    for name, (was, now) in [*((f"mutant{i}", m)
+                               for i, m in enumerate(MUTANTS)),
+                             *OBS_MUTANTS.items()]:
+        where = _mutant_dir(root, name, was, now)
+        started[name] = _start_build(where / "tcp_advance.cu", where)
+    return {name: _finish_build(b) for name, b in started.items()}
+
+
+@pytest.fixture(scope="module")
+def mock_lib(builds):
+    return ctypes.CDLL(str(builds["main"]))
 
 
 @pytest.fixture
@@ -248,20 +298,14 @@ def test_mock_kernel_short_ack_lag(kernel, lag, delay, access):
     _kernel_vs_plain(prog, 2, cuts=(37,))
 
 
-@pytest.mark.parametrize("was, now", [
-    ("if (var == CUBIC) g = 0.7f;", "if (var == CUBIC) g = 0.71f;"),
-    ("(rg == rem && g < lane)", "(rg == rem && g > lane)"),
-])
-def test_mock_kernel_mutant_fails(tmp_path, monkeypatch, was, now):
+@pytest.mark.parametrize("was, now", MUTANTS)
+def test_mock_kernel_mutant_fails(builds, monkeypatch, was, now):
     """A copy of the source with Cubic's loss factor or the admission's
     tie order (equal remainders ranked by lane) changed: the comparison
     that the tests above make fails, so it can see such a change."""
-    source = (CSRC / "tcp_advance.cu").read_text()
-    assert source.count(was) == 1
-    mutant = tmp_path / "tcp_advance.cu"
-    mutant.write_text(source.replace(was, now))
+    name = f"mutant{MUTANTS.index((was, now))}"
     monkeypatch.setitem(_build._LOADED, "tcp_advance",
-                        _build_mock(mutant, tmp_path))
+                        ctypes.CDLL(str(builds[name])))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
@@ -278,14 +322,6 @@ def test_mock_kernel_mutant_fails(tmp_path, monkeypatch, was, now):
 #: the OBS arm's mutants (in tcp_advance.cu's obs_slot, which the OBS unit
 #: instantiates): the jitter taken without its first-delivery guard, and
 #: the ring row written one slot late
-OBS_MUTANTS = {
-    "jitter_without_seen_guard": ("rx > 0 && o.dlast >= 0.0f",
-                                  "rx > 0"),
-    "ring_slot_off_by_one": ("t % RING_CAP) * RING_COLS",
-                             "(t + 1) % RING_CAP) * RING_COLS"),
-}
-
-
 def _obs_kernel_vs_plain(prog, replicas, cuts=(), variants=None,
                          workloads=None):
     """:func:`_kernel_vs_plain` with the obs state: the OBS arm's launches
@@ -345,14 +381,9 @@ def test_mock_obs_arm_red_and_grids(kernel):
 
 
 @pytest.mark.parametrize("name", sorted(OBS_MUTANTS))
-def test_mock_obs_arm_mutant_fails(tmp_path, monkeypatch, name):
-    was, now = OBS_MUTANTS[name]
-    source = (CSRC / "tcp_advance.cu").read_text()
-    assert source.count(was) == 1
-    mutant = tmp_path / "tcp_advance.cu"
-    mutant.write_text(source.replace(was, now))
+def test_mock_obs_arm_mutant_fails(builds, monkeypatch, name):
     monkeypatch.setitem(_build._LOADED, "tcp_advance",
-                        _build_mock(mutant, tmp_path))
+                        ctypes.CDLL(str(builds[name])))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))

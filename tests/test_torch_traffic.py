@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.traffic.device import TRAFFIC_KEY_TAG as JAX_TAG
 from tpudes.traffic.device import build_bits_fn
 from tpudes.traffic.host import offered_bits_mean as jax_offered_bits_mean
@@ -33,6 +35,8 @@ from tpudes_torch.traffic.device import (
 )
 from tpudes_torch.traffic.host import offered_bits_mean
 from tpudes_torch.traffic.program import TrafficProgram, traffic_tables
+
+_torch_cpu.one_thread()
 
 N = 6
 HORIZON_US = 400_000

@@ -21,10 +21,14 @@ import pytest
 import torch
 from jax.scipy.special import erfc as jax_erfc
 
+import _torch_cpu
+
 from tpudes.ops import wifi_error as ref
 from tpudes_torch.ops import fused
 from tpudes_torch.ops import interference
 from tpudes_torch.ops import wifi_error as port
+
+_torch_cpu.one_thread()
 
 SNR_DB = np.linspace(-10.0, 40.0, 20001)
 SNR = (10.0 ** (SNR_DB / 10.0)).astype(np.float32)

@@ -1,7 +1,7 @@
 """The redesigned ``csrc/wifi_window.cu`` on the CPU, through the CUDA mock.
 
 The kernel's source is built by ``g++`` against
-``tpudes_torch/csrc/mock/cuda_runtime.h`` (a thread per CUDA thread) and
+``tpudes_torch/csrc/mock/cuda_runtime.h`` (a fiber per CUDA thread) and
 called through its wrappers (``window_cuda``) on CPU tensors:
 
 - its multiply-add over f64 registers (``F32d::fma``: the f64 fused
@@ -39,11 +39,15 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes_torch import _build
 from tpudes_torch.parallel import kernels as P
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import window_cuda
 from tpudes_torch.random import PRNGKey, replica_keys, uniform
+
+_torch_cpu.one_thread()
 
 CSRC = Path(_build.CSRC)
 GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
@@ -51,21 +55,52 @@ GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
 M = 20
 
 
-def _build_mock(source: Path, out: Path) -> ctypes.CDLL:
+#: the mutants, by name: (the source's text, its replacement)
+MUTANTS = {
+    "single_rounding": (
+        "  return r24(__fma_rn(a, b, c));",
+        "  return __fmaf_rn(static_cast<float>(a), static_cast<float>(b), "
+        "static_cast<float>(c));"),
+    "sum_out_of_block_order": (
+        "  return n <= SUM_BLOCK\n             ? 0\n",
+        "  return n <= 1 << 30\n             ? 0\n"),
+}
+
+
+def _start_build(source: Path, out: Path) -> subprocess.Popen:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build csrc/wifi_window.cu against the "
                     "CUDA mock")
-    subprocess.run([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
-                    str(CSRC), "-o", str(out), str(source)], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    return subprocess.Popen([gxx, *GXX_FLAGS, "-I", str(CSRC / "mock"), "-I",
+                             str(CSRC), "-o", str(out), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
 
 
 @pytest.fixture(scope="module")
-def mock_lib(tmp_path_factory):
-    out = tmp_path_factory.mktemp("win_mock") / "libwifi_window_mock.so"
-    return _build_mock(CSRC / "wifi_window.cu", out)
+def builds(tmp_path_factory):
+    """The kernel's mock build and each of :data:`MUTANTS`', all ``g++``
+    processes started together; the libraries' paths by name."""
+    root = tmp_path_factory.mktemp("win_mock")
+    sources = {"main": CSRC / "wifi_window.cu"}
+    text = (CSRC / "wifi_window.cu").read_text()
+    for name, (was, now) in MUTANTS.items():
+        assert text.count(was) == 1
+        (root / name).mkdir()
+        sources[name] = root / name / "wifi_window.cu"
+        sources[name].write_text(text.replace(was, now))
+    procs = {name: (_start_build(src, root / f"lib{name}.so"),
+                    root / f"lib{name}.so") for name, src in sources.items()}
+    for name, (proc, _) in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"{name}: {out}"
+    return {name: path for name, (_, path) in procs.items()}
+
+
+@pytest.fixture(scope="module")
+def mock_lib(builds):
+    return ctypes.CDLL(str(builds["main"]))
 
 
 def _use(lib, monkeypatch):
@@ -326,31 +361,23 @@ def test_probe_equals_main_launch(kernel, what):
 # --------------------------------------------------------------------------
 
 
-def _mutant(tmp_path, monkeypatch, was: str, now: str):
-    source = (CSRC / "wifi_window.cu").read_text()
-    assert source.count(was) == 1
-    path = tmp_path / "wifi_window.cu"
-    path.write_text(source.replace(was, now))
-    _use(_build_mock(path, tmp_path / "libmutant.so"), monkeypatch)
+def _mutant(builds, monkeypatch, name: str):
+    _use(ctypes.CDLL(str(builds[name])), monkeypatch)
 
 
-def test_mutant_single_rounding_fails(tmp_path, monkeypatch):
+def test_mutant_single_rounding_fails(builds, monkeypatch):
     """The multiply-add rounded once (f32's own fma): the constructed ties
     see it."""
-    _mutant(tmp_path, monkeypatch, "  return r24(__fma_rn(a, b, c));",
-            "  return __fmaf_rn(static_cast<float>(a), static_cast<float>(b), "
-            "static_cast<float>(c));")
+    _mutant(builds, monkeypatch, "single_rounding")
     a, b, c = _ties(np.random.default_rng(2), 1 << 12)
     got, _ = window_cuda.fma_check(*(torch.from_numpy(x) for x in (a, b, c)))
     assert not np.array_equal(_bits(got.numpy()), _bits(_definition(a, b, c)))
 
 
-def test_mutant_sum_out_of_block_order_fails(tmp_path, monkeypatch):
+def test_mutant_sum_out_of_block_order_fails(builds, monkeypatch):
     """The column sum over the transmitter list in one run, not the
     compiled blocks of 32: the window's sinr sees it at 65 nodes."""
-    _mutant(tmp_path, monkeypatch,
-            "  return n <= SUM_BLOCK\n             ? 0\n",
-            "  return n <= 1 << 30\n             ? 0\n")
+    _mutant(builds, monkeypatch, "sum_out_of_block_order")
     pos, tx, mode, fb = _window_inputs(65, 2, 0.7, 4)
     keys = replica_keys(PRNGKey(1), 2)
     got = window_cuda.window_launch(pos, tx, mode, fb, keys, P.WindowParams())

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes.parallel import hybrid as ref_hybrid
 from tpudes.parallel import wired as ref
 from tpudes_torch import random as tr
@@ -31,6 +33,8 @@ from tpudes_torch.convert import (
     wired_state_from_numpy,
 )
 from tpudes_torch.parallel import wired as W
+
+_torch_cpu.one_thread()
 
 KEY = 7
 FIELDS = ("deliver_slot", "delivered", "served")

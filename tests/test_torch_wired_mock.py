@@ -1,7 +1,7 @@
 """``csrc/wired_advance.cu`` on the CPU, through the CUDA mock.
 
 The kernel's source is built by ``g++`` against
-``tpudes_torch/csrc/mock/cuda_runtime.h`` (a thread per CUDA thread) and
+``tpudes_torch/csrc/mock/cuda_runtime.h`` (a fiber per CUDA thread) and
 called through ``wired_cuda.wired_cuda`` on CPU tensors, each launch held
 against the plain ``wired.advance_math`` on a copy of the same carry:
 every state array, ``t``, ``next_event`` and ``n_steps`` bit-equal.
@@ -48,11 +48,15 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu
+
 from tpudes_torch import _build
 from tpudes_torch.parallel import hybrid
 from tpudes_torch.parallel import kernels_cuda as kc
 from tpudes_torch.parallel import wired as W
 from tpudes_torch.parallel import wired_cuda
+
+_torch_cpu.one_thread()
 
 CSRC = Path(_build.CSRC)
 GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",

@@ -18,6 +18,8 @@ run on the engine runtime (:mod:`tpudes_torch.parallel.runtime`: runner
 cache, replica buckets, submitted runs, the chunk drive and
 :mod:`~tpudes_torch.parallel.checkpoint`), and
 :class:`tpudes_torch.serving.StudyServer` serves studies over them.
+:mod:`tpudes_torch.diff` differentiates the AS and LTE engines with
+``torch.autograd`` (grads, calibrations, design search).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without CUDA they raise rather than fall back.

@@ -257,13 +257,25 @@ def dumbbell_state_from_numpy(state: Mapping, device=None) -> dict:
 
 
 #: the reference ``AsFlowsProgram``'s fields (``traffic`` crosses through
-#: :func:`traffic_from_numpy`; ``surrogate`` as it is, and the port
-#: refuses to run a program that sets it)
+#: :func:`traffic_from_numpy`; ``surrogate`` by its three fields,
+#: :func:`surrogate_from_numpy`)
 AS_FIELDS = (
     "n", "edges", "delay_s", "rate_bps", "src", "dst", "flow_bps",
     "pkt_bytes", "sim_s", "max_hops", "spf_rounds", "rate_jitter",
     "spf_metric", "traffic", "surrogate",
 )
+
+
+def surrogate_from_numpy(sur):
+    """The port's :class:`~tpudes_torch.diff.Surrogacy` from the
+    reference's (its ``temp``, ``gate_temp`` and ``ste``; None stays
+    None)."""
+    if sur is None:
+        return None
+    from tpudes_torch.diff.surrogate import Surrogacy
+
+    return Surrogacy(temp=float(sur.temp), gate_temp=float(sur.gate_temp),
+                     ste=bool(sur.ste))
 
 
 def as_from_numpy(fields: Mapping) -> AsFlowsProgram:
@@ -287,7 +299,7 @@ def as_from_numpy(fields: Mapping) -> AsFlowsProgram:
         sim_s=float(fields["sim_s"]),
         rate_jitter=float(fields.get("rate_jitter", 0.3)),
         spf_metric=str(fields.get("spf_metric", "hops")),
-        traffic=tr, surrogate=fields.get("surrogate"),
+        traffic=tr, surrogate=surrogate_from_numpy(fields.get("surrogate")),
         **{k: int(v) for k, v in opt.items()},
     )
 

@@ -60,6 +60,15 @@
 //   2. each link sums its contributions in list order from 0.0f (the CPU
 //      applies a scatter's duplicate updates in update order, hop after
 //      hop), util = load * c, lfrac = log(min(1 / max(util, 1e-9), 1));
+//      or, in the SOFT instantiation (a program whose surrogate is
+//      Surrogacy(ste=False): tpudes/parallel/as_flows.py:340-354), the
+//      soft delivery gate -softplus(log(max(util, 1e-9)) / t) * t at
+//      t = gate_temp, as the reference's optimised HLO computes it: x =
+//      log(max(util, 1e-9)) times the f32 1 / t, then (max(x, 0) +
+//      log1p(exp(-|x|))), negated, times t.  Straight-through programs
+//      (ste=True) take the hard instantiation: their forward is the hard
+//      gate plus soft - soft, an exact zero because util is clamped
+//      below, so the soft term is finite;
 // with a barrier after each.  A round that leaves every lfrac as it found
 // it has reached the fixed point: the rounds after it would repeat it bit
 // for bit, so the point stops there (__syncthreads_or of the links' moves).
@@ -465,6 +474,7 @@ struct FluidArgs {
   long long* prof;         // the probe's FLUID_PROF_WORDS, or null
   int F, L, FH, C, R, rounds, fold;
   float jitter, neg_hj2, util_min, rho_max;
+  float gate_t, inv_t;     // the SOFT gate's temperature and 1 / t (f32)
 };
 
 // a 16-byte copy from device memory into shared memory, complete after
@@ -486,7 +496,7 @@ __device__ __forceinline__ void cp_wait() {
 #endif
 }
 
-template <bool PROF>
+template <bool PROF, bool SOFT>
 __global__ void __launch_bounds__(FLUID_THREADS) as_fluid(FluidArgs a) {
   const int r = blockIdx.x;  // the replica; its C points in turn
   const int tid = threadIdx.x;
@@ -584,8 +594,18 @@ __global__ void __launch_bounds__(FLUID_THREADS) as_fluid(FluidArgs a) {
           load = __fadd_rn(load, contrib[lslot[j]]);
         const float u = __fmul_rn(load, lc[l]);
         util[l] = u;
-        const float x = fminf(__fdiv_rn(1.0f, fmaxf(u, a.util_min)), 1.0f);
-        const float lf = x == 1.0f ? 0.0f : xla_math::xla_log(x);
+        float lf;
+        if constexpr (SOFT) {
+          const float x = __fmul_rn(xla_math::xla_log(fmaxf(u, a.util_min)),
+                                    a.inv_t);
+          const float sp =
+              __fadd_rn(fmaxf(x, 0.0f),
+                        xla_math::xla_log1p(xla_math::xla_exp(-fabsf(x))));
+          lf = __fmul_rn(-sp, a.gate_t);
+        } else {
+          const float x = fminf(__fdiv_rn(1.0f, fmaxf(u, a.util_min)), 1.0f);
+          lf = x == 1.0f ? 0.0f : xla_math::xla_log(x);
+        }
         moved |= __float_as_int(lf) != __float_as_int(lfrac[l]);
         lost |= lf != 0.0f;
         lfrac[l] = lf;
@@ -704,30 +724,36 @@ extern "C" int as_spf_launch(const int* row_ptr, const int* col_v,
 // written); writes goodput, delay, frac (C, R, F), max_util (C, R) and, where
 // z_out is not null, the draws (R, F).  ints: F, L, FH (the flow-hops),
 // words, C, R, rounds, the shared bytes a CTA (as tpudes_torch/parallel/
-// as_cuda.py::fluid_smem_bytes counts them), fold; floats: the jitter,
-// -jitter^2 / 2, the utilisation floor and the utilisation cap of the
-// delay; prof: the probe's words (null: the main instantiation).
+// as_cuda.py::fluid_smem_bytes counts them), fold, soft (1: the SOFT
+// gate); floats: the jitter, -jitter^2 / 2, the utilisation floor and the
+// utilisation cap of the delay, the soft gate's temperature t and its f32
+// 1 / t; prof: the probe's words (null: the main instantiation).
 extern "C" int as_fluid_launch(
     const int* blob, const float* fm, const float* scale,
     const long long* key, const uint8_t* reached, const float* lfrac_in,
     float* lfrac_out, float* goodput, float* delay, float* frac,
     float* max_util, float* z_out, long long* prof, int F, int L, int FH,
-    int words, int C, int R, int rounds, int smem, int fold, float jitter,
-    float neg_hj2, float util_min, float rho_max, cudaStream_t st) {
+    int words, int C, int R, int rounds, int smem, int fold, int soft,
+    float jitter, float neg_hj2, float util_min, float rho_max,
+    float gate_t, float inv_t, cudaStream_t st) {
   using namespace as_kernel;
   const Blob b(F, L, FH);
   const long long need =
       4LL * (b.off[8] + 2LL * L + 3LL * F + FH + FLUID_THREADS / 32);
   if (F <= 0 || L < 0 || FH < 0 || C <= 0 || R <= 0 || rounds < 1 ||
-      words != b.off[8] || smem != need ||
+      words != b.off[8] || smem != need || (soft && !(gate_t > 0.0f)) ||
       static_cast<long long>(C) * R >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   FluidArgs a{blob,     fm,      scale,    key,     reached, lfrac_in,
               lfrac_out, goodput, delay,   frac,    max_util, z_out,
               prof,     F,       L,        FH,      C,       R,
-              rounds,   fold,    jitter,   neg_hj2, util_min, rho_max};
-  return prof ? launch(as_fluid<true>, a, R, FLUID_THREADS, need, st)
-              : launch(as_fluid<false>, a, R, FLUID_THREADS, need, st);
+              rounds,   fold,    jitter,   neg_hj2, util_min, rho_max,
+              gate_t,   inv_t};
+  if (soft)
+    return prof ? launch(as_fluid<true, true>, a, R, FLUID_THREADS, need, st)
+                : launch(as_fluid<false, true>, a, R, FLUID_THREADS, need, st);
+  return prof ? launch(as_fluid<true, false>, a, R, FLUID_THREADS, need, st)
+              : launch(as_fluid<false, false>, a, R, FLUID_THREADS, need, st);
 }
 
 // The draw's erf_inv (as_fluid's, xla_math::xla_erf_inv) of n floats: a

@@ -7,14 +7,16 @@
 //         -o libtcp_advance_mock.so tpudes_torch/csrc/tcp_advance.cu
 //
 // (one command; tests/test_torch_tcp_mock.py builds it so).  cudaLaunchKernel
-// runs the
-// grid's blocks one after another, each block as one std::thread per CUDA
-// thread; the warp collectives (__shfl*_sync, __ballot_sync,
-// __reduce_*_sync, __any_sync, __syncwarp) meet at a std::barrier of the
-// warp's 32 threads, so every lane must reach each of them, as on the card
-// with a full mask; a named barrier (bar.sync id, 64: the kernel's
-// pair_sync) is a std::barrier of 64 threads, and __syncthreads (and
-// __syncthreads_or) one of the block's threads.  Dynamic shared memory is the one buffer tcp_smem (or
+// runs the grid's blocks one after another, and each block's CUDA threads as
+// fibers (ucontext) that the launching thread runs in turn, each until it
+// waits at a barrier; the warp collectives (__shfl*_sync, __ballot_sync,
+// __reduce_*_sync, __any_sync, __syncwarp) meet at a barrier of the warp's
+// 32 threads, so every lane must reach each of them, as on the card with a
+// full mask; a named barrier (bar.sync id, 64: the kernel's pair_sync) is a
+// barrier of 64 threads, and __syncthreads (and __syncthreads_or) one of the
+// block's threads.  A barrier that no thread will complete aborts.  One OS
+// thread a launch keeps a run's cost and order the same however loaded the
+// host is.  Dynamic shared memory is the one buffer tcp_smem (or
 // dyn_smem), and a __shared__ variable at namespace scope a global (the
 // blocks run one at a time).  The f32 and f64 intrinsics are the IEEE
 // operations they name, rounded to nearest; -ffp-contract=off keeps g++
@@ -28,15 +30,18 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+#include <sys/mman.h>
+#include <ucontext.h>
 
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <deque>
 #include <limits>
 #include <memory>
-#include <thread>
 #include <tuple>
 #include <type_traits>
 #include <utility>
@@ -91,23 +96,109 @@ inline cudaError_t cudaMemsetAsync(void* p, int value, size_t n,
 
 namespace cuda_mock {
 
+// The running block: its CUDA threads as fibers, each with its own stack,
+// that the launching thread runs in turn.  A fiber runs until it waits at a
+// barrier or ends; the barrier's last arrival puts its waiters back at the
+// end of the ready queue, in the order they arrived, and runs on.  The
+// kernels synchronise only through barriers and warp collectives (no lane
+// spins on another's write), so this is one of the orders the card may
+// take, and the same one on every run.
+struct Block;
+inline thread_local Block* block = nullptr;
+
+struct Barrier {
+  unsigned n, arrived = 0;
+  std::vector<unsigned> waiting;  // fibers, in the order they arrived
+  explicit Barrier(unsigned n_) : n(n_) {}
+  void arrive_and_wait();
+};
+
 // one warp's meeting point: each lane posts its word, all meet, each reads
 // the 32 words, all meet again before the next collective may post
 struct Warp {
-  std::barrier<> bar{32};
+  Barrier bar{32};
   uint64_t word[32];
 };
 inline thread_local Warp* warp_of = nullptr;
 // the block's named barriers (bar.sync id, n), n threads each
-inline thread_local std::vector<std::unique_ptr<std::barrier<>>>* named =
-    nullptr;
+inline thread_local std::vector<std::unique_ptr<Barrier>>* named = nullptr;
 // the block's __syncthreads barrier, all its threads
-inline thread_local std::barrier<>* block_barrier = nullptr;
+inline thread_local Barrier* block_barrier = nullptr;
 // __syncthreads_or: call i posts to slot i % 3 and clears slot (i + 2) % 3,
 // whose last readers met at call i's barrier and whose next writers meet at
 // call i + 1's first
 inline thread_local std::atomic<int>* or_slots = nullptr;
 inline thread_local unsigned or_calls = 0;
+
+// a fiber's stack: its pages are mapped when first touched, and the lowest
+// is a guard, so that an overflow faults
+constexpr size_t kStack = size_t{1} << 20;
+struct Stack {
+  void* base = nullptr;
+  Stack() {
+    base = mmap(nullptr, kStack, PROT_READ | PROT_WRITE,
+                MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (base == MAP_FAILED) abort();
+    mprotect(base, 4096, PROT_NONE);
+  }
+  Stack(const Stack&) = delete;
+  ~Stack() { munmap(base, kStack); }
+};
+// the launching thread's stacks, kept for its next blocks
+inline thread_local std::vector<std::unique_ptr<Stack>> stacks;
+
+struct Block {
+  std::vector<ucontext_t> ctx;
+  std::vector<unsigned> calls;  // each fiber's or_calls
+  std::vector<Warp>* warps;
+  std::deque<unsigned> ready;
+  ucontext_t main;
+  unsigned cur = 0, live = 0;
+  void (*run)(void*);
+  void* arg;
+
+  // switch from the running fiber (or the launching thread's context,
+  // `from`) to fiber `next`, with its thread's variables
+  void resume(unsigned next, ucontext_t* from) {
+    if (from != &main) calls[cur] = or_calls;
+    cur = next;
+    threadIdx = dim3(next);
+    warp_of = &(*warps)[next / 32];
+    or_calls = calls[next];
+    swapcontext(from, &ctx[next]);
+  }
+  // the running fiber waits: the next ready one runs
+  void suspend() {
+    if (ready.empty()) {
+      fprintf(stderr, "cuda mock: every live thread of block %u waits at a "
+              "barrier that no thread will reach\n", blockIdx.x);
+      abort();
+    }
+    const unsigned next = ready.front();
+    ready.pop_front();
+    resume(next, &ctx[cur]);
+  }
+  static void entry() {
+    Block& b = *block;
+    b.run(b.arg);
+    --b.live;
+    if (b.live == 0) {
+      swapcontext(&b.ctx[b.cur], &b.main);
+    }
+    b.suspend();
+  }
+};
+
+inline void Barrier::arrive_and_wait() {
+  if (++arrived == n) {
+    arrived = 0;
+    for (unsigned w : waiting) block->ready.push_back(w);
+    waiting.clear();
+    return;
+  }
+  waiting.push_back(block->cur);
+  block->suspend();
+}
 
 inline void named_barrier_sync(int id, int n) {
   (*named)[id]->arrive_and_wait();
@@ -146,36 +237,56 @@ inline void call(void (*f)(P...), void** args, std::index_sequence<I...>) {
 
 }  // namespace cuda_mock
 
-// the grid's blocks in turn, each block's threads together
+// the grid's blocks in turn, each block's threads as fibers
 template <class... P>
 inline cudaError_t cudaLaunchKernel(void (*f)(P...), dim3 grid, dim3 block,
                                     void** args, size_t, cudaStream_t) {
   const unsigned n = block.x;
   if (n == 0 || n % 32 != 0) return cudaErrorInvalidValue;
+  auto& stacks = cuda_mock::stacks;
+  while (stacks.size() < n)
+    stacks.push_back(std::make_unique<cuda_mock::Stack>());
+  struct Kernel {
+    void (*f)(P...);
+    void** args;
+  } kernel{f, args};
+  cuda_mock::Block* const outer = cuda_mock::block;
   for (unsigned b = 0; b < grid.x; ++b) {
     std::vector<cuda_mock::Warp> warps(n / 32);
-    std::vector<std::unique_ptr<std::barrier<>>> named;
+    std::vector<std::unique_ptr<cuda_mock::Barrier>> named;
     for (int i = 0; i < 16; ++i)
-      named.push_back(std::make_unique<std::barrier<>>(64));
-    std::barrier<> block_bar(n);
+      named.push_back(std::make_unique<cuda_mock::Barrier>(64));
+    cuda_mock::Barrier block_bar(n);
     std::atomic<int> or_slots[3] = {0, 0, 0};
-    std::vector<std::thread> threads;
-    threads.reserve(n);
-    for (unsigned t = 0; t < n; ++t)
-      threads.emplace_back([&, t] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(b);
-        blockDim = block;
-        gridDim = grid;
-        cuda_mock::warp_of = &warps[t / 32];
-        cuda_mock::named = &named;
-        cuda_mock::block_barrier = &block_bar;
-        cuda_mock::or_slots = or_slots;
-        cuda_mock::or_calls = 0;
-        cuda_mock::call(f, args, std::index_sequence_for<P...>{});
-      });
-    for (auto& th : threads) th.join();
+    cuda_mock::Block blk;
+    blk.ctx.resize(n);
+    blk.calls.assign(n, 0);
+    blk.warps = &warps;
+    blk.live = n;
+    blk.run = [](void* k) {
+      auto* kn = static_cast<Kernel*>(k);
+      cuda_mock::call(kn->f, kn->args, std::index_sequence_for<P...>{});
+    };
+    blk.arg = &kernel;
+    for (unsigned t = 0; t < n; ++t) {
+      ucontext_t& c = blk.ctx[t];
+      getcontext(&c);
+      c.uc_stack.ss_sp = stacks[t]->base;
+      c.uc_stack.ss_size = cuda_mock::kStack;
+      c.uc_link = nullptr;
+      makecontext(&c, &cuda_mock::Block::entry, 0);
+      if (t > 0) blk.ready.push_back(t);
+    }
+    blockIdx = dim3(b);
+    blockDim = block;
+    gridDim = grid;
+    cuda_mock::named = &named;
+    cuda_mock::block_barrier = &block_bar;
+    cuda_mock::or_slots = or_slots;
+    cuda_mock::block = &blk;
+    blk.resume(0, &blk.main);
   }
+  cuda_mock::block = outer;
   return cudaSuccess;
 }
 

@@ -1147,7 +1147,7 @@ extern "C" int wifi_fma_check(const float* a, const float* b, const float* c,
                               void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
 #ifdef TPUDES_CUDA_MOCK
-  constexpr long long most = 4;  // the mock runs a thread per CUDA thread
+  constexpr long long most = 4;  // the mock runs a fiber per CUDA thread
 #else
   constexpr long long most = 4096;
 #endif
@@ -1168,7 +1168,7 @@ extern "C" int wifi_chain_check(const float* x, float* got, float* want,
                                 void* stream) {
   if (n <= 0 || which < 0 || which > 3) return cudaErrorInvalidValue;
 #ifdef TPUDES_CUDA_MOCK
-  constexpr long long most = 4;  // the mock runs a thread per CUDA thread
+  constexpr long long most = 4;  // the mock runs a fiber per CUDA thread
 #else
   constexpr long long most = 4096;
 #endif

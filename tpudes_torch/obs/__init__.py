@@ -10,11 +10,13 @@
 - geometry-refresh and workload telemetry
   (:mod:`tpudes_torch.obs.geometry`, :mod:`tpudes_torch.obs.traffic`);
 - the hybrid PDES window record (:mod:`tpudes_torch.obs.distributed`);
-- the serving layer's metrics (:mod:`tpudes_torch.obs.serving`).
+- the serving layer's metrics (:mod:`tpudes_torch.obs.serving`);
+- the diff subsystem's loss and gradient-norm rings
+  (:mod:`tpudes_torch.obs.grad`).
 
 ``python -m tpudes_torch.obs --flowmon flowmon.xml`` / ``--pcap out.pcap``
-/ ``--distributed``, ``--geometry``, ``--traffic`` or ``--serving
-metrics.json`` validate the artifacts.  Not ported: the reference's
+/ ``--distributed``, ``--geometry``, ``--traffic``, ``--serving`` or
+``--grad metrics.json`` validate the artifacts.  Not ported: the reference's
 Chrome-trace export (``tpudes/obs/export.py``) and host profiler, which
 wait for a host layer of the port's own (ROADMAP A16).
 """
@@ -41,6 +43,7 @@ from tpudes_torch.obs.flowmon import (
     write_events_pcap,
 )
 from tpudes_torch.obs.geometry import GeomTelemetry, validate_geometry_metrics
+from tpudes_torch.obs.grad import GradTelemetry, validate_grad_metrics
 from tpudes_torch.obs.schema import make_need
 from tpudes_torch.obs.serving import ServingTelemetry, validate_serving_metrics
 from tpudes_torch.obs.traffic import TrafficTelemetry, validate_traffic_metrics
@@ -53,6 +56,7 @@ __all__ = [
     "FiveTuple",
     "FlowStats",
     "GeomTelemetry",
+    "GradTelemetry",
     "KernelProfile",
     "ServingTelemetry",
     "TrafficTelemetry",
@@ -67,6 +71,7 @@ __all__ = [
     "validate_distributed_metrics",
     "validate_flowmon_xml",
     "validate_geometry_metrics",
+    "validate_grad_metrics",
     "validate_pcap",
     "validate_serving_metrics",
     "validate_traffic_metrics",

@@ -8,15 +8,16 @@ Usage::
     python -m tpudes_torch.obs --geometry <metrics.json> [more.json ...]
     python -m tpudes_torch.obs --traffic <metrics.json> [more.json ...]
     python -m tpudes_torch.obs --serving <metrics.json> [more.json ...]
+    python -m tpudes_torch.obs --grad <metrics.json> [more.json ...]
 
 The reference CLI's modes (``tpudes/obs/__main__.py``) for what the port
 records: ``--flowmon`` checks FlowMonitor XML exports
 (:class:`~tpudes_torch.obs.flowmon.DeviceFlowMonitor`'s, or upstream
 ns-3's ``SerializeToXmlFile``) for the standard FlowStats attributes;
 ``--pcap`` validates classic libpcap captures record by record;
-``--distributed``, ``--geometry``, ``--traffic`` and ``--serving`` check
-the telemetry snapshots dumped as JSON.  The Chrome-trace default, and
-``--fuzz`` and ``--grad``, have no port counterpart.  Exit 0 when every
+``--distributed``, ``--geometry``, ``--traffic``, ``--serving`` and
+``--grad`` check the telemetry snapshots dumped as JSON.  The
+Chrome-trace default and ``--fuzz`` have no port counterpart.  Exit 0 when every
 file is valid, 1 on violations, 2 on usage or unreadable input.
 """
 
@@ -28,6 +29,7 @@ import sys
 from tpudes_torch.obs.distributed import validate_distributed_metrics
 from tpudes_torch.obs.flowmon import validate_flowmon_xml, validate_pcap
 from tpudes_torch.obs.geometry import validate_geometry_metrics
+from tpudes_torch.obs.grad import validate_grad_metrics
 from tpudes_torch.obs.serving import validate_serving_metrics
 from tpudes_torch.obs.traffic import validate_traffic_metrics
 
@@ -41,6 +43,8 @@ _JSON_MODES = {
                   lambda d: len(d["engines"])),
     "--serving": (validate_serving_metrics, "serving metrics",
                   lambda d: len(d["engines"])),
+    "--grad": (validate_grad_metrics, "grad metrics",
+               lambda d: len(d["engines"])),
 }
 _MODES = ("--flowmon", "--pcap", *_JSON_MODES)
 

@@ -165,6 +165,18 @@ def device_table(table: np.ndarray, device) -> torch.Tensor:
     return out
 
 
+def const_table(values, like: torch.Tensor) -> torch.Tensor:
+    """The f32 values ``values`` as a tensor on ``like``'s device, made
+    there once per content and device and kept (keyed by value, so a
+    fresh array of the same values finds it)."""
+    a = np.ascontiguousarray(values, np.float32)
+    key = ("table", a.tobytes(), a.shape, like.device)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = torch.as_tensor(a, device=like.device)
+    return out
+
+
 def fma(a, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once to f32 (tensors or 0-dim tensors)."""
     return torch.addcmul(c.double(), a.double(), b.double()).float()
@@ -202,13 +214,21 @@ def log(x: torch.Tensor) -> torch.Tensor:
     z = (m - 1.0) + torch.where(low, m, f32(x, 0.0))
     z2 = z * z
     z3 = z2 * z
-    p = [f32(x, v) for v in _LOG_P]
-    y0 = fma(fma(z, p[0], p[1]), z, p[2])
-    y1 = fma(fma(z, p[3], p[4]), z, p[5])
-    y2 = fma(fma(z, p[6], p[7]), z, p[8])
-    y = fma(fma(y0, z3, y1), z3, y2)
-    y = fma(y, z3, e * f32(x, _LOG_Q1))
-    return (fma(f32(x, -0.5), z2, z) + y) + e * f32(x, _LOG_Q2)
+    # every multiply-add in f64 from exact f64 copies, rounded once
+    z64, z3_64 = z.double(), z3.double()
+    p = [f32_in_f64(x, v) for v in _LOG_P]
+
+    def fma64(a64, b64, c64):
+        return torch.addcmul(c64, a64, b64).float()
+
+    y0 = fma64(fma64(z64, p[0], p[1]).double(), z64, p[2])
+    y1 = fma64(fma64(z64, p[3], p[4]).double(), z64, p[5])
+    y2 = fma64(fma64(z64, p[6], p[7]).double(), z64, p[8])
+    y = fma64(fma64(y0.double(), z3_64, y1.double()).double(), z3_64,
+              y2.double())
+    y = fma64(y.double(), z3_64, (e * f32(x, _LOG_Q1)).double())
+    return ((fma64(f32_in_f64(x, -0.5), z2.double(), z64) + y)
+            + e * f32(x, _LOG_Q2))
 
 
 #: ``1 / ln 10`` in f32: the compiled ``log10`` is ``log(x)`` times it

@@ -3,8 +3,12 @@
 Counterpart of ``tpudes/ops/lte.py``; the tables and constants are
 copies of its lines 39-92 (3GPP TS 36.211/36.213 public values, the
 LENA PiroEW2010 SNR gap, the Gaussian-waterfall error model).  The f32
-path and the bf16 one (``dtype=jnp.bfloat16``) are ported; the
-surrogates are not.
+path and the bf16 one (``dtype=jnp.bfloat16``) are ported, and the
+surrogate seams of the differentiable chain (``surrogate=`` of
+:func:`cqi_from_sinr`, :func:`eff_from_sinr`, :func:`qm_from_eff`,
+:func:`decode_ok`; ``:148-248``), whose arithmetic is the jitted chain's
+(:func:`se_compiled`) and differentiable
+(:mod:`tpudes_torch.ops.fused_grad`).
 
 The arithmetic follows what the reference computes, which is not always
 its source text: ``jnp.log2`` is ``log(x) / log(2)`` compiled, and XLA
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from tpudes_torch.ops import fused as compiled
+from tpudes_torch.ops import fused_grad as dmath
 
 RB_BANDWIDTH_HZ = 180e3          # 12 subcarriers x 15 kHz
 RE_PER_RB_DATA = 120.0           # ~168 REs/RB/TTI minus PDCCH + RS overhead
@@ -129,9 +134,97 @@ def cqi_from_efficiency(se: torch.Tensor) -> torch.Tensor:
     return hit.sum(dim=-1, dtype=torch.int32)
 
 
-def cqi_from_sinr(sinr: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """Op-by-op CQI (``build_sm_consts``), f32 or bf16."""
-    return cqi_from_efficiency(gapped_log2(sinr, bf16=bf16))
+def se_compiled(sinr: torch.Tensor) -> torch.Tensor:
+    """``log2(1 + sinr / SNR_GAP)`` as a jitted chain computes it (the
+    differentiable chain's optimised HLO): ``log(fma(sinr, 1 / SNR_GAP,
+    1))`` times the f32 ``1 / ln 2``, differentiable."""
+    y = compiled.fma(sinr, compiled.f32(sinr, INV_SNR_GAP_F32),
+                     compiled.f32(sinr, 1.0))
+    return dmath.log(y) * compiled.f32(sinr, INV_LN2_F32)
+
+
+def cqi_from_sinr(sinr: torch.Tensor, bf16: bool = False,
+                  surrogate=None) -> torch.Tensor:
+    """Wideband CQI (``lte.py:148``): op by op (``build_sm_consts``), f32
+    or bf16.  With a ``surrogate`` (duck-typed :class:`~tpudes_torch.diff.
+    Surrogacy`; the compiled arithmetic, :func:`se_compiled`) the 15-step
+    comparison staircase becomes its sigmoid sum at ``surrogate.temp`` and
+    the result is f32 (the soft index, or the hard one
+    straight-through)."""
+    if surrogate is None:
+        return cqi_from_efficiency(gapped_log2(sinr, bf16=bf16))
+    return cqi_and_eff(se_compiled(sinr), surrogate)[0]
+
+
+def cqi_and_eff(se: torch.Tensor, surrogate) -> tuple:
+    """``(cqi, eff)`` from the compiled efficiency ``se``: the wideband
+    CQI (f32; int32 without a surrogate) and the granted quantised
+    efficiency of :func:`eff_from_sinr`.  Under a surrogate both sum the
+    same 15 soft steps (the compiler computes them once)."""
+    hard_eff = _hard_staircase(se, _CQI_EFF[1:], _CQI_STEPS)
+    cqi = cqi_from_efficiency(se)
+    if surrogate is None:
+        return cqi, hard_eff
+    from tpudes_torch.diff.surrogate import soft_steps, staircase_sum
+
+    steps = soft_steps(se, _CQI_EFF[1:], surrogate.temp)
+    return (surrogate.blend(cqi.to(torch.float32),
+                            staircase_sum(steps, np.ones(15, np.float32))),
+            surrogate.blend(hard_eff, staircase_sum(steps, _CQI_STEPS)))
+
+
+def _hard_staircase(x: torch.Tensor, edges: np.ndarray,
+                    steps: np.ndarray) -> torch.Tensor:
+    """``sum_k steps[k] 1[x >= edges[k]]`` in f32, in ``k`` order from 0."""
+    e = compiled.const_table(edges, x)
+    terms = compiled.const_table(steps, x) * (
+        x[..., None] >= e).to(torch.float32)
+    out = terms[..., 0]
+    for k in range(1, edges.size):
+        out = out + terms[..., k]
+    return out
+
+
+#: the CQI ladder's steps, ``CQI_EFFICIENCY[k + 1] - CQI_EFFICIENCY[k]``
+_CQI_STEPS = _CQI_EFF[1:] - _CQI_EFF[:-1]
+#: the modulation-order ladder's anchors (``lte.py:210``): the granted
+#: efficiency at which Qm steps 2 -> 4 and 4 -> 6
+_QM_EDGES = np.array([MCS_EFFICIENCY[10], MCS_EFFICIENCY[17]],
+                     dtype=np.float32)
+_QM_STEPS = np.array([2.0, 2.0], np.float32)
+
+
+def eff_from_sinr(sinr: torch.Tensor, surrogate=None) -> torch.Tensor:
+    """Quantised spectral efficiency the CQI ladder grants
+    (``lte.py:188``): ``sum_k step_k 1[se >= CQI_EFFICIENCY[k + 1]]``, or
+    its soft staircase under ``surrogate``; compiled arithmetic."""
+    return cqi_and_eff(se_compiled(sinr), surrogate)[1]
+
+
+def qm_from_eff(eff: torch.Tensor, surrogate=None) -> torch.Tensor:
+    """Modulation order from the granted efficiency (``lte.py:213``): the
+    2 / 4 / 6 staircase at :data:`_QM_EDGES`, or its soft staircase."""
+    two = compiled.f32(eff, 2.0)
+    hard = _hard_staircase(eff, _QM_EDGES, _QM_STEPS) + two
+    if surrogate is None:
+        return hard
+    from tpudes_torch.diff.surrogate import soft_staircase
+
+    soft = soft_staircase(eff, _QM_EDGES, _QM_STEPS, surrogate.temp) + two
+    return surrogate.blend(hard, soft)
+
+
+def decode_ok(coin: torch.Tensor, bler: torch.Tensor,
+              surrogate=None) -> torch.Tensor:
+    """TB decode indicator (``lte.py:232``): ``coin >= bler`` (bool), or
+    its sigmoid at ``surrogate.gate_temp`` blended with it (f32)."""
+    if surrogate is None:
+        return coin >= bler
+    from tpudes_torch.diff.surrogate import soft_sigmoid
+
+    hard = (coin >= bler).to(torch.float32)
+    return surrogate.blend(hard, soft_sigmoid(coin - bler,
+                                              surrogate.gate_temp))
 
 
 def mcs_from_cqi(cqi: torch.Tensor) -> torch.Tensor:
@@ -152,14 +245,27 @@ def mi_per_rb(sinr: torch.Tensor, qm: torch.Tensor,
 
 def tb_bler_ecr(
     mi_eff: torch.Tensor, ecr: torch.Tensor, tb_bits: torch.Tensor,
-    bf16: bool = False,
+    bf16: bool = False, fused: bool = False,
 ) -> torch.Tensor:
     """TB block-error rate from effective MI on a pre-gathered code
     rate: Gaussian waterfall with finite-blocklength dispersion and the
     margin that gives 10 % BLER at MI = code rate.  ``bf16``: the
     waterfall argument as the jitted step's optimised HLO computes it,
     ``z = b(b(mi) - b(ecr - margin)) / b(sigma)`` (``b`` is
-    :func:`round_bf16`) with the quotient in f32 and not rounded."""
+    :func:`round_bf16`) with the quotient in f32 and not rounded.
+    ``fused``: as the jitted differentiable chain computes it (its
+    optimised HLO), differentiable: ``sigma = 1.4 rsqrt(max(tb, 24))``,
+    ``z`` over ``sigma``, the compiled ``erfc`` of ``z`` times the f32
+    ``1 / sqrt 2``, clipped to ``[0, 1]`` (the clamps split the gradient
+    at a tie, as ``jnp.maximum`` and ``jnp.clip`` do)."""
+    if fused:
+        sigma = compiled.f32(tb_bits, BLER_DISPERSION) * dmath.rsqrt(
+            dmath.maximum(tb_bits, 24.0))
+        margin = sigma * compiled.f32(sigma, BLER_TARGET_Q)
+        z = (mi_eff - (ecr - margin)) / sigma
+        return dmath.clip(
+            dmath.erfc(z * compiled.f32(z, INV_SQRT2_F32))
+            * compiled.f32(z, 0.5), 0.0, 1.0)
     sigma = f32_const(tb_bits, BLER_DISPERSION) / compiled.sqrt(
         torch.clamp_min(tb_bits, 24.0)
     )

@@ -20,7 +20,10 @@ next-hop scatter and the walk; ``:633-644``, the replicas' normal draws;
   key, then each of the C points in turn: the rounds a flow-hop and a
   link a lane, stopped at the fixed point (a round that moves no link's
   log delivery); each link sums its contributions in its list's (hop,
-  flow) order.
+  flow) order; with a soft delivery gate (``gate_temp``, a program
+  whose surrogate is ``Surrogacy(ste=False)``) the kernel's ``SOFT``
+  instantiation computes each link's log delivery as the reference's
+  softplus gate (``as_flows.py:340-354``).
 
 Each equals its plain version (:func:`tpudes_torch.parallel.as_flows.
 spf_math` with :func:`~tpudes_torch.parallel.as_flows.walk_math`,
@@ -29,9 +32,10 @@ On CPU tensors a wrapper takes the plain version; on CUDA tensors it
 launches its kernel or raises.  Every launch is counted in
 :data:`tpudes_torch.parallel.kernels_cuda.launches` under ``as_spf`` or
 ``as_fluid``, a grid of more than one rate scale also under
-``as_fluid:sweep``.  :func:`spf_profile` and :func:`fluid_profile` run
-the kernels' stage probes (not counted); :func:`erf_inv_check` the
-draw's ``erf_inv`` alone.
+``as_fluid:sweep``, a soft gate also under ``as_fluid:soft``.
+:func:`spf_profile` and :func:`fluid_profile` run the kernels' stage
+probes (not counted); :func:`erf_inv_check` the draw's ``erf_inv``
+alone.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from tpudes_torch.parallel.as_flows import (
     RHO_MAX,
     UTIL_MIN,
     fluid_draws_math,
+    gate_constants,
     spf_math,
     walk_math,
 )
@@ -214,34 +219,37 @@ def spf_profile(g: dict, n: int, rounds: int, prof,
 
 def fluid_launch(t: dict, fm, scale, key, replicas: int, reached,
                  jitter: float, hj2: float, rounds: int, lfrac=None,
-                 carry: bool = False, z_out: bool = False) -> tuple:
+                 carry: bool = False, z_out: bool = False,
+                 gate_temp: float | None = None) -> tuple:
     """The draws and the fluid stage over the ``(C, R)`` grid
     (:func:`~tpudes_torch.parallel.as_flows.fluid_inputs`' arguments):
     ``(out, lfrac)``, the outputs and, with ``carry``, the ``(C, R, L)``
     log deliveries after the last round (else None); with ``z_out``
-    ``out["z"]`` is the ``(R, F)`` draws.  One ``as_fluid`` launch for
-    CUDA tensors; :func:`~tpudes_torch.parallel.as_flows.
-    fluid_draws_math` for CPU ones."""
+    ``out["z"]`` is the ``(R, F)`` draws.  ``gate_temp`` (None: the hard
+    gate) runs the soft delivery gate at that temperature.  One
+    ``as_fluid`` launch for CUDA tensors; :func:`~tpudes_torch.parallel.
+    as_flows.fluid_draws_math` for CPU ones."""
     dev = fm.device
     if dev.type == "cpu":
         out, lf, z = fluid_draws_math(t, fm, scale, key, replicas, reached,
-                                      jitter, hj2, rounds, lfrac)
+                                      jitter, hj2, rounds, lfrac, gate_temp)
         if z_out:
             out["z"] = z
         return out, (lf if carry else None)
     if dev.type != "cuda":
         raise ValueError(f"no as_fluid for device {dev}")
     return fluid_cuda(t, fm, scale, key, replicas, reached, jitter, hj2,
-                      rounds, lfrac, carry, z_out)
+                      rounds, lfrac, carry, z_out, gate_temp=gate_temp)
 
 
 def fluid_cuda(t: dict, fm, scale, key, replicas: int, reached,
                jitter: float, hj2: float, rounds: int, lfrac=None,
                carry: bool = False, z_out: bool = False,
-               prof=None) -> tuple:
+               prof=None, gate_temp: float | None = None) -> tuple:
     """Launch ``as_fluid`` once on the tensors' device
-    (:func:`fluid_launch`'s arguments and result); raises on a bad argument
-    or a launch error and never takes the plain version.  ``prof`` (int64
+    (:func:`fluid_launch`'s arguments and result), the ``SOFT``
+    instantiation where ``gate_temp`` is set; raises on a bad argument or
+    a launch error and never takes the plain version.  ``prof`` (int64
     words) runs the stage probe instead, uncounted."""
     dev = fm.device
     F = fm.shape[0]
@@ -250,11 +258,12 @@ def fluid_cuda(t: dict, fm, scale, key, replicas: int, reached,
     FH, words = t["fh"], t["blob"].shape[0]
     smem = fluid_smem_bytes(t, F)
     if (smem > SMEM_LIMIT or C * R >= 2**31 or rounds < 1 or F < 1
-            or R < 1):
+            or R < 1 or (gate_temp is not None and not gate_temp > 0)):
         raise ValueError(f"as_fluid keeps a CTA's tables, links and "
                          f"flow-hops in {SMEM_LIMIT} B of shared memory and "
                          f"runs >= 1 round; got L={L}, F={F}, FH={FH} "
-                         f"({smem} B), C={C}, R={R}, rounds={rounds}")
+                         f"({smem} B), C={C}, R={R}, rounds={rounds}, "
+                         f"gate_temp={gate_temp}")
     _check("blob", t["blob"], (words,), torch.int32, dev)
     if t["blob"].data_ptr() % 16:
         raise ValueError("as_fluid's tables must start on 16 bytes")
@@ -272,6 +281,7 @@ def fluid_cuda(t: dict, fm, scale, key, replicas: int, reached,
     lf_out = (torch.empty((C, R, L), dtype=torch.float32, device=dev)
               if carry else None)
     f = ctypes.c_float
+    gate_t, inv_t = gate_constants(gate_temp or 1.0)
     _call("as_fluid_launch", FLUID_ARGTYPES, t["blob"].data_ptr(),
           fm.data_ptr(), scale.data_ptr(), key.data_ptr(),
           reached.data_ptr(), None if lfrac is None else lfrac.data_ptr(),
@@ -281,12 +291,15 @@ def fluid_cuda(t: dict, fm, scale, key, replicas: int, reached,
           out["z"].data_ptr() if z_out else None,
           None if prof is None else prof.data_ptr(),
           F, L, FH, words, C, R, int(rounds), smem, int(t["fold"]),
-          f(jitter), f(-hj2), f(UTIL_MIN), f(RHO_MAX),
+          int(gate_temp is not None), f(jitter), f(-hj2), f(UTIL_MIN),
+          f(RHO_MAX), f(gate_t), f(inv_t),
           torch.cuda.current_stream(dev).cuda_stream)
     if prof is None:
         _count("as_fluid")
         if C > 1:
             _count("as_fluid:sweep")
+        if gate_temp is not None:
+            _count("as_fluid:soft")
     return out, lf_out
 
 
@@ -352,11 +365,11 @@ SPF_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 #: ``as_fluid_launch``: blob, fm, scale, key, reached, lfrac in and out
 #: (null: zeros, none), goodput, delay, frac, max_util, z_out and prof
-#: (null: none), nine ints (F, L, FH, blob words, C, R, rounds, shared
-#: bytes, fold), four floats (jitter, -jitter^2 / 2, UTIL_MIN, RHO_MAX),
-#: stream
-FLUID_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                  + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+#: (null: none), ten ints (F, L, FH, blob words, C, R, rounds, shared
+#: bytes, fold, soft), six floats (jitter, -jitter^2 / 2, UTIL_MIN,
+#: RHO_MAX, the soft gate's t and 1 / t), stream
+FLUID_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 #: ``as_erf_inv_check``: x, out, n (int64), stream
 ERF_INV_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                     ctypes.c_void_p]

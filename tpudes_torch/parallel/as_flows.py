@@ -54,10 +54,18 @@ after each), and ``block=False`` returns an :class:`~tpudes_torch.
 parallel.runtime.EngineFuture`.  :func:`as_study` is the serving layer's
 descriptor.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh`` (A12), the ``TpudesObs`` columns (A10) and the smooth
-surrogate (``prog.surrogate``, ``build_as_diff``: A14);
-``lower_as_flows`` from a host object graph (A16) is not here either.
+A program's smooth surrogate (``prog.surrogate``, a
+:class:`~tpudes_torch.diff.Surrogacy`) swaps the delivery min-gate for
+the reference's softplus gate in log utilisation (``as_flows.py:
+340-354``, :func:`soft_lfrac`; the kernel's ``SOFT`` instantiation);
+straight-through (``ste=True``) runs the hard gate, its forward bit for
+bit.  :func:`build_as_diff` is the differentiable runner
+(``as_flows.py:548-630``) that :mod:`tpudes_torch.diff.as_grad`
+differentiates with ``torch.autograd``.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``mesh`` (A12); ``lower_as_flows`` from a host object graph (A16) is not
+here either.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ import torch
 
 from tpudes_torch.device import resolve_device, to_device
 from tpudes_torch.obs.distributed import wall_now
+from tpudes_torch.ops import fused_grad as dmath
 from tpudes_torch.ops.fused import exp, f32, fma, log
 from tpudes_torch.parallel.runtime import (
     RUNTIME,
@@ -83,7 +92,7 @@ from tpudes_torch.random import as_replica_draws
 from tpudes_torch.traffic.device import avg_mult
 
 __all__ = ["AsFlowsProgram", "FP_ROUNDS", "INF", "as_prog_key", "as_study",
-           "device_spf",
+           "build_as_diff", "device_spf", "gate_constants", "soft_lfrac",
            "fluid_draws_math", "fluid_inputs", "fluid_math", "fluid_tables",
            "run_as_flows", "spf_graph", "spf_math", "walk_math",
            "walk_paths"]
@@ -144,8 +153,10 @@ class AsFlowsProgram:
     #: flows (None: constant nominal rates): each flow's rate scales by
     #: :func:`~tpudes_torch.traffic.device.avg_mult` over ``sim_s``
     traffic: object = None
-    #: the reference's smooth-surrogate config; not ported (A14): a
-    #: program that sets it is refused
+    #: smooth-surrogate config (:class:`tpudes_torch.diff.Surrogacy`):
+    #: None is the exact engine; a config swaps the delivery min-gate for
+    #: its softplus twin (straight-through under ``ste``: the hard gate's
+    #: forward); a runner-cache key component
     surrogate: object = None
 
 
@@ -366,8 +377,28 @@ def _gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, pad], -1)[..., idx.long() % (x.shape[-1] + 1)]
 
 
+def gate_constants(gate_temp: float) -> tuple:
+    """``(t, 1 / t)``: the soft gate's temperature in f32 and the f32
+    reciprocal the compiled divide multiplies by."""
+    t = np.float32(gate_temp)
+    return float(t), float(np.float32(1.0) / t)
+
+
+def soft_lfrac(util: torch.Tensor, gate_temp: float) -> torch.Tensor:
+    """The soft delivery gate in log utilisation (``as_flows.py:
+    344-353``), ``-softplus(log(max(util, 1e-9)) / t) * t``, as the
+    optimised HLO computes it: ``x = log(max(util, 1e-9)) * (1 / t)``,
+    ``(max(x, 0) + log1p(exp(-|x|)))``, negated, times ``t``; through the
+    differentiable functions (:mod:`~tpudes_torch.ops.fused_grad`), whose
+    forwards are the compiled ones."""
+    t, inv_t = gate_constants(gate_temp)
+    x = dmath.log(dmath.maximum(util, UTIL_MIN)) * f32(util, inv_t)
+    return -dmath.softplus(x) * f32(util, t)
+
+
 def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
-               rounds: int, lfrac=None) -> tuple:
+               rounds: int, lfrac=None, gate_temp: float | None = None
+               ) -> tuple:
     """The plain fluid stage over the ``(C, R)`` grid of C rate scales and
     R replicas: ``rounds`` rounds from the carried log deliveries
     ``lfrac`` ``(C, R, L)`` (None: zeros), then the outputs.  ``fm`` is
@@ -377,7 +408,8 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
     ``delivered_frac`` ``(C, R, F)`` and ``max_util`` ``(C, R)``.
 
     A link's load sums its padded contribution list one list position at
-    a time, from 0 (:func:`fluid_tables`' (hop, flow) order)."""
+    a time, from 0 (:func:`fluid_tables`' (hop, flow) order).  ``gate_temp``
+    (None: the hard gate) takes the soft gate (:func:`soft_lfrac`)."""
     hop_link, c, k, dly = t["hop_link"], t["c"], t["k"], t["dly"]
     F, H = hop_link.shape
     L = c.shape[0]
@@ -407,9 +439,12 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
         for j in range(width):
             load = load + contrib[..., lists[:, j]]
         util = load * c
-        one = torch.ones_like(util)
-        lfrac = log(torch.minimum(
-            one / torch.clamp_min(util, f32(util, UTIL_MIN)), one))
+        if gate_temp is None:
+            one = torch.ones_like(util)
+            lfrac = log(torch.minimum(
+                one / torch.clamp_min(util, f32(util, UTIL_MIN)), one))
+        else:
+            lfrac = soft_lfrac(util, gate_temp)
     rho = torch.clamp_max(util, f32(util, RHO_MAX))
     q = rho / (1.0 - rho)
     ldel = fma(q, k, k + dly) if t["fold"] else fma(q, k, k) + dly
@@ -426,14 +461,25 @@ def fluid_math(t: dict, fm, scale, z, reached, jitter: float, hj2: float,
 
 def fluid_draws_math(t: dict, fm, scale, key, replicas: int, reached,
                      jitter: float, hj2: float, rounds: int,
-                     lfrac=None) -> tuple:
+                     lfrac=None, gate_temp: float | None = None) -> tuple:
     """The plain draws and fluid stage (:func:`fluid_inputs`' arguments):
     ``z = as_replica_draws(key, replicas, F)``, then :func:`fluid_math`.
     Returns ``(out, lfrac, z)``."""
     z = as_replica_draws(key, int(replicas), fm.shape[0])
     out, lf = fluid_math(t, fm, scale, z, reached, jitter, hj2, rounds,
-                         lfrac)
+                         lfrac, gate_temp)
     return out, lf, z
+
+
+def workload_mult(prog: AsFlowsProgram, device):
+    """The workload's ``(F,)`` fluid multiplier, its realized / nominal
+    offered ratio over the horizon (``as_flows.py:521-528``; None without
+    a workload)."""
+    if prog.traffic is None:
+        return None
+    horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
+    return avg_mult(prog.traffic.operands(device), prog.traffic.epoch_us,
+                    horizon)
 
 
 def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
@@ -454,13 +500,20 @@ def fluid_inputs(prog: AsFlowsProgram, key, replicas: int, scales,
     _, _, _, path, hops, reached = spf_launch(g, prog.n, prog.spf_rounds)
     fm = torch.as_tensor(_f32(prog.flow_bps), device=dev)
     if prog.traffic is not None:
-        horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
-        fm = fm * avg_mult(prog.traffic.operands(dev),
-                           prog.traffic.epoch_us, horizon)
+        fm = fm * workload_mult(prog, dev)
     scale = torch.tensor([float(s) for s in scales], dtype=torch.float32,
                          device=dev)
     return (fluid_tables(prog, path), fm, scale, key, int(replicas), reached,
             *rate_constants(prog)), hops
+
+
+def soft_gate_temp(prog: AsFlowsProgram) -> float | None:
+    """The temperature of the soft gate an engine run takes: the
+    surrogate's ``gate_temp`` where it is set and not straight-through,
+    else None (the hard gate; a straight-through forward is the hard gate
+    plus an exact zero)."""
+    sur = prog.surrogate
+    return None if sur is None or sur.ste else float(sur.gate_temp)
 
 
 def as_prog_key(prog: AsFlowsProgram) -> tuple:
@@ -474,7 +527,7 @@ def as_prog_key(prog: AsFlowsProgram) -> tuple:
         prog.flow_bps.tobytes(), prog.pkt_bytes, prog.max_hops,
         prog.spf_rounds, prog.rate_jitter, prog.spf_metric,
         None if prog.traffic is None else prog.traffic.shape_key(),
-        None if prog.surrogate is None else prog.surrogate,
+        None if prog.surrogate is None else prog.surrogate.key(),
     )
 
 
@@ -546,12 +599,12 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     draws and the fixed point).  ``obs=True`` streams a chunked run's
     per-chunk ``max_util`` (the largest link utilisation over the
     replicas, a point's) to :class:`~tpudes_torch.obs.device.ChunkStream`
-    (``as_flows.py:515-517``); no kernel changes."""
+    (``as_flows.py:515-517``); no kernel changes.  ``prog.surrogate``
+    (``Surrogacy(ste=False)``) runs the soft delivery gate, the kernel's
+    ``SOFT`` instantiation on the card (also counted ``as_fluid:soft``);
+    a straight-through one runs the hard gate."""
     if mesh is not None:
         raise _not_ported("mesh", "A12")
-    if prog.surrogate is not None:
-        raise _not_ported("the smooth surrogate (prog.surrogate, "
-                          "build_as_diff)", "A14")
     from tpudes_torch.obs.device import CompileTelemetry
     from tpudes_torch.parallel.as_cuda import fluid_launch, spf_launch
     from tpudes_torch.parallel.checkpoint import checkpoint_ctx
@@ -572,18 +625,18 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
         runner["tables"] = fluid_tables(prog, path)
     fm = runner["fm"]
     if prog.traffic is not None:
-        horizon = min(int(prog.sim_s * 1e6), 2**30 - 1)
-        fm = fm * avg_mult(prog.traffic.operands(dev),
-                           prog.traffic.epoch_us, horizon)
+        fm = fm * workload_mult(prog, dev)
     key = to_device(key if isinstance(key, torch.Tensor)
                     else np.asarray(key, np.int64), dev, torch.int64)
     args = (runner["tables"], fm, to_device(np.asarray(scales, np.float32),
                                             dev),
             key, int(r_pad), reached, *runner["rates"])
 
+    gate = soft_gate_temp(prog)
+
     def launch(c, bound):
         out, lfrac = fluid_launch(*args, bound - c["done"], c["lfrac"],
-                                  carry=bound < FP_ROUNDS)
+                                  carry=bound < FP_ROUNDS, gate_temp=gate)
         new = dict(done=bound, lfrac=lfrac, out=out)
         if not obs:
             return new
@@ -615,3 +668,188 @@ def run_as_flows(prog: AsFlowsProgram, key, replicas: int, *,
     fut = EngineFuture("as_flows", fetch,
                        finalize_with_flush(flush, finalize))
     return fut.result() if block else fut
+
+
+# --- the differentiable runner ----------------------------------------------
+
+
+class _LinkToSlot(torch.autograd.Function):
+    """``x[..., slot_link]`` over the ``S`` flow-hop slots (``-1`` past a
+    path's end reads 0), whose backward sums each link's slot cotangents
+    in its list's (hop, flow) order from 0: a fixed order on every device
+    (autograd's own backward of a gather is an accumulating scatter,
+    which sums by ``atomicAdd`` in no fixed order on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_link, lists):
+        ctx.save_for_backward(slot_link, lists)
+        return _pad_last(x)[..., slot_link]
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_link, lists = ctx.saved_tensors
+        return _list_sum(_pad_last(g), lists), None, None
+
+
+class _SlotToLink(torch.autograd.Function):
+    """Each link's load: its slots' values summed in list order from 0
+    (:func:`fluid_math`'s order), whose backward is the gather of each
+    slot's link cotangent (every slot lies in one list)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_link, lists):
+        ctx.save_for_backward(slot_link, lists)
+        return _list_sum(_pad_last(x), lists)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_link, lists = ctx.saved_tensors
+        return _pad_last(g)[..., slot_link], None, None
+
+
+def _pad_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a zero column appended (the pad index)."""
+    return torch.cat([x, torch.zeros_like(x[..., :1])], -1)
+
+
+def _list_sum(xp: torch.Tensor, lists: torch.Tensor) -> torch.Tensor:
+    """``sum_j xp[..., lists[:, j]]``, one list position at a time from 0
+    (a pad position reads the zero column)."""
+    out = torch.zeros((*xp.shape[:-1], lists.shape[0]), dtype=xp.dtype,
+                      device=xp.device)
+    for j in range(lists.shape[1]):
+        out = out + xp[..., lists[:, j]]
+    return out
+
+
+def diff_tables(prog: AsFlowsProgram, device=None) -> dict:
+    """The differentiable runner's tables on ``device``: the routing stage
+    and the walk (:func:`~tpudes_torch.parallel.as_cuda.spf_launch`, one
+    ``as_spf`` launch on the card) and :func:`fluid_tables` of its paths,
+    in the slot layout ``s = h F + f`` over the ``H`` hops some path
+    uses: ``slot_link`` ``(H F,)`` (the compact link, ``L`` past a path's
+    end), ``lists`` ``(L, W)`` (each link's slots in (hop, flow) order,
+    ``H F`` past its end), the links' undirected edges ``edge`` and f32
+    delays ``dly``, ``reached`` and ``hops``.  A pure function of the
+    program: built once, at the runner cache's miss."""
+    from tpudes_torch.parallel.as_cuda import spf_launch
+
+    dev = resolve_device(device)
+    g = spf_graph(prog, dev)
+    _, _, _, path, hops, reached = spf_launch(g, prog.n, prog.spf_rounds)
+    t = fluid_tables(prog, path)
+    F = path.shape[0]
+    E = prog.edges.shape[0]
+    L = t["links"].numel()
+    valid = (t["hop_link"] >= 0).cpu().numpy()
+    H = int(valid.any(0).nonzero()[0].max()) + 1 if valid.any() else 0
+    hop_link = t["hop_link"][:, :H].long()
+    slot_link = torch.where(hop_link >= 0, hop_link, L).T.reshape(-1)
+    counts = (t["ptr"][1:] - t["ptr"][:-1]).long()
+    width = int(counts.max()) if L else 0
+    pos = torch.arange(width, device=dev)
+    at = t["ptr"][:-1, None].long() + pos[None, :]
+    slot = t["slot"].long()
+    lists = torch.where(pos[None, :] < counts[:, None],
+                        slot[torch.clamp_max(at, max(slot.numel() - 1, 0))],
+                        H * F) if L else torch.zeros((0, 0), dtype=torch.long,
+                                                     device=dev)
+    edge = t["links"] % E
+    dly = torch.as_tensor(_f32(prog.delay_s), device=dev)[edge]
+    return dict(slot_link=slot_link.contiguous(), lists=lists.contiguous(),
+                edge=edge, dly=dly, reached=reached, hops=hops, H=H, F=F,
+                L=L, E=E, rates=rate_constants(prog))
+
+
+def build_as_diff(prog: AsFlowsProgram, r_pad: int, device=None):
+    """The differentiable AS runner (``as_flows.py:548-630``):
+    ``diff_run(z, scale, fbps, cap_bps, mult=None) -> outputs``, the
+    fluid rounds of :func:`fluid_math` under ``torch.autograd`` with the
+    per-flow nominal rates ``fbps`` ``(F,)``, the per-edge capacities
+    ``cap_bps`` ``(E,)`` and the rate scale ``scale`` ``()`` as operands
+    (tensors that may need grad), ``z`` the ``(R, F)`` replica draws and
+    ``mult`` the workload's ``(F,)`` fluid multiplier (None: 1):
+
+    - exactly :data:`FP_ROUNDS` rounds (the engine's fixed-point stop
+      would not change a value);
+    - ``load / cap`` and ``8 pkt / cap`` are true divisions (the
+      capacities are operands, so the reference compiler does not fold
+      their reciprocals: utilisation and delay agree with the engine to
+      1 ulp, goodput and delivered fraction bit for bit);
+    - unreachable flows' ``delay_s`` is 0, and ``reached`` comes back as
+      f32;
+    - the gathers between links and flow-hops sum their cotangents in a
+      fixed order (:class:`_LinkToSlot`, :class:`_SlotToLink`), and so do
+      the broadcasts of the operands over the replicas
+      (:func:`~tpudes_torch.diff.graphs.broadcast`): a grad repeats bit
+      for bit on the card and equals the CPU's.
+
+    The routing stage and the walk run once, here (:func:`diff_tables`:
+    one ``as_spf`` launch on the card); their tables are a pure function
+    of the program.  ``prog.surrogate`` smooths the gate (straight-through
+    under ``ste``; None differentiates the exact min-gate, whose
+    subgradients split at a tie)."""
+    d = diff_tables(prog, device)
+    sur = prog.surrogate
+    jitter, hj2 = d["rates"]
+    F, H, L = d["F"], d["H"], d["L"]
+    slot_link, lists = d["slot_link"], d["lists"]
+    reached, dly, edge = d["reached"], d["dly"], d["edge"]
+    k_num = float(np.float32(8.0 * prog.pkt_bytes))
+
+    def gather(x):
+        return _LinkToSlot.apply(x, slot_link, lists)
+
+    def gate(util):
+        if sur is not None and not sur.ste:
+            return soft_lfrac(util, sur.gate_temp)
+        one = f32(util, 1.0)
+        hard = dmath.log(torch.minimum(
+            one / dmath.maximum(util, UTIL_MIN), one))
+        if sur is None:
+            return hard
+        return sur.blend(hard, soft_lfrac(util, sur.gate_temp))
+
+    def diff_run(z, scale, fbps, cap_bps, mult=None):
+        from tpudes_torch.diff.graphs import broadcast
+
+        R = z.shape[0]
+        fm = fbps if mult is None else fbps * mult
+        e = dmath.exp(fma(z, f32(z, jitter), f32(z, -hj2)))
+        fs = broadcast((fm * broadcast(scale, fm.shape))[None, :], (R, F))
+        rate = torch.where(reached, fs * e, f32(e, 0.0))
+        cap = broadcast(cap_bps[edge][None, :], (R, L))
+        lfrac = torch.zeros((z.shape[0], L), dtype=torch.float32,
+                            device=z.device)
+        rate_slot = broadcast(rate[:, None, :], (R, H, F)).reshape(
+            R, H * F)                                        # (R, H F)
+        for _ in range(FP_ROUNDS):
+            lf_slot = gather(lfrac)
+            # each flow's prefix before hop h, in hop order from 0; then
+            # every hop's exp at once (elementwise: the same bits)
+            lg = torch.zeros_like(rate)
+            before = []
+            for h in range(H):
+                before.append(lg)
+                lg = lg + lf_slot[:, h * F:(h + 1) * F]
+            contrib = rate_slot * dmath.exp(torch.cat(before, -1)) if H \
+                else rate_slot
+            load = _SlotToLink.apply(contrib, slot_link, lists)
+            util = load / cap
+            lfrac = gate(util)
+        rho = dmath.minimum(util, RHO_MAX)
+        q = rho / (1.0 - rho)
+        k = f32(cap, k_num) / cap                                # (R, L)
+        dl_slot = gather(fma(q, k, k) + dly)
+        dl = torch.zeros_like(rate)
+        for h in range(H):
+            dl = dl + dl_slot[:, h * F:(h + 1) * F]
+        frac = torch.where(reached, dmath.exp(lg), f32(lg, 0.0))
+        max_util = (torch.clamp_min(util.detach().amax(-1), 0.0) if L else
+                    torch.zeros(z.shape[0], device=z.device))
+        return dict(goodput_bps=rate * frac,
+                    delay_s=torch.where(reached, dl, f32(dl, 0.0)),
+                    delivered_frac=frac, max_util=max_util,
+                    reached=reached.to(torch.float32))
+
+    return diff_run

@@ -139,7 +139,8 @@ COIN_CHUNK_ELEMS = 1 << 22
 #: under ``:scan`` and its table-model windows under ``:table``;
 #: ``as_spf`` and ``as_fluid`` are the AS flow engine's routing stage and
 #: fluid fixed point (:mod:`tpudes_torch.parallel.as_cuda`), the latter's
-#: launches over more than one rate scale also under ``:sweep``; a launch of
+#: launches over more than one rate scale also under ``:sweep`` and with the
+#: soft delivery gate under ``:soft``; a launch of
 #: ``lte_sm_advance``, ``bss_advance``, ``tcp_advance`` or ``wired_advance``
 #: with the FlowMonitor columns (``obs=True``) is also counted under its
 #: ``:obs`` arm, and ``wired_advance``'s union pass after such a launch
@@ -157,7 +158,7 @@ launches = {
     "tcp_advance:trf": 0, "tcp_advance:trf_sweep": 0,
     "wifi_window": 0, "wifi_window:geometry": 0, "wifi_window:scan": 0,
     "wifi_window:table": 0,
-    "as_spf": 0, "as_fluid": 0, "as_fluid:sweep": 0,
+    "as_spf": 0, "as_fluid": 0, "as_fluid:sweep": 0, "as_fluid:soft": 0,
     "wired_advance": 0, "wired_advance:owned": 0, "wired_advance:lanes": 0,
 }
 

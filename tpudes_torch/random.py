@@ -56,23 +56,25 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
-
-
 def threefry2x32(k0, k1, x0, x1):
     """The 20-round Threefry-2x32 hash of counter words ``(x0, x1)``
     under key words ``(k0, k1)`` (all int64 holding uint32, broadcast
-    together); returns the two output words."""
+    together); returns the two output words.  The rounds work in place
+    on the two words' own buffers (the inputs are not written)."""
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + k0) & MASK32
     x1 = (x1 + k1) & MASK32
+    if x0.shape != x1.shape:
+        x0, x1 = (x.contiguous() for x in torch.broadcast_tensors(x0, x1))
+    low = torch.empty_like(x1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            x0.add_(x1).bitwise_and_(MASK32)
+            torch.bitwise_right_shift(x1, 32 - r, out=low)
+            x1.bitwise_left_shift_(r).bitwise_or_(low).bitwise_and_(MASK32)
+            x1.bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK32)
     return x0, x1
 
 
